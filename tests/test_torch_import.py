@@ -1,0 +1,61 @@
+"""The port stands alone: nothing in ``mxnet_tpu_torch`` or
+``chip_smoke.py`` imports ``jax`` or the reference package.
+
+Checked twice: dynamically (a fresh interpreter imports the port's
+modules and must not have loaded either) and statically (an AST scan of
+every import statement, which also covers imports inside functions that
+the dynamic check never runs).
+"""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+FORBIDDEN = ("jax", "jaxlib", "mxnet_tpu")
+
+
+def _port_files():
+    files = sorted((ROOT / "mxnet_tpu_torch").rglob("*.py"))
+    return files + [ROOT / "chip_smoke.py"]
+
+
+def test_importing_the_port_loads_no_jax():
+    code = (
+        "import sys\n"
+        "import mxnet_tpu_torch\n"
+        "import mxnet_tpu_torch.serve.server, mxnet_tpu_torch.serve.decode\n"
+        "import mxnet_tpu_torch.serve.kv_cache\n"
+        "import mxnet_tpu_torch.ops.flash_attention\n"
+        "import mxnet_tpu_torch.models.transformer, mxnet_tpu_torch._build\n"
+        "from mxnet_tpu_torch.serve import GenerativeServer\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'mxnet_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('PORT-IMPORT-OK')\n")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT)
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert "PORT-IMPORT-OK" in out.stdout, out.stdout + out.stderr
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_import_statement(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            if node.level:          # relative: stays inside the port
+                continue
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in FORBIDDEN, \
+                "%s:%d imports %s" % (path.name, node.lineno, name)
