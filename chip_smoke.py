@@ -23,7 +23,24 @@ Phases, each fatal on failure (exit code 1, no result line):
    same burst then runs warm, and once more under ``torch.profiler`` for
    the device's busy share and kernel time by name. Last, prefill and
    decode logits are held against an independent plain forward of the
-   same weights.
+   same weights. The server is closed and its memory freed after this
+   phase;
+5. training kernels: the forward kernel with bfloat16 input and the dQ
+   and dK/dV backward kernels against their plain versions at the shape
+   the training step gives them (batch 8 x 16 heads, S 1024, D 128,
+   causal; bfloat16 and float32), plus a ragged length and a non-causal
+   case, each timed beside its plain version,
+   ``scaled_dot_product_attention`` (forward, and backward for the two
+   backward kernels together) and its bound;
+6. train: ``Module`` on the same model at ``bench.py``'s training
+   configuration (batch 8, T 1024, ``attention="flash"``, amp bfloat16,
+   Xavier weights from a numpy seed, SGD lr 0.01) on one fixed random
+   batch: the first step (bind included) timed, two warm steps, ten
+   steps between CUDA events, then one step under ``torch.profiler``.
+   The counters are zeroed before the first step and read after the
+   thirteenth: each attention kernel must have run once per layer per
+   step. The step-1 cross-entropy is held against an independent plain
+   float32 forward of the same initial weights, and the loss must fall.
 
 The second-to-last line is the kernel table as one JSON object; the
 last is ``{"ok": true, "device": {...}}``. Without a GPU, or run from a
@@ -31,7 +48,9 @@ directory that holds nothing else of the repository, it exits non-zero.
 """
 from __future__ import annotations
 
+import gc
 import json
+import math
 import subprocess
 import sys
 import time
@@ -41,6 +60,7 @@ ROOT = Path(__file__).resolve().parent
 
 # H100 SXM data-sheet peaks (dense), for the bound of each kernel
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 
 # the zoo transformer at bench.py's training width
@@ -53,6 +73,31 @@ DEVICE = "cuda:0"
 KERNEL_ATOL = 1e-4     # f32 kernel vs f32 plain version: rounding only
 LOGITS_ATOL = 1e-3     # f32 served logits vs a plain forward: 12 layers
                        # of f32 sums in another order; logits are O(1)
+# bf16 kernel outputs vs the plain version of the same bf16 inputs. The
+# kernels round P (and dS) to bf16 as tensor-core operands, as the TPU
+# kernels do; the plain versions keep them in f32 (the plain forward
+# rounds P too); both round the result to bf16, whose step is 2^-8 to
+# 2^-7 of a value. Three limits, all enforced:
+# - each element: |err| <= 2^-6 |ref| + 0.1 rms(ref): two to four
+#   bf16 steps of the value, plus room for the rounding of P and dS
+#   (about 2^-9 of each term of a sum). Measured on the H100 at the
+#   training shape: up to 0.055 rms(ref) beyond 2^-6 |ref|; 0.1
+#   rms(ref) is about 0.012 there, where the median |ref| is 0.03-0.05;
+# - the whole tensor: ||err|| / ||ref|| <= 1e-2 (measured 2.5e-3 to
+#   2.9e-3), which an output wrong over most of its elements fails;
+# - the largest error: <= 2e-2 max|ref| (measured: one bf16 step).
+BF16_ELEM_RTOL = 2.0 ** -6
+BF16_ELEM_RMS = 0.1
+BF16_NORM_RTOL = 1e-2
+BF16_MAX_RTOL = 2e-2
+
+# the training phase: bench.py's transformer configuration
+TRAIN_BATCH, TRAIN_LR = 8, 0.01
+TRAIN_WARM, TRAIN_TIMED = 2, 10
+# step-1 loss (amp bf16) vs a plain f32 forward of the same weights:
+# measured 1.9e-6 apart on the H100; a near-uniform output would read
+# ln 32000 = 10.373, 0.059 from the expected 10.432
+CE_TOL = 1e-3
 
 
 class SmokeFailure(Exception):
@@ -236,19 +281,21 @@ def report(what, srv, outs, wall):
            st["ttft"]["p95_ms"], st["tpot"]["p50_ms"], st["tpot"]["p95_ms"]))
 
 
-def device_breakdown(torch, prof, wall):
+def device_breakdown(torch, prof, wall, what="slice"):
     """Kernel time by name from a torch.profiler trace, and the device's
-    busy share of the burst's wall time."""
+    busy share of the window's wall time; returns the CUDA rows and the
+    busy time in ms."""
     rows = [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in rows)
-    log("slice profiled: device busy %.3f ms of %.3f ms wall (%.1f%%), "
-        "idle share %.3f" % (busy_us / 1e3, wall * 1e3,
+    log("%s profiled: device busy %.3f ms of %.3f ms wall (%.1f%%), "
+        "idle share %.3f" % (what, busy_us / 1e3, wall * 1e3,
                              100 * busy_us / 1e3 / (wall * 1e3),
                              1 - busy_us / 1e3 / (wall * 1e3)))
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:8]:
         log("  %8.3f ms %5d x %s" % (e.self_device_time_total / 1e3,
                                      e.count, e.key[:90]))
+    return rows, busy_us / 1e3
 
 
 def slice_phase(torch, np, kernels):
@@ -267,9 +314,10 @@ def slice_phase(torch, np, kernels):
     prompts = [rng.integers(0, VOCAB, n) for n in PROMPT_LENS]
     try:
         # the main path, once, from a cold server: the counted run
-        flash_attention_fwd.launches = 0
+        flash_attention_fwd.launches = {"f32": 0, "bf16": 0}
         outs, wall = burst(srv, prompts)
-        launches = {"flash_attention_fwd": flash_attention_fwd.launches}
+        counts = dict(flash_attention_fwd.launches)
+        launches = {"flash_attention_fwd": counts["f32"]}
         torch.cuda.synchronize()
         st = srv.stats()
         report("cold", srv, outs, wall)
@@ -288,6 +336,8 @@ def slice_phase(torch, np, kernels):
         check(len(toks) == NEW_TOKENS and all(0 <= t < VOCAB for t in toks),
               "prompt of %d tokens gave %r" % (len(pr), toks))
     prefills = len(prompts)
+    check(counts["bf16"] == 0, "the f32 serving path launched the bf16 "
+          "forward kernel %d times" % counts["bf16"])
     check(launches["flash_attention_fwd"] == prefills * LAYERS,
           "flash kernel launched %d times for %d prefills x %d layers"
           % (launches["flash_attention_fwd"], prefills, LAYERS))
@@ -334,6 +384,356 @@ def slice_phase(torch, np, kernels):
     torch.cuda.synchronize()
     check(worst <= LOGITS_ATOL,
           "served logits disagree with the plain forward: %g" % worst)
+    # free the server's weights and cache before the training phase
+    del eng, cache, srv
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def live_pairs(s: int, sk: int, causal: bool) -> int:
+    """(q, k) pairs a causal (top-aligned) or full attention computes."""
+    if not causal:
+        return s * sk
+    return sum(min(i + 1, sk) for i in range(s))
+
+
+def attention_bound(what, bh, s, sk, d, causal, itemsize):
+    """Least time for one flash-attention kernel over these shapes: the
+    larger of its operations at the bf16 tensor-core peak (f32 inputs:
+    the f32 FMA peak) and its bytes (each input read once, each output
+    written once) at the memory rate. Returns (ms, bound_by, flops,
+    bytes)."""
+    pairs = bh * live_pairs(s, sk, causal)
+    q_rows, k_rows = bh * s * d, bh * sk * d
+    if what == "fwd":        # S = QK^T, O = PV; reads q k v, writes o lse
+        flops = 4.0 * d * pairs
+        nbytes = itemsize * (2 * q_rows + 2 * k_rows) + 4.0 * bh * s
+    elif what == "dq":       # S, dP, dQ; reads q k v do lse delta, writes dq
+        flops = 6.0 * d * pairs
+        nbytes = itemsize * (3 * q_rows + 2 * k_rows) + 8.0 * bh * s
+    else:                    # S, dP, dV, dK; writes dk dv
+        flops = 8.0 * d * pairs
+        nbytes = itemsize * (2 * q_rows + 4 * k_rows) + 8.0 * bh * s
+    peak = PEAK_BF16_FLOPS if itemsize == 2 else PEAK_FP32_FLOPS
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
+
+
+def train_kernel_phase(torch, kernels):
+    """K1 (bf16 input), K2 and K3 against their plain versions at the
+    training step's attention shape (batch 8 x 16 heads, S 1024, D 128,
+    causal) in bf16 and f32, a ragged length and a non-causal case;
+    then each kernel timed at that shape beside its plain version,
+    scaled_dot_product_attention and its bound."""
+    import torch.nn.functional as F
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    bh, d = TRAIN_BATCH * HEADS, D_MODEL // HEADS
+    scale = d ** -0.5
+    worst = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+
+    def draw(s, dtype):
+        return [torch.randn((bh, s, d), generator=gen, device=dev).to(dtype)
+                for _ in range(4)]
+
+    for s, causal, dtype in ((MAX_SEQ, True, torch.bfloat16),
+                             (MAX_SEQ, True, torch.float32),
+                             (MAX_SEQ - 24, True, torch.bfloat16),
+                             (MAX_SEQ, False, torch.bfloat16)):
+        q, k, v, do = draw(s, dtype)
+        o, lse = fa.flash_attention_fwd(q, k, v, scale, causal)
+        delta = (do.float() * o.float()).sum(-1)
+        dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale,
+                                       causal)
+        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale,
+                                            causal)
+        o_r, lse_r = fa.flash_attention_reference(q, k, v, scale, causal)
+        refs = fa.flash_attention_backward_reference(q, k, v, o, lse, do,
+                                                     scale, causal)
+        torch.cuda.synchronize()
+        bf16 = dtype == torch.bfloat16
+        errs, bad = {}, []
+        for name, got, want in (("o", o, o_r), ("dq", dq, refs[0]),
+                                ("dk", dk, refs[1]), ("dv", dv, refs[2])):
+            want = want.float()
+            diff = (got.float() - want).abs()
+            err = diff.max().item()
+            top = want.abs().max().item()
+            errs[name] = err
+            if not bf16:
+                if err > KERNEL_ATOL * max(1.0, top):
+                    bad.append("%s max %g" % (name, err))
+                continue
+            rms = want.pow(2).mean().sqrt().item()
+            # the share of rms(ref) by which an element's error passes
+            # 2^-6 |ref|, and the error's norm against the output's
+            excess = (diff - BF16_ELEM_RTOL * want.abs()).flatten()
+            at = int(excess.argmax())
+            over = excess[at].item() / max(rms, 1e-30)
+            rel = diff.norm().item() / max(want.norm().item(), 1e-30)
+            log("  %s bf16 s=%d causal=%s: max_abs_err %.4g of max|ref| "
+                "%.4g (limit %.4g); ||err||/||ref|| %.4g (limit %g); "
+                "element excess %.4g rms(ref) (limit %g) at |ref| %.4g "
+                "|err| %.4g; rms(ref) %.4g, median|ref| %.4g" % (
+                    name, s, causal, err, top, BF16_MAX_RTOL * top, rel,
+                    BF16_NORM_RTOL, over, BF16_ELEM_RMS,
+                    want.flatten()[at].abs().item(),
+                    diff.flatten()[at].item(), rms,
+                    want.abs().median().item()))
+            if err > BF16_MAX_RTOL * top or rel > BF16_NORM_RTOL or \
+                    over > BF16_ELEM_RMS:
+                bad.append("%s max %g norm %g element %g" % (name, err, rel,
+                                                             over))
+            del want, diff, excess
+        check(not bad, "kernel outputs disagree with their plain versions at "
+              "s=%d causal=%s %s: %s" % (s, causal, dtype, "; ".join(bad)))
+        lse_err = (lse - lse_r).abs().max().item()
+        check(lse_err <= KERNEL_ATOL * max(1.0, lse_r.abs().max().item()),
+              "lse disagrees at s=%d causal=%s %s: %g" % (s, causal, dtype,
+                                                         lse_err))
+        log("train kernels bh=%d s=%d d=%d causal=%s %s: max_abs_err o %.3g "
+            "lse %.3g dq %.3g dk %.3g dv %.3g" % (
+                bh, s, d, causal, str(dtype).split(".")[-1], errs["o"],
+                lse_err, errs["dq"], errs["dk"], errs["dv"]))
+        if bf16:
+            worst["fwd"] = max(worst["fwd"], errs["o"], lse_err)
+            worst["dq"] = max(worst["dq"], errs["dq"])
+            worst["dkv"] = max(worst["dkv"], errs["dk"], errs["dv"])
+        del q, k, v, do, o, lse, delta, dq, dk, dv, o_r, lse_r, refs
+
+    # times at the training shape, bf16, causal
+    s = MAX_SEQ
+    q, k, v, do = draw(s, torch.bfloat16)
+    o, lse = fa.flash_attention_fwd(q, k, v, scale, True)
+    delta = (do.float() * o.float()).sum(-1)
+    ms = {
+        "fwd": time_ms(torch, lambda: fa.flash_attention_fwd(
+            q, k, v, scale, True)),
+        "dq": time_ms(torch, lambda: fa.flash_attention_bwd_dq(
+            q, k, v, do, lse, delta, scale, True)),
+        "dkv": time_ms(torch, lambda: fa.flash_attention_bwd_dkv(
+            q, k, v, do, lse, delta, scale, True)),
+    }
+    plain_fwd = time_ms(torch, lambda: fa.flash_attention_reference(
+        q, k, v, scale, True), iters=5)
+    plain_bwd = time_ms(torch, lambda: fa.flash_attention_backward_reference(
+        q, k, v, o, lse, do, scale, True), iters=5)
+    shape4 = (TRAIN_BATCH, HEADS, s, d)
+    q4, k4, v4 = (t.view(shape4).detach().requires_grad_(True)
+                  for t in (q, k, v))
+    lib_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, is_causal=True, scale=scale))
+    out4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True,
+                                          scale=scale)
+    do4 = do.view(shape4)
+    lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
+        out4, (q4, k4, v4), do4, retain_graph=True))
+    plain = {"fwd": plain_fwd, "dq": plain_bwd, "dkv": plain_bwd}
+    library = {"fwd": lib_fwd, "dq": lib_bwd, "dkv": lib_bwd}
+    meta = {
+        "fwd": ("flash_attention_fwd_bf16", "flash_attention_fwd.cu", 45,
+                "_fa_kernel"),
+        "dq": ("flash_attention_bwd_dq", "flash_attention_bwd.cu", 136,
+               "_fa_bwd_dq_kernel"),
+        "dkv": ("flash_attention_bwd_dkv", "flash_attention_bwd.cu", 186,
+                "_fa_bwd_dkv_kernel"),
+    }
+    for what, (name, source, line, tpu) in meta.items():
+        bound_ms, bound_by, flops, nbytes = attention_bound(
+            what, bh, s, s, d, True, 2)
+        log("%s bh=%d s=%d d=%d causal bf16: kernel_ms=%.4f plain_ms=%.4f%s "
+            "library_ms=%.4f (sdpa %s) bound_ms=%.4f (%s: %.1f GFLOP at "
+            "989 TFLOP/s bf16 = %.4f ms, %.1f MB at 3.35 TB/s = %.4f ms; "
+            "at the 67 TFLOP/s f32 FMA peak %.4f ms)" % (
+                name, bh, s, d, ms[what], plain[what],
+                "" if what == "fwd" else " (plain backward, dQ dK dV)",
+                library[what], "forward" if what == "fwd" else
+                "backward, dQ dK dV", bound_ms, bound_by, flops / 1e9,
+                flops / PEAK_BF16_FLOPS * 1e3, nbytes / 1e6,
+                nbytes / PEAK_BYTES_PER_S * 1e3,
+                flops / PEAK_FP32_FLOPS * 1e3))
+        kernels[name] = {
+            "name": name, "route": "cuda",
+            "source": "mxnet_tpu_torch/csrc/" + source,
+            "replaces": "mxnet_tpu/ops/pallas/flash_attention.py:%d" % line,
+            "tpu_kernel": "ops/pallas/flash_attention.py:" + tpu,
+            "max_abs_err": worst[what], "ms": ms[what],
+            "plain_ms": plain[what], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library[what]}
+    del q, k, v, do, o, lse, delta, q4, k4, v4, out4, do4
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def plain_train_loss(torch, p, x, y):
+    """Mean cross-entropy of the zoo transformer's training graph on one
+    batch, in plain float32 PyTorch (dense attention with its -1e9
+    causal bias), written from the Symbol and independent of the port's
+    Module, ops and kernels."""
+    import torch.nn.functional as F
+    n, t = x.shape
+    d = D_MODEL // HEADS
+    h = p["tok_embed_weight"][x.long()] + p["pos_embed_weight"][:t]
+    bias = torch.triu(torch.full((t, t), -1e9, device=x.device), 1)
+    for i in range(LAYERS):
+        pf = "layer%d_" % i
+        a = F.layer_norm(h, (D_MODEL,), p[pf + "ln1_gamma"],
+                         p[pf + "ln1_beta"], 1e-5)
+        qkv = F.linear(a, p[pf + "att_qkv_weight"], p[pf + "att_qkv_bias"])
+        q, k, v = qkv.view(n, t, 3, HEADS, d).permute(2, 0, 3, 1, 4)
+        att = torch.softmax(q @ k.transpose(-1, -2) * d ** -0.5 + bias, -1)
+        ctx = (att @ v).transpose(1, 2).reshape(n, t, D_MODEL)
+        del q, k, v, att, qkv
+        h = h + F.linear(ctx, p[pf + "att_proj_weight"],
+                         p[pf + "att_proj_bias"])
+        a = F.layer_norm(h, (D_MODEL,), p[pf + "ln2_gamma"],
+                         p[pf + "ln2_beta"], 1e-5)
+        a = torch.relu(F.linear(a, p[pf + "ff1_weight"], p[pf + "ff1_bias"]))
+        h = h + F.linear(a, p[pf + "ff2_weight"], p[pf + "ff2_bias"])
+    h = F.layer_norm(h, (D_MODEL,), p["final_ln_gamma"], p["final_ln_beta"],
+                     1e-5)
+    logits = F.linear(h, p["lm_head_weight"], p["lm_head_bias"])
+    return F.cross_entropy(logits.view(-1, VOCAB), y.view(-1).long())
+
+
+def kernel_kind(name: str) -> str:
+    """A coarse class of a CUDA kernel, by its name."""
+    if "fa_fwd" in name or "fa_bwd" in name:
+        return "attention kernels"
+    low = name.lower()
+    if any(w in low for w in ("gemm", "nvjet", "xmma", "cutlass")):
+        return "matmul (cuBLAS)"
+    if "reduce" in low:
+        return "reductions"
+    if "softmax" in low:
+        return "softmax"
+    if any(w in low for w in ("foreach", "multi_tensor")):
+        return "optimizer (foreach)"
+    if any(w in low for w in ("elementwise", "copy", "fill")):
+        return "elementwise / copy"
+    if any(w in low for w in ("index", "scatter", "gather", "embedding")):
+        return "gather / scatter"
+    return "other"
+
+
+def train_phase(torch, np, kernels):
+    from torch.profiler import ProfilerActivity, profile
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.models import transformer
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    counters = {"flash_attention_fwd_bf16": fa.flash_attention_fwd,
+                "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
+                "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv}
+    B, T = TRAIN_BATCH, MAX_SEQ
+    torch.cuda.reset_peak_memory_stats()
+    mt.amp.init("bfloat16")
+    try:
+        t0 = time.perf_counter()
+        sym = transformer.get_symbol(VOCAB, LAYERS, D_MODEL, HEADS, D_FF, T,
+                                     attention="flash")
+        mod = mt.mod.Module(sym, context=mt.gpu(0))
+        mod.bind(data_shapes=[("data", (B, T))],
+                 label_shapes=[("softmax_label", (B, T))])
+        mod.init_params(mt.init.Xavier().set_rng(
+            np.random.default_rng(SEED)))
+        mod.init_optimizer(optimizer="sgd",
+                           optimizer_params={"learning_rate": TRAIN_LR})
+        torch.cuda.synchronize()
+        bind_s = time.perf_counter() - t0
+        # bench.py's batch: one fixed random batch, ids as float32
+        rng = np.random.RandomState(0)
+        x = rng.randint(0, VOCAB, (B, T)).astype(np.float32)
+        y = rng.randint(0, VOCAB, (B, T)).astype(np.float32)
+        dev = torch.device(DEVICE)
+        db = mt.io.DataBatch(data=[mt.nd.array(x, ctx=dev)],
+                             label=[mt.nd.array(y, ctx=dev)])
+        y_flat = torch.from_numpy(y).to(dev).long().view(-1, 1)
+        with torch.no_grad():
+            params = {n: a.data for n, a in mod.get_params()[0].items()}
+            want = plain_train_loss(torch, params,
+                                    torch.from_numpy(x).to(dev),
+                                    torch.from_numpy(y).to(dev)).item()
+            del params
+        torch.cuda.empty_cache()
+
+        def step():
+            mod._fit_step(db)
+            out = mod.get_outputs()[0].data
+            # this step's cross-entropy, on the card: read after the run
+            return -(out.gather(1, y_flat) + 1e-12).log().mean()
+
+        # the main path: counters zeroed just before, read just after
+        for fn in counters.values():
+            fn.launches = {"f32": 0, "bf16": 0}
+        t0 = time.perf_counter()
+        losses = [step()]
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        for _ in range(TRAIN_WARM):
+            losses.append(step())
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(TRAIN_TIMED):
+            losses.append(step())
+        end.record()
+        torch.cuda.synchronize()
+        step_ms = start.elapsed_time(end) / TRAIN_TIMED
+        launches = {n: dict(fn.launches) for n, fn in counters.items()}
+        n_steps = len(losses)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        rows, busy_ms = device_breakdown(torch, prof, wall, "train step")
+        by_kind = {}
+        for e in rows:
+            kind = kernel_kind(e.key)
+            by_kind[kind] = by_kind.get(kind, 0.0) + \
+                e.self_device_time_total / 1e3
+        log("train step device time by kind: " + ", ".join(
+            "%s %.3f ms" % kv for kv in sorted(by_kind.items(),
+                                               key=lambda kv: -kv[1])))
+        att_ms = by_kind.get("attention kernels", 0.0)
+        losses = [float(v) for v in torch.stack(losses).cpu()]
+        torch.cuda.synchronize()
+    finally:
+        mt.amp.off()
+
+    n_params = transformer.param_count(VOCAB, LAYERS, D_MODEL, HEADS, D_FF,
+                                       T)
+    n_embed = VOCAB * D_MODEL + T * D_MODEL
+    flops_per_tok = 6 * (n_params - n_embed) + 12 * LAYERS * D_MODEL * T
+    tok_s = B * T / (step_ms / 1e3)
+    log("train: bind %.3f s, first step %.3f s; step %.3f ms (%d steps "
+        "between CUDA events) = %.1f tok/s; MFU %.4f of %.0f TFLOP/s bf16 "
+        "(%.4g TFLOP per step by bench.py's accounting); peak memory "
+        "%.3f GB; attention kernels %.3f ms of %.3f ms device time (%.1f%%)"
+        % (bind_s, first_s, step_ms, TRAIN_TIMED, tok_s,
+           tok_s * flops_per_tok / PEAK_BF16_FLOPS, PEAK_BF16_FLOPS / 1e12,
+           flops_per_tok * B * T / 1e12, peak_gb, att_ms, busy_ms,
+           100 * att_ms / max(busy_ms, 1e-9)))
+    log("train: loss per step %s" % " ".join("%.6f" % v for v in losses))
+    log("train: step-1 cross-entropy %.6f, plain f32 forward %.6f (|diff| "
+        "%.3g, tolerance %g); launches %s over %d steps x %d layers"
+        % (losses[0], want, abs(losses[0] - want), CE_TOL, launches,
+           n_steps, LAYERS))
+    check(all(math.isfinite(v) for v in losses), "non-finite loss %s"
+          % losses)
+    check(losses[-1] < losses[0], "loss did not fall: %s" % losses)
+    check(abs(losses[0] - want) <= CE_TOL, "step-1 loss %g vs plain "
+          "forward %g" % (losses[0], want))
+    for name, n in launches.items():
+        # amp bf16 reaches attention: the bf16 kernels ran, the f32 ones not
+        check(n["bf16"] == n_steps * LAYERS and n["f32"] == 0,
+              "kernel %s launched %s times in %d steps x %d layers (bf16 "
+              "only expected)" % (name, n, n_steps, LAYERS))
+        kernels[name]["launches"] = n["bf16"]
 
 
 def main() -> int:
@@ -350,6 +750,8 @@ def main() -> int:
         build_phase()
         kernels = kernel_phase(torch)
         slice_phase(torch, np, kernels)
+        train_kernel_phase(torch, kernels)
+        train_phase(torch, np, kernels)
         torch.cuda.synchronize()
     except SmokeFailure as exc:
         print("chip_smoke: FAILED: %s" % exc, file=sys.stderr)

@@ -10,15 +10,29 @@ needs from the reference are copied in.
 Entry points run on ``cuda:0`` unless the caller passes
 ``device="cpu"``; without a GPU and without that request they raise.
 
-Ported so far: generative serving of the zoo transformer LM
-(:mod:`.serve`) with prefill attention on the flash-attention forward
-kernel (:mod:`.ops.flash_attention`).
+Ported so far:
+
+* generative serving of the zoo transformer LM (:mod:`.serve`), with
+  prefill attention on the flash-attention forward kernel;
+* training through ``Module.fit`` (:mod:`.module`) over the Symbol
+  layer (:mod:`.symbol`, :mod:`.executor`), with amp bf16
+  (:mod:`.amp`), the SGD optimizer (:mod:`.optimizer`) and flash
+  attention's forward, dQ and dK/dV kernels
+  (:mod:`.ops.flash_attention`).
 """
 from __future__ import annotations
 
+from . import amp
+from . import initializer as init
+from . import io, metric
+from . import module as mod
+from . import ndarray as nd
+from . import optimizer
+from . import symbol as sym
 from .base import MXNetError
 from .context import cpu, gpu
 
-__all__ = ["MXNetError", "cpu", "gpu"]
+__all__ = ["MXNetError", "cpu", "gpu", "amp", "init", "io", "metric", "mod",
+           "nd", "optimizer", "sym"]
 
 __version__ = "0.1.0"

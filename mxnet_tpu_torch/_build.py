@@ -4,9 +4,9 @@ Each source under ``csrc/`` is compiled by ``nvcc`` for Hopper
 (``sm_90a``) into a shared library with a plain C interface, which the
 kernel's Python wrapper loads with ``ctypes``. No PyTorch header is
 included, so a build takes seconds, not minutes. Libraries land in
-``build/`` beside the package, named by a hash of the source and the
-flags, so an edited source is rebuilt and an unchanged one is loaded as
-it is. Nothing is built at import: the first wrapper call on a CUDA
+``build/`` beside the package, named by a hash of the source, the shared
+headers (``csrc/*.cuh``) and the flags, so an edited source or header
+is rebuilt and an unchanged one is loaded as it is. Nothing is built at import: the first wrapper call on a CUDA
 tensor builds its library, or :func:`build` builds several at once.
 """
 from __future__ import annotations
@@ -48,10 +48,14 @@ def _nvcc() -> str:
 
 
 def _target(source: str) -> Path:
+    """The library path of ``source``, named by a hash of the source, the
+    shared headers it may include (``csrc/*.cuh``) and the flags."""
     src = CSRC / source
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / ("%s-%s.so" % (src.stem, digest[:16]))
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / ("%s-%s.so" % (src.stem, h.hexdigest()[:16]))
 
 
 def build_log(source: str) -> str:

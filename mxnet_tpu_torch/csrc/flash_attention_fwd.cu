@@ -1,4 +1,5 @@
-// Flash-attention forward (online softmax), float32, for Hopper (sm_90a).
+// Flash-attention forward (online softmax), float32 or bfloat16, for
+// Hopper (sm_90a).
 //
 // Replaces the TPU kernel mxnet_tpu/ops/pallas/flash_attention.py
 // `_fa_kernel` (launched by `_fa_forward`): O = softmax(scale * Q K^T) V
@@ -30,48 +31,42 @@
 // numbers) and no asynchronous copies; about half its shared-memory
 // loads could go as float4, which is the next step for speed.
 //
+// bfloat16 (the training path under amp, fa_fwd_bf16): at the training
+// shape (BH 128, S 1024, D 128, causal) the kernel does 34 GFLOP on
+// 134 MB, ~250 flops per byte: near the bf16 tensor cores' balance
+// point (989 TFLOP/s over 3.35 TB/s = 295), so both bound it. Its
+// products run on the tensor cores (mma.sync m16n8k16, bf16 in, float32
+// accumulate; see flash_attention_common.cuh):
+//   * one block of 4 warps per (bh, 64-row q tile), each warp owning 16
+//     rows; the warp's Q fragments stay in registers for the whole walk
+//     over the KV tiles, and so do its m, l and the 16 x D accumulator;
+//   * S = Q K^T lands in registers in the accumulator layout, which is
+//     the A-operand layout of P V once rounded to bf16 (as the TPU kernel
+//     rounds P to V's dtype), so P never goes through shared memory;
+//   * K and V tiles are staged in shared memory as bf16 with a D + 8
+//     row stride, which keeps every fragment load free of bank
+//     conflicts; V's fragments are gathered from two rows each;
+//   * the row max and sum reduce over the 4 threads that share a row.
+// Loads are synchronous (no cp.async / TMA pipeline yet) and the product
+// is mma.sync, not wgmma: the next steps for speed.
+//
 // C interface (bound with ctypes): every function returns a
 // cudaError_t as int, 0 on success, and launches on the given stream
 // without synchronising.
 
-#include <cuda_runtime.h>
 #include <math.h>
+
+#include "flash_attention_common.cuh"
 
 namespace {
 
-constexpr int BQ = 64;         // query rows per block
-constexpr int BK = 64;         // keys per KV tile
-constexpr int THREADS = 256;   // 16 x 16: ty owns 4 rows, tx owns columns
-constexpr int PS = BK + 4;     // P row stride: the two half-warps' rows
-                               // land 16 banks apart
-constexpr float NEG_INF_MASK = -1e30f;
+using namespace fa;
 
 template <int D>
 constexpr size_t smem_bytes() {
   return sizeof(float) *
          (size_t(BQ) * (D + 1) + size_t(BK) * (D + 1) + size_t(BK) * D +
           size_t(BQ) * PS);
-}
-
-// Loads rows [row0, row0 + nrows) of a (rows, D) float matrix into
-// shared memory with row stride `stride`, zero-filling rows >= limit.
-template <int D>
-__device__ __forceinline__ void load_tile(float* dst, int stride,
-                                          const float* src, int row0,
-                                          int nrows, int limit) {
-  constexpr int V4 = D / 4;
-  for (int idx = threadIdx.x; idx < nrows * V4; idx += THREADS) {
-    const int r = idx / V4;
-    const int c = (idx % V4) * 4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < limit)
-      x = *reinterpret_cast<const float4*>(src + size_t(row0 + r) * D + c);
-    float* d = dst + r * stride + c;
-    d[0] = x.x;
-    d[1] = x.y;
-    d[2] = x.z;
-    d[3] = x.w;
-  }
 }
 
 template <int D>
@@ -217,6 +212,162 @@ int launch(const float* q, const float* k, const float* v, float* o,
   return int(cudaGetLastError());
 }
 
+// ------------------------------------------------------- bfloat16, mma.sync
+
+template <int D>
+constexpr size_t smem_bytes_bf16() {
+  return sizeof(__nv_bfloat16) * size_t(BQ + 2 * BK) * (D + 8);
+}
+
+template <int D>
+__global__ void __launch_bounds__(MMA_THREADS)
+fa_fwd_bf16(const __nv_bfloat16* __restrict__ q,
+            const __nv_bfloat16* __restrict__ k,
+            const __nv_bfloat16* __restrict__ v,
+            __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int sq,
+            int sk, float scale, int causal) {
+  constexpr int SX = D + 8;      // shared row stride (bf16 elements)
+  constexpr int KS = D / 16;     // k-steps over the head dim
+  constexpr int DN = D / 8;      // 8-column tiles of the output
+  constexpr int NJ = BK / 8;     // 8-key tiles of a KV tile
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* Ks = Qs + BQ * SX;
+  __nv_bfloat16* Vs = Ks + BK * SX;
+
+  const int bh = blockIdx.y;
+  const int q0 = blockIdx.x * BQ;
+  const int warp = threadIdx.x / 32;
+  const int g = (threadIdx.x % 32) / 4;
+  const int t = threadIdx.x % 4;
+  const int r0 = warp * 16;                      // the warp's rows
+  const int row[2] = {q0 + r0 + g, q0 + r0 + g + 8};
+  const __nv_bfloat16* kb = k + size_t(bh) * sk * D;
+  const __nv_bfloat16* vb = v + size_t(bh) * sk * D;
+
+  stage_bf16<D>(Qs, q + size_t(bh) * sq * D, q0, BQ, sq);
+  __syncthreads();
+  uint32_t qa[KS][4];
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) load_a<SX>(qa[kk], Qs, r0, kk * 16, g, t);
+
+  float m[2] = {NEG_INF_MASK, NEG_INF_MASK}, l[2] = {0.f, 0.f};
+  float acc[DN][4];
+#pragma unroll
+  for (int dn = 0; dn < DN; ++dn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[dn][e] = 0.f;
+
+  int n_kt = (sk + BK - 1) / BK;
+  if (causal) {
+    const int last_row = min(q0 + BQ, sq) - 1;
+    n_kt = min(n_kt, last_row / BK + 1);
+  }
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * BK;
+    __syncthreads();   // the previous tile's K and V reads are done
+    stage_bf16<D>(Ks, kb, k0, BK, sk);
+    stage_bf16<D>(Vs, vb, k0, BK, sk);
+    __syncthreads();
+
+    float s[NJ][4];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        uint32_t b0, b1;
+        load_b_rows<SX>(b0, b1, Ks, j * 8, kk * 16, g, t);
+        mma_bf16(s[j], qa[kk], b0, b1);
+      }
+    }
+
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kp = k0 + j * 8 + 2 * t + (e & 1);
+        float x = s[j][e] * scale;
+        if (kp >= sk)
+          x = -INFINITY;
+        else if (causal && row[e >> 1] < kp)
+          x = NEG_INF_MASK;
+        s[j][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      // the 4 threads of a quad share a row
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      const float m_new = fmaxf(m[h], mx[h]);
+      alpha[h] = expf(m[h] - m_new);
+      m[h] = m_new;
+      l[h] *= alpha[h];
+    }
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = expf(s[j][e] - m[e >> 1]);
+        s[j][e] = p;
+        l[e >> 1] += p;       // this thread's share; reduced at the end
+      }
+#pragma unroll
+    for (int dn = 0; dn < DN; ++dn) {
+      acc[dn][0] *= alpha[0];
+      acc[dn][1] *= alpha[0];
+      acc[dn][2] *= alpha[1];
+      acc[dn][3] *= alpha[1];
+    }
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t pa[4];
+      c_to_a(pa, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+      for (int dn = 0; dn < DN; ++dn) {
+        uint32_t b0, b1;
+        load_b_cols<SX>(b0, b1, Vs, kk * 16, dn * 8, g, t);
+        mma_bf16(acc[dn], pa, b0, b1);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    if (row[h] >= sq) continue;
+    const float denom = fmaxf(l[h], 1e-37f);
+    __nv_bfloat16* orow = o + (size_t(bh) * sq + row[h]) * D;
+#pragma unroll
+    for (int dn = 0; dn < DN; ++dn)
+      *reinterpret_cast<uint32_t*>(orow + dn * 8 + 2 * t) = pack_bf16(
+          acc[dn][2 * h] / denom, acc[dn][2 * h + 1] / denom);
+    if (t == 0) lse[size_t(bh) * sq + row[h]] = m[h] + logf(denom);
+  }
+}
+
+template <int D>
+int launch_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                const __nv_bfloat16* v, __nv_bfloat16* o, float* lse,
+                int bh, int sq, int sk, float scale, int causal,
+                cudaStream_t stream) {
+  const size_t smem = smem_bytes_bf16<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      fa_fwd_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      int(smem));
+  if (err != cudaSuccess) return int(err);
+  const dim3 grid((sq + BQ - 1) / BQ, bh);
+  fa_fwd_bf16<D><<<grid, MMA_THREADS, smem, stream>>>(q, k, v, o, lse, sq,
+                                                      sk, scale, causal);
+  return int(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -239,6 +390,27 @@ int mxt_flash_attention_fwd_f32(const void* q, const void* k, const void* v,
     case 32: return launch<32>(qf, kf, vf, of, lf, bh, sq, sk, scale, causal, st);
     case 64: return launch<64>(qf, kf, vf, of, lf, bh, sq, sk, scale, causal, st);
     case 128: return launch<128>(qf, kf, vf, of, lf, bh, sq, sk, scale, causal, st);
+    default: return int(cudaErrorInvalidValue);
+  }
+}
+
+// The same for bfloat16 q, k, v and o (lse stays float32).
+int mxt_flash_attention_fwd_bf16(const void* q, const void* k, const void* v,
+                                 void* o, void* lse, int bh, int sq, int sk,
+                                 int d, float scale, int causal,
+                                 void* stream) {
+  using T = __nv_bfloat16;
+  const T* qb = static_cast<const T*>(q);
+  const T* kb = static_cast<const T*>(k);
+  const T* vb = static_cast<const T*>(v);
+  T* ob = static_cast<T*>(o);
+  float* lf = static_cast<float*>(lse);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 16: return launch_bf16<16>(qb, kb, vb, ob, lf, bh, sq, sk, scale, causal, st);
+    case 32: return launch_bf16<32>(qb, kb, vb, ob, lf, bh, sq, sk, scale, causal, st);
+    case 64: return launch_bf16<64>(qb, kb, vb, ob, lf, bh, sq, sk, scale, causal, st);
+    case 128: return launch_bf16<128>(qb, kb, vb, ob, lf, bh, sq, sk, scale, causal, st);
     default: return int(cudaErrorInvalidValue);
   }
 }

@@ -1,0 +1,183 @@
+"""Weight initializers (numpy draws, written into the port's arrays).
+
+The port's own copy of the reference's ``initializer.py`` (jax-free
+there too, but importing it would run the reference package's
+``__init__``, which imports jax): ``InitDesc``, the name-pattern
+dispatch of ``Initializer``, and ``Uniform``, ``Xavier``, ``Zero`` and
+``One``. Draws come from numpy, so the same initializer
+with the same ``set_rng`` generator gives the same weights in both
+packages.
+"""
+from __future__ import annotations
+
+import json
+from typing import Dict
+
+import numpy as np
+
+from . import ndarray as nd
+from .ndarray import NDArray
+
+__all__ = ["InitDesc", "Initializer", "Uniform", "Xavier", "One", "Zero",
+           "register", "create"]
+
+_INITIALIZER_REGISTRY: Dict[str, type] = {}
+
+
+def register(klass):
+    _INITIALIZER_REGISTRY[klass.__name__.lower()] = klass
+    return klass
+
+
+def create(name, **kwargs) -> "Initializer":
+    if isinstance(name, Initializer):
+        return name
+    return _INITIALIZER_REGISTRY[name.lower()](**kwargs)
+
+
+class InitDesc(str):
+    """Name + attrs descriptor passed to initializers."""
+
+    def __new__(cls, name, attrs=None, global_init=None):
+        ret = super().__new__(cls, name)
+        ret.attrs = attrs or {}
+        ret.global_init = global_init
+        return ret
+
+
+class Initializer(object):
+    """Base initializer with name-pattern dispatch: ``*bias`` and
+    ``*beta`` to 0, ``*gamma`` to 1, ``*weight`` to the subclass's
+    draw."""
+
+    def __init__(self, **kwargs):
+        self._kwargs = kwargs
+        self._rng = None
+
+    def set_rng(self, rng) -> "Initializer":
+        """Draw from an explicit numpy ``Generator`` instead of the
+        process-global ``np.random`` state. Returns ``self``."""
+        self._rng = rng
+        return self
+
+    @property
+    def rng(self):
+        return self._rng if self._rng is not None else np.random
+
+    def dumps(self) -> str:
+        return json.dumps([self.__class__.__name__.lower(), self._kwargs])
+
+    def __call__(self, desc, arr: NDArray):
+        if not isinstance(desc, InitDesc):
+            desc = InitDesc(str(desc))
+        if desc.attrs.get("__init__"):
+            klass, kwargs = json.loads(desc.attrs["__init__"])
+            create(klass, **kwargs)._init_weight(desc, arr)
+            return
+        name = desc.lower()
+        if name.endswith("bias"):
+            self._init_bias(desc, arr)
+        elif name.endswith("gamma"):
+            self._init_gamma(desc, arr)
+        elif name.endswith("beta"):
+            self._init_beta(desc, arr)
+        elif name.endswith("weight"):
+            self._init_weight(desc, arr)
+        else:
+            self._init_default(desc, arr)
+
+    def _init_bias(self, name, arr):
+        arr[:] = 0.0
+
+    def _init_gamma(self, name, arr):
+        arr[:] = 1.0
+
+    def _init_beta(self, name, arr):
+        arr[:] = 0.0
+
+    def _init_weight(self, name, arr):
+        raise NotImplementedError
+
+    def _init_default(self, name, arr):
+        raise ValueError(
+            "Unknown initialization pattern for %s. Default initialization "
+            "is now limited to weight/bias/gamma/beta. Use "
+            "sym.Variable(init=...) to set per-variable initializers."
+            % name)
+
+
+class _FillInitializer(Initializer):
+    """Fill with one value for any name (a per-variable ``init=`` attr
+    still wins)."""
+
+    _fill_value = 0.0
+
+    def __call__(self, desc, arr):
+        if isinstance(desc, InitDesc) and desc.attrs.get("__init__"):
+            return Initializer.__call__(self, desc, arr)
+        arr[:] = self._fill_value
+
+    def _init_weight(self, name, arr):
+        arr[:] = self._fill_value
+
+
+@register
+class Zero(_FillInitializer):
+    _fill_value = 0.0
+
+
+@register
+class One(_FillInitializer):
+    _fill_value = 1.0
+
+
+@register
+class Uniform(Initializer):
+    """U(-scale, scale)."""
+
+    def __init__(self, scale=0.07):
+        super().__init__(scale=scale)
+        self.scale = scale
+
+    def _init_weight(self, name, arr):
+        arr[:] = nd.array(self.rng.uniform(-self.scale, self.scale,
+                                            arr.shape).astype(np.float32))
+
+
+@register
+class Xavier(Initializer):
+    """Uniform or gaussian over the avg / in / out fan."""
+
+    def __init__(self, rnd_type="uniform", factor_type="avg", magnitude=3):
+        super().__init__(rnd_type=rnd_type, factor_type=factor_type,
+                         magnitude=magnitude)
+        self.rnd_type = rnd_type
+        self.factor_type = factor_type
+        self.magnitude = float(magnitude)
+
+    def _init_weight(self, name, arr):
+        shape = arr.shape
+        hw_scale = 1.0
+        if len(shape) < 2:
+            raise ValueError("Xavier initializer cannot be applied to vector "
+                             "%s. It requires at least 2D." % name)
+        if len(shape) > 2:
+            hw_scale = np.prod(shape[2:])
+        fan_in, fan_out = shape[1] * hw_scale, shape[0] * hw_scale
+        if self.factor_type == "avg":
+            factor = (fan_in + fan_out) / 2.0
+        elif self.factor_type == "in":
+            factor = fan_in
+        elif self.factor_type == "out":
+            factor = fan_out
+        else:
+            raise ValueError("Incorrect factor type")
+        scale = np.sqrt(self.magnitude / factor)
+        if self.rnd_type == "uniform":
+            arr[:] = nd.array(self.rng.uniform(-scale, scale,
+                                                shape).astype(np.float32))
+        elif self.rnd_type == "gaussian":
+            arr[:] = nd.array(self.rng.normal(0, scale,
+                                               shape).astype(np.float32))
+        else:
+            raise ValueError("Unknown random type")

@@ -1,0 +1,190 @@
+"""Data iterators: ``DataDesc``, ``DataBatch``, ``DataIter`` and
+``NDArrayIter``.
+
+The port's own copy of those classes of the reference's ``io/io.py``
+(numpy-based there too). A batch holds the port's NDArrays; the module
+copies them onto its device when it loads the batch.
+"""
+from __future__ import annotations
+
+from collections import namedtuple
+from typing import List
+
+import numpy as np
+
+from .. import ndarray as nd
+from ..ndarray import NDArray
+
+__all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter"]
+
+
+class DataDesc(namedtuple("DataDesc", ["name", "shape", "dtype", "layout"])):
+    """Name, shape, dtype and layout of one input stream."""
+
+    def __new__(cls, name, shape, dtype=np.float32, layout="NCHW"):
+        return super().__new__(cls, name, tuple(shape), np.dtype(dtype),
+                               layout)
+
+
+class DataBatch(object):
+    """One batch: lists of data and label arrays."""
+
+    def __init__(self, data, label=None, pad=None, index=None,
+                 bucket_key=None, provide_data=None, provide_label=None):
+        if data is not None and not isinstance(data, (list, tuple)):
+            data = [data]
+        if label is not None and not isinstance(label, (list, tuple)):
+            label = [label]
+        self.data = data
+        self.label = label
+        self.pad = pad
+        self.index = index
+        self.bucket_key = bucket_key
+        self.provide_data = provide_data
+        self.provide_label = provide_label
+
+    def __str__(self):
+        data_shapes = [d.shape for d in self.data] if self.data else None
+        label_shapes = [lb.shape for lb in self.label] if self.label \
+            else None
+        return "{}: data shapes: {} label shapes: {}".format(
+            self.__class__.__name__, data_shapes, label_shapes)
+
+
+class DataIter(object):
+    """Base iterator."""
+
+    def __init__(self, batch_size: int = 0):
+        self.batch_size = batch_size
+
+    def __iter__(self):
+        return self
+
+    def reset(self):
+        pass
+
+    def next(self) -> DataBatch:
+        if self.iter_next():
+            return DataBatch(data=self.getdata(), label=self.getlabel(),
+                             pad=self.getpad(), index=self.getindex())
+        raise StopIteration
+
+    def __next__(self):
+        return self.next()
+
+    def iter_next(self) -> bool:
+        raise NotImplementedError
+
+    def getdata(self):
+        raise NotImplementedError
+
+    def getlabel(self):
+        raise NotImplementedError
+
+    def getindex(self):
+        return None
+
+    def getpad(self):
+        raise NotImplementedError
+
+
+def _init_data(data, allow_empty, default_name):
+    """Normalize input to a sorted list of (name, numpy array)."""
+    assert data is not None or allow_empty
+    if data is None:
+        data = []
+    if isinstance(data, (np.ndarray, NDArray)):
+        data = [data]
+    if isinstance(data, (list, tuple)):
+        if len(data) == 1:
+            data = {default_name: data[0]}
+        else:
+            data = {"_%d_%s" % (i, default_name): d
+                    for i, d in enumerate(data)}
+    if not isinstance(data, dict):
+        raise TypeError("Input must be NDArray, numpy.ndarray, a list of "
+                        "them or dict with them as values")
+    out = {}
+    for k, v in data.items():
+        out[k] = v.asnumpy() if isinstance(v, NDArray) else np.asarray(v)
+    return list(sorted(out.items()))
+
+
+class NDArrayIter(DataIter):
+    """Iterate over in-memory arrays (shuffle; last batch pad, discard or
+    roll_over)."""
+
+    def __init__(self, data, label=None, batch_size=1, shuffle=False,
+                 last_batch_handle="pad", data_name="data",
+                 label_name="softmax_label"):
+        super().__init__(batch_size)
+        self.data = _init_data(data, allow_empty=False,
+                               default_name=data_name)
+        self.label = _init_data(label, allow_empty=True,
+                                default_name=label_name)
+        self.idx = np.arange(self.data[0][1].shape[0])
+        if shuffle:
+            np.random.shuffle(self.idx)
+            self.data = [(k, v[self.idx]) for k, v in self.data]
+            self.label = [(k, v[self.idx]) for k, v in self.label]
+        if last_batch_handle == "discard":
+            n = self.data[0][1].shape[0]
+            self.idx = self.idx[:n - n % batch_size]
+        self.data_list = [x[1] for x in self.data] + \
+            [x[1] for x in self.label]
+        self.num_source = len(self.data_list)
+        self.num_data = self.idx.shape[0]
+        assert self.num_data >= batch_size, \
+            "batch_size needs to be smaller than data size"
+        self.cursor = -batch_size
+        self.last_batch_handle = last_batch_handle
+
+    @property
+    def provide_data(self) -> List[DataDesc]:
+        return [DataDesc(k, (self.batch_size,) + v.shape[1:], v.dtype)
+                for k, v in self.data]
+
+    @property
+    def provide_label(self) -> List[DataDesc]:
+        return [DataDesc(k, (self.batch_size,) + v.shape[1:], v.dtype)
+                for k, v in self.label]
+
+    def hard_reset(self):
+        self.cursor = -self.batch_size
+
+    def reset(self):
+        if self.last_batch_handle == "roll_over" and \
+                self.cursor > self.num_data:
+            self.cursor = -self.batch_size + \
+                (self.cursor % self.num_data) % self.batch_size
+        else:
+            self.cursor = -self.batch_size
+
+    def iter_next(self):
+        self.cursor += self.batch_size
+        return self.cursor < self.num_data
+
+    def _getdata(self, data_source):
+        assert self.cursor < self.num_data, "DataIter needs reset."
+        if self.cursor + self.batch_size <= self.num_data:
+            return [nd.array(v[self.cursor:self.cursor + self.batch_size],
+                             dtype=v.dtype) for _, v in data_source]
+        pad = self.batch_size - self.num_data + self.cursor
+        return [nd.array(np.concatenate([v[self.cursor:], v[:pad]], axis=0),
+                         dtype=v.dtype) for _, v in data_source]
+
+    def getdata(self):
+        return self._getdata(self.data)
+
+    def getlabel(self):
+        return self._getdata(self.label)
+
+    def getpad(self):
+        if self.last_batch_handle == "pad" and \
+                self.cursor + self.batch_size > self.num_data:
+            return self.cursor + self.batch_size - self.num_data
+        return 0
+
+    def getindex(self):
+        end = min(self.cursor + self.batch_size, self.num_data)
+        return self.idx[self.cursor:end]

@@ -1,0 +1,208 @@
+"""BaseModule — the training-loop owner, and its ``fit`` loop.
+
+The port's counterpart of the reference's ``module/base_module.py``:
+the abstract bind / forward / backward / update primitives and the
+canonical ``fit`` loop (bind, init_params, init_optimizer; per batch one
+``_fit_step`` and a metric update; per epoch the metric log, the epoch
+callbacks and an optional evaluation pass).
+
+The reference's ``fit`` also takes crash-safe checkpointing, resume,
+gradient accumulation, a parallel layout, autotuning and a monitor;
+they are later items of the port (ROADMAP.md, queue A) and ``fit``
+raises :class:`MXNetError` naming the item when one is passed.
+"""
+from __future__ import annotations
+
+import logging
+import time
+from collections import namedtuple
+from typing import List
+
+from ..base import MXNetError
+from .. import metric as _metric
+
+__all__ = ["BaseModule", "BatchEndParam"]
+
+BatchEndParam = namedtuple("BatchEndParams",
+                           ["epoch", "nbatch", "eval_metric", "locals"])
+
+# fit() options of the reference that later items of the port bring
+_LATER = {
+    "checkpoint": "queue A7 (checkpoint)",
+    "resume_from": "queue A7 (checkpoint)",
+    "grad_accum": "queue A7 (grad_accum)",
+    "layout": "queue A9 (parallelism)",
+    "tune": "queue A10 (tune)",
+    "monitor": "queue A2 (executor monitor)",
+}
+
+
+def _as_list(obj):
+    if obj is None:
+        return []
+    if isinstance(obj, (list, tuple)):
+        return list(obj)
+    return [obj]
+
+
+def _check_input_names(symbol, names, typename, throw):
+    args = set(symbol.list_arguments())
+    for name in names:
+        if name in args:
+            continue
+        msg = ("You created Module with Module(..., %s_names=%s) but input "
+               "with name '%s' is not found in symbol.list_arguments(). Did "
+               "you mean one of:\n\t%s" % (typename, str(names), name,
+                                           "\n\t".join(sorted(args))))
+        if throw:
+            raise ValueError(msg)
+        logging.warning(msg)
+
+
+class BaseModule(object):
+    """The base class of a module."""
+
+    def __init__(self, logger=logging):
+        self.logger = logger
+        self.binded = False
+        self.for_training = False
+        self.params_initialized = False
+        self.optimizer_initialized = False
+        self._symbol = None
+
+    @property
+    def symbol(self):
+        return self._symbol
+
+    def set_params(self, arg_params, aux_params=None, allow_missing=False,
+                   force_init=True, allow_extra=False):
+        """Set parameters from name -> array dicts (NDArray, numpy or
+        tensor): the way one set of weights, e.g. the JAX package's
+        ``get_params()`` as numpy, is carried into the port."""
+        self.init_params(initializer=None, arg_params=arg_params,
+                         aux_params=aux_params, allow_missing=allow_missing,
+                         force_init=force_init, allow_extra=allow_extra)
+
+    def forward_backward(self, data_batch):
+        self.forward(data_batch, is_train=True)
+        self.backward()
+
+    def score(self, eval_data, eval_metric, num_batch=None, reset=True):
+        """Run inference over ``eval_data`` and evaluate."""
+        assert self.binded and self.params_initialized
+        if reset:
+            eval_data.reset()
+        if not isinstance(eval_metric, _metric.EvalMetric):
+            eval_metric = _metric.create(eval_metric)
+        eval_metric.reset()
+        for nbatch, eval_batch in enumerate(eval_data):
+            if num_batch is not None and nbatch == num_batch:
+                break
+            self.forward(eval_batch, is_train=False)
+            self.update_metric(eval_metric, eval_batch.label)
+        return eval_metric.get_name_value()
+
+    def fit(self, train_data, eval_data=None, eval_metric="acc",
+            epoch_end_callback=None, batch_end_callback=None,
+            kvstore="local", optimizer="sgd",
+            optimizer_params=(("learning_rate", 0.01),), initializer=None, arg_params=None, aux_params=None,
+            allow_missing=False, force_rebind=False, force_init=False,
+            begin_epoch=0, num_epoch=None, validation_metric=None,
+            monitor=None, checkpoint=None, resume_from=None,
+            grad_accum=None, layout=None, tune=None):
+        """Train the module: per batch one ``_fit_step`` (forward,
+        backward and the fused update) and a metric update."""
+        assert num_epoch is not None, "please specify number of epochs"
+        given = {"checkpoint": checkpoint, "resume_from": resume_from,
+                 "grad_accum": grad_accum, "layout": layout, "tune": tune,
+                 "monitor": monitor}
+        for name, value in given.items():
+            if value is not None:
+                raise MXNetError("fit(%s=...) is not ported yet: it comes "
+                                 "with ROADMAP.md %s" % (name, _LATER[name]))
+        from ..initializer import Uniform
+        if initializer is None:
+            initializer = Uniform(0.01)
+
+        self.bind(data_shapes=train_data.provide_data,
+                  label_shapes=train_data.provide_label,
+                  for_training=True, force_rebind=force_rebind)
+        self.init_params(initializer=initializer, arg_params=arg_params,
+                         aux_params=aux_params, allow_missing=allow_missing,
+                         force_init=force_init)
+        self.init_optimizer(kvstore=kvstore, optimizer=optimizer,
+                            optimizer_params=optimizer_params)
+        if validation_metric is None:
+            validation_metric = eval_metric
+        if not isinstance(eval_metric, _metric.EvalMetric):
+            eval_metric = _metric.create(eval_metric)
+
+        for epoch in range(begin_epoch, num_epoch):
+            tic = time.perf_counter()
+            eval_metric.reset()
+            nbatch = 0
+            for data_batch in train_data:
+                self._fit_step(data_batch)
+                self.update_metric(eval_metric, data_batch.label)
+                if batch_end_callback is not None:
+                    params = BatchEndParam(epoch=epoch, nbatch=nbatch,
+                                           eval_metric=eval_metric,
+                                           locals=locals())
+                    for callback in _as_list(batch_end_callback):
+                        callback(params)
+                nbatch += 1
+            for name, val in eval_metric.get_name_value():
+                self.logger.info("Epoch[%d] Train-%s=%f", epoch, name, val)
+            self.logger.info("Epoch[%d] Time cost=%.3f", epoch,
+                             time.perf_counter() - tic)
+            arg_params_, aux_params_ = self.get_params()
+            if epoch_end_callback is not None:
+                for callback in _as_list(epoch_end_callback):
+                    callback(epoch, self.symbol, arg_params_, aux_params_)
+            if eval_data is not None:
+                res = self.score(eval_data, validation_metric)
+                for name, val in res:
+                    self.logger.info("Epoch[%d] Validation-%s=%f", epoch,
+                                     name, val)
+            train_data.reset()
+
+    # abstract primitives
+    def bind(self, data_shapes, label_shapes=None, for_training=True,
+             force_rebind=False, grad_req="write"):
+        raise NotImplementedError()
+
+    def init_params(self, initializer=None, arg_params=None, aux_params=None,
+                    allow_missing=False, force_init=False, allow_extra=False):
+        raise NotImplementedError()
+
+    def init_optimizer(self, kvstore="local", optimizer="sgd",
+                       optimizer_params=(("learning_rate", 0.01),),
+                       force_init=False):
+        raise NotImplementedError()
+
+    def get_params(self):
+        raise NotImplementedError()
+
+    def forward(self, data_batch, is_train=None):
+        raise NotImplementedError()
+
+    def backward(self, out_grads=None):
+        raise NotImplementedError()
+
+    def update(self):
+        raise NotImplementedError()
+
+    def update_metric(self, eval_metric, labels):
+        raise NotImplementedError()
+
+    def _fit_step(self, data_batch):
+        self.forward_backward(data_batch)
+        self.update()
+
+    @property
+    def data_names(self) -> List[str]:
+        raise NotImplementedError()
+
+    @property
+    def output_names(self) -> List[str]:
+        raise NotImplementedError()

@@ -1,0 +1,277 @@
+"""Module — a bound Symbol with parameters and an optimizer.
+
+The port's counterpart of the reference's ``module/module.py`` on one
+device: ``bind``, ``init_params`` / ``set_params`` / ``get_params``,
+``init_optimizer``, ``forward`` / ``backward`` / ``update`` /
+``get_outputs``, and ``_fit_step``, the counterpart of the reference's
+fused train step (``_build_fused_step``): one forward, one backward and
+one ``torch._foreach_*`` update of every parameter per call, with no
+host synchronisation inside, so the host queues the next step while the
+card runs this one.
+
+As in the reference, the backward runs with a ones head gradient on
+every output, so a loss head's own backward (``SoftmaxOutput``) drives
+training; ``rescale_grad`` is ``1 / batch_size``.
+
+The module runs on ``cuda:0`` unless ``context`` says otherwise
+(``context=cpu()`` for the host); without a GPU and without that request
+it raises.
+"""
+from __future__ import annotations
+
+import logging
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..base import MXNetError
+from ..context import resolve_device
+from ..initializer import InitDesc
+from ..io import DataDesc
+from ..ndarray import NDArray
+from .. import optimizer as opt
+from .base_module import BaseModule, _check_input_names
+
+__all__ = ["Module"]
+
+
+def _as_tensor(value, like: torch.Tensor) -> torch.Tensor:
+    """A tensor on ``like``'s device and dtype from an NDArray, a tensor,
+    a numpy array, or any array with ``asnumpy()``."""
+    if isinstance(value, NDArray):
+        t = value.data
+    elif isinstance(value, torch.Tensor):
+        t = value
+    else:
+        arr = value.asnumpy() if hasattr(value, "asnumpy") \
+            else np.asarray(value)
+        t = torch.from_numpy(np.ascontiguousarray(arr))
+    return t.to(like.device, like.dtype)
+
+
+class Module(BaseModule):
+    """A Symbol bound on one device, with parameters and an optimizer."""
+
+    def __init__(self, symbol, data_names=("data",),
+                 label_names=("softmax_label",), logger=logging,
+                 context=None, fixed_param_names=None, state_names=None):
+        super().__init__(logger=logger)
+        if isinstance(context, (list, tuple)):
+            if len(context) != 1:
+                raise MXNetError("this slice of the port binds one device; "
+                                 "got %d contexts (data parallelism is "
+                                 "ROADMAP.md queue A9)" % len(context))
+            context = context[0]
+        self._device = resolve_device(context)
+        self._symbol = symbol
+        data_names = list(data_names) if data_names is not None else []
+        label_names = list(label_names) if label_names is not None else []
+        state_names = list(state_names) if state_names is not None else []
+        fixed = list(fixed_param_names) if fixed_param_names else []
+        _check_input_names(symbol, data_names, "data", True)
+        _check_input_names(symbol, label_names, "label", False)
+        _check_input_names(symbol, state_names, "state", True)
+        _check_input_names(symbol, fixed, "fixed_param", True)
+        arg_names = symbol.list_arguments()
+        inputs = data_names + label_names + state_names
+        self._param_names = [n for n in arg_names if n not in inputs]
+        self._fixed_param_names = fixed
+        self._data_names = data_names
+        self._label_names = [n for n in label_names if n in arg_names]
+        self._state_names = state_names
+        self._output_names = symbol.list_outputs()
+        self._arg_params: Optional[Dict[str, NDArray]] = None
+        self._optimizer = None
+        self._updater = None
+        self._exec = None
+        self._data_shapes = None
+        self._label_shapes = None
+        self._grad_req = None
+
+    # ------------------------------------------------------------ names
+    @property
+    def data_names(self):
+        return self._data_names
+
+    @property
+    def label_names(self):
+        return self._label_names
+
+    @property
+    def output_names(self):
+        return self._output_names
+
+    # ------------------------------------------------------------ params
+    def get_params(self):
+        """``(arg_params, aux_params)``: the bound parameter arrays by
+        name, and an empty dict (no op of this slice has aux state)."""
+        assert self.binded and self.params_initialized
+        return dict(self._arg_params), {}
+
+    def init_params(self, initializer=None, arg_params=None, aux_params=None,
+                    allow_missing=False, force_init=False, allow_extra=False):
+        """Fill every parameter from ``arg_params`` (by name) or, failing
+        that, from ``initializer``."""
+        assert self.binded, "call bind before initializing the parameters"
+        if self.params_initialized and not force_init:
+            return
+        if arg_params is not None and not allow_extra:
+            extra = sorted(set(arg_params) - set(self._param_names))
+            if extra:
+                raise MXNetError("init_params: unknown parameters %s" % extra)
+        attrs = self.symbol.attr_dict()
+        for name in self._param_names:
+            arr = self._exec.arg_dict[name]
+            if arg_params is not None and name in arg_params:
+                src = arg_params[name]
+                if tuple(src.shape) != arr.shape:
+                    raise MXNetError("shape mismatch for %s: %s vs %s"
+                                     % (name, tuple(src.shape), arr.shape))
+                with torch.no_grad():
+                    arr.data.copy_(_as_tensor(src, arr.data))
+            elif arg_params is not None and not allow_missing:
+                raise RuntimeError("%s is not presented" % name)
+            elif initializer is not None:
+                initializer(InitDesc(name, attrs.get(name, None)), arr)
+        self._arg_params = {n: self._exec.arg_dict[n]
+                            for n in self._param_names}
+        self.params_initialized = True
+
+    # ------------------------------------------------------------ bind
+    def bind(self, data_shapes, label_shapes=None, for_training=True,
+             force_rebind=False, grad_req="write"):
+        """Infer every shape from the input shapes and allocate the
+        arguments and gradient buffers on the module's device."""
+        if force_rebind:
+            self._exec = None
+            self.binded = False
+        if self.binded:
+            self.logger.warning("Already bound, ignoring bind()")
+            return
+        self.for_training = for_training
+        self._data_shapes = [x if isinstance(x, DataDesc) else DataDesc(*x)
+                             for x in data_shapes]
+        self._label_shapes = [x if isinstance(x, DataDesc) else DataDesc(*x)
+                              for x in label_shapes] if label_shapes else []
+        arg_names = self._symbol.list_arguments()
+        shape_hints = {d.name: d.shape for d in self._data_shapes}
+        shape_hints.update({d.name: d.shape for d in self._label_shapes
+                            if d.name in arg_names})
+        req = {}
+        for n in arg_names:
+            if n in self._data_names or n in self._label_names or \
+                    n in self._state_names or n in self._fixed_param_names:
+                req[n] = "null"
+            else:
+                req[n] = grad_req if for_training else "null"
+        self._grad_req = req
+        type_dict = {d.name: d.dtype for d in self._data_shapes +
+                     self._label_shapes}
+        params = self._arg_params if self.params_initialized else None
+        self._exec = self._symbol.simple_bind(
+            self._device, grad_req=req, type_dict=type_dict, **shape_hints)
+        self.binded = True
+        if params is not None:
+            self.init_params(arg_params=params, force_init=True)
+
+    # ------------------------------------------------------------ optimizer
+    def init_optimizer(self, kvstore="local", optimizer="sgd",
+                       optimizer_params=(("learning_rate", 0.01),),
+                       force_init=False):
+        """Create the optimizer; ``rescale_grad`` defaults to
+        ``1 / batch_size``. ``kvstore`` may be ``"local"``, ``"device"``
+        or None on one device."""
+        assert self.binded and self.params_initialized
+        if self.optimizer_initialized and not force_init:
+            self.logger.warning("optimizer already initialized, "
+                                "ignoring...")
+            return
+        if kvstore not in ("local", "device", None):
+            raise MXNetError("kvstore %r is not ported yet (ROADMAP.md queue "
+                             "A9); on one device use 'local', 'device' or "
+                             "None" % (kvstore,))
+        batch_sizes = {d.shape[0] for d in self._data_shapes if d.shape}
+        if len(batch_sizes) > 1:
+            raise MXNetError("data inputs disagree on batch size: %s"
+                             % [(d.name, d.shape) for d in self._data_shapes])
+        batch_size = batch_sizes.pop() if batch_sizes else 1
+        rescale_grad = 1.0 / batch_size
+        if isinstance(optimizer, str):
+            optimizer_params = dict(optimizer_params)
+            optimizer_params.setdefault("rescale_grad", rescale_grad)
+            optimizer = opt.create(
+                optimizer, sym=self.symbol,
+                param_idx2name=dict(enumerate(self._param_names)),
+                **optimizer_params)
+        elif optimizer.rescale_grad != rescale_grad:
+            self.logger.warning(
+                "Optimizer created manually outside Module but rescale_grad "
+                "is not normalized to 1.0/batch_size (%s vs. %s).",
+                optimizer.rescale_grad, rescale_grad)
+        optimizer.set_lr_mult({})
+        optimizer.set_wd_mult({})
+        self._optimizer = optimizer
+        self._updater = opt.get_updater(optimizer)
+        self.optimizer_initialized = True
+
+    # ------------------------------------------------------------ compute
+    def _load_batch(self, data_batch):
+        """Copy the batch's data and labels into the bound inputs (cast
+        to their dtype, onto the module's device)."""
+        ex = self._exec
+        pairs = list(zip(self._data_names, data_batch.data or [])) + \
+            list(zip(self._label_names, data_batch.label or []))
+        with torch.no_grad():
+            for name, arr in pairs:
+                dst = ex.arg_dict[name].data
+                dst.copy_(_as_tensor(arr, dst), non_blocking=True)
+
+    def forward(self, data_batch, is_train=None):
+        assert self.binded and self.params_initialized
+        if is_train is None:
+            is_train = self.for_training
+        self._load_batch(data_batch)
+        self._exec.forward(is_train=is_train)
+
+    def backward(self, out_grads=None):
+        assert self.binded and self.params_initialized
+        self._exec.backward(out_grads=out_grads)
+
+    def _trained_names(self) -> List[str]:
+        return [n for n in self._param_names
+                if self._grad_req.get(n, "null") != "null"]
+
+    def _apply_update(self, names, grads) -> None:
+        """One fused optimizer update of the parameters ``names``."""
+        idx = {n: i for i, n in enumerate(self._param_names)}
+        self._updater.update_multi([idx[n] for n in names],
+                                   [self._exec.arg_dict[n] for n in names],
+                                   grads)
+
+    def update(self):
+        """Apply the gradients in ``grad_dict`` with one fused update."""
+        assert self.binded and self.params_initialized \
+            and self.optimizer_initialized
+        names = self._trained_names()
+        self._apply_update(names, [self._exec.grad_dict[n] for n in names])
+
+    def _fit_step(self, data_batch):
+        """One training step: forward, backward with ones head
+        gradients, and one fused update of every trained parameter
+        straight from the gradients (``grad_dict`` is not written)."""
+        assert self.binded and self.params_initialized \
+            and self.optimizer_initialized
+        self._load_batch(data_batch)
+        self._exec.forward(is_train=True)
+        self._apply_update(*self._exec.gradients())
+
+    def get_outputs(self, merge_multi_context=True) -> List[NDArray]:
+        assert self.binded and self.params_initialized
+        return self._exec.outputs
+
+    def update_metric(self, eval_metric, labels):
+        labels = dict(zip(self._label_names or
+                          [d.name for d in self._label_shapes], labels))
+        preds = dict(zip(self._output_names, self.get_outputs()))
+        eval_metric.update_dict(labels, preds)

@@ -1,0 +1,149 @@
+"""A minimal NDArray over a torch tensor.
+
+The port's counterpart of the reference's ``ndarray/ndarray.py``, as far
+as the training path needs it: ``DataBatch`` payloads, an executor's
+``arg_dict``/``grad_dict``/``outputs`` and ``Module.get_params``. The
+reference's arrays are immutable jax values that an assignment replaces;
+here an assignment writes into the tensor in place (``arr[:] = x`` is a
+``copy_``), so a tensor bound into an executor sees every update.
+"""
+from __future__ import annotations
+
+from typing import Union
+
+import numpy as np
+import torch
+
+from ..base import MXNetError
+from ..context import DeviceLike
+
+__all__ = ["NDArray", "array", "zeros", "to_torch_dtype", "to_numpy_dtype"]
+
+_NP_TO_TORCH = {
+    np.dtype(np.float32): torch.float32,
+    np.dtype(np.float64): torch.float64,
+    np.dtype(np.float16): torch.float16,
+    np.dtype(np.int32): torch.int32,
+    np.dtype(np.int64): torch.int64,
+    np.dtype(np.int8): torch.int8,
+    np.dtype(np.uint8): torch.uint8,
+    np.dtype(np.bool_): torch.bool,
+}
+_TORCH_TO_NP = {v: k for k, v in _NP_TO_TORCH.items()}
+
+
+def to_torch_dtype(dtype) -> torch.dtype:
+    """A torch dtype from a numpy dtype, its name, or a torch dtype."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    if str(dtype) == "bfloat16":
+        return torch.bfloat16
+    try:
+        return _NP_TO_TORCH[np.dtype(dtype)]
+    except (KeyError, TypeError):
+        raise MXNetError("unsupported dtype %r" % (dtype,)) from None
+
+
+def to_numpy_dtype(dtype: torch.dtype):
+    """The numpy dtype of a torch dtype; bfloat16, which numpy lacks,
+    stays the torch dtype."""
+    return _TORCH_TO_NP.get(dtype, dtype)
+
+
+def _device(ctx: DeviceLike) -> torch.device:
+    if ctx is None:
+        return torch.device("cpu")
+    return torch.device(ctx) if not isinstance(ctx, torch.device) else ctx
+
+
+class NDArray:
+    """An n-dimensional array on one device (a torch tensor)."""
+
+    __slots__ = ("_data",)
+
+    def __init__(self, data, ctx: DeviceLike = None, dtype=None):
+        if isinstance(data, NDArray):
+            data = data._data
+        if isinstance(data, torch.Tensor):
+            t = data
+            if ctx is not None:
+                t = t.to(_device(ctx))
+        else:
+            # a copy: the caller's numpy buffer must not alias the array
+            t = torch.from_numpy(np.array(data)).to(_device(ctx))
+        if dtype is not None:
+            t = t.to(to_torch_dtype(dtype))
+        self._data = t
+
+    # ------------------------------------------------------------ views
+    @property
+    def data(self) -> torch.Tensor:
+        """The underlying tensor."""
+        return self._data
+
+    @property
+    def shape(self):
+        return tuple(self._data.shape)
+
+    @property
+    def dtype(self):
+        return to_numpy_dtype(self._data.dtype)
+
+    @property
+    def context(self) -> torch.device:
+        return self._data.device
+
+    def __repr__(self):
+        return "<NDArray %s @%s>" % ("x".join(map(str, self.shape)),
+                                     self.context)
+
+    # ------------------------------------------------------------ transfer
+    def asnumpy(self) -> np.ndarray:
+        t = self._data.detach()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        return t.cpu().numpy()
+
+    def copyto(self, other: Union["NDArray", DeviceLike]) -> "NDArray":
+        """Copy into ``other`` (an NDArray: its device and dtype win), or
+        to a new array on device ``other``."""
+        if isinstance(other, NDArray):
+            if other.shape != self.shape:
+                raise MXNetError("copyto: shape %s into %s"
+                                 % (self.shape, other.shape))
+            with torch.no_grad():
+                other._data.copy_(self._data)
+            return other
+        return NDArray(self._data.detach().to(_device(other), copy=True))
+
+    # ------------------------------------------------------------ indexing
+    def __setitem__(self, key, value):
+        if isinstance(value, NDArray):
+            value = value._data
+        elif not isinstance(value, torch.Tensor) and not np.isscalar(value):
+            value = torch.from_numpy(np.ascontiguousarray(np.asarray(value)))
+        with torch.no_grad():
+            if isinstance(value, torch.Tensor):
+                self._data[key] = value.to(self._data.device,
+                                           self._data.dtype)
+            else:
+                self._data[key] = value
+
+
+def array(source_array, ctx: DeviceLike = None, dtype=None) -> NDArray:
+    """An NDArray from any array-like; float32 unless ``dtype`` says
+    otherwise (the reference's default, whatever the source's dtype)."""
+    if isinstance(source_array, NDArray):
+        return NDArray(source_array._data, ctx=ctx, dtype=dtype)
+    if isinstance(source_array, torch.Tensor):
+        return NDArray(source_array, ctx=ctx,
+                       dtype=dtype if dtype is not None else torch.float32)
+    arr = np.asarray(source_array,
+                     dtype=dtype if dtype is not None else np.float32)
+    return NDArray(arr, ctx=ctx)
+
+
+def zeros(shape, ctx: DeviceLike = None, dtype="float32") -> NDArray:
+    shape = (shape,) if isinstance(shape, int) else tuple(shape)
+    return NDArray(torch.zeros(shape, dtype=to_torch_dtype(dtype),
+                               device=_device(ctx)))

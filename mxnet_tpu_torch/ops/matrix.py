@@ -1,0 +1,112 @@
+"""Shape and matrix ops of the training path.
+
+The port's counterpart of the reference's ``ops/matrix.py`` for
+``batch_dot``, ``transpose``, ``Reshape`` (with MXNet's special codes)
+and ``slice_axis``.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from .. import amp
+from .registry import register
+
+__all__ = ["reshape_shape"]
+
+
+@register("batch_dot", num_inputs=2)
+def batch_dot(lhs, rhs, transpose_a=False, transpose_b=False):
+    """Batched product over the leading axis, operands cast under the
+    amp policy like FullyConnected."""
+    a = lhs.transpose(1, 2) if transpose_a else lhs
+    b = rhs.transpose(1, 2) if transpose_b else rhs
+    a, b = amp.mxu_operands(a, b)
+    return torch.bmm(a, b)
+
+
+@register("transpose")
+def transpose(data, axes=None):
+    """Permute axes (all reversed when ``axes`` is empty)."""
+    if axes is None or tuple(axes) == ():
+        axes = tuple(reversed(range(data.dim())))
+    return data.permute(*axes)
+
+
+def reshape_shape(in_shape, shape, reverse=False):
+    """The output shape of ``Reshape`` for input shape ``in_shape``,
+    resolving the special codes:
+
+      0  -> copy this dim from input
+      -1 -> infer from remaining elements
+      -2 -> copy all remaining input dims
+      -3 -> merge two consecutive input dims
+      -4 -> split one input dim into the next two listed dims (may
+            contain -1)
+    """
+    in_shape = list(in_shape)
+    spec = list(shape)
+    if reverse:
+        in_shape = in_shape[::-1]
+        spec = spec[::-1]
+    out = []
+    src = 0
+    i = 0
+    while i < len(spec):
+        s = spec[i]
+        if s == 0:
+            out.append(in_shape[src])
+            src += 1
+        elif s == -1:
+            out.append(-1)
+            src += 1
+        elif s == -2:
+            out.extend(in_shape[src:])
+            src = len(in_shape)
+        elif s == -3:
+            out.append(in_shape[src] * in_shape[src + 1])
+            src += 2
+        elif s == -4:
+            d1, d2 = spec[i + 1], spec[i + 2]
+            whole = in_shape[src]
+            src += 1
+            if d1 == -1:
+                d1 = whole // d2
+            if d2 == -1:
+                d2 = whole // d1
+            out.extend([d1, d2])
+            i += 2
+        else:
+            out.append(int(s))
+            if src < len(in_shape):
+                src += 1
+        i += 1
+    if reverse:
+        out = out[::-1]
+    total = math.prod(in_shape)
+    if -1 in out:
+        known = 1
+        for d in out:
+            if d != -1:
+                known *= d
+        out[out.index(-1)] = total // max(known, 1)
+    return tuple(out)
+
+
+@register("Reshape", aliases=("reshape",))
+def reshape(data, shape=None, reverse=False, target_shape=None,
+            keep_highest=False):
+    """Reshape with MXNet's special codes (see :func:`reshape_shape`)."""
+    if shape is None or len(tuple(shape)) == 0:
+        return data.reshape(tuple(target_shape))
+    return data.reshape(reshape_shape(data.shape, shape, reverse))
+
+
+@register("slice_axis")
+def slice_axis(data, axis=0, begin=0, end=None):
+    """Slice one axis."""
+    axis = axis % data.dim()
+    ix = [slice(None)] * data.dim()
+    ix[axis] = slice(begin, end)
+    return data[tuple(ix)]

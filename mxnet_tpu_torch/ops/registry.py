@@ -1,0 +1,106 @@
+"""Operator registry — one plain function over torch tensors per op.
+
+The port's counterpart of the reference's ``ops/registry.py``: the same
+``register(name, num_inputs, aliases)`` decorator and ``get_op`` lookup,
+with the reference's op names and aliases, so that a Symbol JSON file
+written by the reference names ops that exist here. Shapes are inferred
+by running the same function on meta tensors (``symbol.infer_shape``)
+and gradients come from ``torch.autograd``; ops whose gradient is not
+the derivative of their forward (loss heads, LayerNorm's analytic
+backward, flash attention) are ``torch.autograd.Function``\\ s.
+
+Ops without array inputs (``num_inputs=0``, e.g. ``_arange``) take the
+device to create their result on as the keyword ``_device``.
+"""
+from __future__ import annotations
+
+import functools
+import inspect
+from typing import Callable, Dict, List, Optional, Sequence
+
+__all__ = ["OpDef", "register", "get_op", "OP_REGISTRY"]
+
+_PARAM_INPUTS = ("weight", "bias", "gamma", "beta", "label")
+
+
+class OpDef:
+    """A registered operator: ``fn(*tensors, **attrs)``."""
+
+    def __init__(self, name: str, fn: Callable,
+                 num_inputs: Optional[int] = 1):
+        self.name = name
+        self.fn = fn
+        self.num_inputs = num_inputs
+        self.aliases: List[str] = [name]
+        self.__doc__ = fn.__doc__
+        self._input_names: Optional[List[str]] = None
+
+    @property
+    def input_names(self) -> List[str]:
+        """Names of the op's tensor inputs, derived from the function's
+        signature as the reference derives them: leading parameters
+        without a default, plus the defaulted parameter inputs
+        (weight, bias, gamma, beta, label)."""
+        if self._input_names is None:
+            names: List[str] = []
+            for p in inspect.signature(self.fn).parameters.values():
+                if p.kind is p.VAR_POSITIONAL:
+                    names.append("data")
+                    break
+                if p.kind not in (p.POSITIONAL_ONLY,
+                                  p.POSITIONAL_OR_KEYWORD):
+                    break
+                if self.num_inputs is not None and \
+                        len(names) >= self.num_inputs:
+                    break
+                if p.default is inspect.Parameter.empty or \
+                        p.name in _PARAM_INPUTS:
+                    names.append(p.name)
+                else:
+                    break
+            if not names and self.num_inputs != 0:
+                names = ["data"]
+            self._input_names = names
+        return self._input_names
+
+    @property
+    def param_names(self) -> List[str]:
+        """Positional or keyword parameters of the function."""
+        return [p.name for p in inspect.signature(self.fn).parameters.values()
+                if p.kind in (p.POSITIONAL_ONLY, p.POSITIONAL_OR_KEYWORD,
+                              p.KEYWORD_ONLY)]
+
+    def __call__(self, *args, **kwargs):
+        return self.fn(*args, **kwargs)
+
+    def __repr__(self):
+        return "OpDef(%s)" % self.name
+
+
+OP_REGISTRY: Dict[str, OpDef] = {}
+
+
+def register(name: Optional[str] = None, num_inputs: Optional[int] = 1,
+             aliases: Sequence[str] = ()):
+    """Decorator: register a function over tensors as an op."""
+
+    def _reg(fn: Callable) -> OpDef:
+        opname = name or fn.__name__
+        op = OpDef(opname, fn, num_inputs=num_inputs)
+        for n in (opname,) + tuple(aliases):
+            if n in OP_REGISTRY:
+                raise ValueError("Op %s already registered" % n)
+            OP_REGISTRY[n] = op
+        op.aliases.extend(aliases)
+        functools.update_wrapper(op, fn, updated=())
+        return op
+
+    return _reg
+
+
+def get_op(name: str) -> OpDef:
+    try:
+        return OP_REGISTRY[name]
+    except KeyError:
+        raise KeyError("Operator %r not registered (have %d ops)"
+                       % (name, len(OP_REGISTRY))) from None

@@ -1,0 +1,492 @@
+"""Symbol — the declarative graph API, over the port's op registry.
+
+The port's counterpart of the reference's ``symbol/symbol.py``, as far
+as the training path needs it: ``Variable``, one function per op,
+operators (``x + h``, ``future * -1e9``), ``list_arguments`` /
+``list_outputs``, ``infer_shape`` and JSON save and load.
+
+* ``infer_shape`` derives parameter shapes from the data shapes alone
+  with the reference's per-op rules (``_derive_param_shapes``) and
+  propagates shapes by running every node's op on meta tensors, which
+  carry shapes and no data (the reference uses ``jax.eval_shape``).
+* ``tojson`` writes, and ``load_json`` reads, the reference's schema
+  (``nodes`` with ``op``/``param``/``name``/``inputs``/``attr``, plus
+  ``arg_nodes`` and ``heads``), so a graph that ``mxnet_tpu`` saves
+  loads here with the same node names and attributes.
+"""
+from __future__ import annotations
+
+import ast
+import json
+import threading
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+from ..base import MXNetError
+from ..context import resolve_device
+from ..ops import OP_REGISTRY, OpDef, get_op
+
+__all__ = ["Symbol", "Variable", "load_json", "NameManager"]
+
+
+# ------------------------------------------------------------------ naming
+
+_local = threading.local()
+
+
+class NameManager:
+    """Per-op-type counter naming: ``fullyconnected0``, ``reshape3``, ...
+    (the reference's ``name.NameManager``)."""
+
+    def __init__(self):
+        self._counter: Dict[str, int] = {}
+        self._old: Optional[NameManager] = None
+
+    def get(self, name: Optional[str], hint: str) -> str:
+        if name:
+            return name
+        hint = hint.lower()
+        idx = self._counter.get(hint, 0)
+        self._counter[hint] = idx + 1
+        return "%s%d" % (hint, idx)
+
+    def __enter__(self):
+        self._old = current_name_manager()
+        _local.name_manager = self
+        return self
+
+    def __exit__(self, *exc):
+        _local.name_manager = self._old
+
+
+def current_name_manager() -> NameManager:
+    nm = getattr(_local, "name_manager", None)
+    if nm is None:
+        nm = NameManager()
+        _local.name_manager = nm
+    return nm
+
+
+# ------------------------------------------------------------------ graph
+
+class _Node:
+    """One graph node: an op application or a variable (op=None)."""
+
+    __slots__ = ("op", "name", "attrs", "str_attrs", "inputs")
+
+    def __init__(self, op: Optional[OpDef], name: str,
+                 attrs: Optional[Dict[str, Any]] = None,
+                 inputs: Optional[List[Tuple["_Node", int]]] = None):
+        self.op = op
+        self.name = name
+        self.attrs = attrs or {}          # op kwargs (python values)
+        self.str_attrs: Dict[str, str] = {}   # user attrs (__shape__, ...)
+        self.inputs = inputs or []
+
+    @property
+    def is_variable(self) -> bool:
+        return self.op is None
+
+
+def _topo_order(entries: Sequence[Tuple[_Node, int]]) -> List[_Node]:
+    order: List[_Node] = []
+    seen = set()
+
+    def visit(node: _Node):
+        if id(node) in seen:
+            return
+        seen.add(id(node))
+        for n, _ in node.inputs:
+            visit(n)
+        order.append(node)
+
+    for n, _ in entries:
+        visit(n)
+    return order
+
+
+def _attr_str(v) -> str:
+    return str(v)
+
+
+def _parse_attr(s: str):
+    try:
+        return ast.literal_eval(s)
+    except (ValueError, SyntaxError):
+        return s
+
+
+class Symbol:
+    """An output list over the graph."""
+
+    __slots__ = ("_entries",)
+
+    def __init__(self, entries: Sequence[Tuple[_Node, int]]):
+        self._entries = list(entries)
+
+    @property
+    def name(self) -> Optional[str]:
+        if len(self._entries) == 1:
+            return self._entries[0][0].name
+        return None
+
+    def __repr__(self):
+        return "<Symbol %s>" % ", ".join(n.name for n, _ in self._entries)
+
+    # ------------------------------------------------------------ listing
+    def list_arguments(self) -> List[str]:
+        """Variable inputs in topological order."""
+        return [n.name for n in _topo_order(self._entries) if n.is_variable]
+
+    def list_outputs(self) -> List[str]:
+        names = []
+        for node, idx in self._entries:
+            if node.is_variable:
+                names.append(node.name)
+            else:
+                names.append(node.name + ("_output" if idx == 0
+                                          else "_output%d" % idx))
+        return names
+
+    def attr_dict(self) -> Dict[str, Dict[str, str]]:
+        out = {}
+        for node in _topo_order(self._entries):
+            d = dict(node.str_attrs)
+            if node.op is not None:
+                d.update({k: _attr_str(v) for k, v in node.attrs.items()})
+            if d:
+                out[node.name] = d
+        return out
+
+    # ------------------------------------------------------------ math
+    def _binop(self, other, opname, scalar_op, reverse=False):
+        if isinstance(other, Symbol):
+            a, b = (other, self) if reverse else (self, other)
+            return _create(get_op(opname), [a, b], {}, None)
+        return _create(get_op(scalar_op), [self], {"scalar": float(other)},
+                       None)
+
+    def __add__(self, o):
+        return self._binop(o, "elemwise_add", "_plus_scalar")
+
+    __radd__ = __add__
+
+    def __sub__(self, o):
+        return self._binop(o, "elemwise_sub", "_minus_scalar")
+
+    def __rsub__(self, o):
+        return self._binop(o, "elemwise_sub", "_rminus_scalar", reverse=True)
+
+    def __mul__(self, o):
+        return self._binop(o, "elemwise_mul", "_mul_scalar")
+
+    __rmul__ = __mul__
+
+    def __truediv__(self, o):
+        return self._binop(o, "elemwise_div", "_div_scalar")
+
+    def __rtruediv__(self, o):
+        return self._binop(o, "elemwise_div", "_rdiv_scalar", reverse=True)
+
+    def __neg__(self):
+        return _create(get_op("negative"), [self], {}, None)
+
+    # ------------------------------------------------------------ shapes
+    def infer_shape(self, *args, **kwargs):
+        """``(arg_shapes, out_shapes, aux_shapes)`` from the given input
+        shapes; parameter shapes the graph implies are derived. Raises
+        :class:`MXNetError` naming what cannot be inferred."""
+        arg_names = self.list_arguments()
+        known: Dict[str, Tuple[int, ...]] = {}
+        for n, s in zip(arg_names, args):
+            if s is not None:
+                known[n] = tuple(s)
+        known.update({k: tuple(v) for k, v in kwargs.items()
+                      if v is not None})
+        for node in _topo_order(self._entries):
+            if node.is_variable and "__shape__" in node.str_attrs and \
+                    node.name not in known:
+                known[node.name] = tuple(
+                    ast.literal_eval(node.str_attrs["__shape__"]))
+        node_shapes, derived = _propagate_shapes(self, known)
+        resolved = dict(known)
+        resolved.update(derived)
+        missing = [n for n in arg_names if n not in resolved]
+        if missing:
+            raise MXNetError("infer_shape: cannot infer %s (provide its "
+                             "shape)" % missing)
+        out_shapes = []
+        for node, idx in self._entries:
+            s = resolved.get(node.name) if node.is_variable \
+                else node_shapes.get((id(node), idx))
+            if s is None:
+                raise MXNetError("infer_shape: op %s (node %r) rejects its "
+                                 "input shapes" % (node.op.name, node.name))
+            out_shapes.append(tuple(s))
+        return [tuple(resolved[n]) for n in arg_names], out_shapes, []
+
+    # ------------------------------------------------------------ save/load
+    def tojson(self) -> str:
+        """Serialize to the reference's symbol-JSON schema."""
+        nodes = _topo_order(self._entries)
+        index = {id(n): i for i, n in enumerate(nodes)}
+        out_nodes = []
+        for n in nodes:
+            entry = {
+                "op": "null" if n.is_variable else n.op.name,
+                "param": {} if n.is_variable else
+                         {k: _attr_str(v) for k, v in n.attrs.items()},
+                "name": n.name,
+                "inputs": [[index[id(src)], i] for src, i in n.inputs],
+                "backward_source_id": -1,
+            }
+            if n.str_attrs:
+                entry["attr"] = dict(n.str_attrs)
+            out_nodes.append(entry)
+        arg_nodes = [i for i, n in enumerate(nodes) if n.is_variable]
+        heads = [[index[id(n)], i] for n, i in self._entries]
+        return json.dumps({"nodes": out_nodes, "arg_nodes": arg_nodes,
+                           "heads": heads}, indent=2)
+
+    # ------------------------------------------------------------ bind
+    def bind(self, ctx, args, args_grad=None, grad_req="write",
+             aux_states=None):
+        from ..executor import Executor
+        return Executor(self, ctx, args, args_grad, grad_req)
+
+    def simple_bind(self, ctx, grad_req="write", type_dict=None, **kwargs):
+        """Infer shapes, allocate arguments (zeros) and gradient buffers
+        on ``ctx`` (None: ``cuda:0``) and bind."""
+        from ..executor import Executor
+        from ..ndarray import zeros
+        ctx = resolve_device(ctx)
+        arg_shapes, _, _ = self.infer_shape(**kwargs)
+        arg_names = self.list_arguments()
+        type_dict = type_dict or {}
+        args = {n: zeros(s, ctx=ctx, dtype=type_dict.get(n, "float32"))
+                for n, s in zip(arg_names, arg_shapes)}
+        args_grad = None
+        if grad_req != "null":
+            reqs = grad_req if isinstance(grad_req, dict) else \
+                {n: grad_req for n in arg_names}
+            args_grad = {n: zeros(s, ctx=ctx)
+                         for n, s in zip(arg_names, arg_shapes)
+                         if reqs.get(n, "null") != "null"}
+        return Executor(self, ctx, args, args_grad, grad_req)
+
+
+# ------------------------------------------------------------------ factory
+
+def Variable(name: str, attr=None, shape=None, dtype=None, init=None,
+             **kwargs) -> Symbol:
+    node = _Node(None, name)
+    attrs = dict(attr or {})
+    if shape is not None:
+        attrs["__shape__"] = str(tuple(shape))
+    if dtype is not None:
+        attrs["__dtype__"] = str(dtype)
+    if init is not None:
+        attrs["__init__"] = init if isinstance(init, str) else init.dumps()
+    attrs.update({k: str(v) for k, v in kwargs.items()})
+    node.str_attrs = attrs
+    return Symbol([(node, 0)])
+
+
+def _create(op: OpDef, input_syms: List[Symbol], attrs: Dict[str, Any],
+            name: Optional[str]) -> Symbol:
+    name = current_name_manager().get(name, op.name.lower().replace("_", ""))
+    entries = []
+    for s in input_syms:
+        if len(s._entries) != 1:
+            raise MXNetError("op %s input must be single-output symbol"
+                             % op.name)
+        entries.append(s._entries[0])
+    return Symbol([(_Node(op, name, attrs, entries), 0)])
+
+
+def make_symbol_function(op: OpDef):
+    """The ``sym.<Op>`` wrapper: Symbols fill tensor-input slots (by
+    position or name), other positional arguments map onto the op's
+    parameters at the same position, and missing weight/bias/label
+    inputs become Variables named ``<name>_<input>``, as in the
+    reference."""
+    input_names = op.input_names
+
+    def fn(*args, **kwargs):
+        name = current_name_manager().get(kwargs.pop("name", None),
+                                          op.name.lower().replace("_", ""))
+        if op.num_inputs is None and len(args) > 1 and all(
+                isinstance(a, Symbol) for a in args) and \
+                not any(k in kwargs for k in input_names) and \
+                len(args) > len(input_names):
+            return _create(op, list(args), dict(kwargs), name)
+        inputs: Dict[str, Symbol] = {}
+        attrs: Dict[str, Any] = {}
+        params = op.param_names
+        for i, a in enumerate(args):
+            if isinstance(a, Symbol):
+                if i >= len(input_names):
+                    raise MXNetError("%s: too many symbol inputs (expected "
+                                     "%s)" % (op.name, input_names))
+                inputs[input_names[i]] = a
+            elif i < len(params):
+                attrs[params[i]] = a
+            else:
+                raise MXNetError("%s: unexpected positional argument %r"
+                                 % (op.name, a))
+        for k, v in kwargs.items():
+            if isinstance(v, Symbol):
+                inputs[k] = v
+            else:
+                attrs[k] = v
+        in_syms = [inputs[n] if n in inputs else Variable("%s_%s" % (name, n))
+                   for n in input_names]
+        if attrs.get("no_bias") and "bias" in input_names and \
+                "bias" not in inputs:
+            del in_syms[input_names.index("bias")]
+        return _create(op, in_syms, attrs, name)
+
+    fn.__name__ = op.name
+    fn.__doc__ = op.__doc__
+    return fn
+
+
+# ------------------------------------------------------------------ loading
+
+def load_json(json_str: str) -> Symbol:
+    """Load a symbol JSON file in the reference's schema (the 0.8-era
+    ``param``+``attr`` nodes that ``mxnet_tpu`` writes, or the 1.x-era
+    merged ``attrs``). Op attributes the port's op does not take are
+    dropped, as the reference drops backend tuning knobs."""
+    g = json.loads(json_str)
+    built: List[_Node] = []
+    for rn in g["nodes"]:
+        if rn["op"] == "null":
+            node = _Node(None, rn["name"])
+            node.str_attrs = {k: str(v) for k, v in
+                              (rn.get("attr") or rn.get("attrs") or
+                               {}).items()}
+        else:
+            op = get_op(rn["op"])
+            if "param" in rn:
+                op_attrs = rn["param"]
+                user_attrs = rn.get("attr", {})
+            else:
+                merged = dict(rn.get("attrs", {}))
+                user_attrs = {k: merged.pop(k) for k in list(merged)
+                              if k.startswith("__")}
+                op_attrs = merged
+            known = set(op.param_names)
+            attrs = {k: _parse_attr(v) for k, v in op_attrs.items()
+                     if k in known}
+            inputs = [(built[e[0]], e[1]) for e in rn["inputs"]]
+            node = _Node(op, rn["name"], attrs, inputs)
+            node.str_attrs = {k: str(v) for k, v in user_attrs.items()}
+        built.append(node)
+    return Symbol([(built[e[0]], e[1]) for e in g["heads"]])
+
+
+# ------------------------------------------------------------------ shapes
+
+def run_node(node: _Node, ins, is_train: bool, device):
+    """Execute one op node on tensors; returns a tuple of outputs."""
+    attrs = dict(node.attrs)
+    attrs.pop("name", None)
+    if node.op.num_inputs == 0:
+        attrs["_device"] = device
+    outs = node.op.fn(*ins, **attrs)
+    return outs if isinstance(outs, tuple) else (outs,)
+
+
+def _eval_meta(node: _Node, in_shapes):
+    ins = [torch.empty(s, device="meta") for s in in_shapes]
+    meta_fn = getattr(node.op, "meta_fn", None)
+    with torch.no_grad():
+        if meta_fn is not None:
+            attrs = {k: v for k, v in node.attrs.items() if k != "name"}
+            outs = meta_fn(*ins, **attrs)
+            outs = outs if isinstance(outs, tuple) else (outs,)
+        else:
+            outs = run_node(node, ins, True, torch.device("meta"))
+    return tuple(tuple(o.shape) for o in outs)
+
+
+def _propagate_shapes(sym: Symbol, known: Dict[str, Tuple[int, ...]]):
+    """Walk the graph in order: derive the parameter shapes each
+    parameter-owning op implies from its data input's shape (the
+    reference's ``_derive_param_shapes`` rules), then evaluate the node
+    on meta tensors. Returns ``(node output shapes, derived shapes)``."""
+    derived: Dict[str, Tuple[int, ...]] = {}
+    shapes: Dict[Tuple[int, int], Tuple[int, ...]] = {}
+    memo: Dict[tuple, Optional[tuple]] = {}
+
+    def shape_of(entry):
+        node, idx = entry
+        if node.is_variable:
+            s = known.get(node.name) or derived.get(node.name)
+            return tuple(s) if s is not None else None
+        return shapes.get((id(node), idx))
+
+    for node in _topo_order(sym._entries):
+        if node.is_variable:
+            continue
+        a = node.attrs
+        ds = shape_of(node.inputs[0]) if node.inputs else None
+
+        def setvar(pos, shape):
+            if pos >= len(node.inputs):
+                return
+            n, _ = node.inputs[pos]
+            if n.is_variable and n.name not in known and \
+                    n.name not in derived:
+                derived[n.name] = tuple(int(x) for x in shape)
+
+        if ds is not None:
+            opname = node.op.name
+            if opname == "FullyConnected":
+                nh = int(a["num_hidden"])
+                flat = 1
+                for x in ds[1:]:
+                    flat *= x
+                setvar(1, (nh, flat if a.get("flatten", True) else ds[-1]))
+                setvar(2, (nh,))
+            elif opname == "LayerNorm":
+                ax = int(a.get("axis", -1)) % len(ds)
+                setvar(1, (ds[ax],))
+                setvar(2, (ds[ax],))
+            elif opname == "Embedding":
+                setvar(1, (int(a["input_dim"]), int(a["output_dim"])))
+            elif opname == "SoftmaxOutput":
+                setvar(1, (ds[0],))
+
+        in_shapes = [shape_of(e) for e in node.inputs]
+        if any(s is None for s in in_shapes):
+            continue
+        key = (node.op.name, tuple(in_shapes),
+               tuple(sorted((k, repr(v)) for k, v in a.items())))
+        if key not in memo:
+            try:
+                memo[key] = _eval_meta(node, in_shapes)
+            except Exception as exc:                        # noqa: BLE001
+                desc = ", ".join(
+                    "%s=(%s)" % (src.name, ",".join(map(str, s)))
+                    for (src, _), s in zip(node.inputs, in_shapes))
+                raise MXNetError(
+                    "infer_shape: op %s (node %r) rejects its input shapes "
+                    "[%s]: %s" % (node.op.name, node.name, desc,
+                                  str(exc).strip().splitlines()[0]
+                                  if str(exc).strip() else
+                                  type(exc).__name__)) from exc
+        for i, o in enumerate(memo[key]):
+            shapes[(id(node), i)] = o
+    return shapes, derived
+
+
+def _install_op_functions(namespace: Dict[str, Any]) -> List[str]:
+    names = []
+    for opname, op in OP_REGISTRY.items():
+        if opname not in namespace:
+            namespace[opname] = make_symbol_function(op)
+            names.append(opname)
+    return names

@@ -31,6 +31,16 @@ def test_importing_the_port_loads_no_jax():
         "import mxnet_tpu_torch.serve.kv_cache\n"
         "import mxnet_tpu_torch.ops.flash_attention\n"
         "import mxnet_tpu_torch.models.transformer, mxnet_tpu_torch._build\n"
+        "import mxnet_tpu_torch.amp, mxnet_tpu_torch.ndarray\n"
+        "import mxnet_tpu_torch.ops, mxnet_tpu_torch.ops.nn\n"
+        "import mxnet_tpu_torch.ops.matrix, mxnet_tpu_torch.ops.elemwise\n"
+        "import mxnet_tpu_torch.ops.init_op, mxnet_tpu_torch.ops.indexing\n"
+        "import mxnet_tpu_torch.ops.optimizer_op\n"
+        "import mxnet_tpu_torch.symbol, mxnet_tpu_torch.executor\n"
+        "import mxnet_tpu_torch.initializer, mxnet_tpu_torch.optimizer\n"
+        "import mxnet_tpu_torch.io, mxnet_tpu_torch.metric\n"
+        "import mxnet_tpu_torch.module, mxnet_tpu_torch.module.base_module\n"
+        "from mxnet_tpu_torch.module import Module\n"
         "from mxnet_tpu_torch.serve import GenerativeServer\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'mxnet_tpu'))\n"
