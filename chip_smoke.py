@@ -8,9 +8,10 @@ Run from the root of a checkout, on a machine with one H100:
 Phases, each fatal on failure (exit code 1, no result line):
 
 1. card: ``nvidia-smi`` name and power limit, ``torch`` device name;
-2. build: every CUDA source under ``mxnet_tpu_torch/csrc`` with
-   ``nvcc`` (all started together), with the compiler's register and
-   shared-memory report;
+2. build: every CUDA source under ``mxnet_tpu_torch/csrc`` and the five
+   user-kernel sources of ``mxnet_tpu_torch/rtc_examples.py`` (through
+   ``rtc.CudaModule``) with ``nvcc``, all started together, with the
+   compiler's register and shared-memory report;
 3. kernels: each kernel of the serving path against its plain PyTorch
    version on the card, at the shapes that path gives it, and timed
    beside that plain version, one library call and its bound;
@@ -41,6 +42,21 @@ Phases, each fatal on failure (exit code 1, no result line):
    thirteenth: each attention kernel must have run once per layer per
    step. The step-1 cross-entropy is held against an independent plain
    float32 forward of the same initial weights, and the loss must fall.
+7. rtc: the user-kernel tier. Each of the five kernels of
+   ``rtc_examples`` (``scale_add``, ``relu``, ``split``,
+   ``softmax_rows``, ``softmax_ce_grad``) against its plain version on
+   the card and timed beside it, one library call and its bound, and
+   ``scale_add`` once more from a thread torch never used. Then the
+   counted path: ``scale_add`` through ``UserKernel.__call__``,
+   ``relu`` through ``nd.<op>`` and ``sym.<op>`` + ``simple_bind`` +
+   ``forward``, ``split`` (two outputs) through both, each equal to its
+   plain version; and a ``CustomOp`` loss head on ``softmax_rows`` /
+   ``softmax_ce_grad`` under ``FullyConnected(num_hidden=32000)`` (the
+   zoo LM's output projection) trained by ``Module._fit_step`` on one
+   fixed (8192, 2048) float32 batch: 13 steps, the step-1
+   cross-entropy held against an independent plain float32 forward, the
+   loss falling, and every kernel's launches equal to what the path
+   implies.
 
 The second-to-last line is the kernel table as one JSON object; the
 last is ``{"ok": true, "device": {...}}``. Without a GPU, or run from a
@@ -53,6 +69,7 @@ import json
 import math
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -99,6 +116,17 @@ TRAIN_WARM, TRAIN_TIMED = 2, 10
 # ln 32000 = 10.373, 0.059 from the expected 10.432
 CE_TOL = 1e-3
 
+# the rtc phase: the training step's hidden state (batch 8 x T 1024 rows
+# of d_model), its d_ff activation, and the LM head at full vocabulary
+RTC_STEPS_WARM, RTC_STEPS_TIMED = 3, 10
+# scale_add, relu, split and softmax_ce_grad round once in f32, as their
+# plain versions do: equal, or within 1e-6 max|ref|
+RTC_EXACT_RTOL = 1e-6
+# softmax_rows sums 32000 exponentials in another order than its plain
+# version (per-thread running sums merged by shuffles, against torch's
+# reduction) and rescales them: a few f32 roundings of each value
+RTC_SOFTMAX_RTOL = 1e-5
+
 
 class SmokeFailure(Exception):
     pass
@@ -131,14 +159,26 @@ def card_phase(torch):
 
 
 def build_phase():
-    from mxnet_tpu_torch import _build
+    """Every nvcc started together: the csrc libraries, and the user
+    kernels through rtc.CudaModule (one thread each; a later CudaModule
+    of the same source finds its cubin built)."""
+    from concurrent.futures import ThreadPoolExecutor
+    from mxnet_tpu_torch import _build, rtc, rtc_examples
     sources = sorted(p.name for p in _build.CSRC.glob("*.cu"))
     t0 = time.perf_counter()
-    _build.build(sources)
-    log("build: %d source(s) %s in %.2f s"
-        % (len(sources), sources, time.perf_counter() - t0))
+    with ThreadPoolExecutor(len(rtc_examples.SOURCES)) as pool:
+        futures = {name: pool.submit(rtc.CudaModule, src)
+                   for name, src in rtc_examples.SOURCES.items()}
+        _build.build(sources)
+        modules = {name: f.result() for name, f in futures.items()}
+    log("build: %d source(s) %s and %d rtc module(s) %s in %.2f s"
+        % (len(sources), sources, len(modules), sorted(modules),
+           time.perf_counter() - t0))
     for s in sources:
         log(_build.build_log(s).strip())
+    for name, module in modules.items():
+        log("rtc %s (%s): %s" % (name, module.cubin.name,
+                                 module.build_log.strip()))
 
 
 def time_ms(torch, fn, iters: int = 20) -> float:
@@ -284,9 +324,11 @@ def report(what, srv, outs, wall):
 def device_breakdown(torch, prof, wall, what="slice"):
     """Kernel time by name from a torch.profiler trace, and the device's
     busy share of the window's wall time; returns the CUDA rows and the
-    busy time in ms."""
+    busy time in ms. A scheduled trace's ProfilerStep span lies on the
+    device's timeline too, over the kernels it holds: it is left out."""
     rows = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.key.startswith("ProfilerStep")]
     busy_us = sum(e.self_device_time_total for e in rows)
     log("%s profiled: device busy %.3f ms of %.3f ms wall (%.1f%%), "
         "idle share %.3f" % (what, busy_us / 1e3, wall * 1e3,
@@ -736,6 +778,297 @@ def train_phase(torch, np, kernels):
         kernels[name]["launches"] = n["bf16"]
 
 
+def rtc_kernels():
+    """The five user kernels at the main path's shapes."""
+    from mxnet_tpu_torch import rtc_examples as ex
+    rows = TRAIN_BATCH * MAX_SEQ
+    return {
+        "scale_add": ex.scale_add((rows, D_MODEL)),
+        "relu": ex.relu((rows, D_FF)),
+        "split": ex.split((rows, D_MODEL)),
+        "softmax_rows": ex.softmax_rows(rows, VOCAB),
+        "softmax_ce_grad": ex.softmax_ce_grad(rows, VOCAB),
+    }
+
+
+def rtc_check_and_time(torch, kerns):
+    """Each kernel against its plain version on the same inputs, then
+    timed beside it, one library call and its bound (the bytes of each
+    input read once and each output written once, or its operations at
+    the f32 peak). These launches are not the counted path."""
+    import torch.nn.functional as F
+    from mxnet_tpu_torch import rtc_examples as ex
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    rows = TRAIN_BATCH * MAX_SEQ
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    h, a = randn(rows, D_MODEL), randn(rows, D_MODEL)
+    act = randn(rows, D_FF)
+    logits = randn(rows, VOCAB)
+    p = ex.softmax_rows_plain(logits)
+    labels = torch.randint(0, VOCAB, (rows,), generator=gen,
+                           device=dev).float()
+    cases = {
+        # name: (inputs, plain, library call, its description, flop/elem)
+        "scale_add": ((h, a), ex.scale_add_plain,
+                      lambda: torch.add(a, h, alpha=2),
+                      "torch.add(y, x, alpha=2)", 2),
+        "relu": ((act,), ex.relu_plain, lambda: torch.relu(act),
+                 "torch.relu", 1),
+        "split": ((h,), ex.split_plain,
+                  lambda: (torch.mul(h, 2), torch.add(h, 1)),
+                  "torch.mul + torch.add (two calls)", 2),
+        "softmax_rows": ((logits,), ex.softmax_rows_plain,
+                         lambda: torch.softmax(logits, dim=1),
+                         "torch.softmax(dim=1)", 5),
+        "softmax_ce_grad": ((p, labels), ex.softmax_ce_grad_plain,
+                            lambda: p - F.one_hot(labels.long(), VOCAB),
+                            "p - F.one_hot (two calls)", 1),
+    }
+    table = {}
+    for name, (ins, plain, library, lib_desc, flop_per) in cases.items():
+        kern = kerns[name]
+        got = kern.run(ins)
+        want = plain(*ins)
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        torch.cuda.synchronize()
+        err = max((g - w).abs().max().item() for g, w in zip(got, want))
+        top = max(w.abs().max().item() for w in want)
+        rtol = RTC_SOFTMAX_RTOL if name == "softmax_rows" else RTC_EXACT_RTOL
+        log("rtc %s %s: max_abs_err %.4g of max|ref| %.4g (limit %.3g)"
+            % (name, "x".join(map(str, ins[0].shape)), err, top, rtol * top))
+        check(err <= rtol * top, "rtc kernel %s disagrees with its plain "
+              "version: %g > %g" % (name, err, rtol * top))
+        nbytes = sum(t.numel() * t.element_size() for t in ins + got)
+        flops = flop_per * got[0].numel()
+        t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_FP32_FLOPS
+        del got, want
+        ms = time_ms(torch, lambda: kern.run(ins))
+        plain_ms = time_ms(torch, lambda: plain(*ins))
+        library_ms = time_ms(torch, library)
+        bound_ms = max(t_bytes, t_ops) * 1e3
+        bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        log("rtc %s: kernel_ms=%.4f plain_ms=%.4f library_ms=%.4f (%s) "
+            "bound_ms=%.4f (%s: %.1f MB at 3.35 TB/s; %.2f GFLOP at 67 "
+            "TFLOP/s f32 = %.4f ms); %.0f GB/s, %.1f%% of the bound"
+            % (name, ms, plain_ms, library_ms, lib_desc, bound_ms, bound_by,
+               nbytes / 1e6, flops / 1e9, t_ops * 1e3, nbytes / ms / 1e6,
+               100 * bound_ms / ms))
+        table[name] = {
+            "name": "rtc_" + name, "route": "cuda",
+            "source": "mxnet_tpu_torch/rtc_examples.py",
+            "replaces": "mxnet_tpu/rtc.py:96",
+            "tpu_kernel": "rtc.py:PallasKernel._build",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms, "library": lib_desc}
+    # a thread torch never used (a server's worker): the launch must make
+    # torch's context current there first (_cuda_driver.make_current)
+    box = {}
+    worker = threading.Thread(target=lambda: box.update(
+        out=kerns["scale_add"].run((h, a))))
+    worker.start()
+    worker.join()
+    check("out" in box, "rtc scale_add failed on a new thread")
+    log("rtc scale_add on a thread torch never used: max_abs_err %.3g"
+        % rtc_equal("scale_add on a new thread", box["out"],
+                    ex.scale_add_plain(h, a)))
+    del h, a, act, logits, p, labels, box
+    gc.collect()
+    torch.cuda.empty_cache()
+    return table
+
+
+def rtc_equal(name, got, want):
+    err = (got - want).abs().max().item()
+    top = want.abs().max().item()
+    check(err <= RTC_EXACT_RTOL * top, "%s: max_abs_err %g > %g"
+          % (name, err, RTC_EXACT_RTOL * top))
+    return err
+
+
+def rtc_paths(torch, kerns):
+    """The counted path's first part: each kernel through the entry
+    points a user calls, each result held against its plain version."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import rtc_examples as ex
+    dev = torch.device(DEVICE)
+    rng = torch.Generator(device=dev).manual_seed(SEED + 4)
+    rows = TRAIN_BATCH * MAX_SEQ
+    x = torch.randn((rows, D_MODEL), generator=rng, device=dev)
+    y = torch.randn((rows, D_MODEL), generator=rng, device=dev)
+    act = torch.randn((rows, D_FF), generator=rng, device=dev)
+    errs = {}
+    out = kerns["scale_add"](mt.nd.NDArray(x), mt.nd.NDArray(y))
+    errs["scale_add UserKernel()"] = rtc_equal(
+        "scale_add", out.data, ex.scale_add_plain(x, y))
+    want = ex.relu_plain(act)
+    out = mt.nd.smoke_rtc_relu(mt.nd.array(act, ctx=dev))
+    errs["relu nd"] = rtc_equal("relu via nd", out.data, want)
+    s = mt.sym.smoke_rtc_relu(mt.sym.Variable("data"))
+    exe = s.simple_bind(ctx=dev, grad_req="null", data=(rows, D_FF))
+    exe.arg_dict["data"][:] = act
+    errs["relu sym"] = rtc_equal("relu via sym", exe.forward()[0].data,
+                                 want)
+    del exe, out, want
+    wa, wb = ex.split_plain(x)
+    a, b = mt.nd.smoke_rtc_split(mt.nd.NDArray(x))
+    errs["split nd"] = max(rtc_equal("split[0] via nd", a.data, wa),
+                           rtc_equal("split[1] via nd", b.data, wb))
+    s = mt.sym.smoke_rtc_split(mt.sym.Variable("data"))
+    check(len(s.list_outputs()) == 2, "split symbol lists %s"
+          % s.list_outputs())
+    exe = s.simple_bind(ctx=dev, grad_req="null", data=(rows, D_MODEL))
+    exe.arg_dict["data"][:] = x
+    outs = exe.forward()
+    check(len(outs) == 2, "split executor returned %d outputs" % len(outs))
+    errs["split sym"] = max(rtc_equal("split[0] via sym", outs[0].data, wa),
+                            rtc_equal("split[1] via sym", outs[1].data, wb))
+    torch.cuda.synchronize()
+    log("rtc paths: max_abs_err %s; split symbol outputs %s"
+        % (", ".join("%s %.3g" % kv for kv in errs.items()),
+           s.list_outputs()))
+    del x, y, act, a, b, wa, wb, exe, outs
+
+
+def rtc_train(torch, np, kerns):
+    """The counted path's second part: the CustomOp head on the two row
+    kernels under a 32000-wide FullyConnected, trained by Module for
+    13 steps. The launch counters are read after the 13th step; two more
+    steps then run under the profiler, the second traced. Returns the
+    readings."""
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+    import mxnet_tpu_torch as mt
+    rows = TRAIN_BATCH * MAX_SEQ
+    dev = torch.device(DEVICE)
+    data, label = mt.sym.Variable("data"), mt.sym.Variable("label")
+    head = mt.sym.FullyConnected(data, num_hidden=VOCAB, name="head")
+    net = mt.sym.Custom(head, label, op_type="smoke_rtc_softmax_loss",
+                        name="loss")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mod = mt.mod.Module(net, context=dev, data_names=["data"],
+                        label_names=["label"])
+    mod.bind(data_shapes=[("data", (rows, D_MODEL))],
+             label_shapes=[("label", (rows,))])
+    mod.init_params(mt.init.Xavier().set_rng(np.random.default_rng(SEED)))
+    mod.init_optimizer(optimizer="sgd",
+                       optimizer_params={"learning_rate": TRAIN_LR})
+    torch.cuda.synchronize()
+    bind_s = time.perf_counter() - t0
+    rng = np.random.RandomState(0)
+    x = rng.randn(rows, D_MODEL).astype(np.float32)
+    y = rng.randint(0, VOCAB, rows).astype(np.float32)
+    db = mt.io.DataBatch(data=[mt.nd.array(x, ctx=dev)],
+                         label=[mt.nd.array(y, ctx=dev)])
+    y_idx = torch.from_numpy(y).to(dev).long().view(-1, 1)
+    with torch.no_grad():
+        params = {n: a.data for n, a in mod.get_params()[0].items()}
+        logits = F.linear(torch.from_numpy(x).to(dev), params["head_weight"],
+                          params["head_bias"])
+        want = F.cross_entropy(logits, y_idx.view(-1)).item()
+        del params, logits
+
+    def step():
+        mod._fit_step(db)
+        p = mod.get_outputs()[0].data
+        return -(p.gather(1, y_idx) + 1e-12).log().mean()
+
+    t0 = time.perf_counter()
+    losses = [step()]
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    for _ in range(RTC_STEPS_WARM - 1):
+        losses.append(step())
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(RTC_STEPS_TIMED):
+        losses.append(step())
+    end.record()
+    torch.cuda.synchronize()
+    step_ms = start.elapsed_time(end) / RTC_STEPS_TIMED
+    launches = {name: kern.launches for name, kern in kerns.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # a warm-up step under the profiler first: traced alone, the step
+    # lost its first ~20 ms of device activity (one of its two GEMMs),
+    # which the step's CUDA events counted
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=torch.profiler.schedule(wait=0, warmup=1, active=1,
+                                                  repeat=1)) as prof:
+        step()
+        torch.cuda.synchronize()
+        prof.step()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        prof.step()
+    device_breakdown(torch, prof, wall, "rtc head step")
+    return {"losses": [float(v) for v in torch.stack(losses).cpu()],
+            "want": want, "step_ms": step_ms, "bind_s": bind_s,
+            "first_s": first_s, "launches": launches, "peak_gb": peak_gb}
+
+
+def rtc_phase(torch, np, kernels):
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import rtc_examples as ex
+    gc.collect()
+    torch.cuda.empty_cache()
+    kerns = rtc_kernels()
+    kerns["relu"].register("smoke_rtc_relu")
+    kerns["split"].register("smoke_rtc_split")
+    mt.operator.register("smoke_rtc_softmax_loss")(ex.softmax_loss_prop(
+        kerns["softmax_rows"], kerns["softmax_ce_grad"]))
+    table = rtc_check_and_time(torch, kerns)
+
+    # the main path: counters zeroed just before, read just after
+    for kern in kerns.values():
+        kern.launches = 0
+    rtc_paths(torch, kerns)
+    run = rtc_train(torch, np, kerns)
+    gc.collect()
+    torch.cuda.empty_cache()
+    losses, want, launches = run["losses"], run["want"], run["launches"]
+    n_steps = len(losses)
+    rows = TRAIN_BATCH * MAX_SEQ
+    # the forward and the weight-gradient GEMMs: the data takes no
+    # gradient (Module binds its inputs with grad_req "null")
+    flops = 4.0 * rows * D_MODEL * VOCAB
+    log("rtc train: head FullyConnected(%d) + CustomOp on softmax_rows / "
+        "softmax_ce_grad, batch (%d, %d) f32: bind %.3f s, first step %.3f "
+        "s, step %.3f ms (%d steps between CUDA events; %.1f TFLOP/s of "
+        "the head's two f32 GEMMs, %.4g TFLOP); peak memory %.3f GB"
+        % (VOCAB, rows, D_MODEL, run["bind_s"], run["first_s"],
+           run["step_ms"], RTC_STEPS_TIMED,
+           flops / (run["step_ms"] / 1e3) / 1e12, flops / 1e12,
+           run["peak_gb"]))
+    log("rtc train: loss per step %s" % " ".join("%.6f" % v for v in losses))
+    log("rtc train: step-1 cross-entropy %.6f, plain f32 forward %.6f "
+        "(|diff| %.3g, tolerance %g); launches %s over %d steps"
+        % (losses[0], want, abs(losses[0] - want), CE_TOL, launches,
+           n_steps))
+    check(all(math.isfinite(v) for v in losses), "non-finite loss %s"
+          % losses)
+    check(losses[-1] < losses[0], "rtc head loss did not fall: %s" % losses)
+    check(abs(losses[0] - want) <= CE_TOL, "rtc head step-1 loss %g vs "
+          "plain forward %g" % (losses[0], want))
+    # scale_add once through UserKernel(); relu and split once through
+    # nd and once through sym; the head's two kernels once per step
+    expected = {"scale_add": 1, "relu": 2, "split": 2,
+                "softmax_rows": n_steps, "softmax_ce_grad": n_steps}
+    check(launches == expected, "rtc launches %s, the path implies %s"
+          % (launches, expected))
+    for name, entry in table.items():
+        entry["launches"] = launches[name]
+        kernels[entry["name"]] = entry
+
+
 def main() -> int:
     if not (ROOT / "mxnet_tpu_torch" / "csrc").is_dir():
         print("chip_smoke: run from a checkout of the repository "
@@ -752,6 +1085,7 @@ def main() -> int:
         slice_phase(torch, np, kernels)
         train_kernel_phase(torch, kernels)
         train_phase(torch, np, kernels)
+        rtc_phase(torch, np, kernels)
         torch.cuda.synchronize()
     except SmokeFailure as exc:
         print("chip_smoke: FAILED: %s" % exc, file=sys.stderr)

@@ -8,7 +8,8 @@ never ``jax`` and nothing of ``mxnet_tpu``; the few jax-free modules it
 needs from the reference are copied in.
 
 Entry points run on ``cuda:0`` unless the caller passes
-``device="cpu"``; without a GPU and without that request they raise.
+``device="cpu"`` (``ctx=cpu()``) or enters ``device_scope("cpu")``;
+without a GPU and without that request they raise.
 
 Ported so far:
 
@@ -18,21 +19,26 @@ Ported so far:
   layer (:mod:`.symbol`, :mod:`.executor`), with amp bf16
   (:mod:`.amp`), the SGD optimizer (:mod:`.optimizer`) and flash
   attention's forward, dQ and dK/dV kernels
-  (:mod:`.ops.flash_attention`).
+  (:mod:`.ops.flash_attention`);
+* the user-kernel tier: CUDA C++ compiled at run time (:mod:`.rtc`),
+  callable on NDArrays and registrable as ``nd.<op>`` / ``sym.<op>``,
+  and custom operators (:mod:`.operator`), with the ``nd.<op>`` and
+  :mod:`.contrib` namespaces.
 """
 from __future__ import annotations
 
-from . import amp
+from . import amp, contrib
 from . import initializer as init
 from . import io, metric
 from . import module as mod
 from . import ndarray as nd
-from . import optimizer
+from . import operator, optimizer, rtc
 from . import symbol as sym
 from .base import MXNetError
-from .context import cpu, gpu
+from .context import cpu, current_device, device_scope, gpu
 
-__all__ = ["MXNetError", "cpu", "gpu", "amp", "init", "io", "metric", "mod",
-           "nd", "optimizer", "sym"]
+__all__ = ["MXNetError", "cpu", "gpu", "device_scope", "current_device",
+           "amp", "contrib", "init", "io", "metric", "mod", "nd", "operator",
+           "optimizer", "rtc", "sym"]
 
 __version__ = "0.1.0"

@@ -8,6 +8,10 @@ included, so a build takes seconds, not minutes. Libraries land in
 headers (``csrc/*.cuh``) and the flags, so an edited source or header
 is rebuilt and an unchanged one is loaded as it is. Nothing is built at import: the first wrapper call on a CUDA
 tensor builds its library, or :func:`build` builds several at once.
+
+:func:`build_cubin` compiles a user's kernel source (``rtc``) the same
+way into a cubin under ``build/rtc/``, named by a hash of the source and
+the options, with the compiler's report beside it.
 """
 from __future__ import annotations
 
@@ -22,13 +26,17 @@ from typing import Dict, List, Sequence
 
 from .base import MXNetError
 
-__all__ = ["build", "load", "build_log", "NVCC_FLAGS"]
+__all__ = ["build", "load", "build_log", "build_cubin", "cubin_path",
+           "NVCC_FLAGS", "CUBIN_FLAGS"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
+RTC_DIR = BUILD_DIR / "rtc"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+CUBIN_FLAGS = ("-cubin", "-gencode", "arch=compute_90a,code=sm_90a",
+               "-std=c++17", "-O3", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -102,3 +110,43 @@ def load(source: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build([source])[0]))
             _libs[source] = lib
         return lib
+
+
+def cubin_path(source_text: str, options: Sequence[str] = ()) -> Path:
+    """Where :func:`build_cubin` puts the cubin of this source and these
+    options: ``build/rtc/<sha256 of source and options>.cubin``."""
+    h = hashlib.sha256(source_text.encode())
+    h.update("\0".join((*CUBIN_FLAGS, *options)).encode())
+    return RTC_DIR / (h.hexdigest() + ".cubin")
+
+
+def build_cubin(source_text: str, options: Sequence[str] = ()) -> Path:
+    """Compile a CUDA source string for ``sm_90a`` into a cubin (the
+    ``rtc`` tier), unless an up-to-date one exists; returns its path.
+    The source is kept beside it as ``.cu`` and the compiler's output
+    (``-Xptxas -v``) as ``.log``. Safe to call from several threads or
+    processes at once: each compiles into its own temporary file and
+    renames it into place. Raises :class:`MXNetError` when ``nvcc`` is
+    missing or fails, with the compiler's output."""
+    out = cubin_path(source_text, options)
+    if out.exists():
+        return out
+    nvcc = _nvcc()
+    RTC_DIR.mkdir(parents=True, exist_ok=True)
+    tag = "%d.%d.tmp" % (os.getpid(), threading.get_ident())
+    src = out.with_suffix(".cu")
+    tmp_src = src.with_name("%s.%s.cu" % (src.stem, tag))
+    tmp_src.write_text(source_text)
+    os.replace(tmp_src, src)
+    tmp = out.with_name("%s.%s" % (out.name, tag))
+    proc = subprocess.run([nvcc, *CUBIN_FLAGS, *options, "-o", str(tmp),
+                           str(src)], stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True)
+    out.with_suffix(".log").write_text(proc.stdout)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise MXNetError("user CUDA kernel build failed (nvcc exit %d, "
+                         "source %s):\n%s" % (proc.returncode, src,
+                                               proc.stdout))
+    os.replace(tmp, out)     # atomic: a reader never sees half a file
+    return out

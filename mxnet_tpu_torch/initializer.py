@@ -6,7 +6,8 @@ there too, but importing it would run the reference package's
 dispatch of ``Initializer``, and ``Uniform``, ``Xavier``, ``Zero`` and
 ``One``. Draws come from numpy, so the same initializer
 with the same ``set_rng`` generator gives the same weights in both
-packages.
+packages; they are staged on the host (``ctx=cpu()``) and copied into
+the array on its device.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ from typing import Dict
 import numpy as np
 
 from . import ndarray as nd
+from .context import cpu
 from .ndarray import NDArray
 
 __all__ = ["InitDesc", "Initializer", "Uniform", "Xavier", "One", "Zero",
@@ -141,7 +143,8 @@ class Uniform(Initializer):
 
     def _init_weight(self, name, arr):
         arr[:] = nd.array(self.rng.uniform(-self.scale, self.scale,
-                                            arr.shape).astype(np.float32))
+                                            arr.shape).astype(np.float32),
+                          ctx=cpu())
 
 
 @register
@@ -175,9 +178,11 @@ class Xavier(Initializer):
         scale = np.sqrt(self.magnitude / factor)
         if self.rnd_type == "uniform":
             arr[:] = nd.array(self.rng.uniform(-scale, scale,
-                                                shape).astype(np.float32))
+                                                shape).astype(np.float32),
+                              ctx=cpu())
         elif self.rnd_type == "gaussian":
             arr[:] = nd.array(self.rng.normal(0, scale,
-                                               shape).astype(np.float32))
+                                               shape).astype(np.float32),
+                              ctx=cpu())
         else:
             raise ValueError("Unknown random type")

@@ -2,8 +2,9 @@
 ``NDArrayIter``.
 
 The port's own copy of those classes of the reference's ``io/io.py``
-(numpy-based there too). A batch holds the port's NDArrays; the module
-copies them onto its device when it loads the batch.
+(numpy-based there too). A batch holds the port's NDArrays on the host,
+as MXNet's iterators hand out host batches; the module copies them onto
+its device when it loads the batch.
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ from typing import List
 import numpy as np
 
 from .. import ndarray as nd
+from ..context import cpu
 from ..ndarray import NDArray
 
 __all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter"]
@@ -168,10 +170,10 @@ class NDArrayIter(DataIter):
         assert self.cursor < self.num_data, "DataIter needs reset."
         if self.cursor + self.batch_size <= self.num_data:
             return [nd.array(v[self.cursor:self.cursor + self.batch_size],
-                             dtype=v.dtype) for _, v in data_source]
+                             ctx=cpu(), dtype=v.dtype) for _, v in data_source]
         pad = self.batch_size - self.num_data + self.cursor
         return [nd.array(np.concatenate([v[self.cursor:], v[:pad]], axis=0),
-                         dtype=v.dtype) for _, v in data_source]
+                         ctx=cpu(), dtype=v.dtype) for _, v in data_source]
 
     def getdata(self):
         return self._getdata(self.data)

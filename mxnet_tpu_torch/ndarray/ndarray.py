@@ -1,11 +1,18 @@
 """A minimal NDArray over a torch tensor.
 
 The port's counterpart of the reference's ``ndarray/ndarray.py``, as far
-as the training path needs it: ``DataBatch`` payloads, an executor's
-``arg_dict``/``grad_dict``/``outputs`` and ``Module.get_params``. The
+as the ported paths need it: ``DataBatch`` payloads, an executor's
+``arg_dict``/``grad_dict``/``outputs``, ``Module.get_params``, the
+arrays a custom op's ``forward``/``backward`` receive (with ``+ - * /``)
+and :func:`imperative_invoke`, behind every ``nd.<op>``. The
 reference's arrays are immutable jax values that an assignment replaces;
 here an assignment writes into the tensor in place (``arr[:] = x`` is a
 ``copy_``), so a tensor bound into an executor sees every update.
+
+An array made from host data with no ``ctx`` lands on the current
+device (``context.current_device``): the innermost ``device_scope``,
+else ``cuda:0``, and without a GPU the call raises. An array over a
+tensor stays on that tensor's device.
 """
 from __future__ import annotations
 
@@ -15,9 +22,10 @@ import numpy as np
 import torch
 
 from ..base import MXNetError
-from ..context import DeviceLike
+from ..context import DeviceLike, resolve_device
 
-__all__ = ["NDArray", "array", "zeros", "to_torch_dtype", "to_numpy_dtype"]
+__all__ = ["NDArray", "array", "zeros", "imperative_invoke",
+           "to_torch_dtype", "to_numpy_dtype"]
 
 _NP_TO_TORCH = {
     np.dtype(np.float32): torch.float32,
@@ -52,7 +60,7 @@ def to_numpy_dtype(dtype: torch.dtype):
 
 def _device(ctx: DeviceLike) -> torch.device:
     if ctx is None:
-        return torch.device("cpu")
+        return resolve_device(None)
     return torch.device(ctx) if not isinstance(ctx, torch.device) else ctx
 
 
@@ -99,10 +107,12 @@ class NDArray:
 
     # ------------------------------------------------------------ transfer
     def asnumpy(self) -> np.ndarray:
+        """A numpy copy (never a view of the array's memory)."""
         t = self._data.detach()
         if t.dtype == torch.bfloat16:
             t = t.float()
-        return t.cpu().numpy()
+        arr = t.cpu().numpy()
+        return arr.copy() if t.device.type == "cpu" else arr
 
     def copyto(self, other: Union["NDArray", DeviceLike]) -> "NDArray":
         """Copy into ``other`` (an NDArray: its device and dtype win), or
@@ -128,6 +138,65 @@ class NDArray:
                                            self._data.dtype)
             else:
                 self._data[key] = value
+
+    # ------------------------------------------------------------ arithmetic
+    def _operand(self, other):
+        if isinstance(other, NDArray):
+            return other._data
+        if isinstance(other, torch.Tensor) or np.isscalar(other):
+            return other
+        return torch.as_tensor(np.asarray(other), device=self._data.device)
+
+    def __add__(self, other):
+        return NDArray(self._data + self._operand(other))
+
+    __radd__ = __add__
+
+    def __sub__(self, other):
+        return NDArray(self._data - self._operand(other))
+
+    def __rsub__(self, other):
+        return NDArray(self._operand(other) - self._data)
+
+    def __mul__(self, other):
+        return NDArray(self._data * self._operand(other))
+
+    __rmul__ = __mul__
+
+    def __truediv__(self, other):
+        return NDArray(self._data / self._operand(other))
+
+    def __rtruediv__(self, other):
+        return NDArray(self._operand(other) / self._data)
+
+    def __neg__(self):
+        return NDArray(-self._data)
+
+
+def imperative_invoke(op, *args, out=None, ctx: DeviceLike = None, **attrs):
+    """Run a registered op eagerly: NDArrays are unwrapped to their
+    tensors, the op's function runs on them, and each output comes back
+    as an NDArray (a tuple for an op with several outputs). An op with no
+    array input creates its result on ``ctx`` (None: the current
+    device). ``out`` (an NDArray or a list) receives the results in
+    place."""
+    tensors = [a._data if isinstance(a, NDArray) else a for a in args]
+    attrs.pop("name", None)     # a symbol-layer attribute
+    if op.num_inputs == 0 and not any(isinstance(t, torch.Tensor)
+                                      for t in tensors):
+        attrs["_device"] = resolve_device(ctx)
+    outputs = op.fn(*tensors, **attrs)
+    single = not isinstance(outputs, tuple)
+    results = [NDArray(o) for o in ((outputs,) if single else outputs)]
+    if out is not None:
+        dsts = list(out) if isinstance(out, (list, tuple)) else [out]
+        if len(dsts) != len(results):
+            raise MXNetError("%s: %d outputs, out= has %d"
+                             % (op.name, len(results), len(dsts)))
+        for dst, src in zip(dsts, results):
+            dst[:] = src
+        results = dsts
+    return results[0] if single else tuple(results)
 
 
 def array(source_array, ctx: DeviceLike = None, dtype=None) -> NDArray:

@@ -11,12 +11,19 @@ backward, flash attention) are ``torch.autograd.Function``\\ s.
 
 Ops without array inputs (``num_inputs=0``, e.g. ``_arange``) take the
 device to create their result on as the keyword ``_device``.
+
+An op with several outputs returns a tuple and declares
+``num_outputs`` (an int, or a function of the node's attributes); a
+Symbol node of it has that many outputs. An op whose function cannot run
+on meta tensors (a user kernel, a custom op) declares ``meta_fn``, a
+function of the same arguments that returns meta tensors of the output
+shapes, and ``infer_shape`` calls it instead.
 """
 from __future__ import annotations
 
 import functools
 import inspect
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Union
 
 __all__ = ["OpDef", "register", "get_op", "OP_REGISTRY"]
 
@@ -27,10 +34,17 @@ class OpDef:
     """A registered operator: ``fn(*tensors, **attrs)``."""
 
     def __init__(self, name: str, fn: Callable,
-                 num_inputs: Optional[int] = 1):
+                 num_inputs: Optional[int] = 1,
+                 num_outputs: Union[int, Callable] = 1,
+                 meta_fn: Optional[Callable] = None):
         self.name = name
         self.fn = fn
         self.num_inputs = num_inputs
+        self.num_outputs = num_outputs
+        self.meta_fn = meta_fn
+        # an op whose inputs depend on its attributes (Custom: the Prop
+        # lists them) sets this to a function of the attributes
+        self.input_names_fn: Optional[Callable] = None
         self.aliases: List[str] = [name]
         self.__doc__ = fn.__doc__
         self._input_names: Optional[List[str]] = None
@@ -81,12 +95,15 @@ OP_REGISTRY: Dict[str, OpDef] = {}
 
 
 def register(name: Optional[str] = None, num_inputs: Optional[int] = 1,
-             aliases: Sequence[str] = ()):
+             aliases: Sequence[str] = (),
+             num_outputs: Union[int, Callable] = 1,
+             meta_fn: Optional[Callable] = None):
     """Decorator: register a function over tensors as an op."""
 
     def _reg(fn: Callable) -> OpDef:
         opname = name or fn.__name__
-        op = OpDef(opname, fn, num_inputs=num_inputs)
+        op = OpDef(opname, fn, num_inputs=num_inputs,
+                   num_outputs=num_outputs, meta_fn=meta_fn)
         for n in (opname,) + tuple(aliases):
             if n in OP_REGISTRY:
                 raise ValueError("Op %s already registered" % n)

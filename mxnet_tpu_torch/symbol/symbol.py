@@ -1,9 +1,15 @@
 """Symbol — the declarative graph API, over the port's op registry.
 
 The port's counterpart of the reference's ``symbol/symbol.py``, as far
-as the training path needs it: ``Variable``, one function per op,
+as the ported paths need it: ``Variable``, one function per op,
 operators (``x + h``, ``future * -1e9``), ``list_arguments`` /
 ``list_outputs``, ``infer_shape`` and JSON save and load.
+
+* A node of an op with several outputs (``OpDef.num_outputs``: a user
+  kernel's ``split``, a custom op) is a Symbol with one entry per
+  output, named ``<name>_output``, ``<name>_output1``, ... as in the
+  reference; ``sym[i]`` (or ``sym["<name>_output1"]``) is one of them,
+  and may be the input of another op.
 
 * ``infer_shape`` derives parameter shapes from the data shapes alone
   with the reference's per-op rules (``_derive_param_shapes``) and
@@ -133,6 +139,22 @@ class Symbol:
 
     def __repr__(self):
         return "<Symbol %s>" % ", ".join(n.name for n, _ in self._entries)
+
+    def __len__(self):
+        return len(self._entries)
+
+    def __iter__(self):
+        return (self[i] for i in range(len(self._entries)))
+
+    def __getitem__(self, idx) -> "Symbol":
+        """One output, by position or by its ``list_outputs`` name."""
+        if isinstance(idx, str):
+            outputs = self.list_outputs()
+            if idx not in outputs:
+                raise ValueError("output %s not found (have %s)"
+                                 % (idx, outputs))
+            idx = outputs.index(idx)
+        return Symbol([self._entries[idx]])
 
     # ------------------------------------------------------------ listing
     def list_arguments(self) -> List[str]:
@@ -293,16 +315,24 @@ def Variable(name: str, attr=None, shape=None, dtype=None, init=None,
     return Symbol([(node, 0)])
 
 
+def _num_visible_outputs(op: OpDef, attrs: Dict[str, Any]) -> int:
+    nout = op.num_outputs
+    return int(nout(attrs) if callable(nout) else nout)
+
+
 def _create(op: OpDef, input_syms: List[Symbol], attrs: Dict[str, Any],
             name: Optional[str]) -> Symbol:
+    """An op node with one Symbol entry per output."""
     name = current_name_manager().get(name, op.name.lower().replace("_", ""))
     entries = []
     for s in input_syms:
         if len(s._entries) != 1:
-            raise MXNetError("op %s input must be single-output symbol"
-                             % op.name)
+            raise MXNetError("op %s input must be single-output symbol "
+                             "(pick one output with sym[i])" % op.name)
         entries.append(s._entries[0])
-    return Symbol([(_Node(op, name, attrs, entries), 0)])
+    node = _Node(op, name, attrs, entries)
+    return Symbol([(node, i) for i in range(_num_visible_outputs(op,
+                                                                 attrs))])
 
 
 def make_symbol_function(op: OpDef):
@@ -311,12 +341,18 @@ def make_symbol_function(op: OpDef):
     parameters at the same position, and missing weight/bias/label
     inputs become Variables named ``<name>_<input>``, as in the
     reference."""
-    input_names = op.input_names
-
     def fn(*args, **kwargs):
         name = current_name_manager().get(kwargs.pop("name", None),
                                           op.name.lower().replace("_", ""))
-        if op.num_inputs is None and len(args) > 1 and all(
+        if op.input_names_fn is not None:
+            # Custom: the Prop named by the attributes lists the inputs
+            input_names = op.input_names_fn(
+                {k: v for k, v in kwargs.items()
+                 if not isinstance(v, Symbol)})
+        else:
+            input_names = op.input_names
+        if op.num_inputs is None and op.input_names_fn is None and \
+                len(args) > 1 and all(
                 isinstance(a, Symbol) for a in args) and \
                 not any(k in kwargs for k in input_names) and \
                 len(args) > len(input_names):
@@ -390,11 +426,15 @@ def load_json(json_str: str) -> Symbol:
 # ------------------------------------------------------------------ shapes
 
 def run_node(node: _Node, ins, is_train: bool, device):
-    """Execute one op node on tensors; returns a tuple of outputs."""
+    """Execute one op node on tensors; returns a tuple of outputs. An op
+    that takes ``_is_train`` (Custom) is told whether this is a training
+    pass."""
     attrs = dict(node.attrs)
     attrs.pop("name", None)
     if node.op.num_inputs == 0:
         attrs["_device"] = device
+    if "_is_train" in node.op.param_names:
+        attrs["_is_train"] = bool(is_train)
     outs = node.op.fn(*ins, **attrs)
     return outs if isinstance(outs, tuple) else (outs,)
 
@@ -459,6 +499,20 @@ def _propagate_shapes(sym: Symbol, known: Dict[str, Tuple[int, ...]]):
                 setvar(1, (int(a["input_dim"]), int(a["output_dim"])))
             elif opname == "SoftmaxOutput":
                 setvar(1, (ds[0],))
+            elif opname == "Custom":
+                # the user's Prop owns the shape rules; its infer_shape may
+                # reject partly unknown shapes, which only skips the
+                # derivation for this node (as in the reference)
+                from ..operator import _make_prop
+                try:
+                    ish, _, _ = _make_prop(a["op_type"], a).infer_shape(
+                        [list(shape_of(e)) if shape_of(e) is not None
+                         else None for e in node.inputs])
+                except Exception:                           # noqa: BLE001
+                    ish = []
+                for pos, shape in enumerate(ish):
+                    if shape is not None:
+                        setvar(pos, shape)
 
         in_shapes = [shape_of(e) for e in node.inputs]
         if any(s is None for s in in_shapes):

@@ -42,6 +42,12 @@ def test_importing_the_port_loads_no_jax():
         "import mxnet_tpu_torch.module, mxnet_tpu_torch.module.base_module\n"
         "from mxnet_tpu_torch.module import Module\n"
         "from mxnet_tpu_torch.serve import GenerativeServer\n"
+        "import mxnet_tpu_torch.rtc, mxnet_tpu_torch.rtc_examples\n"
+        "import mxnet_tpu_torch.operator, mxnet_tpu_torch.contrib\n"
+        "import mxnet_tpu_torch.contrib.ndarray\n"
+        "import mxnet_tpu_torch.contrib.symbol\n"
+        "import mxnet_tpu_torch._cuda_driver as driver\n"
+        "assert driver._lib is None   # libcuda loads at first use only\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'mxnet_tpu'))\n"
         "assert not bad, bad\n"

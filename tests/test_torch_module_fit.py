@@ -59,7 +59,8 @@ def _batches(seed, n):
 
 def _step_both(jm, pm, x, y):
     jm._fit_step(mx.io.DataBatch([mx.nd.array(x)], [mx.nd.array(y)]))
-    pm._fit_step(mt.io.DataBatch([mt.nd.array(x)], [mt.nd.array(y)]))
+    pm._fit_step(mt.io.DataBatch([mt.nd.array(x, ctx=mt.cpu())],
+                                 [mt.nd.array(y, ctx=mt.cpu())]))
     return jm.get_outputs()[0].asnumpy(), pm.get_outputs()[0].asnumpy()
 
 
@@ -115,9 +116,10 @@ def test_unfused_forward_backward_update_matches_fit_step():
     eager.set_params({k: v.asnumpy()
                       for k, v in fused.get_params()[0].items()})
     for x, y in _batches(2, 2):
-        fused._fit_step(mt.io.DataBatch([mt.nd.array(x)], [mt.nd.array(y)]))
-        eager.forward(mt.io.DataBatch([mt.nd.array(x)], [mt.nd.array(y)]),
-                      is_train=True)
+        batch = mt.io.DataBatch([mt.nd.array(x, ctx=mt.cpu())],
+                                [mt.nd.array(y, ctx=mt.cpu())])
+        fused._fit_step(batch)
+        eager.forward(batch, is_train=True)
         eager.backward()
         eager.update()
     for name, arr in fused.get_params()[0].items():
@@ -215,12 +217,12 @@ def test_sgd_per_parameter_and_fused_updates_match_reference(momentum):
     eager = mt.optimizer.get_updater(popt_eager)
     fused = mt.optimizer.get_updater(popt_fused)
     jw = [mx.nd.array(w) for w in ws]
-    ew = [mt.nd.array(w) for w in ws]
-    fw = [mt.nd.array(w) for w in ws]
+    ew = [mt.nd.array(w, ctx=mt.cpu()) for w in ws]
+    fw = [mt.nd.array(w, ctx=mt.cpu()) for w in ws]
     for step in gs:
         for i, g in enumerate(step):
             jup(i, mx.nd.array(g), jw[i])
-            eager(i, mt.nd.array(g), ew[i])
+            eager(i, mt.nd.array(g, ctx=mt.cpu()), ew[i])
         fused.update_multi([0, 1], fw, [torch.from_numpy(g) for g in step])
     for j, e, f in zip(jw, ew, fw):
         np.testing.assert_allclose(e.asnumpy(), j.asnumpy(), atol=1e-6)

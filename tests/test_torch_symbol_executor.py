@@ -86,7 +86,8 @@ def test_reference_json_loads_and_runs_to_same_outputs(attention):
     jex = js.bind(mx.cpu(), {n: mx.nd.array(a) for n, a in args.items()},
                   grad_req="null")
     want = jex.forward(is_train=False)[0].asnumpy()
-    pex = ps.bind(mt.cpu(), {n: mt.nd.array(a) for n, a in args.items()},
+    pex = ps.bind(mt.cpu(), {n: mt.nd.array(a, ctx=mt.cpu())
+                             for n, a in args.items()},
                   grad_req="null")
     got = pex.forward(is_train=False)[0].asnumpy()
     np.testing.assert_allclose(got, want, atol=ATOL)
