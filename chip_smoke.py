@@ -11,7 +11,11 @@ Phases, each fatal on failure (exit code 1, no result line):
 2. build: every CUDA source under ``mxnet_tpu_torch/csrc`` and the five
    user-kernel sources of ``mxnet_tpu_torch/rtc_examples.py`` (through
    ``rtc.CudaModule``) with ``nvcc``, all started together, with the
-   compiler's register and shared-memory report;
+   compiler's register and shared-memory report. The two kernels on
+   ``wgmma`` + TMA (the bf16 forward and dK/dV at head dims 64 and 128)
+   must spill nothing, and their SASS (``cuobjdump -sass``) must hold
+   HGMMA and UTMALDG instructions; without ``cuobjdump`` the log says
+   so;
 3. kernels: each kernel of the serving path against its plain PyTorch
    version on the card, at the shapes that path gives it, and timed
    beside that plain version, one library call and its bound;
@@ -30,9 +34,13 @@ Phases, each fatal on failure (exit code 1, no result line):
    and dK/dV backward kernels against their plain versions at the shape
    the training step gives them (batch 8 x 16 heads, S 1024, D 128,
    causal; bfloat16 and float32), plus a ragged length and a non-causal
-   case, each timed beside its plain version,
-   ``scaled_dot_product_attention`` (forward, and backward for the two
-   backward kernels together) and its bound;
+   case; an edge sweep of the two wgmma kernels (S 1, 65, 1000, 1024,
+   S != Sk both ways, causal and not, D 64 and 128, BH 1 and 128), each
+   case fatal; then each kernel timed as the median of 5 windows of 20
+   launches, with the windows' spread and the host's µs per call,
+   beside its plain version, ``scaled_dot_product_attention`` (forward,
+   and backward for the two backward kernels together, timed alike),
+   its bound, its TFLOP/s and its share of the bound;
 6. train: ``Module`` on the same model at ``bench.py``'s training
    configuration (batch 8, T 1024, ``attention="flash"``, amp bfloat16,
    Xavier weights from a numpy seed, SGD lr 0.01) on one fixed random
@@ -179,20 +187,113 @@ def build_phase():
     for name, module in modules.items():
         log("rtc %s (%s): %s" % (name, module.cubin.name,
                                  module.build_log.strip()))
+    wgmma_report(_build)
 
 
-def time_ms(torch, fn, iters: int = 20) -> float:
+# the kernels on wgmma + TMA: record name -> (source, mangled-name part)
+WGMMA_KERNELS = {
+    "flash_attention_fwd_bf16": ("flash_attention_fwd.cu",
+                                 "fa_fwd_bf16_wgmma"),
+    "flash_attention_bwd_dkv": ("flash_attention_bwd.cu",
+                                "fa_bwd_dkv_bf16_wgmma"),
+}
+BUILD_REPORT = {}
+
+
+def wgmma_report(_build):
+    """ptxas registers and spills of the wgmma kernels, and the count of
+    their HGMMA (wgmma) and UTMALDG (TMA load) instructions in the SASS;
+    fatal if one spills or lacks either instruction."""
+    tool = _build.cuobjdump()
+    for record, (source, part) in WGMMA_KERNELS.items():
+        res = {n: r for n, r in _build.ptxas_resources(
+            _build.build_log(source)).items() if part in n}
+        check(res, "no ptxas report for %s in %s" % (part, source))
+        if tool is None:             # the toolkit may lack cuobjdump
+            log("sass %s: not counted (no cuobjdump in the toolkit)" % part)
+            sass = None
+        else:                        # a failing cuobjdump raises
+            sass = {n: c for n, c in _build.sass_counts(
+                source, ("HGMMA", "UTMALDG")).items() if part in n}
+        build_log = _build.build_log(source).splitlines()
+        for name, r in sorted(res.items()):
+            spills = r.get("spill_stores", 0) + r.get("spill_loads", 0)
+            counts = None if sass is None else sass.get(name)
+            # ptxas C7514: it serialised the kernel's wgmma instructions
+            r["serialized"] = any("C7514" in ln and name in ln
+                                  for ln in build_log)
+            log("ptxas %s: %s registers, %s bytes stack, %d bytes spilled%s; "
+                "sass %s" % (name, r.get("registers"), r.get("stack"),
+                             spills, ", wgmma SERIALIZED (C7514)"
+                             if r["serialized"] else "", counts))
+            check(spills == 0, "%s spills %d bytes" % (name, spills))
+            if sass is not None:
+                check(counts and counts["HGMMA"] > 0 and
+                      counts["UTMALDG"] > 0,
+                      "%s: SASS counts %s (HGMMA and UTMALDG expected)"
+                      % (name, counts))
+        BUILD_REPORT[record] = {
+            "ptxas": {n: res[n] for n in sorted(res)},
+            "sass": sass}
+
+
+def timing(torch, fn, iters: int = 20, windows: int = 5) -> dict:
+    """Device ms per call as the median of ``windows`` windows of
+    ``iters`` calls between CUDA events, with the windows' spread, and
+    the host's µs per call over the same windows (the time the calls
+    took to return). Where the host's time per call comes within 10% of
+    the device's, the device waited on the host and the windows timed
+    the host: ``host_bound`` says so."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
+    dev, host = [], []
+    for _ in range(windows):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        t1 = time.perf_counter()
+        end.record()
+        torch.cuda.synchronize()
+        dev.append(start.elapsed_time(end) / iters)
+        host.append((t1 - t0) / iters * 1e6)
+    dev.sort()
+    host.sort()
+    ms = dev[len(dev) // 2]
+    host_us = host[len(host) // 2]
+    return {"ms": ms, "lo": dev[0], "hi": dev[-1], "host_us": host_us,
+            "host_bound": host_us / 1e3 >= 0.9 * ms}
+
+
+def time_ms(torch, fn, iters: int = 20) -> float:
+    return timing(torch, fn, iters)["ms"]
+
+
+def kernel_ms(torch, fn, iters: int = 20) -> float:
+    """Device ms per call as the sum of the durations of the kernels that
+    ``iters`` calls launch, from a torch.profiler trace: the card's time
+    on the call whatever the host's gaps between launches."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
         fn()
-    end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) \
+        / 1e3 / iters
+
+
+def spread(t: dict) -> str:
+    return "%.4f ms (%.4f-%.4f over 5 windows; host %.1f us/call%s)" % (
+        t["ms"], t["lo"], t["hi"], t["host_us"],
+        ", HOST-BOUND" if t["host_bound"] else "")
 
 
 def flash_bound(bh: int, s: int, d: int):
@@ -462,11 +563,120 @@ def attention_bound(what, bh, s, sk, d, causal, itemsize):
             "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
 
 
+def bf16_compare(got, want):
+    """A bf16 kernel output against its plain version by the three
+    limits above: returns the readings and whether all three hold."""
+    want = want.float()
+    diff = (got.float() - want).abs()
+    err = diff.max().item()
+    top = want.abs().max().item()
+    rms = want.pow(2).mean().sqrt().item()
+    # the share of rms(ref) by which an element's error passes 2^-6 |ref|,
+    # and the error's norm against the output's
+    excess = (diff - BF16_ELEM_RTOL * want.abs()).flatten()
+    at = int(excess.argmax())
+    r = {"err": err, "top": top, "rms": rms,
+         "over": excess[at].item() / max(rms, 1e-30),
+         "rel": diff.norm().item() / max(want.norm().item(), 1e-30),
+         "at_ref": want.flatten()[at].abs().item(),
+         "at_err": diff.flatten()[at].item()}
+    r["ok"] = (err <= BF16_MAX_RTOL * top and r["rel"] <= BF16_NORM_RTOL
+               and r["over"] <= BF16_ELEM_RMS)
+    return r
+
+
+# the edge sweep of the bf16 forward and dK/dV kernels: (S, Sk) pairs,
+# ragged and crossed; D 16 and 32 take the mma.sync kernels, D 64 and 128
+# the wgmma ones
+SWEEP_LENGTHS = ((1, 1), (65, 65), (1000, 1000), (1024, 1024), (512, 1024),
+                 (1024, 512))
+SWEEP_HEADS = (1, TRAIN_BATCH * HEADS)
+SWEEP_DIMS = (16, 32, 64, 128)
+# dK is zero in exact arithmetic where every live q row sees a single key
+# (S = 1 causal, or Sk = 1): softmax has no gradient with respect to its
+# only key. Both sides then hold only the rounding of dP - delta, two f32
+# sums of the same products (readings on the H100: 0 to 1.3e-6, either
+# side), so the relative limits have no scale there: both are held to
+# zero within this bound instead
+ZERO_GRAD_ATOL = 1e-5
+
+
+def edge_sweep(torch):
+    """K1 bf16 and K3 against their plain versions under the bf16 limits
+    (and lse within 1e-4 max(1, max|ref|)) over S in {1, 65, 1000, 1024},
+    S != Sk both ways (top-aligned), causal and not, D 16, 32 (the
+    mma.sync kernels), 64 and 128 (the wgmma kernels), BH 1 and 128: the
+    ragged and crossed edges that TMA's zero fill meets. Each case is
+    fatal on failure."""
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    worst = {"fwd": 0.0, "dkv": 0.0}
+    n = 0
+    t0 = time.perf_counter()
+    for d in SWEEP_DIMS:
+        for bh in SWEEP_HEADS:
+            for s, sk in SWEEP_LENGTHS:
+                for causal in (True, False):
+                    q, do = (torch.randn((bh, s, d), generator=gen,
+                                         device=dev).bfloat16()
+                             for _ in range(2))
+                    k, v = (torch.randn((bh, sk, d), generator=gen,
+                                        device=dev).bfloat16()
+                            for _ in range(2))
+                    scale = d ** -0.5
+                    o, lse = fa.flash_attention_fwd(q, k, v, scale, causal)
+                    delta = (do.float() * o.float()).sum(-1)
+                    dk, dv = fa.flash_attention_bwd_dkv(
+                        q, k, v, do, lse, delta, scale, causal)
+                    o_r, lse_r = fa.flash_attention_reference(q, k, v, scale,
+                                                              causal)
+                    _, dk_r, dv_r = fa.flash_attention_backward_reference(
+                        q, k, v, o, lse, do, scale, causal)
+                    torch.cuda.synchronize()
+                    res = {name: bf16_compare(got, want) for name, got, want
+                           in (("o", o, o_r), ("dk", dk, dk_r),
+                               ("dv", dv, dv_r))}
+                    case = "d=%d bh=%d s=%d sk=%d causal=%s" % (
+                        d, bh, s, sk, causal)
+                    if sk == 1 or (causal and s == 1):
+                        got_top = dk.float().abs().max().item()
+                        zero = res.pop("dk")
+                        log("  sweep %s: dk is zero in exact arithmetic: "
+                            "kernel max %.3g, plain max %.3g (limit %g)" % (
+                                case, got_top, zero["top"], ZERO_GRAD_ATOL))
+                        check(max(got_top, zero["top"]) <= ZERO_GRAD_ATOL,
+                              "edge sweep %s: dk not zero" % case)
+                    lse_err = (lse - lse_r).abs().max().item()
+                    lse_lim = KERNEL_ATOL * max(1.0, lse_r.abs().max().item())
+                    log("  sweep %s: %s; lse %.3g (limit %.3g)" % (
+                        case, "; ".join(
+                            "%s max %.3g/%.3g norm %.2e elem %.3f" % (
+                                nm, r["err"], r["top"], r["rel"], r["over"])
+                            for nm, r in res.items()), lse_err, lse_lim))
+                    bad = [nm for nm, r in res.items() if not r["ok"]]
+                    check(not bad and lse_err <= lse_lim,
+                          "edge sweep %s: %s disagree with the plain versions"
+                          " (lse err %g)" % (case, bad or "none", lse_err))
+                    worst["fwd"] = max(worst["fwd"], res["o"]["err"], lse_err)
+                    worst["dkv"] = max(worst["dkv"], res["dv"]["err"],
+                                       res.get("dk", res["dv"])["err"])
+                    n += 1
+                    del q, k, v, do, o, lse, delta, dk, dv, o_r, lse_r
+                    del dk_r, dv_r
+    log("edge sweep: %d cases of K1 bf16 and K3 within the bf16 limits in "
+        "%.1f s" % (n, time.perf_counter() - t0))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return worst
+
+
 def train_kernel_phase(torch, kernels):
     """K1 (bf16 input), K2 and K3 against their plain versions at the
     training step's attention shape (batch 8 x 16 heads, S 1024, D 128,
-    causal) in bf16 and f32, a ragged length and a non-causal case;
-    then each kernel timed at that shape beside its plain version,
+    causal) in bf16 and f32, a ragged length and a non-causal case; the
+    edge sweep of the wgmma kernels (K1 bf16, K3); then each kernel
+    timed at that shape beside its plain version,
     scaled_dot_product_attention and its bound."""
     import torch.nn.functional as F
     from mxnet_tpu_torch.ops import flash_attention as fa
@@ -499,36 +709,25 @@ def train_kernel_phase(torch, kernels):
         errs, bad = {}, []
         for name, got, want in (("o", o, o_r), ("dq", dq, refs[0]),
                                 ("dk", dk, refs[1]), ("dv", dv, refs[2])):
-            want = want.float()
-            diff = (got.float() - want).abs()
-            err = diff.max().item()
-            top = want.abs().max().item()
-            errs[name] = err
             if not bf16:
-                if err > KERNEL_ATOL * max(1.0, top):
+                err = (got - want).abs().max().item()
+                errs[name] = err
+                if err > KERNEL_ATOL * max(1.0, want.abs().max().item()):
                     bad.append("%s max %g" % (name, err))
                 continue
-            rms = want.pow(2).mean().sqrt().item()
-            # the share of rms(ref) by which an element's error passes
-            # 2^-6 |ref|, and the error's norm against the output's
-            excess = (diff - BF16_ELEM_RTOL * want.abs()).flatten()
-            at = int(excess.argmax())
-            over = excess[at].item() / max(rms, 1e-30)
-            rel = diff.norm().item() / max(want.norm().item(), 1e-30)
+            r = bf16_compare(got, want)
+            errs[name] = r["err"]
             log("  %s bf16 s=%d causal=%s: max_abs_err %.4g of max|ref| "
                 "%.4g (limit %.4g); ||err||/||ref|| %.4g (limit %g); "
                 "element excess %.4g rms(ref) (limit %g) at |ref| %.4g "
-                "|err| %.4g; rms(ref) %.4g, median|ref| %.4g" % (
-                    name, s, causal, err, top, BF16_MAX_RTOL * top, rel,
-                    BF16_NORM_RTOL, over, BF16_ELEM_RMS,
-                    want.flatten()[at].abs().item(),
-                    diff.flatten()[at].item(), rms,
-                    want.abs().median().item()))
-            if err > BF16_MAX_RTOL * top or rel > BF16_NORM_RTOL or \
-                    over > BF16_ELEM_RMS:
-                bad.append("%s max %g norm %g element %g" % (name, err, rel,
-                                                             over))
-            del want, diff, excess
+                "|err| %.4g; rms(ref) %.4g" % (
+                    name, s, causal, r["err"], r["top"],
+                    BF16_MAX_RTOL * r["top"], r["rel"], BF16_NORM_RTOL,
+                    r["over"], BF16_ELEM_RMS, r["at_ref"], r["at_err"],
+                    r["rms"]))
+            if not r["ok"]:
+                bad.append("%s max %g norm %g element %g" % (
+                    name, r["err"], r["rel"], r["over"]))
         check(not bad, "kernel outputs disagree with their plain versions at "
               "s=%d causal=%s %s: %s" % (s, causal, dtype, "; ".join(bad)))
         lse_err = (lse - lse_r).abs().max().item()
@@ -545,65 +744,94 @@ def train_kernel_phase(torch, kernels):
             worst["dkv"] = max(worst["dkv"], errs["dk"], errs["dv"])
         del q, k, v, do, o, lse, delta, dq, dk, dv, o_r, lse_r, refs
 
+    swept = edge_sweep(torch)
+    worst["fwd"] = max(worst["fwd"], swept["fwd"])
+    worst["dkv"] = max(worst["dkv"], swept["dkv"])
+
     # times at the training shape, bf16, causal
     s = MAX_SEQ
     q, k, v, do = draw(s, torch.bfloat16)
     o, lse = fa.flash_attention_fwd(q, k, v, scale, True)
     delta = (do.float() * o.float()).sum(-1)
-    ms = {
-        "fwd": time_ms(torch, lambda: fa.flash_attention_fwd(
-            q, k, v, scale, True)),
-        "dq": time_ms(torch, lambda: fa.flash_attention_bwd_dq(
-            q, k, v, do, lse, delta, scale, True)),
-        "dkv": time_ms(torch, lambda: fa.flash_attention_bwd_dkv(
-            q, k, v, do, lse, delta, scale, True)),
+    kernel_calls = {
+        "fwd": lambda: fa.flash_attention_fwd(q, k, v, scale, True),
+        "dq": lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta,
+                                                scale, True),
+        "dkv": lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                                  scale, True),
     }
+    t = {w: timing(torch, fn) for w, fn in kernel_calls.items()}
     plain_fwd = time_ms(torch, lambda: fa.flash_attention_reference(
         q, k, v, scale, True), iters=5)
     plain_bwd = time_ms(torch, lambda: fa.flash_attention_backward_reference(
         q, k, v, o, lse, do, scale, True), iters=5)
     shape4 = (TRAIN_BATCH, HEADS, s, d)
-    q4, k4, v4 = (t.view(shape4).detach().requires_grad_(True)
-                  for t in (q, k, v))
-    lib_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
-        q4, k4, v4, is_causal=True, scale=scale))
+    q4, k4, v4 = (t_.view(shape4).detach().requires_grad_(True)
+                  for t_ in (q, k, v))
     out4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True,
                                           scale=scale)
     do4 = do.view(shape4)
-    lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
-        out4, (q4, k4, v4), do4, retain_graph=True))
+    calls = {
+        "fwd": lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=True, scale=scale),
+        "bwd": lambda: torch.autograd.grad(out4, (q4, k4, v4), do4,
+                                           retain_graph=True)}
+    # ms and library_ms are both window medians (CUDA events); the
+    # library's windows may time the host (autograd's backward), so both
+    # sides also get their kernels' own durations (device_ms and
+    # library_device_ms, from the profiler), which rank them
+    lib = {w: dict(timing(torch, fn), device_ms=kernel_ms(torch, fn))
+           for w, fn in calls.items()}
+    for w in t:
+        t[w]["device_ms"] = kernel_ms(torch, kernel_calls[w])
     plain = {"fwd": plain_fwd, "dq": plain_bwd, "dkv": plain_bwd}
-    library = {"fwd": lib_fwd, "dq": lib_bwd, "dkv": lib_bwd}
+    library = {"fwd": lib["fwd"], "dq": lib["bwd"], "dkv": lib["bwd"]}
     meta = {
         "fwd": ("flash_attention_fwd_bf16", "flash_attention_fwd.cu", 45,
-                "_fa_kernel"),
+                "_fa_kernel", "wgmma + TMA"),
         "dq": ("flash_attention_bwd_dq", "flash_attention_bwd.cu", 136,
-               "_fa_bwd_dq_kernel"),
+               "_fa_bwd_dq_kernel", "mma.sync"),
         "dkv": ("flash_attention_bwd_dkv", "flash_attention_bwd.cu", 186,
-                "_fa_bwd_dkv_kernel"),
+                "_fa_bwd_dkv_kernel", "wgmma + TMA"),
     }
-    for what, (name, source, line, tpu) in meta.items():
+    for what, (name, source, line, tpu, design) in meta.items():
         bound_ms, bound_by, flops, nbytes = attention_bound(
             what, bh, s, s, d, True, 2)
-        log("%s bh=%d s=%d d=%d causal bf16: kernel_ms=%.4f plain_ms=%.4f%s "
-            "library_ms=%.4f (sdpa %s) bound_ms=%.4f (%s: %.1f GFLOP at "
-            "989 TFLOP/s bf16 = %.4f ms, %.1f MB at 3.35 TB/s = %.4f ms; "
-            "at the 67 TFLOP/s f32 FMA peak %.4f ms)" % (
-                name, bh, s, d, ms[what], plain[what],
+        ms = t[what]["ms"]
+        lib_ms = library[what]["device_ms"]   # the library's kernel time
+        log("%s bh=%d s=%d d=%d causal bf16 (%s): kernel %s, kernel time "
+            "%.4f ms = %.1f TFLOP/s, %.1f%% of the bound; plain_ms=%.4f%s; "
+            "library (sdpa %s) %s, kernel time %.4f ms; bound_ms=%.4f (%s: "
+            "%.1f GFLOP at 989 TFLOP/s bf16 = %.4f ms, %.1f MB at 3.35 TB/s "
+            "= %.4f ms)" % (
+                name, bh, s, d, design, spread(t[what]),
+                t[what]["device_ms"], flops / ms / 1e9, 100 * bound_ms / ms,
+                plain[what],
                 "" if what == "fwd" else " (plain backward, dQ dK dV)",
-                library[what], "forward" if what == "fwd" else
-                "backward, dQ dK dV", bound_ms, bound_by, flops / 1e9,
-                flops / PEAK_BF16_FLOPS * 1e3, nbytes / 1e6,
-                nbytes / PEAK_BYTES_PER_S * 1e3,
-                flops / PEAK_FP32_FLOPS * 1e3))
+                "forward" if what == "fwd" else "backward, dQ dK dV",
+                spread(library[what]), lib_ms, bound_ms, bound_by,
+                flops / 1e9, flops / PEAK_BF16_FLOPS * 1e3, nbytes / 1e6,
+                nbytes / PEAK_BYTES_PER_S * 1e3))
         kernels[name] = {
             "name": name, "route": "cuda",
             "source": "mxnet_tpu_torch/csrc/" + source,
             "replaces": "mxnet_tpu/ops/pallas/flash_attention.py:%d" % line,
             "tpu_kernel": "ops/pallas/flash_attention.py:" + tpu,
-            "max_abs_err": worst[what], "ms": ms[what],
+            "design": design,
+            "max_abs_err": worst[what], "ms": ms,
+            "ms_spread": [t[what]["lo"], t[what]["hi"]],
+            "device_ms": t[what]["device_ms"],
+            "host_us": t[what]["host_us"],
+            "host_bound": t[what]["host_bound"],
+            "tflops": flops / ms / 1e9, "bound_share": bound_ms / ms,
             "plain_ms": plain[what], "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library[what]}
+            "bound_by": bound_by, "library_ms": library[what]["ms"],
+            "library_spread": [library[what]["lo"], library[what]["hi"]],
+            "library_device_ms": lib_ms,
+            "library_host_us": library[what]["host_us"],
+            "library_host_bound": library[what]["host_bound"]}
+        if name in BUILD_REPORT:
+            kernels[name]["build"] = BUILD_REPORT[name]
     del q, k, v, do, o, lse, delta, q4, k4, v4, out4, do4
     gc.collect()
     torch.cuda.empty_cache()

@@ -12,21 +12,27 @@ tensor builds its library, or :func:`build` builds several at once.
 :func:`build_cubin` compiles a user's kernel source (``rtc``) the same
 way into a cubin under ``build/rtc/``, named by a hash of the source and
 the options, with the compiler's report beside it.
+
+:func:`ptxas_resources` reads a build log's per-kernel registers and
+spills; :func:`sass_counts` counts instructions of a built library's
+machine code with the toolkit's ``cuobjdump -sass``.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 from .base import MXNetError
 
 __all__ = ["build", "load", "build_log", "build_cubin", "cubin_path",
+           "ptxas_resources", "cuobjdump", "sass_counts", "parse_sass_counts",
            "NVCC_FLAGS", "CUBIN_FLAGS"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -71,6 +77,90 @@ def build_log(source: str) -> str:
     and spills per kernel) from the build of ``source``, or ``""``."""
     log = _target(source).with_suffix(".log")
     return log.read_text() if log.exists() else ""
+
+
+_ENTRY = re.compile(r"Compiling entry function '([^']+)'")
+_PROPS = re.compile(r"Function properties for (\S+)")
+_FRAME = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                    r"(\d+) bytes spill loads")
+_REGS = re.compile(r"Used (\d+) registers")
+
+
+def ptxas_resources(log: str) -> Dict[str, Dict[str, int]]:
+    """Per kernel of a ``-Xptxas -v`` report, keyed by mangled name:
+    ``registers``, ``stack`` (bytes), ``spill_stores`` and
+    ``spill_loads`` (bytes)."""
+    out: Dict[str, Dict[str, int]] = {}
+    name = None
+    for line in log.splitlines():
+        m = _ENTRY.search(line)
+        if m:
+            name = m.group(1)
+            out[name] = {}
+            continue
+        m = _PROPS.search(line)
+        if m and m.group(1) != name:
+            name = None           # a device function's report, not a kernel
+            continue
+        if name is None:
+            continue
+        m = _FRAME.search(line)
+        if m:
+            out[name].update(stack=int(m.group(1)),
+                             spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+        m = _REGS.search(line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
+def parse_sass_counts(sass: str,
+                      opcodes: Sequence[str]) -> Dict[str, Dict[str, int]]:
+    """Per kernel (``Function : <mangled name>`` sections of ``cuobjdump
+    -sass``), how many instructions have each of ``opcodes`` as their
+    opcode, modifiers aside (``HGMMA.64x128x16.F32.BF16`` counts as
+    ``HGMMA``)."""
+    pattern = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+)")
+    out: Dict[str, Dict[str, int]] = {}
+    counts = None
+    for line in sass.splitlines():
+        head = line.strip()
+        if head.startswith("Function : "):
+            counts = out.setdefault(head[len("Function : "):].strip(),
+                                    {op: 0 for op in opcodes})
+            continue
+        if counts is None:
+            continue
+        m = pattern.search(line)
+        if m and m.group(1) in counts:
+            counts[m.group(1)] += 1
+    return out
+
+
+def cuobjdump() -> Optional[str]:
+    """The toolkit's ``cuobjdump``, beside ``nvcc`` or on PATH, or None
+    where the toolkit has none."""
+    tool = Path(_nvcc()).with_name("cuobjdump")
+    return str(tool) if tool.exists() else shutil.which("cuobjdump")
+
+
+def sass_counts(source: str,
+                opcodes: Sequence[str]) -> Dict[str, Dict[str, int]]:
+    """:func:`parse_sass_counts` of the built library of ``source``.
+    Raises :class:`MXNetError` when the toolkit has no ``cuobjdump`` or
+    it fails."""
+    tool = cuobjdump()
+    if tool is None:
+        raise MXNetError("cuobjdump not found beside %s or on PATH"
+                         % _nvcc())
+    proc = subprocess.run([tool, "-sass", str(_target(source))],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True)
+    if proc.returncode != 0:
+        raise MXNetError("cuobjdump -sass %s failed (exit %d):\n%s"
+                         % (source, proc.returncode, proc.stdout[-4000:]))
+    return parse_sass_counts(proc.stdout, opcodes)
 
 
 def build(sources: Sequence[str]) -> List[Path]:

@@ -24,7 +24,7 @@
 // atomics:
 //   * the TPU grid's sequential axis becomes a loop inside the block.
 //     dQ: one block per (bh, 64-row q tile) walks the KV tiles and keeps
-//     its dQ accumulator in registers. dK/dV: one block per (bh, 64-key
+//     its dQ accumulator in registers. dK/dV: one block per (bh, key
 //     tile) walks the q tiles and keeps dK and dV in registers. Every
 //     output tile has one owner, as on the TPU's KV-major grid, so no
 //     block adds into another's output;
@@ -39,18 +39,65 @@
 // P / dS tiles go through shared memory with row stride BK + 4, so the
 // two half-warps' rows land 16 banks apart.
 //
-// bfloat16 (the training path under amp: fa_bwd_dq_bf16, fa_bwd_dkv_bf16):
-// every product runs on the tensor cores (mma.sync m16n8k16, bf16 in,
-// float32 accumulate; see flash_attention_common.cuh). 4 warps per block,
-// each owning 16 rows (q rows for dQ, keys for dK/dV). S and dP land in
-// registers in the accumulator layout; P and dS are rounded to bf16 (as
-// the TPU kernels round them to the operands' dtype) and reused in
-// registers as the A operand of the next product (dS K for dQ; P^T dO and
-// dS^T Q for dK/dV, computed in the transposed orientation S^T = K Q^T so
-// the key rows stay with their warp). dK/dV walks q tiles of 32 rows, to
-// keep its two 16 x D accumulators and the tile products in registers.
-// Loads are synchronous (no cp.async / TMA pipeline) and the product is
-// mma.sync, not wgmma: the next steps for speed.
+// bfloat16 (the training path under amp). fa_bwd_dq_bf16 (K2), and
+// fa_bwd_dkv_bf16 for head dims 16 and 32, run on mma.sync m16n8k16 (bf16
+// in, float32 accumulate; see flash_attention_common.cuh): 4 warps per
+// block, each owning 16 rows (q rows for dQ, keys for dK/dV); S and dP
+// land in registers in the accumulator layout; P and dS are rounded to
+// bf16 (as the TPU kernels round them to the operands' dtype) and reused
+// in registers as the A operand of the next product; dK/dV walks q tiles
+// of 32 rows in the transposed orientation S^T = K Q^T, so the key rows
+// stay with their warp. Loads are synchronous.
+//
+// fa_bwd_dkv_bf16_wgmma (dK and dV for head dims 64 and 128, the models')
+// is built for this card. At the training shape (BH 128, S 1024, D 128,
+// causal) it does 68.8 GFLOP on 202.4 MB: 0.070 ms at 989 TFLOP/s
+// against 0.060 ms at 3.35 TB/s, so its tensor-core work bounds it.
+//   * a block of three warpgroups per (bh, 128-key tile): a producer
+//     whose one elected thread issues every TMA load (setmaxnreg 24), and
+//     two consumers of 64 keys each (setmaxnreg 240: dK and dV take 128
+//     registers a thread, S^T and dP^T 64 more); ptxas gives the block
+//     168 registers a thread at launch and spills nothing. Key tiles are
+//     scheduled in order, so the causal tiles of most work lead;
+//   * K and V are loaded once and held for the walk over the q tiles; Q,
+//     dO (64 rows each), lse and delta (64 floats each) go through a
+//     two-stage ring, each stage with a "loaded" mbarrier and a "free"
+//     one that all 256 consumer threads arrive on;
+//   * per q tile: S^T = K Q^T and dP^T = V dO^T as two wgmma groups with
+//     both operands in shared memory, K-major; P^T = exp2(S^T scale log2 e
+//     - lse log2 e) is computed while dP^T still runs, then dS^T = P^T
+//     (dP^T - delta) scale; both are rounded to bf16 and become register
+//     A operands (c_to_a) of dV += P^T dO and dK += dS^T Q, whose B (dO,
+//     Q) is read MN-major with the transpose bit set, since both lie
+//     q-row-major along D;
+//   * masks are evaluated only on tiles that cross the diagonal or an
+//     edge; dK and dV are written as bf16 from registers, one owner per
+//     output tile and no atomics.
+// Where trouble lay, and what the design does about it (pitfalls as in
+// flash_attention_fwd.cu):
+//   1. swizzle at D 128: two 64-column TMA boxes per row, read by the
+//      descriptors of flash_attention_sm90.cuh;
+//   2. TMA's zero fill is no mask: lse and delta travel as flat (BH * S)
+//      float32 vectors (a rank-1 map, which needs no 16-byte row stride
+//      and so takes any S), and the values past a head's last row belong
+//      to the next head or are zeros. P is therefore set to 0 explicitly
+//      for q rows past S, for keys past Sk and above the diagonal; the
+//      +inf lse of the mma.sync kernels does not carry over. A box of
+//      that map must also start on a 16-byte boundary (a start at
+//      bh * S + q0 floats faulted with "illegal instruction" wherever that
+//      is no multiple of 4, e.g. S 65 with BH > 1): each box starts at the
+//      4-float boundary at or below the tile's first row and reads 68
+//      floats, and the consumers index past the 0-3 float offset;
+//   3. tensor maps as in the forward: rank-3 (D, S, BH) for Q, K, V, dO,
+//      rank-1 for lse and delta, encoded per call and passed as
+//      __grid_constant__ parameters; the wrapper aligns lse and delta to
+//      16 bytes as well;
+//   4. wgmma ordering: wait_group 1 lets P^T be computed while dP^T runs;
+//      the registers of P, dS and the accumulators are pinned before the
+//      wgmma.fence of the products that read them; a stage is freed only
+//      after the wait on its last wgmma;
+//   5. head dims 16 and 32 keep fa_bwd_dkv_bf16 (mma.sync), chosen by head
+//      dim alone in mxt_flash_attention_bwd_dkv_bf16.
 //
 // C interface (bound with ctypes): every function returns a cudaError_t
 // as int, 0 on success, and launches on the given stream without
@@ -59,6 +106,7 @@
 #include <math.h>
 
 #include "flash_attention_common.cuh"
+#include "flash_attention_sm90.cuh"
 
 namespace {
 
@@ -369,7 +417,7 @@ int launch_dkv_f32(const float* q, const float* k, const float* v,
   return int(cudaGetLastError());
 }
 
-// ------------------------------------------------------- bfloat16, mma.sync
+// ------------------------ bfloat16, mma.sync (dQ; dK/dV at head dims 16, 32)
 
 constexpr int QT = 32;   // q rows per tile of the bf16 dK/dV kernel
 
@@ -660,6 +708,255 @@ int launch_dkv_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
   return int(cudaGetLastError());
 }
 
+// --------------------------------------------- bfloat16, wgmma + TMA ring
+
+using namespace fa90;
+
+constexpr int WG_KEYS = 128;      // keys per block: 2 consumer warpgroups
+constexpr int WG_QT = 64;         // q rows per ring tile
+// lse and delta of a q tile: a TMA box must start 16-byte aligned, so the
+// box starts at the 4-float boundary at or below the tile's first row and
+// reads 4 floats more
+constexpr int WG_VEC = WG_QT + 4;
+constexpr int WG_THREADS = 384;   // producer warpgroup + 2 consumers
+
+// Byte offsets in the (1024-aligned) dynamic shared memory of the block.
+template <int D>
+struct DkvSmem {
+  static constexpr uint32_t KV_TILE = WG_KEYS * D * 2;   // K or V
+  static constexpr uint32_t Q_TILE = WG_QT * D * 2;      // Q or dO
+  static constexpr uint32_t K = 0;
+  static constexpr uint32_t V = KV_TILE;
+  // ring stage: Q, dO, lse and delta (68 floats each), 1024-aligned
+  static constexpr uint32_t STAGE = 2 * Q_TILE + 1024;
+  static constexpr uint32_t RING = 2 * KV_TILE;
+  __device__ static uint32_t Q(int s) { return RING + s * STAGE; }
+  __device__ static uint32_t DO(int s) { return Q(s) + Q_TILE; }
+  __device__ static uint32_t LSE(int s) { return DO(s) + Q_TILE; }
+  __device__ static uint32_t DELTA(int s) { return LSE(s) + 512; }
+  static constexpr uint32_t BAR = RING + 2 * STAGE;    // 5 mbarriers
+  static constexpr size_t BYTES = BAR + 5 * 8 + 1024;  // + alignment
+};
+
+template <int D>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+fa_bwd_dkv_bf16_wgmma(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv,
+                      const __grid_constant__ CUtensorMap tdo,
+                      const __grid_constant__ CUtensorMap tlse,
+                      const __grid_constant__ CUtensorMap tdelta,
+                      __nv_bfloat16* __restrict__ dk,
+                      __nv_bfloat16* __restrict__ dv, int sq, int sk,
+                      float scale, int causal) {
+  using L = DkvSmem<D>;
+  constexpr int NH = D / 64;       // 64-column boxes of a row
+  extern __shared__ __align__(1024) unsigned char dkv_smem[];
+  const uint32_t base = (smem_u32(dkv_smem) + 1023u) & ~1023u;
+  unsigned char* const gbase = dkv_smem + (base - smem_u32(dkv_smem));
+  // barriers: K and V loaded; stage s loaded; stage s free again
+  const uint32_t bar_kv = base + L::BAR;
+  const uint32_t bar_full = bar_kv + 8, bar_free = bar_kv + 24;
+
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * WG_KEYS;   // low key tiles (most work) first
+  const int n_qt = (sq + WG_QT - 1) / WG_QT;
+  // causal: a q tile wholly before this key tile sees none of it
+  const int qt0 = causal ? k0 / WG_QT : 0;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_kv, 1);
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_free + 8 * s, 2 * 128);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // producer: one thread keeps the ring full
+    regs_release<24>();
+    if (threadIdx.x == 0) {
+      tma_prefetch_map(&tq);
+      tma_prefetch_map(&tdo);
+      mbar_expect_tx(bar_kv, 2 * L::KV_TILE);
+#pragma unroll
+      for (int h = 0; h < NH; ++h) {
+        tma_load_3d(base + L::K + h * WG_KEYS * 128, &tk, bar_kv, h * 64, k0,
+                    bh);
+        tma_load_3d(base + L::V + h * WG_KEYS * 128, &tv, bar_kv, h * 64, k0,
+                    bh);
+      }
+      for (int qt = qt0; qt < n_qt; ++qt) {
+        const int i = qt - qt0, s = i & 1;
+        const uint32_t full = bar_full + 8 * s;
+        mbar_wait(bar_free + 8 * s, ((i >> 1) & 1) ^ 1);
+        mbar_expect_tx(full, 2 * L::Q_TILE + 2 * WG_VEC * 4);
+#pragma unroll
+        for (int h = 0; h < NH; ++h) {
+          tma_load_3d(base + L::Q(s) + h * WG_QT * 128, &tq, full, h * 64,
+                      qt * WG_QT, bh);
+          tma_load_3d(base + L::DO(s) + h * WG_QT * 128, &tdo, full, h * 64,
+                      qt * WG_QT, bh);
+        }
+        // lse and delta as flat (bh * sq) vectors: values past this head's
+        // rows belong to the next head or are zeros, and are masked below
+        const int v0 = (bh * sq + qt * WG_QT) & ~3;
+        tma_load_1d(base + L::LSE(s), &tlse, full, v0);
+        tma_load_1d(base + L::DELTA(s), &tdelta, full, v0);
+      }
+    }
+  } else {
+    // consumers: warpgroup g owns keys k0 + 64g .. k0 + 64g + 63
+    regs_claim<240>();
+    constexpr int NO = D / 2;   // dK and dV registers each: 64 x D / 128
+    const int g = wg - 1;
+    const int t = threadIdx.x % 128;
+    const int lane = t % 32;
+    const int cq = 2 * (lane % 4);
+    const int kg = k0 + 64 * g;                  // the warpgroup's keys
+    const int key0 = kg + 16 * (t / 32) + lane / 4;
+    const int key1 = key0 + 8;
+    const float scale_log2 = scale * LOG2E;
+    float acc_k[NO], acc_v[NO];
+#pragma unroll
+    for (int i = 0; i < NO; ++i) acc_k[i] = acc_v[i] = 0.f;
+    const uint32_t ka = base + L::K + g * 64 * 128;
+    const uint32_t va = base + L::V + g * 64 * 128;
+    mbar_wait(bar_kv, 0);
+
+    for (int qt = qt0; qt < n_qt; ++qt) {
+      const int i = qt - qt0, s = i & 1;
+      const int q0 = qt * WG_QT;
+      const uint32_t qs = base + L::Q(s), dos = base + L::DO(s);
+      // the tile's first row lies 0-3 floats into the boxes
+      const int v_off = (bh * sq + q0) & 3;
+      const float* lse_s =
+          reinterpret_cast<const float*>(gbase + L::LSE(s)) + v_off;
+      const float* delta_s =
+          reinterpret_cast<const float*>(gbase + L::DELTA(s)) + v_off;
+
+      // S^T = K Q^T and dP^T = V dO^T (keys x q rows), all K-major
+      float st[32], dpt[32];
+      mbar_wait(bar_full + 8 * s, (i >> 1) & 1);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss(st,
+                 kmajor_desc(ka + (kk / 4) * WG_KEYS * 128 + (kk % 4) * 32),
+                 kmajor_desc(qs + (kk / 4) * WG_QT * 128 + (kk % 4) * 32),
+                 kk > 0);
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss(dpt,
+                 kmajor_desc(va + (kk / 4) * WG_KEYS * 128 + (kk % 4) * 32),
+                 kmajor_desc(dos + (kk / 4) * WG_QT * 128 + (kk % 4) * 32),
+                 kk > 0);
+      wgmma_commit();
+
+      // P^T = exp2(S^T scale log2e - lse log2e) while dP^T runs; masks
+      // only on tiles that need them. q rows past S are zeroed here: TMA
+      // fills them with zeros, which is no mask
+      wgmma_wait<1>();
+      fence_regs(st);
+      const bool edge = q0 + WG_QT > sq || kg + 64 > sk ||
+                        (causal && q0 < kg + 63);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = 8 * j + cq + (e & 1);
+          float p = exp2f(fmaf(st[4 * j + e], scale_log2, -lse_s[c] * LOG2E));
+          if (edge) {
+            const int qp = q0 + c, key = (e & 2) ? key1 : key0;
+            if (qp >= sq || key >= sk || (causal && qp < key)) p = 0.f;
+          }
+          st[4 * j + e] = p;
+        }
+      wgmma_wait<0>();
+      fence_regs(dpt);
+      // dS^T = P^T (dP^T - delta) scale, in place of dP^T
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = 8 * j + cq + (e & 1);
+          dpt[4 * j + e] =
+              st[4 * j + e] * (dpt[4 * j + e] - delta_s[c]) * scale;
+        }
+      // both rounded to bf16: the A operands of the next two products
+      uint32_t pa[4][4], da[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        c_to_a(pa[kk], &st[8 * kk], &st[8 * kk + 4]);
+        c_to_a(da[kk], &dpt[8 * kk], &dpt[8 * kk + 4]);
+      }
+
+      // dV += P^T dO and dK += dS^T Q: B MN-major (q-row-major in memory)
+      fence_regs(acc_v);
+      fence_regs(acc_k);
+      fence_regs(pa);
+      fence_regs(da);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs(acc_v, pa[kk], mnmajor_desc(dos + kk * 16 * 128, WG_QT));
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs(acc_k, da[kk], mnmajor_desc(qs + kk * 16 * 128, WG_QT));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc_v);
+      fence_regs(acc_k);
+      mbar_arrive(bar_free + 8 * s);   // Q, dO, lse and delta are read
+    }
+
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int key = h ? key1 : key0;
+      if (key >= sk) continue;
+      __nv_bfloat16* krow = dk + (size_t(bh) * sk + key) * D;
+      __nv_bfloat16* vrow = dv + (size_t(bh) * sk + key) * D;
+#pragma unroll
+      for (int j = 0; j < NO / 4; ++j) {
+        *reinterpret_cast<uint32_t*>(krow + 8 * j + cq) =
+            pack_bf16(acc_k[4 * j + 2 * h], acc_k[4 * j + 2 * h + 1]);
+        *reinterpret_cast<uint32_t*>(vrow + 8 * j + cq) =
+            pack_bf16(acc_v[4 * j + 2 * h], acc_v[4 * j + 2 * h + 1]);
+      }
+    }
+  }
+}
+
+template <int D>
+int launch_dkv_bf16_wgmma(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                          const __nv_bfloat16* v, const __nv_bfloat16* dout,
+                          const float* lse, const float* delta,
+                          __nv_bfloat16* dk, __nv_bfloat16* dv, int bh,
+                          int sq, int sk, float scale, int causal,
+                          cudaStream_t stream) {
+  alignas(64) CUtensorMap tq, tk, tv, tdo, tlse, tdelta;
+  int err = map_heads_bf16(&tq, q, bh, sq, D, WG_QT);
+  if (!err) err = map_heads_bf16(&tk, k, bh, sk, D, WG_KEYS);
+  if (!err) err = map_heads_bf16(&tv, v, bh, sk, D, WG_KEYS);
+  if (!err) err = map_heads_bf16(&tdo, dout, bh, sq, D, WG_QT);
+  if (!err) err = map_vector_f32(&tlse, lse, size_t(bh) * sq, WG_VEC);
+  if (!err) err = map_vector_f32(&tdelta, delta, size_t(bh) * sq, WG_VEC);
+  if (err) return err;
+  const size_t smem = DkvSmem<D>::BYTES;
+  cudaError_t cerr = cudaFuncSetAttribute(
+      fa_bwd_dkv_bf16_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      int(smem));
+  if (cerr != cudaSuccess) return int(cerr);
+  const dim3 grid(bh, (sk + WG_KEYS - 1) / WG_KEYS);
+  fa_bwd_dkv_bf16_wgmma<D><<<grid, WG_THREADS, smem, stream>>>(
+      tq, tk, tv, tdo, tlse, tdelta, dk, dv, sq, sk, scale, causal);
+  return int(cudaGetLastError());
+}
+
 #define MXT_HEAD_DIMS(CALL)                          \
   switch (d) {                                       \
     case 16: return CALL(16);                        \
@@ -736,14 +1033,21 @@ int mxt_flash_attention_bwd_dkv_bf16(const void* q, const void* k,
                                      int sk, int d, float scale, int causal,
                                      void* stream) {
   using T = __nv_bfloat16;
-#define CALL(D)                                                              \
-  launch_dkv_bf16<D>(static_cast<const T*>(q), static_cast<const T*>(k),    \
-                     static_cast<const T*>(v), static_cast<const T*>(dout), \
-                     static_cast<const float*>(lse),                        \
-                     static_cast<const float*>(delta), static_cast<T*>(dk), \
-                     static_cast<T*>(dv), bh, sq, sk, scale, causal,        \
-                     static_cast<cudaStream_t>(stream))
-  MXT_HEAD_DIMS(CALL)
+  // D 64 and 128 (the models' head dims) on wgmma + TMA; D 16 and 32 on
+  // the mma.sync kernel, chosen by shape alone
+#define CALL(LAUNCH, D)                                                      \
+  LAUNCH<D>(static_cast<const T*>(q), static_cast<const T*>(k),             \
+            static_cast<const T*>(v), static_cast<const T*>(dout),          \
+            static_cast<const float*>(lse), static_cast<const float*>(delta), \
+            static_cast<T*>(dk), static_cast<T*>(dv), bh, sq, sk, scale,    \
+            causal, static_cast<cudaStream_t>(stream))
+  switch (d) {
+    case 16: return CALL(launch_dkv_bf16, 16);
+    case 32: return CALL(launch_dkv_bf16, 32);
+    case 64: return CALL(launch_dkv_bf16_wgmma, 64);
+    case 128: return CALL(launch_dkv_bf16_wgmma, 128);
+    default: return int(cudaErrorInvalidValue);
+  }
 #undef CALL
 }
 

@@ -3,10 +3,15 @@
 // memory, and the warp-level bf16 tensor-core product.
 //
 // The float32 kernels issue plain FMAs on tiles staged as float32. The
-// bfloat16 kernels stage bf16 tiles with a row stride of D + 8 elements
-// and multiply with mma.sync.m16n8k16 (bf16 in, float32 accumulate):
-// each warp owns 16 rows of a tile, and a thread holds the fragments
-// that the PTX ISA fixes for that instruction (g = lane / 4, t = lane % 4):
+// mma.sync kernels (the dQ kernel, and the forward and dK/dV kernels at
+// head dims 16 and 32) stage bf16 tiles with a row stride of D + 8
+// elements and multiply with mma.sync.m16n8k16 (bf16 in, float32
+// accumulate). The wgmma kernels (flash_attention_sm90.cuh) use only
+// NEG_INF_MASK, pack_bf16 and c_to_a from here: a wgmma accumulator and
+// register A operand are, warp by warp, the C and A fragments below. For
+// mma.sync each warp owns 16 rows of a tile, and a thread holds the
+// fragments that the PTX ISA fixes for that instruction (g = lane / 4,
+// t = lane % 4):
 //   A (16 x 16, row-major): {A[g][2t..2t+1]}, {A[g+8][2t..]},
 //                           {A[g][2t+8..]},   {A[g+8][2t+8..]}
 //   B (16 x 8, k x n):      {B[2t..2t+1][g]}, {B[2t+8..2t+9][g]}

@@ -31,24 +31,68 @@
 // numbers) and no asynchronous copies; about half its shared-memory
 // loads could go as float4, which is the next step for speed.
 //
-// bfloat16 (the training path under amp, fa_fwd_bf16): at the training
-// shape (BH 128, S 1024, D 128, causal) the kernel does 34 GFLOP on
-// 134 MB, ~250 flops per byte: near the bf16 tensor cores' balance
-// point (989 TFLOP/s over 3.35 TB/s = 295), so both bound it. Its
-// products run on the tensor cores (mma.sync m16n8k16, bf16 in, float32
-// accumulate; see flash_attention_common.cuh):
-//   * one block of 4 warps per (bh, 64-row q tile), each warp owning 16
-//     rows; the warp's Q fragments stay in registers for the whole walk
-//     over the KV tiles, and so do its m, l and the 16 x D accumulator;
-//   * S = Q K^T lands in registers in the accumulator layout, which is
-//     the A-operand layout of P V once rounded to bf16 (as the TPU kernel
-//     rounds P to V's dtype), so P never goes through shared memory;
-//   * K and V tiles are staged in shared memory as bf16 with a D + 8
-//     row stride, which keeps every fragment load free of bank
-//     conflicts; V's fragments are gathered from two rows each;
-//   * the row max and sum reduce over the 4 threads that share a row.
-// Loads are synchronous (no cp.async / TMA pipeline yet) and the product
-// is mma.sync, not wgmma: the next steps for speed.
+// bfloat16 (the training path under amp). At the training shape (BH 128,
+// S 1024, D 128, causal) the function does 34.4 GFLOP on 134.7 MB: 0.035
+// ms at the bf16 tensor cores' 989 TFLOP/s against 0.040 ms at 3.35
+// TB/s, so it sits at the card's balance point and both bound it. For
+// head dims 64 and 128 (the models') it runs fa_fwd_bf16_wgmma, built for
+// this card rather than carried over from the TPU kernel:
+//   * a block of three warpgroups per (bh, 128-row q tile): a producer
+//     whose one elected thread issues every TMA load and gives its
+//     registers back (setmaxnreg 24), and two consumers of 64 q rows each
+//     that take them (setmaxnreg 240). KV tiles are 128 keys; ptxas gives
+//     the block 168 registers a thread at launch and spills nothing;
+//   * shared memory holds the Q tile, loaded once, and a three-stage ring
+//     of K and V tiles (224 KB at D 128), each stage with a "loaded"
+//     mbarrier for K, one for V, and a "free" one that all 256 consumer
+//     threads arrive on once both products of the stage have completed;
+//   * S = Q K^T is a wgmma with both operands in shared memory, K-major;
+//     the online softmax runs on its accumulator registers (the 4 threads
+//     of a quad share a row: two shuffles), in log2 units with scale *
+//     log2 e folded into one multiply and exp2f;
+//   * P, rounded to bf16 (as the TPU kernel rounds P to V's dtype), goes
+//     from the accumulator layout straight into the register A operand of
+//     O += P V (c_to_a); V is read from shared memory MN-major, with the
+//     transpose bit set, because it lies key-major;
+//   * within a warpgroup, S_j = Q K_j^T and O += P_(j-1) V_(j-1) are
+//     issued together, and the softmax of tile j runs while the second is
+//     on the tensor cores; O is rescaled once that product has completed.
+//     ptxas keeps the two in flight only if no branch lies between a
+//     product and its wait (else it serialises every wgmma, warning
+//     C7514): the last tile's P V is peeled off the loop, and the tiles
+//     that need masks run in a loop of their own (PERF.md has the times
+//     with and without the overlap);
+//   * causal: KV tiles wholly above the diagonal are never loaded, the
+//     mask is evaluated only on tiles that cross the diagonal or the Sk
+//     edge, and the last q tile of each head is scheduled first, so the
+//     longest rows do not land in the last wave;
+//   * O / max(l, 1e-37) is written as bf16 from registers (rows past S are
+//     not written), lse = m + log(max(l, 1e-37)) as float32.
+// Where trouble lay, and what the design does about it:
+//   1. swizzle at D 128: a 128-byte swizzle row holds 64 bf16 values, so
+//      a row of 128 is two TMA boxes of 64 columns, stored as two halves;
+//      the K-major descriptors step 32 bytes per k-step within a half and
+//      jump to the other half at k-step 4, the MN-major ones reach the
+//      second half through their leading byte offset
+//      (flash_attention_sm90.cuh). A mismatch would permute results
+//      silently: chip_smoke.py's comparison and edge sweep check it;
+//   2. TMA's zero fill is no mask: keys past Sk arrive as zero rows, whose
+//      score is 0, so the kp >= sk mask stays on the edge tile; q rows
+//      past S are computed on zeros and never written;
+//   3. tensor maps are encoded on the host for every call, through the
+//      runtime's driver entry point (no -lcuda), as rank-3 (D, S, BH)
+//      maps so that a box never reaches into the next head, and passed as
+//      __grid_constant__ parameters; the wrapper keeps bases 16-byte
+//      aligned, and D >= 16 keeps row strides a multiple of 16 bytes;
+//   4. wgmma ordering: the registers of P and of the rescaled O are pinned
+//      before a wgmma.fence that precedes the product reading them; every
+//      accumulator is read only after commit and wait; no thread writes
+//      an operand buffer through the generic proxy, so only the barrier
+//      initialisation needs a fence; a stage is freed only after the wait
+//      on the last wgmma that reads it;
+//   5. head dims 16 and 32 keep fa_fwd_bf16, the earlier mma.sync kernel
+//      (4 warps per 64-row q tile, K and V staged synchronously), chosen
+//      by head dim alone in mxt_flash_attention_fwd_bf16.
 //
 // C interface (bound with ctypes): every function returns a
 // cudaError_t as int, 0 on success, and launches on the given stream
@@ -56,7 +100,10 @@
 
 #include <math.h>
 
+#include <type_traits>
+
 #include "flash_attention_common.cuh"
+#include "flash_attention_sm90.cuh"
 
 namespace {
 
@@ -212,7 +259,7 @@ int launch(const float* q, const float* k, const float* v, float* o,
   return int(cudaGetLastError());
 }
 
-// ------------------------------------------------------- bfloat16, mma.sync
+// ------------------------------------- bfloat16, mma.sync (head dims 16, 32)
 
 template <int D>
 constexpr size_t smem_bytes_bf16() {
@@ -368,6 +415,293 @@ int launch_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
   return int(cudaGetLastError());
 }
 
+// --------------------------------------------- bfloat16, wgmma + TMA ring
+
+using namespace fa90;
+
+constexpr int WG_BQ = 128;        // q rows per block: 2 consumer warpgroups
+constexpr int WG_BK = 128;        // keys per KV tile
+constexpr int WG_THREADS = 384;   // producer warpgroup + 2 consumers
+
+// Byte offsets in the (1024-aligned) dynamic shared memory of the block:
+// the Q tile, then a ring of K and V tiles (3 stages: 224 KB at D 128).
+template <int D>
+struct FwdSmem {
+  static constexpr int STAGES = 3;
+  static constexpr uint32_t TILE = WG_BK * D * 2;   // one K or V tile
+  static constexpr uint32_t Q = 0;
+  static constexpr uint32_t K = WG_BQ * D * 2;      // K ring
+  static constexpr uint32_t V = K + STAGES * TILE;  // V ring
+  static constexpr uint32_t BAR = V + STAGES * TILE;
+  static constexpr int N_BAR = 1 + 3 * STAGES;
+  static constexpr size_t BYTES = BAR + N_BAR * 8 + 1024;   // + alignment
+};
+
+// One KV tile's step of the online softmax, in log2 units, on the scores
+// of the thread's two rows: sc becomes P (unrounded), m and l are
+// updated, and a0, a1 are the factors by which the rows' O must shrink.
+// The masks are evaluated only on tiles that need them (EDGE).
+template <bool EDGE, int NS>
+__device__ __forceinline__ void softmax_tile(
+    float (&sc)[NS], float& m0, float& m1, float& l0, float& l1,
+    float& a0, float& a1, int k0, int sk, int causal, int row0, int row1,
+    int cq, float scale_log2, float masked) {
+  float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < NS / 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = sc[4 * j + e] * scale_log2;
+      if (EDGE) {
+        const int kp = k0 + 8 * j + cq + (e & 1);
+        if (kp >= sk)
+          x = -INFINITY;
+        else if (causal && ((e & 2) ? row1 : row0) < kp)
+          x = masked;
+      }
+      sc[4 * j + e] = x;
+      if (e & 2)
+        mx1 = fmaxf(mx1, x);
+      else
+        mx0 = fmaxf(mx0, x);
+    }
+  // the 4 threads of a quad share a row
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+  const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+  a0 = exp2f(m0 - mn0);
+  a1 = exp2f(m1 - mn1);
+  m0 = mn0;
+  m1 = mn1;
+  l0 *= a0;
+  l1 *= a1;
+#pragma unroll
+  for (int j = 0; j < NS / 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = exp2f(sc[4 * j + e] - ((e & 2) ? m1 : m0));
+      sc[4 * j + e] = p;
+      if (e & 2)
+        l1 += p;   // this thread's share; reduced at the end
+      else
+        l0 += p;
+    }
+}
+
+template <int D>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+fa_fwd_bf16_wgmma(const __grid_constant__ CUtensorMap tq,
+                  const __grid_constant__ CUtensorMap tk,
+                  const __grid_constant__ CUtensorMap tv,
+                  __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                  int sq, int sk, float scale_log2, int causal) {
+  using L = FwdSmem<D>;
+  constexpr int NH = D / 64;       // 64-column boxes of a row
+  constexpr int NST = L::STAGES;
+  extern __shared__ __align__(1024) unsigned char fwd_smem[];
+  const uint32_t base = (smem_u32(fwd_smem) + 1023u) & ~1023u;
+  // barriers: Q loaded; K, V of stage s loaded; stage s free again
+  const uint32_t bar_q = base + L::BAR;
+  const uint32_t bar_k = bar_q + 8, bar_v = bar_k + 8 * NST;
+  const uint32_t bar_free = bar_v + 8 * NST;
+
+  const int bh = blockIdx.x;
+  // the last q tile of a head first: causal tiles of most work lead
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * WG_BQ;
+  int n_kt = (sk + WG_BK - 1) / WG_BK;
+  if (causal) n_kt = min(n_kt, (min(q0 + WG_BQ, sq) - 1) / WG_BK + 1);
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < NST; ++s) {
+      mbar_init(bar_k + 8 * s, 1);
+      mbar_init(bar_v + 8 * s, 1);
+      mbar_init(bar_free + 8 * s, 2 * 128);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // producer: one thread keeps the ring full
+    regs_release<24>();
+    if (threadIdx.x == 0) {
+      tma_prefetch_map(&tk);
+      tma_prefetch_map(&tv);
+      mbar_expect_tx(bar_q, WG_BQ * D * 2);
+#pragma unroll
+      for (int h = 0; h < NH; ++h)
+        tma_load_3d(base + L::Q + h * WG_BQ * 128, &tq, bar_q, h * 64, q0,
+                    bh);
+      for (int kt = 0; kt < n_kt; ++kt) {
+        const int s = kt % NST;
+        mbar_wait(bar_free + 8 * s, ((kt / NST) & 1) ^ 1);
+        mbar_expect_tx(bar_k + 8 * s, L::TILE);
+#pragma unroll
+        for (int h = 0; h < NH; ++h)
+          tma_load_3d(base + L::K + s * L::TILE + h * WG_BK * 128, &tk,
+                      bar_k + 8 * s, h * 64, kt * WG_BK, bh);
+        mbar_expect_tx(bar_v + 8 * s, L::TILE);
+#pragma unroll
+        for (int h = 0; h < NH; ++h)
+          tma_load_3d(base + L::V + s * L::TILE + h * WG_BK * 128, &tv,
+                      bar_v + 8 * s, h * 64, kt * WG_BK, bh);
+      }
+    }
+  } else {
+    // consumers: warpgroup g owns q rows q0 + 64g .. q0 + 64g + 63. The
+    // product S_j = Q K_j^T is issued together with O += P_(j-1) V_(j-1),
+    // so the softmax of tile j runs while the tensor cores do the second
+    regs_claim<240>();
+    constexpr int NS = WG_BK / 2;   // score registers: 64 x WG_BK / 128
+    constexpr int NO = D / 2;       // output registers: 64 x D / 128
+    const int g = wg - 1;
+    const int t = threadIdx.x % 128;
+    const int lane = t % 32;
+    const int cq = 2 * (lane % 4);
+    const int row0 = q0 + 64 * g + 16 * (t / 32) + lane / 4;
+    const int row1 = row0 + 8;
+    const float masked = NEG_INF_MASK * LOG2E;   // scores in log2 units
+    float m0 = masked, m1 = masked, l0 = 0.f, l1 = 0.f, a0, a1;
+    float acc[NO], sc[NS];
+    uint32_t pa[WG_BK / 16][4];   // P rounded to bf16: the A operand
+#pragma unroll
+    for (int i = 0; i < NO; ++i) acc[i] = 0.f;
+    const uint32_t qa = base + L::Q + g * 64 * 128;
+    // the first tile that needs the masks: on the Sk edge, or crossing
+    // the diagonal of the warpgroup's first row; every later one does too
+    int kt_edge = sk / WG_BK;
+    if (causal) kt_edge = min(kt_edge, (q0 + 64 * g + 1) / WG_BK);
+    // S = Q K^T of the tile in stage s, both K-major; the first k-step
+    // overwrites sc
+    auto issue_qk = [&](int s) {
+      const uint32_t ks = base + L::K + s * L::TILE;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss(sc,
+                 kmajor_desc(qa + (kk / 4) * WG_BQ * 128 + (kk % 4) * 32),
+                 kmajor_desc(ks + (kk / 4) * WG_BK * 128 + (kk % 4) * 32),
+                 kk > 0);
+      wgmma_commit();
+    };
+
+    mbar_wait(bar_q, 0);
+    mbar_wait(bar_k, 0);
+    wgmma_fence();
+    issue_qk(0);
+    wgmma_wait<0>();
+    fence_regs(sc);
+    if (kt_edge == 0)
+      softmax_tile<true>(sc, m0, m1, l0, l1, a0, a1, 0, sk, causal, row0,
+                         row1, cq, scale_log2, masked);
+    else
+      softmax_tile<false>(sc, m0, m1, l0, l1, a0, a1, 0, sk, causal, row0,
+                          row1, cq, scale_log2, masked);
+#pragma unroll
+    for (int kk = 0; kk < WG_BK / 16; ++kk)
+      c_to_a(pa[kk], &sc[8 * kk], &sc[8 * kk + 4]);
+
+    // O += P V of the tile in stage s: P from registers, V MN-major
+    // (key-major in memory)
+    auto issue_pv = [&](int s) {
+      const uint32_t vs = base + L::V + s * L::TILE;
+#pragma unroll
+      for (int kk = 0; kk < WG_BK / 16; ++kk)
+        wgmma_rs(acc, pa[kk], mnmajor_desc(vs + kk * 16 * 128, WG_BK));
+      wgmma_commit();
+    };
+
+    // tiles 1 .. n_kt - 1, those without masks first: no branch lies
+    // between a product and its wait, so ptxas keeps the two products of
+    // a step in flight together
+    auto step = [&](int kt, auto edge_tile) {
+      constexpr bool EDGE = decltype(edge_tile)::value;
+      const int s = kt % NST, sp = (kt - 1) % NST;
+      fence_regs(acc);
+      fence_regs(pa);
+      mbar_wait(bar_k + 8 * s, (kt / NST) & 1);
+      mbar_wait(bar_v + 8 * sp, ((kt - 1) / NST) & 1);
+      wgmma_fence();
+      issue_qk(s);
+      issue_pv(sp);
+      wgmma_wait<1>();                   // S of this tile is in
+      fence_regs(sc);
+      softmax_tile<EDGE>(sc, m0, m1, l0, l1, a0, a1, kt * WG_BK, sk, causal,
+                         row0, row1, cq, scale_log2, masked);
+      wgmma_wait<0>();                   // and P V of the previous one
+      fence_regs(acc);
+      mbar_arrive(bar_free + 8 * sp);    // K and V of that stage are read
+#pragma unroll
+      for (int j = 0; j < NO / 4; ++j) {
+        acc[4 * j] *= a0;
+        acc[4 * j + 1] *= a0;
+        acc[4 * j + 2] *= a1;
+        acc[4 * j + 3] *= a1;
+      }
+#pragma unroll
+      for (int kk = 0; kk < WG_BK / 16; ++kk)
+        c_to_a(pa[kk], &sc[8 * kk], &sc[8 * kk + 4]);
+    };
+    const int mid = max(1, min(kt_edge, n_kt));
+    for (int kt = 1; kt < mid; ++kt) step(kt, std::false_type());
+    for (int kt = mid; kt < n_kt; ++kt) step(kt, std::true_type());
+    // the last tile's P V
+    {
+      const int sp = (n_kt - 1) % NST;
+      fence_regs(acc);
+      fence_regs(pa);
+      mbar_wait(bar_v + 8 * sp, ((n_kt - 1) / NST) & 1);
+      wgmma_fence();
+      issue_pv(sp);
+      wgmma_wait<0>();
+      fence_regs(acc);
+      mbar_arrive(bar_free + 8 * sp);
+    }
+
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = h ? row1 : row0;
+      if (row >= sq) continue;
+      const float denom = fmaxf(h ? l1 : l0, 1e-37f);
+      __nv_bfloat16* orow = o + (size_t(bh) * sq + row) * D;
+#pragma unroll
+      for (int j = 0; j < NO / 4; ++j)
+        *reinterpret_cast<uint32_t*>(orow + 8 * j + cq) = pack_bf16(
+            acc[4 * j + 2 * h] / denom, acc[4 * j + 2 * h + 1] / denom);
+      if (lane % 4 == 0)
+        lse[size_t(bh) * sq + row] = (h ? m1 : m0) * LN2 + logf(denom);
+    }
+  }
+}
+
+template <int D>
+int launch_bf16_wgmma(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                      const __nv_bfloat16* v, __nv_bfloat16* o, float* lse,
+                      int bh, int sq, int sk, float scale, int causal,
+                      cudaStream_t stream) {
+  alignas(64) CUtensorMap tq, tk, tv;
+  int err = map_heads_bf16(&tq, q, bh, sq, D, WG_BQ);
+  if (!err) err = map_heads_bf16(&tk, k, bh, sk, D, WG_BK);
+  if (!err) err = map_heads_bf16(&tv, v, bh, sk, D, WG_BK);
+  if (err) return err;
+  const size_t smem = FwdSmem<D>::BYTES;
+  cudaError_t cerr = cudaFuncSetAttribute(
+      fa_fwd_bf16_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      int(smem));
+  if (cerr != cudaSuccess) return int(cerr);
+  const dim3 grid(bh, (sq + WG_BQ - 1) / WG_BQ);
+  fa_fwd_bf16_wgmma<D><<<grid, WG_THREADS, smem, stream>>>(
+      tq, tk, tv, o, lse, sq, sk, scale * LOG2E, causal);
+  return int(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -409,8 +743,10 @@ int mxt_flash_attention_fwd_bf16(const void* q, const void* k, const void* v,
   switch (d) {
     case 16: return launch_bf16<16>(qb, kb, vb, ob, lf, bh, sq, sk, scale, causal, st);
     case 32: return launch_bf16<32>(qb, kb, vb, ob, lf, bh, sq, sk, scale, causal, st);
-    case 64: return launch_bf16<64>(qb, kb, vb, ob, lf, bh, sq, sk, scale, causal, st);
-    case 128: return launch_bf16<128>(qb, kb, vb, ob, lf, bh, sq, sk, scale, causal, st);
+    // D 64 and 128 (the models' head dims) on wgmma + TMA; D 16 and 32 on
+    // the mma.sync kernel, chosen by shape alone
+    case 64: return launch_bf16_wgmma<64>(qb, kb, vb, ob, lf, bh, sq, sk, scale, causal, st);
+    case 128: return launch_bf16_wgmma<128>(qb, kb, vb, ob, lf, bh, sq, sk, scale, causal, st);
     default: return int(cudaErrorInvalidValue);
   }
 }

@@ -13,8 +13,12 @@ kernels replace the reference's three Pallas kernels:
   rebuilding P from the saved lse.
 
 Each comes in float32 (plain FMAs: the serving path, and training with
-amp off) and bfloat16 (bf16 tensor cores through ``mma.sync``: training
-under amp), both accumulating in float32.
+amp off) and bfloat16 (training under amp), both accumulating in
+float32. In bfloat16 the forward and dK/dV kernels run, for head dims 64
+and 128, on ``wgmma`` over shared-memory tiles that TMA loads into a
+ring of ``mbarrier``-guarded stages (``csrc/flash_attention_sm90.cuh``);
+for head dims 16 and 32, and the dQ kernel at every head dim, on
+``mma.sync``. The C entry points choose by head dim alone.
 
 :class:`FlashAttentionFunction` is the reference's ``custom_vjp``: the
 forward saves q, k, v, O and lse; the backward computes
@@ -103,8 +107,8 @@ def flash_attention_backward_reference(q, k, v, o, lse, do, scale: float,
 # ------------------------------------------------------------------ kernels
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """The kernels read rows as 16-byte vectors: contiguous and
-    16-byte aligned."""
+    """The kernels read rows as 16-byte vectors, and TMA needs a 16-byte
+    aligned base: contiguous and 16-byte aligned."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
@@ -208,7 +212,7 @@ def _bwd_inputs(q, k, v, do, lse, delta):
                              "(%d, %d), got %s %s" % (name, bh, sq, t.dtype,
                                                       tuple(t.shape)))
     q, k, v, do = (_aligned(t) for t in (q, k, v, do))
-    lse, delta = lse.contiguous(), delta.contiguous()
+    lse, delta = _aligned(lse), _aligned(delta)
     return suffix, (bh, sq, sk, d), (q, k, v, do, lse, delta)
 
 
