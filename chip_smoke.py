@@ -11,14 +11,21 @@ Phases, each fatal on failure (exit code 1, no result line):
 2. build: every CUDA source under ``mxnet_tpu_torch/csrc`` and the five
    user-kernel sources of ``mxnet_tpu_torch/rtc_examples.py`` (through
    ``rtc.CudaModule``) with ``nvcc``, all started together, with the
-   compiler's register and shared-memory report. The two kernels on
-   ``wgmma`` + TMA (the bf16 forward and dK/dV at head dims 64 and 128)
-   must spill nothing, and their SASS (``cuobjdump -sass``) must hold
-   HGMMA and UTMALDG instructions; without ``cuobjdump`` the log says
-   so;
-3. kernels: each kernel of the serving path against its plain PyTorch
-   version on the card, at the shapes that path gives it, and timed
-   beside that plain version, one library call and its bound;
+   compiler's register and shared-memory report. The three kernels on
+   ``wgmma`` + TMA (the bf16 forward, dQ and dK/dV at head dims 64 and
+   128) must spill nothing, and their SASS (``cuobjdump -sass``) must
+   hold HGMMA and UTMALDG instructions; the float32 forward (3xTF32 on
+   ``mma.sync``) must spill nothing and hold HMMA instructions; without
+   ``cuobjdump`` the log says so;
+3. kernels: the float32 forward (K1 f32, the serving path's) against
+   its plain PyTorch version on the card at the shapes that path gives
+   it, then over a sweep of head dims 16-128, BH 1 and 16, S in {1, 65,
+   200, 1000, 1024}, S != Sk both ways, causal and not, each case fatal;
+   then timed at every prompt bucket of the burst (BH 16, D 128, causal)
+   as the median of 5 windows of 20 launches with their spread and the
+   host's µs per call, and by the profiler's kernel time, beside
+   ``scaled_dot_product_attention`` timed alike, its plain version and
+   its bound;
 4. slice: ``GenerativeServer`` at the full width of the zoo transformer
    LM as ``bench.py`` trains it (12 layers, d_model 2048, 16 heads,
    d_ff 8192, vocab 32000, max_seq 1024), weights drawn from a seed,
@@ -26,7 +33,9 @@ Phases, each fatal on failure (exit code 1, no result line):
    new tokens each. The kernel launch counters are zeroed just before
    this cold burst and read just after; every kernel must have run. The
    same burst then runs warm, and once more under ``torch.profiler`` for
-   the device's busy share and kernel time by name. Last, prefill and
+   the device's busy share and kernel time by name, and the burst's
+   K1 f32 kernel time beside phase 3's bucket times weighted by the
+   burst's launches. Last, prefill and
    decode logits are held against an independent plain forward of the
    same weights. The server is closed and its memory freed after this
    phase;
@@ -34,9 +43,10 @@ Phases, each fatal on failure (exit code 1, no result line):
    and dK/dV backward kernels against their plain versions at the shape
    the training step gives them (batch 8 x 16 heads, S 1024, D 128,
    causal; bfloat16 and float32), plus a ragged length and a non-causal
-   case; an edge sweep of the two wgmma kernels (S 1, 65, 1000, 1024,
-   S != Sk both ways, causal and not, D 64 and 128, BH 1 and 128), each
-   case fatal; then each kernel timed as the median of 5 windows of 20
+   case; an edge sweep of the bf16 forward, dQ and dK/dV kernels (S 1,
+   65, 1000, 1024, S != Sk both ways, causal and not, D 16 and 32 on
+   ``mma.sync``, 64 and 128 on ``wgmma``, BH 1 and 128), each case
+   fatal; then each kernel timed as the median of 5 windows of 20
    launches, with the windows' spread and the host's µs per call,
    beside its plain version, ``scaled_dot_product_attention`` (forward,
    and backward for the two backward kernels together, timed alike),
@@ -85,6 +95,7 @@ ROOT = Path(__file__).resolve().parent
 
 # H100 SXM data-sheet peaks (dense), for the bound of each kernel
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 
@@ -96,6 +107,7 @@ SEED = 0
 DEVICE = "cuda:0"
 
 KERNEL_ATOL = 1e-4     # f32 kernel vs f32 plain version: rounding only
+                       # (3xTF32 drops ~2^-21 of each term)
 LOGITS_ATOL = 1e-3     # f32 served logits vs a plain forward: 12 layers
                        # of f32 sums in another order; logits are O(1)
 # bf16 kernel outputs vs the plain version of the same bf16 inputs. The
@@ -190,51 +202,64 @@ def build_phase():
     wgmma_report(_build)
 
 
-# the kernels on wgmma + TMA: record name -> (source, mangled-name part)
+# the kernels on wgmma + TMA: record name -> (source, mangled-name part);
+# their SASS must hold HGMMA (wgmma) and UTMALDG (TMA load) instructions
 WGMMA_KERNELS = {
     "flash_attention_fwd_bf16": ("flash_attention_fwd.cu",
                                  "fa_fwd_bf16_wgmma"),
+    "flash_attention_bwd_dq": ("flash_attention_bwd.cu",
+                               "fa_bwd_dq_bf16_wgmma"),
     "flash_attention_bwd_dkv": ("flash_attention_bwd.cu",
                                 "fa_bwd_dkv_bf16_wgmma"),
+}
+# the kernels on mma.sync tensor cores: their SASS must hold HMMA
+MMA_KERNELS = {
+    "flash_attention_fwd": ("flash_attention_fwd.cu", "fa_fwd_f32_tf32x3"),
 }
 BUILD_REPORT = {}
 
 
 def wgmma_report(_build):
-    """ptxas registers and spills of the wgmma kernels, and the count of
-    their HGMMA (wgmma) and UTMALDG (TMA load) instructions in the SASS;
-    fatal if one spills or lacks either instruction."""
+    """ptxas registers and spills of the tensor-core kernels, and the
+    count of the instructions each must hold in its SASS (HGMMA and
+    UTMALDG for the wgmma kernels, HMMA for the mma.sync ones); fatal if
+    one spills or lacks one of them."""
     tool = _build.cuobjdump()
-    for record, (source, part) in WGMMA_KERNELS.items():
-        res = {n: r for n, r in _build.ptxas_resources(
-            _build.build_log(source)).items() if part in n}
-        check(res, "no ptxas report for %s in %s" % (part, source))
-        if tool is None:             # the toolkit may lack cuobjdump
-            log("sass %s: not counted (no cuobjdump in the toolkit)" % part)
-            sass = None
-        else:                        # a failing cuobjdump raises
-            sass = {n: c for n, c in _build.sass_counts(
-                source, ("HGMMA", "UTMALDG")).items() if part in n}
-        build_log = _build.build_log(source).splitlines()
-        for name, r in sorted(res.items()):
-            spills = r.get("spill_stores", 0) + r.get("spill_loads", 0)
-            counts = None if sass is None else sass.get(name)
-            # ptxas C7514: it serialised the kernel's wgmma instructions
-            r["serialized"] = any("C7514" in ln and name in ln
-                                  for ln in build_log)
-            log("ptxas %s: %s registers, %s bytes stack, %d bytes spilled%s; "
-                "sass %s" % (name, r.get("registers"), r.get("stack"),
-                             spills, ", wgmma SERIALIZED (C7514)"
-                             if r["serialized"] else "", counts))
-            check(spills == 0, "%s spills %d bytes" % (name, spills))
-            if sass is not None:
-                check(counts and counts["HGMMA"] > 0 and
-                      counts["UTMALDG"] > 0,
-                      "%s: SASS counts %s (HGMMA and UTMALDG expected)"
-                      % (name, counts))
-        BUILD_REPORT[record] = {
-            "ptxas": {n: res[n] for n in sorted(res)},
-            "sass": sass}
+    groups = [(WGMMA_KERNELS, ("HGMMA", "UTMALDG")), (MMA_KERNELS, ("HMMA",))]
+    for table, opcodes in groups:
+        for record, (source, part) in table.items():
+            tensor_core_report(_build, tool, record, source, part, opcodes)
+
+
+def tensor_core_report(_build, tool, record, source, part, opcodes):
+    res = {n: r for n, r in _build.ptxas_resources(
+        _build.build_log(source)).items() if part in n}
+    check(res, "no ptxas report for %s in %s" % (part, source))
+    if tool is None:             # the toolkit may lack cuobjdump
+        log("sass %s: not counted (no cuobjdump in the toolkit)" % part)
+        sass = None
+    else:                        # a failing cuobjdump raises
+        sass = {n: c for n, c in _build.sass_counts(
+            source, opcodes).items() if part in n}
+    build_log = _build.build_log(source).splitlines()
+    for name, r in sorted(res.items()):
+        spills = r.get("spill_stores", 0) + r.get("spill_loads", 0)
+        counts = None if sass is None else sass.get(name)
+        # ptxas C7514: it serialised the kernel's wgmma instructions
+        r["serialized"] = any("C7514" in ln and name in ln
+                              for ln in build_log)
+        log("ptxas %s: %s registers, %s bytes stack, %d bytes spilled%s; "
+            "sass %s" % (name, r.get("registers"), r.get("stack"),
+                         spills, ", wgmma SERIALIZED (C7514)"
+                         if r["serialized"] else "", counts))
+        check(spills == 0, "%s spills %d bytes" % (name, spills))
+        if sass is not None:
+            check(counts and all(counts[op] > 0 for op in opcodes),
+                  "%s: SASS counts %s (%s expected)"
+                  % (name, counts, " and ".join(opcodes)))
+    BUILD_REPORT[record] = {
+        "ptxas": {n: res[n] for n in sorted(res)},
+        "sass": sass}
 
 
 def timing(torch, fn, iters: int = 20, windows: int = 5) -> dict:
@@ -297,9 +322,9 @@ def spread(t: dict) -> str:
 
 
 def flash_bound(bh: int, s: int, d: int):
-    """Least time for causal attention over (bh, s, d) f32: the
-    s(s+1)/2 live (q, k) pairs cost 2d flops in Q K^T and 2d in P V;
-    q, k, v are read once, o and lse written once."""
+    """Least time for causal attention over (bh, s, d) f32 on float32
+    FMAs: the s(s+1)/2 live (q, k) pairs cost 2d flops in Q K^T and 2d
+    in P V; q, k, v are read once, o and lse written once."""
     flops = 4.0 * d * bh * s * (s + 1) / 2
     nbytes = 4.0 * (4 * bh * s * d + bh * s)
     t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
@@ -307,10 +332,83 @@ def flash_bound(bh: int, s: int, d: int):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+def tf32x3_bound(bh: int, s: int, d: int):
+    """Least time for the same work on the 3xTF32 route: three tf32
+    products per product, so 3 x flops at the 495 TFLOP/s TF32 peak,
+    against the bytes at 3.35 TB/s. Returns (ms, bound_by, flops,
+    bytes)."""
+    flops = 4.0 * d * bh * s * (s + 1) / 2
+    nbytes = 4.0 * (4 * bh * s * d + bh * s)
+    t_ops, t_bytes = 3 * flops / PEAK_TF32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
+
+
+def prompt_buckets():
+    """The prefill bucket of each prompt of the burst: the server's
+    ladder (powers of two from the page up to MAX_SEQ), first rung that
+    holds the prompt."""
+    from mxnet_tpu_torch.serve.bucketing import decode_buckets
+    ladder = decode_buckets(MAX_SEQ, PAGE)
+    return [next(b for b in ladder if n <= b) for n in PROMPT_LENS]
+
+
+# the float32 sweep of K1 f32: (S, Sk) pairs, ragged and crossed
+F32_SWEEP_LENGTHS = ((1, 1), (65, 65), (200, 200), (1000, 1000),
+                     (1024, 1024), (512, 1024), (1024, 512))
+F32_SWEEP_HEADS = (1, HEADS)
+F32_SWEEP_DIMS = (16, 32, 64, 128)
+
+
+def f32_sweep(torch):
+    """K1 f32 against its plain version over every head dim, BH 1 and
+    16, S in {1, 65, 200, 1000, 1024}, S != Sk both ways, causal and
+    not: o and lse each within KERNEL_ATOL max(1, max|ref|). Each case
+    is fatal on failure. Returns the largest error."""
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    worst, n = 0.0, 0
+    t0 = time.perf_counter()
+    for d in F32_SWEEP_DIMS:
+        for bh in F32_SWEEP_HEADS:
+            for s, sk in F32_SWEEP_LENGTHS:
+                for causal in (True, False):
+                    q = torch.randn((bh, s, d), generator=gen, device=dev)
+                    k, v = (torch.randn((bh, sk, d), generator=gen,
+                                        device=dev) for _ in range(2))
+                    o, lse = fa.flash_attention_fwd(q, k, v, d ** -0.5,
+                                                    causal)
+                    o_r, lse_r = fa.flash_attention_reference(
+                        q, k, v, d ** -0.5, causal)
+                    torch.cuda.synchronize()
+                    errs = {nm: ((got - want).abs().max().item(),
+                                 KERNEL_ATOL * max(
+                                     1.0, want.abs().max().item()))
+                            for nm, got, want in (("o", o, o_r),
+                                                  ("lse", lse, lse_r))}
+                    case = "d=%d bh=%d s=%d sk=%d causal=%s" % (
+                        d, bh, s, sk, causal)
+                    log("  f32 sweep %s: %s" % (case, "; ".join(
+                        "%s %.3g (limit %.3g)" % (nm, e, lim)
+                        for nm, (e, lim) in errs.items())))
+                    check(all(e <= lim for e, lim in errs.values()),
+                          "f32 sweep %s: K1 f32 disagrees with its plain "
+                          "version: %s" % (case, errs))
+                    worst = max([worst] + [e for e, _ in errs.values()])
+                    n += 1
+                    del q, k, v, o, lse, o_r, lse_r
+    log("f32 sweep: %d cases of K1 f32 within %g max(1, max|ref|) in "
+        "%.1f s" % (n, KERNEL_ATOL, time.perf_counter() - t0))
+    return worst
+
+
 def kernel_phase(torch):
-    """K1 against its plain version at the prefill shapes: 16 heads,
+    """K1 f32 against its plain version at the prefill shapes (16 heads,
     d 128, every prompt bucket the slice phase uses plus a length that
-    is no tile multiple (ragged q and k edges)."""
+    is no tile multiple), then over the f32 sweep; then timed at every
+    bucket of the burst beside scaled_dot_product_attention, each side
+    as window medians (timing) and kernel time (kernel_ms)."""
     import torch.nn.functional as F
     from mxnet_tpu_torch.ops.flash_attention import (
         flash_attention_fwd, flash_attention_reference)
@@ -333,27 +431,81 @@ def kernel_phase(torch):
         check(err <= KERNEL_ATOL, "flash_attention_fwd disagrees with its "
               "plain version at s=%d: %g" % (s, err))
         worst = max(worst, err)
+    worst = max(worst, f32_sweep(torch))
+
+    # every bucket of the burst, K1 f32 and SDPA f32 alike
+    buckets = prompt_buckets()
+    timed = {}
+    for s in sorted(set(buckets)):
+        q, k, v = (torch.randn((bh, s, d), generator=gen, device=dev)
+                   for _ in range(3))
+        calls = {"kernel": lambda: flash_attention_fwd(q, k, v, scale, True),
+                 "library": lambda: F.scaled_dot_product_attention(
+                     q[None], k[None], v[None], is_causal=True,
+                     scale=scale)}
+        timed[s] = {w: dict(timing(torch, fn), device_ms=kernel_ms(torch, fn))
+                    for w, fn in calls.items()}
+        bound_ms, bound_by, flops, _ = tf32x3_bound(bh, s, d)
+        timed[s]["bound_ms"], timed[s]["bound_by"] = bound_ms, bound_by
+        timed[s]["fma_bound_ms"] = flash_bound(bh, s, d)[0]
+        kt, lt = timed[s]["kernel"], timed[s]["library"]
+        log("flash_attention_fwd f32 bh=%d s=%d d=%d causal (3xTF32 "
+            "mma.sync): kernel %s, kernel time %.4f ms = %.1f TFLOP/s; "
+            "library (sdpa f32) %s, kernel time %.4f ms; bound_ms=%.4f (%s, "
+            "3 x flops at 495 TFLOP/s TF32 against bytes at 3.35 TB/s); "
+            "f32 FMA bound %.4f ms" % (
+                bh, s, d, spread(kt), kt["device_ms"],
+                flops / kt["device_ms"] / 1e9, spread(lt), lt["device_ms"],
+                bound_ms, bound_by, timed[s]["fma_bound_ms"]))
+        del q, k, v
+    # the burst's K1 f32 time by these readings: each prompt's bucket,
+    # once per layer
+    weighted = {w: LAYERS * sum(timed[b][w]["device_ms"] for b in buckets)
+                for w in ("kernel", "library")}
+    log("flash_attention_fwd f32 over the burst's buckets %s x %d layers: "
+        "kernel time %.4f ms (sdpa f32 %.4f ms)"
+        % (buckets, LAYERS, weighted["kernel"], weighted["library"]))
 
     s = MAX_SEQ
     q, k, v = (torch.randn((bh, s, d), generator=gen, device=dev)
                for _ in range(3))
-    ms = time_ms(torch, lambda: flash_attention_fwd(q, k, v, scale, True))
     plain_ms = time_ms(
         torch, lambda: flash_attention_reference(q, k, v, scale, True))
-    library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-        q[None], k[None], v[None], is_causal=True, scale=scale))
-    bound_ms, bound_by = flash_bound(bh, s, d)
+    kt, lt = timed[s]["kernel"], timed[s]["library"]
+    bound_ms, bound_by, flops, _ = tf32x3_bound(bh, s, d)
     log("flash_attention_fwd bh=%d s=%d d=%d causal: kernel_ms=%.4f "
-        "reference_ms=%.4f library_ms=%.4f (sdpa) bound_ms=%.4f (%s)"
-        % (bh, s, d, ms, plain_ms, library_ms, bound_ms, bound_by))
+        "reference_ms=%.4f library_ms=%.4f (sdpa) bound_ms=%.4f (%s at "
+        "3xTF32; f32 FMA bound %.4f ms), %.1f%% of the bound"
+        % (bh, s, d, kt["ms"], plain_ms, lt["ms"], bound_ms, bound_by,
+           timed[s]["fma_bound_ms"], 100 * bound_ms / kt["device_ms"]))
+    del q, k, v
     return {"flash_attention_fwd": {
         "name": "flash_attention_fwd", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/flash_attention_fwd.cu",
         "replaces": "mxnet_tpu/ops/pallas/flash_attention.py:45",
         "tpu_kernel": "ops/pallas/flash_attention.py:_fa_kernel",
-        "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": library_ms}}
+        "design": "3xTF32 on mma.sync",
+        "max_abs_err": worst, "ms": kt["ms"],
+        "ms_spread": [kt["lo"], kt["hi"]], "device_ms": kt["device_ms"],
+        "host_us": kt["host_us"], "host_bound": kt["host_bound"],
+        "tflops": flops / kt["device_ms"] / 1e9,
+        "bound_share": bound_ms / kt["device_ms"],
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "bound_peak": "3 x flops at 495 TFLOP/s TF32; bytes at 3.35 TB/s",
+        "fma_bound_ms": timed[s]["fma_bound_ms"],
+        "library_ms": lt["ms"], "library_spread": [lt["lo"], lt["hi"]],
+        "library_device_ms": lt["device_ms"],
+        "library_host_us": lt["host_us"],
+        "library_host_bound": lt["host_bound"],
+        "buckets": {str(b): {"device_ms": timed[b]["kernel"]["device_ms"],
+                             "ms": timed[b]["kernel"]["ms"],
+                             "library_device_ms":
+                                 timed[b]["library"]["device_ms"],
+                             "bound_ms": timed[b]["bound_ms"]}
+                    for b in sorted(timed)},
+        "burst_buckets": buckets,
+        "burst_weighted_device_ms": weighted["kernel"],
+        "burst_weighted_library_device_ms": weighted["library"]}}
 
 
 def seeded_params(np, seed: int):
@@ -472,9 +624,23 @@ def slice_phase(torch, np, kernels):
                                  ProfilerActivity.CUDA]) as prof:
             _, wall = burst(srv, prompts)
             torch.cuda.synchronize()
-        device_breakdown(torch, prof, wall)
+        rows, _ = device_breakdown(torch, prof, wall)
+        served = [srv.engine.prompt_bucket(len(pr)) for pr in prompts]
     finally:
         srv.close()
+    # K1 f32 in the profiled burst against phase 3's bucket times
+    k1 = [e for e in rows if "fa_fwd_f32" in e.key]
+    k1_ms = sum(e.self_device_time_total for e in k1) / 1e3
+    entry = kernels["flash_attention_fwd"]
+    check(served == entry["burst_buckets"], "the server's prompt buckets %s "
+          "are not the timed ones %s" % (served, entry["burst_buckets"]))
+    entry["burst_device_ms"] = k1_ms
+    log("slice: K1 f32 in the profiled burst: %.4f ms of kernel time in %d "
+        "launches; phase 3's bucket times x the burst's launches: %.4f ms "
+        "(sdpa f32 there: %.4f ms)" % (
+            k1_ms, sum(e.count for e in k1),
+            entry["burst_weighted_device_ms"],
+            entry["burst_weighted_library_device_ms"]))
     for pr, toks in zip(prompts, outs):
         check(len(toks) == NEW_TOKENS and all(0 <= t < VOCAB for t in toks),
               "prompt of %d tokens gave %r" % (len(pr), toks))
@@ -585,33 +751,34 @@ def bf16_compare(got, want):
     return r
 
 
-# the edge sweep of the bf16 forward and dK/dV kernels: (S, Sk) pairs,
-# ragged and crossed; D 16 and 32 take the mma.sync kernels, D 64 and 128
-# the wgmma ones
+# the edge sweep of the bf16 forward, dQ and dK/dV kernels: (S, Sk)
+# pairs, ragged and crossed; D 16 and 32 take the mma.sync kernels, D 64
+# and 128 the wgmma ones
 SWEEP_LENGTHS = ((1, 1), (65, 65), (1000, 1000), (1024, 1024), (512, 1024),
                  (1024, 512))
 SWEEP_HEADS = (1, TRAIN_BATCH * HEADS)
 SWEEP_DIMS = (16, 32, 64, 128)
-# dK is zero in exact arithmetic where every live q row sees a single key
-# (S = 1 causal, or Sk = 1): softmax has no gradient with respect to its
-# only key. Both sides then hold only the rounding of dP - delta, two f32
-# sums of the same products (readings on the H100: 0 to 1.3e-6, either
-# side), so the relative limits have no scale there: both are held to
-# zero within this bound instead
+# dK and dQ are zero in exact arithmetic where every live q row sees a
+# single key (S = 1 causal, or Sk = 1): softmax has no gradient with
+# respect to its only key, so that key's dP - delta vanishes. Both sides
+# then hold only the rounding of dP - delta, two f32 sums of the same
+# products (readings on the H100: 0 to 1.3e-6, either side), so the
+# relative limits have no scale there: both are held to zero within this
+# bound instead
 ZERO_GRAD_ATOL = 1e-5
 
 
 def edge_sweep(torch):
-    """K1 bf16 and K3 against their plain versions under the bf16 limits
-    (and lse within 1e-4 max(1, max|ref|)) over S in {1, 65, 1000, 1024},
-    S != Sk both ways (top-aligned), causal and not, D 16, 32 (the
-    mma.sync kernels), 64 and 128 (the wgmma kernels), BH 1 and 128: the
-    ragged and crossed edges that TMA's zero fill meets. Each case is
-    fatal on failure."""
+    """K1 bf16, K2 and K3 against their plain versions under the bf16
+    limits (and lse within 1e-4 max(1, max|ref|)) over S in {1, 65,
+    1000, 1024}, S != Sk both ways (top-aligned), causal and not, D 16,
+    32 (the mma.sync kernels), 64 and 128 (the wgmma kernels), BH 1 and
+    128: the ragged and crossed edges that TMA's zero fill meets. Each
+    case is fatal on failure."""
     from mxnet_tpu_torch.ops import flash_attention as fa
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(SEED + 5)
-    worst = {"fwd": 0.0, "dkv": 0.0}
+    worst = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
     n = 0
     t0 = time.perf_counter()
     for d in SWEEP_DIMS:
@@ -627,26 +794,32 @@ def edge_sweep(torch):
                     scale = d ** -0.5
                     o, lse = fa.flash_attention_fwd(q, k, v, scale, causal)
                     delta = (do.float() * o.float()).sum(-1)
+                    dq = fa.flash_attention_bwd_dq(
+                        q, k, v, do, lse, delta, scale, causal)
                     dk, dv = fa.flash_attention_bwd_dkv(
                         q, k, v, do, lse, delta, scale, causal)
                     o_r, lse_r = fa.flash_attention_reference(q, k, v, scale,
                                                               causal)
-                    _, dk_r, dv_r = fa.flash_attention_backward_reference(
+                    dq_r, dk_r, dv_r = fa.flash_attention_backward_reference(
                         q, k, v, o, lse, do, scale, causal)
                     torch.cuda.synchronize()
                     res = {name: bf16_compare(got, want) for name, got, want
-                           in (("o", o, o_r), ("dk", dk, dk_r),
-                               ("dv", dv, dv_r))}
+                           in (("o", o, o_r), ("dq", dq, dq_r),
+                               ("dk", dk, dk_r), ("dv", dv, dv_r))}
                     case = "d=%d bh=%d s=%d sk=%d causal=%s" % (
                         d, bh, s, sk, causal)
                     if sk == 1 or (causal and s == 1):
-                        got_top = dk.float().abs().max().item()
-                        zero = res.pop("dk")
-                        log("  sweep %s: dk is zero in exact arithmetic: "
-                            "kernel max %.3g, plain max %.3g (limit %g)" % (
-                                case, got_top, zero["top"], ZERO_GRAD_ATOL))
-                        check(max(got_top, zero["top"]) <= ZERO_GRAD_ATOL,
-                              "edge sweep %s: dk not zero" % case)
+                        tops = {nm: (got.float().abs().max().item(),
+                                     res.pop(nm)["top"])
+                                for nm, got in (("dq", dq), ("dk", dk))}
+                        log("  sweep %s: dq and dk are zero in exact "
+                            "arithmetic: %s (limit %g)" % (case, "; ".join(
+                                "%s kernel max %.3g, plain max %.3g"
+                                % (nm, a, b) for nm, (a, b) in tops.items()),
+                                ZERO_GRAD_ATOL))
+                        check(max(max(ab) for ab in tops.values())
+                              <= ZERO_GRAD_ATOL,
+                              "edge sweep %s: dq or dk not zero" % case)
                     lse_err = (lse - lse_r).abs().max().item()
                     lse_lim = KERNEL_ATOL * max(1.0, lse_r.abs().max().item())
                     log("  sweep %s: %s; lse %.3g (limit %.3g)" % (
@@ -659,13 +832,15 @@ def edge_sweep(torch):
                           "edge sweep %s: %s disagree with the plain versions"
                           " (lse err %g)" % (case, bad or "none", lse_err))
                     worst["fwd"] = max(worst["fwd"], res["o"]["err"], lse_err)
+                    if "dq" in res:
+                        worst["dq"] = max(worst["dq"], res["dq"]["err"])
                     worst["dkv"] = max(worst["dkv"], res["dv"]["err"],
                                        res.get("dk", res["dv"])["err"])
                     n += 1
-                    del q, k, v, do, o, lse, delta, dk, dv, o_r, lse_r
-                    del dk_r, dv_r
-    log("edge sweep: %d cases of K1 bf16 and K3 within the bf16 limits in "
-        "%.1f s" % (n, time.perf_counter() - t0))
+                    del q, k, v, do, o, lse, delta, dq, dk, dv, o_r, lse_r
+                    del dq_r, dk_r, dv_r
+    log("edge sweep: %d cases of K1 bf16, K2 and K3 within the bf16 limits "
+        "in %.1f s" % (n, time.perf_counter() - t0))
     gc.collect()
     torch.cuda.empty_cache()
     return worst
@@ -675,7 +850,7 @@ def train_kernel_phase(torch, kernels):
     """K1 (bf16 input), K2 and K3 against their plain versions at the
     training step's attention shape (batch 8 x 16 heads, S 1024, D 128,
     causal) in bf16 and f32, a ragged length and a non-causal case; the
-    edge sweep of the wgmma kernels (K1 bf16, K3); then each kernel
+    edge sweep of the bf16 kernels (K1 bf16, K2, K3); then each kernel
     timed at that shape beside its plain version,
     scaled_dot_product_attention and its bound."""
     import torch.nn.functional as F
@@ -745,8 +920,8 @@ def train_kernel_phase(torch, kernels):
         del q, k, v, do, o, lse, delta, dq, dk, dv, o_r, lse_r, refs
 
     swept = edge_sweep(torch)
-    worst["fwd"] = max(worst["fwd"], swept["fwd"])
-    worst["dkv"] = max(worst["dkv"], swept["dkv"])
+    for what in worst:
+        worst[what] = max(worst[what], swept[what])
 
     # times at the training shape, bf16, causal
     s = MAX_SEQ
@@ -790,7 +965,7 @@ def train_kernel_phase(torch, kernels):
         "fwd": ("flash_attention_fwd_bf16", "flash_attention_fwd.cu", 45,
                 "_fa_kernel", "wgmma + TMA"),
         "dq": ("flash_attention_bwd_dq", "flash_attention_bwd.cu", 136,
-               "_fa_bwd_dq_kernel", "mma.sync"),
+               "_fa_bwd_dq_kernel", "wgmma + TMA"),
         "dkv": ("flash_attention_bwd_dkv", "flash_attention_bwd.cu", 186,
                 "_fa_bwd_dkv_kernel", "wgmma + TMA"),
     }

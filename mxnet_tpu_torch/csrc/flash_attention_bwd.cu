@@ -23,8 +23,8 @@
 // variants keep every operand after its first read on chip and run no
 // atomics:
 //   * the TPU grid's sequential axis becomes a loop inside the block.
-//     dQ: one block per (bh, 64-row q tile) walks the KV tiles and keeps
-//     its dQ accumulator in registers. dK/dV: one block per (bh, key
+//     dQ: one block per (bh, q tile) walks the KV tiles and keeps its dQ
+//     accumulator in registers. dK/dV: one block per (bh, key
 //     tile) walks the q tiles and keeps dK and dV in registers. Every
 //     output tile has one owner, as on the TPU's KV-major grid, so no
 //     block adds into another's output;
@@ -32,15 +32,16 @@
 //     walk; the other pair is staged once per tile;
 //   * causal tiles wholly above the diagonal are never loaded.
 //
-// float32 (fa_bwd_dq_f32, fa_bwd_dkv_f32): plain FMAs, as in the float32
-// forward kernel. 16 x 16 threads, each owning 4 rows x 4 (then D / 16)
-// columns of the tile products; rows are padded in shared memory (D + 1
-// floats) so that 16 threads reading 16 different rows hit 16 banks; the
+// float32 (fa_bwd_dq_f32, fa_bwd_dkv_f32; off the main path, which trains
+// under amp bf16): plain FMAs, the first version. 16 x 16 threads, each
+// owning 4 rows x 4 (then D / 16) columns of the tile products; rows are
+// padded in shared memory (D + 1 floats) so that 16 threads reading 16
+// different rows hit 16 banks; the
 // P / dS tiles go through shared memory with row stride BK + 4, so the
 // two half-warps' rows land 16 banks apart.
 //
-// bfloat16 (the training path under amp). fa_bwd_dq_bf16 (K2), and
-// fa_bwd_dkv_bf16 for head dims 16 and 32, run on mma.sync m16n8k16 (bf16
+// bfloat16 (the training path under amp). fa_bwd_dq_bf16 and
+// fa_bwd_dkv_bf16, for head dims 16 and 32, run on mma.sync m16n8k16 (bf16
 // in, float32 accumulate; see flash_attention_common.cuh): 4 warps per
 // block, each owning 16 rows (q rows for dQ, keys for dK/dV); S and dP
 // land in registers in the accumulator layout; P and dS are rounded to
@@ -73,6 +74,39 @@
 //   * masks are evaluated only on tiles that cross the diagonal or an
 //     edge; dK and dV are written as bf16 from registers, one owner per
 //     output tile and no atomics.
+// fa_bwd_dq_bf16_wgmma (dQ for head dims 64 and 128) is built the same
+// way. At the training shape it does 51.6 GFLOP on 168.8 MB: 0.052 ms at
+// 989 TFLOP/s against 0.050 ms at 3.35 TB/s, so it sits at the balance
+// point. The first dQ kernel (mma.sync) reached 12% of that: 4 warps
+// staged each K/V tile synchronously between two barriers, built the B
+// operand of dS K from 16-bit shared loads, and ran q tiles in ascending
+// order, so the heaviest causal tiles came last. Now:
+//   * a block of three warpgroups per (bh, 128-row q tile): the producer
+//     (setmaxnreg 24) whose one elected thread issues every TMA load, and
+//     two consumers of 64 q rows each (setmaxnreg 240). The last q tile of
+//     each head is scheduled first;
+//   * Q, dO, lse and delta of the block's rows are loaded once and held
+//     (lse and delta in one 132-float box each from the 4-float boundary
+//     at or below the first row); K and V tiles of 64 keys pass through a
+//     three-stage ring, each stage with a "loaded" mbarrier and a "free"
+//     one that all 256 consumer threads arrive on. 64 keys keep the dQ
+//     accumulator (64 registers a thread at D 128), S and dP (32 each)
+//     and dS as bf16 (16) in registers with no spill;
+//   * per KV tile: S = Q K^T and dP = dO V^T are wgmma with both operands
+//     in shared memory, K-major; dQ += dS K takes dS from registers
+//     (c_to_a, rounded to bf16 as the TPU kernel rounds it to k's dtype)
+//     and K MN-major with the transpose bit, as K1 takes V in P V. A step
+//     issues S_j, dP_j and dQ += dS_(j-1) K_(j-1) together; P_j is
+//     computed once S_j is in (wait_group 2) while the other two run, and
+//     a stage is freed once the dQ product that reads its K is done;
+//   * causal KV tiles wholly above the diagonal are never loaded; a tile
+//     that only the second warpgroup's rows see is waited for and
+//     released by the first, so the ring's phases stay in step. Masks run
+//     only on tiles that cross the diagonal, the Sk edge or S, in a loop
+//     of their own, and the last dQ product is peeled off, so no branch
+//     lies between a product and its wait (C7514);
+//   * dQ is written as bf16 from registers, rows past S not at all: one
+//     owner per output tile and no atomics, as on the TPU's grid.
 // Where trouble lay, and what the design does about it (pitfalls as in
 // flash_attention_fwd.cu):
 //   1. swizzle at D 128: two 64-column TMA boxes per row, read by the
@@ -96,14 +130,17 @@
 //      the registers of P, dS and the accumulators are pinned before the
 //      wgmma.fence of the products that read them; a stage is freed only
 //      after the wait on its last wgmma;
-//   5. head dims 16 and 32 keep fa_bwd_dkv_bf16 (mma.sync), chosen by head
-//      dim alone in mxt_flash_attention_bwd_dkv_bf16.
+//   5. head dims 16 and 32 keep fa_bwd_dq_bf16 and fa_bwd_dkv_bf16
+//      (mma.sync), chosen by head dim alone in
+//      mxt_flash_attention_bwd_dq_bf16 and _dkv_bf16.
 //
 // C interface (bound with ctypes): every function returns a cudaError_t
 // as int, 0 on success, and launches on the given stream without
 // synchronising.
 
 #include <math.h>
+
+#include <type_traits>
 
 #include "flash_attention_common.cuh"
 #include "flash_attention_sm90.cuh"
@@ -957,6 +994,315 @@ int launch_dkv_bf16_wgmma(const __nv_bfloat16* q, const __nv_bfloat16* k,
   return int(cudaGetLastError());
 }
 
+// ---------------------------------------- dQ, bfloat16, wgmma + TMA ring
+
+constexpr int DQ_BQ = 128;         // q rows per block: 2 consumer warpgroups
+constexpr int DQ_BK = 64;          // keys per ring tile
+constexpr int DQ_STAGES = 3;       // K/V tiles in flight
+// lse and delta of the block's rows, from the 4-float boundary at or
+// below its first row (a TMA box must start 16-byte aligned)
+constexpr int DQ_VEC = DQ_BQ + 4;
+
+// Byte offsets in the (1024-aligned) dynamic shared memory of the block:
+// Q and dO (loaded once), a ring of K and V tiles (3 stages: 160 KB at D
+// 128 with Q and dO), lse and delta, the mbarriers.
+template <int D>
+struct DqSmem {
+  static constexpr uint32_t Q_TILE = DQ_BQ * D * 2;   // Q or dO
+  static constexpr uint32_t KV_TILE = DQ_BK * D * 2;  // K or V
+  static constexpr uint32_t Q = 0;
+  static constexpr uint32_t DO = Q_TILE;
+  static constexpr uint32_t RING = 2 * Q_TILE;
+  static constexpr uint32_t STAGE = 2 * KV_TILE;
+  __device__ static uint32_t K(int s) { return RING + s * STAGE; }
+  __device__ static uint32_t V(int s) { return K(s) + KV_TILE; }
+  static constexpr uint32_t LSE = RING + DQ_STAGES * STAGE;
+  static constexpr uint32_t DELTA = LSE + 1024;
+  static constexpr uint32_t BAR = DELTA + 1024;
+  static constexpr int N_BAR = 1 + 2 * DQ_STAGES;
+  static constexpr size_t BYTES = BAR + N_BAR * 8 + 1024;   // + alignment
+};
+
+// P = exp2(S scale log2e - lse log2e) in place of the scores of a 64-key
+// tile, on the thread's two rows (nl: -lse log2e of each). The masks run
+// only on tiles that need them (EDGE): q rows past S, keys past Sk and
+// keys above the diagonal get P = 0 (TMA's zero fill is no mask).
+template <bool EDGE>
+__device__ __forceinline__ void dq_probs(float (&sc)[32], int k0, int sq,
+                                         int sk, int causal, int row0,
+                                         int row1, int cq, float scale_log2,
+                                         float nl0, float nl1) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float p = exp2f(fmaf(sc[4 * j + e], scale_log2, (e & 2) ? nl1 : nl0));
+      if (EDGE) {
+        const int key = k0 + 8 * j + cq + (e & 1);
+        const int row = (e & 2) ? row1 : row0;
+        if (row >= sq || key >= sk || (causal && row < key)) p = 0.f;
+      }
+      sc[4 * j + e] = p;
+    }
+}
+
+template <int D>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+fa_bwd_dq_bf16_wgmma(const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv,
+                     const __grid_constant__ CUtensorMap tdo,
+                     const __grid_constant__ CUtensorMap tlse,
+                     const __grid_constant__ CUtensorMap tdelta,
+                     __nv_bfloat16* __restrict__ dq, int sq, int sk,
+                     float scale, int causal) {
+  using L = DqSmem<D>;
+  constexpr int NH = D / 64;       // 64-column boxes of a row
+  constexpr int NST = DQ_STAGES;
+  extern __shared__ __align__(1024) unsigned char dq_smem[];
+  const uint32_t base = (smem_u32(dq_smem) + 1023u) & ~1023u;
+  unsigned char* const gbase = dq_smem + (base - smem_u32(dq_smem));
+  // barriers: Q, dO, lse and delta loaded; stage s loaded; stage s free
+  const uint32_t bar_q = base + L::BAR;
+  const uint32_t bar_full = bar_q + 8, bar_free = bar_full + 8 * NST;
+
+  const int bh = blockIdx.x;
+  // the last q tile of a head first: causal tiles of most work lead
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * DQ_BQ;
+  int n_kt = (sk + DQ_BK - 1) / DQ_BK;
+  if (causal) n_kt = min(n_kt, (min(q0 + DQ_BQ, sq) - 1) / DQ_BK + 1);
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < NST; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_free + 8 * s, 2 * 128);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // producer: one thread keeps the ring full
+    regs_release<24>();
+    if (threadIdx.x == 0) {
+      tma_prefetch_map(&tk);
+      tma_prefetch_map(&tv);
+      mbar_expect_tx(bar_q, 2 * L::Q_TILE + 2 * DQ_VEC * 4);
+#pragma unroll
+      for (int h = 0; h < NH; ++h) {
+        tma_load_3d(base + L::Q + h * DQ_BQ * 128, &tq, bar_q, h * 64, q0,
+                    bh);
+        tma_load_3d(base + L::DO + h * DQ_BQ * 128, &tdo, bar_q, h * 64, q0,
+                    bh);
+      }
+      // lse and delta as flat (bh * sq) vectors: values past this head's
+      // rows belong to the next head or are zeros, and are masked below
+      const int v0 = (bh * sq + q0) & ~3;
+      tma_load_1d(base + L::LSE, &tlse, bar_q, v0);
+      tma_load_1d(base + L::DELTA, &tdelta, bar_q, v0);
+      for (int kt = 0; kt < n_kt; ++kt) {
+        const int s = kt % NST;
+        const uint32_t full = bar_full + 8 * s;
+        mbar_wait(bar_free + 8 * s, ((kt / NST) & 1) ^ 1);
+        mbar_expect_tx(full, 2 * L::KV_TILE);
+#pragma unroll
+        for (int h = 0; h < NH; ++h) {
+          tma_load_3d(base + L::K(s) + h * DQ_BK * 128, &tk, full, h * 64,
+                      kt * DQ_BK, bh);
+          tma_load_3d(base + L::V(s) + h * DQ_BK * 128, &tv, full, h * 64,
+                      kt * DQ_BK, bh);
+        }
+      }
+    }
+  } else {
+    // consumers: warpgroup g owns q rows q0 + 64g .. q0 + 64g + 63. The
+    // products S_j = Q K_j^T and dP_j = dO V_j^T are issued together with
+    // dQ += dS_(j-1) K_(j-1), so P_j is computed while dP_j and that dQ
+    // product are on the tensor cores
+    regs_claim<240>();
+    constexpr int NO = D / 2;   // dQ registers: 64 x D / 128
+    const int g = wg - 1;
+    const int t = threadIdx.x % 128;
+    const int lane = t % 32;
+    const int cq = 2 * (lane % 4);
+    const int r0 = q0 + 64 * g;                  // the warpgroup's rows
+    const int row0 = r0 + 16 * (t / 32) + lane / 4;
+    const int row1 = row0 + 8;
+    const float scale_log2 = scale * LOG2E;
+    // the KV tiles this warpgroup's rows see, and the first that needs
+    // the masks (on the Sk edge, crossing the diagonal of its first row,
+    // or any tile where its rows pass S); every later one does too
+    int n_own = 0;
+    if (r0 < sq) {
+      n_own = (sk + DQ_BK - 1) / DQ_BK;
+      if (causal) n_own = min(n_own, (min(r0 + 64, sq) - 1) / DQ_BK + 1);
+    }
+    int kt_edge = sk / DQ_BK;
+    if (causal) kt_edge = min(kt_edge, (r0 + 1) / DQ_BK);
+    if (r0 + 64 > sq) kt_edge = 0;
+    float acc[NO], sc[32], dp[32];
+    uint32_t da[DQ_BK / 16][4];   // dS rounded to bf16: the A operand
+#pragma unroll
+    for (int i = 0; i < NO; ++i) acc[i] = 0.f;
+    const uint32_t qa = base + L::Q + g * 64 * 128;
+    const uint32_t oa = base + L::DO + g * 64 * 128;
+
+    mbar_wait(bar_q, 0);
+    // the block's first row lies 0-3 floats into the lse and delta boxes
+    const int v_off = ((bh * sq + q0) & 3) - q0;
+    const float* lse_s = reinterpret_cast<const float*>(gbase + L::LSE);
+    const float* delta_s = reinterpret_cast<const float*>(gbase + L::DELTA);
+    const float nl0 = -lse_s[row0 + v_off] * LOG2E;
+    const float nl1 = -lse_s[row1 + v_off] * LOG2E;
+    const float dl0 = delta_s[row0 + v_off], dl1 = delta_s[row1 + v_off];
+
+    // S = Q K^T and dP = dO V^T of the tile in stage s, all K-major; the
+    // first k-step of each overwrites its accumulator
+    auto issue_sdp = [&](int s) {
+      const uint32_t ks = base + L::K(s), vs = base + L::V(s);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss(sc,
+                 kmajor_desc(qa + (kk / 4) * DQ_BQ * 128 + (kk % 4) * 32),
+                 kmajor_desc(ks + (kk / 4) * DQ_BK * 128 + (kk % 4) * 32),
+                 kk > 0);
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss(dp,
+                 kmajor_desc(oa + (kk / 4) * DQ_BQ * 128 + (kk % 4) * 32),
+                 kmajor_desc(vs + (kk / 4) * DQ_BK * 128 + (kk % 4) * 32),
+                 kk > 0);
+      wgmma_commit();
+    };
+    // dQ += dS K of the tile in stage s: dS from registers, K MN-major
+    // (key-major in memory)
+    auto issue_dq = [&](int s) {
+      const uint32_t ks = base + L::K(s);
+#pragma unroll
+      for (int kk = 0; kk < DQ_BK / 16; ++kk)
+        wgmma_rs(acc, da[kk], mnmajor_desc(ks + kk * 16 * 128, DQ_BK));
+      wgmma_commit();
+    };
+    // dS = P (dP - delta) scale in place of dP
+    auto grads = [&]() {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dp[4 * j + e] = sc[4 * j + e] *
+                          (dp[4 * j + e] - ((e & 2) ? dl1 : dl0)) * scale;
+    };
+    // dS rounded to bf16, as the TPU kernel rounds it to k's dtype
+    auto to_a = [&]() {
+#pragma unroll
+      for (int kk = 0; kk < DQ_BK / 16; ++kk)
+        c_to_a(da[kk], &dp[8 * kk], &dp[8 * kk + 4]);
+    };
+
+    if (n_own > 0) {
+      mbar_wait(bar_full, 0);
+      wgmma_fence();
+      issue_sdp(0);
+      wgmma_wait<0>();
+      fence_regs(sc);
+      fence_regs(dp);
+      if (kt_edge == 0)
+        dq_probs<true>(sc, 0, sq, sk, causal, row0, row1, cq, scale_log2,
+                       nl0, nl1);
+      else
+        dq_probs<false>(sc, 0, sq, sk, causal, row0, row1, cq, scale_log2,
+                        nl0, nl1);
+      grads();
+      to_a();
+
+      // tiles 1 .. n_own - 1, those without masks first: no branch lies
+      // between a product and its wait, so ptxas keeps the three products
+      // of a step in flight together
+      auto step = [&](int kt, auto edge_tile) {
+        constexpr bool EDGE = decltype(edge_tile)::value;
+        const int s = kt % NST, sp = (kt - 1) % NST;
+        fence_regs(acc);
+        fence_regs(da);
+        mbar_wait(bar_full + 8 * s, (kt / NST) & 1);
+        wgmma_fence();
+        issue_sdp(s);
+        issue_dq(sp);
+        wgmma_wait<2>();                   // S of this tile is in
+        fence_regs(sc);
+        dq_probs<EDGE>(sc, kt * DQ_BK, sq, sk, causal, row0, row1, cq,
+                       scale_log2, nl0, nl1);
+        wgmma_wait<1>();                   // and dP
+        fence_regs(dp);
+        grads();
+        wgmma_wait<0>();                   // and dQ of the previous tile
+        fence_regs(acc);
+        mbar_arrive(bar_free + 8 * sp);    // K and V of that stage are read
+        to_a();
+      };
+      const int mid = max(1, min(kt_edge, n_own));
+      for (int kt = 1; kt < mid; ++kt) step(kt, std::false_type());
+      for (int kt = mid; kt < n_own; ++kt) step(kt, std::true_type());
+      // the last tile's dQ product
+      {
+        const int sp = (n_own - 1) % NST;
+        fence_regs(acc);
+        fence_regs(da);
+        wgmma_fence();
+        issue_dq(sp);
+        wgmma_wait<0>();
+        fence_regs(acc);
+        mbar_arrive(bar_free + 8 * sp);
+      }
+    }
+    // tiles loaded for the other warpgroup's rows alone (the causal
+    // diagonal): waited for and released, so the ring's phases stay in
+    // step
+    for (int kt = n_own; kt < n_kt; ++kt) {
+      mbar_wait(bar_full + 8 * (kt % NST), (kt / NST) & 1);
+      mbar_arrive(bar_free + 8 * (kt % NST));
+    }
+
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = h ? row1 : row0;
+      if (row >= sq) continue;
+      __nv_bfloat16* out = dq + (size_t(bh) * sq + row) * D;
+#pragma unroll
+      for (int j = 0; j < NO / 4; ++j)
+        *reinterpret_cast<uint32_t*>(out + 8 * j + cq) =
+            pack_bf16(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+    }
+  }
+}
+
+template <int D>
+int launch_dq_bf16_wgmma(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                         const __nv_bfloat16* v, const __nv_bfloat16* dout,
+                         const float* lse, const float* delta,
+                         __nv_bfloat16* dq, int bh, int sq, int sk,
+                         float scale, int causal, cudaStream_t stream) {
+  alignas(64) CUtensorMap tq, tk, tv, tdo, tlse, tdelta;
+  int err = map_heads_bf16(&tq, q, bh, sq, D, DQ_BQ);
+  if (!err) err = map_heads_bf16(&tk, k, bh, sk, D, DQ_BK);
+  if (!err) err = map_heads_bf16(&tv, v, bh, sk, D, DQ_BK);
+  if (!err) err = map_heads_bf16(&tdo, dout, bh, sq, D, DQ_BQ);
+  if (!err) err = map_vector_f32(&tlse, lse, size_t(bh) * sq, DQ_VEC);
+  if (!err) err = map_vector_f32(&tdelta, delta, size_t(bh) * sq, DQ_VEC);
+  if (err) return err;
+  const size_t smem = DqSmem<D>::BYTES;
+  cudaError_t cerr = cudaFuncSetAttribute(
+      fa_bwd_dq_bf16_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      int(smem));
+  if (cerr != cudaSuccess) return int(cerr);
+  const dim3 grid(bh, (sq + DQ_BQ - 1) / DQ_BQ);
+  fa_bwd_dq_bf16_wgmma<D><<<grid, WG_THREADS, smem, stream>>>(
+      tq, tk, tv, tdo, tlse, tdelta, dq, sq, sk, scale, causal);
+  return int(cudaGetLastError());
+}
+
 #define MXT_HEAD_DIMS(CALL)                          \
   switch (d) {                                       \
     case 16: return CALL(16);                        \
@@ -997,14 +1343,21 @@ int mxt_flash_attention_bwd_dq_bf16(const void* q, const void* k,
                                     void* dq, int bh, int sq, int sk, int d,
                                     float scale, int causal, void* stream) {
   using T = __nv_bfloat16;
-#define CALL(D)                                                              \
-  launch_dq_bf16<D>(static_cast<const T*>(q), static_cast<const T*>(k),     \
-                    static_cast<const T*>(v), static_cast<const T*>(dout),  \
-                    static_cast<const float*>(lse),                         \
-                    static_cast<const float*>(delta), static_cast<T*>(dq),  \
-                    bh, sq, sk, scale, causal,                              \
-                    static_cast<cudaStream_t>(stream))
-  MXT_HEAD_DIMS(CALL)
+  // D 64 and 128 (the models' head dims) on wgmma + TMA; D 16 and 32 on
+  // the mma.sync kernel, chosen by shape alone
+#define CALL(LAUNCH, D)                                                      \
+  LAUNCH<D>(static_cast<const T*>(q), static_cast<const T*>(k),             \
+            static_cast<const T*>(v), static_cast<const T*>(dout),          \
+            static_cast<const float*>(lse), static_cast<const float*>(delta), \
+            static_cast<T*>(dq), bh, sq, sk, scale, causal,                 \
+            static_cast<cudaStream_t>(stream))
+  switch (d) {
+    case 16: return CALL(launch_dq_bf16, 16);
+    case 32: return CALL(launch_dq_bf16, 32);
+    case 64: return CALL(launch_dq_bf16_wgmma, 64);
+    case 128: return CALL(launch_dq_bf16_wgmma, 128);
+    default: return int(cudaErrorInvalidValue);
+  }
 #undef CALL
 }
 

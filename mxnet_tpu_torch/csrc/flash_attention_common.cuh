@@ -2,10 +2,11 @@
 // flash_attention_bwd.cu): tile sizes, staging of tiles into shared
 // memory, and the warp-level bf16 tensor-core product.
 //
-// The float32 kernels issue plain FMAs on tiles staged as float32. The
-// mma.sync kernels (the dQ kernel, and the forward and dK/dV kernels at
-// head dims 16 and 32) stage bf16 tiles with a row stride of D + 8
-// elements and multiply with mma.sync.m16n8k16 (bf16 in, float32
+// The float32 backward kernels issue plain FMAs on tiles staged as
+// float32 (the float32 forward runs 3xTF32 on its own mma.sync fragments,
+// in flash_attention_fwd.cu). The bf16 mma.sync kernels (forward, dQ and
+// dK/dV at head dims 16 and 32) stage bf16 tiles with a row stride of
+// D + 8 elements and multiply with mma.sync.m16n8k16 (bf16 in, float32
 // accumulate). The wgmma kernels (flash_attention_sm90.cuh) use only
 // NEG_INF_MASK, pack_bf16 and c_to_a from here: a wgmma accumulator and
 // register A operand are, warp by warp, the C and A fragments below. For
@@ -29,8 +30,8 @@ namespace fa {
 
 constexpr int BQ = 64;         // query rows per tile
 constexpr int BK = 64;         // keys per tile
-constexpr int THREADS = 256;   // float32 kernels: 16 x 16 threads
-constexpr int PS = BK + 4;     // float32 kernels: P / dS row stride
+constexpr int THREADS = 256;   // float32 backward kernels: 16 x 16
+constexpr int PS = BK + 4;     // float32 backward kernels: P / dS stride
 constexpr int MMA_THREADS = 128;   // bf16 kernels: 4 warps x 16 rows
 constexpr float NEG_INF_MASK = -1e30f;
 

@@ -9,27 +9,58 @@
 // kernel; keys past Sk (the ragged edge of the last tile) are excluded
 // outright.
 //
-// What bounds it on this card. At the serving path's prefill shapes
-// (BH = 16 heads, D = 128, S up to 1024) the function does ~4 S^2 D / 2
-// flops per head (causal) against 16 S D bytes of q, k, v and o: about
-// 64 flops per byte at S = 1024, far above the H100's ~20 flop/byte
-// float32 balance point (67 TFLOP/s over 3.35 TB/s). So it is bound by
-// float32 arithmetic, and the design keeps every operand after its
-// first read on chip:
-//   * one thread block per (bh, 64-row q tile); a loop inside the block
-//     walks the 64-key KV tiles (the TPU grid's sequential axis), so m,
-//     l and the output accumulator live in registers for the whole row
-//     of tiles and never touch device memory;
-//   * the Q tile is read once, each K and V tile once per q tile, all
-//     staged in shared memory; the P tile goes through shared memory
-//     between the two products;
-//   * causal KV tiles wholly above the diagonal are never loaded;
-//   * rows are padded in shared memory (D + 1 floats) so that the 16
-//     threads reading different keys hit 16 different banks.
-// This first version issues plain FMAs (no tensor cores: a float32
-// input has no exact tensor-core path, and TF32 would change the
-// numbers) and no asynchronous copies; about half its shared-memory
-// loads could go as float4, which is the next step for speed.
+// float32 (the serving path's prefill): fa_fwd_f32_tf32x3 at every head
+// dim. At the prefill shapes (BH = 16 heads, D = 128, S the prompt bucket,
+// up to 1024, causal) the function does 4 S^2 D / 2 flops per head against
+// 16 S D bytes of q, k, v and o: about 64 flops per byte at S = 1024. On
+// float32 FMAs (67 TFLOP/s) that is bound by arithmetic (the first kernel,
+// on FMAs, reached 21% of that bound); on the tensor cores it need not be:
+//   * the arithmetic is 3xTF32 on mma.sync.m16n8k8 (tf32 in, float32
+//     accumulate): every operand x is split in registers into big =
+//     tf32(x) (cvt.rna) and small = x - big, which the tensor cores read
+//     truncated to tf32, and each product is small * big + big * small +
+//     big * big, the small terms first. What is dropped (small * small,
+//     the truncation of small) is about 2^-21 of a term, of float32's
+//     order; a single TF32 pass keeps about three decimal
+//     digits and would change the numbers. Three tf32 products cost 3
+//     times the flops at 495 TFLOP/s: the bound is max(bytes at 3.35
+//     TB/s, 3 x flops at 495 TFLOP/s);
+//   * wgmma is no route here: its tf32 form reads shared-memory operands
+//     K-major only (no transpose bit for 32-bit types), and V lies
+//     key-major, so P V would need a transposed copy of V, and the small
+//     halves tiles of their own. mma.sync fragments are loaded by each
+//     thread in any layout and split in registers;
+//   * one block of 8 warps per (bh, 64-row q tile). A warp's products form
+//     long dependent chains (each S accumulator takes D / 8 k-steps of
+//     three products), so a block runs at the latency of its chains, not
+//     at the SM's rate: a 4-warp block took about as long per KV tile
+//     alone on an SM as beside another. So the block splits the keys
+//     instead of the rows: warps 0-3 and 4-7 own the same 16-row slices
+//     and take the first and second 32 keys of every 64-key tile, each
+//     half with its own online softmax (m, l and O in registers), merged
+//     through shared memory at the end. Each warp's chain per tile is
+//     then that of a 32-key tile, and a short prompt's few q tiles still
+//     keep 8 warps busy on each SM they reach. The two small-term
+//     products of Q K^T accumulate apart from big * big, which halves
+//     that product's chain again;
+//   * Q is read once; K and V tiles of 64 keys come through a two-stage
+//     cp.async ring, so the next tile loads while this one computes;
+//     shared rows are D + 4 floats, which puts every fragment load of Q,
+//     K and V in 32 different banks. 165 KB at D 128: one block (8 warps)
+//     per SM, as many warps as two 4-warp blocks of 99 KB, which ran
+//     slower;
+//   * P never leaves registers: the m16n8k8 C fragment does not map onto
+//     the A fragment (a thread holds P's columns 2t, 2t + 1, the A operand
+//     wants t, t + 4), but a k-step may take its 8 keys in any order, so
+//     P V's k-step orders them 2t, 2t + 1 and reads V's rows to match;
+//   * a half that has seen only masked keys of a row (the causal diagonal)
+//     holds m = -1e30 and a meaningless l and O; the first real key, in
+//     its own walk or in the merge, scales them by exp(-1e30 - m) = 0;
+//   * causal KV tiles wholly above the diagonal are never loaded, and the
+//     last q tile of each head is scheduled first;
+//   * unchanged semantics: the finite -1e30 causal mask, kp >= Sk
+//     excluded, O / max(l, 1e-37) and lse = m + log(max(l, 1e-37)) in
+//     float32, with expf as in the TPU kernel.
 //
 // bfloat16 (the training path under amp). At the training shape (BH 128,
 // S 1024, D 128, causal) the function does 34.4 GFLOP on 134.7 MB: 0.035
@@ -109,138 +140,295 @@ namespace {
 
 using namespace fa;
 
-template <int D>
-constexpr size_t smem_bytes() {
-  return sizeof(float) *
-         (size_t(BQ) * (D + 1) + size_t(BK) * (D + 1) + size_t(BK) * D +
-          size_t(BQ) * PS);
+// ------------------------------------------- float32, 3xTF32 on mma.sync
+
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(src_bytes)
+               : "memory");
 }
 
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-fa_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-           const float* __restrict__ v, float* __restrict__ o,
-           float* __restrict__ lse, int sq, int sk, float scale,
-           int causal) {
-  constexpr int DC = D / 16;   // output columns per thread
-  extern __shared__ float smem[];
-  float* Qs = smem;                        // BQ x (D + 1)
-  float* Ks = Qs + BQ * (D + 1);           // BK x (D + 1)
-  float* Vs = Ks + BK * (D + 1);           // BK x D
-  float* Ps = Vs + BK * D;                 // BQ x PS
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
 
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * BQ;
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-  const float* qb = q + size_t(bh) * sq * D;
+// Waits until at most N committed groups of this thread are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// x = big + small: big = tf32(x) (10-bit mantissa, rounded to nearest),
+// small = x - big, exact in float32. The tensor cores read a tf32 operand's
+// top 19 bits, so small enters the product truncated: about 2^-21 of x is
+// lost there, and about 2^-22 of each term in the small * small product
+// that the three-pass product drops.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
+                                           uint32_t& small) {
+  uint32_t b;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(b) : "f"(x));
+  b &= 0xffffe000u;
+  big = b;
+  small = __float_as_uint(x - __uint_as_float(b));
+}
+
+// c += a b, one m16n8k8 tf32 product with float32 accumulation. Not
+// volatile: the compiler may interleave independent products.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a b at float32 accuracy: the three products of the split halves,
+// the small terms first.
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4],
+                                           const uint32_t (&a_big)[4],
+                                           const uint32_t (&a_small)[4],
+                                           const uint32_t (&b_big)[2],
+                                           const uint32_t (&b_small)[2]) {
+  mma_tf32(c, a_small, b_big[0], b_big[1]);
+  mma_tf32(c, a_big, b_small[0], b_small[1]);
+  mma_tf32(c, a_big, b_big[0], b_big[1]);
+}
+
+// Shared memory of a block: its 64 q rows and a two-stage ring of K and V
+// tiles of 64 keys, rows D + 4 floats apart (165 KB at D 128).
+template <int D>
+constexpr size_t tf32_smem_bytes() {
+  return sizeof(float) * size_t(64 + 2 * 2 * 64) * (D + 4);
+}
+
+// One block of 8 warps per (bh, 64-row q tile). Warp w owns q rows
+// 16 (w % 4) .. + 15 and, of each 64-key tile that cp.async brings into a
+// two-stage ring, keys 32 (w / 4) .. + 31: the two halves of the block walk
+// the same tiles with an online softmax each, and merge m, l and O at the
+// end, so each warp's serial chain is half the block's.
+template <int D>
+__global__ void __launch_bounds__(256, 1)
+fa_fwd_f32_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, float* __restrict__ o,
+                  float* __restrict__ lse, int sq, int sk, float scale,
+                  int causal) {
+  constexpr int BQR = 64;           // q rows per block
+  constexpr int BK = 64;            // keys per KV tile
+  constexpr int NST = 2;            // K/V tiles in flight
+  constexpr int KH = 32;            // keys per warp of a KV tile
+  constexpr int THR = 256;
+  constexpr int SX = D + 4;         // shared row stride (floats)
+  constexpr int KS = D / 8;         // k-steps of Q K^T
+  constexpr int DN = D / 8;         // 8-column tiles of O
+  constexpr int NJ = KH / 8;        // 8-key tiles of a warp's keys
+  extern __shared__ __align__(16) float tf_smem[];
+  float* Qs = tf_smem;                  // BQR x SX
+  float* Ks = Qs + BQR * SX;            // NST x BK x SX
+  float* Vs = Ks + NST * BK * SX;       // NST x BK x SX
+
+  const int bh = blockIdx.x;
+  // the last q tile of a head first: causal tiles of most work lead
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQR;
+  const int warp = threadIdx.x / 32;
+  const int half = warp / 4;                     // the warp's 32 keys
+  const int g = (threadIdx.x % 32) / 4;
+  const int t = threadIdx.x % 4;
+  const int r0 = (warp % 4) * 16;                // the warp's rows
+  const int row[2] = {q0 + r0 + g, q0 + r0 + g + 8};
   const float* kb = k + size_t(bh) * sk * D;
   const float* vb = v + size_t(bh) * sk * D;
 
-  load_tile<D>(Qs, D + 1, qb, q0, BQ, sq);
-
-  float m[4], l[4], acc[4][DC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG_INF_MASK;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < DC; ++j) acc[i][j] = 0.f;
-  }
+  // rows [r_begin, r_begin + nrows) of a (rows, D) matrix into shared
+  // memory, 16 bytes a copy; rows >= limit arrive as zeros
+  auto stage = [&](float* dst, const float* src, int r_begin, int nrows,
+                   int limit) {
+    constexpr int V4 = D / 4;
+    for (int idx = threadIdx.x; idx < nrows * V4; idx += THR) {
+      const int r = idx / V4;
+      const int c = (idx % V4) * 4;
+      const bool in = r_begin + r < limit;
+      cp_async16(dst + r * SX + c, src + size_t(in ? r_begin + r : 0) * D + c,
+                 in ? 16 : 0);
+    }
+  };
+  auto stage_kv = [&](int kt) {
+    const int st = kt % NST;
+    stage(Ks + st * BK * SX, kb, kt * BK, BK, sk);
+    stage(Vs + st * BK * SX, vb, kt * BK, BK, sk);
+    cp_async_commit();
+  };
 
   int n_kt = (sk + BK - 1) / BK;
   if (causal) {
     // the last real row of this q tile sees keys up to its own position
-    const int last_row = min(q0 + BQ, sq) - 1;
+    const int last_row = min(q0 + BQR, sq) - 1;
     n_kt = min(n_kt, last_row / BK + 1);
   }
 
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();   // the previous tile's K, V and P reads are done
-    load_tile<D>(Ks, D + 1, kb, k0, BK, sk);
-    load_tile<D>(Vs, D, vb, k0, BK, sk);
-    __syncthreads();
+  stage(Qs, q + size_t(bh) * sq * D, q0, BQR, sq);
+  stage_kv(0);
 
-    float s[4][4];
+  // a half that has seen only masked keys of a row holds m = -1e30 and
+  // a meaningless l and O; the first real key, here or in the merge,
+  // scales them by exp(-1e30 - m) = 0
+  float m[2] = {NEG_INF_MASK, NEG_INF_MASK}, l[2] = {0.f, 0.f};
+  float acc[DN][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int dn = 0; dn < DN; ++dn)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float qv[4], kv[4];
+    for (int e = 0; e < 4; ++e) acc[dn][e] = 0.f;
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * BK + half * KH;
+    if (kt + 1 < n_kt) {
+      stage_kv(kt + 1);   // into the stage read one tile ago
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();   // this tile (and Q) are in for every thread
+    const float* Kt = Ks + (kt % NST) * BK * SX + half * KH * SX;
+    const float* Vt = Vs + (kt % NST) * BK * SX + half * KH * SX;
+
+    // S = Q K^T: A fragments from Q's rows, B from K's rows, both split
+    // in registers as they are loaded; the two small-term products
+    // accumulate apart from big * big, which halves the dependent chain
+    float s[NJ][4], c2[NJ][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = Qs[(ty * 4 + i) * (D + 1) + d];
+    for (int j = 0; j < NJ; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = Ks[(tx + 16 * j) * (D + 1) + d];
+      for (int e = 0; e < 4; ++e) s[j][e] = c2[j][e] = 0.f;
+#pragma unroll 4
+    for (int kk = 0; kk < KS; ++kk) {
+      const float* pa = Qs + (r0 + g) * SX + kk * 8 + t;
+      uint32_t ab[4], as[4];
+      split_tf32(pa[0], ab[0], as[0]);
+      split_tf32(pa[8 * SX], ab[1], as[1]);
+      split_tf32(pa[4], ab[2], as[2]);
+      split_tf32(pa[8 * SX + 4], ab[3], as[3]);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+      for (int j = 0; j < NJ; ++j) {
+        const float* pb = Kt + (j * 8 + g) * SX + kk * 8 + t;
+        uint32_t bb[2], bs[2];
+        split_tf32(pb[0], bb[0], bs[0]);
+        split_tf32(pb[4], bb[1], bs[1]);
+        mma_tf32(c2[j], as, bb[0], bb[1]);
+        mma_tf32(c2[j], ab, bs[0], bs[1]);
+        mma_tf32(s[j], ab, bb[0], bb[1]);
+      }
     }
 
+    // the online softmax on the C fragments: the 4 threads of a quad
+    // share a row
+    float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qp = q0 + ty * 4 + i;
-      float mx = -INFINITY;
+    for (int j = 0; j < NJ; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kp = k0 + tx + 16 * j;
-        float x = s[i][j] * scale;
+      for (int e = 0; e < 4; ++e) {
+        const int kp = k0 + j * 8 + 2 * t + (e & 1);
+        float x = (s[j][e] + c2[j][e]) * scale;
         if (kp >= sk)
           x = -INFINITY;
-        else if (causal && qp < kp)
+        else if (causal && row[e >> 1] < kp)
           x = NEG_INF_MASK;
-        s[i][j] = x;
-        mx = fmaxf(mx, x);
+        s[j][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
       }
-      // the 16 threads sharing these rows are one half-warp
+    float alpha[2];
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = expf(m[i] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        rs += p;
-        Ps[(ty * 4 + i) * PS + tx + 16 * j] = p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      l[i] = l[i] * alpha + rs;
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < DC; ++j) acc[i][j] *= alpha;
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      const float m_new = fmaxf(m[h], mx[h]);
+      alpha[h] = expf(m[h] - m_new);
+      m[h] = m_new;
+      l[h] *= alpha[h];
     }
-    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = expf(s[j][e] - m[e >> 1]);
+        s[j][e] = p;
+        l[e >> 1] += p;       // this thread's share; reduced at the end
+      }
+#pragma unroll
+    for (int dn = 0; dn < DN; ++dn) {
+      acc[dn][0] *= alpha[0];
+      acc[dn][1] *= alpha[0];
+      acc[dn][2] *= alpha[1];
+      acc[dn][3] *= alpha[1];
+    }
 
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float pv[4], vv[DC];
+    // O += P V. The C fragment of P's 8-key tile j becomes the A fragment
+    // of a k-step without any shuffle by ordering that k-step's keys
+    // 2t, 2t + 1 where the A layout has t, t + 4: a0 = P[g][2t] (c0),
+    // a1 = P[g + 8][2t] (c2), a2 = P[g][2t + 1] (c1), a3 = P[g + 8][2t + 1]
+    // (c3); V's B fragment is read from rows 2t and 2t + 1 to match
 #pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = Ps[(ty * 4 + i) * PS + kk];
+    for (int j = 0; j < NJ; ++j) {
+      uint32_t pb[4], ps[4];
+      split_tf32(s[j][0], pb[0], ps[0]);
+      split_tf32(s[j][2], pb[1], ps[1]);
+      split_tf32(s[j][1], pb[2], ps[2]);
+      split_tf32(s[j][3], pb[3], ps[3]);
+      const float* pv = Vt + (j * 8 + 2 * t) * SX + g;
 #pragma unroll
-      for (int j = 0; j < DC; ++j) vv[j] = Vs[kk * D + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < DC; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
+      for (int dn = 0; dn < DN; ++dn) {
+        uint32_t vb[2], vs[2];
+        split_tf32(pv[dn * 8], vb[0], vs[0]);
+        split_tf32(pv[SX + dn * 8], vb[1], vs[1]);
+        mma_3xtf32(acc[dn], pb, ps, vb, vs);
+      }
     }
+    __syncthreads();   // this stage is read: the next load may land
   }
 
+  // merge the two halves of each row: the second half hands m, l and O
+  // over through shared memory (free now: no load is in flight)
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qp = q0 + ty * 4 + i;
-    if (qp >= sq) continue;
-    const float denom = fmaxf(l[i], 1e-37f);
-    float* orow = o + (size_t(bh) * sq + qp) * D;
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+  }
+  float* xo = Ks;   // BQR x SX: the second half's O
+  float* xm = Qs;   // BQR x 2: its m and l
+  if (half == 1) {
 #pragma unroll
-    for (int j = 0; j < DC; ++j) orow[tx + 16 * j] = acc[i][j] / denom;
-    if (tx == 0) lse[size_t(bh) * sq + qp] = m[i] + logf(denom);
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + g + 8 * h;
+#pragma unroll
+      for (int dn = 0; dn < DN; ++dn)
+        *reinterpret_cast<float2*>(xo + r * SX + dn * 8 + 2 * t) =
+            make_float2(acc[dn][2 * h], acc[dn][2 * h + 1]);
+      if (t == 0) {
+        xm[2 * r] = m[h];
+        xm[2 * r + 1] = l[h];
+      }
+    }
+  }
+  __syncthreads();
+  if (half == 1) return;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + g + 8 * h;
+    const float mb = xm[2 * r], m_new = fmaxf(m[h], mb);
+    const float fa = expf(m[h] - m_new), fb = expf(mb - m_new);
+    const float denom = fmaxf(l[h] * fa + xm[2 * r + 1] * fb, 1e-37f);
+    if (row[h] >= sq) continue;
+    float* orow = o + (size_t(bh) * sq + row[h]) * D;
+#pragma unroll
+    for (int dn = 0; dn < DN; ++dn) {
+      const float2 x =
+          *reinterpret_cast<const float2*>(xo + r * SX + dn * 8 + 2 * t);
+      *reinterpret_cast<float2*>(orow + dn * 8 + 2 * t) =
+          make_float2((acc[dn][2 * h] * fa + x.x * fb) / denom,
+                      (acc[dn][2 * h + 1] * fa + x.y * fb) / denom);
+    }
+    if (t == 0) lse[size_t(bh) * sq + row[h]] = m_new + logf(denom);
   }
 }
 
@@ -248,14 +436,18 @@ template <int D>
 int launch(const float* q, const float* k, const float* v, float* o,
            float* lse, int bh, int sq, int sk, float scale, int causal,
            cudaStream_t stream) {
-  const size_t smem = smem_bytes<D>();
+  const size_t smem = tf32_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      fa_fwd_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fa_fwd_f32_tf32x3<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       int(smem));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(fa_fwd_f32_tf32x3<D>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               int(cudaSharedmemCarveoutMaxShared));
   if (err != cudaSuccess) return int(err);
-  const dim3 grid((sq + BQ - 1) / BQ, bh);
-  fa_fwd_f32<D><<<grid, THREADS, smem, stream>>>(q, k, v, o, lse, sq, sk,
-                                                  scale, causal);
+  const dim3 grid(bh, (sq + 63) / 64);
+  fa_fwd_f32_tf32x3<D><<<grid, 256, smem, stream>>>(q, k, v, o, lse, sq, sk,
+                                                     scale, causal);
   return int(cudaGetLastError());
 }
 

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks of the bf16 flash-attention kernels that
 // run on wgmma fed by TMA (fa_fwd_bf16_wgmma in flash_attention_fwd.cu,
-// fa_bwd_dkv_bf16_wgmma in flash_attention_bwd.cu): mbarriers, TMA tile
+// fa_bwd_dq_bf16_wgmma and fa_bwd_dkv_bf16_wgmma in
+// flash_attention_bwd.cu): mbarriers, TMA tile
 // loads, wgmma descriptors and instructions, register hand-over between
 // warpgroups, and the host-side encoding of tensor maps.
 //

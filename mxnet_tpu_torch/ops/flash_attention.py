@@ -12,13 +12,18 @@ kernels replace the reference's three Pallas kernels:
   (dK and dV, one block per KV tile walking the q tiles), both
   rebuilding P from the saved lse.
 
-Each comes in float32 (plain FMAs: the serving path, and training with
-amp off) and bfloat16 (training under amp), both accumulating in
-float32. In bfloat16 the forward and dK/dV kernels run, for head dims 64
-and 128, on ``wgmma`` over shared-memory tiles that TMA loads into a
-ring of ``mbarrier``-guarded stages (``csrc/flash_attention_sm90.cuh``);
-for head dims 16 and 32, and the dQ kernel at every head dim, on
-``mma.sync``. The C entry points choose by head dim alone.
+Each comes in float32 (the serving path, and training with amp off) and
+bfloat16 (training under amp), both accumulating in float32. The routes,
+chosen by the C entry points by dtype and head dim alone:
+
+* float32 forward, every head dim: 3xTF32 on ``mma.sync`` tensor cores
+  (each operand split into two tf32 halves, three products; float32's
+  accuracy), K/V tiles through a ``cp.async`` ring;
+* float32 dQ and dK/dV, every head dim: plain FMAs;
+* bfloat16 forward, dQ and dK/dV at head dims 64 and 128: ``wgmma`` over
+  shared-memory tiles that TMA loads into a ring of ``mbarrier``-guarded
+  stages (``csrc/flash_attention_sm90.cuh``);
+* bfloat16 at head dims 16 and 32: ``mma.sync``.
 
 :class:`FlashAttentionFunction` is the reference's ``custom_vjp``: the
 forward saves q, k, v, O and lse; the backward computes

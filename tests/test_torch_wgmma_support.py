@@ -1,14 +1,15 @@
 """The host-side pieces around the port's wgmma + TMA attention kernels,
 on the CPU.
 
-The kernels themselves (``fa_fwd_bf16_wgmma``, ``fa_bwd_dkv_bf16_wgmma``
-in ``mxnet_tpu_torch/csrc``) run only on the card, where ``chip_smoke.py``
+The kernels themselves (``fa_fwd_bf16_wgmma``, ``fa_bwd_dq_bf16_wgmma``,
+``fa_bwd_dkv_bf16_wgmma`` and the float32 forward ``fa_fwd_f32_tf32x3`` in
+``mxnet_tpu_torch/csrc``) run only on the card, where ``chip_smoke.py``
 holds them against their plain versions; their plain versions are held
 against the reference's Pallas kernels by
 ``tests/test_torch_flash_attention*.py``. Here: the build report that
 ``chip_smoke.py`` reads (ptxas registers and spills, SASS opcode counts),
 the 16-byte alignment that TMA needs of lse and delta, and a rehearsal of
-``chip_smoke.py``'s edge sweep and timing on the CPU, with the kernel
+``chip_smoke.py``'s sweeps and timing on the CPU, with the kernel
 wrappers replaced by plain versions at small shapes.
 """
 import numpy as np
@@ -117,24 +118,91 @@ def _plain_dkv(q, k, v, do, lse, delta, scale, causal):
             (p.transpose(-1, -2) @ dof).to(v.dtype))
 
 
+def _plain_dq(q, k, v, do, lse, delta, scale, causal):
+    """dQ by the kernels' formulas from lse and delta."""
+    p = torch.exp(fa._scores(q, k, scale, causal) - lse[..., None])
+    ds = p * (do.float() @ v.float().transpose(-1, -2)
+              - delta[..., None]) * scale
+    return (ds @ k.float()).to(q.dtype)
+
+
 def test_edge_sweep_rehearsal_on_cpu(monkeypatch):
     """chip_smoke's edge sweep at small shapes on the CPU, the kernel
     wrappers replaced by plain versions, at a head dim of each route
     (16: mma.sync, 64: wgmma): every case passes its limits, the
-    exactly-zero dK cases (S = 1 causal, Sk = 1) included."""
+    exactly-zero dQ and dK cases (S = 1 causal, Sk = 1) included."""
     monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
     monkeypatch.setattr(chip_smoke, "SWEEP_HEADS", (1, 2))
     monkeypatch.setattr(chip_smoke, "SWEEP_DIMS", (16, 64))
     monkeypatch.setattr(chip_smoke, "SWEEP_LENGTHS",
                         ((1, 1), (65, 65), (40, 96), (96, 40)))
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(fa, "flash_attention_bwd_dq", _plain_dq)
     monkeypatch.setattr(fa, "flash_attention_bwd_dkv", _plain_dkv)
     lines = []
     monkeypatch.setattr(chip_smoke, "log", lambda *a: lines.append(a[0]))
     worst = chip_smoke.edge_sweep(torch)
     assert 0 <= worst["fwd"] < 0.05 and 0 <= worst["dkv"] < 0.05
-    assert lines[-1].startswith("edge sweep: 32 cases")
-    assert sum("zero in exact arithmetic" in ln for ln in lines) == 8
+    assert 0 <= worst["dq"] < 0.05
+    assert lines[-1].startswith("edge sweep: 32 cases of K1 bf16, K2 and K3")
+    zero = [ln for ln in lines if "zero in exact arithmetic" in ln]
+    assert len(zero) == 8 and all("dq kernel max" in ln and "dk kernel max"
+                                  in ln for ln in zero)
+    # every other case compares dQ under the bf16 limits
+    assert sum(" dq max " in ln for ln in lines) == 32 - 8
+
+
+def test_f32_sweep_rehearsal_on_cpu(monkeypatch):
+    """chip_smoke's f32 sweep of K1 f32 at small shapes on the CPU (the
+    wrapper takes the plain version there): every case is logged and
+    held to KERNEL_ATOL, and a case that disagrees ends the run."""
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    monkeypatch.setattr(chip_smoke, "F32_SWEEP_HEADS", (1, 2))
+    monkeypatch.setattr(chip_smoke, "F32_SWEEP_DIMS", (16, 64))
+    monkeypatch.setattr(chip_smoke, "F32_SWEEP_LENGTHS",
+                        ((1, 1), (65, 65), (40, 96), (96, 40)))
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    lines = []
+    monkeypatch.setattr(chip_smoke, "log", lambda *a: lines.append(a[0]))
+    assert chip_smoke.f32_sweep(torch) == 0.0
+    assert lines[-1].startswith("f32 sweep: 32 cases of K1 f32")
+    assert sum(ln.startswith("  f32 sweep d=") for ln in lines) == 32
+
+    plain = fa.flash_attention_fwd
+
+    def off(q, k, v, scale, causal):
+        o, lse = plain(q, k, v, scale, causal)
+        return o + 2e-4, lse
+    monkeypatch.setattr(fa, "flash_attention_fwd", off)
+    with pytest.raises(chip_smoke.SmokeFailure, match="f32 sweep d=16 bh=1"):
+        chip_smoke.f32_sweep(torch)
+
+
+def test_tf32x3_bound_and_the_fma_bound():
+    """At the serving shape (BH 16, S 1024, D 128, causal) the 3xTF32
+    bound takes 3 x 4.30 GFLOP at 495 TFLOP/s; the FMA bound, logged
+    beside it, 4.30 GFLOP at 67 TFLOP/s."""
+    ms, by, flops, nbytes = chip_smoke.tf32x3_bound(16, 1024, 128)
+    assert by == "operations"
+    assert flops == pytest.approx(4.30e9, rel=1e-3)
+    assert ms == pytest.approx(3 * flops / 495e12 * 1e3)
+    assert nbytes / 3.35e12 * 1e3 < ms
+    fma_ms, fma_by = chip_smoke.flash_bound(16, 1024, 128)
+    assert fma_by == "operations" and fma_ms == pytest.approx(0.0642,
+                                                              abs=1e-4)
+    assert fma_ms > ms
+
+
+def test_prompt_buckets_follow_the_server_ladder():
+    """The burst's prompts land in the serving ladder's power-of-two
+    buckets from the page up, as the engine's prompt_bucket puts them."""
+    from mxnet_tpu_torch.serve.bucketing import decode_buckets
+    buckets = chip_smoke.prompt_buckets()
+    assert buckets == [32, 64, 256, 256, 512, 1024, 1024, 1024]
+    ladder = decode_buckets(chip_smoke.MAX_SEQ, chip_smoke.PAGE)
+    for n, b in zip(chip_smoke.PROMPT_LENS, buckets):
+        assert b in ladder and n <= b and (b == ladder[0] or
+                                           ladder[ladder.index(b) - 1] < n)
 
 
 class _Event:
@@ -176,6 +244,7 @@ def _fake_build(monkeypatch, log, counts, tool="cuobjdump"):
     monkeypatch.setattr(chip_smoke, "WGMMA_KERNELS",
                         {"flash_attention_fwd_bf16": ("flash_attention_fwd.cu",
                                                       "fa_fwd_bf16_wgmma")})
+    monkeypatch.setattr(chip_smoke, "MMA_KERNELS", {})
     monkeypatch.setattr(chip_smoke, "BUILD_REPORT", {})
     monkeypatch.setattr(chip_smoke, "log", lambda *a: None)
 
@@ -221,4 +290,86 @@ def test_wgmma_report_ends_on_a_failing_cuobjdump(monkeypatch):
                 MXNetError("cuobjdump -sass flash_attention_fwd.cu failed "
                            "(exit 255)"))
     with pytest.raises(MXNetError, match="failed"):
+        chip_smoke.wgmma_report(_build)
+
+
+DQ = ("_ZN55_GLOBAL__N__c38aed5a_22_flash_attention_bwd_cu_a1b2c3d420fa_bwd"
+      "_dq_bf16_wgmmaILi128EEEv14CUtensorMap_stS1_S1_S1_S1_S1_P13__nv_bfloat16"
+      "iifi")
+TF32 = ("_ZN55_GLOBAL__N__c38aed5a_22_flash_attention_fwd_cu_74881bc317fa_fwd"
+        "_f32_tf32x3ILi128ELi2ELi2EEEvPKfS2_S2_PfS3_iifi")
+
+
+def _entry(name, spill=0, regs=168):
+    return ("ptxas info    : Compiling entry function '%s' for 'sm_90a'\n"
+            "ptxas info    : Function properties for %s\n"
+            "    0 bytes stack frame, %d bytes spill stores, 0 bytes spill "
+            "loads\n"
+            "ptxas info    : Used %d registers, used 1 barriers\n"
+            % (name, name, spill, regs))
+
+
+def _fake_tables(monkeypatch, logs, counts):
+    """The build report over the real kernel tables, with each source's
+    ptxas log and SASS counts given."""
+    monkeypatch.setattr(_build, "build_log", lambda source: logs[source])
+    monkeypatch.setattr(_build, "cuobjdump", lambda: "cuobjdump")
+    monkeypatch.setattr(_build, "sass_counts",
+                        lambda source, opcodes: counts[source])
+    monkeypatch.setattr(chip_smoke, "BUILD_REPORT", {})
+    monkeypatch.setattr(chip_smoke, "log", lambda *a: None)
+
+
+def _tables_ok():
+    dkv = FWD.replace("fwd_cu", "bwd_cu").replace("fa_fwd_bf16_wgmma",
+                                                  "fa_bwd_dkv_bf16_wgmma")
+    logs = {"flash_attention_fwd.cu": _entry(FWD) + _entry(TF32, regs=200),
+            "flash_attention_bwd.cu": _entry(DQ) + _entry(dkv)}
+    wg = {"HGMMA": 60, "UTMALDG": 10}
+    counts = {"flash_attention_fwd.cu": {FWD: dict(wg, HMMA=0),
+                                         TF32: {"HGMMA": 0, "UTMALDG": 0,
+                                                "HMMA": 240}},
+              "flash_attention_bwd.cu": {DQ: dict(wg), dkv: dict(wg)}}
+    return logs, counts
+
+
+def test_report_covers_the_new_tensor_core_kernels(monkeypatch):
+    """The real tables name K2's wgmma kernel (HGMMA and UTMALDG) and
+    K1 f32's 3xTF32 kernel (HMMA); a clean build of all four passes and
+    is recorded under each kernel's record name."""
+    assert chip_smoke.WGMMA_KERNELS["flash_attention_bwd_dq"] == (
+        "flash_attention_bwd.cu", "fa_bwd_dq_bf16_wgmma")
+    assert chip_smoke.MMA_KERNELS["flash_attention_fwd"] == (
+        "flash_attention_fwd.cu", "fa_fwd_f32_tf32x3")
+    logs, counts = _tables_ok()
+    _fake_tables(monkeypatch, logs, counts)
+    chip_smoke.wgmma_report(_build)
+    report = chip_smoke.BUILD_REPORT
+    assert set(report) == {"flash_attention_fwd_bf16", "flash_attention_bwd_dq",
+                           "flash_attention_bwd_dkv", "flash_attention_fwd"}
+    assert list(report["flash_attention_bwd_dq"]["ptxas"]) == [DQ]
+    assert report["flash_attention_fwd"]["ptxas"][TF32]["registers"] == 200
+
+
+@pytest.mark.parametrize("source, name, opcode, match", [
+    ("flash_attention_bwd.cu", DQ, "HGMMA", "HGMMA and UTMALDG"),
+    ("flash_attention_bwd.cu", DQ, "UTMALDG", "HGMMA and UTMALDG"),
+    ("flash_attention_fwd.cu", TF32, "HMMA", r"HMMA expected"),
+], ids=["dq-no-hgmma", "dq-no-utmaldg", "f32-no-hmma"])
+def test_report_ends_the_run_without_tensor_core_instructions(
+        monkeypatch, source, name, opcode, match):
+    """A dQ kernel whose SASS lacks HGMMA or UTMALDG, or a K1 f32 kernel
+    without HMMA (the f32 route off the tensor cores), ends the run."""
+    logs, counts = _tables_ok()
+    counts[source][name][opcode] = 0
+    _fake_tables(monkeypatch, logs, counts)
+    with pytest.raises(chip_smoke.SmokeFailure, match=match):
+        chip_smoke.wgmma_report(_build)
+
+
+def test_report_ends_the_run_on_a_spilling_f32_kernel(monkeypatch):
+    logs, counts = _tables_ok()
+    logs["flash_attention_fwd.cu"] = _entry(FWD) + _entry(TF32, spill=16)
+    _fake_tables(monkeypatch, logs, counts)
+    with pytest.raises(chip_smoke.SmokeFailure, match="spills 16 bytes"):
         chip_smoke.wgmma_report(_build)
