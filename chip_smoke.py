@@ -5,6 +5,10 @@ Run from the root of a checkout, on a machine with one H100:
 
     python3 chip_smoke.py
 
+``python3 chip_smoke.py --f32-backward-of CHECKOUT`` times only the
+float32 dQ and dK/dV kernels of another checkout's package (as phase 5
+times this one's), for a before/after pair on one card.
+
 Phases, each fatal on failure (exit code 1, no result line):
 
 1. card: ``nvidia-smi`` name and power limit, ``torch`` device name;
@@ -14,13 +18,15 @@ Phases, each fatal on failure (exit code 1, no result line):
    compiler's register and shared-memory report. The three kernels on
    ``wgmma`` + TMA (the bf16 forward, dQ and dK/dV at head dims 64 and
    128) must spill nothing, and their SASS (``cuobjdump -sass``) must
-   hold HGMMA and UTMALDG instructions; the float32 forward (3xTF32 on
-   ``mma.sync``) must spill nothing and hold HMMA instructions; without
+   hold HGMMA and UTMALDG instructions; the three float32 kernels
+   (forward, dQ and dK/dV, 3xTF32 on ``mma.sync``) must spill nothing
+   and hold HMMA instructions, at every head dim; without
    ``cuobjdump`` the log says so;
 3. kernels: the float32 forward (K1 f32, the serving path's) against
    its plain PyTorch version on the card at the shapes that path gives
-   it, then over a sweep of head dims 16-128, BH 1 and 16, S in {1, 65,
-   200, 1000, 1024}, S != Sk both ways, causal and not, each case fatal;
+   it, then, with the float32 dQ and dK/dV kernels (K2 f32, K3 f32),
+   over a sweep of head dims 16-256, BH 1 and 16, S in {1, 65, 200,
+   1000, 1024}, S != Sk both ways, causal and not, each case fatal;
    then timed at every prompt bucket of the burst (BH 16, D 128, causal)
    as the median of 5 windows of 20 launches with their spread and the
    host's µs per call, and by the profiler's kernel time, beside
@@ -44,13 +50,19 @@ Phases, each fatal on failure (exit code 1, no result line):
    the training step gives them (batch 8 x 16 heads, S 1024, D 128,
    causal; bfloat16 and float32), plus a ragged length and a non-causal
    case; an edge sweep of the bf16 forward, dQ and dK/dV kernels (S 1,
-   65, 1000, 1024, S != Sk both ways, causal and not, D 16 and 32 on
-   ``mma.sync``, 64 and 128 on ``wgmma``, BH 1 and 128), each case
-   fatal; then each kernel timed as the median of 5 windows of 20
-   launches, with the windows' spread and the host's µs per call,
-   beside its plain version, ``scaled_dot_product_attention`` (forward,
-   and backward for the two backward kernels together, timed alike),
-   its bound, its TFLOP/s and its share of the bound;
+   65, 1000, 1024, S != Sk both ways, causal and not, D 16, 32 and 256
+   on ``mma.sync``, 64 and 128 on ``wgmma``, BH 1 and 128), each case
+   fatal; a head-dim sweep through ``flash_attention`` and autograd at
+   D 48, 80 and 96 (zero-padded) and 256, f32 and bf16, BH 1 and 16, S
+   65 and 1024, causal and not, against the plain versions at the real
+   D (and D 320 must raise naming ROADMAP B7); then each kernel timed
+   as the median of 5 windows of 20 launches, with the windows' spread
+   and the host's µs per call, beside its plain version,
+   ``scaled_dot_product_attention`` (forward, and backward for the two
+   backward kernels together, timed alike), its bound, its TFLOP/s and
+   its share of the bound: the bf16 kernels, then K2 f32 and K3 f32 in
+   float32 (their bound on 3xTF32 and on FMAs), then the six D 256
+   instances at BH 16;
 6. train: ``Module`` on the same model at ``bench.py``'s training
    configuration (batch 8, T 1024, ``attention="flash"``, amp bfloat16,
    Xavier weights from a numpy seed, SGD lr 0.01) on one fixed random
@@ -60,6 +72,10 @@ Phases, each fatal on failure (exit code 1, no result line):
    thirteenth: each attention kernel must have run once per layer per
    step. The step-1 cross-entropy is held against an independent plain
    float32 forward of the same initial weights, and the loss must fall.
+   Then the same with amp off (the reference's default; cuBLAS without
+   TF32): the first step, one warm, five timed, one profiled; each f32
+   attention kernel (K1 f32, K2 f32, K3 f32) must have run once per
+   layer per step and no bf16 one;
 7. rtc: the user-kernel tier. Each of the five kernels of
    ``rtc_examples`` (``scale_add``, ``relu``, ``split``,
    ``softmax_rows``, ``softmax_ce_grad``) against its plain version on
@@ -131,6 +147,8 @@ BF16_MAX_RTOL = 2e-2
 # the training phase: bench.py's transformer configuration
 TRAIN_BATCH, TRAIN_LR = 8, 0.01
 TRAIN_WARM, TRAIN_TIMED = 2, 10
+# the f32 training phase (amp off): ~1 s a step, so fewer steps
+TRAIN_F32_WARM, TRAIN_F32_TIMED = 1, 5
 # step-1 loss (amp bf16) vs a plain f32 forward of the same weights:
 # measured 1.9e-6 apart on the H100; a near-uniform output would read
 # ln 32000 = 10.373, 0.059 from the expected 10.432
@@ -215,6 +233,10 @@ WGMMA_KERNELS = {
 # the kernels on mma.sync tensor cores: their SASS must hold HMMA
 MMA_KERNELS = {
     "flash_attention_fwd": ("flash_attention_fwd.cu", "fa_fwd_f32_tf32x3"),
+    "flash_attention_bwd_dq_f32": ("flash_attention_bwd.cu",
+                                   "fa_bwd_dq_f32_tf32x3"),
+    "flash_attention_bwd_dkv_f32": ("flash_attention_bwd.cu",
+                                    "fa_bwd_dkv_f32_tf32x3"),
 }
 BUILD_REPORT = {}
 
@@ -321,29 +343,6 @@ def spread(t: dict) -> str:
         ", HOST-BOUND" if t["host_bound"] else "")
 
 
-def flash_bound(bh: int, s: int, d: int):
-    """Least time for causal attention over (bh, s, d) f32 on float32
-    FMAs: the s(s+1)/2 live (q, k) pairs cost 2d flops in Q K^T and 2d
-    in P V; q, k, v are read once, o and lse written once."""
-    flops = 4.0 * d * bh * s * (s + 1) / 2
-    nbytes = 4.0 * (4 * bh * s * d + bh * s)
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
-
-
-def tf32x3_bound(bh: int, s: int, d: int):
-    """Least time for the same work on the 3xTF32 route: three tf32
-    products per product, so 3 x flops at the 495 TFLOP/s TF32 peak,
-    against the bytes at 3.35 TB/s. Returns (ms, bound_by, flops,
-    bytes)."""
-    flops = 4.0 * d * bh * s * (s + 1) / 2
-    nbytes = 4.0 * (4 * bh * s * d + bh * s)
-    t_ops, t_bytes = 3 * flops / PEAK_TF32_FLOPS, nbytes / PEAK_BYTES_PER_S
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
-
-
 def prompt_buckets():
     """The prefill bucket of each prompt of the burst: the server's
     ladder (powers of two from the page up to MAX_SEQ), first rung that
@@ -353,53 +352,82 @@ def prompt_buckets():
     return [next(b for b in ladder if n <= b) for n in PROMPT_LENS]
 
 
-# the float32 sweep of K1 f32: (S, Sk) pairs, ragged and crossed
+# the float32 sweep of K1 f32, K2 f32 and K3 f32: (S, Sk) pairs, ragged
+# and crossed
 F32_SWEEP_LENGTHS = ((1, 1), (65, 65), (200, 200), (1000, 1000),
                      (1024, 1024), (512, 1024), (1024, 512))
 F32_SWEEP_HEADS = (1, HEADS)
-F32_SWEEP_DIMS = (16, 32, 64, 128)
+F32_SWEEP_DIMS = (16, 32, 64, 128, 256)
 
 
 def f32_sweep(torch):
-    """K1 f32 against its plain version over every head dim, BH 1 and
-    16, S in {1, 65, 200, 1000, 1024}, S != Sk both ways, causal and
-    not: o and lse each within KERNEL_ATOL max(1, max|ref|). Each case
-    is fatal on failure. Returns the largest error."""
+    """K1 f32, K2 f32 and K3 f32 against their plain versions over every
+    head dim (16-256), BH 1 and 16, S in {1, 65, 200, 1000, 1024}, S !=
+    Sk both ways, causal and not: o, lse, dq, dk and dv each within
+    KERNEL_ATOL max(1, max|ref|). Where dQ and dK are zero in exact
+    arithmetic (S = 1 causal, Sk = 1) both sides are held to
+    ZERO_GRAD_ATOL instead. Each case is fatal on failure. Returns the
+    largest error of each kernel, {"fwd": .., "dq": .., "dkv": ..}."""
     from mxnet_tpu_torch.ops import flash_attention as fa
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(SEED + 6)
-    worst, n = 0.0, 0
+    worst = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+    n = 0
     t0 = time.perf_counter()
     for d in F32_SWEEP_DIMS:
         for bh in F32_SWEEP_HEADS:
             for s, sk in F32_SWEEP_LENGTHS:
                 for causal in (True, False):
-                    q = torch.randn((bh, s, d), generator=gen, device=dev)
+                    q, do = (torch.randn((bh, s, d), generator=gen,
+                                         device=dev) for _ in range(2))
                     k, v = (torch.randn((bh, sk, d), generator=gen,
                                         device=dev) for _ in range(2))
-                    o, lse = fa.flash_attention_fwd(q, k, v, d ** -0.5,
-                                                    causal)
+                    scale = d ** -0.5
+                    o, lse = fa.flash_attention_fwd(q, k, v, scale, causal)
+                    delta = (do * o).sum(-1)
+                    dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta,
+                                                   scale, causal)
+                    dk, dv = fa.flash_attention_bwd_dkv(
+                        q, k, v, do, lse, delta, scale, causal)
                     o_r, lse_r = fa.flash_attention_reference(
-                        q, k, v, d ** -0.5, causal)
+                        q, k, v, scale, causal)
+                    dq_r, dk_r, dv_r = fa.flash_attention_backward_reference(
+                        q, k, v, o, lse, do, scale, causal)
                     torch.cuda.synchronize()
-                    errs = {nm: ((got - want).abs().max().item(),
-                                 KERNEL_ATOL * max(
-                                     1.0, want.abs().max().item()))
-                            for nm, got, want in (("o", o, o_r),
-                                                  ("lse", lse, lse_r))}
+                    zero = sk == 1 or (causal and s == 1)
+                    errs = {}
+                    for nm, got, want in (("o", o, o_r), ("lse", lse, lse_r),
+                                          ("dq", dq, dq_r), ("dk", dk, dk_r),
+                                          ("dv", dv, dv_r)):
+                        if zero and nm in ("dq", "dk"):
+                            # both sides hold only rounding: each near 0
+                            errs[nm] = (max(got.abs().max().item(),
+                                            want.abs().max().item()),
+                                        ZERO_GRAD_ATOL)
+                        else:
+                            errs[nm] = ((got - want).abs().max().item(),
+                                        KERNEL_ATOL * max(
+                                            1.0, want.abs().max().item()))
                     case = "d=%d bh=%d s=%d sk=%d causal=%s" % (
                         d, bh, s, sk, causal)
-                    log("  f32 sweep %s: %s" % (case, "; ".join(
+                    log("  f32 sweep %s: %s%s" % (case, "; ".join(
                         "%s %.3g (limit %.3g)" % (nm, e, lim)
-                        for nm, (e, lim) in errs.items())))
-                    check(all(e <= lim for e, lim in errs.values()),
-                          "f32 sweep %s: K1 f32 disagrees with its plain "
-                          "version: %s" % (case, errs))
-                    worst = max([worst] + [e for e, _ in errs.values()])
+                        for nm, (e, lim) in errs.items()),
+                        "; dq and dk zero in exact arithmetic" if zero
+                        else ""))
+                    bad = [nm for nm, (e, lim) in errs.items() if e > lim]
+                    check(not bad, "f32 sweep %s: %s disagree with the plain "
+                          "versions: %s" % (case, bad, errs))
+                    for what, names in (("fwd", ("o", "lse")), ("dq", ("dq",)),
+                                        ("dkv", ("dk", "dv"))):
+                        worst[what] = max([worst[what]] + [
+                            errs[nm][0] for nm in names
+                            if not (zero and nm in ("dq", "dk"))])
                     n += 1
-                    del q, k, v, o, lse, o_r, lse_r
-    log("f32 sweep: %d cases of K1 f32 within %g max(1, max|ref|) in "
-        "%.1f s" % (n, KERNEL_ATOL, time.perf_counter() - t0))
+                    del q, k, v, do, o, lse, delta, dq, dk, dv, o_r, lse_r
+                    del dq_r, dk_r, dv_r
+    log("f32 sweep: %d cases of K1 f32, K2 f32 and K3 f32 within %g max(1, "
+        "max|ref|) in %.1f s" % (n, KERNEL_ATOL, time.perf_counter() - t0))
     return worst
 
 
@@ -431,7 +459,8 @@ def kernel_phase(torch):
         check(err <= KERNEL_ATOL, "flash_attention_fwd disagrees with its "
               "plain version at s=%d: %g" % (s, err))
         worst = max(worst, err)
-    worst = max(worst, f32_sweep(torch))
+    swept = f32_sweep(torch)
+    worst = max(worst, swept["fwd"])
 
     # every bucket of the burst, K1 f32 and SDPA f32 alike
     buckets = prompt_buckets()
@@ -445,9 +474,10 @@ def kernel_phase(torch):
                      scale=scale)}
         timed[s] = {w: dict(timing(torch, fn), device_ms=kernel_ms(torch, fn))
                     for w, fn in calls.items()}
-        bound_ms, bound_by, flops, _ = tf32x3_bound(bh, s, d)
+        bound_ms, bound_by, fma_ms, flops, _ = f32_attention_bounds(
+            "fwd", bh, s, s, d, True)
         timed[s]["bound_ms"], timed[s]["bound_by"] = bound_ms, bound_by
-        timed[s]["fma_bound_ms"] = flash_bound(bh, s, d)[0]
+        timed[s]["fma_bound_ms"] = fma_ms
         kt, lt = timed[s]["kernel"], timed[s]["library"]
         log("flash_attention_fwd f32 bh=%d s=%d d=%d causal (3xTF32 "
             "mma.sync): kernel %s, kernel time %.4f ms = %.1f TFLOP/s; "
@@ -472,7 +502,8 @@ def kernel_phase(torch):
     plain_ms = time_ms(
         torch, lambda: flash_attention_reference(q, k, v, scale, True))
     kt, lt = timed[s]["kernel"], timed[s]["library"]
-    bound_ms, bound_by, flops, _ = tf32x3_bound(bh, s, d)
+    bound_ms, bound_by, _, flops, _ = f32_attention_bounds("fwd", bh, s, s, d,
+                                                           True)
     log("flash_attention_fwd bh=%d s=%d d=%d causal: kernel_ms=%.4f "
         "reference_ms=%.4f library_ms=%.4f (sdpa) bound_ms=%.4f (%s at "
         "3xTF32; f32 FMA bound %.4f ms), %.1f%% of the bound"
@@ -505,7 +536,11 @@ def kernel_phase(torch):
                     for b in sorted(timed)},
         "burst_buckets": buckets,
         "burst_weighted_device_ms": weighted["kernel"],
-        "burst_weighted_library_device_ms": weighted["library"]}}
+        "burst_weighted_library_device_ms": weighted["library"]},
+        # the sweep's K2 f32 and K3 f32 errors, completed by
+        # train_kernel_phase
+        "flash_attention_bwd_dq_f32": {"max_abs_err": swept["dq"]},
+        "flash_attention_bwd_dkv_f32": {"max_abs_err": swept["dkv"]}}
 
 
 def seeded_params(np, seed: int):
@@ -729,6 +764,81 @@ def attention_bound(what, bh, s, sk, d, causal, itemsize):
             "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
 
 
+def f32_attention_bounds(what, bh, s, sk, d, causal):
+    """The f32 kernel's bounds: on its 3xTF32 route (three tf32 products
+    per product, so 3 x flops at 495 TFLOP/s) and on float32 FMAs (flops
+    at 67 TFLOP/s), each against the bytes at 3.35 TB/s. Returns
+    (ms, bound_by, fma_ms, flops, bytes)."""
+    fma_ms, _, flops, nbytes = attention_bound(what, bh, s, sk, d, causal, 4)
+    t_ops, t_bytes = 3 * flops / PEAK_TF32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", fma_ms, flops,
+            nbytes)
+
+
+def f32_backward_timing(torch):
+    """K2 f32 and K3 f32 at the training step's attention shape (batch 8
+    x 16 heads, S 1024, D 128, causal, float32), each as window medians
+    (timing) and kernel time (kernel_ms), beside SDPA f32's backward (dQ,
+    dK and dV together, timed alike), the plain backward and both
+    bounds. Returns {"dq": ..., "dkv": ..., "library": ...,
+    "plain_ms": ...}."""
+    import torch.nn.functional as F
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    bh, s, d = TRAIN_BATCH * HEADS, MAX_SEQ, D_MODEL // HEADS
+    scale = d ** -0.5
+    q, k, v, do = (torch.randn((bh, s, d), generator=gen, device=dev)
+                   for _ in range(4))
+    o, lse = fa.flash_attention_fwd(q, k, v, scale, True)
+    delta = (do * o).sum(-1)
+    calls = {
+        "dq": lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta,
+                                                scale, True),
+        "dkv": lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                                  scale, True)}
+    t = {w: dict(timing(torch, fn), device_ms=kernel_ms(torch, fn))
+         for w, fn in calls.items()}
+    shape4 = (TRAIN_BATCH, HEADS, s, d)
+    q4, k4, v4 = (x.view(shape4).detach().requires_grad_(True)
+                  for x in (q, k, v))
+    out4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True,
+                                          scale=scale)
+    do4 = do.view(shape4)
+
+    def library():
+        return torch.autograd.grad(out4, (q4, k4, v4), do4,
+                                   retain_graph=True)
+    t["library"] = dict(timing(torch, library),
+                        device_ms=kernel_ms(torch, library))
+    t["plain_ms"] = time_ms(torch, lambda: fa.flash_attention_backward_reference(
+        q, k, v, o, lse, do, scale, True), iters=5)
+    lt = t["library"]
+    for what in ("dq", "dkv"):
+        bound_ms, bound_by, fma_ms, flops, nbytes = f32_attention_bounds(
+            what, bh, s, s, d, True)
+        t[what].update(bound_ms=bound_ms, bound_by=bound_by, fma_ms=fma_ms,
+                       flops=flops, bytes=nbytes)
+        kt = t[what]
+        log("%s f32 bh=%d s=%d d=%d causal: kernel %s, kernel time %.4f ms "
+            "= %.1f TFLOP/s, %.1f%% of the bound; plain_ms=%.4f (plain "
+            "backward, dQ dK dV); library (sdpa f32 backward, dQ dK dV) %s, "
+            "kernel time %.4f ms; bound_ms=%.4f (%s: 3 x %.1f GFLOP at 495 "
+            "TFLOP/s TF32 = %.4f ms, %.1f MB at 3.35 TB/s = %.4f ms); f32 FMA "
+            "bound %.4f ms" % (
+                "flash_attention_bwd_" + what, bh, s, d, spread(kt),
+                kt["device_ms"], flops / kt["device_ms"] / 1e9,
+                100 * bound_ms / kt["device_ms"], t["plain_ms"], spread(lt),
+                lt["device_ms"], bound_ms, bound_by, flops / 1e9,
+                3 * flops / PEAK_TF32_FLOPS * 1e3, nbytes / 1e6,
+                nbytes / PEAK_BYTES_PER_S * 1e3, fma_ms))
+    del q, k, v, do, o, lse, delta, q4, k4, v4, out4, do4
+    gc.collect()
+    torch.cuda.empty_cache()
+    return t
+
+
 def bf16_compare(got, want):
     """A bf16 kernel output against its plain version by the three
     limits above: returns the readings and whether all three hold."""
@@ -752,12 +862,12 @@ def bf16_compare(got, want):
 
 
 # the edge sweep of the bf16 forward, dQ and dK/dV kernels: (S, Sk)
-# pairs, ragged and crossed; D 16 and 32 take the mma.sync kernels, D 64
-# and 128 the wgmma ones
+# pairs, ragged and crossed; D 16, 32 and 256 take the mma.sync kernels,
+# D 64 and 128 the wgmma ones
 SWEEP_LENGTHS = ((1, 1), (65, 65), (1000, 1000), (1024, 1024), (512, 1024),
                  (1024, 512))
 SWEEP_HEADS = (1, TRAIN_BATCH * HEADS)
-SWEEP_DIMS = (16, 32, 64, 128)
+SWEEP_DIMS = (16, 32, 64, 128, 256)
 # dK and dQ are zero in exact arithmetic where every live q row sees a
 # single key (S = 1 causal, or Sk = 1): softmax has no gradient with
 # respect to its only key, so that key's dP - delta vanishes. Both sides
@@ -772,9 +882,9 @@ def edge_sweep(torch):
     """K1 bf16, K2 and K3 against their plain versions under the bf16
     limits (and lse within 1e-4 max(1, max|ref|)) over S in {1, 65,
     1000, 1024}, S != Sk both ways (top-aligned), causal and not, D 16,
-    32 (the mma.sync kernels), 64 and 128 (the wgmma kernels), BH 1 and
-    128: the ragged and crossed edges that TMA's zero fill meets. Each
-    case is fatal on failure."""
+    32 and 256 (the mma.sync kernels), 64 and 128 (the wgmma kernels),
+    BH 1 and 128: the ragged and crossed edges that TMA's zero fill
+    meets. Each case is fatal on failure."""
     from mxnet_tpu_torch.ops import flash_attention as fa
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(SEED + 5)
@@ -846,13 +956,150 @@ def edge_sweep(torch):
     return worst
 
 
+# the head-dim sweep: dims that flash_attention pads (48 -> 64, 80 and 96
+# -> 128) and D 256, through the public function and autograd
+HEAD_DIM_SWEEP_DIMS = (48, 80, 96, 256)
+HEAD_DIM_SWEEP_HEADS = (1, HEADS)
+HEAD_DIM_SWEEP_LENGTHS = (65, 1024)
+
+
+def head_dim_sweep(torch):
+    """flash_attention and its autograd backward at head dims 48, 80 and
+    96 (zero-padded to 64 and 128 by the wrapper) and 256, BH 1 and 16, S
+    65 and 1024, causal and not, float32 and bfloat16, against the plain
+    versions at the real D: f32 within KERNEL_ATOL max(1, max|ref|),
+    bf16 under the three bf16 limits. A head dim above 256 must raise
+    ValueError naming ROADMAP B7. Each case is fatal on failure. Returns
+    the largest errors, {"f32": {...}, "bf16": {...}} by kernel."""
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    worst = {dt: {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+             for dt in ("f32", "bf16")}
+    n = 0
+    t0 = time.perf_counter()
+    for d in HEAD_DIM_SWEEP_DIMS:
+        for bh in HEAD_DIM_SWEEP_HEADS:
+            for s in HEAD_DIM_SWEEP_LENGTHS:
+                for causal in (True, False):
+                    for dtype in (torch.float32, torch.bfloat16):
+                        q, k, v, do = (torch.randn(
+                            (1, bh, s, d), generator=gen, device=dev).to(dtype)
+                            for _ in range(4))
+                        leaves = [t.clone().requires_grad_(True)
+                                  for t in (q, k, v)]
+                        o = fa.flash_attention(*leaves, causal=causal)
+                        dq, dk, dv = torch.autograd.grad(o, leaves, do)
+                        scale = d ** -0.5
+                        q3, k3, v3, do3 = (t[0] for t in (q, k, v, do))
+                        o_r, lse_r = fa.flash_attention_reference(
+                            q3, k3, v3, scale, causal)
+                        refs = fa.flash_attention_backward_reference(
+                            q3, k3, v3, o[0].detach(), lse_r, do3, scale,
+                            causal)
+                        torch.cuda.synchronize()
+                        case = "d=%d bh=%d s=%d causal=%s %s" % (
+                            d, bh, s, causal, str(dtype).split(".")[-1])
+                        outs = (("o", o[0].detach(), o_r), ("dq", dq[0], refs[0]),
+                                ("dk", dk[0], refs[1]), ("dv", dv[0], refs[2]))
+                        if dtype == torch.float32:
+                            errs = {nm: ((got - want).abs().max().item(),
+                                         KERNEL_ATOL * max(
+                                             1.0, want.abs().max().item()))
+                                    for nm, got, want in outs}
+                            log("  head-dim sweep %s: %s" % (case, "; ".join(
+                                "%s %.3g (limit %.3g)" % (nm, e, lim)
+                                for nm, (e, lim) in errs.items())))
+                            bad = [nm for nm, (e, lim) in errs.items()
+                                   if e > lim]
+                            err = {nm: e for nm, (e, _) in errs.items()}
+                        else:
+                            res = {nm: bf16_compare(got, want)
+                                   for nm, got, want in outs}
+                            log("  head-dim sweep %s: %s" % (case, "; ".join(
+                                "%s max %.3g/%.3g norm %.2e elem %.3f" % (
+                                    nm, r["err"], r["top"], r["rel"],
+                                    r["over"]) for nm, r in res.items())))
+                            bad = [nm for nm, r in res.items() if not r["ok"]]
+                            err = {nm: r["err"] for nm, r in res.items()}
+                        check(not bad, "head-dim sweep %s: %s disagree with "
+                              "the plain versions at the real head dim"
+                              % (case, bad))
+                        w = worst["f32" if dtype == torch.float32 else "bf16"]
+                        w["fwd"] = max(w["fwd"], err["o"])
+                        w["dq"] = max(w["dq"], err["dq"])
+                        w["dkv"] = max(w["dkv"], err["dk"], err["dv"])
+                        n += 1
+                        del q, k, v, do, leaves, o, dq, dk, dv, o_r, lse_r
+                        del refs, q3, k3, v3, do3
+    big = torch.zeros((1, 1, 8, 320), device=dev)
+    try:
+        fa.flash_attention(big, big, big)
+    except ValueError as exc:
+        check("B7" in str(exc), "D 320 raised without naming ROADMAP B7: "
+              "%s" % exc)
+        log("head-dim sweep: D 320 raises ValueError: %s" % exc)
+    else:
+        raise SmokeFailure("flash_attention took head dim 320")
+    log("head-dim sweep: %d cases through flash_attention and autograd at D "
+        "%s in %.1f s" % (n, HEAD_DIM_SWEEP_DIMS, time.perf_counter() - t0))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return worst
+
+
+def d256_timing(torch):
+    """The six D 256 instances (forward, dQ, dK/dV in float32 on 3xTF32
+    and in bfloat16 on mma.sync) timed at BH 16, S 1024, causal, as
+    window medians and kernel time, beside their bounds. Returns
+    {"f32": {what: ms}, "bf16": {what: ms}} of kernel times."""
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    bh, s, d = HEADS, MAX_SEQ, 256
+    scale = d ** -0.5
+    out = {}
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        q, k, v, do = (torch.randn((bh, s, d), generator=gen,
+                                   device=dev).to(dtype) for _ in range(4))
+        o, lse = fa.flash_attention_fwd(q, k, v, scale, True)
+        delta = (do.float() * o.float()).sum(-1)
+        calls = {
+            "fwd": lambda: fa.flash_attention_fwd(q, k, v, scale, True),
+            "dq": lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta,
+                                                    scale, True),
+            "dkv": lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse,
+                                                      delta, scale, True)}
+        out[tag] = {}
+        for what, fn in calls.items():
+            t = timing(torch, fn)
+            dev_ms = kernel_ms(torch, fn)
+            if tag == "f32":
+                bound_ms, bound_by, _, flops, _ = f32_attention_bounds(
+                    what, bh, s, s, d, True)
+            else:
+                bound_ms, bound_by, flops, _ = attention_bound(
+                    what, bh, s, s, d, True, 2)
+            log("d256 %s %s bh=%d s=%d causal (%s): %s, kernel time %.4f ms "
+                "= %.1f TFLOP/s; bound_ms=%.4f (%s)" % (
+                    what, tag, bh, s, "3xTF32 mma.sync" if tag == "f32"
+                    else "mma.sync", spread(t), dev_ms,
+                    flops / dev_ms / 1e9, bound_ms, bound_by))
+            out[tag][what] = dev_ms
+        del q, k, v, do, o, lse, delta
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def train_kernel_phase(torch, kernels):
     """K1 (bf16 input), K2 and K3 against their plain versions at the
     training step's attention shape (batch 8 x 16 heads, S 1024, D 128,
     causal) in bf16 and f32, a ragged length and a non-causal case; the
-    edge sweep of the bf16 kernels (K1 bf16, K2, K3); then each kernel
-    timed at that shape beside its plain version,
-    scaled_dot_product_attention and its bound."""
+    edge sweep of the bf16 kernels (K1 bf16, K2, K3); the head-dim sweep
+    through flash_attention; then each kernel timed at that shape beside
+    its plain version, scaled_dot_product_attention and its bound (the
+    bf16 kernels, then K2 f32 and K3 f32), and the D 256 instances."""
     import torch.nn.functional as F
     from mxnet_tpu_torch.ops import flash_attention as fa
     dev = torch.device(DEVICE)
@@ -860,6 +1107,7 @@ def train_kernel_phase(torch, kernels):
     bh, d = TRAIN_BATCH * HEADS, D_MODEL // HEADS
     scale = d ** -0.5
     worst = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+    f32_worst = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
 
     def draw(s, dtype):
         return [torch.randn((bh, s, d), generator=gen, device=dev).to(dtype)
@@ -913,15 +1161,17 @@ def train_kernel_phase(torch, kernels):
             "lse %.3g dq %.3g dk %.3g dv %.3g" % (
                 bh, s, d, causal, str(dtype).split(".")[-1], errs["o"],
                 lse_err, errs["dq"], errs["dk"], errs["dv"]))
-        if bf16:
-            worst["fwd"] = max(worst["fwd"], errs["o"], lse_err)
-            worst["dq"] = max(worst["dq"], errs["dq"])
-            worst["dkv"] = max(worst["dkv"], errs["dk"], errs["dv"])
+        w = worst if bf16 else f32_worst
+        w["fwd"] = max(w["fwd"], errs["o"], lse_err)
+        w["dq"] = max(w["dq"], errs["dq"])
+        w["dkv"] = max(w["dkv"], errs["dk"], errs["dv"])
         del q, k, v, do, o, lse, delta, dq, dk, dv, o_r, lse_r, refs
 
     swept = edge_sweep(torch)
+    dims = head_dim_sweep(torch)
     for what in worst:
-        worst[what] = max(worst[what], swept[what])
+        worst[what] = max(worst[what], swept[what], dims["bf16"][what])
+        f32_worst[what] = max(f32_worst[what], dims["f32"][what])
 
     # times at the training shape, bf16, causal
     s = MAX_SEQ
@@ -1011,6 +1261,46 @@ def train_kernel_phase(torch, kernels):
     gc.collect()
     torch.cuda.empty_cache()
 
+    # K2 f32 and K3 f32 (3xTF32 on mma.sync) at the same shape in float32
+    ft = f32_backward_timing(torch)
+    d256 = d256_timing(torch)
+    kernels["flash_attention_fwd"]["max_abs_err"] = max(
+        kernels["flash_attention_fwd"]["max_abs_err"], f32_worst["fwd"])
+    kernels["flash_attention_fwd"]["d256_device_ms"] = d256["f32"]["fwd"]
+    kernels["flash_attention_fwd_bf16"]["d256_device_ms"] = d256["bf16"]["fwd"]
+    lt = ft["library"]
+    for what, line in (("dq", 136), ("dkv", 186)):
+        name = "flash_attention_bwd_%s_f32" % what
+        kt = ft[what]
+        kernels["flash_attention_bwd_" + what]["d256_device_ms"] = \
+            d256["bf16"][what]
+        kernels[name].update({
+            "name": name, "route": "cuda",
+            "source": "mxnet_tpu_torch/csrc/flash_attention_bwd.cu",
+            "replaces": "mxnet_tpu/ops/pallas/flash_attention.py:%d" % line,
+            "tpu_kernel": "ops/pallas/flash_attention.py:" + (
+                "_fa_bwd_dq_kernel" if what == "dq" else
+                "_fa_bwd_dkv_kernel"),
+            "design": "3xTF32 on mma.sync",
+            "max_abs_err": max(kernels[name]["max_abs_err"],
+                               f32_worst[what]),
+            "ms": kt["ms"], "ms_spread": [kt["lo"], kt["hi"]],
+            "device_ms": kt["device_ms"], "host_us": kt["host_us"],
+            "host_bound": kt["host_bound"],
+            "tflops": kt["flops"] / kt["device_ms"] / 1e9,
+            "bound_share": kt["bound_ms"] / kt["device_ms"],
+            "plain_ms": ft["plain_ms"], "bound_ms": kt["bound_ms"],
+            "bound_by": kt["bound_by"],
+            "bound_peak": "3 x flops at 495 TFLOP/s TF32; bytes at 3.35 TB/s",
+            "fma_bound_ms": kt["fma_ms"],
+            "library_ms": lt["ms"], "library_spread": [lt["lo"], lt["hi"]],
+            "library_device_ms": lt["device_ms"],
+            "library_host_us": lt["host_us"],
+            "library_host_bound": lt["host_bound"],
+            "d256_device_ms": d256["f32"][what]})
+        if name in BUILD_REPORT:
+            kernels[name]["build"] = BUILD_REPORT[name]
+
 
 def plain_train_loss(torch, p, x, y):
     """Mean cross-entropy of the zoo transformer's training graph on one
@@ -1063,122 +1353,181 @@ def kernel_kind(name: str) -> str:
     return "other"
 
 
-def train_phase(torch, np, kernels):
+def train_lm(torch, np, counters, warm, timed):
+    """Module on the zoo LM at bench.py's training configuration (batch
+    8, T 1024, attention="flash", Xavier weights from numpy seed 0, SGD
+    lr 0.01) on one fixed random batch, under whatever amp state the
+    caller set: the first step (bind included) timed, ``warm`` steps,
+    ``timed`` steps between CUDA events, then one step under
+    torch.profiler. The kernel wrappers' ``counters`` are zeroed just
+    before the first step and read after the last timed one. Returns the
+    readings, the step-1 cross-entropy of an independent plain float32
+    forward of the same initial weights among them."""
     from torch.profiler import ProfilerActivity, profile
     import mxnet_tpu_torch as mt
     from mxnet_tpu_torch.models import transformer
-    from mxnet_tpu_torch.ops import flash_attention as fa
-    counters = {"flash_attention_fwd_bf16": fa.flash_attention_fwd,
-                "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
-                "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv}
     B, T = TRAIN_BATCH, MAX_SEQ
     torch.cuda.reset_peak_memory_stats()
-    mt.amp.init("bfloat16")
-    try:
+    t0 = time.perf_counter()
+    sym = transformer.get_symbol(VOCAB, LAYERS, D_MODEL, HEADS, D_FF, T,
+                                 attention="flash")
+    mod = mt.mod.Module(sym, context=mt.gpu(0))
+    mod.bind(data_shapes=[("data", (B, T))],
+             label_shapes=[("softmax_label", (B, T))])
+    mod.init_params(mt.init.Xavier().set_rng(np.random.default_rng(SEED)))
+    mod.init_optimizer(optimizer="sgd",
+                       optimizer_params={"learning_rate": TRAIN_LR})
+    torch.cuda.synchronize()
+    bind_s = time.perf_counter() - t0
+    # bench.py's batch: one fixed random batch, ids as float32
+    rng = np.random.RandomState(0)
+    x = rng.randint(0, VOCAB, (B, T)).astype(np.float32)
+    y = rng.randint(0, VOCAB, (B, T)).astype(np.float32)
+    dev = torch.device(DEVICE)
+    db = mt.io.DataBatch(data=[mt.nd.array(x, ctx=dev)],
+                         label=[mt.nd.array(y, ctx=dev)])
+    y_flat = torch.from_numpy(y).to(dev).long().view(-1, 1)
+    with torch.no_grad():
+        params = {n: a.data for n, a in mod.get_params()[0].items()}
+        want = plain_train_loss(torch, params, torch.from_numpy(x).to(dev),
+                                torch.from_numpy(y).to(dev)).item()
+        del params
+    torch.cuda.empty_cache()
+
+    def step():
+        mod._fit_step(db)
+        out = mod.get_outputs()[0].data
+        # this step's cross-entropy, on the card: read after the run
+        return -(out.gather(1, y_flat) + 1e-12).log().mean()
+
+    # the main path: counters zeroed just before, read just after
+    for fn in counters.values():
+        fn.launches = {"f32": 0, "bf16": 0}
+    t0 = time.perf_counter()
+    losses = [step()]
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    for _ in range(warm):
+        losses.append(step())
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(timed):
+        losses.append(step())
+    end.record()
+    torch.cuda.synchronize()
+    step_ms = start.elapsed_time(end) / timed
+    launches = {n: dict(fn.launches) for n, fn in counters.items()}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        sym = transformer.get_symbol(VOCAB, LAYERS, D_MODEL, HEADS, D_FF, T,
-                                     attention="flash")
-        mod = mt.mod.Module(sym, context=mt.gpu(0))
-        mod.bind(data_shapes=[("data", (B, T))],
-                 label_shapes=[("softmax_label", (B, T))])
-        mod.init_params(mt.init.Xavier().set_rng(
-            np.random.default_rng(SEED)))
-        mod.init_optimizer(optimizer="sgd",
-                           optimizer_params={"learning_rate": TRAIN_LR})
+        step()
         torch.cuda.synchronize()
-        bind_s = time.perf_counter() - t0
-        # bench.py's batch: one fixed random batch, ids as float32
-        rng = np.random.RandomState(0)
-        x = rng.randint(0, VOCAB, (B, T)).astype(np.float32)
-        y = rng.randint(0, VOCAB, (B, T)).astype(np.float32)
-        dev = torch.device(DEVICE)
-        db = mt.io.DataBatch(data=[mt.nd.array(x, ctx=dev)],
-                             label=[mt.nd.array(y, ctx=dev)])
-        y_flat = torch.from_numpy(y).to(dev).long().view(-1, 1)
-        with torch.no_grad():
-            params = {n: a.data for n, a in mod.get_params()[0].items()}
-            want = plain_train_loss(torch, params,
-                                    torch.from_numpy(x).to(dev),
-                                    torch.from_numpy(y).to(dev)).item()
-            del params
-        torch.cuda.empty_cache()
+        wall = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    rows, busy_ms = device_breakdown(torch, prof, wall, "train step")
+    by_kind = {}
+    for e in rows:
+        kind = kernel_kind(e.key)
+        by_kind[kind] = by_kind.get(kind, 0.0) + \
+            e.self_device_time_total / 1e3
+    log("train step device time by kind: " + ", ".join(
+        "%s %.3f ms" % kv for kv in sorted(by_kind.items(),
+                                           key=lambda kv: -kv[1])))
+    attention = {e.key: (e.self_device_time_total / 1e3, e.count)
+                 for e in rows if kernel_kind(e.key) == "attention kernels"}
+    log("train step attention kernels: " + ", ".join(
+        "%s %.3f ms in %d launches" % (name[:60], ms, n)
+        for name, (ms, n) in sorted(attention.items(),
+                                    key=lambda kv: -kv[1][0])))
+    losses = [float(v) for v in torch.stack(losses).cpu()]
+    torch.cuda.synchronize()
+    del mod, db
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"losses": losses, "want": want, "step_ms": step_ms,
+            "bind_s": bind_s, "first_s": first_s, "timed": timed,
+            "launches": launches,
+            "peak_gb": peak_gb, "busy_ms": busy_ms,
+            "att_ms": by_kind.get("attention kernels", 0.0)}
 
-        def step():
-            mod._fit_step(db)
-            out = mod.get_outputs()[0].data
-            # this step's cross-entropy, on the card: read after the run
-            return -(out.gather(1, y_flat) + 1e-12).log().mean()
 
-        # the main path: counters zeroed just before, read just after
-        for fn in counters.values():
-            fn.launches = {"f32": 0, "bf16": 0}
-        t0 = time.perf_counter()
-        losses = [step()]
-        torch.cuda.synchronize()
-        first_s = time.perf_counter() - t0
-        for _ in range(TRAIN_WARM):
-            losses.append(step())
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(TRAIN_TIMED):
-            losses.append(step())
-        end.record()
-        torch.cuda.synchronize()
-        step_ms = start.elapsed_time(end) / TRAIN_TIMED
-        launches = {n: dict(fn.launches) for n, fn in counters.items()}
-        n_steps = len(losses)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            step()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        rows, busy_ms = device_breakdown(torch, prof, wall, "train step")
-        by_kind = {}
-        for e in rows:
-            kind = kernel_kind(e.key)
-            by_kind[kind] = by_kind.get(kind, 0.0) + \
-                e.self_device_time_total / 1e3
-        log("train step device time by kind: " + ", ".join(
-            "%s %.3f ms" % kv for kv in sorted(by_kind.items(),
-                                               key=lambda kv: -kv[1])))
-        att_ms = by_kind.get("attention kernels", 0.0)
-        losses = [float(v) for v in torch.stack(losses).cpu()]
-        torch.cuda.synchronize()
-    finally:
-        mt.amp.off()
-
+def check_training(what, run, dtype, peak_flops, peak_name):
+    """Log a training run's readings and hold it to the path: finite
+    losses that fall, the step-1 cross-entropy within CE_TOL of the
+    plain forward's, and each kernel launched once per layer per step
+    with inputs of ``dtype`` ("f32" or "bf16") only."""
+    from mxnet_tpu_torch.models import transformer
+    B, T = TRAIN_BATCH, MAX_SEQ
+    losses, want, launches = run["losses"], run["want"], run["launches"]
+    n_steps = len(losses)
     n_params = transformer.param_count(VOCAB, LAYERS, D_MODEL, HEADS, D_FF,
                                        T)
     n_embed = VOCAB * D_MODEL + T * D_MODEL
     flops_per_tok = 6 * (n_params - n_embed) + 12 * LAYERS * D_MODEL * T
-    tok_s = B * T / (step_ms / 1e3)
-    log("train: bind %.3f s, first step %.3f s; step %.3f ms (%d steps "
-        "between CUDA events) = %.1f tok/s; MFU %.4f of %.0f TFLOP/s bf16 "
-        "(%.4g TFLOP per step by bench.py's accounting); peak memory "
-        "%.3f GB; attention kernels %.3f ms of %.3f ms device time (%.1f%%)"
-        % (bind_s, first_s, step_ms, TRAIN_TIMED, tok_s,
-           tok_s * flops_per_tok / PEAK_BF16_FLOPS, PEAK_BF16_FLOPS / 1e12,
-           flops_per_tok * B * T / 1e12, peak_gb, att_ms, busy_ms,
-           100 * att_ms / max(busy_ms, 1e-9)))
-    log("train: loss per step %s" % " ".join("%.6f" % v for v in losses))
-    log("train: step-1 cross-entropy %.6f, plain f32 forward %.6f (|diff| "
-        "%.3g, tolerance %g); launches %s over %d steps x %d layers"
-        % (losses[0], want, abs(losses[0] - want), CE_TOL, launches,
+    tok_s = B * T / (run["step_ms"] / 1e3)
+    log("%s: bind %.3f s, first step %.3f s; step %.3f ms (%d steps between "
+        "CUDA events) = %.1f tok/s; MFU %.4f of %.0f TFLOP/s %s (%.4g TFLOP "
+        "per step by bench.py's accounting); peak memory %.3f GB; attention "
+        "kernels %.3f ms of %.3f ms device time (%.1f%%)"
+        % (what, run["bind_s"], run["first_s"], run["step_ms"], run["timed"],
+           tok_s, tok_s * flops_per_tok / peak_flops, peak_flops / 1e12,
+           peak_name, flops_per_tok * B * T / 1e12, run["peak_gb"],
+           run["att_ms"], run["busy_ms"],
+           100 * run["att_ms"] / max(run["busy_ms"], 1e-9)))
+    log("%s: loss per step %s" % (what, " ".join("%.6f" % v for v in losses)))
+    log("%s: step-1 cross-entropy %.6f, plain f32 forward %.6f (|diff| %.3g, "
+        "tolerance %g); launches %s over %d steps x %d layers"
+        % (what, losses[0], want, abs(losses[0] - want), CE_TOL, launches,
            n_steps, LAYERS))
-    check(all(math.isfinite(v) for v in losses), "non-finite loss %s"
-          % losses)
-    check(losses[-1] < losses[0], "loss did not fall: %s" % losses)
-    check(abs(losses[0] - want) <= CE_TOL, "step-1 loss %g vs plain "
-          "forward %g" % (losses[0], want))
+    check(all(math.isfinite(v) for v in losses), "%s: non-finite loss %s"
+          % (what, losses))
+    check(losses[-1] < losses[0], "%s: loss did not fall: %s"
+          % (what, losses))
+    check(abs(losses[0] - want) <= CE_TOL, "%s: step-1 loss %g vs plain "
+          "forward %g" % (what, losses[0], want))
+    other = "bf16" if dtype == "f32" else "f32"
     for name, n in launches.items():
-        # amp bf16 reaches attention: the bf16 kernels ran, the f32 ones not
-        check(n["bf16"] == n_steps * LAYERS and n["f32"] == 0,
-              "kernel %s launched %s times in %d steps x %d layers (bf16 "
-              "only expected)" % (name, n, n_steps, LAYERS))
+        check(n[dtype] == n_steps * LAYERS and n[other] == 0,
+              "%s: kernel %s launched %s times in %d steps x %d layers (%s "
+              "only expected)" % (what, name, n, n_steps, LAYERS, dtype))
+
+
+def train_phase(torch, np, kernels):
+    """Training in amp bf16: the bf16 forward, dQ and dK/dV kernels."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    counters = {"flash_attention_fwd_bf16": fa.flash_attention_fwd,
+                "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
+                "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv}
+    mt.amp.init("bfloat16")
+    try:
+        run = train_lm(torch, np, counters, TRAIN_WARM, TRAIN_TIMED)
+    finally:
+        mt.amp.off()
+    # amp bf16 reaches attention: the bf16 kernels ran, the f32 ones not
+    check_training("train", run, "bf16", PEAK_BF16_FLOPS, "bf16")
+    for name, n in run["launches"].items():
         kernels[name]["launches"] = n["bf16"]
+
+
+def train_f32_phase(torch, np, kernels):
+    """Training with amp off (the reference's default): the f32 forward,
+    dQ and dK/dV kernels (3xTF32), cuBLAS in full float32 (TF32 off, as
+    card_phase set it)."""
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    counters = {"flash_attention_fwd": fa.flash_attention_fwd,
+                "flash_attention_bwd_dq_f32": fa.flash_attention_bwd_dq,
+                "flash_attention_bwd_dkv_f32": fa.flash_attention_bwd_dkv}
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "cuBLAS may use TF32: the f32 step would not be float32")
+    run = train_lm(torch, np, counters, TRAIN_F32_WARM, TRAIN_F32_TIMED)
+    check_training("train f32", run, "f32", PEAK_FP32_FLOPS, "f32")
+    kernels["flash_attention_fwd"]["train_f32_launches"] = \
+        run["launches"]["flash_attention_fwd"]["f32"]
+    for name in ("flash_attention_bwd_dq_f32", "flash_attention_bwd_dkv_f32"):
+        kernels[name]["launches"] = run["launches"][name]["f32"]
+    kernels["flash_attention_fwd"]["train_f32_step_ms"] = run["step_ms"]
 
 
 def rtc_kernels():
@@ -1472,7 +1821,28 @@ def rtc_phase(torch, np, kernels):
         kernels[entry["name"]] = entry
 
 
+def f32_backward_of(checkout: str) -> int:
+    """``--f32-backward-of CHECKOUT``: f32_backward_timing on the
+    package of another checkout (the parent commit's, say), so that its
+    f32 backward kernels are timed by this script's code on this card.
+    Prints the card and the readings as one JSON line."""
+    sys.path.insert(0, str(Path(checkout).resolve()))
+    import torch
+    import mxnet_tpu_torch
+    log("package %s" % mxnet_tpu_torch.__file__)
+    try:
+        card_phase(torch)
+        readings = f32_backward_timing(torch)
+    except SmokeFailure as exc:
+        print("chip_smoke: FAILED: %s" % exc, file=sys.stderr)
+        return 1
+    log(json.dumps(readings))
+    return 0
+
+
 def main() -> int:
+    if len(sys.argv) == 3 and sys.argv[1] == "--f32-backward-of":
+        return f32_backward_of(sys.argv[2])
     if not (ROOT / "mxnet_tpu_torch" / "csrc").is_dir():
         print("chip_smoke: run from a checkout of the repository "
               "(mxnet_tpu_torch/ not found beside this script)",
@@ -1488,6 +1858,7 @@ def main() -> int:
         slice_phase(torch, np, kernels)
         train_kernel_phase(torch, kernels)
         train_phase(torch, np, kernels)
+        train_f32_phase(torch, np, kernels)
         rtc_phase(torch, np, kernels)
         torch.cuda.synchronize()
     except SmokeFailure as exc:

@@ -23,7 +23,9 @@ Ported so far:
 * the user-kernel tier: CUDA C++ compiled at run time (:mod:`.rtc`),
   callable on NDArrays and registrable as ``nd.<op>`` / ``sym.<op>``,
   and custom operators (:mod:`.operator`), with the ``nd.<op>`` and
-  :mod:`.contrib` namespaces.
+  :mod:`.contrib` namespaces;
+* the seeded key chain of ``mx.random`` (:mod:`.random`), from which
+  ``fit``'s default initializer draws.
 """
 from __future__ import annotations
 
@@ -32,13 +34,13 @@ from . import initializer as init
 from . import io, metric
 from . import module as mod
 from . import ndarray as nd
-from . import operator, optimizer, rtc
+from . import operator, optimizer, random, rtc
 from . import symbol as sym
 from .base import MXNetError
 from .context import cpu, current_device, device_scope, gpu
 
 __all__ = ["MXNetError", "cpu", "gpu", "device_scope", "current_device",
            "amp", "contrib", "init", "io", "metric", "mod", "nd", "operator",
-           "optimizer", "rtc", "sym"]
+           "optimizer", "random", "rtc", "sym"]
 
 __version__ = "0.1.0"

@@ -32,23 +32,65 @@
 //     walk; the other pair is staged once per tile;
 //   * causal tiles wholly above the diagonal are never loaded.
 //
-// float32 (fa_bwd_dq_f32, fa_bwd_dkv_f32; off the main path, which trains
-// under amp bf16): plain FMAs, the first version. 16 x 16 threads, each
-// owning 4 rows x 4 (then D / 16) columns of the tile products; rows are
-// padded in shared memory (D + 1 floats) so that 16 threads reading 16
-// different rows hit 16 banks; the
-// P / dS tiles go through shared memory with row stride BK + 4, so the
-// two half-warps' rows land 16 banks apart.
+// float32 (fa_bwd_dq_f32_tf32x3, fa_bwd_dkv_f32_tf32x3: training with amp
+// off, the reference's default). At the training shape in float32 the
+// two do 51.6 and 68.8 GFLOP on 337 and 404 MB: 0.770 and 1.027 ms on
+// float32 FMAs (67 TFLOP/s), so the FMA kernels they replace were bound by
+// arithmetic. They run on the tensor cores instead, with the forward
+// fa_fwd_f32_tf32x3's arithmetic (flash_attention_common.cuh):
+//   * 3xTF32 on mma.sync.m16n8k8: every operand x is split in registers
+//     into big = tf32(x) (cvt.rna) and small = x - big, and each product
+//     is small * big + big * small + big * big in float32, which keeps
+//     float32's accuracy (a single tf32 pass keeps about three decimal
+//     digits). Every product runs so: S = Q K^T, dP = dO V^T, dQ += dS K,
+//     dV += P^T dO, dK += dS^T Q. The bound is max(bytes at 3.35 TB/s,
+//     3 x flops at 495 TFLOP/s): 0.313 and 0.417 ms at the training shape;
+//   * wgmma is no route: its tf32 form reads shared-memory operands
+//     K-major only, and each kernel multiplies both by a tile and by its
+//     transpose (dQ: K in S = Q K^T and in dS K);
+//   * dQ: one block of 8 warps per (bh, 64-row q tile); K and V tiles
+//     come through a two-stage cp.async ring (one stage of 32 keys at
+//     D 256). As in the forward, the block splits each KV tile's keys
+//     between its two halves of 4 warps (16 q rows each), so every
+//     warp's dependent chains are those of half a tile; dQ being a plain
+//     sum over keys, the halves' sums are added through shared memory at
+//     the end. S's and dP's small-term products accumulate apart from
+//     big * big, which halves those chains again;
+//   * dK/dV: one block of 8 warps per (bh, 64-key tile) holds K and V and
+//     walks the q tiles, which come with their lse and delta (4-byte
+//     cp.async: a head's rows need not start 16-byte aligned) through a
+//     two-stage ring. Warp w owns keys 16 (w % 4) and computes S^T = K Q^T
+//     and dP^T = V dO^T for them. dK and dV of 16 keys take 2 D registers
+//     a thread: up to D 128 the two halves of the block take the two
+//     halves of each 32-row q tile and are added at the end; at D 256
+//     (DSPLIT) each half takes all 16 rows of a q tile and owns half of D
+//     of both sums, computing the same S^T and dP^T (1.5 times the flops
+//     of the split above). Up to D 128 each Q and dO tile is split into
+//     its tf32 halves once, as it lands, instead of by each of the four
+//     warps that read it (PERF.md §6 has the times with and without);
+//   * P and dS never leave registers: the m16n8k8 C fragment becomes the
+//     A fragment of the next product with no shuffle, by ordering each
+//     k-step's keys (q rows for dK/dV) 2t, 2t + 1 and reading the B rows
+//     to match (c_to_a_tf32, split_b_cols). Shared rows are D + 4 floats
+//     apart, which puts every fragment load in 32 different banks;
+//   * P = exp(S scale - lse) is rebuilt from the forward's lse in float32
+//     (expf, as the TPU kernel); the masks (keys past Sk, q rows past S,
+//     keys above the diagonal) run only on tiles that cross an edge, and
+//     set P to 0; causal tiles wholly above the diagonal are never
+//     loaded; every output tile has one owner block, no atomics.
 //
 // bfloat16 (the training path under amp). fa_bwd_dq_bf16 and
-// fa_bwd_dkv_bf16, for head dims 16 and 32, run on mma.sync m16n8k16 (bf16
-// in, float32 accumulate; see flash_attention_common.cuh): 4 warps per
-// block, each owning 16 rows (q rows for dQ, keys for dK/dV); S and dP
+// fa_bwd_dkv_bf16, for head dims 16, 32 and 256, run on mma.sync m16n8k16
+// (bf16 in, float32 accumulate; see flash_attention_common.cuh): 4 warps
+// per block, each owning 16 rows (q rows for dQ, keys for dK/dV); S and dP
 // land in registers in the accumulator layout; P and dS are rounded to
 // bf16 (as the TPU kernels round them to the operands' dtype) and reused
 // in registers as the A operand of the next product; dK/dV walks q tiles
 // of 32 rows in the transposed orientation S^T = K Q^T, so the key rows
-// stay with their warp. Loads are synchronous.
+// stay with their warp. Loads are synchronous. At D 256 the dQ kernel
+// takes 32-key tiles and the dK/dV kernel gives each 16-key strip two
+// warps, each owning half of D of dK and dV (32 keys a block), so that the
+// float32 sums fit in registers; speed at D 256 is no aim yet.
 //
 // fa_bwd_dkv_bf16_wgmma (dK and dV for head dims 64 and 128, the models')
 // is built for this card. At the training shape (BH 128, S 1024, D 128,
@@ -149,275 +191,439 @@ namespace {
 
 using namespace fa;
 
-template <int D>
-constexpr size_t dq_smem_bytes() {
-  return sizeof(float) * (size_t(2 * BQ + 2 * BK) * (D + 1) +
-                          size_t(BQ) * PS);
+// ----------------------------------------------- float32, 3xTF32 on mma.sync
+
+// dQ: shared memory of a block, its 64 q rows of Q and dO and a ring of NST
+// K and V tiles of 2 KH keys, rows D + 4 floats apart.
+template <int D, int KH, int NST>
+constexpr size_t dq_f32_smem_bytes() {
+  return sizeof(float) * size_t(2 * 64 + NST * 2 * 2 * KH) * (D + 4);
 }
 
+// The dQ key tile: 64 keys in a two-stage ring up to D 128 (198 KB at
+// D 128); at D 256, where dQ takes 128 registers a thread, 32 keys in one
+// stage (195 KB).
 template <int D>
-constexpr size_t dkv_smem_bytes() {
-  return sizeof(float) * (size_t(2 * BK + 2 * BQ) * (D + 1) +
-                          size_t(2 * BK) * PS + 2 * BQ);
+constexpr int dq_f32_kh() {
+  return D > 128 ? 16 : 32;
+}
+template <int D>
+constexpr int dq_f32_stages() {
+  return D > 128 ? 1 : 2;
 }
 
-// dQ: one block per (bh, q tile); KV tiles walked in a loop.
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-fa_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, const float* __restrict__ dout,
-              const float* __restrict__ lse, const float* __restrict__ delta,
-              float* __restrict__ dq, int sq, int sk, float scale,
-              int causal) {
-  constexpr int DC = D / 16;   // output columns per thread
-  constexpr int RS = D + 1;
-  extern __shared__ float smem[];
-  float* Qs = smem;                  // BQ x RS
-  float* dOs = Qs + BQ * RS;         // BQ x RS
-  float* Ks = dOs + BQ * RS;         // BK x RS
-  float* Vs = Ks + BK * RS;          // BK x RS
-  float* dSs = Vs + BK * RS;         // BQ x PS
+// dQ: one block of 8 warps per (bh, 64-row q tile). Warp w owns q rows
+// 16 (w % 4) .. + 15 and, of each KV tile of 2 KH keys, keys KH (w / 4) ..
+// + KH - 1: each half of the block sums dQ over its keys, and the halves
+// are added through shared memory at the end (dQ is a plain sum over keys,
+// P being exact from lse), so each warp's dependent chains are half the
+// block's.
+template <int D, int KH, int NST>
+__global__ void __launch_bounds__(F32_THREADS, 1)
+fa_bwd_dq_f32_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, float* __restrict__ dq,
+                     int sq, int sk, float scale, int causal) {
+  constexpr int ROWS = 64;          // q rows per block
+  constexpr int BKT = 2 * KH;       // keys per KV tile
+  constexpr int SX = D + 4;         // shared row stride (floats)
+  constexpr int KS = D / 8;         // k-steps of S and dP
+  constexpr int DN = D / 8;         // 8-column tiles of dQ
+  constexpr int NJ = KH / 8;        // 8-key tiles of a warp's keys
+  static_assert(2 * NST * BKT >= ROWS, "the K/V ring holds the merge's dQ");
+  extern __shared__ __align__(16) float f32_dq_smem[];
+  float* Qs = f32_dq_smem;              // ROWS x SX
+  float* dOs = Qs + ROWS * SX;          // ROWS x SX
+  float* Ks = dOs + ROWS * SX;          // NST x BKT x SX
+  float* Vs = Ks + NST * BKT * SX;      // NST x BKT x SX
 
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * BQ;
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-  const float* qb = q + size_t(bh) * sq * D;
-  const float* dob = dout + size_t(bh) * sq * D;
+  const int bh = blockIdx.x;
+  // the last q tile of a head first: causal tiles of most work lead
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * ROWS;
+  const int warp = threadIdx.x / 32;
+  const int half = warp / 4;                     // the warp's KH keys
+  const int g = (threadIdx.x % 32) / 4;
+  const int t = threadIdx.x % 4;
+  const int r0 = (warp % 4) * 16;                // the warp's rows
+  const int row[2] = {q0 + r0 + g, q0 + r0 + g + 8};
   const float* kb = k + size_t(bh) * sk * D;
   const float* vb = v + size_t(bh) * sk * D;
 
-  load_tile<D>(Qs, RS, qb, q0, BQ, sq);
-  load_tile<D>(dOs, RS, dob, q0, BQ, sq);
+  int n_kt = (sk + BKT - 1) / BKT;
+  if (causal) n_kt = min(n_kt, (min(q0 + ROWS, sq) - 1) / BKT + 1);
 
-  // rows past S: lse = +inf makes their P exactly 0
-  float lse_r[4], delta_r[4], acc[4][DC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qp = q0 + ty * 4 + i;
-    lse_r[i] = qp < sq ? lse[size_t(bh) * sq + qp] : INFINITY;
-    delta_r[i] = qp < sq ? delta[size_t(bh) * sq + qp] : 0.f;
-#pragma unroll
-    for (int j = 0; j < DC; ++j) acc[i][j] = 0.f;
-  }
+  auto stage_kv = [&](int kt) {
+    const int st = kt % NST;
+    stage_f32<D, SX>(Ks + st * BKT * SX, kb, kt * BKT, BKT, sk);
+    stage_f32<D, SX>(Vs + st * BKT * SX, vb, kt * BKT, BKT, sk);
+    cp_async_commit();
+  };
+  // Q and dO join the first tile's group
+  stage_f32<D, SX>(Qs, q + size_t(bh) * sq * D, q0, ROWS, sq);
+  stage_f32<D, SX>(dOs, dout + size_t(bh) * sq * D, q0, ROWS, sq);
+  if (NST > 1) stage_kv(0);
 
-  int n_kt = (sk + BK - 1) / BK;
-  if (causal) {
-    const int last_row = min(q0 + BQ, sq) - 1;
-    n_kt = min(n_kt, last_row / BK + 1);
+  // lse and delta of the thread's two rows; rows past S are computed on
+  // zeros and never written
+  float lr[2], dr[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    lr[h] = row[h] < sq ? lse[size_t(bh) * sq + row[h]] : 0.f;
+    dr[h] = row[h] < sq ? delta[size_t(bh) * sq + row[h]] : 0.f;
   }
+  float acc[DN][4];
+#pragma unroll
+  for (int dn = 0; dn < DN; ++dn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[dn][e] = 0.f;
 
   for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();   // the previous tile's K and dS reads are done
-    load_tile<D>(Ks, RS, kb, k0, BK, sk);
-    load_tile<D>(Vs, RS, vb, k0, BK, sk);
-    __syncthreads();
+    if (NST > 1) {
+      if (kt + 1 < n_kt) {
+        stage_kv(kt + 1);   // into the stage read one tile ago
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+    } else {
+      stage_kv(kt);
+      cp_async_wait<0>();
+    }
+    __syncthreads();   // this tile (and Q, dO) are in for every thread
+    const int k0 = kt * BKT + half * KH;   // the warp's first key
+    const float* Kt = Ks + (kt % NST) * BKT * SX + half * KH * SX;
+    const float* Vt = Vs + (kt % NST) * BKT * SX + half * KH * SX;
 
-    float s[4][4], dp[4][4];
+    // S = Q K^T and dP = dO V^T, the small-term products apart
+    float s[NJ][4], s2[NJ][4], dp[NJ][4], dp2[NJ][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < NJ; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qv[4], ov[4], kv[4], vv[4];
+      for (int e = 0; e < 4; ++e) s[j][e] = s2[j][e] = dp[j][e] = dp2[j][e] = 0.f;
+#pragma unroll 2
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t qb[4], qs[4], ob[4], os[4];
+      split_a<SX>(qb, qs, Qs, r0, kk * 8, g, t);
+      split_a<SX>(ob, os, dOs, r0, kk * 8, g, t);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        qv[i] = Qs[(ty * 4 + i) * RS + d];
-        ov[i] = dOs[(ty * 4 + i) * RS + d];
+      for (int j = 0; j < NJ; ++j) {
+        uint32_t bb[2], bs[2];
+        split_b_rows<SX>(bb, bs, Kt, j * 8, kk * 8, g, t);
+        mma_3xtf32_2(s[j], s2[j], qb, qs, bb, bs);
+        split_b_rows<SX>(bb, bs, Vt, j * 8, kk * 8, g, t);
+        mma_3xtf32_2(dp[j], dp2[j], ob, os, bb, bs);
       }
+    }
+
+    // dS = P (dP - delta) scale in place of S, P = exp(S scale - lse); the
+    // masks (keys past Sk, above the diagonal) only on tiles that need them
+    const bool edge =
+        k0 + KH > sk || (causal && k0 + KH - 1 > q0 + r0);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        kv[j] = Ks[(tx + 16 * j) * RS + d];
-        vv[j] = Vs[(tx + 16 * j) * RS + d];
-      }
+    for (int j = 0; j < NJ; ++j)
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-          dp[i][j] = fmaf(ov[i], vv[j], dp[i][j]);
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1;
+        float p = expf((s[j][e] + s2[j][e]) * scale - lr[h]);
+        if (edge) {
+          const int kp = k0 + j * 8 + 2 * t + (e & 1);
+          if (kp >= sk || (causal && row[h] < kp)) p = 0.f;
         }
-    }
+        s[j][e] = p * (dp[j][e] + dp2[j][e] - dr[h]) * scale;
+      }
 
+    // dQ += dS K: dS's C fragment is the A fragment of a k-step whose keys
+    // come in the order 2t, 2t + 1; K's rows are read to match
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qp = q0 + ty * 4 + i;
+    for (int j = 0; j < NJ; ++j) {
+      uint32_t ab[4], as[4];
+      c_to_a_tf32(ab, as, s[j]);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kp = k0 + tx + 16 * j;
-        float p = 0.f;
-        if (kp < sk) {
-          float x = s[i][j] * scale;
-          if (causal && qp < kp) x = NEG_INF_MASK;
-          p = expf(x - lse_r[i]);
-        }
-        dSs[(ty * 4 + i) * PS + tx + 16 * j] =
-            p * (dp[i][j] - delta_r[i]) * scale;
+      for (int dn = 0; dn < DN; ++dn) {
+        uint32_t bb[2], bs[2];
+        split_b_cols<SX>(bb, bs, Kt, j * 8, dn * 8, g, t);
+        mma_3xtf32(acc[dn], ab, as, bb, bs);
       }
     }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float dsv[4], kv[DC];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) dsv[i] = dSs[(ty * 4 + i) * PS + kk];
-#pragma unroll
-      for (int j = 0; j < DC; ++j) kv[j] = Ks[kk * RS + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < DC; ++j) acc[i][j] = fmaf(dsv[i], kv[j], acc[i][j]);
-    }
+    __syncthreads();   // this stage is read: the next load may land
   }
 
+  // the second half hands its dQ over through shared memory (free now: no
+  // load is in flight)
+  float* xo = Ks;   // ROWS x SX
+  if (half == 1) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qp = q0 + ty * 4 + i;
-    if (qp >= sq) continue;
-    float* row = dq + (size_t(bh) * sq + qp) * D;
+    for (int h = 0; h < 2; ++h)
 #pragma unroll
-    for (int j = 0; j < DC; ++j) row[tx + 16 * j] = acc[i][j];
+      for (int dn = 0; dn < DN; ++dn)
+        *reinterpret_cast<float2*>(xo + (r0 + g + 8 * h) * SX + dn * 8 +
+                                   2 * t) =
+            make_float2(acc[dn][2 * h], acc[dn][2 * h + 1]);
+  }
+  __syncthreads();
+  if (half == 1) return;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (row[h] >= sq) continue;
+    float* out = dq + (size_t(bh) * sq + row[h]) * D;
+#pragma unroll
+    for (int dn = 0; dn < DN; ++dn) {
+      const float2 x = *reinterpret_cast<const float2*>(
+          xo + (r0 + g + 8 * h) * SX + dn * 8 + 2 * t);
+      *reinterpret_cast<float2*>(out + dn * 8 + 2 * t) =
+          make_float2(acc[dn][2 * h] + x.x, acc[dn][2 * h + 1] + x.y);
+    }
   }
 }
 
-// dK and dV: one block per (bh, key tile); q tiles walked in a loop.
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-fa_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
-               const float* __restrict__ v, const float* __restrict__ dout,
-               const float* __restrict__ lse,
-               const float* __restrict__ delta, float* __restrict__ dk,
-               float* __restrict__ dv, int sq, int sk, float scale,
-               int causal) {
-  constexpr int DC = D / 16;
-  constexpr int RS = D + 1;
-  extern __shared__ float smem[];
-  float* Ks = smem;                  // BK x RS
-  float* Vs = Ks + BK * RS;          // BK x RS
-  float* Qs = Vs + BK * RS;          // BQ x RS
-  float* dOs = Qs + BQ * RS;         // BQ x RS
-  float* Ps = dOs + BQ * RS;         // BK x PS: P^T
-  float* dSs = Ps + BK * PS;         // BK x PS: dS^T
-  float* lse_s = dSs + BK * PS;      // BQ
-  float* delta_s = lse_s + BQ;       // BQ
+// dK/dV: shared memory of a block, its 64 keys of K and V and a two-stage
+// ring of Q and dO tiles of QT rows (with their small halves up to D 128)
+// and their lse and delta, rows D + 4 floats apart (199 KB at D 128,
+// 195 KB at D 256).
+template <int D, int QT>
+constexpr size_t dkv_f32_smem_bytes() {
+  return sizeof(float) * (size_t(2 * 64 + 2 * (D > 128 ? 2 : 4) * QT) *
+                              (D + 4) +
+                          size_t(2 * 2 * QT));
+}
 
-  const int bh = blockIdx.y;
-  const int k0 = blockIdx.x * BK;
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
+// The dK/dV q tile: 32 rows up to D 128 and 16 at D 256.
+template <int D>
+constexpr int dkv_f32_qt() {
+  return D > 128 ? 16 : 32;
+}
+
+// dK and dV: one block of 8 warps per (bh, 64-key tile) walking the q
+// tiles, which come with their lse and delta through a two-stage cp.async
+// ring. Warp w owns keys 16 (w % 4) .. + 15 and computes the transposed
+// products S^T = K Q^T and dP^T = V dO^T for its keys. Up to D 128 the two
+// halves of the block (w / 4) take the first and second QT / 2 rows of
+// each q tile, each half summing dK and dV over its rows, and the halves
+// are added through shared memory at the end; each q tile's Q and dO are
+// split into tf32 halves once, as they land (presplit_tile), since four
+// warps read every value of them. At D 256 (DSPLIT) dK and dV of 16 keys
+// would take 256 registers a thread: there the two halves take all QT
+// rows, compute the same S^T and dP^T, and each owns half of the head dim
+// of dK and dV; the split halves would not fit in shared memory, so each
+// warp splits what it loads.
+template <int D, int QT, bool DSPLIT>
+__global__ void __launch_bounds__(F32_THREADS, 1)
+fa_bwd_dkv_f32_tf32x3(const float* __restrict__ q,
+                      const float* __restrict__ k,
+                      const float* __restrict__ v,
+                      const float* __restrict__ dout,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta,
+                      float* __restrict__ dk, float* __restrict__ dv, int sq,
+                      int sk, float scale, int causal) {
+  constexpr int KEYS = 64;                   // keys per block
+  constexpr int NST = 2;                     // q tiles in flight
+  constexpr int SX = D + 4;                  // shared row stride (floats)
+  constexpr int QW = DSPLIT ? QT : QT / 2;   // a warp's q rows of a tile
+  constexpr int DW = DSPLIT ? D / 2 : D;     // a warp's columns of dK, dV
+  constexpr int KS = D / 8;                  // k-steps of S^T and dP^T
+  constexpr int DN = DW / 8;                 // 8-column tiles of dK, dV
+  constexpr int NJ = QW / 8;                 // 8-row tiles of a warp's rows
+  constexpr bool SPLIT = !DSPLIT;            // Q and dO split as they land
+  constexpr int NT = SPLIT ? 4 : 2;          // tiles a stage: Q, dO (+ small)
+  extern __shared__ __align__(16) float f32_dkv_smem[];
+  float* Ks = f32_dkv_smem;             // KEYS x SX
+  float* Vs = Ks + KEYS * SX;           // KEYS x SX
+  float* ring = Vs + KEYS * SX;         // NST x NT x QT x SX
+  float* ls = ring + NST * NT * QT * SX;   // NST x QT: lse
+  float* ds = ls + NST * QT;               // NST x QT: delta
+  // tile i of stage st: Q, dO, then the small halves of Q and dO
+  auto tile = [&](int st, int i) { return ring + (st * NT + i) * QT * SX; };
+
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * KEYS;     // low key tiles (most work) first
+  const int warp = threadIdx.x / 32;
+  const int half = warp / 4;
+  const int g = (threadIdx.x % 32) / 4;
+  const int t = threadIdx.x % 4;
+  const int r0 = (warp % 4) * 16;                // the warp's keys
+  const int key[2] = {k0 + r0 + g, k0 + r0 + g + 8};
+  const int qc = DSPLIT ? 0 : half * QW;         // its rows of a q tile
+  const int dc = DSPLIT ? half * DW : 0;         // its columns of dK, dV
   const float* qb = q + size_t(bh) * sq * D;
   const float* dob = dout + size_t(bh) * sq * D;
-  const float* kb = k + size_t(bh) * sk * D;
-  const float* vb = v + size_t(bh) * sk * D;
+  const float* lb = lse + size_t(bh) * sq;
+  const float* db = delta + size_t(bh) * sq;
 
-  load_tile<D>(Ks, RS, kb, k0, BK, sk);
-  load_tile<D>(Vs, RS, vb, k0, BK, sk);
-
-  float acc_k[4][DC], acc_v[4][DC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < DC; ++j) acc_k[i][j] = acc_v[i][j] = 0.f;
-
-  const int n_qt = (sq + BQ - 1) / BQ;
+  const int n_qt = (sq + QT - 1) / QT;
   // causal: a q tile wholly before this key tile sees none of it
-  const int qt0 = causal ? k0 / BQ : 0;
+  const int qt0 = causal ? k0 / QT : 0;
 
-  for (int qt = qt0; qt < n_qt; ++qt) {
-    const int q0 = qt * BQ;
-    __syncthreads();   // the previous tile's Q, dO, P and dS reads are done
-    load_tile<D>(Qs, RS, qb, q0, BQ, sq);
-    load_tile<D>(dOs, RS, dob, q0, BQ, sq);
-    for (int r = threadIdx.x; r < BQ; r += THREADS) {
-      const int qp = q0 + r;
-      lse_s[r] = qp < sq ? lse[size_t(bh) * sq + qp] : INFINITY;
-      delta_s[r] = qp < sq ? delta[size_t(bh) * sq + qp] : 0.f;
+  auto stage_q = [&](int qt) {
+    const int st = (qt - qt0) % NST;
+    stage_f32<D, SX>(tile(st, 0), qb, qt * QT, QT, sq);
+    stage_f32<D, SX>(tile(st, 1), dob, qt * QT, QT, sq);
+    // rows past S arrive as zeros, and their P is masked below
+    for (int r = threadIdx.x; r < QT; r += F32_THREADS) {
+      const int qp = qt * QT + r;
+      const int n = qp < sq ? 4 : 0;
+      cp_async4(ls + st * QT + r, lb + (n ? qp : 0), n);
+      cp_async4(ds + st * QT + r, db + (n ? qp : 0), n);
     }
-    __syncthreads();
+    cp_async_commit();
+  };
 
-    // transposed scores: thread rows are keys, columns queries
-    float s[4][4], dp[4][4];
+  float acc_k[DN][4], acc_v[DN][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int dn = 0; dn < DN; ++dn)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float kv[4], vv[4], qv[4], ov[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        kv[i] = Ks[(ty * 4 + i) * RS + d];
-        vv[i] = Vs[(ty * 4 + i) * RS + d];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        qv[j] = Qs[(tx + 16 * j) * RS + d];
-        ov[j] = dOs[(tx + 16 * j) * RS + d];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(kv[i], qv[j], s[i][j]);
-          dp[i][j] = fmaf(vv[i], ov[j], dp[i][j]);
-        }
-    }
+    for (int e = 0; e < 4; ++e) acc_k[dn][e] = acc_v[dn][e] = 0.f;
 
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int kp = k0 + ty * 4 + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        const int qp = q0 + c;
-        float p = 0.f;
-        if (kp < sk) {
-          float x = s[i][j] * scale;
-          if (causal && qp < kp) x = NEG_INF_MASK;
-          p = expf(x - lse_s[c]);
-        }
-        Ps[(ty * 4 + i) * PS + c] = p;
-        dSs[(ty * 4 + i) * PS + c] = p * (dp[i][j] - delta_s[c]) * scale;
+  // keys that no q row sees (causal, keys past S) keep dK = dV = 0
+  if (qt0 < n_qt) {
+    // K and V join the first q tile's group
+    stage_f32<D, SX>(Ks, k + size_t(bh) * sk * D, k0, KEYS, sk);
+    stage_f32<D, SX>(Vs, v + size_t(bh) * sk * D, k0, KEYS, sk);
+    stage_q(qt0);
+    for (int qt = qt0; qt < n_qt; ++qt) {
+      if (qt + 1 < n_qt) {
+        stage_q(qt + 1);   // into the stage read one tile ago
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
       }
-    }
-    __syncthreads();
+      __syncthreads();   // this tile (and K, V) are in for every thread
+      const int st = (qt - qt0) % NST;
+      if (SPLIT) {
+        presplit_tile<D, SX>(tile(st, 0), tile(st, 2), QT);
+        presplit_tile<D, SX>(tile(st, 1), tile(st, 3), QT);
+        __syncthreads();
+      }
+      const int q0 = qt * QT + qc;                 // the warp's first row
+      const float* Qt = tile(st, 0) + qc * SX;
+      const float* Ot = tile(st, 1) + qc * SX;
+      const float* Qsm = tile(st, SPLIT ? 2 : 0) + qc * SX;
+      const float* Osm = tile(st, SPLIT ? 3 : 1) + qc * SX;
+      const float* lt = ls + st * QT + qc;
+      const float* dt = ds + st * QT + qc;
+      // the split halves of B fragments of Q and dO, loaded or computed
+      auto b_rows = [&](uint32_t (&bb)[2], uint32_t (&bs)[2], const float* x,
+                        const float* xs, int n0, int k0) {
+        if (SPLIT)
+          load_b_rows_split<SX>(bb, bs, x, xs, n0, k0, g, t);
+        else
+          split_b_rows<SX>(bb, bs, x, n0, k0, g, t);
+      };
+      auto b_cols = [&](uint32_t (&bb)[2], uint32_t (&bs)[2], const float* x,
+                        const float* xs, int k0, int n0) {
+        if (SPLIT)
+          load_b_cols_split<SX>(bb, bs, x, xs, k0, n0, g, t);
+        else
+          split_b_cols<SX>(bb, bs, x, k0, n0, g, t);
+      };
 
-#pragma unroll 4
-    for (int qq = 0; qq < BQ; ++qq) {
-      float pv[4], dsv[4], ov[DC], qv[DC];
+      // S^T = K Q^T and dP^T = V dO^T (keys x q rows), the small-term
+      // products apart
+      float s[NJ][4], s2[NJ][4], dp[NJ][4], dp2[NJ][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pv[i] = Ps[(ty * 4 + i) * PS + qq];
-        dsv[i] = dSs[(ty * 4 + i) * PS + qq];
-      }
+      for (int j = 0; j < NJ; ++j)
 #pragma unroll
-      for (int j = 0; j < DC; ++j) {
-        ov[j] = dOs[qq * RS + tx + 16 * j];
-        qv[j] = Qs[qq * RS + tx + 16 * j];
-      }
+        for (int e = 0; e < 4; ++e)
+          s[j][e] = s2[j][e] = dp[j][e] = dp2[j][e] = 0.f;
+#pragma unroll 2
+      for (int kk = 0; kk < KS; ++kk) {
+        uint32_t kb2[4], ks2[4], vb2[4], vs2[4];
+        split_a<SX>(kb2, ks2, Ks, r0, kk * 8, g, t);
+        split_a<SX>(vb2, vs2, Vs, r0, kk * 8, g, t);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < DC; ++j) {
-          acc_v[i][j] = fmaf(pv[i], ov[j], acc_v[i][j]);
-          acc_k[i][j] = fmaf(dsv[i], qv[j], acc_k[i][j]);
+        for (int j = 0; j < NJ; ++j) {
+          uint32_t bb[2], bs[2];
+          b_rows(bb, bs, Qt, Qsm, j * 8, kk * 8);
+          mma_3xtf32_2(s[j], s2[j], kb2, ks2, bb, bs);
+          b_rows(bb, bs, Ot, Osm, j * 8, kk * 8);
+          mma_3xtf32_2(dp[j], dp2[j], vb2, vs2, bb, bs);
         }
+      }
+
+      // P^T in place of S^T, dS^T = P^T (dP^T - delta) scale in place of
+      // dP^T; masks (q rows past S, keys past Sk, keys above the
+      // diagonal) only on tiles that need them
+      const bool edge = q0 + QW > sq || k0 + r0 + 16 > sk ||
+                        (causal && q0 < k0 + r0 + 15);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = e >> 1;
+          const int c = j * 8 + 2 * t + (e & 1);
+          float p = expf((s[j][e] + s2[j][e]) * scale - lt[c]);
+          if (edge) {
+            const int qp = q0 + c;
+            if (qp >= sq || key[h] >= sk || (causal && qp < key[h])) p = 0.f;
+          }
+          s[j][e] = p;
+          dp[j][e] = p * (dp[j][e] + dp2[j][e] - dt[c]) * scale;
+        }
+
+      // dV += P^T dO and dK += dS^T Q: P^T's and dS^T's C fragments are
+      // the A fragments of k-steps whose q rows come in the order 2t,
+      // 2t + 1; dO's and Q's rows are read to match
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        uint32_t pb[4], ps[4], sb[4], ss[4];
+        c_to_a_tf32(pb, ps, s[j]);
+        c_to_a_tf32(sb, ss, dp[j]);
+#pragma unroll
+        for (int dn = 0; dn < DN; ++dn) {
+          uint32_t bb[2], bs[2];
+          b_cols(bb, bs, Ot, Osm, j * 8, dc + dn * 8);
+          mma_3xtf32(acc_v[dn], pb, ps, bb, bs);
+          b_cols(bb, bs, Qt, Qsm, j * 8, dc + dn * 8);
+          mma_3xtf32(acc_k[dn], sb, ss, bb, bs);
+        }
+      }
+      __syncthreads();   // this stage is read: the next load may land
     }
   }
 
+  if (!DSPLIT) {
+    // the second half hands its sums over through K's and V's shared
+    // memory (free now: no load is in flight)
+    if (half == 1) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int kp = k0 + ty * 4 + i;
-    if (kp >= sk) continue;
-    float* krow = dk + (size_t(bh) * sk + kp) * D;
-    float* vrow = dv + (size_t(bh) * sk + kp) * D;
+      for (int h = 0; h < 2; ++h)
 #pragma unroll
-    for (int j = 0; j < DC; ++j) {
-      krow[tx + 16 * j] = acc_k[i][j];
-      vrow[tx + 16 * j] = acc_v[i][j];
+        for (int dn = 0; dn < DN; ++dn) {
+          const int off = (r0 + g + 8 * h) * SX + dn * 8 + 2 * t;
+          *reinterpret_cast<float2*>(Ks + off) =
+              make_float2(acc_k[dn][2 * h], acc_k[dn][2 * h + 1]);
+          *reinterpret_cast<float2*>(Vs + off) =
+              make_float2(acc_v[dn][2 * h], acc_v[dn][2 * h + 1]);
+        }
+    }
+    __syncthreads();
+    if (half == 1) return;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int dn = 0; dn < DN; ++dn) {
+        const int off = (r0 + g + 8 * h) * SX + dn * 8 + 2 * t;
+        const float2 xk = *reinterpret_cast<const float2*>(Ks + off);
+        const float2 xv = *reinterpret_cast<const float2*>(Vs + off);
+        acc_k[dn][2 * h] += xk.x;
+        acc_k[dn][2 * h + 1] += xk.y;
+        acc_v[dn][2 * h] += xv.x;
+        acc_v[dn][2 * h + 1] += xv.y;
+      }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (key[h] >= sk) continue;
+    float* krow = dk + (size_t(bh) * sk + key[h]) * D + dc;
+    float* vrow = dv + (size_t(bh) * sk + key[h]) * D + dc;
+#pragma unroll
+    for (int dn = 0; dn < DN; ++dn) {
+      *reinterpret_cast<float2*>(krow + dn * 8 + 2 * t) =
+          make_float2(acc_k[dn][2 * h], acc_k[dn][2 * h + 1]);
+      *reinterpret_cast<float2*>(vrow + dn * 8 + 2 * t) =
+          make_float2(acc_v[dn][2 * h], acc_v[dn][2 * h + 1]);
     }
   }
 }
@@ -427,14 +633,14 @@ int launch_dq_f32(const float* q, const float* k, const float* v,
                   const float* dout, const float* lse, const float* delta,
                   float* dq, int bh, int sq, int sk, float scale, int causal,
                   cudaStream_t stream) {
-  const size_t smem = dq_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      fa_bwd_dq_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(smem));
+  constexpr int KH = dq_f32_kh<D>(), NST = dq_f32_stages<D>();
+  const auto kernel = fa_bwd_dq_f32_tf32x3<D, KH, NST>;
+  const size_t smem = dq_f32_smem_bytes<D, KH, NST>();
+  const cudaError_t err = set_max_shared(kernel, smem);
   if (err != cudaSuccess) return int(err);
-  const dim3 grid((sq + BQ - 1) / BQ, bh);
-  fa_bwd_dq_f32<D><<<grid, THREADS, smem, stream>>>(
-      q, k, v, dout, lse, delta, dq, sq, sk, scale, causal);
+  const dim3 grid(bh, (sq + 63) / 64);
+  kernel<<<grid, F32_THREADS, smem, stream>>>(q, k, v, dout, lse, delta, dq,
+                                              sq, sk, scale, causal);
   return int(cudaGetLastError());
 }
 
@@ -443,20 +649,36 @@ int launch_dkv_f32(const float* q, const float* k, const float* v,
                    const float* dout, const float* lse, const float* delta,
                    float* dk, float* dv, int bh, int sq, int sk, float scale,
                    int causal, cudaStream_t stream) {
-  const size_t smem = dkv_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      fa_bwd_dkv_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(smem));
+  constexpr int QT = dkv_f32_qt<D>();
+  const auto kernel = fa_bwd_dkv_f32_tf32x3<D, QT, (D > 128)>;
+  const size_t smem = dkv_f32_smem_bytes<D, QT>();
+  const cudaError_t err = set_max_shared(kernel, smem);
   if (err != cudaSuccess) return int(err);
-  const dim3 grid((sk + BK - 1) / BK, bh);
-  fa_bwd_dkv_f32<D><<<grid, THREADS, smem, stream>>>(
-      q, k, v, dout, lse, delta, dk, dv, sq, sk, scale, causal);
+  const dim3 grid(bh, (sk + 63) / 64);
+  kernel<<<grid, F32_THREADS, smem, stream>>>(q, k, v, dout, lse, delta, dk,
+                                              dv, sq, sk, scale, causal);
   return int(cudaGetLastError());
 }
 
-// ------------------------ bfloat16, mma.sync (dQ; dK/dV at head dims 16, 32)
+// ------------------ bfloat16, mma.sync (dQ, dK/dV at head dims 16, 32, 256)
 
 constexpr int QT = 32;   // q rows per tile of the bf16 dK/dV kernel
+
+// Keys per KV tile of the bf16 dQ kernel: 64, or 32 at D 256, where dQ
+// takes 128 registers a thread beside S and dP.
+template <int D>
+__host__ __device__ constexpr int dq_bf16_keys() {
+  return D > 128 ? 32 : BK;
+}
+
+// Warps of the bf16 dK/dV kernel that share a 16-key strip, each owning
+// D / n columns of dK and dV: 1, or 2 at D 256, where dK and dV of 16 keys
+// would take 256 registers a thread (both warps compute the strip's S^T
+// and dP^T).
+template <int D>
+__host__ __device__ constexpr int dkv_bf16_split() {
+  return D > 128 ? 2 : 1;
+}
 
 // dQ: one block of 4 warps per (bh, 64-row q tile); KV tiles walked in a
 // loop; each warp owns 16 q rows.
@@ -473,12 +695,13 @@ fa_bwd_dq_bf16(const __nv_bfloat16* __restrict__ q,
   constexpr int SX = D + 8;
   constexpr int KS = D / 16;
   constexpr int DN = D / 8;
-  constexpr int NJ = BK / 8;
+  constexpr int TK = dq_bf16_keys<D>();   // keys per KV tile
+  constexpr int NJ = TK / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* dOs = Qs + BQ * SX;
   __nv_bfloat16* Ks = dOs + BQ * SX;
-  __nv_bfloat16* Vs = Ks + BK * SX;
+  __nv_bfloat16* Vs = Ks + TK * SX;
 
   const int bh = blockIdx.y;
   const int q0 = blockIdx.x * BQ;
@@ -505,17 +728,17 @@ fa_bwd_dq_bf16(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[dn][e] = 0.f;
 
-  int n_kt = (sk + BK - 1) / BK;
+  int n_kt = (sk + TK - 1) / TK;
   if (causal) {
     const int last_row = min(q0 + BQ, sq) - 1;
-    n_kt = min(n_kt, last_row / BK + 1);
+    n_kt = min(n_kt, last_row / TK + 1);
   }
 
   for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * BK;
+    const int k0 = kt * TK;
     __syncthreads();   // the previous tile's K and V reads are done
-    stage_bf16<D>(Ks, kb, k0, BK, sk);
-    stage_bf16<D>(Vs, vb, k0, BK, sk);
+    stage_bf16<D>(Ks, kb, k0, TK, sk);
+    stage_bf16<D>(Vs, vb, k0, TK, sk);
     __syncthreads();
 
     float s[NJ][4], dp[NJ][4];
@@ -556,7 +779,7 @@ fa_bwd_dq_bf16(const __nv_bfloat16* __restrict__ q,
 
     // dQ += dS K
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
+    for (int kk = 0; kk < TK / 16; ++kk) {
       uint32_t da[4];
       c_to_a(da, s[2 * kk], s[2 * kk + 1]);
 #pragma unroll
@@ -579,8 +802,9 @@ fa_bwd_dq_bf16(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-// dK and dV: one block of 4 warps per (bh, 64-key tile); q tiles of 32
-// rows walked in a loop; each warp owns 16 keys.
+// dK and dV: one block of 4 warps per (bh, 64-key tile; 32 keys at
+// D 256); q tiles of 32 rows walked in a loop; each warp owns 16 keys and
+// D / dkv_bf16_split<D>() columns of their dK and dV.
 template <int D>
 __global__ void __launch_bounds__(MMA_THREADS)
 fa_bwd_dkv_bf16(const __nv_bfloat16* __restrict__ q,
@@ -594,28 +818,31 @@ fa_bwd_dkv_bf16(const __nv_bfloat16* __restrict__ q,
                 int causal) {
   constexpr int SX = D + 8;
   constexpr int KS = D / 16;
-  constexpr int DN = D / 8;
+  constexpr int NS = dkv_bf16_split<D>();   // warps sharing a key strip
+  constexpr int KEYS = BK / NS;             // keys per block
+  constexpr int DN = D / 8 / NS;            // the warp's 8-column tiles
   constexpr int NJ = QT / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Vs = Ks + BK * SX;
-  __nv_bfloat16* Qs = Vs + BK * SX;
+  __nv_bfloat16* Vs = Ks + KEYS * SX;
+  __nv_bfloat16* Qs = Vs + KEYS * SX;
   __nv_bfloat16* dOs = Qs + QT * SX;
   float* lse_s = reinterpret_cast<float*>(dOs + QT * SX);
   float* delta_s = lse_s + QT;
 
   const int bh = blockIdx.y;
-  const int k0 = blockIdx.x * BK;
+  const int k0 = blockIdx.x * KEYS;
   const int warp = threadIdx.x / 32;
   const int g = (threadIdx.x % 32) / 4;
   const int t = threadIdx.x % 4;
-  const int r0 = warp * 16;                    // the warp's keys
+  const int r0 = (warp % (4 / NS)) * 16;      // the warp's keys
+  const int dc = (warp / (4 / NS)) * (D / NS);   // its columns of dK, dV
   const int key[2] = {k0 + r0 + g, k0 + r0 + g + 8};
   const __nv_bfloat16* qb = q + size_t(bh) * sq * D;
   const __nv_bfloat16* dob = dout + size_t(bh) * sq * D;
 
-  stage_bf16<D>(Ks, k + size_t(bh) * sk * D, k0, BK, sk);
-  stage_bf16<D>(Vs, v + size_t(bh) * sk * D, k0, BK, sk);
+  stage_bf16<D>(Ks, k + size_t(bh) * sk * D, k0, KEYS, sk);
+  stage_bf16<D>(Vs, v + size_t(bh) * sk * D, k0, KEYS, sk);
 
   float acc_k[DN][4], acc_v[DN][4];
 #pragma unroll
@@ -686,9 +913,9 @@ fa_bwd_dkv_bf16(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int dn = 0; dn < DN; ++dn) {
         uint32_t b0, b1;
-        load_b_cols<SX>(b0, b1, dOs, kk * 16, dn * 8, g, t);
+        load_b_cols<SX>(b0, b1, dOs, kk * 16, dc + dn * 8, g, t);
         mma_bf16(acc_v[dn], pa, b0, b1);
-        load_b_cols<SX>(b0, b1, Qs, kk * 16, dn * 8, g, t);
+        load_b_cols<SX>(b0, b1, Qs, kk * 16, dc + dn * 8, g, t);
         mma_bf16(acc_k[dn], da, b0, b1);
       }
     }
@@ -697,8 +924,8 @@ fa_bwd_dkv_bf16(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     if (key[h] >= sk) continue;
-    __nv_bfloat16* krow = dk + (size_t(bh) * sk + key[h]) * D;
-    __nv_bfloat16* vrow = dv + (size_t(bh) * sk + key[h]) * D;
+    __nv_bfloat16* krow = dk + (size_t(bh) * sk + key[h]) * D + dc;
+    __nv_bfloat16* vrow = dv + (size_t(bh) * sk + key[h]) * D + dc;
 #pragma unroll
     for (int dn = 0; dn < DN; ++dn) {
       *reinterpret_cast<uint32_t*>(krow + dn * 8 + 2 * t) =
@@ -715,8 +942,8 @@ int launch_dq_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
                    const float* lse, const float* delta, __nv_bfloat16* dq,
                    int bh, int sq, int sk, float scale, int causal,
                    cudaStream_t stream) {
-  const size_t smem = sizeof(__nv_bfloat16) * size_t(2 * BQ + 2 * BK) *
-                      (D + 8);
+  const size_t smem = sizeof(__nv_bfloat16) *
+                      size_t(2 * BQ + 2 * dq_bf16_keys<D>()) * (D + 8);
   cudaError_t err = cudaFuncSetAttribute(
       fa_bwd_dq_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       int(smem));
@@ -733,13 +960,14 @@ int launch_dkv_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
                     const float* lse, const float* delta, __nv_bfloat16* dk,
                     __nv_bfloat16* dv, int bh, int sq, int sk, float scale,
                     int causal, cudaStream_t stream) {
-  const size_t smem = sizeof(__nv_bfloat16) * size_t(2 * BK + 2 * QT) *
+  constexpr int KEYS = BK / dkv_bf16_split<D>();
+  const size_t smem = sizeof(__nv_bfloat16) * size_t(2 * KEYS + 2 * QT) *
                       (D + 8) + sizeof(float) * 2 * QT;
   cudaError_t err = cudaFuncSetAttribute(
       fa_bwd_dkv_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       int(smem));
   if (err != cudaSuccess) return int(err);
-  const dim3 grid((sk + BK - 1) / BK, bh);
+  const dim3 grid((sk + KEYS - 1) / KEYS, bh);
   fa_bwd_dkv_bf16<D><<<grid, MMA_THREADS, smem, stream>>>(
       q, k, v, dout, lse, delta, dk, dv, sq, sk, scale, causal);
   return int(cudaGetLastError());
@@ -1309,6 +1537,7 @@ int launch_dq_bf16_wgmma(const __nv_bfloat16* q, const __nv_bfloat16* k,
     case 32: return CALL(32);                        \
     case 64: return CALL(64);                        \
     case 128: return CALL(128);                      \
+    case 256: return CALL(256);                      \
     default: return int(cudaErrorInvalidValue);      \
   }
 
@@ -1319,7 +1548,7 @@ extern "C" {
 // q and dout (bh, sq, d), k and v (bh, sk, d), dq (bh, sq, d), dk and dv
 // (bh, sk, d): contiguous, of the entry point's type, 16-byte aligned;
 // lse and delta (bh, sq) float32; all on the current device.
-// d in {16, 32, 64, 128}.
+// d in {16, 32, 64, 128, 256}.
 int mxt_flash_attention_bwd_dq_f32(const void* q, const void* k,
                                    const void* v, const void* dout,
                                    const void* lse, const void* delta,
@@ -1343,8 +1572,8 @@ int mxt_flash_attention_bwd_dq_bf16(const void* q, const void* k,
                                     void* dq, int bh, int sq, int sk, int d,
                                     float scale, int causal, void* stream) {
   using T = __nv_bfloat16;
-  // D 64 and 128 (the models' head dims) on wgmma + TMA; D 16 and 32 on
-  // the mma.sync kernel, chosen by shape alone
+  // D 64 and 128 (the models' head dims) on wgmma + TMA; D 16, 32 and 256
+  // on the mma.sync kernel, chosen by shape alone
 #define CALL(LAUNCH, D)                                                      \
   LAUNCH<D>(static_cast<const T*>(q), static_cast<const T*>(k),             \
             static_cast<const T*>(v), static_cast<const T*>(dout),          \
@@ -1356,6 +1585,7 @@ int mxt_flash_attention_bwd_dq_bf16(const void* q, const void* k,
     case 32: return CALL(launch_dq_bf16, 32);
     case 64: return CALL(launch_dq_bf16_wgmma, 64);
     case 128: return CALL(launch_dq_bf16_wgmma, 128);
+    case 256: return CALL(launch_dq_bf16, 256);
     default: return int(cudaErrorInvalidValue);
   }
 #undef CALL
@@ -1386,8 +1616,8 @@ int mxt_flash_attention_bwd_dkv_bf16(const void* q, const void* k,
                                      int sk, int d, float scale, int causal,
                                      void* stream) {
   using T = __nv_bfloat16;
-  // D 64 and 128 (the models' head dims) on wgmma + TMA; D 16 and 32 on
-  // the mma.sync kernel, chosen by shape alone
+  // D 64 and 128 (the models' head dims) on wgmma + TMA; D 16, 32 and 256
+  // on the mma.sync kernel, chosen by shape alone
 #define CALL(LAUNCH, D)                                                      \
   LAUNCH<D>(static_cast<const T*>(q), static_cast<const T*>(k),             \
             static_cast<const T*>(v), static_cast<const T*>(dout),          \
@@ -1399,6 +1629,7 @@ int mxt_flash_attention_bwd_dkv_bf16(const void* q, const void* k,
     case 32: return CALL(launch_dkv_bf16, 32);
     case 64: return CALL(launch_dkv_bf16_wgmma, 64);
     case 128: return CALL(launch_dkv_bf16_wgmma, 128);
+    case 256: return CALL(launch_dkv_bf16, 256);
     default: return int(cudaErrorInvalidValue);
   }
 #undef CALL

@@ -9,8 +9,8 @@
 // kernel; keys past Sk (the ragged edge of the last tile) are excluded
 // outright.
 //
-// float32 (the serving path's prefill): fa_fwd_f32_tf32x3 at every head
-// dim. At the prefill shapes (BH = 16 heads, D = 128, S the prompt bucket,
+// float32 (the serving path's prefill, and training with amp off):
+// fa_fwd_f32_tf32x3 at every head dim. At the prefill shapes (BH = 16 heads, D = 128, S the prompt bucket,
 // up to 1024, causal) the function does 4 S^2 D / 2 flops per head against
 // 16 S D bytes of q, k, v and o: about 64 flops per byte at S = 1024. On
 // float32 FMAs (67 TFLOP/s) that is bound by arithmetic (the first kernel,
@@ -48,7 +48,8 @@
 //     shared rows are D + 4 floats, which puts every fragment load of Q,
 //     K and V in 32 different banks. 165 KB at D 128: one block (8 warps)
 //     per SM, as many warps as two 4-warp blocks of 99 KB, which ran
-//     slower;
+//     slower. At D 256, where O takes 128 registers a thread, the tiles
+//     are 32 keys (16 a warp; 195 KB);
 //   * P never leaves registers: the m16n8k8 C fragment does not map onto
 //     the A fragment (a thread holds P's columns 2t, 2t + 1, the A operand
 //     wants t, t + 4), but a k-step may take its 8 keys in any order, so
@@ -121,9 +122,11 @@
 //      an operand buffer through the generic proxy, so only the barrier
 //      initialisation needs a fence; a stage is freed only after the wait
 //      on the last wgmma that reads it;
-//   5. head dims 16 and 32 keep fa_fwd_bf16, the earlier mma.sync kernel
-//      (4 warps per 64-row q tile, K and V staged synchronously), chosen
-//      by head dim alone in mxt_flash_attention_fwd_bf16.
+//   5. head dims 16, 32 and 256 keep fa_fwd_bf16, the earlier mma.sync
+//      kernel (4 warps per 64-row q tile, K and V staged synchronously),
+//      chosen by head dim alone in mxt_flash_attention_fwd_bf16. At D 256,
+//      where O takes 128 registers a thread, it reads Q's fragments from
+//      shared memory per k-step instead of holding them.
 //
 // C interface (bound with ctypes): every function returns a
 // cudaError_t as int, 0 on success, and launches on the given stream
@@ -142,84 +145,34 @@ using namespace fa;
 
 // ------------------------------------------- float32, 3xTF32 on mma.sync
 
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Waits until at most N committed groups of this thread are in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// x = big + small: big = tf32(x) (10-bit mantissa, rounded to nearest),
-// small = x - big, exact in float32. The tensor cores read a tf32 operand's
-// top 19 bits, so small enters the product truncated: about 2^-21 of x is
-// lost there, and about 2^-22 of each term in the small * small product
-// that the three-pass product drops.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
-                                           uint32_t& small) {
-  uint32_t b;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(b) : "f"(x));
-  b &= 0xffffe000u;
-  big = b;
-  small = __float_as_uint(x - __uint_as_float(b));
-}
-
-// c += a b, one m16n8k8 tf32 product with float32 accumulation. Not
-// volatile: the compiler may interleave independent products.
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// c += a b at float32 accuracy: the three products of the split halves,
-// the small terms first.
-__device__ __forceinline__ void mma_3xtf32(float (&c)[4],
-                                           const uint32_t (&a_big)[4],
-                                           const uint32_t (&a_small)[4],
-                                           const uint32_t (&b_big)[2],
-                                           const uint32_t (&b_small)[2]) {
-  mma_tf32(c, a_small, b_big[0], b_big[1]);
-  mma_tf32(c, a_big, b_small[0], b_small[1]);
-  mma_tf32(c, a_big, b_big[0], b_big[1]);
-}
-
-// Shared memory of a block: its 64 q rows and a two-stage ring of K and V
-// tiles of 64 keys, rows D + 4 floats apart (165 KB at D 128).
-template <int D>
+// Shared memory of a block: its 64 q rows and a ring of NST K and V tiles
+// of 2 KH keys, rows D + 4 floats apart (165 KB at D 128, 195 KB at D 256
+// with 32-key tiles).
+template <int D, int KH, int NST>
 constexpr size_t tf32_smem_bytes() {
-  return sizeof(float) * size_t(64 + 2 * 2 * 64) * (D + 4);
+  return sizeof(float) * size_t(64 + 2 * NST * 2 * KH) * (D + 4);
+}
+
+// The key tile: 64 keys up to D 128; at D 256, where O takes 128
+// registers a thread, 32 keys (which also keeps the ring in shared memory).
+template <int D>
+constexpr int tf32_fwd_kh() {
+  return D > 128 ? 16 : 32;
 }
 
 // One block of 8 warps per (bh, 64-row q tile). Warp w owns q rows
-// 16 (w % 4) .. + 15 and, of each 64-key tile that cp.async brings into a
-// two-stage ring, keys 32 (w / 4) .. + 31: the two halves of the block walk
-// the same tiles with an online softmax each, and merge m, l and O at the
-// end, so each warp's serial chain is half the block's.
-template <int D>
-__global__ void __launch_bounds__(256, 1)
+// 16 (w % 4) .. + 15 and, of each tile of 2 KH keys that cp.async brings
+// into a ring of NST stages, keys KH (w / 4) .. + KH - 1: the two halves of
+// the block walk the same tiles with an online softmax each, and merge m,
+// l and O at the end, so each warp's serial chain is half the block's.
+template <int D, int KH, int NST>
+__global__ void __launch_bounds__(F32_THREADS, 1)
 fa_fwd_f32_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, float* __restrict__ o,
                   float* __restrict__ lse, int sq, int sk, float scale,
                   int causal) {
   constexpr int BQR = 64;           // q rows per block
-  constexpr int BK = 64;            // keys per KV tile
-  constexpr int NST = 2;            // K/V tiles in flight
-  constexpr int KH = 32;            // keys per warp of a KV tile
-  constexpr int THR = 256;
+  constexpr int BK = 2 * KH;        // keys per KV tile
   constexpr int SX = D + 4;         // shared row stride (floats)
   constexpr int KS = D / 8;         // k-steps of Q K^T
   constexpr int DN = D / 8;         // 8-column tiles of O
@@ -241,23 +194,10 @@ fa_fwd_f32_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
   const float* kb = k + size_t(bh) * sk * D;
   const float* vb = v + size_t(bh) * sk * D;
 
-  // rows [r_begin, r_begin + nrows) of a (rows, D) matrix into shared
-  // memory, 16 bytes a copy; rows >= limit arrive as zeros
-  auto stage = [&](float* dst, const float* src, int r_begin, int nrows,
-                   int limit) {
-    constexpr int V4 = D / 4;
-    for (int idx = threadIdx.x; idx < nrows * V4; idx += THR) {
-      const int r = idx / V4;
-      const int c = (idx % V4) * 4;
-      const bool in = r_begin + r < limit;
-      cp_async16(dst + r * SX + c, src + size_t(in ? r_begin + r : 0) * D + c,
-                 in ? 16 : 0);
-    }
-  };
   auto stage_kv = [&](int kt) {
     const int st = kt % NST;
-    stage(Ks + st * BK * SX, kb, kt * BK, BK, sk);
-    stage(Vs + st * BK * SX, vb, kt * BK, BK, sk);
+    stage_f32<D, SX>(Ks + st * BK * SX, kb, kt * BK, BK, sk);
+    stage_f32<D, SX>(Vs + st * BK * SX, vb, kt * BK, BK, sk);
     cp_async_commit();
   };
 
@@ -268,7 +208,7 @@ fa_fwd_f32_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
     n_kt = min(n_kt, last_row / BK + 1);
   }
 
-  stage(Qs, q + size_t(bh) * sq * D, q0, BQR, sq);
+  stage_f32<D, SX>(Qs, q + size_t(bh) * sq * D, q0, BQR, sq);
   stage_kv(0);
 
   // a half that has seen only masked keys of a row holds m = -1e30 and
@@ -303,21 +243,13 @@ fa_fwd_f32_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
       for (int e = 0; e < 4; ++e) s[j][e] = c2[j][e] = 0.f;
 #pragma unroll 4
     for (int kk = 0; kk < KS; ++kk) {
-      const float* pa = Qs + (r0 + g) * SX + kk * 8 + t;
       uint32_t ab[4], as[4];
-      split_tf32(pa[0], ab[0], as[0]);
-      split_tf32(pa[8 * SX], ab[1], as[1]);
-      split_tf32(pa[4], ab[2], as[2]);
-      split_tf32(pa[8 * SX + 4], ab[3], as[3]);
+      split_a<SX>(ab, as, Qs, r0, kk * 8, g, t);
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
-        const float* pb = Kt + (j * 8 + g) * SX + kk * 8 + t;
         uint32_t bb[2], bs[2];
-        split_tf32(pb[0], bb[0], bs[0]);
-        split_tf32(pb[4], bb[1], bs[1]);
-        mma_tf32(c2[j], as, bb[0], bb[1]);
-        mma_tf32(c2[j], ab, bs[0], bs[1]);
-        mma_tf32(s[j], ab, bb[0], bb[1]);
+        split_b_rows<SX>(bb, bs, Kt, j * 8, kk * 8, g, t);
+        mma_3xtf32_2(s[j], c2[j], ab, as, bb, bs);
       }
     }
 
@@ -365,22 +297,16 @@ fa_fwd_f32_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
 
     // O += P V. The C fragment of P's 8-key tile j becomes the A fragment
     // of a k-step without any shuffle by ordering that k-step's keys
-    // 2t, 2t + 1 where the A layout has t, t + 4: a0 = P[g][2t] (c0),
-    // a1 = P[g + 8][2t] (c2), a2 = P[g][2t + 1] (c1), a3 = P[g + 8][2t + 1]
-    // (c3); V's B fragment is read from rows 2t and 2t + 1 to match
+    // 2t, 2t + 1 (c_to_a_tf32); V's B fragment is read from rows 2t and
+    // 2t + 1 to match
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       uint32_t pb[4], ps[4];
-      split_tf32(s[j][0], pb[0], ps[0]);
-      split_tf32(s[j][2], pb[1], ps[1]);
-      split_tf32(s[j][1], pb[2], ps[2]);
-      split_tf32(s[j][3], pb[3], ps[3]);
-      const float* pv = Vt + (j * 8 + 2 * t) * SX + g;
+      c_to_a_tf32(pb, ps, s[j]);
 #pragma unroll
       for (int dn = 0; dn < DN; ++dn) {
         uint32_t vb[2], vs[2];
-        split_tf32(pv[dn * 8], vb[0], vs[0]);
-        split_tf32(pv[SX + dn * 8], vb[1], vs[1]);
+        split_b_cols<SX>(vb, vs, Vt, j * 8, dn * 8, g, t);
         mma_3xtf32(acc[dn], pb, ps, vb, vs);
       }
     }
@@ -394,6 +320,7 @@ fa_fwd_f32_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
     l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
     l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
   }
+  static_assert(NST * BK >= BQR, "the K ring holds the merge's O");
   float* xo = Ks;   // BQR x SX: the second half's O
   float* xm = Qs;   // BQR x 2: its m and l
   if (half == 1) {
@@ -436,18 +363,14 @@ template <int D>
 int launch(const float* q, const float* k, const float* v, float* o,
            float* lse, int bh, int sq, int sk, float scale, int causal,
            cudaStream_t stream) {
-  const size_t smem = tf32_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      fa_fwd_f32_tf32x3<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(smem));
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(fa_fwd_f32_tf32x3<D>,
-                               cudaFuncAttributePreferredSharedMemoryCarveout,
-                               int(cudaSharedmemCarveoutMaxShared));
+  constexpr int KH = tf32_fwd_kh<D>(), NST = 2;
+  const auto kernel = fa_fwd_f32_tf32x3<D, KH, NST>;
+  const size_t smem = tf32_smem_bytes<D, KH, NST>();
+  const cudaError_t err = set_max_shared(kernel, smem);
   if (err != cudaSuccess) return int(err);
   const dim3 grid(bh, (sq + 63) / 64);
-  fa_fwd_f32_tf32x3<D><<<grid, 256, smem, stream>>>(q, k, v, o, lse, sq, sk,
-                                                     scale, causal);
+  kernel<<<grid, F32_THREADS, smem, stream>>>(q, k, v, o, lse, sq, sk, scale,
+                                              causal);
   return int(cudaGetLastError());
 }
 
@@ -486,9 +409,14 @@ fa_fwd_bf16(const __nv_bfloat16* __restrict__ q,
 
   stage_bf16<D>(Qs, q + size_t(bh) * sq * D, q0, BQ, sq);
   __syncthreads();
-  uint32_t qa[KS][4];
+  // Q's A fragments stay in registers up to D 128; at D 256, where O takes
+  // 128 registers a thread, they are read from shared memory per k-step
+  constexpr bool QREG = D <= 128;
+  uint32_t qa[QREG ? KS : 1][4];
+  if constexpr (QREG) {
 #pragma unroll
-  for (int kk = 0; kk < KS; ++kk) load_a<SX>(qa[kk], Qs, r0, kk * 16, g, t);
+    for (int kk = 0; kk < KS; ++kk) load_a<SX>(qa[kk], Qs, r0, kk * 16, g, t);
+  }
 
   float m[2] = {NEG_INF_MASK, NEG_INF_MASK}, l[2] = {0.f, 0.f};
   float acc[DN][4];
@@ -511,15 +439,33 @@ fa_fwd_bf16(const __nv_bfloat16* __restrict__ q,
     __syncthreads();
 
     float s[NJ][4];
+    if constexpr (QREG) {
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) {
+      for (int j = 0; j < NJ; ++j) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
+        for (int kk = 0; kk < KS; ++kk) {
+          uint32_t b0, b1;
+          load_b_rows<SX>(b0, b1, Ks, j * 8, kk * 16, g, t);
+          mma_bf16(s[j], qa[kk], b0, b1);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll 4
       for (int kk = 0; kk < KS; ++kk) {
-        uint32_t b0, b1;
-        load_b_rows<SX>(b0, b1, Ks, j * 8, kk * 16, g, t);
-        mma_bf16(s[j], qa[kk], b0, b1);
+        uint32_t a[4];
+        load_a<SX>(a, Qs, r0, kk * 16, g, t);
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          uint32_t b0, b1;
+          load_b_rows<SX>(b0, b1, Ks, j * 8, kk * 16, g, t);
+          mma_bf16(s[j], a, b0, b1);
+        }
       }
     }
 
@@ -900,7 +846,7 @@ extern "C" {
 
 // q (bh, sq, d), k and v (bh, sk, d), o (bh, sq, d), lse (bh, sq): all
 // contiguous float32 on the current device, 16-byte aligned.
-// d in {16, 32, 64, 128}.
+// d in {16, 32, 64, 128, 256}.
 int mxt_flash_attention_fwd_f32(const void* q, const void* k, const void* v,
                                 void* o, void* lse, int bh, int sq, int sk,
                                 int d, float scale, int causal,
@@ -916,6 +862,7 @@ int mxt_flash_attention_fwd_f32(const void* q, const void* k, const void* v,
     case 32: return launch<32>(qf, kf, vf, of, lf, bh, sq, sk, scale, causal, st);
     case 64: return launch<64>(qf, kf, vf, of, lf, bh, sq, sk, scale, causal, st);
     case 128: return launch<128>(qf, kf, vf, of, lf, bh, sq, sk, scale, causal, st);
+    case 256: return launch<256>(qf, kf, vf, of, lf, bh, sq, sk, scale, causal, st);
     default: return int(cudaErrorInvalidValue);
   }
 }
@@ -935,10 +882,11 @@ int mxt_flash_attention_fwd_bf16(const void* q, const void* k, const void* v,
   switch (d) {
     case 16: return launch_bf16<16>(qb, kb, vb, ob, lf, bh, sq, sk, scale, causal, st);
     case 32: return launch_bf16<32>(qb, kb, vb, ob, lf, bh, sq, sk, scale, causal, st);
-    // D 64 and 128 (the models' head dims) on wgmma + TMA; D 16 and 32 on
-    // the mma.sync kernel, chosen by shape alone
+    // D 64 and 128 (the models' head dims) on wgmma + TMA; D 16, 32 and
+    // 256 on the mma.sync kernel, chosen by shape alone
     case 64: return launch_bf16_wgmma<64>(qb, kb, vb, ob, lf, bh, sq, sk, scale, causal, st);
     case 128: return launch_bf16_wgmma<128>(qb, kb, vb, ob, lf, bh, sq, sk, scale, causal, st);
+    case 256: return launch_bf16<256>(qb, kb, vb, ob, lf, bh, sq, sk, scale, causal, st);
     default: return int(cudaErrorInvalidValue);
   }
 }

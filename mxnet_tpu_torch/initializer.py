@@ -48,9 +48,11 @@ class InitDesc(str):
 
 
 class Initializer(object):
-    """Base initializer with name-pattern dispatch: ``*bias`` and
-    ``*beta`` to 0, ``*gamma`` to 1, ``*weight`` to the subclass's
-    draw."""
+    """Base initializer with the reference's name-pattern dispatch:
+    ``*upsampling`` to a bilinear kernel, ``*bias`` and ``*beta`` to 0,
+    ``*gamma`` to 1, ``*weight`` to the subclass's draw, the moving
+    statistics ``*moving_mean``, ``*moving_inv_var`` and ``*moving_avg``
+    to 0 and ``*moving_var`` to 1."""
 
     def __init__(self, **kwargs):
         self._kwargs = kwargs
@@ -77,7 +79,9 @@ class Initializer(object):
             create(klass, **kwargs)._init_weight(desc, arr)
             return
         name = desc.lower()
-        if name.endswith("bias"):
+        if name.endswith("upsampling"):
+            self._init_bilinear(desc, arr)
+        elif name.endswith("bias"):
             self._init_bias(desc, arr)
         elif name.endswith("gamma"):
             self._init_gamma(desc, arr)
@@ -85,8 +89,34 @@ class Initializer(object):
             self._init_beta(desc, arr)
         elif name.endswith("weight"):
             self._init_weight(desc, arr)
+        elif name.endswith("moving_mean"):
+            self._init_zero(desc, arr)
+        elif name.endswith("moving_var"):
+            self._init_one(desc, arr)
+        elif name.endswith("moving_inv_var"):
+            self._init_zero(desc, arr)
+        elif name.endswith("moving_avg"):
+            self._init_zero(desc, arr)
         else:
             self._init_default(desc, arr)
+
+    def _init_bilinear(self, name, arr):
+        """A bilinear upsampling kernel over the last two axes."""
+        shape = arr.shape
+        weight = np.zeros(int(np.prod(shape)), dtype=np.float32)
+        f = np.ceil(shape[3] / 2.0)
+        c = (2 * f - 1 - f % 2) / (2.0 * f)
+        for i in range(int(np.prod(shape))):
+            x = i % shape[3]
+            y = (i // shape[3]) % shape[2]
+            weight[i] = (1 - abs(x / f - c)) * (1 - abs(y / f - c))
+        arr[:] = nd.array(weight.reshape(shape), ctx=cpu())
+
+    def _init_zero(self, name, arr):
+        arr[:] = 0.0
+
+    def _init_one(self, name, arr):
+        arr[:] = 1.0
 
     def _init_bias(self, name, arr):
         arr[:] = 0.0

@@ -120,9 +120,14 @@ class BaseModule(object):
             if value is not None:
                 raise MXNetError("fit(%s=...) is not ported yet: it comes "
                                  "with ROADMAP.md %s" % (name, _LATER[name]))
+        from .. import random as _random
         from ..initializer import Uniform
         if initializer is None:
-            initializer = Uniform(0.01)
+            # from the seeded key chain, as the reference draws it: two
+            # fits after the same mt.random.seed() start from the same
+            # weights, and from the reference's
+            initializer = Uniform(0.01).set_rng(
+                _random.derive_numpy_rng("fit_default_init"))
 
         self.bind(data_shapes=train_data.provide_data,
                   label_shapes=train_data.provide_label,

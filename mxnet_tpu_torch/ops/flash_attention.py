@@ -16,14 +16,22 @@ Each comes in float32 (the serving path, and training with amp off) and
 bfloat16 (training under amp), both accumulating in float32. The routes,
 chosen by the C entry points by dtype and head dim alone:
 
-* float32 forward, every head dim: 3xTF32 on ``mma.sync`` tensor cores
-  (each operand split into two tf32 halves, three products; float32's
-  accuracy), K/V tiles through a ``cp.async`` ring;
-* float32 dQ and dK/dV, every head dim: plain FMAs;
+* float32 forward, dQ and dK/dV, every head dim: 3xTF32 on ``mma.sync``
+  tensor cores (each operand split into two tf32 halves, three products;
+  float32's accuracy), the tiles that stream through a ``cp.async``
+  ring;
 * bfloat16 forward, dQ and dK/dV at head dims 64 and 128: ``wgmma`` over
   shared-memory tiles that TMA loads into a ring of ``mbarrier``-guarded
   stages (``csrc/flash_attention_sm90.cuh``);
-* bfloat16 at head dims 16 and 32: ``mma.sync``.
+* bfloat16 at head dims 16, 32 and 256: ``mma.sync``.
+
+The kernels take head dims 16, 32, 64, 128 and 256. :func:`flash_attention`
+takes any head dim up to 256, as the reference's kernels do: it
+zero-pads q, k and v along D up to the next of those and slices the
+output back, on every device, so that the CPU runs the same code.
+Zero columns add nothing to q·kᵀ, and the padded columns of O, dQ, dK
+and dV are zero and dropped, so the padding is exact. Head dims above
+256 raise (ROADMAP B7).
 
 :class:`FlashAttentionFunction` is the reference's ``custom_vjp``: the
 forward saves q, k, v, O and lse; the backward computes
@@ -56,12 +64,13 @@ from .registry import register
 __all__ = ["flash_attention", "flash_attention_fwd",
            "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
            "flash_attention_reference",
-           "flash_attention_backward_reference", "FlashAttentionFunction"]
+           "flash_attention_backward_reference", "FlashAttentionFunction",
+           "padded_head_dim"]
 
 _NEG_INF = -1e30
 _FWD_SOURCE = "flash_attention_fwd.cu"
 _BWD_SOURCE = "flash_attention_bwd.cu"
-_HEAD_DIMS = (16, 32, 64, 128)
+_HEAD_DIMS = (16, 32, 64, 128, 256)
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
@@ -303,13 +312,26 @@ class FlashAttentionFunction(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
+def padded_head_dim(d: int) -> int:
+    """The kernels' head dim that ``flash_attention`` pads ``d`` up to:
+    the smallest of 16, 32, 64, 128 and 256 that is at least ``d``."""
+    for dk in _HEAD_DIMS:
+        if d <= dk:
+            return dk
+    raise ValueError(
+        "flash_attention takes head dims up to %d, got %d (head dims above "
+        "256 are ROADMAP B7)" % (_HEAD_DIMS[-1], d))
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = False, scale: Optional[float] = None,
                     block_q: int = 512, block_k: int = 512,
                     interpret=None) -> torch.Tensor:
     """Flash attention over (B, H, S, D) inputs (see module docstring).
 
-    The query length is padded to ``min(block_q, S)`` (padded rows are
+    The head dim D is zero-padded up to :func:`padded_head_dim` after
+    ``scale`` is taken from it, and the output sliced back (exact). The
+    query length is padded to ``min(block_q, S)`` (padded rows are
     computed then sliced off — they influence nothing). The key length
     must be a multiple of ``min(block_k, Sk)``. ``causal`` masks
     top-aligned, ``q_pos >= k_pos``. Differentiable: the backward runs
@@ -318,7 +340,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, h, s, d = q.shape
     sk = k.shape[2]
     if scale is None:
-        scale = 1.0 / math.sqrt(d)
+        scale = 1.0 / math.sqrt(d)      # from the real head dim
+    dp = padded_head_dim(d)
+    if dp != d:
+        q, k, v = (torch.nn.functional.pad(t, (0, dp - d))
+                   for t in (q, k, v))
     bq = min(block_q, s)
     bk = min(block_k, sk)
     if sk % bk:
@@ -326,13 +352,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             "flash_attention: key length %d must be a multiple of block_k "
             "%d (padded keys would join the softmax)" % (sk, bk))
     pad_q = (-s) % bq
-    qf = q.reshape(b * h, s, d)
+    qf = q.reshape(b * h, s, dp)
     if pad_q:
         qf = torch.nn.functional.pad(qf, (0, 0, 0, pad_q))
-    out = FlashAttentionFunction.apply(qf, k.reshape(b * h, sk, d),
-                                       v.reshape(b * h, sk, d),
+    out = FlashAttentionFunction.apply(qf, k.reshape(b * h, sk, dp),
+                                       v.reshape(b * h, sk, dp),
                                        float(scale), bool(causal))
-    return out[:, :s].reshape(b, h, s, d)
+    return out[:, :s, :d].reshape(b, h, s, d)
 
 
 @register("FlashAttention", num_inputs=3,

@@ -1,8 +1,10 @@
-"""The arithmetic of the float32 forward kernel's 3xTF32 route, emulated on
-the CPU.
+"""The arithmetic of the float32 kernels' 3xTF32 route, emulated on the
+CPU.
 
 ``fa_fwd_f32_tf32x3`` (``mxnet_tpu_torch/csrc/flash_attention_fwd.cu``)
-runs the serving prefill's float32 attention on the tensor cores. Each
+runs the serving prefill's and the amp-off training step's float32
+attention on the tensor cores, and ``fa_bwd_dq_f32_tf32x3`` /
+``fa_bwd_dkv_f32_tf32x3`` (``flash_attention_bwd.cu``) its backward. Each
 operand x is split into big = tf32(x), rounded to nearest (ties away from
 zero) at a 10-bit mantissa, and small = x - big, which the tensor cores
 read truncated to tf32; each product is small * big + big * small +
@@ -12,7 +14,9 @@ where ``chip_smoke.py`` holds it against the plain version within
 formula, so that the route's error is shown to be of float32's order
 before any card sees it: within ``KERNEL_ATOL`` of the float32 plain
 version and of the reference's ``_xla_attention`` on the same
-numpy-seeded inputs, where a single TF32 pass is not.
+numpy-seeded inputs, where a single TF32 pass is not; and the same for
+the backward formulas (dQ, dK, dV) against the plain backward and the
+reference's Pallas backward.
 """
 import numpy as np
 import pytest
@@ -129,3 +133,64 @@ def test_3xtf32_attention_within_kernel_atol(causal):
           "vs plain %.3g (limit %.3g)" % (err_plain, err_ref, err_one, limit))
     assert err_plain <= limit and err_ref <= limit
     assert err_one > 10 * err_plain
+
+
+def _backward(q, k, v, do, scale, causal, mm):
+    """The kernels' backward formulas with every product taken by ``mm``:
+    S = Q Kᵀ, P = exp(S scale − lse), dP = dO Vᵀ, dS = P ⊙ (dP − Δ) scale,
+    dQ = dS K, dK = dSᵀ Q, dV = Pᵀ dO (Δ = rowsum(dO ⊙ O) and O = P V
+    from the same forward)."""
+    s = mm(q, k.transpose(-1, -2)) * scale
+    if causal:
+        mask = torch.ones(s.shape[-2:], dtype=torch.bool).tril()
+        s = torch.where(mask, s, torch.full_like(s, -1e30))
+    p = torch.exp(s - torch.logsumexp(s, dim=-1, keepdim=True))
+    o = mm(p, v)
+    delta = (do * o).sum(-1, keepdim=True)
+    ds = p * (mm(do, v.transpose(-1, -2)) - delta) * scale
+    return (mm(ds, k), mm(ds.transpose(-1, -2), q),
+            mm(p.transpose(-1, -2), do))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_3xtf32_backward_within_kernel_atol(causal):
+    """The f32 dQ and dK/dV kernels (fa_bwd_dq_f32_tf32x3,
+    fa_bwd_dkv_f32_tf32x3) take S, dP, dQ, dK and dV through the same
+    split. At D 128, S 256, that route's dQ, dK and dV stay within
+    chip_smoke.KERNEL_ATOL max(1, max|ref|) of the plain backward
+    (flash_attention_backward_reference) and of the reference's Pallas
+    backward (interpret mode); one TF32 pass does not."""
+    import jax
+    import jax.numpy as jnp
+    from mxnet_tpu.ops.pallas.flash_attention import flash_attention
+    from mxnet_tpu_torch.ops.flash_attention import (
+        flash_attention_backward_reference)
+    bh, s, d = 2, 256, 128
+    q, k, v = _inputs(11, bh, s, d)
+    do = np.random.default_rng(12).standard_normal((bh, s, d)).astype(
+        np.float32)
+    scale = d ** -0.5
+    tq, tk, tv, tdo = (torch.from_numpy(x) for x in (q, k, v, do))
+    got = _backward(tq, tk, tv, tdo, scale, causal, _mm_3xtf32)
+    one = _backward(tq, tk, tv, tdo, scale, causal, _mm_1xtf32)
+    o, lse = flash_attention_reference(tq, tk, tv, scale, causal)
+    plain = flash_attention_backward_reference(tq, tk, tv, o, lse, tdo,
+                                               scale, causal)
+
+    def loss(q, k, v):
+        out = flash_attention(q[None], k[None], v[None], causal=causal,
+                              scale=scale, interpret=True)[0]
+        return (out * do).sum()
+    ref = jax.grad(loss, argnums=(0, 1, 2))(
+        *(jnp.asarray(x) for x in (q, k, v)))
+    for name, g, g1, p, r in zip(("dq", "dk", "dv"), got, one, plain, ref):
+        g, g1, p, r = g.numpy(), g1.numpy(), p.numpy(), np.asarray(r)
+        limit = chip_smoke.KERNEL_ATOL * max(1.0, np.abs(p).max())
+        err_plain = np.abs(g - p).max()
+        err_ref = np.abs(g - r).max()
+        err_one = np.abs(g1 - p).max()
+        print("%s: 3xTF32 vs plain %.3g, vs Pallas %.3g; one TF32 pass vs "
+              "plain %.3g (limit %.3g)" % (name, err_plain, err_ref, err_one,
+                                           limit))
+        assert err_plain <= limit and err_ref <= limit
+        assert err_one > limit

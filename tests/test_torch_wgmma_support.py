@@ -1,16 +1,17 @@
-"""The host-side pieces around the port's wgmma + TMA attention kernels,
+"""The host-side pieces around the port's tensor-core attention kernels,
 on the CPU.
 
 The kernels themselves (``fa_fwd_bf16_wgmma``, ``fa_bwd_dq_bf16_wgmma``,
-``fa_bwd_dkv_bf16_wgmma`` and the float32 forward ``fa_fwd_f32_tf32x3`` in
+``fa_bwd_dkv_bf16_wgmma`` and the float32 ``fa_fwd_f32_tf32x3``,
+``fa_bwd_dq_f32_tf32x3`` and ``fa_bwd_dkv_f32_tf32x3`` in
 ``mxnet_tpu_torch/csrc``) run only on the card, where ``chip_smoke.py``
 holds them against their plain versions; their plain versions are held
 against the reference's Pallas kernels by
 ``tests/test_torch_flash_attention*.py``. Here: the build report that
 ``chip_smoke.py`` reads (ptxas registers and spills, SASS opcode counts),
 the 16-byte alignment that TMA needs of lse and delta, and a rehearsal of
-``chip_smoke.py``'s sweeps and timing on the CPU, with the kernel
-wrappers replaced by plain versions at small shapes.
+``chip_smoke.py``'s sweeps, timings and training phases on the CPU, with
+the kernel wrappers replaced by plain versions at small shapes.
 """
 import numpy as np
 import pytest
@@ -153,20 +154,30 @@ def test_edge_sweep_rehearsal_on_cpu(monkeypatch):
 
 
 def test_f32_sweep_rehearsal_on_cpu(monkeypatch):
-    """chip_smoke's f32 sweep of K1 f32 at small shapes on the CPU (the
-    wrapper takes the plain version there): every case is logged and
-    held to KERNEL_ATOL, and a case that disagrees ends the run."""
+    """chip_smoke's f32 sweep of K1 f32, K2 f32 and K3 f32 at small
+    shapes on the CPU (the forward wrapper takes the plain version
+    there, the backward wrappers are replaced by plain versions): every
+    case is logged and held to KERNEL_ATOL, the exactly-zero dQ and dK
+    cases (S = 1 causal, Sk = 1) to ZERO_GRAD_ATOL, and a case that
+    disagrees ends the run."""
     monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
     monkeypatch.setattr(chip_smoke, "F32_SWEEP_HEADS", (1, 2))
     monkeypatch.setattr(chip_smoke, "F32_SWEEP_DIMS", (16, 64))
     monkeypatch.setattr(chip_smoke, "F32_SWEEP_LENGTHS",
                         ((1, 1), (65, 65), (40, 96), (96, 40)))
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(fa, "flash_attention_bwd_dq", _plain_dq)
+    monkeypatch.setattr(fa, "flash_attention_bwd_dkv", _plain_dkv)
     lines = []
     monkeypatch.setattr(chip_smoke, "log", lambda *a: lines.append(a[0]))
-    assert chip_smoke.f32_sweep(torch) == 0.0
-    assert lines[-1].startswith("f32 sweep: 32 cases of K1 f32")
-    assert sum(ln.startswith("  f32 sweep d=") for ln in lines) == 32
+    worst = chip_smoke.f32_sweep(torch)
+    assert worst["fwd"] == 0.0
+    assert 0 <= worst["dq"] < 1e-5 and 0 <= worst["dkv"] < 1e-5
+    assert lines[-1].startswith("f32 sweep: 32 cases of K1 f32, K2 f32 and "
+                                "K3 f32")
+    cases = [ln for ln in lines if ln.startswith("  f32 sweep d=")]
+    assert len(cases) == 32 and all(" dv " in ln for ln in cases)
+    assert sum("zero in exact arithmetic" in ln for ln in cases) == 8
 
     plain = fa.flash_attention_fwd
 
@@ -176,20 +187,51 @@ def test_f32_sweep_rehearsal_on_cpu(monkeypatch):
     monkeypatch.setattr(fa, "flash_attention_fwd", off)
     with pytest.raises(chip_smoke.SmokeFailure, match="f32 sweep d=16 bh=1"):
         chip_smoke.f32_sweep(torch)
+    monkeypatch.setattr(fa, "flash_attention_fwd", plain)
+
+    def dkv_off(*args):
+        dk, dv = _plain_dkv(*args)
+        return dk, dv + 2e-4
+    monkeypatch.setattr(fa, "flash_attention_bwd_dkv", dkv_off)
+    with pytest.raises(chip_smoke.SmokeFailure, match=r"\['dv'\] disagree"):
+        chip_smoke.f32_sweep(torch)
+
+
+def test_head_dim_sweep_rehearsal_on_cpu(monkeypatch):
+    """chip_smoke's head-dim sweep at small shapes on the CPU, where
+    flash_attention and its backward take the plain versions at the
+    padded head dim: every padded dim (48, 80) and D 256, f32 and bf16,
+    passes its limits against the plain versions at the real D, and a
+    head dim above 256 raises naming ROADMAP B7."""
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    monkeypatch.setattr(chip_smoke, "HEAD_DIM_SWEEP_DIMS", (48, 80, 256))
+    monkeypatch.setattr(chip_smoke, "HEAD_DIM_SWEEP_HEADS", (1, 2))
+    monkeypatch.setattr(chip_smoke, "HEAD_DIM_SWEEP_LENGTHS", (65,))
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda: None)
+    lines = []
+    monkeypatch.setattr(chip_smoke, "log", lambda *a: lines.append(a[0]))
+    worst = chip_smoke.head_dim_sweep(torch)
+    assert max(worst["f32"].values()) < 1e-5
+    assert max(worst["bf16"].values()) < 0.05
+    cases = [ln for ln in lines if ln.startswith("  head-dim sweep d=")]
+    assert len(cases) == 3 * 2 * 2 * 2
+    assert any("D 320 raises ValueError" in ln and "B7" in ln for ln in lines)
+    assert lines[-1].startswith("head-dim sweep: 24 cases")
 
 
 def test_tf32x3_bound_and_the_fma_bound():
-    """At the serving shape (BH 16, S 1024, D 128, causal) the 3xTF32
-    bound takes 3 x 4.30 GFLOP at 495 TFLOP/s; the FMA bound, logged
-    beside it, 4.30 GFLOP at 67 TFLOP/s."""
-    ms, by, flops, nbytes = chip_smoke.tf32x3_bound(16, 1024, 128)
+    """At the serving shape (BH 16, S 1024, D 128, causal) the forward's
+    3xTF32 bound takes 3 x 4.30 GFLOP at 495 TFLOP/s; the FMA bound,
+    logged beside it, 4.30 GFLOP at 67 TFLOP/s."""
+    ms, by, fma_ms, flops, nbytes = chip_smoke.f32_attention_bounds(
+        "fwd", 16, 1024, 1024, 128, True)
     assert by == "operations"
     assert flops == pytest.approx(4.30e9, rel=1e-3)
     assert ms == pytest.approx(3 * flops / 495e12 * 1e3)
     assert nbytes / 3.35e12 * 1e3 < ms
-    fma_ms, fma_by = chip_smoke.flash_bound(16, 1024, 128)
-    assert fma_by == "operations" and fma_ms == pytest.approx(0.0642,
-                                                              abs=1e-4)
+    assert nbytes == 4.0 * (4 * 16 * 1024 * 128 + 16 * 1024)
+    assert fma_ms == pytest.approx(0.0642, abs=1e-4)
     assert fma_ms > ms
 
 
@@ -297,7 +339,11 @@ DQ = ("_ZN55_GLOBAL__N__c38aed5a_22_flash_attention_bwd_cu_a1b2c3d420fa_bwd"
       "_dq_bf16_wgmmaILi128EEEv14CUtensorMap_stS1_S1_S1_S1_S1_P13__nv_bfloat16"
       "iifi")
 TF32 = ("_ZN55_GLOBAL__N__c38aed5a_22_flash_attention_fwd_cu_74881bc317fa_fwd"
-        "_f32_tf32x3ILi128ELi2ELi2EEEvPKfS2_S2_PfS3_iifi")
+        "_f32_tf32x3ILi128ELi32ELi2EEEvPKfS2_S2_PfS3_iifi")
+DQF32 = ("_ZN55_GLOBAL__N__c38aed5a_22_flash_attention_bwd_cu_a1b2c3d420fa_bwd"
+         "_dq_f32_tf32x3ILi128ELi32ELi2EEEvPKfS2_S2_S2_S2_S2_Pfiifi")
+DKVF32 = ("_ZN55_GLOBAL__N__c38aed5a_22_flash_attention_bwd_cu_a1b2c3d421fa_bwd"
+          "_dkv_f32_tf32x3ILi128ELi32ELb0EEEvPKfS2_S2_S2_S2_S2_PfS3_iifi")
 
 
 def _entry(name, spill=0, regs=168):
@@ -324,38 +370,55 @@ def _tables_ok():
     dkv = FWD.replace("fwd_cu", "bwd_cu").replace("fa_fwd_bf16_wgmma",
                                                   "fa_bwd_dkv_bf16_wgmma")
     logs = {"flash_attention_fwd.cu": _entry(FWD) + _entry(TF32, regs=200),
-            "flash_attention_bwd.cu": _entry(DQ) + _entry(dkv)}
+            "flash_attention_bwd.cu": _entry(DQ) + _entry(dkv) +
+            _entry(DQF32, regs=190) + _entry(DKVF32, regs=210)}
     wg = {"HGMMA": 60, "UTMALDG": 10}
+    mma = {"HGMMA": 0, "UTMALDG": 0, "HMMA": 240}
     counts = {"flash_attention_fwd.cu": {FWD: dict(wg, HMMA=0),
-                                         TF32: {"HGMMA": 0, "UTMALDG": 0,
-                                                "HMMA": 240}},
-              "flash_attention_bwd.cu": {DQ: dict(wg), dkv: dict(wg)}}
+                                         TF32: dict(mma)},
+              "flash_attention_bwd.cu": {DQ: dict(wg, HMMA=0),
+                                         dkv: dict(wg, HMMA=0),
+                                         DQF32: dict(mma),
+                                         DKVF32: dict(mma)}}
     return logs, counts
 
 
 def test_report_covers_the_new_tensor_core_kernels(monkeypatch):
     """The real tables name K2's wgmma kernel (HGMMA and UTMALDG) and
-    K1 f32's 3xTF32 kernel (HMMA); a clean build of all four passes and
-    is recorded under each kernel's record name."""
+    the 3xTF32 kernels of K1 f32, K2 f32 and K3 f32 (HMMA); a clean
+    build of all six passes and is recorded under each kernel's record
+    name."""
     assert chip_smoke.WGMMA_KERNELS["flash_attention_bwd_dq"] == (
         "flash_attention_bwd.cu", "fa_bwd_dq_bf16_wgmma")
-    assert chip_smoke.MMA_KERNELS["flash_attention_fwd"] == (
-        "flash_attention_fwd.cu", "fa_fwd_f32_tf32x3")
+    assert chip_smoke.MMA_KERNELS == {
+        "flash_attention_fwd": ("flash_attention_fwd.cu",
+                                "fa_fwd_f32_tf32x3"),
+        "flash_attention_bwd_dq_f32": ("flash_attention_bwd.cu",
+                                       "fa_bwd_dq_f32_tf32x3"),
+        "flash_attention_bwd_dkv_f32": ("flash_attention_bwd.cu",
+                                        "fa_bwd_dkv_f32_tf32x3")}
     logs, counts = _tables_ok()
     _fake_tables(monkeypatch, logs, counts)
     chip_smoke.wgmma_report(_build)
     report = chip_smoke.BUILD_REPORT
     assert set(report) == {"flash_attention_fwd_bf16", "flash_attention_bwd_dq",
-                           "flash_attention_bwd_dkv", "flash_attention_fwd"}
+                           "flash_attention_bwd_dkv", "flash_attention_fwd",
+                           "flash_attention_bwd_dq_f32",
+                           "flash_attention_bwd_dkv_f32"}
     assert list(report["flash_attention_bwd_dq"]["ptxas"]) == [DQ]
     assert report["flash_attention_fwd"]["ptxas"][TF32]["registers"] == 200
+    assert list(report["flash_attention_bwd_dq_f32"]["ptxas"]) == [DQF32]
+    assert report["flash_attention_bwd_dkv_f32"]["sass"][DKVF32]["HMMA"] == 240
 
 
 @pytest.mark.parametrize("source, name, opcode, match", [
     ("flash_attention_bwd.cu", DQ, "HGMMA", "HGMMA and UTMALDG"),
     ("flash_attention_bwd.cu", DQ, "UTMALDG", "HGMMA and UTMALDG"),
     ("flash_attention_fwd.cu", TF32, "HMMA", r"HMMA expected"),
-], ids=["dq-no-hgmma", "dq-no-utmaldg", "f32-no-hmma"])
+    ("flash_attention_bwd.cu", DQF32, "HMMA", r"HMMA expected"),
+    ("flash_attention_bwd.cu", DKVF32, "HMMA", r"HMMA expected"),
+], ids=["dq-no-hgmma", "dq-no-utmaldg", "f32-no-hmma", "dq-f32-no-hmma",
+        "dkv-f32-no-hmma"])
 def test_report_ends_the_run_without_tensor_core_instructions(
         monkeypatch, source, name, opcode, match):
     """A dQ kernel whose SASS lacks HGMMA or UTMALDG, or a K1 f32 kernel
@@ -373,3 +436,169 @@ def test_report_ends_the_run_on_a_spilling_f32_kernel(monkeypatch):
     _fake_tables(monkeypatch, logs, counts)
     with pytest.raises(chip_smoke.SmokeFailure, match="spills 16 bytes"):
         chip_smoke.wgmma_report(_build)
+
+
+@pytest.mark.parametrize("kernel", ["dq", "dkv"])
+def test_report_ends_the_run_on_a_spilling_f32_backward_kernel(monkeypatch,
+                                                               kernel):
+    logs, counts = _tables_ok()
+    logs["flash_attention_bwd.cu"] = logs["flash_attention_bwd.cu"].replace(
+        _entry(DQF32 if kernel == "dq" else DKVF32,
+               regs=190 if kernel == "dq" else 210),
+        _entry(DQF32 if kernel == "dq" else DKVF32, spill=8))
+    _fake_tables(monkeypatch, logs, counts)
+    with pytest.raises(chip_smoke.SmokeFailure, match="spills 8 bytes"):
+        chip_smoke.wgmma_report(_build)
+
+
+def _counting(plain):
+    """A kernel wrapper stand-in around a plain version, counting its
+    calls by input dtype as the real wrappers count their launches."""
+    def wrapper(*args):
+        key = "bf16" if args[0].dtype == torch.bfloat16 else "f32"
+        wrapper.launches[key] += 1
+        return plain(*args)
+    wrapper.launches = {"f32": 0, "bf16": 0}
+    return wrapper
+
+
+@pytest.fixture
+def small_lm(monkeypatch):
+    """chip_smoke's training phases on the CPU: the zoo LM at a small
+    width, counting wrappers around the plain attention versions, and
+    the CUDA-only calls (events, memory statistics) stood in for."""
+    import mxnet_tpu_torch as mt
+    for name, value in (("DEVICE", "cpu"), ("VOCAB", 64), ("LAYERS", 2),
+                        ("D_MODEL", 32), ("HEADS", 2), ("D_FF", 64),
+                        ("MAX_SEQ", 16), ("TRAIN_BATCH", 2)):
+        monkeypatch.setattr(chip_smoke, name, value)
+    monkeypatch.setattr(mt, "gpu", lambda i=0: mt.cpu())
+    monkeypatch.setattr(torch.cuda, "Event", _Event)
+    for fn in ("synchronize", "empty_cache", "reset_peak_memory_stats"):
+        monkeypatch.setattr(torch.cuda, fn, lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
+    monkeypatch.setattr(fa, "_dispatch", lambda q, what: True)
+    monkeypatch.setattr(fa, "flash_attention_fwd",
+                        _counting(fa.flash_attention_reference))
+    monkeypatch.setattr(fa, "flash_attention_bwd_dq", _counting(_plain_dq))
+    monkeypatch.setattr(fa, "flash_attention_bwd_dkv", _counting(_plain_dkv))
+    lines = []
+    monkeypatch.setattr(chip_smoke, "log", lambda *a: lines.append(a[0]))
+    return lines
+
+
+@pytest.mark.parametrize("phase, dtype", [("train_f32_phase", "f32"),
+                                          ("train_phase", "bf16")])
+def test_train_phases_rehearsal_on_cpu(small_lm, monkeypatch, phase, dtype):
+    """train_f32_phase (amp off) and train_phase (amp bf16) at a small
+    width on the CPU: the step-1 cross-entropy agrees with the plain
+    forward, the loss falls, and each attention kernel ran once per layer
+    per counted step with inputs of the phase's dtype only, which the
+    phase writes into the kernel table. The f32 step keeps the card's
+    CE_TOL (1e-3); the bf16 step's loss over these 32 tokens moves by
+    bf16 roundings of ~1e-3 that the card's 8192 tokens average away,
+    so it is held to 1e-2 here."""
+    lines = small_lm
+    if dtype == "bf16":
+        monkeypatch.setattr(chip_smoke, "CE_TOL", 1e-2)
+    kernels = {n: {} for n in (
+        "flash_attention_fwd", "flash_attention_fwd_bf16",
+        "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
+        "flash_attention_bwd_dq_f32", "flash_attention_bwd_dkv_f32")}
+    getattr(chip_smoke, phase)(torch, np, kernels)
+    if dtype == "f32":
+        steps = 1 + chip_smoke.TRAIN_F32_WARM + chip_smoke.TRAIN_F32_TIMED
+        names = ("flash_attention_bwd_dq_f32", "flash_attention_bwd_dkv_f32")
+        assert kernels["flash_attention_fwd"]["train_f32_launches"] == \
+            steps * 2
+        prefix = "train f32: "
+    else:
+        steps = 1 + chip_smoke.TRAIN_WARM + chip_smoke.TRAIN_TIMED
+        names = ("flash_attention_fwd_bf16", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv")
+        prefix = "train: "
+    for name in names:
+        assert kernels[name]["launches"] == steps * 2     # 2 layers
+    assert any(ln.startswith(prefix + "step-1 cross-entropy")
+               for ln in lines)
+    assert any(ln.startswith(prefix + "loss per step") for ln in lines)
+
+
+def test_train_f32_phase_ends_on_a_bf16_launch(small_lm, monkeypatch):
+    """A bf16 launch in the f32 training phase (amp left on) ends the
+    run (the loss check held to 1e-2, as for the bf16 rehearsal)."""
+    import mxnet_tpu_torch as mt
+    monkeypatch.setattr(chip_smoke, "CE_TOL", 1e-2)
+    mt.amp.init("bfloat16")
+    try:
+        with pytest.raises(chip_smoke.SmokeFailure, match="f32 only"):
+            chip_smoke.train_f32_phase(torch, np, {
+                n: {} for n in ("flash_attention_fwd",
+                                "flash_attention_bwd_dq_f32",
+                                "flash_attention_bwd_dkv_f32")})
+    finally:
+        mt.amp.off()
+
+
+def test_f32_backward_and_d256_timing_rehearsal_on_cpu(monkeypatch):
+    """chip_smoke's timing of K2 f32 / K3 f32 beside SDPA f32's backward,
+    and of the six D 256 instances, at small shapes on the CPU with the
+    kernel wrappers replaced by plain versions: every reading and both
+    bounds are there."""
+    for name, value in (("DEVICE", "cpu"), ("TRAIN_BATCH", 1), ("HEADS", 2),
+                        ("MAX_SEQ", 32), ("D_MODEL", 32)):
+        monkeypatch.setattr(chip_smoke, name, value)
+    monkeypatch.setattr(torch.cuda, "Event", _Event)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda: None)
+    monkeypatch.setattr(chip_smoke, "kernel_ms", lambda torch, fn: 1.0)
+    monkeypatch.setattr(fa, "flash_attention_bwd_dq", _plain_dq)
+    monkeypatch.setattr(fa, "flash_attention_bwd_dkv", _plain_dkv)
+    lines = []
+    monkeypatch.setattr(chip_smoke, "log", lambda *a: lines.append(a[0]))
+    t = chip_smoke.f32_backward_timing(torch)
+    assert set(t) == {"dq", "dkv", "library", "plain_ms"}
+    for what in ("dq", "dkv"):
+        assert t[what]["device_ms"] == 1.0 and t[what]["ms"] > 0
+        assert t[what]["bound_ms"] <= t[what]["fma_ms"]
+        assert t[what]["bound_ms"] == pytest.approx(
+            chip_smoke.f32_attention_bounds(what, 2, 32, 32, 16, True)[0])
+    assert sum(ln.startswith("flash_attention_bwd_") for ln in lines) == 2
+    d256 = chip_smoke.d256_timing(torch)
+    assert {tag: set(v) for tag, v in d256.items()} == {
+        "f32": {"fwd", "dq", "dkv"}, "bf16": {"fwd", "dq", "dkv"}}
+    assert sum(ln.startswith("d256 ") for ln in lines) == 6
+
+
+def test_f32_backward_bounds_at_the_training_shape():
+    """At BH 128, S 1024, D 128, causal: dQ 51.6 GFLOP, 0.313 ms on
+    3xTF32 (0.770 on FMAs) against 336.6 MB, 0.100 ms; dK/dV 68.8
+    GFLOP, 0.417 ms (1.027) against 403.7 MB, 0.120 ms: operations bound
+    both."""
+    for what, gflop, ms, fma, mb in (("dq", 51.59, 0.3127, 0.7700, 336.6),
+                                     ("dkv", 68.79, 0.4169, 1.0267, 403.7)):
+        bound, by, fma_ms, flops, nbytes = chip_smoke.f32_attention_bounds(
+            what, 128, 1024, 1024, 128, True)
+        assert by == "operations"
+        assert flops / 1e9 == pytest.approx(gflop, abs=0.01)
+        assert bound == pytest.approx(ms, abs=1e-4)
+        assert fma_ms == pytest.approx(fma, abs=1e-4)
+        assert nbytes / 1e6 == pytest.approx(mb, abs=0.1)
+
+
+def test_f32_backward_of_another_checkout_needs_a_card():
+    """``chip_smoke.py --f32-backward-of CHECKOUT`` imports the package of
+    that checkout and, without a card, ends with exit code 1 and no
+    readings."""
+    import subprocess
+    import sys
+    from pathlib import Path
+    root = Path(chip_smoke.__file__).resolve().parent
+    r = subprocess.run([sys.executable, str(root / "chip_smoke.py"),
+                        "--f32-backward-of", str(root)],
+                       capture_output=True, text=True, timeout=300,
+                       env={"PATH": "/usr/bin:/bin", "CUDA_VISIBLE_DEVICES": ""})
+    assert r.returncode == 1
+    assert "package %s" % (root / "mxnet_tpu_torch" / "__init__.py") in r.stdout
+    assert "is_available() is False" in r.stderr
+    assert "dq" not in r.stdout
