@@ -90,7 +90,24 @@ Phases, each fatal on failure (exit code 1, no result line):
    fixed (8192, 2048) float32 batch: 13 steps, the step-1
    cross-entropy held against an independent plain float32 forward, the
    loss falling, and every kernel's launches equal to what the path
-   implies.
+   implies;
+8. resnet: ``Module`` on the zoo's ResNet-50 (v2, s2d stem, 1000
+   classes) at ``bench.py``'s ResNet configuration (batch 128,
+   3x224x224, amp bfloat16, Xavier(gaussian, in, 2) from seed 0, SGD lr
+   0.05, momentum 0.9, wd 1e-4) on one fixed ``RandomState(0)`` batch:
+   the first step, 2 warm, 12 between CUDA events, 1 under
+   ``torch.profiler`` (device time by kind: conv forward and backward,
+   BatchNorm, elementwise, pooling, optimizer; the idle share). The
+   step-1 cross-entropy is held to 2e-2 nats of a plain float32 forward
+   (``torch.nn.functional``, the 7x7/2 stem on the same weight, TF32
+   off), the moving statistics step 1 commits to that forward's batch
+   statistics blended by the momentum, the loss must fall, the module
+   must hold the reference's 157 arg and 102 aux arrays, and no
+   flash-attention kernel may launch (the counters are zeroed before
+   the first step). Then the same in float32 (amp off, the reference's
+   default): the first step, 1 warm, 5 timed; cross-entropy within
+   1e-3 nats. This slice adds no kernel: convolutions run on cuDNN,
+   BatchNorm on torch's kernels.
 
 The second-to-last line is the kernel table as one JSON object; the
 last is ``{"ok": true, "device": {...}}``. Without a GPU, or run from a
@@ -164,6 +181,37 @@ RTC_EXACT_RTOL = 1e-6
 # version (per-thread running sums merged by shuffles, against torch's
 # reduction) and rescales them: a few f32 roundings of each value
 RTC_SOFTMAX_RTOL = 1e-5
+
+# the ResNet phases: bench.py's ResNet section (ResNet-50 v2, s2d stem,
+# 1000 classes, batch 128, 3x224x224, Xavier(gaussian, in, 2), SGD lr
+# 0.05, momentum 0.9, wd 1e-4); 24.534 GFLOP per image per training
+# step by bench.py's accounting (3 x 2 x 4.089 GMAC forward)
+RESNET_LAYERS, RESNET_CLASSES, RESNET_BATCH, RESNET_IMAGE = 50, 1000, 128, 224
+RESNET_LR, RESNET_MOMENTUM, RESNET_WD = 0.05, 0.9, 1e-4
+RESNET_FLOPS_PER_IMG = 2 * 4.089e9 * 3
+RESNET_EPS = 2e-5
+RESNET_WARM, RESNET_TIMED = 2, 12
+RESNET_F32_WARM, RESNET_F32_TIMED = 1, 5
+# step-1 cross-entropy against the plain f32 forward: amp rounds every
+# conv's operands and output to bf16 (53 layers); f32 sums in another
+# order (and the s2d stem against the 7x7 one)
+RESNET_CE_TOL = 2e-2
+RESNET_F32_CE_TOL = 1e-3
+# each BatchNorm's batch statistics as the committed moving ones imply
+# them, (new - momentum*old) / (1 - momentum), against the plain f32
+# forward's: the mean within STATS_RTOL*std + STATS_ATOL, the variance
+# within STATS_RTOL*var + STATS_ATOL (STATS_ATOL covers the f32 blend's
+# own rounding, ~2e-6 once divided by 1 - momentum). Under amp every
+# conv rounds its operands and output to bf16 (2^-8), so the port's
+# activations part from the f32 forward's by a few percent in the last
+# stage, and their statistics with them (a ResNet-18 at 64x64, batch 4,
+# on the CPU: up to 9% of a variance); f32 only sums in another order.
+# A wrong blend fails either by far: left uncommitted, the implied
+# statistics are the initial 0 and 1; with torch's momentum (the weight
+# of the new value) they are 9·batch − 8·old.
+RESNET_STATS_RTOL = 0.25
+RESNET_F32_STATS_RTOL = 1e-3
+RESNET_STATS_ATOL = 1e-5
 
 
 class SmokeFailure(Exception):
@@ -319,22 +367,62 @@ def time_ms(torch, fn, iters: int = 20) -> float:
     return timing(torch, fn, iters)["ms"]
 
 
-def kernel_ms(torch, fn, iters: int = 20) -> float:
-    """Device ms per call as the sum of the durations of the kernels that
-    ``iters`` calls launch, from a torch.profiler trace: the card's time
-    on the call whatever the host's gaps between launches."""
+def kernel_ms(torch, fn, iters: int = 20, attempts: int = 3) -> float:
+    """Device ms per call from a torch.profiler trace of ``iters``
+    calls: each kernel's mean duration times its launches per call, so
+    the card's time on the call whatever the host's gaps between
+    launches.
+
+    CUPTI's traces lose kernel records now and then: on the H100 a
+    trace late in the run held 18 records of a one-kernel call's 20 (so
+    summing the records read the call up to a tenth short), and one
+    held none at all. Means per kernel do not depend on how many
+    records came through; launches per call are the records over
+    ``iters``, rounded (a kernel seen less than once per two calls adds
+    its recorded time over ``iters``). A trace with no device time is
+    taken again, up to ``attempts`` times; if every one is empty, the
+    time is read between CUDA events around ``iters`` back-to-back calls
+    instead (an upper bound: it holds the host's gaps too), and the log
+    says so. The result is never 0."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA) \
-        / 1e3 / iters
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and e.count and e.self_device_time_total > 0]
+        if not rows:
+            log("kernel_ms: a trace of %d calls held no device time; taken "
+                "again" % iters)
+            continue
+        us = 0.0
+        for e in rows:
+            per_call = round(e.count / iters)
+            us += (e.self_device_time_total / e.count * per_call if per_call
+                   else e.self_device_time_total / iters)
+        n = sum(e.count for e in rows)
+        if n % iters:
+            log("kernel_ms: %d kernel records for %d calls; means per "
+                "kernel used" % (n, iters))
+        return us / 1e3
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / iters
+    log("kernel_ms: %d profiler traces held no device time; CUDA events "
+        "instead: %.4f ms per call" % (attempts, ms))
+    check(ms > 0, "CUDA events timed %d calls at 0 ms" % iters)
+    return ms
 
 
 def spread(t: dict) -> str:
@@ -1821,6 +1909,293 @@ def rtc_phase(torch, np, kernels):
         kernels[entry["name"]] = entry
 
 
+def resnet_units(layers):
+    """Units per stage and whether they are bottlenecks, as the zoo's
+    imagenet ResNet builds them (50 layers on the card, 18 in the CPU
+    rehearsal)."""
+    return {18: ([2, 2, 2, 2], False), 50: ([3, 4, 6, 3], True)}[layers]
+
+
+def plain_resnet(torch, p, x, y):
+    """The zoo's ResNet v2 training forward (imagenet stem) in plain
+    float32 torch.nn.functional, written from models/resnet.py and
+    independent of the port's ops and Module: the 7x7/2 stem convolves
+    ``conv0_weight`` directly (the port runs its s2d rewrite), and every
+    BatchNorm normalises with the batch statistics (biased variance).
+    Returns the mean cross-entropy and each BatchNorm's (mean, var)."""
+    import torch.nn.functional as F
+    stats = {}
+
+    def bn(h, name, fix_gamma=False):
+        var, mean = torch.var_mean(h, dim=(0, 2, 3), unbiased=False)
+        stats[name] = (mean, var)
+        g = torch.ones_like(mean) if fix_gamma else p[name + "_gamma"]
+        scale = (g * torch.rsqrt(var + RESNET_EPS)).view(1, -1, 1, 1)
+        return (h - mean.view(1, -1, 1, 1)) * scale + \
+            p[name + "_beta"].view(1, -1, 1, 1)
+
+    def conv(h, name, stride=1, pad=0):
+        return F.conv2d(h, p[name + "_weight"], stride=stride, padding=pad)
+
+    units, bottleneck = resnet_units(RESNET_LAYERS)
+    h = bn(x, "bn_data", fix_gamma=True)
+    h = conv(h, "conv0", 2, 3)
+    h = F.max_pool2d(torch.relu(bn(h, "bn0")), 3, 2, 1)
+    for i, n in enumerate(units):
+        for j in range(n):
+            name = "stage%d_unit%d" % (i + 1, j + 1)
+            stride = 2 if i > 0 and j == 0 else 1
+            act = torch.relu(bn(h, name + "_bn1"))
+            if bottleneck:
+                b = torch.relu(bn(conv(act, name + "_conv1"), name + "_bn2"))
+                b = torch.relu(bn(conv(b, name + "_conv2", stride, 1),
+                                  name + "_bn3"))
+                b = conv(b, name + "_conv3")
+            else:
+                b = torch.relu(bn(conv(act, name + "_conv1", stride, 1),
+                                  name + "_bn2"))
+                b = conv(b, name + "_conv2", 1, 1)
+            h = b + (h if j > 0 else conv(act, name + "_sc", stride))
+    h = torch.relu(bn(h, "bn1")).mean(dim=(2, 3))
+    logits = F.linear(h, p["fc1_weight"], p["fc1_bias"])
+    return F.cross_entropy(logits, y.long()), stats
+
+
+def resnet_kind(op: str) -> str:
+    """The class of an operator's device time in the ResNet step, by the
+    name of the (innermost) aten op that launched the kernels."""
+    low = op.lower()
+    if "convolution_backward" in low or "conv_backward" in low:
+        return "conv backward"
+    if "conv" in low:
+        return "conv forward"
+    if "batch_norm" in low:
+        return "BatchNorm"
+    if "pool" in low:
+        return "pooling"
+    if "_foreach" in low:
+        return "optimizer"
+    if any(w in low for w in ("::mm", "addmm", "matmul", "linear")):
+        return "fc (cuBLAS)"
+    return "elementwise"
+
+
+def resnet_breakdown(torch, prof, wall, what):
+    """Device time by kind (conv forward, conv backward, BatchNorm,
+    elementwise, pooling, optimizer, fc): each kernel counted under the
+    innermost aten op that launched it; and the idle share."""
+    rows, busy_ms = device_breakdown(torch, prof, wall, what)
+    by_kind = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CPU and \
+                e.key.startswith("aten::") and e.self_device_time_total:
+            kind = resnet_kind(e.key)
+            by_kind[kind] = by_kind.get(kind, 0.0) + \
+                e.self_device_time_total / 1e3
+    unattributed = busy_ms - sum(by_kind.values())
+    log("%s device time by kind: %s; not under an aten op %.3f ms"
+        % (what, ", ".join("%s %.3f ms (%.1f%%)"
+                           % (k, v, 100 * v / max(busy_ms, 1e-9))
+                           for k, v in sorted(by_kind.items(),
+                                              key=lambda kv: -kv[1])),
+           unattributed))
+    return by_kind, busy_ms
+
+
+def train_resnet(torch, np, counters, warm, timed, what):
+    """Module on the zoo's ResNet at bench.py's configuration, under
+    whatever amp state the caller set, on one fixed RandomState(0)
+    batch: the first step (bind included) timed, ``warm`` steps,
+    ``timed`` steps between CUDA events, then one under torch.profiler.
+    The flash-attention ``counters`` are zeroed just before the first
+    step and read after the last timed one. Returns the readings, with
+    the plain f32 forward's step-1 cross-entropy and batch statistics,
+    the initial and the step-1 moving statistics."""
+    from torch.profiler import ProfilerActivity, profile
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.models import resnet
+    B, S = RESNET_BATCH, RESNET_IMAGE
+    dev = torch.device(DEVICE)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sym = resnet.get_symbol(num_classes=RESNET_CLASSES,
+                            num_layers=RESNET_LAYERS, stem="s2d",
+                            image_shape="3,%d,%d" % (S, S))
+    mod = mt.mod.Module(sym, context=mt.gpu(0))
+    mod.bind(data_shapes=[("data", (B, 3, S, S))],
+             label_shapes=[("softmax_label", (B,))])
+    mod.init_params(mt.init.Xavier(rnd_type="gaussian", factor_type="in",
+                                   magnitude=2).set_rng(
+                                       np.random.default_rng(SEED)))
+    mod.init_optimizer(optimizer="sgd", optimizer_params={
+        "learning_rate": RESNET_LR, "momentum": RESNET_MOMENTUM,
+        "wd": RESNET_WD})
+    torch.cuda.synchronize()
+    bind_s = time.perf_counter() - t0
+    args, aux = mod.get_params()
+    n_args, n_aux = len(args), len(aux)
+    aux0 = {n: a.data.clone() for n, a in aux.items()}
+    rng = np.random.RandomState(0)
+    x = rng.uniform(-1, 1, (B, 3, S, S)).astype(np.float32)
+    y = rng.randint(0, RESNET_CLASSES, (B,)).astype(np.float32)
+    db = mt.io.DataBatch(data=[mt.nd.array(x, ctx=dev)],
+                         label=[mt.nd.array(y, ctx=dev)])
+    y_col = torch.from_numpy(y).to(dev).long().view(-1, 1)
+    with torch.no_grad():
+        ce, stats = plain_resnet(torch, {n: a.data for n, a in args.items()},
+                                 torch.from_numpy(x).to(dev),
+                                 torch.from_numpy(y).to(dev))
+        want = ce.item()
+        stats = {n: (m.double().cpu().numpy(), v.double().cpu().numpy())
+                 for n, (m, v) in stats.items()}
+    del args
+    torch.cuda.empty_cache()
+
+    def step():
+        mod._fit_step(db)
+        out = mod.get_outputs()[0].data
+        return -(out.gather(1, y_col) + 1e-12).log().mean()
+
+    # the main path: counters zeroed just before, read just after
+    for fn in counters.values():
+        fn.launches = {"f32": 0, "bf16": 0}
+    t0 = time.perf_counter()
+    losses = [step()]
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    aux1 = {n: a.data.double().cpu().numpy()
+            for n, a in mod.get_params()[1].items()}
+    for _ in range(warm):
+        losses.append(step())
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(timed):
+        losses.append(step())
+    end.record()
+    torch.cuda.synchronize()
+    step_ms = start.elapsed_time(end) / timed
+    launches = {n: dict(fn.launches) for n, fn in counters.items()}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    by_kind, busy_ms = resnet_breakdown(torch, prof, wall, what)
+    losses = [float(v) for v in torch.stack(losses).cpu()]
+    del mod, db
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"losses": losses, "want": want, "stats": stats,
+            "aux0": {n: a.double().cpu().numpy() for n, a in aux0.items()},
+            "aux1": aux1, "n_args": n_args, "n_aux": n_aux,
+            "step_ms": step_ms, "bind_s": bind_s, "first_s": first_s,
+            "timed": timed, "launches": launches, "peak_gb": peak_gb,
+            "busy_ms": busy_ms, "wall_ms": wall * 1e3, "by_kind": by_kind}
+
+
+def check_resnet_stats(np, what, run, rtol):
+    """The moving statistics committed by step 1 against the plain
+    forward's batch statistics blended by the momentum, every channel
+    of every BatchNorm: the mean within ``rtol`` of the batch's standard
+    deviation, the variance within ``rtol`` of itself, each plus
+    RESNET_STATS_ATOL."""
+    m = RESNET_MOMENTUM
+    worst, worst_rel, where = 0.0, 0.0, None
+    for name, (mean, var) in run["stats"].items():
+        implied = {}
+        for stat in ("moving_mean", "moving_var"):
+            key = "%s_%s" % (name, stat)
+            check(key in run["aux1"], "%s: no aux state %s" % (what, key))
+            implied[stat] = (run["aux1"][key] -
+                             m * run["aux0"][key]) / (1 - m)
+        for got, want, scale in ((implied["moving_mean"], mean,
+                                  np.sqrt(var)),
+                                 (implied["moving_var"], var, var)):
+            err = np.abs(got - want)
+            ratio = float((err / (rtol * scale + RESNET_STATS_ATOL)).max())
+            if ratio > worst:
+                worst, where = ratio, name
+            worst_rel = max(worst_rel, float((err / (scale + 1e-12)).max()))
+    log("%s: step-1 moving statistics of %d BatchNorms against the plain "
+        "forward's batch statistics blended by momentum %g: largest error "
+        "%.3g of the batch std / var; %.3g of the tolerance (rtol %g, atol "
+        "%g; at %s)" % (what, len(run["stats"]), m, worst_rel, worst, rtol,
+                        RESNET_STATS_ATOL, where))
+    check(worst <= 1.0, "%s: moving statistics of %s off by %.3g of the "
+          "tolerance (rtol %g of the batch std / var, atol %g)"
+          % (what, where, worst, rtol, RESNET_STATS_ATOL))
+
+
+def check_resnet(np, what, run, ce_tol, stats_rtol, peak_flops,
+                 peak_name):
+    """Log a ResNet run's readings and hold it to the path: finite
+    losses that fall, the step-1 cross-entropy within ``ce_tol`` of the
+    plain forward's, the moving statistics, the reference's parameter
+    count, and no flash-attention launch."""
+    losses, want = run["losses"], run["want"]
+    img_s = RESNET_BATCH / (run["step_ms"] / 1e3)
+    log("%s: ResNet-%d v2 s2d, batch %d, %dx%d: bind %.3f s, first step "
+        "%.3f s; step %.3f ms (%d steps between CUDA events) = %.1f img/s; "
+        "MFU %.4f of %.0f TFLOP/s %s (%.3f GFLOP per image by bench.py's "
+        "accounting); peak memory %.3f GB; device busy %.3f of %.3f ms "
+        "profiled (idle share %.3f); %d arg and %d aux arrays"
+        % (what, RESNET_LAYERS, RESNET_BATCH, RESNET_IMAGE, RESNET_IMAGE,
+           run["bind_s"], run["first_s"], run["step_ms"], run["timed"],
+           img_s, img_s * RESNET_FLOPS_PER_IMG / peak_flops,
+           peak_flops / 1e12, peak_name, RESNET_FLOPS_PER_IMG / 1e9,
+           run["peak_gb"], run["busy_ms"], run["wall_ms"],
+           1 - run["busy_ms"] / max(run["wall_ms"], 1e-9), run["n_args"],
+           run["n_aux"]))
+    log("%s: loss per step %s" % (what, " ".join("%.6f" % v for v in losses)))
+    log("%s: step-1 cross-entropy %.6f, plain f32 forward (7x7 stem) %.6f "
+        "(|diff| %.3g, tolerance %g); flash-attention launches %s"
+        % (what, losses[0], want, abs(losses[0] - want), ce_tol,
+           run["launches"]))
+    check(all(math.isfinite(v) for v in losses), "%s: non-finite loss %s"
+          % (what, losses))
+    check(losses[-1] < losses[0], "%s: loss did not fall: %s"
+          % (what, losses))
+    check(abs(losses[0] - want) <= ce_tol, "%s: step-1 loss %g vs plain "
+          "forward %g" % (what, losses[0], want))
+    check_resnet_stats(np, what, run, stats_rtol)
+    if RESNET_LAYERS == 50:
+        check((run["n_args"], run["n_aux"]) == (157, 102),
+              "%s: %d arg and %d aux arrays, the reference has 157 and 102"
+              % (what, run["n_args"], run["n_aux"]))
+    for name, n in run["launches"].items():
+        check(n == {"f32": 0, "bf16": 0}, "%s: flash-attention kernel %s "
+              "launched %s times in a ResNet step" % (what, name, n))
+
+
+def resnet_phase(torch, np):
+    """ResNet-50 through Module at bench.py's configuration: amp bf16,
+    then amp off (the reference's default) with f32 convolutions in full
+    float32 (TF32 off in cuDNN and cuBLAS)."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    counters = {"flash_attention_fwd": fa.flash_attention_fwd,
+                "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
+                "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv}
+    check(not torch.backends.cudnn.allow_tf32 and
+          not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 is allowed: the plain forward would not be float32")
+    mt.amp.init("bfloat16")
+    try:
+        run = train_resnet(torch, np, counters, RESNET_WARM, RESNET_TIMED,
+                           "resnet")
+    finally:
+        mt.amp.off()
+    check_resnet(np, "resnet", run, RESNET_CE_TOL, RESNET_STATS_RTOL,
+                 PEAK_BF16_FLOPS, "bf16")
+    run = train_resnet(torch, np, counters, RESNET_F32_WARM,
+                       RESNET_F32_TIMED, "resnet f32")
+    check_resnet(np, "resnet f32", run, RESNET_F32_CE_TOL,
+                 RESNET_F32_STATS_RTOL, PEAK_FP32_FLOPS, "f32")
+
+
 def f32_backward_of(checkout: str) -> int:
     """``--f32-backward-of CHECKOUT``: f32_backward_timing on the
     package of another checkout (the parent commit's, say), so that its
@@ -1860,6 +2235,7 @@ def main() -> int:
         train_phase(torch, np, kernels)
         train_f32_phase(torch, np, kernels)
         rtc_phase(torch, np, kernels)
+        resnet_phase(torch, np)
         torch.cuda.synchronize()
     except SmokeFailure as exc:
         print("chip_smoke: FAILED: %s" % exc, file=sys.stderr)

@@ -25,13 +25,17 @@ Ported so far:
   and custom operators (:mod:`.operator`), with the ``nd.<op>`` and
   :mod:`.contrib` namespaces;
 * the seeded key chain of ``mx.random`` (:mod:`.random`), from which
-  ``fit``'s default initializer draws.
+  ``fit``'s default initializer draws;
+* ResNet (:mod:`.models.resnet`) training through ``Module``: the
+  ``Convolution``, ``Pooling``, ``BatchNorm``, ``Flatten`` and ``Pad``
+  ops, aux states from the symbol to the executor and the module, and
+  checkpoints (:mod:`.model`) that load in both packages.
 """
 from __future__ import annotations
 
 from . import amp, contrib
 from . import initializer as init
-from . import io, metric
+from . import io, metric, model
 from . import module as mod
 from . import ndarray as nd
 from . import operator, optimizer, random, rtc
@@ -40,7 +44,8 @@ from .base import MXNetError
 from .context import cpu, current_device, device_scope, gpu
 
 __all__ = ["MXNetError", "cpu", "gpu", "device_scope", "current_device",
-           "amp", "contrib", "init", "io", "metric", "mod", "nd", "operator",
+           "amp", "contrib", "init", "io", "metric", "mod", "model", "nd",
+           "operator",
            "optimizer", "random", "rtc", "sym"]
 
 __version__ = "0.1.0"

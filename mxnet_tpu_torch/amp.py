@@ -2,9 +2,9 @@
 
 The port's counterpart of the reference package's ``amp.py``, over torch
 dtypes. Parameters and optimizer state stay float32; the matrix-product
-ops (FullyConnected, batch_dot) cast their float32 operands to the
-compute dtype, accumulate in float32 and return the compute dtype, and
-the loss head (SoftmaxOutput) is computed in float32.
+ops (FullyConnected, batch_dot, Convolution) cast their float32
+operands to the compute dtype, accumulate in float32 and return the
+compute dtype, and the loss head (SoftmaxOutput) is computed in float32.
 
 The reference reads the policy when it traces a program; the port runs
 eagerly, so the policy is read at every op call: set it before
@@ -18,7 +18,10 @@ eagerly, so the policy is read at every op call: set it before
 On the card, a bf16 product accumulates in float32 as the reference
 asks only when cuBLAS may not reduce in bf16:
 ``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction``
-is set to False by :func:`init`.
+is set to False by :func:`init`. A float32 convolution is taken in full
+float32, as the reference asks (``preferred_element_type=float32``):
+cuDNN may use TF32 for it by default, so the convolution runs inside
+:func:`conv_precision`, which turns that off for its float32 operands.
 """
 from __future__ import annotations
 
@@ -28,7 +31,7 @@ from typing import Optional
 import torch
 
 __all__ = ["init", "off", "active", "compute_dtype", "cast_compute",
-           "mxu_operands", "scope"]
+           "mxu_operands", "conv_precision", "scope"]
 
 _COMPUTE_DTYPE: Optional[torch.dtype] = None
 
@@ -88,12 +91,30 @@ def cast_compute(*tensors):
 
 
 def mxu_operands(a: torch.Tensor, b: torch.Tensor):
-    """Cast two matrix-product operands under the policy, then to their
-    common dtype (the reference's ``result_type``), in which the product
-    is taken with float32 accumulation and returned."""
+    """Cast two matrix-product or convolution operands under the policy,
+    then to their common dtype (the reference's ``result_type``), in
+    which the product is taken with float32 accumulation and returned:
+    under amp a convolution's output stays in the compute dtype, as the
+    reference's does."""
     a, b = cast_compute(a, b)
     dtype = torch.promote_types(a.dtype, b.dtype)
     return a.to(dtype), b.to(dtype)
+
+
+@contextmanager
+def conv_precision(dtype: torch.dtype):
+    """Within the block, cuDNN convolves ``dtype`` operands with float32
+    accumulation: for float32 operands TF32 is turned off (it is on by
+    default for cuDNN), and the previous setting is restored after."""
+    if dtype != torch.float32:
+        yield
+        return
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
 
 
 @contextmanager

@@ -10,6 +10,13 @@ in topological order (PyTorch runs eagerly) and gradients come from
   views of the bound arguments that ask for a gradient (the bound
   tensors themselves never carry autograd state, so an optimizer may
   update them in place);
+* aux states (BatchNorm's moving statistics, ``aux_dict``) are read
+  by the graph and their new values returned beside the outputs; a
+  training forward commits them in place after the graph has run (under
+  ``no_grad``, detached), and an inference forward leaves them as they
+  were. The moving statistics take no part in the gradient, and a value
+  an op returns unchanged (the same tensor) is not written, so no tensor
+  that autograd saved is ever modified;
 * ``gradients(out_grads)`` differentiates the outputs, with a ones
   head gradient per output when none is given (as the reference's
   fused step does); ``backward(out_grads)`` writes those gradients
@@ -31,28 +38,37 @@ __all__ = ["Executor", "graph_function"]
 
 
 def graph_function(symbol):
-    """A Symbol as a function of tensors:
-    ``fn(args: {name: tensor}, is_train: bool, device) -> [outputs]``.
-    ``device`` is where ops without inputs (``_arange``) create their
-    result."""
+    """A Symbol as a function of tensors: ``fn(args: {name: tensor},
+    aux: {name: tensor}, is_train: bool, device) -> ([outputs],
+    {aux name: new value})``, the new values being the trailing outputs
+    of each op with aux state. ``device`` is where ops without inputs
+    (``_arange``) create their result."""
     from .symbol.symbol import _topo_order, run_node
 
     nodes = _topo_order(symbol._entries)
     entries = list(symbol._entries)
 
-    def fn(args: Dict[str, torch.Tensor], is_train: bool,
-           device) -> List[torch.Tensor]:
+    def fn(args: Dict[str, torch.Tensor], aux: Dict[str, torch.Tensor],
+           is_train: bool, device):
         vals = {}
+        new_aux = {}
         for node in nodes:
             if node.is_variable:
-                if node.name not in args:
+                src = aux if node.is_aux else args
+                if node.name not in src:
                     raise MXNetError("unbound variable %r" % node.name)
-                vals[(id(node), 0)] = args[node.name]
+                vals[(id(node), 0)] = src[node.name]
                 continue
             ins = [vals[(id(n), i)] for n, i in node.inputs]
-            for i, o in enumerate(run_node(node, ins, is_train, device)):
+            outs = run_node(node, ins, is_train, device)
+            for i, o in enumerate(outs):
                 vals[(id(node), i)] = o
-        return [vals[(id(n), i)] for n, i in entries]
+            k = node.op.num_aux
+            if k:
+                for (src, _), val in zip(node.inputs[-k:], outs[-k:]):
+                    if src.is_variable:
+                        new_aux[src.name] = val
+        return [vals[(id(n), i)] for n, i in entries], new_aux
 
     return fn
 
@@ -75,16 +91,22 @@ class Executor:
     ``cuda:0``, and raises without a GPU (``context.resolve_device``)."""
 
     def __init__(self, symbol, ctx: DeviceLike, args, args_grad=None,
-                 grad_req="write"):
+                 grad_req="write", aux_states=None):
         self._symbol = symbol
         self._device = resolve_device(ctx)
         self._arg_names = symbol.list_arguments()
+        self._aux_names = symbol.list_auxiliary_states()
         self._output_names = symbol.list_outputs()
         self.arg_dict: Dict[str, NDArray] = _as_dict(args, self._arg_names,
                                                      "args")
         missing = [n for n in self._arg_names if n not in self.arg_dict]
         if missing:
             raise MXNetError("bind: missing arguments %s" % missing)
+        self.aux_dict: Dict[str, NDArray] = _as_dict(
+            aux_states, self._aux_names, "aux_states")
+        missing = [n for n in self._aux_names if n not in self.aux_dict]
+        if missing:
+            raise MXNetError("bind: missing auxiliary states %s" % missing)
         if isinstance(grad_req, str):
             self._grad_req = {n: grad_req for n in self._arg_names}
         elif isinstance(grad_req, (list, tuple)):
@@ -105,30 +127,33 @@ class Executor:
         self._outputs: Optional[List[NDArray]] = None
         self._pending = None     # (outputs, leaves) awaiting backward
 
-    def run(self, args: Dict[str, torch.Tensor],
-            is_train: bool) -> List[torch.Tensor]:
-        """The graph on the given tensors (no binding involved)."""
-        return self._fn(args, is_train, self._device)
-
     def forward(self, is_train: bool = False, **kwargs) -> List[NDArray]:
         """Run the graph; with ``is_train`` and gradients requested,
-        record it for :meth:`backward`."""
+        record it for :meth:`backward`. A training forward commits the
+        new aux states."""
         for k, v in kwargs.items():
             if k not in self.arg_dict:
                 raise MXNetError("forward: unknown argument %r" % k)
             self.arg_dict[k][:] = v
         args = {n: a.data for n, a in self.arg_dict.items()}
+        aux = {n: a.data for n, a in self.aux_dict.items()}
         if is_train and self._wrt:
             leaves = {n: args[n].detach().requires_grad_(True)
                       for n in self._wrt}
             args.update(leaves)
             with torch.enable_grad():
-                outs = self._fn(args, True, self._device)
+                outs, new_aux = self._fn(args, aux, True, self._device)
             self._pending = (outs, leaves)
         else:
             with torch.no_grad():
-                outs = self._fn(args, bool(is_train), self._device)
+                outs, new_aux = self._fn(args, aux, bool(is_train),
+                                         self._device)
             self._pending = None
+        if is_train:
+            with torch.no_grad():
+                for n, v in new_aux.items():
+                    if v is not aux[n]:
+                        aux[n].copy_(v.detach())
         self._outputs = [NDArray(o.detach()) for o in outs]
         return self._outputs
 

@@ -13,6 +13,12 @@ As in the reference, the backward runs with a ones head gradient on
 every output, so a loss head's own backward (``SoftmaxOutput``) drives
 training; ``rescale_grad`` is ``1 / batch_size``.
 
+Aux states (BatchNorm's moving statistics) are bound beside the
+arguments, initialised and set with them (``aux_params``), committed by
+every training forward and returned by ``get_params``;
+``save_checkpoint`` and ``Module.load`` write and read both, in the
+reference's checkpoint files (:mod:`..model`).
+
 The module runs on ``cuda:0`` unless ``context`` says otherwise
 (``context=cpu()`` for the host); without a GPU and without that request
 it raises.
@@ -26,10 +32,11 @@ import numpy as np
 import torch
 
 from ..base import MXNetError
-from ..context import resolve_device
+from ..context import device_scope, resolve_device
 from ..initializer import InitDesc
 from ..io import DataDesc
 from ..ndarray import NDArray
+from .. import model as _model
 from .. import optimizer as opt
 from .base_module import BaseModule, _check_input_names
 
@@ -76,12 +83,14 @@ class Module(BaseModule):
         arg_names = symbol.list_arguments()
         inputs = data_names + label_names + state_names
         self._param_names = [n for n in arg_names if n not in inputs]
+        self._aux_names = symbol.list_auxiliary_states()
         self._fixed_param_names = fixed
         self._data_names = data_names
         self._label_names = [n for n in label_names if n in arg_names]
         self._state_names = state_names
         self._output_names = symbol.list_outputs()
         self._arg_params: Optional[Dict[str, NDArray]] = None
+        self._aux_params: Optional[Dict[str, NDArray]] = None
         self._optimizer = None
         self._updater = None
         self._exec = None
@@ -102,40 +111,80 @@ class Module(BaseModule):
     def output_names(self):
         return self._output_names
 
+    # ------------------------------------------------------------ loading
+    @staticmethod
+    def load(prefix, epoch, load_optimizer_states=False, **kwargs):
+        """A Module over a checkpoint's symbol whose ``bind`` takes the
+        checkpoint's arg and aux params (``prefix-symbol.json``,
+        ``prefix-%04d.params``, as :func:`model.save_checkpoint`
+        writes them, here or in the reference). ``kwargs`` go to
+        ``Module``; the arrays wait on the host until ``bind`` copies
+        them to the module's device."""
+        if load_optimizer_states:
+            raise MXNetError("load_optimizer_states is not ported yet "
+                             "(ROADMAP.md queue A7)")
+        with device_scope("cpu"):
+            sym, args, auxs = _model.load_checkpoint(prefix, epoch)
+        mod = Module(symbol=sym, **kwargs)
+        mod._arg_params, mod._aux_params = args, auxs
+        mod.params_initialized = True
+        return mod
+
+    def save_checkpoint(self, prefix, epoch, save_optimizer_states=False):
+        """Write the symbol and the arg and aux params as
+        :func:`model.save_checkpoint` does."""
+        if save_optimizer_states:
+            raise MXNetError("save_optimizer_states is not ported yet "
+                             "(ROADMAP.md queue A7)")
+        _model.save_checkpoint(prefix, epoch, self.symbol,
+                               *self.get_params())
+
     # ------------------------------------------------------------ params
     def get_params(self):
-        """``(arg_params, aux_params)``: the bound parameter arrays by
-        name, and an empty dict (no op of this slice has aux state)."""
+        """``(arg_params, aux_params)``: the bound parameter and aux-state
+        arrays by name."""
         assert self.binded and self.params_initialized
-        return dict(self._arg_params), {}
+        return dict(self._arg_params), dict(self._aux_params)
 
     def init_params(self, initializer=None, arg_params=None, aux_params=None,
                     allow_missing=False, force_init=False, allow_extra=False):
-        """Fill every parameter from ``arg_params`` (by name) or, failing
-        that, from ``initializer``."""
+        """Fill every parameter from ``arg_params`` and every aux state
+        from ``aux_params`` (by name) or, failing that, from
+        ``initializer``."""
         assert self.binded, "call bind before initializing the parameters"
         if self.params_initialized and not force_init:
             return
-        if arg_params is not None and not allow_extra:
-            extra = sorted(set(arg_params) - set(self._param_names))
-            if extra:
-                raise MXNetError("init_params: unknown parameters %s" % extra)
         attrs = self.symbol.attr_dict()
-        for name in self._param_names:
-            arr = self._exec.arg_dict[name]
-            if arg_params is not None and name in arg_params:
-                src = arg_params[name]
-                if tuple(src.shape) != arr.shape:
-                    raise MXNetError("shape mismatch for %s: %s vs %s"
-                                     % (name, tuple(src.shape), arr.shape))
-                with torch.no_grad():
-                    arr.data.copy_(_as_tensor(src, arr.data))
-            elif arg_params is not None and not allow_missing:
-                raise RuntimeError("%s is not presented" % name)
-            elif initializer is not None:
-                initializer(InitDesc(name, attrs.get(name, None)), arr)
+
+        def fill(names, arrays, given, what):
+            if given is not None and not allow_extra:
+                extra = sorted(set(given) - set(names))
+                if extra:
+                    raise MXNetError("init_params: unknown %s %s"
+                                     % (what, extra))
+            for name in names:
+                arr = arrays[name]
+                if given is not None and name in given:
+                    src = given[name]
+                    if tuple(src.shape) != arr.shape:
+                        raise MXNetError("shape mismatch for %s: %s vs %s"
+                                         % (name, tuple(src.shape),
+                                            arr.shape))
+                    with torch.no_grad():
+                        arr.data.copy_(_as_tensor(src, arr.data))
+                elif given is not None and not allow_missing:
+                    raise RuntimeError("%s is not presented" % name)
+                elif initializer is not None:
+                    initializer(InitDesc(name, attrs.get(name, None)), arr)
+
+        fill(self._param_names, self._exec.arg_dict, arg_params,
+             "parameters")
+        fill(self._aux_names, self._exec.aux_dict, aux_params,
+             "auxiliary states")
         self._arg_params = {n: self._exec.arg_dict[n]
                             for n in self._param_names}
+        self._aux_params = {n: self._exec.aux_dict[n]
+                            for n in self._aux_names}
         self.params_initialized = True
 
     # ------------------------------------------------------------ bind
@@ -168,12 +217,14 @@ class Module(BaseModule):
         self._grad_req = req
         type_dict = {d.name: d.dtype for d in self._data_shapes +
                      self._label_shapes}
-        params = self._arg_params if self.params_initialized else None
+        params = (self._arg_params, self._aux_params) \
+            if self.params_initialized else None
         self._exec = self._symbol.simple_bind(
             self._device, grad_req=req, type_dict=type_dict, **shape_hints)
         self.binded = True
         if params is not None:
-            self.init_params(arg_params=params, force_init=True)
+            self.init_params(arg_params=params[0], aux_params=params[1],
+                             force_init=True)
 
     # ------------------------------------------------------------ optimizer
     def init_optimizer(self, kvstore="local", optimizer="sgd",

@@ -4,7 +4,9 @@ The port's counterpart of the reference's ``ndarray/ndarray.py``, as far
 as the ported paths need it: ``DataBatch`` payloads, an executor's
 ``arg_dict``/``grad_dict``/``outputs``, ``Module.get_params``, the
 arrays a custom op's ``forward``/``backward`` receive (with ``+ - * /``)
-and :func:`imperative_invoke`, behind every ``nd.<op>``. The
+and :func:`imperative_invoke`, behind every ``nd.<op>``; and
+:func:`save` / :func:`load` of named arrays in the reference's two
+containers (its npz archive and MXNet's binary ``.params`` format). The
 reference's arrays are immutable jax values that an assignment replaces;
 here an assignment writes into the tensor in place (``arr[:] = x`` is a
 ``copy_``), so a tensor bound into an executor sees every update.
@@ -16,15 +18,17 @@ tensor stays on that tensor's device.
 """
 from __future__ import annotations
 
+import io
 from typing import Union
 
 import numpy as np
 import torch
 
-from ..base import MXNetError
+from ..base import MXNetError, atomic_write
 from ..context import DeviceLike, resolve_device
+from . import legacy_format
 
-__all__ = ["NDArray", "array", "zeros", "imperative_invoke",
+__all__ = ["NDArray", "array", "zeros", "imperative_invoke", "save", "load",
            "to_torch_dtype", "to_numpy_dtype"]
 
 _NP_TO_TORCH = {
@@ -179,13 +183,26 @@ def imperative_invoke(op, *args, out=None, ctx: DeviceLike = None, **attrs):
     as an NDArray (a tuple for an op with several outputs). An op with no
     array input creates its result on ``ctx`` (None: the current
     device). ``out`` (an NDArray or a list) receives the results in
-    place."""
+    place. An op with aux state writes the new values into the aux
+    arrays it was given and returns its visible outputs (BatchNorm's
+    mean and variance too under ``output_mean_var``)."""
     tensors = [a._data if isinstance(a, NDArray) else a for a in args]
     attrs.pop("name", None)     # a symbol-layer attribute
     if op.num_inputs == 0 and not any(isinstance(t, torch.Tensor)
                                       for t in tensors):
         attrs["_device"] = resolve_device(ctx)
     outputs = op.fn(*tensors, **attrs)
+    if op.num_aux:
+        k = op.num_aux
+        with torch.no_grad():
+            for old, new in zip(tensors[-k:], outputs[-k:]):
+                if new is not old:
+                    old.copy_(new)
+        outputs = outputs[:-k]
+        if not attrs.get("output_mean_var"):
+            outputs = outputs[:len(outputs) - op.num_hidden_outputs]
+        if len(outputs) == 1:
+            outputs = outputs[0]
     single = not isinstance(outputs, tuple)
     results = [NDArray(o) for o in ((outputs,) if single else outputs)]
     if out is not None:
@@ -216,3 +233,50 @@ def zeros(shape, ctx: DeviceLike = None, dtype="float32") -> NDArray:
     shape = (shape,) if isinstance(shape, int) else tuple(shape)
     return NDArray(torch.zeros(shape, dtype=to_torch_dtype(dtype),
                                device=_device(ctx)))
+
+
+def save(fname: str, data, format: str = "npz") -> None:
+    """Save an NDArray, a list of them or a dict of them by name, as the
+    reference's ``nd.save`` does: by default its npz archive (each array
+    plus a ``__manifest__`` of the kind and the order), or with
+    ``format="mxnet"`` MXNet's binary ``.params`` layout. Either file
+    loads in the reference; the write is atomic."""
+    if isinstance(data, NDArray):
+        data = [data]
+    named = isinstance(data, dict)
+    keys = list(data) if named else \
+        ["__arr_%d__" % i for i in range(len(data))]
+    arrays = [np.asarray(a.asnumpy()) for a in
+              (data.values() if named else data)]
+    if format == "mxnet":
+        blob = legacy_format.save_bytes(dict(zip(keys, arrays)) if named
+                                        else arrays)
+    elif format == "npz":
+        manifest = np.array(["dict" if named else "list"] + keys,
+                            dtype=np.str_)
+        buf = io.BytesIO()
+        np.savez(buf, __manifest__=manifest, **dict(zip(keys, arrays)))
+        blob = buf.getvalue()
+    else:
+        raise ValueError("unknown save format %r" % format)
+    atomic_write(fname, blob)
+
+
+def load(fname: str, ctx: DeviceLike = None):
+    """Load what :func:`save` (here or in the reference) wrote, in
+    either container (told apart by the binary format's magic): a dict
+    by name or a list, of NDArrays in the stored dtypes on ``ctx``
+    (None: the current device)."""
+    dev = resolve_device(ctx)
+    with open(fname, "rb") as f:
+        blob = f.read()
+    if legacy_format.is_legacy_params(blob[:8]):
+        out = legacy_format.load_bytes(blob)
+        if isinstance(out, list):
+            return [NDArray(a, ctx=dev) for a in out]
+        return {k: NDArray(a, ctx=dev) for k, a in out.items()}
+    with np.load(io.BytesIO(blob), allow_pickle=False) as zf:
+        manifest = [str(x) for x in zf["__manifest__"]]
+        kind, keys = manifest[0], manifest[1:]
+        out = {k: NDArray(zf[k], ctx=dev) for k in keys}
+    return [out[k] for k in keys] if kind == "list" else out

@@ -1,14 +1,15 @@
 """Shape and matrix ops of the training path.
 
 The port's counterpart of the reference's ``ops/matrix.py`` for
-``batch_dot``, ``transpose``, ``Reshape`` (with MXNet's special codes)
-and ``slice_axis``.
+``batch_dot``, ``transpose``, ``Reshape`` (with MXNet's special codes),
+``Flatten``, ``slice_axis`` and ``Pad``.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.nn.functional as F
 
 from .. import amp
 from .registry import register
@@ -103,6 +104,12 @@ def reshape(data, shape=None, reverse=False, target_shape=None,
     return data.reshape(reshape_shape(data.shape, shape, reverse))
 
 
+@register("Flatten", aliases=("flatten",))
+def flatten(data):
+    """Collapse all but the first axis."""
+    return data.reshape(data.shape[0], -1)
+
+
 @register("slice_axis")
 def slice_axis(data, axis=0, begin=0, end=None):
     """Slice one axis."""
@@ -110,3 +117,34 @@ def slice_axis(data, axis=0, begin=0, end=None):
     ix = [slice(None)] * data.dim()
     ix[axis] = slice(begin, end)
     return data[tuple(ix)]
+
+
+def _pad_index(n: int, lo: int, hi: int, mode: str, device) -> torch.Tensor:
+    """Source positions of an axis of length ``n`` padded by ``lo`` and
+    ``hi``: clamped (``edge``) or mirrored without repeating the border
+    (``reflect``, numpy's), any number of times over."""
+    i = torch.arange(-lo, n + hi, device=device)
+    if mode == "edge" or n == 1:
+        return i.clamp(0, n - 1)
+    period = 2 * (n - 1)
+    return (n - 1) - ((i.abs() % period) - (n - 1)).abs()
+
+
+@register("Pad", aliases=("pad",))
+def pad(data, mode="constant", pad_width=(), constant_value=0.0):
+    """Pad every axis: ``pad_width`` is the flat ``2*ndim`` tuple
+    ``(before_0, after_0, before_1, ...)``; ``mode`` is ``constant``
+    (with ``constant_value``), ``edge`` or ``reflect``."""
+    pw = tuple(int(p) for p in pad_width)
+    pairs = [(pw[2 * i], pw[2 * i + 1]) for i in range(len(pw) // 2)]
+    if mode == "constant":
+        flat = [p for lo_hi in reversed(pairs) for p in lo_hi]
+        return F.pad(data, flat, value=float(constant_value))
+    if mode not in ("edge", "reflect"):
+        raise ValueError("unknown pad mode %s" % mode)
+    out = data
+    for axis, (lo, hi) in enumerate(pairs):
+        if lo or hi:
+            out = out.index_select(axis, _pad_index(
+                data.shape[axis], lo, hi, mode, data.device))
+    return out

@@ -1,11 +1,31 @@
 """Neural-network layer ops of the training path.
 
 The port's counterpart of the reference's ``ops/nn.py`` for
-``Activation``, ``softmax``, ``FullyConnected``, ``LayerNorm`` and
-``SoftmaxOutput``, with the reference's semantics:
+``Activation``, ``softmax``, ``FullyConnected``, ``Convolution``,
+``Pooling``, ``BatchNorm``, ``LayerNorm`` and ``SoftmaxOutput``, with the
+reference's semantics:
 
-* ``FullyConnected`` under amp multiplies bf16 operands with f32
-  accumulation, returns bf16 and adds ``bias`` cast to bf16 in bf16.
+* ``FullyConnected`` and ``Convolution`` under amp multiply bf16
+  operands with f32 accumulation, return bf16 and add ``bias`` cast to
+  bf16 in bf16. A float32 convolution runs in full float32 (TF32 off,
+  forward and backward: ``amp.conv_precision``).
+* ``Pooling`` pads max pooling with −∞ and, under
+  ``pooling_convention="full"``, pads the high side up to a whole
+  stride, as the reference does (which is not torch's ``ceil_mode``:
+  that drops a last window that would start in the padding). Average
+  pooling divides by the whole window unless ``count_include_pad`` is
+  False.
+* ``BatchNorm`` follows the reference's aux protocol: inputs
+  ``moving_mean`` and ``moving_var`` are aux states, and the op returns
+  ``(out, mean, var, new_moving_mean, new_moving_var)``. A training
+  pass normalises with the batch statistics (f32, from bf16 data under
+  amp; the output in the data's dtype) and blends them into the moving
+  ones as ``momentum·old + (1 − momentum)·batch`` with the *biased*
+  batch variance; torch's own running-stat update (unbiased variance,
+  momentum the weight of the new value) is never used. The moving
+  statistics take no part in the gradient. The normalisation runs on
+  torch's batch-norm kernels (``native_batch_norm``; cuDNN's, through
+  torch, refuses bf16 data with an f32 scale).
 * ``LayerNorm`` takes one-pass f32 statistics (``var = max(E[x²] −
   E[x]², 0)``), returns the input's dtype, and has the reference's
   analytic backward (an ``autograd.Function``, not autograd of the
@@ -17,12 +37,25 @@ The port's counterpart of the reference's ``ops/nn.py`` for
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
 from .. import amp
 from ..base import MXNetError
 from .registry import register
+
+
+def _tup(x, n):
+    """An attribute as an n-tuple of ints (one value repeats); None and
+    ``()`` stay None, for the caller's default."""
+    if x is None:
+        return None
+    t = (int(x),) if isinstance(x, (int, float)) else tuple(int(v) for v in x)
+    if len(t) == 1:
+        t = t * n
+    return t or None
 
 __all__ = []
 
@@ -61,6 +94,142 @@ def fully_connected(data, weight, bias=None, num_hidden=None, no_bias=False,
     if not no_bias and bias is not None:
         out = out + bias.to(out.dtype)
     return out
+
+
+# ----------------------------------------------------------------- conv
+
+class _Convolution(torch.autograd.Function):
+    """``aten.convolution`` forward and ``aten.convolution_backward``,
+    both inside :func:`amp.conv_precision`, so that a float32
+    convolution's backward is float32 too (autograd's own backward would
+    run outside the forward's precision scope)."""
+
+    @staticmethod
+    def forward(ctx, data, weight, stride, pad, dilate, groups):
+        with amp.conv_precision(data.dtype):
+            out = torch.ops.aten.convolution(
+                data, weight, None, stride, pad, dilate, False,
+                (0,) * len(stride), groups)
+        ctx.save_for_backward(data, weight)
+        ctx.geometry = (stride, pad, dilate, groups)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        data, weight = ctx.saved_tensors
+        stride, pad, dilate, groups = ctx.geometry
+        with amp.conv_precision(data.dtype):
+            dx, dw, _ = torch.ops.aten.convolution_backward(
+                grad, data, weight, None, stride, pad, dilate, False,
+                (0,) * len(stride), groups,
+                (ctx.needs_input_grad[0], ctx.needs_input_grad[1], False))
+        return dx, dw, None, None, None, None
+
+
+@register("Convolution", num_inputs=None, aliases=("convolution",))
+def convolution(data, weight, bias=None, kernel=None, stride=None, dilate=None,
+                pad=None, num_filter=None, num_group=1, no_bias=False,
+                workspace=1024, cudnn_tune=None, cudnn_off=False, layout=None):
+    """N-d convolution over NC(D)HW data and an (F, C/group, *kernel)
+    weight; ``workspace`` and the ``cudnn_*`` attributes are accepted
+    for API parity and ignored, as in the reference."""
+    if layout is not None and not str(layout).startswith("NC"):
+        raise MXNetError("Convolution(layout=%r): only channels-first "
+                         "layouts are ported (channels-last is ROADMAP.md "
+                         "queue A4)" % (layout,))
+    nd = data.dim() - 2
+    stride = _tup(stride, nd) or (1,) * nd
+    dilate = _tup(dilate, nd) or (1,) * nd
+    pad = _tup(pad, nd) or (0,) * nd
+    data, weight = amp.mxu_operands(data, weight)
+    out = _Convolution.apply(data, weight, stride, pad, dilate,
+                             int(num_group))
+    if not no_bias and bias is not None:
+        out = out + bias.reshape((1, -1) + (1,) * nd).to(out.dtype)
+    return out
+
+
+# ----------------------------------------------------------------- pooling
+
+_POOL = {1: (F.max_pool1d, F.avg_pool1d), 2: (F.max_pool2d, F.avg_pool2d),
+         3: (F.max_pool3d, F.avg_pool3d)}
+
+
+@register("Pooling", aliases=("pooling", "Pooling_v1"))
+def pooling(data, kernel=None, pool_type="max", global_pool=False,
+            stride=None, pad=None, pooling_convention="valid",
+            cudnn_off=False, count_include_pad=True):
+    """Max / avg / sum pooling over NC(D)HW, 1-3 spatial axes."""
+    nd = data.dim() - 2
+    if nd not in _POOL:
+        raise MXNetError("Pooling over %d spatial axes (1-3 are ported)"
+                         % nd)
+    if pool_type not in ("max", "avg", "sum"):
+        raise ValueError("unknown pool_type %s" % pool_type)
+    max_pool, avg_pool = _POOL[nd]
+    if global_pool:
+        kernel, stride, pad = tuple(data.shape[2:]), (1,) * nd, (0,) * nd
+    kernel = _tup(kernel, nd)
+    stride = _tup(stride, nd) or (1,) * nd
+    pad = _tup(pad, nd) or (0,) * nd
+    hi = list(pad)
+    if pooling_convention == "full":
+        # the output size rounded up: pad the high side to a whole stride
+        for i in range(nd):
+            rem = (data.shape[2 + i] + 2 * pad[i] - kernel[i]) % stride[i]
+            if rem:
+                hi[i] += stride[i] - rem
+    # torch pads implicitly only symmetrically, up to half the window
+    implicit = list(hi) == list(pad) and all(
+        p <= k // 2 for p, k in zip(pad, kernel))
+    x, padding = data, pad
+    if not implicit:
+        flat = [p for lo_hi in reversed(list(zip(pad, hi))) for p in lo_hi]
+        x = F.pad(data, flat, value=-math.inf if pool_type == "max" else 0.0)
+        padding = (0,) * nd
+    if pool_type == "max":
+        return max_pool(x, kernel, stride, padding)
+    if pool_type == "sum" or count_include_pad:
+        out = avg_pool(x, kernel, stride, padding, count_include_pad=True)
+        return out * math.prod(kernel) if pool_type == "sum" else out
+    if implicit:
+        return avg_pool(x, kernel, stride, padding, count_include_pad=False)
+    # the share of each window that lies on the data, from a padded mask
+    ones = F.pad(data.new_ones((1, 1) + tuple(data.shape[2:])), flat)
+    return avg_pool(x, kernel, stride) / avg_pool(ones, kernel, stride)
+
+
+# ----------------------------------------------------------------- norm
+
+@register("BatchNorm", num_inputs=5, num_aux=2, num_hidden_outputs=2,
+          aliases=("batch_norm", "BatchNorm_v1"))
+def batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
+               momentum=0.9, fix_gamma=True, use_global_stats=False,
+               output_mean_var=False, axis=1, cudnn_off=False,
+               _is_train=False):
+    """Batch normalization over every axis but ``axis``. Returns ``(out,
+    mean, var, new_moving_mean, new_moving_var)``; outside training (or
+    with ``use_global_stats``) it normalises with the moving statistics
+    and returns them unchanged, as the same tensors."""
+    ax = axis % data.dim()
+    x = data.movedim(ax, 1) if ax != 1 else data
+    g = torch.ones_like(gamma) if fix_gamma else gamma
+    if _is_train and not use_global_stats:
+        # no running statistics handed to torch: it updates none
+        out, mean, invstd = torch.native_batch_norm(
+            x, g, beta, None, None, True, 0.0, eps)
+        with torch.no_grad():
+            # the biased batch variance
+            var = (invstd.pow(-2) - eps).clamp(min=0.0)
+            new_mm = momentum * moving_mean + (1 - momentum) * mean
+            new_mv = momentum * moving_var + (1 - momentum) * var
+    else:
+        out = torch.native_batch_norm(x, g, beta, moving_mean, moving_var,
+                                      False, 0.0, eps)[0]
+        mean, var = new_mm, new_mv = moving_mean, moving_var
+    if ax != 1:
+        out = out.movedim(1, ax)
+    return out, mean, var, new_mm, new_mv
 
 
 def _layer_norm_stats(x32, ax, eps):

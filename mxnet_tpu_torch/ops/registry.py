@@ -18,6 +18,14 @@ Symbol node of it has that many outputs. An op whose function cannot run
 on meta tensors (a user kernel, a custom op) declares ``meta_fn``, a
 function of the same arguments that returns meta tensors of the output
 shapes, and ``infer_shape`` calls it instead.
+
+An op with auxiliary state (BatchNorm's moving statistics) declares
+``num_aux``: its last ``num_aux`` tensor inputs are the aux states, and
+its last ``num_aux`` outputs their updated values, which the caller
+commits (the executor after a training forward, ``imperative_invoke``
+into the arrays it was given). ``num_hidden_outputs`` more outputs come
+before that tail (BatchNorm's batch mean and variance); neither kind is
+listed by ``list_outputs`` or bound as a head of the graph.
 """
 from __future__ import annotations
 
@@ -27,7 +35,8 @@ from typing import Callable, Dict, List, Optional, Sequence, Union
 
 __all__ = ["OpDef", "register", "get_op", "OP_REGISTRY"]
 
-_PARAM_INPUTS = ("weight", "bias", "gamma", "beta", "label")
+_PARAM_INPUTS = ("weight", "bias", "gamma", "beta", "label",
+                 "moving_mean", "moving_var", "moving_avg")
 
 
 class OpDef:
@@ -36,25 +45,30 @@ class OpDef:
     def __init__(self, name: str, fn: Callable,
                  num_inputs: Optional[int] = 1,
                  num_outputs: Union[int, Callable] = 1,
-                 meta_fn: Optional[Callable] = None):
+                 meta_fn: Optional[Callable] = None,
+                 num_aux: int = 0, num_hidden_outputs: int = 0):
         self.name = name
         self.fn = fn
         self.num_inputs = num_inputs
         self.num_outputs = num_outputs
         self.meta_fn = meta_fn
+        self.num_aux = num_aux
+        self.num_hidden_outputs = num_hidden_outputs
         # an op whose inputs depend on its attributes (Custom: the Prop
         # lists them) sets this to a function of the attributes
         self.input_names_fn: Optional[Callable] = None
         self.aliases: List[str] = [name]
         self.__doc__ = fn.__doc__
         self._input_names: Optional[List[str]] = None
+        self._aux_input_names: List[str] = []
 
     @property
     def input_names(self) -> List[str]:
-        """Names of the op's tensor inputs, derived from the function's
-        signature as the reference derives them: leading parameters
-        without a default, plus the defaulted parameter inputs
-        (weight, bias, gamma, beta, label)."""
+        """Names of the op's tensor inputs other than its aux states,
+        derived from the function's signature as the reference derives
+        them: leading parameters without a default, plus the defaulted
+        parameter inputs (weight, bias, gamma, beta, label and the
+        moving statistics); ``num_inputs`` counts the aux states too."""
         if self._input_names is None:
             names: List[str] = []
             for p in inspect.signature(self.fn).parameters.values():
@@ -74,8 +88,18 @@ class OpDef:
                     break
             if not names and self.num_inputs != 0:
                 names = ["data"]
+            if self.num_aux:
+                self._aux_input_names = names[-self.num_aux:]
+                names = names[:-self.num_aux]
             self._input_names = names
         return self._input_names
+
+    @property
+    def aux_input_names(self) -> List[str]:
+        """Names of the trailing aux-state inputs (``moving_mean``,
+        ``moving_var`` for BatchNorm)."""
+        _ = self.input_names        # derives both lists
+        return self._aux_input_names
 
     @property
     def param_names(self) -> List[str]:
@@ -97,13 +121,15 @@ OP_REGISTRY: Dict[str, OpDef] = {}
 def register(name: Optional[str] = None, num_inputs: Optional[int] = 1,
              aliases: Sequence[str] = (),
              num_outputs: Union[int, Callable] = 1,
-             meta_fn: Optional[Callable] = None):
+             meta_fn: Optional[Callable] = None, num_aux: int = 0,
+             num_hidden_outputs: int = 0):
     """Decorator: register a function over tensors as an op."""
 
     def _reg(fn: Callable) -> OpDef:
         opname = name or fn.__name__
         op = OpDef(opname, fn, num_inputs=num_inputs,
-                   num_outputs=num_outputs, meta_fn=meta_fn)
+                   num_outputs=num_outputs, meta_fn=meta_fn,
+                   num_aux=num_aux, num_hidden_outputs=num_hidden_outputs)
         for n in (opname,) + tuple(aliases):
             if n in OP_REGISTRY:
                 raise ValueError("Op %s already registered" % n)

@@ -7,10 +7,10 @@ reference."""
 from __future__ import annotations
 
 from ..ops import OP_REGISTRY
-from .symbol import NameManager, Symbol, Variable, load_json
+from .symbol import NameManager, Symbol, Variable, load, load_json
 from .symbol import _install_op_functions, make_symbol_function
 
-__all__ = ["Symbol", "Variable", "load_json", "NameManager"]
+__all__ = ["Symbol", "Variable", "load", "load_json", "NameManager"]
 __all__ += _install_op_functions(globals())
 
 # the later reference's alias: sym.contrib.<name> for the _contrib_<name>

@@ -11,14 +11,22 @@ operators (``x + h``, ``future * -1e9``), ``list_arguments`` /
   reference; ``sym[i]`` (or ``sym["<name>_output1"]``) is one of them,
   and may be the input of another op.
 
-* ``infer_shape`` derives parameter shapes from the data shapes alone
-  with the reference's per-op rules (``_derive_param_shapes``) and
-  propagates shapes by running every node's op on meta tensors, which
-  carry shapes and no data (the reference uses ``jax.eval_shape``).
+* An op with aux state (``OpDef.num_aux``: BatchNorm) gets its
+  missing aux inputs as Variables marked ``is_aux``, named
+  ``<name>_moving_mean`` and ``<name>_moving_var`` as in the reference;
+  ``list_arguments`` leaves them out and ``list_auxiliary_states`` lists
+  them.
+* ``infer_shape`` derives parameter and aux shapes from the data shapes
+  alone with the reference's per-op rules (``_derive_param_shapes``)
+  and propagates shapes by running every node's op on meta tensors,
+  which carry shapes and no data (the reference uses
+  ``jax.eval_shape``).
 * ``tojson`` writes, and ``load_json`` reads, the reference's schema
   (``nodes`` with ``op``/``param``/``name``/``inputs``/``attr``, plus
   ``arg_nodes`` and ``heads``), so a graph that ``mxnet_tpu`` saves
-  loads here with the same node names and attributes.
+  loads here with the same node names and attributes. As in the
+  reference, the auto-created aux variables are not written, and
+  ``load_json`` creates them again from the op's aux arity.
 """
 from __future__ import annotations
 
@@ -29,11 +37,12 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from ..base import MXNetError
+from ..base import MXNetError, atomic_write
 from ..context import resolve_device
 from ..ops import OP_REGISTRY, OpDef, get_op
+from ..ops.nn import _tup
 
-__all__ = ["Symbol", "Variable", "load_json", "NameManager"]
+__all__ = ["Symbol", "Variable", "load", "load_json", "NameManager"]
 
 
 # ------------------------------------------------------------------ naming
@@ -79,16 +88,18 @@ def current_name_manager() -> NameManager:
 class _Node:
     """One graph node: an op application or a variable (op=None)."""
 
-    __slots__ = ("op", "name", "attrs", "str_attrs", "inputs")
+    __slots__ = ("op", "name", "attrs", "str_attrs", "inputs", "is_aux")
 
     def __init__(self, op: Optional[OpDef], name: str,
                  attrs: Optional[Dict[str, Any]] = None,
-                 inputs: Optional[List[Tuple["_Node", int]]] = None):
+                 inputs: Optional[List[Tuple["_Node", int]]] = None,
+                 is_aux: bool = False):
         self.op = op
         self.name = name
         self.attrs = attrs or {}          # op kwargs (python values)
         self.str_attrs: Dict[str, str] = {}   # user attrs (__shape__, ...)
         self.inputs = inputs or []
+        self.is_aux = is_aux              # an aux-state variable
 
     @property
     def is_variable(self) -> bool:
@@ -158,8 +169,15 @@ class Symbol:
 
     # ------------------------------------------------------------ listing
     def list_arguments(self) -> List[str]:
-        """Variable inputs in topological order."""
-        return [n.name for n in _topo_order(self._entries) if n.is_variable]
+        """Variable inputs in topological order, aux states left out."""
+        return [n.name for n in _topo_order(self._entries)
+                if n.is_variable and not n.is_aux]
+
+    def list_auxiliary_states(self) -> List[str]:
+        """Aux-state variables (BatchNorm's moving statistics) in
+        topological order."""
+        return [n.name for n in _topo_order(self._entries)
+                if n.is_variable and n.is_aux]
 
     def list_outputs(self) -> List[str]:
         names = []
@@ -217,9 +235,10 @@ class Symbol:
     # ------------------------------------------------------------ shapes
     def infer_shape(self, *args, **kwargs):
         """``(arg_shapes, out_shapes, aux_shapes)`` from the given input
-        shapes; parameter shapes the graph implies are derived. Raises
-        :class:`MXNetError` naming what cannot be inferred."""
+        shapes; parameter and aux shapes the graph implies are derived.
+        Raises :class:`MXNetError` naming what cannot be inferred."""
         arg_names = self.list_arguments()
+        aux_names = self.list_auxiliary_states()
         known: Dict[str, Tuple[int, ...]] = {}
         for n, s in zip(arg_names, args):
             if s is not None:
@@ -234,7 +253,7 @@ class Symbol:
         node_shapes, derived = _propagate_shapes(self, known)
         resolved = dict(known)
         resolved.update(derived)
-        missing = [n for n in arg_names if n not in resolved]
+        missing = [n for n in arg_names + aux_names if n not in resolved]
         if missing:
             raise MXNetError("infer_shape: cannot infer %s (provide its "
                              "shape)" % missing)
@@ -246,12 +265,28 @@ class Symbol:
                 raise MXNetError("infer_shape: op %s (node %r) rejects its "
                                  "input shapes" % (node.op.name, node.name))
             out_shapes.append(tuple(s))
-        return [tuple(resolved[n]) for n in arg_names], out_shapes, []
+        return ([tuple(resolved[n]) for n in arg_names], out_shapes,
+                [tuple(resolved[n]) for n in aux_names])
 
     # ------------------------------------------------------------ save/load
     def tojson(self) -> str:
-        """Serialize to the reference's symbol-JSON schema."""
-        nodes = _topo_order(self._entries)
+        """Serialize to the reference's symbol-JSON schema. An op's
+        trailing aux variables are left out of its inputs, and an aux
+        variable nothing else refers to is not written (``load_json``
+        creates it again), as the reference does."""
+        topo = _topo_order(self._entries)
+        trimmed: Dict[int, list] = {}
+        for n in topo:
+            ins = list(n.inputs)
+            k = 0 if n.is_variable else n.op.num_aux
+            if k and len(ins) >= k and all(src.is_variable and src.is_aux
+                                           for src, _ in ins[-k:]):
+                ins = ins[:-k]
+            trimmed[id(n)] = ins
+        referenced = {id(src) for n in topo for src, _ in trimmed[id(n)]}
+        referenced |= {id(n) for n, _ in self._entries}
+        nodes = [n for n in topo if not (n.is_variable and n.is_aux and
+                                         id(n) not in referenced)]
         index = {id(n): i for i, n in enumerate(nodes)}
         out_nodes = []
         for n in nodes:
@@ -260,7 +295,8 @@ class Symbol:
                 "param": {} if n.is_variable else
                          {k: _attr_str(v) for k, v in n.attrs.items()},
                 "name": n.name,
-                "inputs": [[index[id(src)], i] for src, i in n.inputs],
+                "inputs": [[index[id(src)], i]
+                           for src, i in trimmed[id(n)]],
                 "backward_source_id": -1,
             }
             if n.str_attrs:
@@ -271,19 +307,25 @@ class Symbol:
         return json.dumps({"nodes": out_nodes, "arg_nodes": arg_nodes,
                            "heads": heads}, indent=2)
 
+    def save(self, fname: str) -> None:
+        """Write :meth:`tojson` to ``fname`` (atomically)."""
+        atomic_write(fname, self.tojson().encode("utf-8"))
+
     # ------------------------------------------------------------ bind
     def bind(self, ctx, args, args_grad=None, grad_req="write",
              aux_states=None):
         from ..executor import Executor
-        return Executor(self, ctx, args, args_grad, grad_req)
+        return Executor(self, ctx, args, args_grad, grad_req, aux_states)
 
     def simple_bind(self, ctx, grad_req="write", type_dict=None, **kwargs):
-        """Infer shapes, allocate arguments (zeros) and gradient buffers
-        on ``ctx`` (None: ``cuda:0``) and bind."""
+        """Infer shapes, allocate arguments and aux states (zeros) and
+        gradient buffers on ``ctx`` (None: ``cuda:0``) and bind."""
         from ..executor import Executor
         from ..ndarray import zeros
         ctx = resolve_device(ctx)
-        arg_shapes, _, _ = self.infer_shape(**kwargs)
+        arg_shapes, _, aux_shapes = self.infer_shape(**kwargs)
+        aux = {n: zeros(s, ctx=ctx)
+               for n, s in zip(self.list_auxiliary_states(), aux_shapes)}
         arg_names = self.list_arguments()
         type_dict = type_dict or {}
         args = {n: zeros(s, ctx=ctx, dtype=type_dict.get(n, "float32"))
@@ -295,7 +337,7 @@ class Symbol:
             args_grad = {n: zeros(s, ctx=ctx)
                          for n, s in zip(arg_names, arg_shapes)
                          if reqs.get(n, "null") != "null"}
-        return Executor(self, ctx, args, args_grad, grad_req)
+        return Executor(self, ctx, args, args_grad, grad_req, aux)
 
 
 # ------------------------------------------------------------------ factory
@@ -322,7 +364,8 @@ def _num_visible_outputs(op: OpDef, attrs: Dict[str, Any]) -> int:
 
 def _create(op: OpDef, input_syms: List[Symbol], attrs: Dict[str, Any],
             name: Optional[str]) -> Symbol:
-    """An op node with one Symbol entry per output."""
+    """An op node with one Symbol entry per visible output (the
+    ``input_syms`` end with its aux states, if it has any)."""
     name = current_name_manager().get(name, op.name.lower().replace("_", ""))
     entries = []
     for s in input_syms:
@@ -338,9 +381,9 @@ def _create(op: OpDef, input_syms: List[Symbol], attrs: Dict[str, Any],
 def make_symbol_function(op: OpDef):
     """The ``sym.<Op>`` wrapper: Symbols fill tensor-input slots (by
     position or name), other positional arguments map onto the op's
-    parameters at the same position, and missing weight/bias/label
-    inputs become Variables named ``<name>_<input>``, as in the
-    reference."""
+    parameters at the same position, and missing weight/bias/label and
+    aux inputs become Variables named ``<name>_<input>`` (aux ones marked
+    ``is_aux``), as in the reference."""
     def fn(*args, **kwargs):
         name = current_name_manager().get(kwargs.pop("name", None),
                                           op.name.lower().replace("_", ""))
@@ -381,6 +424,11 @@ def make_symbol_function(op: OpDef):
         if attrs.get("no_bias") and "bias" in input_names and \
                 "bias" not in inputs:
             del in_syms[input_names.index("bias")]
+        for n in op.aux_input_names:
+            if n not in inputs:
+                inputs[n] = Variable("%s_%s" % (name, n))
+                inputs[n]._entries[0][0].is_aux = True
+            in_syms.append(inputs[n])
         return _create(op, in_syms, attrs, name)
 
     fn.__name__ = op.name
@@ -399,7 +447,7 @@ def load_json(json_str: str) -> Symbol:
     built: List[_Node] = []
     for rn in g["nodes"]:
         if rn["op"] == "null":
-            node = _Node(None, rn["name"])
+            node = _Node(None, rn["name"], is_aux=bool(rn.get("is_aux")))
             node.str_attrs = {k: str(v) for k, v in
                               (rn.get("attr") or rn.get("attrs") or
                                {}).items()}
@@ -417,10 +465,30 @@ def load_json(json_str: str) -> Symbol:
             attrs = {k: _parse_attr(v) for k, v in op_attrs.items()
                      if k in known}
             inputs = [(built[e[0]], e[1]) for e in rn["inputs"]]
+            if op.num_aux:
+                visible = len(op.input_names)
+                if attrs.get("no_bias") and "bias" in op.input_names:
+                    visible -= 1
+                if len(inputs) >= visible + op.num_aux:
+                    # the aux states were written as inputs (1.x files)
+                    for src, _ in inputs[-op.num_aux:]:
+                        if src.is_variable:
+                            src.is_aux = True
+                else:
+                    inputs += [(_Node(None, "%s_%s" % (rn["name"], a),
+                                      is_aux=True), 0)
+                               for a in op.aux_input_names]
             node = _Node(op, rn["name"], attrs, inputs)
             node.str_attrs = {k: str(v) for k, v in user_attrs.items()}
         built.append(node)
     return Symbol([(built[e[0]], e[1]) for e in g["heads"]])
+
+
+def load(fname: str) -> Symbol:
+    """A Symbol from a JSON file (:meth:`Symbol.save`, or the
+    reference's)."""
+    with open(fname) as f:
+        return load_json(f.read())
 
 
 # ------------------------------------------------------------------ shapes
@@ -491,6 +559,19 @@ def _propagate_shapes(sym: Symbol, known: Dict[str, Tuple[int, ...]]):
                     flat *= x
                 setvar(1, (nh, flat if a.get("flatten", True) else ds[-1]))
                 setvar(2, (nh,))
+            elif opname == "Convolution":
+                # only a weight that is a variable: the s2d stem feeds a
+                # re-laid-out (F, 12, 4, 4) view of its (F, 3, 7, 7) one
+                nf = int(a["num_filter"])
+                kernel = _tup(a.get("kernel"), len(ds) - 2) or \
+                    (1,) * (len(ds) - 2)
+                setvar(1, (nf, ds[1] // int(a.get("num_group", 1)))
+                       + kernel)
+                setvar(2, (nf,))
+            elif opname == "BatchNorm":
+                ax = int(a.get("axis", 1)) % len(ds)
+                for pos in range(1, 5):      # gamma, beta and the aux
+                    setvar(pos, (ds[ax],))
             elif opname == "LayerNorm":
                 ax = int(a.get("axis", -1)) % len(ds)
                 setvar(1, (ds[ax],))

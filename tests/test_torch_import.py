@@ -39,6 +39,8 @@ def test_importing_the_port_loads_no_jax():
         "import mxnet_tpu_torch.symbol, mxnet_tpu_torch.executor\n"
         "import mxnet_tpu_torch.initializer, mxnet_tpu_torch.optimizer\n"
         "import mxnet_tpu_torch.random\n"
+        "import mxnet_tpu_torch.model, mxnet_tpu_torch.models.resnet\n"
+        "import mxnet_tpu_torch.ndarray.legacy_format\n"
         "import mxnet_tpu_torch.io, mxnet_tpu_torch.metric\n"
         "import mxnet_tpu_torch.module, mxnet_tpu_torch.module.base_module\n"
         "from mxnet_tpu_torch.module import Module\n"

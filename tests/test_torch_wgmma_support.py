@@ -261,6 +261,70 @@ class _Event:
         return (end.t - self.t) * 1e3
 
 
+class _Trace:
+    """A torch.profiler stand-in whose traces hold the kernel rows of
+    ``traces``, one list of (device us, kernel records) per trace taken:
+    an empty list is a trace in which CUPTI delivered no device activity,
+    a count that is no multiple of the calls one that lost records."""
+
+    def __init__(self, traces):
+        self.traces = list(traces)
+        self.taken = 0
+
+    def __call__(self, activities):
+        self.taken += 1
+        cuda = torch.autograd.DeviceType.CUDA
+        return _Profile([type("Row", (), {"device_type": cuda,
+                                          "self_device_time_total": us,
+                                          "count": n})
+                         for us, n in self.traces.pop(0)])
+
+
+class _Profile:
+    def __init__(self, rows):
+        self.rows = rows
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def key_averages(self):
+        return self.rows
+
+
+@pytest.mark.parametrize("traces,taken,want", [
+    # a whole trace: one kernel a call, another twice a call
+    ([[(40.0, 4), (20.0, 8)]], 1, 0.015),
+    # records lost: means per kernel give the same time
+    ([[(30.0, 3), (17.5, 7)]], 1, 0.015),
+    # a kernel seen once in four calls adds its time over the calls
+    ([[(40.0, 4), (3.0, 1)]], 1, 0.01075),
+    # an empty trace, taken again
+    ([[], [(40.0, 4)]], 2, 0.01),
+    # every trace empty: CUDA events
+    ([[], [], []], 3, None),
+])
+def test_kernel_ms_survives_lost_records(monkeypatch, traces, taken, want):
+    """Profiler traces on the card lose kernel records, and one held none
+    (chip_smoke then divided by a kernel time of 0): kernel_ms reads each
+    kernel's mean duration times its launches per call, takes an empty
+    trace again, and falls back to CUDA events when every trace is
+    empty; it never returns 0."""
+    import time
+    import torch.profiler
+    trace = _Trace(traces)
+    monkeypatch.setattr(torch.profiler, "profile", trace)
+    monkeypatch.setattr(torch.cuda, "Event", _Event)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(chip_smoke, "log", lambda *a: None)
+    ms = chip_smoke.kernel_ms(torch, lambda: time.sleep(1e-4), iters=4)
+    assert trace.taken == taken and ms > 0
+    if want is not None:
+        assert ms == pytest.approx(want)
+
+
 def test_timing_reports_median_spread_and_host_time(monkeypatch):
     monkeypatch.setattr(torch.cuda, "Event", _Event)
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
@@ -602,3 +666,93 @@ def test_f32_backward_of_another_checkout_needs_a_card():
     assert "package %s" % (root / "mxnet_tpu_torch" / "__init__.py") in r.stdout
     assert "is_available() is False" in r.stderr
     assert "dq" not in r.stdout
+
+
+@pytest.fixture
+def small_resnet(monkeypatch):
+    """chip_smoke's ResNet phases on the CPU: ResNet-18 (v2, s2d stem)
+    at 64x64, batch 4, 10 classes, with counting wrappers around the
+    plain attention versions (which must not run) and the CUDA-only
+    calls stood in for. The amp bf16 step-1 cross-entropy of 4 images
+    moves by bf16 roundings of up to 2e-2 (measured 0.0198) that the
+    card's 128 images average down, so it is held to 5e-2 here; every
+    other limit is the card's."""
+    import mxnet_tpu_torch as mt
+    for name, value in (("DEVICE", "cpu"), ("RESNET_LAYERS", 18),
+                        ("RESNET_CLASSES", 10), ("RESNET_BATCH", 4),
+                        ("RESNET_IMAGE", 64), ("RESNET_WARM", 1),
+                        ("RESNET_TIMED", 2), ("RESNET_F32_WARM", 1),
+                        ("RESNET_F32_TIMED", 1), ("RESNET_CE_TOL", 5e-2)):
+        monkeypatch.setattr(chip_smoke, name, value)
+    monkeypatch.setattr(mt, "gpu", lambda i=0: mt.cpu())
+    monkeypatch.setattr(torch.cuda, "Event", _Event)
+    for fn in ("synchronize", "empty_cache", "reset_peak_memory_stats"):
+        monkeypatch.setattr(torch.cuda, fn, lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
+    monkeypatch.setattr(fa, "flash_attention_fwd",
+                        _counting(fa.flash_attention_reference))
+    monkeypatch.setattr(fa, "flash_attention_bwd_dq", _counting(_plain_dq))
+    monkeypatch.setattr(fa, "flash_attention_bwd_dkv", _counting(_plain_dkv))
+    for flag in (torch.backends.cudnn, torch.backends.cuda.matmul):
+        monkeypatch.setattr(flag, "allow_tf32", False)
+    lines = []
+    monkeypatch.setattr(chip_smoke, "log", lambda *a: lines.append(a[0]))
+    return lines
+
+
+def test_resnet_phase_rehearsal_on_cpu(small_resnet):
+    """resnet_phase (amp bf16, then f32) on a small ResNet: the step-1
+    cross-entropy agrees with the plain forward (its 7x7 stem against
+    the port's s2d one), the moving statistics with its batch
+    statistics, the loss falls and no attention kernel runs."""
+    lines = small_resnet
+    chip_smoke.resnet_phase(torch, np)
+    for what in ("resnet: ", "resnet f32: "):
+        assert any(ln.startswith(what + "step-1 cross-entropy")
+                   for ln in lines)
+        assert any(ln.startswith(what + "step-1 moving statistics of 19 "
+                                 "BatchNorms") for ln in lines)
+        assert any(ln.startswith(what + "loss per step") for ln in lines)
+    assert any(ln.startswith("resnet device time by kind") for ln in lines)
+
+
+def _wrong_batch_norm(kind):
+    """BatchNorm whose moving statistics are wrong: torch's momentum
+    (the weight of the new value), or never committed."""
+    from mxnet_tpu_torch.ops import get_op
+    right = get_op("BatchNorm").fn
+
+    def fn(data, gamma, beta, moving_mean, moving_var, **kw):
+        out, mean, var, new_mm, new_mv = right(
+            data, gamma, beta, moving_mean, moving_var, **kw)
+        if kind == "uncommitted":
+            return out, mean, var, moving_mean, moving_var
+        m = kw.get("momentum", 0.9)
+        return (out, mean, var, (1 - m) * moving_mean + m * mean.detach(),
+                (1 - m) * moving_var + m * var.detach())
+    fn.__signature__ = __import__("inspect").signature(right)
+    return fn
+
+
+@pytest.mark.parametrize("kind", ["torch_momentum", "uncommitted"])
+def test_resnet_phase_ends_on_wrong_moving_statistics(small_resnet,
+                                                      monkeypatch, kind):
+    from mxnet_tpu_torch.ops import get_op
+    monkeypatch.setattr(get_op("BatchNorm"), "fn", _wrong_batch_norm(kind))
+    with pytest.raises(chip_smoke.SmokeFailure,
+                       match="moving statistics of .* off by"):
+        run = chip_smoke.train_resnet(torch, np, {}, 0, 1, "resnet f32")
+        chip_smoke.check_resnet(np, "resnet f32", run,
+                                chip_smoke.RESNET_F32_CE_TOL,
+                                chip_smoke.RESNET_F32_STATS_RTOL,
+                                chip_smoke.PEAK_FP32_FLOPS, "f32")
+
+
+def test_resnet_phase_ends_on_an_attention_launch(small_resnet):
+    run = chip_smoke.train_resnet(torch, np, {}, 0, 1, "resnet f32")
+    run["launches"] = {"flash_attention_fwd": {"f32": 1, "bf16": 0}}
+    with pytest.raises(chip_smoke.SmokeFailure, match="flash-attention"):
+        chip_smoke.check_resnet(np, "resnet f32", run,
+                                chip_smoke.RESNET_F32_CE_TOL,
+                                chip_smoke.RESNET_F32_STATS_RTOL,
+                                chip_smoke.PEAK_FP32_FLOPS, "f32")
