@@ -107,7 +107,26 @@ Phases, each fatal on failure (exit code 1, no result line):
    the first step). Then the same in float32 (amp off, the reference's
    default): the first step, 1 warm, 5 timed; cross-entropy within
    1e-3 nats. This slice adds no kernel: convolutions run on cuDNN,
-   BatchNorm on torch's kernels.
+   BatchNorm on torch's kernels;
+9. gluon: the imperative API. A HybridBlock calling
+   ``F.FlashAttention(q, k, v, causal=True)`` at B 2, H 4, S 512, D 128
+   runs under ``autograd.record()`` and ``backward()`` in bf16 and f32:
+   K1, K2 and K3 must each launch once, the output and gradients match
+   the plain versions. ``nn.Conv2DTranspose`` at a DCGAN generator's
+   shape (batch 64, 512 -> 256 channels, kernel 4, stride 2, 8x8 ->
+   16x16) against a plain f32 ``conv_transpose2d``, forward and
+   backward. Then ``gluon.model_zoo.vision.get_model("resnet50_v1")``,
+   hybridized, Xavier(gaussian, in, 2) from ``derive_numpy_rng`` after
+   ``mt.random.seed(0)``, trained as the reference's Gluon example does
+   (``autograd.record()``, ``backward()``, ``Trainer.step``; SGD lr
+   0.05, momentum 0.9, wd 1e-4, ``SoftmaxCrossEntropyLoss``) on the
+   ResNet phase's batch: amp bf16 (first step, 2 warm, 10 timed, 1
+   profiled, then 11 un-hybridized, 10 of them timed) and f32 (1, 1, 5,
+   1, then 1 + 5 un-hybridized). The step-1 loss and running
+   statistics are held to ``plain_resnet_v1`` (the ResNet phase's
+   limits), the parameter count to resnet50_v1's, the loss must fall,
+   no attention kernel may launch, and in f32 one eager step and one
+   hybridized step from the initial parameters must agree.
 
 The second-to-last line is the kernel table as one JSON object; the
 last is ``{"ok": true, "device": {...}}``. Without a GPU, or run from a
@@ -212,6 +231,32 @@ RESNET_F32_CE_TOL = 1e-3
 RESNET_STATS_RTOL = 0.25
 RESNET_F32_STATS_RTOL = 1e-3
 RESNET_STATS_ATOL = 1e-5
+
+# the Gluon phase: resnet50_v1 from the zoo at the ResNet phase's batch,
+# learning rate, momentum and weight decay (the reference's Gluon
+# example); the same cross-entropy and statistics limits as the ResNet
+# phase. Gluon's BatchNorm eps is 1e-5.
+GLUON_TIMED = 10
+GLUON_EPS = 1e-5
+# resnet50_v1's parameter values: 25,575,912 with a gradient (its
+# bottlenecks' 1x1 convolutions carry biases) and 53,120 running
+# statistics
+GLUON_RESNET50_V1_VALUES = 25575912 + 53120
+# one eager step against one hybridized step, f32, from the same
+# parameters: the same ops on the same inputs. cuDNN's default f32
+# weight gradients sum with atomics (two calls measured 8.8e-5 of a
+# weight gradient's max apart), so both steps take its deterministic
+# algorithms. A convolution bias that a BatchNorm follows has no
+# gradient in exact arithmetic (two calls measured 2.02 of its own max
+# |value| apart): its difference is scaled by its weight's gradient
+GLUON_EAGER_RTOL = 1e-5
+# the tape check of the attention kernels, and the DCGAN generator's
+# Conv2DTranspose (batch, in channels, out channels, input side)
+TAPE_ATTENTION_SHAPE = (2, 4, 512, 128)
+DECONV_SHAPE = (64, 512, 256, 8)
+# a plain f32 conv_transpose2d against cuDNN's f32 one (TF32 off): sums
+# of 512 x 4 products (d data: 256 x 4) in another order
+DECONV_RTOL = 1e-5
 
 
 class SmokeFailure(Exception):
@@ -2196,6 +2241,452 @@ def resnet_phase(torch, np):
                  RESNET_F32_STATS_RTOL, PEAK_FP32_FLOPS, "f32")
 
 
+# ----------------------------------------------------- the Gluon slice
+
+def tape_attention_check(torch, np):
+    """The imperative tape drives the attention kernels: a HybridBlock
+    calling ``F.FlashAttention(q, k, v, causal=True)`` at B 2, H 4, S
+    512, D 128, under ``autograd.record()`` and ``backward()``, in bf16
+    and f32. K1, K2 and K3 must each launch once per pass (in the input
+    dtype), the output must match ``flash_attention_reference`` and the
+    gradients ``flash_attention_backward_reference`` (bf16: the BF16_*
+    limits; f32: KERNEL_ATOL max(1, max|ref|))."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    counters = {"flash_attention_fwd": fa.flash_attention_fwd,
+                "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
+                "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv}
+
+    class Attention(gluon.HybridBlock):
+        def hybrid_forward(self, F, q, k, v):
+            return F.FlashAttention(q, k, v, causal=True)
+
+    block = Attention(prefix="tape_attention_")
+    block.hybridize()
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    B, H, S, D = TAPE_ATTENTION_SHAPE
+    for dtype, key in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        q, k, v, do = (torch.randn((B, H, S, D), generator=gen, device=dev)
+                       .to(dtype) for _ in range(4))
+        arrays = [mt.nd.NDArray(t.clone()) for t in (q, k, v)]
+        for a in arrays:
+            a.attach_grad()
+        before = {n: dict(fn.launches) for n, fn in counters.items()}
+        with autograd.record():
+            out = block(*arrays)
+        out.backward(mt.nd.NDArray(do))
+        torch.cuda.synchronize()
+        rose = {n: {s: fn.launches[s] - before[n][s] for s in fn.launches}
+                for n, fn in counters.items()}
+        want_rose = {s: int(s == key) for s in ("f32", "bf16")}
+        check(all(r == want_rose for r in rose.values()),
+              "tape attention %s: launches rose by %s, one of each kernel "
+              "expected" % (key, rose))
+        flat = [t.reshape(B * H, S, D) for t in (q, k, v, do)]
+        scale = D ** -0.5
+        o_r, lse_r = fa.flash_attention_reference(*flat[:3], scale, True)
+        grads_r = fa.flash_attention_backward_reference(
+            *flat[:3], o_r, lse_r, flat[3], scale, True)
+        pairs = [("o", out.data, o_r)] + [
+            (nm, a.grad.data, g) for nm, a, g in zip(("dq", "dk", "dv"),
+                                                     arrays, grads_r)]
+        for nm, got, want in pairs:
+            got = got.reshape(want.shape)
+            if key == "bf16":
+                r = bf16_compare(got, want)
+                log("tape attention bf16 %s: max err %.3g (max|ref| %.3g), "
+                    "norm ratio %.3g, element excess %.3g rms"
+                    % (nm, r["err"], r["top"], r["rel"], r["over"]))
+                check(r["ok"], "tape attention bf16 %s disagrees with the "
+                      "plain version: %s" % (nm, r))
+            else:
+                err = (got - want).abs().max().item()
+                lim = KERNEL_ATOL * max(1.0, want.abs().max().item())
+                log("tape attention f32 %s: max err %.3g (limit %.3g)"
+                    % (nm, err, lim))
+                check(err <= lim, "tape attention f32 %s: error %.3g over "
+                      "%.3g" % (nm, err, lim))
+        log("tape attention %s: B %d H %d S %d D %d causal under "
+            "autograd.record(): launches %s" % (key, B, H, S, D, rose))
+        del q, k, v, do, arrays, out, flat, o_r, lse_r, grads_r, pairs
+    torch.cuda.empty_cache()
+
+
+def deconvolution_check(torch, np):
+    """``nn.Conv2DTranspose`` at a DCGAN generator's shape (batch 64,
+    512 -> 256 channels, kernel 4, stride 2, pad 1, 8x8 -> 16x16), one
+    forward and backward on the card (cuDNN, through ``Deconvolution``),
+    against a plain f32 ``conv_transpose2d`` of the same weight with
+    TF32 off: output and input / weight / bias gradients within
+    DECONV_RTOL of each one's largest magnitude."""
+    import torch.nn.functional as F
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import autograd, gluon
+    dev = torch.device(DEVICE)
+    N, CIN, COUT, HW = DECONV_SHAPE
+    layer = gluon.nn.Conv2DTranspose(COUT, 4, strides=2, padding=1,
+                                     in_channels=CIN, prefix="dcgan_g_")
+    layer.initialize(mt.init.Normal(0.02).set_rng(
+        np.random.default_rng(SEED + 12)), ctx=mt.gpu(0))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    x, head = (torch.randn(s, generator=gen, device=dev)
+               for s in ((N, CIN, HW, HW), (N, COUT, 2 * HW, 2 * HW)))
+    xa = mt.nd.NDArray(x.clone())
+    xa.attach_grad()
+    with autograd.record():
+        out = layer(xa)
+    out.backward(mt.nd.NDArray(head))
+    w = layer.weight.data().data.detach().clone().requires_grad_(True)
+    b = layer.bias.data().data.detach().clone().requires_grad_(True)
+    xr = x.clone().requires_grad_(True)
+    ref = F.conv_transpose2d(xr, w, b, stride=2, padding=1)
+    ref.backward(head)
+    torch.cuda.synchronize()
+    for nm, got, want in (("output", out.data, ref),
+                          ("d data", xa.grad.data, xr.grad),
+                          ("d weight", layer.weight.grad().data, w.grad),
+                          ("d bias", layer.bias.grad().data, b.grad)):
+        err = (got - want).abs().max().item()
+        lim = DECONV_RTOL * want.abs().max().item()
+        log("deconvolution %s: max err %.3g (limit %.3g)" % (nm, err, lim))
+        check(tuple(got.shape) == tuple(want.shape) and err <= lim,
+              "Conv2DTranspose %s %s vs plain %s: error %.3g over %.3g"
+              % (nm, tuple(got.shape), tuple(want.shape), err, lim))
+    t = timing(torch, lambda: layer(xa))
+    log("deconvolution: Conv2DTranspose(%d -> %d, 4, 2, 1) on %dx%dx%dx%d "
+        "forward %.4f ms (window medians, spread %s)"
+        % (CIN, COUT, N, CIN, HW, HW, t["ms"], spread(t)))
+    del layer, x, head, xa, out, w, b, xr, ref
+    torch.cuda.empty_cache()
+
+
+def plain_resnet_v1(torch, net, x, y):
+    """The zoo's ResNet v1 training forward (``BottleneckV1`` at 50
+    layers, ``BasicBlockV1`` at 18; 7x7/2 stem and 3x3/2 max pool) in plain float32 torch.nn.functional,
+    written from ``gluon/model_zoo/vision/resnet.py`` and independent of
+    the port's ops and dispatch: it reads only the parameter tensors,
+    walking the blocks in the order the zoo builds them. Every BatchNorm
+    normalises with the batch statistics (biased variance). Returns the
+    mean cross-entropy, each BatchNorm's (mean, var) by block name, and
+    the multiply-adds per image of the convolutions and the dense
+    layer."""
+    import torch.nn.functional as F
+    stats = {}
+    macs = [0]
+
+    def val(p):
+        return None if p is None else p.data().data
+
+    def bn(h, blk):
+        var, mean = torch.var_mean(h, dim=(0, 2, 3), unbiased=False)
+        stats[blk.name] = (mean, var)
+        scale = (val(blk.gamma) * torch.rsqrt(var + GLUON_EPS)).view(
+            1, -1, 1, 1)
+        return (h - mean.view(1, -1, 1, 1)) * scale + \
+            val(blk.beta).view(1, -1, 1, 1)
+
+    def conv(h, blk, stride, pad):
+        w = val(blk.weight)
+        out = F.conv2d(h, w, val(blk.bias), stride=stride, padding=pad)
+        macs[0] += out[0].numel() * w[0].numel()
+        return out
+
+    feats = net.features._children
+    h = torch.relu(bn(conv(x, feats[0], 2, 3), feats[1]))
+    h = F.max_pool2d(h, 3, 2, 1)
+    for i, stage in enumerate(feats[4:8]):
+        for j, unit in enumerate(stage._children):
+            stride = 2 if i > 0 and j == 0 else 1
+            body = unit.body._children
+            if len(body) == 8:      # BottleneckV1: 1x1/s, 3x3, 1x1
+                b = torch.relu(bn(conv(h, body[0], stride, 0), body[1]))
+                b = torch.relu(bn(conv(b, body[3], 1, 1), body[4]))
+                b = bn(conv(b, body[6], 1, 0), body[7])
+            else:                   # BasicBlockV1: 3x3/s, 3x3
+                b = torch.relu(bn(conv(h, body[0], stride, 1), body[1]))
+                b = bn(conv(b, body[3], 1, 1), body[4])
+            if unit.downsample is not None:
+                ds = unit.downsample._children
+                h = bn(conv(h, ds[0], stride, 0), ds[1])
+            h = torch.relu(b + h)
+    h = h.mean(dim=(2, 3))
+    w = val(net.output.weight)
+    macs[0] += w.numel()
+    logits = F.linear(h, w, val(net.output.bias))
+    return F.cross_entropy(logits, y.long()), stats, macs[0]
+
+
+def train_gluon(torch, np, counters, warm, timed, what, eager_check):
+    """Gluon's ResNet-50 v1 (``vision.get_model("resnet50_v1")``,
+    hybridized) on one fixed RandomState(0) batch, as the reference's
+    Gluon example trains it: ``autograd.record()`` around the loss,
+    ``backward()``, ``Trainer.step``. Setup (construction, the seeded
+    initializer, deferred init by ``infer_shape``) is timed, then the
+    first step, ``warm`` steps, ``timed`` steps between CUDA events, one
+    under torch.profiler, then one and ``timed`` more un-hybridized.
+    The flash-attention ``counters`` are zeroed just before the first
+    step and read after the last timed one. With ``eager_check``, one
+    step hybridized and one un-hybridized, each from the initial
+    parameters with cuDNN's deterministic algorithms (its default f32
+    weight gradients sum with atomics, in another order each call), are
+    held against each other: the loss and every gradient."""
+    from torch.profiler import ProfilerActivity, profile
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import autograd, gluon
+    B, S = RESNET_BATCH, RESNET_IMAGE
+    dev = torch.device(DEVICE)
+    rng = np.random.RandomState(0)
+    x_np = rng.uniform(-1, 1, (B, 3, S, S)).astype(np.float32)
+    y_np = rng.randint(0, RESNET_CLASSES, (B,)).astype(np.float32)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mt.random.seed(SEED)
+    net = gluon.model_zoo.vision.get_model("resnet%d_v1" % RESNET_LAYERS,
+                                           classes=RESNET_CLASSES)
+    net.initialize(mt.init.Xavier(rnd_type="gaussian", factor_type="in",
+                                  magnitude=2).set_rng(
+                                      mt.random.derive_numpy_rng(
+                                          "gluon_resnet50_v1")),
+                   ctx=mt.gpu(0))
+    net.hybridize()
+    x = mt.nd.array(x_np, ctx=dev)
+    y = mt.nd.array(y_np, ctx=dev)
+    net.infer_shape(x)
+    trainer = gluon.Trainer(net.collect_params(), "sgd", {
+        "learning_rate": RESNET_LR, "momentum": RESNET_MOMENTUM,
+        "wd": RESNET_WD})
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    params = net.collect_params()
+    n_values = sum(p.data().size for p in params.values())
+    n_trained = sum(p.data().size for p in params.values()
+                    if p.grad_req != "null")
+    init = {n: p.data().data.detach().clone() for n, p in params.items()}
+    with torch.no_grad():
+        ce, stats, macs = plain_resnet_v1(torch, net, x.data, y.data)
+        want = ce.item()
+        stats = {n: (m.double().cpu().numpy(), v.double().cpu().numpy())
+                 for n, (m, v) in stats.items()}
+    bns = [b for b in _blocks(net) if isinstance(b, gluon.nn.BatchNorm)]
+
+    def aux(p_of):
+        out = {}
+        for blk in bns:
+            out[blk.name + "_moving_mean"] = p_of(blk.running_mean)
+            out[blk.name + "_moving_var"] = p_of(blk.running_var)
+        return out
+
+    aux0 = aux(lambda p: p.data().data.double().cpu().numpy())
+
+    def step():
+        with autograd.record():
+            loss = loss_fn(net(x), y)
+        loss.backward()
+        trainer.step(B)
+        return loss.data.detach().mean()
+
+    for fn in counters.values():
+        fn.launches = {"f32": 0, "bf16": 0}
+    t0 = time.perf_counter()
+    losses = [step()]
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    aux1 = aux(lambda p: p.data().data.double().cpu().numpy())
+
+    def timed_steps():
+        """``timed`` steps between CUDA events: (ms a step, each step's
+        ms)."""
+        events = [torch.cuda.Event(enable_timing=True)
+                  for _ in range(timed + 1)]
+        events[0].record()
+        for ev in events[1:]:
+            losses.append(step())
+            ev.record()
+        torch.cuda.synchronize()
+        return (events[0].elapsed_time(events[-1]) / timed,
+                [a.elapsed_time(b) for a, b in zip(events, events[1:])])
+
+    for _ in range(warm):
+        losses.append(step())
+    torch.cuda.synchronize()
+    step_ms, per_step = timed_steps()
+    launches = {n: dict(fn.launches) for n, fn in counters.items()}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        losses.append(step())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    by_kind, busy_ms = resnet_breakdown(torch, prof, wall, what)
+    # the same steps with the net un-hybridized (training goes on)
+    net.hybridize(False)
+    losses.append(step())
+    eager_ms, eager_per_step = timed_steps()
+    net.hybridize()
+    losses = [float(v) for v in torch.stack(losses).cpu()]
+    eager = None
+    if eager_check:
+        runs = []
+        prev = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            for hybrid in (True, False):
+                for n, p in params.items():
+                    p.set_data(mt.nd.NDArray(init[n]))
+                net.hybridize(hybrid)
+                with autograd.record():
+                    loss = loss_fn(net(x), y)
+                loss.backward()
+                runs.append((loss.data.mean().item(),
+                             {n: p.grad().data.detach().clone()
+                              for n, p in params.items()
+                              if p.grad_req != "null"}))
+        finally:
+            torch.backends.cudnn.deterministic = prev
+        torch.cuda.synchronize()
+        (h_loss, hyb), (e_loss, eag) = runs
+        worst, where = 0.0, None
+        for n, g in hyb.items():
+            e = eag[n]
+            top = g.abs().max()
+            if n.endswith("_bias") and "conv" in n:
+                # a BatchNorm follows every v1 convolution: its bias has
+                # no gradient in exact arithmetic, both sides hold only
+                # rounding; scaled by its weight's gradient instead
+                top = hyb[n[:-len("bias")] + "weight"].abs().max()
+            r = ((e - g).abs().max() / top.clamp(min=1e-30)).item()
+            if r > worst:
+                worst, where = r, n
+        eager = {"loss": e_loss, "hybrid_loss": h_loss, "worst": worst,
+                 "where": where}
+        del runs, hyb, eag
+    del net, trainer, x, y, init, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"losses": losses, "want": want, "stats": stats, "aux0": aux0,
+            "aux1": aux1, "n_values": n_values, "n_trained": n_trained,
+            "macs": macs,
+            "step_ms": step_ms, "per_step": per_step, "eager_ms": eager_ms,
+            "eager_per_step": eager_per_step, "setup_s": setup_s,
+            "first_s": first_s, "timed": timed, "launches": launches,
+            "peak_gb": peak_gb, "busy_ms": busy_ms, "wall_ms": wall * 1e3,
+            "by_kind": by_kind, "eager": eager}
+
+
+def _blocks(block):
+    """Every block under ``block``, itself first, in construction
+    order."""
+    out = [block]
+    for child in block._children:
+        out.extend(_blocks(child))
+    return out
+
+
+def check_gluon(np, what, run, ce_tol, stats_rtol, peak_flops, peak_name):
+    """Log a Gluon ResNet-50 v1 run's readings and hold it to the path:
+    finite losses that fall, the step-1 cross-entropy within ``ce_tol``
+    of the plain forward's, the running statistics, the eager step
+    (when taken) within GLUON_EAGER_RTOL, and no flash-attention
+    launch."""
+    losses, want = run["losses"], run["want"]
+    img_s = RESNET_BATCH / (run["step_ms"] / 1e3)
+    flops = 3 * 2 * run["macs"]
+    per = sorted(run["per_step"])
+    log("%s: Gluon resnet%d_v1 (hybridized), batch %d, %dx%d, %d parameter "
+        "values (%d with a gradient): setup %.3f s (construction, initializer, deferred init), "
+        "first step %.3f s; step %.3f ms (%d steps between CUDA events; "
+        "per step min %.3f median %.3f max %.3f) = %.1f img/s; MFU %.4f of "
+        "%.0f TFLOP/s %s (%.3f GFLOP per image: 3 x 2 x %.4g multiply-adds "
+        "counted from the layer shapes); peak memory %.3f GB; device busy "
+        "%.3f of %.3f ms profiled (idle share %.3f)"
+        % (what, RESNET_LAYERS, RESNET_BATCH, RESNET_IMAGE, RESNET_IMAGE,
+           run["n_values"], run["n_trained"], run["setup_s"], run["first_s"], run["step_ms"], run["timed"],
+           per[0], per[len(per) // 2], per[-1], img_s,
+           img_s * flops / peak_flops, peak_flops / 1e12, peak_name,
+           flops / 1e9, run["macs"], run["peak_gb"], run["busy_ms"],
+           run["wall_ms"], 1 - run["busy_ms"] / max(run["wall_ms"], 1e-9)))
+    eper = sorted(run["eager_per_step"])
+    log("%s: the same net un-hybridized: step %.3f ms (%d steps between "
+        "CUDA events; per step min %.3f median %.3f max %.3f) = %.1f img/s; "
+        "hybridized / eager %.4f"
+        % (what, run["eager_ms"], run["timed"], eper[0],
+           eper[len(eper) // 2], eper[-1],
+           RESNET_BATCH / (run["eager_ms"] / 1e3),
+           run["step_ms"] / run["eager_ms"]))
+    log("%s: loss per step %s" % (what, " ".join("%.6f" % v for v in losses)))
+    log("%s: step-1 cross-entropy %.6f, plain f32 forward %.6f (|diff| "
+        "%.3g, tolerance %g); flash-attention launches %s"
+        % (what, losses[0], want, abs(losses[0] - want), ce_tol,
+           run["launches"]))
+    check(all(math.isfinite(v) for v in losses), "%s: non-finite loss %s"
+          % (what, losses))
+    check(losses[-1] < losses[0], "%s: loss did not fall: %s"
+          % (what, losses))
+    check(abs(losses[0] - want) <= ce_tol, "%s: step-1 loss %g vs plain "
+          "forward %g" % (what, losses[0], want))
+    check_resnet_stats(np, what, run, stats_rtol)
+    if RESNET_LAYERS == 50:
+        check(run["n_values"] == GLUON_RESNET50_V1_VALUES,
+              "%s: %d parameter values, resnet50_v1 has %d"
+              % (what, run["n_values"], GLUON_RESNET50_V1_VALUES))
+    for name, n in run["launches"].items():
+        check(n == {"f32": 0, "bf16": 0}, "%s: flash-attention kernel %s "
+              "launched %s times in a ResNet step" % (what, name, n))
+    eager = run["eager"]
+    if eager is not None:
+        dl = abs(eager["loss"] - eager["hybrid_loss"])
+        log("%s: from the initial parameters, cuDNN deterministic: one "
+            "eager step loss %.6f, one hybridized %.6f (|diff| %.3g; the "
+            "timed run's step 1 %.6f); largest gradient difference %.3g "
+            "of that gradient's max |value| (of its weight gradient's for "
+            "a conv bias, zero in exact arithmetic; at %s; limit %g)"
+            % (what, eager["loss"], eager["hybrid_loss"], dl, losses[0],
+               eager["worst"], eager["where"], GLUON_EAGER_RTOL))
+        check(dl <= GLUON_EAGER_RTOL * max(1.0, abs(eager["loss"])) and
+              eager["worst"] <= GLUON_EAGER_RTOL,
+              "%s: the eager step differs from the hybridized one: loss "
+              "%.6f vs %.6f, gradient %.3g at %s"
+              % (what, eager["loss"], eager["hybrid_loss"], eager["worst"],
+                 eager["where"]))
+
+
+def gluon_phase(torch, np):
+    """The imperative API on the card: the tape drives the attention
+    kernels, Conv2DTranspose at a DCGAN shape, then Gluon's ResNet-50
+    v1 at the reference Gluon example's configuration, amp bf16 and then
+    f32 (TF32 off) with the eager-vs-hybridized check."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    t0 = time.perf_counter()
+    tape_attention_check(torch, np)
+    deconvolution_check(torch, np)
+    counters = {"flash_attention_fwd": fa.flash_attention_fwd,
+                "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
+                "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv}
+    check(not torch.backends.cudnn.allow_tf32 and
+          not torch.backends.cuda.matmul.allow_tf32 and
+          not torch.backends.cudnn.benchmark,
+          "TF32 or cudnn.benchmark is on: the checks need f32 convolutions "
+          "and the same algorithms in both steps")
+    mt.amp.init("bfloat16")
+    try:
+        run = train_gluon(torch, np, counters, RESNET_WARM, GLUON_TIMED,
+                          "gluon", False)
+    finally:
+        mt.amp.off()
+    check_gluon(np, "gluon", run, RESNET_CE_TOL, RESNET_STATS_RTOL,
+                PEAK_BF16_FLOPS, "bf16")
+    run = train_gluon(torch, np, counters, RESNET_F32_WARM,
+                      RESNET_F32_TIMED, "gluon f32", True)
+    check_gluon(np, "gluon f32", run, RESNET_F32_CE_TOL,
+                RESNET_F32_STATS_RTOL, PEAK_FP32_FLOPS, "f32")
+    log("gluon phase: %.1f s" % (time.perf_counter() - t0))
+
+
 def f32_backward_of(checkout: str) -> int:
     """``--f32-backward-of CHECKOUT``: f32_backward_timing on the
     package of another checkout (the parent commit's, say), so that its
@@ -2236,6 +2727,7 @@ def main() -> int:
         train_f32_phase(torch, np, kernels)
         rtc_phase(torch, np, kernels)
         resnet_phase(torch, np)
+        gluon_phase(torch, np)
         torch.cuda.synchronize()
     except SmokeFailure as exc:
         print("chip_smoke: FAILED: %s" % exc, file=sys.stderr)

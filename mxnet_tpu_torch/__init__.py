@@ -29,23 +29,28 @@ Ported so far:
 * ResNet (:mod:`.models.resnet`) training through ``Module``: the
   ``Convolution``, ``Pooling``, ``BatchNorm``, ``Flatten`` and ``Pad``
   ops, aux states from the symbol to the executor and the module, and
-  checkpoints (:mod:`.model`) that load in both packages.
+  checkpoints (:mod:`.model`) that load in both packages;
+* the imperative API: the autograd tape (:mod:`.autograd`, on
+  ``torch.autograd``) over ``nd`` and Gluon (:mod:`.gluon`) —
+  Parameter, Block / HybridBlock, the ``nn`` layers, losses, Trainer,
+  ``data`` and the vision model zoo, whose parameters load in both
+  packages.
 """
 from __future__ import annotations
 
-from . import amp, contrib
+from . import amp, autograd, contrib
 from . import initializer as init
 from . import io, metric, model
 from . import module as mod
 from . import ndarray as nd
-from . import operator, optimizer, random, rtc
+from . import gluon, operator, optimizer, random, rtc
 from . import symbol as sym
 from .base import MXNetError
 from .context import cpu, current_device, device_scope, gpu
 
 __all__ = ["MXNetError", "cpu", "gpu", "device_scope", "current_device",
-           "amp", "contrib", "init", "io", "metric", "mod", "model", "nd",
-           "operator",
+           "amp", "autograd", "contrib", "gluon", "init", "io", "metric",
+           "mod", "model", "nd", "operator",
            "optimizer", "random", "rtc", "sym"]
 
 __version__ = "0.1.0"

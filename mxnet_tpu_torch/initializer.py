@@ -3,11 +3,12 @@
 The port's own copy of the reference's ``initializer.py`` (jax-free
 there too, but importing it would run the reference package's
 ``__init__``, which imports jax): ``InitDesc``, the name-pattern
-dispatch of ``Initializer``, and ``Uniform``, ``Xavier``, ``Zero`` and
-``One``. Draws come from numpy, so the same initializer
-with the same ``set_rng`` generator gives the same weights in both
-packages; they are staged on the host (``ctx=cpu()``) and copied into
-the array on its device.
+dispatch of ``Initializer``, and ``Uniform``, ``Normal``, ``Xavier``,
+``Zero``, ``One`` and ``Constant``; :func:`create` also takes the
+names Gluon's layers use, ``"zeros"`` and ``"ones"``. Draws come from
+numpy, so the same initializer with the same ``set_rng`` generator
+gives the same weights in both packages; they are staged on the host
+(``ctx=cpu()``) and copied into the array on its device.
 """
 from __future__ import annotations
 
@@ -20,8 +21,8 @@ from . import ndarray as nd
 from .context import cpu
 from .ndarray import NDArray
 
-__all__ = ["InitDesc", "Initializer", "Uniform", "Xavier", "One", "Zero",
-           "register", "create"]
+__all__ = ["InitDesc", "Initializer", "Uniform", "Normal", "Xavier", "One",
+           "Zero", "Constant", "register", "create"]
 
 _INITIALIZER_REGISTRY: Dict[str, type] = {}
 
@@ -31,10 +32,15 @@ def register(klass):
     return klass
 
 
+_ALIASES = {"zeros": "zero", "ones": "one"}
+
+
 def create(name, **kwargs) -> "Initializer":
+    """An initializer by (class) name; an Initializer passes through."""
     if isinstance(name, Initializer):
         return name
-    return _INITIALIZER_REGISTRY[name.lower()](**kwargs)
+    key = name.lower()
+    return _INITIALIZER_REGISTRY[_ALIASES.get(key, key)](**kwargs)
 
 
 class InitDesc(str):
@@ -164,6 +170,15 @@ class One(_FillInitializer):
 
 
 @register
+class Constant(_FillInitializer):
+    """Fill with ``value``."""
+
+    def __init__(self, value=0.0):
+        super().__init__(value=value)
+        self._fill_value = value
+
+
+@register
 class Uniform(Initializer):
     """U(-scale, scale)."""
 
@@ -174,6 +189,20 @@ class Uniform(Initializer):
     def _init_weight(self, name, arr):
         arr[:] = nd.array(self.rng.uniform(-self.scale, self.scale,
                                             arr.shape).astype(np.float32),
+                          ctx=cpu())
+
+
+@register
+class Normal(Initializer):
+    """N(0, sigma)."""
+
+    def __init__(self, sigma=0.01):
+        super().__init__(sigma=sigma)
+        self.sigma = sigma
+
+    def _init_weight(self, name, arr):
+        arr[:] = nd.array(self.rng.normal(0, self.sigma,
+                                           arr.shape).astype(np.float32),
                           ctx=cpu())
 
 

@@ -23,7 +23,7 @@ from typing import Dict, List, Union
 import numpy as np
 
 __all__ = ["LIST_MAGIC", "NDARRAY_V1_MAGIC", "is_legacy_params",
-           "load_bytes", "save_bytes"]
+           "load_bytes", "save_bytes", "strip_arg_aux"]
 
 LIST_MAGIC = 0x112
 NDARRAY_V1_MAGIC = 0xF993FAC8
@@ -108,6 +108,13 @@ def load_bytes(buf: bytes) -> Union[List[np.ndarray],
                          % (n_names, n))
     names = [r.take(r.u64()).decode("utf-8") for _ in range(n_names)]
     return dict(zip(names, arrays))
+
+
+def strip_arg_aux(data: Dict) -> Dict:
+    """Drop ``arg:``/``aux:`` prefixes from module-checkpoint keys,
+    leaving unprefixed keys alone (the model zoo's ``pretrained=``)."""
+    return {k.split(":", 1)[1] if k.startswith(("arg:", "aux:")) else k: v
+            for k, v in data.items()}
 
 
 def _write_ndarray(parts: List[bytes], arr: np.ndarray):

@@ -6,9 +6,9 @@ Importing this package registers every op (``registry.OP_REGISTRY``).
 from __future__ import annotations
 
 from . import (elemwise, flash_attention, indexing, init_op, matrix, nn,
-               optimizer_op)
+               optimizer_op, reduce)
 from .registry import OP_REGISTRY, OpDef, get_op, register
 
 __all__ = ["OP_REGISTRY", "OpDef", "get_op", "register",
            "elemwise", "flash_attention", "indexing", "init_op", "matrix",
-           "nn", "optimizer_op"]
+           "nn", "optimizer_op", "reduce"]

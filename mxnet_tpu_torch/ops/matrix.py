@@ -2,7 +2,8 @@
 
 The port's counterpart of the reference's ``ops/matrix.py`` for
 ``batch_dot``, ``transpose``, ``Reshape`` (with MXNet's special codes),
-``Flatten``, ``slice_axis`` and ``Pad``.
+``Flatten``, ``slice_axis``, ``Concat``, ``stack``, ``zeros_like``,
+``ones_like`` and ``Pad``.
 """
 from __future__ import annotations
 
@@ -117,6 +118,28 @@ def slice_axis(data, axis=0, begin=0, end=None):
     ix = [slice(None)] * data.dim()
     ix[axis] = slice(begin, end)
     return data[tuple(ix)]
+
+
+@register("Concat", num_inputs=None, aliases=("concat",))
+def concat(*data, dim=1, num_args=None):
+    """Concatenate along ``dim``."""
+    return torch.cat(data, dim=dim)
+
+
+@register("stack", num_inputs=None)
+def stack(*data, axis=0, num_args=None):
+    """Stack along a new axis ``axis``."""
+    return torch.stack(data, dim=axis)
+
+
+@register("zeros_like")
+def zeros_like(data):
+    return torch.zeros_like(data)
+
+
+@register("ones_like")
+def ones_like(data):
+    return torch.ones_like(data)
 
 
 def _pad_index(n: int, lo: int, hi: int, mode: str, device) -> torch.Tensor:

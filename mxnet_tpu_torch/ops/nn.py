@@ -1,14 +1,24 @@
 """Neural-network layer ops of the training path.
 
 The port's counterpart of the reference's ``ops/nn.py`` for
-``Activation``, ``softmax``, ``FullyConnected``, ``Convolution``,
-``Pooling``, ``BatchNorm``, ``LayerNorm`` and ``SoftmaxOutput``, with the
-reference's semantics:
+``Activation``, ``LeakyReLU``, ``softmax``, ``log_softmax``,
+``FullyConnected``, ``Convolution``, ``Deconvolution``, ``Pooling``,
+``BatchNorm``, ``LayerNorm``, ``Dropout`` and ``SoftmaxOutput``, with
+the reference's semantics:
 
 * ``FullyConnected`` and ``Convolution`` under amp multiply bf16
   operands with f32 accumulation, return bf16 and add ``bias`` cast to
   bf16 in bf16. A float32 convolution runs in full float32 (TF32 off,
   forward and backward: ``amp.conv_precision``).
+* ``Deconvolution`` (a transposed convolution) takes the reference's
+  weight layout ``(C_in, num_filter/group, *kernel)``, which is torch's,
+  and its ``adj`` as torch's ``output_padding``; it runs through the
+  same ``aten.convolution`` route as ``Convolution`` (cuDNN on the card),
+  with the same amp and float32 rules.
+* ``Dropout`` and ``LeakyReLU(act_type="rrelu")`` draw in training only
+  (``_is_train``), from a generator on the data's device seeded from
+  the key chain (``random.torch_generator``); the mask is a tensor that
+  autograd saves, so backward uses the forward's.
 * ``Pooling`` pads max pooling with −∞ and, under
   ``pooling_convention="full"``, pads the high side up to a whole
   stride, as the reference does (which is not torch's ``ceil_mode``:
@@ -76,10 +86,43 @@ def activation(data, act_type="relu"):
     raise ValueError("unknown act_type %s" % act_type)
 
 
+@register("LeakyReLU", num_inputs=None)
+def leaky_relu(*inputs, act_type="leaky", slope=0.25, lower_bound=0.125,
+               upper_bound=0.334, _is_train=False):
+    """leaky / elu / prelu (a second input, ``gamma``, per channel) /
+    rrelu (a slope drawn per sample and channel from U(lower, upper) in
+    training, their mean otherwise)."""
+    data = inputs[0]
+    if act_type == "leaky":
+        return torch.where(data >= 0, data, slope * data)
+    if act_type == "elu":
+        return torch.where(data >= 0, data, slope * torch.expm1(data))
+    if act_type == "prelu":
+        g = inputs[1].reshape((1, -1) + (1,) * (data.dim() - 2))
+        return torch.where(data >= 0, data, g * data)
+    if act_type == "rrelu":
+        if _is_train:
+            from .. import random as _random
+            s = torch.rand(data.shape[:2], device=data.device,
+                           generator=_random.torch_generator(data.device))
+            s = (lower_bound + (upper_bound - lower_bound) * s).to(
+                data.dtype).reshape(data.shape[:2] + (1,) * (data.dim() - 2))
+        else:
+            s = (lower_bound + upper_bound) / 2.0
+        return torch.where(data >= 0, data, s * data)
+    raise ValueError("unknown act_type %s" % act_type)
+
+
 @register("softmax")
 def softmax(data, axis=-1, temperature=None):
     x = data / temperature if temperature else data
     return torch.softmax(x, dim=axis)
+
+
+@register("log_softmax")
+def log_softmax(data, axis=-1, temperature=None):
+    x = data / temperature if temperature else data
+    return torch.log_softmax(x, dim=axis)
 
 
 @register("FullyConnected", num_inputs=None, aliases=("fully_connected",))
@@ -99,31 +142,33 @@ def fully_connected(data, weight, bias=None, num_hidden=None, no_bias=False,
 # ----------------------------------------------------------------- conv
 
 class _Convolution(torch.autograd.Function):
-    """``aten.convolution`` forward and ``aten.convolution_backward``,
-    both inside :func:`amp.conv_precision`, so that a float32
-    convolution's backward is float32 too (autograd's own backward would
-    run outside the forward's precision scope)."""
+    """``aten.convolution`` forward and ``aten.convolution_backward``
+    (transposed or not), both inside :func:`amp.conv_precision`, so that
+    a float32 convolution's backward is float32 too (autograd's own
+    backward would run outside the forward's precision scope)."""
 
     @staticmethod
-    def forward(ctx, data, weight, stride, pad, dilate, groups):
+    def forward(ctx, data, weight, stride, pad, dilate, groups,
+                transposed=False, output_pad=None):
+        output_pad = output_pad or (0,) * len(stride)
         with amp.conv_precision(data.dtype):
             out = torch.ops.aten.convolution(
-                data, weight, None, stride, pad, dilate, False,
-                (0,) * len(stride), groups)
+                data, weight, None, stride, pad, dilate, transposed,
+                output_pad, groups)
         ctx.save_for_backward(data, weight)
-        ctx.geometry = (stride, pad, dilate, groups)
+        ctx.geometry = (stride, pad, dilate, transposed, output_pad, groups)
         return out
 
     @staticmethod
     def backward(ctx, grad):
         data, weight = ctx.saved_tensors
-        stride, pad, dilate, groups = ctx.geometry
+        stride, pad, dilate, transposed, output_pad, groups = ctx.geometry
         with amp.conv_precision(data.dtype):
             dx, dw, _ = torch.ops.aten.convolution_backward(
-                grad, data, weight, None, stride, pad, dilate, False,
-                (0,) * len(stride), groups,
+                grad, data, weight, None, stride, pad, dilate, transposed,
+                output_pad, groups,
                 (ctx.needs_input_grad[0], ctx.needs_input_grad[1], False))
-        return dx, dw, None, None, None, None
+        return dx, dw, None, None, None, None, None, None
 
 
 @register("Convolution", num_inputs=None, aliases=("convolution",))
@@ -144,6 +189,31 @@ def convolution(data, weight, bias=None, kernel=None, stride=None, dilate=None,
     data, weight = amp.mxu_operands(data, weight)
     out = _Convolution.apply(data, weight, stride, pad, dilate,
                              int(num_group))
+    if not no_bias and bias is not None:
+        out = out + bias.reshape((1, -1) + (1,) * nd).to(out.dtype)
+    return out
+
+
+@register("Deconvolution", num_inputs=None, aliases=("deconvolution",))
+def deconvolution(data, weight, bias=None, kernel=None, stride=None,
+                  dilate=None, pad=None, adj=None, target_shape=None,
+                  num_filter=None, num_group=1, no_bias=True, workspace=1024,
+                  cudnn_tune=None, cudnn_off=False, layout=None):
+    """N-d transposed convolution over NC(D)HW data and a (C_in,
+    num_filter/group, *kernel) weight: output size ``(in - 1)·stride −
+    2·pad + dilate·(kernel − 1) + adj + 1``."""
+    if layout is not None and not str(layout).startswith("NC"):
+        raise MXNetError("Deconvolution(layout=%r): only channels-first "
+                         "layouts are ported (channels-last is ROADMAP.md "
+                         "queue A4)" % (layout,))
+    nd = data.dim() - 2
+    stride = _tup(stride, nd) or (1,) * nd
+    dilate = _tup(dilate, nd) or (1,) * nd
+    pad = _tup(pad, nd) or (0,) * nd
+    adj = _tup(adj, nd) or (0,) * nd
+    data, weight = amp.mxu_operands(data, weight)
+    out = _Convolution.apply(data, weight, stride, pad, dilate,
+                             int(num_group), True, adj)
     if not no_bias and bias is not None:
         out = out + bias.reshape((1, -1) + (1,) * nd).to(out.dtype)
     return out
@@ -230,6 +300,22 @@ def batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
     if ax != 1:
         out = out.movedim(1, ax)
     return out, mean, var, new_mm, new_mv
+
+
+@register("Dropout", aliases=("dropout",))
+def dropout(data, p=0.5, mode="training", _is_train=False):
+    """Inverted dropout: in training (or ``mode="always"``) each element
+    is kept with probability ``1 - p`` and scaled by ``1 / (1 - p)``;
+    otherwise the identity."""
+    if (not _is_train and mode != "always") or p == 0.0:
+        return data
+    if data.device.type == "meta":
+        return torch.empty_like(data)
+    from .. import random as _random
+    keep = 1.0 - p
+    u = torch.rand(data.shape, device=data.device,
+                   generator=_random.torch_generator(data.device))
+    return torch.where(u < keep, data / keep, torch.zeros_like(data))
 
 
 def _layer_norm_stats(x32, ax, eps):

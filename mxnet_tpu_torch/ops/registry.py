@@ -101,6 +101,12 @@ class OpDef:
         _ = self.input_names        # derives both lists
         return self._aux_input_names
 
+    @functools.cached_property
+    def takes_is_train(self) -> bool:
+        """Whether the function takes ``_is_train`` (the training flag
+        that ``imperative_invoke`` and the executor pass)."""
+        return "_is_train" in self.param_names
+
     @property
     def param_names(self) -> List[str]:
         """Positional or keyword parameters of the function."""

@@ -16,8 +16,11 @@ The key chain follows jax's default ``threefry2x32`` PRNG with
 * ``split(k)[i]`` is ``threefry2x32(k, (0, i))``;
 * ``fold_in(k, d)`` is ``threefry2x32(k, (0, d))``.
 
-Torch's own generators are untouched: the port's sampler ops are not
-ported yet (ROADMAP A1).
+The sampler ops (``Dropout``, ``LeakyReLU``'s ``rrelu``) draw from a
+``torch.Generator`` on the data's device, seeded from one split of the
+chain (:func:`torch_generator`): a seeded run draws the same masks
+again, though not the reference's (jax's bits are its own). Torch's
+global generators are untouched.
 """
 from __future__ import annotations
 
@@ -27,8 +30,8 @@ import zlib
 import numpy as np
 
 __all__ = ["seed", "next_key", "current_key", "set_key",
-           "derive_numpy_rng", "prng_key", "split", "fold_in",
-           "threefry2x32"]
+           "derive_numpy_rng", "torch_generator", "prng_key", "split",
+           "fold_in", "threefry2x32"]
 
 _M32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -109,3 +112,13 @@ def derive_numpy_rng(tag: str = "") -> np.random.Generator:
     if tag:
         sub = fold_in(sub, zlib.crc32(tag.encode()) & 0x7FFFFFFF)
     return np.random.default_rng([int(w) for w in sub])
+
+
+def torch_generator(device):
+    """A ``torch.Generator`` on ``device`` seeded from one split of the
+    key chain (its two words as one 64-bit seed)."""
+    import torch
+    k0, k1 = (int(w) for w in next_key())
+    gen = torch.Generator(device=device)
+    gen.manual_seed((k0 << 32) | k1)
+    return gen

@@ -49,6 +49,11 @@ def test_importing_the_port_loads_no_jax():
         "import mxnet_tpu_torch.operator, mxnet_tpu_torch.contrib\n"
         "import mxnet_tpu_torch.contrib.ndarray\n"
         "import mxnet_tpu_torch.contrib.symbol\n"
+        "import mxnet_tpu_torch.autograd, mxnet_tpu_torch.gluon\n"
+        "import mxnet_tpu_torch.gluon.nn, mxnet_tpu_torch.gluon.loss\n"
+        "import mxnet_tpu_torch.gluon.trainer, mxnet_tpu_torch.gluon.utils\n"
+        "import mxnet_tpu_torch.gluon.data, mxnet_tpu_torch.ops.reduce\n"
+        "from mxnet_tpu_torch.gluon.model_zoo import vision\n"
         "import mxnet_tpu_torch._cuda_driver as driver\n"
         "assert driver._lib is None   # libcuda loads at first use only\n"
         "bad = sorted(m for m in sys.modules\n"

@@ -756,3 +756,61 @@ def test_resnet_phase_ends_on_an_attention_launch(small_resnet):
                                 chip_smoke.RESNET_F32_CE_TOL,
                                 chip_smoke.RESNET_F32_STATS_RTOL,
                                 chip_smoke.PEAK_FP32_FLOPS, "f32")
+
+
+@pytest.fixture
+def small_gluon(small_resnet, monkeypatch):
+    """chip_smoke's Gluon phase on the CPU: resnet18_v1 at the small
+    ResNet's size, the tape check of the attention kernels at B 1, H 2,
+    S 64, D 32 through the counting stand-ins (``_dispatch`` says every
+    tensor is on the card), Conv2DTranspose at 2 x 16 -> 8 x 4 x 4."""
+    for name, value in (("GLUON_TIMED", 2),
+                        ("TAPE_ATTENTION_SHAPE", (1, 2, 64, 32)),
+                        ("DECONV_SHAPE", (2, 16, 8, 4))):
+        monkeypatch.setattr(chip_smoke, name, value)
+    monkeypatch.setattr(fa, "_dispatch", lambda q, what: True)
+    return small_resnet
+
+
+def test_gluon_phase_rehearsal_on_cpu(small_gluon):
+    """gluon_phase on the CPU: the tape drives the three attention
+    stand-ins once each per dtype and matches the plain versions, the
+    Conv2DTranspose matches its plain form, and resnet18_v1 trains in
+    amp bf16 and f32 with its step-1 loss, running statistics, eager
+    step and timing lines."""
+    lines = small_gluon
+    chip_smoke.gluon_phase(torch, np)
+    for dtype in ("bf16", "f32"):
+        assert any(ln.startswith("tape attention %s: B 1 H 2" % dtype)
+                   for ln in lines)
+    assert any(ln.startswith("deconvolution d weight") for ln in lines)
+    for what in ("gluon: ", "gluon f32: "):
+        for head in ("step-1 cross-entropy", "step-1 moving statistics of "
+                     "20 BatchNorms", "the same net un-hybridized",
+                     "loss per step"):
+            assert any(ln.startswith(what + head) for ln in lines), head
+    assert any(ln.startswith("gluon f32: from the initial parameters")
+               for ln in lines)
+
+
+def test_tape_check_ends_on_a_missing_launch(small_gluon, monkeypatch):
+    def uncounted(*args):
+        return _plain_dq(*args)
+    uncounted.launches = {"f32": 0, "bf16": 0}
+    monkeypatch.setattr(fa, "flash_attention_bwd_dq", uncounted)
+    with pytest.raises(chip_smoke.SmokeFailure, match="launches rose"):
+        chip_smoke.tape_attention_check(torch, np)
+
+
+def test_gluon_phase_ends_on_a_differing_eager_step(small_gluon):
+    run = chip_smoke.train_gluon(torch, np, {}, 0, 1, "gluon f32", True)
+    chip_smoke.check_gluon(np, "gluon f32", run,
+                           chip_smoke.RESNET_F32_CE_TOL,
+                           chip_smoke.RESNET_F32_STATS_RTOL,
+                           chip_smoke.PEAK_FP32_FLOPS, "f32")
+    run["eager"]["worst"] = 2e-5
+    with pytest.raises(chip_smoke.SmokeFailure, match="eager step differs"):
+        chip_smoke.check_gluon(np, "gluon f32", run,
+                               chip_smoke.RESNET_F32_CE_TOL,
+                               chip_smoke.RESNET_F32_STATS_RTOL,
+                               chip_smoke.PEAK_FP32_FLOPS, "f32")
