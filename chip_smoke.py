@@ -5,9 +5,11 @@ Run from the root of a checkout, on a machine with one H100:
 
     python3 chip_smoke.py
 
-``python3 chip_smoke.py --f32-backward-of CHECKOUT`` times only the
-float32 dQ and dK/dV kernels of another checkout's package (as phase 5
-times this one's), for a before/after pair on one card.
+``python3 chip_smoke.py --pairs-of CHECKOUT WHAT`` times only a part of
+another checkout's package with this script's code, for a before/after
+pair on one card: ``f32-backward`` its float32 dQ and dK/dV kernels (as
+phase 5 times this one's), ``rtc`` its ``relu`` and ``scale_add`` user
+kernels against torch's calls (as phase 7 pairs this one's).
 
 Phases, each fatal on failure (exit code 1, no result line):
 
@@ -257,6 +259,46 @@ DECONV_SHAPE = (64, 512, 256, 8)
 # a plain f32 conv_transpose2d against cuDNN's f32 one (TF32 off): sums
 # of 512 x 4 products (d data: 256 x 4) in another order
 DECONV_RTOL = 1e-5
+# phase 10, the recurrent family. The word LM: the upstream Gluon example
+# (example/gluon/word_language_model) at its README's largest run: a tied
+# 10,000 x 1500 embedding and decoder, 2 LSTM layers of 1500, dropout
+# 0.65, batch 32 x bptt 35, gradients clipped to 0.2 x bptt x batch, SGD
+# lr 1.0 (momentum 0, wd 0); tokens drawn from RandomState(0)
+WORD_VOCAB, WORD_WIDTH, WORD_LAYERS = 10000, 1500, 2
+WORD_BATCH, WORD_BPTT, WORD_DROPOUT = 32, 35, 0.65
+WORD_LR, WORD_CLIP = 1.0, 0.2
+WORD_WARM, WORD_TIMED = 2, 10
+# step-1 cross-entropy (dropout off) against a plain f32 forward of the
+# same weights: two LSTM layers and a 1500-wide decoder in f32, summed in
+# another order
+WORD_CE_TOL = 1e-3
+# the same under amp bf16: every product's operands and result rounded
+# to bf16 (2^-8), the logits' cross-entropy taken in f32
+WORD_BF16_CE_TOL = 1e-2
+# the step-1 logits and final LSTM states (dropout off) held elementwise
+# to the plain f32 forward's, each within a share of max|ref|: RNN_RTOL
+# in f32, as the fused op's check; under amp bf16, where the operands of
+# every product and the states are rounded to bf16, WORD_BF16_RTOL, 3x
+# the largest reading on an H100 (5.84e-3, the logits)
+WORD_BF16_RTOL = 2e-2
+# the bucketing LM: upstream example/rnn/lstm_bucketing.py's defaults (2
+# LSTM layers of 200, embedding 200, batch 32, buckets 10-60, SGD lr 0.01,
+# momentum 0, wd 1e-5, Xavier(in, 2.34)); sentences over 10,000 words,
+# BUCKET_BATCHES batches a bucket in the epoch
+BUCKET_VOCAB, BUCKET_WIDTH, BUCKET_LAYERS, BUCKET_BATCH = 10000, 200, 2, 32
+BUCKETS = (10, 20, 30, 40, 50, 60)
+BUCKET_BATCHES = 2
+BUCKET_LR, BUCKET_WD = 0.01, 1e-5
+BUCKET_TIMED = 2
+# the fused op (cuDNN's RNN, f32, TF32 off) against a plain per-step
+# recurrence, and the fused cell against the unrolled one: output,
+# states and gradients within RNN_RTOL * max(1, max|ref|). f32 sums of
+# up to 3000 products per gate and 35 steps of recurrence, in another
+# order
+RNN_RTOL = 1e-4
+RNN_CASES = ((1500, ("lstm", "gru", "rnn_tanh")), (200, ("lstm", "gru")))
+# the aten ops cuDNN's RNN runs under; the op must reach one on the card
+RNN_DEVICE_OPS = ("aten::_cudnn_rnn",)
 
 
 class SmokeFailure(Exception):
@@ -377,14 +419,15 @@ def tensor_core_report(_build, tool, record, source, part, opcodes):
         "sass": sass}
 
 
-def timing(torch, fn, iters: int = 20, windows: int = 5) -> dict:
+def timing(torch, fn, iters: int = 20, windows: int = 5,
+           warm: int = 3) -> dict:
     """Device ms per call as the median of ``windows`` windows of
-    ``iters`` calls between CUDA events, with the windows' spread, and
-    the host's µs per call over the same windows (the time the calls
-    took to return). Where the host's time per call comes within 10% of
-    the device's, the device waited on the host and the windows timed
-    the host: ``host_bound`` says so."""
-    for _ in range(3):
+    ``iters`` calls between CUDA events (after ``warm`` calls), with the
+    windows' spread, and the host's µs per call over the same windows
+    (the time the calls took to return). Where the host's time per call
+    comes within 10% of the device's, the device waited on the host and
+    the windows timed the host: ``host_bound`` says so."""
+    for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     dev, host = [], []
@@ -1768,6 +1811,147 @@ def rtc_check_and_time(torch, kerns):
     return table
 
 
+RTC_PAIRS = 10         # alternating kernel / library windows (ROADMAP B6f)
+# ROADMAP B6f's first design for relu / scale_add, a second arm of
+# ``--pairs-of CHECKOUT rtc`` beside the checkout's kernels: a loop over
+# the blocks the card holds at once (its SMs x 8 blocks of 256 threads,
+# which __launch_bounds__(256, 8) makes fit in 32 registers), four
+# float4 loads in flight per thread before its stores (relu four of x,
+# scale_add two of x and two of y), all loads and stores streaming
+B6F_STREAM_SOURCE = r"""
+#define UNROLL 4
+#define UNROLL2 2
+__device__ __forceinline__ float relu1(float v) { return v < 0.f ? 0.f : v; }
+__device__ __forceinline__ float4 relu4(float4 a) {
+  return make_float4(relu1(a.x), relu1(a.y), relu1(a.z), relu1(a.w));
+}
+__device__ __forceinline__ float4 scale_add4(float4 a, float4 b) {
+  return make_float4(2.f * a.x + b.x, 2.f * a.y + b.y, 2.f * a.z + b.z,
+                     2.f * a.w + b.w);
+}
+// n a multiple of 4, pointers 16-byte aligned (the pairs' inputs)
+extern "C" __global__ void __launch_bounds__(256, 8)
+relu_stream(const float* __restrict__ x, float* __restrict__ o,
+            long long n) {
+  const float4* x4 = reinterpret_cast<const float4*>(x);
+  float4* o4 = reinterpret_cast<float4*>(o);
+  const long long n4 = n >> 2, stride = (long long)gridDim.x * blockDim.x;
+  long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  for (; i + (UNROLL - 1) * stride < n4; i += UNROLL * stride) {
+    float4 v[UNROLL];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) v[u] = __ldcs(x4 + i + u * stride);
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) __stcs(o4 + i + u * stride, relu4(v[u]));
+  }
+  for (; i < n4; i += stride) __stcs(o4 + i, relu4(__ldcs(x4 + i)));
+}
+extern "C" __global__ void __launch_bounds__(256, 8)
+scale_add_stream(const float* __restrict__ x, const float* __restrict__ y,
+                 float* __restrict__ o, long long n) {
+  const float4* x4 = reinterpret_cast<const float4*>(x);
+  const float4* y4 = reinterpret_cast<const float4*>(y);
+  float4* o4 = reinterpret_cast<float4*>(o);
+  const long long n4 = n >> 2, stride = (long long)gridDim.x * blockDim.x;
+  long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  for (; i + (UNROLL2 - 1) * stride < n4; i += UNROLL2 * stride) {
+    float4 a[UNROLL2], b[UNROLL2];
+#pragma unroll
+    for (int u = 0; u < UNROLL2; ++u) {
+      a[u] = __ldcs(x4 + i + u * stride);
+      b[u] = __ldcs(y4 + i + u * stride);
+    }
+#pragma unroll
+    for (int u = 0; u < UNROLL2; ++u)
+      __stcs(o4 + i + u * stride, scale_add4(a[u], b[u]));
+  }
+  for (; i < n4; i += stride)
+    __stcs(o4 + i, scale_add4(__ldcs(x4 + i), __ldcs(y4 + i)));
+}
+"""
+
+
+def rtc_pairs(torch, kerns):
+    """Each kernel of ``kerns`` (``relu`` at 8192 x 8192 or ``scale_add``
+    at 8192 x 2048, by its name up to a comma) against ``torch.relu`` /
+    ``torch.add`` in RTC_PAIRS rounds, each a window of 20 launches of
+    every kernel of the op and then one of the library call, between
+    CUDA events: the medians, each round's difference and its range.
+    A kernel loses to the library call beyond the spread when every
+    round's difference is positive. These launches are not the counted
+    path."""
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    rows = TRAIN_BATCH * MAX_SEQ
+    act = torch.randn((rows, D_FF), generator=gen, device=dev)
+    h = torch.randn((rows, D_MODEL), generator=gen, device=dev)
+    a = torch.randn((rows, D_MODEL), generator=gen, device=dev)
+    ops = {"relu": ((act,), lambda: torch.relu(act), "torch.relu"),
+           "scale_add": ((h, a), lambda: torch.add(a, h, alpha=2),
+                         "torch.add(y, x, alpha=2)")}
+    out = {}
+    for op, (ins, lib, lib_desc) in ops.items():
+        arms = {name: kern for name, kern in kerns.items()
+                if name.split(",")[0] == op}
+        ks = {name: [] for name in arms}
+        ls = []
+        for _ in range(RTC_PAIRS):
+            for name, kern in arms.items():
+                ks[name].append(timing(torch, lambda: kern.run(ins),
+                                       windows=1)["ms"])
+            ls.append(timing(torch, lib, windows=1)["ms"])
+        l_med = sorted(ls)[len(ls) // 2]
+        for name, times in ks.items():
+            diffs = sorted(k - v for k, v in zip(times, ls))
+            k_med = sorted(times)[len(times) // 2]
+            loses = diffs[0] > 0
+            log("rtc pairs %s: kernel median %.4f ms (%.4f-%.4f), %s %.4f "
+                "ms (%.4f-%.4f) over %d alternating windows of 20; kernel - "
+                "library per pair: median %+.4f ms, range %+.4f..%+.4f; %s"
+                % (name, k_med, min(times), max(times), lib_desc, l_med,
+                   min(ls), max(ls), RTC_PAIRS, diffs[len(diffs) // 2],
+                   diffs[0], diffs[-1], "the kernel loses in every pair"
+                   if loses else "within the pairs' spread or faster"))
+            out[name] = {"ms": k_med, "library_ms": l_med,
+                         "diff_ms": diffs[len(diffs) // 2],
+                         "diff_lo": diffs[0], "diff_hi": diffs[-1],
+                         "loses": loses}
+    del act, h, a
+    return out
+
+
+def b6f_stream_kernels(torch):
+    """:data:`B6F_STREAM_SOURCE`'s two kernels at the pairs' shapes, each
+    first held to its plain version, with the compiler's report."""
+    from mxnet_tpu_torch import rtc
+    from mxnet_tpu_torch import rtc_examples as ex
+    dev = torch.device(DEVICE)
+    grid = (torch.cuda.get_device_properties(dev).multi_processor_count
+            * 8,)
+    rows = TRAIN_BATCH * MAX_SEQ
+    kerns = {}
+    for op, width, sig, plain in (
+            ("relu", D_FF, "const float* x, float* o, long long n",
+             ex.relu_plain),
+            ("scale_add", D_MODEL,
+             "const float* x, const float* y, float* o, long long n",
+             ex.scale_add_plain)):
+        shape = (rows, width)
+        kern = rtc.UserKernel(
+            B6F_STREAM_SOURCE, op + "_stream", sig,
+            (shape, torch.float32), grid=grid, block=(256,),
+            scalars=(rows * width,), plain=plain)
+        ins = [torch.randn(shape, device=dev)
+               for _ in range(2 if op == "scale_add" else 1)]
+        rtc_equal(op + " (B6f streaming design)", kern.run(ins),
+                  plain(*ins))
+        kerns[op + ", B6f streaming design"] = kern
+    log("B6f streaming design: grid %d x 256; %s" % (grid[0], " ".join(
+        ln.strip() for ln in kern.kernel.module.build_log.splitlines()
+        if "registers" in ln or "spill" in ln)))
+    return kerns
+
+
 def rtc_equal(name, got, want):
     err = (got - want).abs().max().item()
     top = want.abs().max().item()
@@ -1911,6 +2095,11 @@ def rtc_phase(torch, np, kernels):
     mt.operator.register("smoke_rtc_softmax_loss")(ex.softmax_loss_prop(
         kerns["softmax_rows"], kerns["softmax_ce_grad"]))
     table = rtc_check_and_time(torch, kerns)
+    for name, pair in rtc_pairs(torch, {k: kerns[k] for k in (
+            "relu", "scale_add")}).items():
+        table[name].update(pair_ms=pair["ms"],
+                           pair_library_ms=pair["library_ms"],
+                           pair_diff_ms=[pair["diff_lo"], pair["diff_hi"]])
 
     # the main path: counters zeroed just before, read just after
     for kern in kerns.values():
@@ -2025,16 +2214,17 @@ def resnet_kind(op: str) -> str:
     return "elementwise"
 
 
-def resnet_breakdown(torch, prof, wall, what):
-    """Device time by kind (conv forward, conv backward, BatchNorm,
-    elementwise, pooling, optimizer, fc): each kernel counted under the
-    innermost aten op that launched it; and the idle share."""
+def resnet_breakdown(torch, prof, wall, what, kind_of=resnet_kind):
+    """Device time by kind (``kind_of``; for ResNet conv forward, conv
+    backward, BatchNorm, elementwise, pooling, optimizer, fc): each
+    kernel counted under the innermost aten op that launched it; and the
+    idle share."""
     rows, busy_ms = device_breakdown(torch, prof, wall, what)
     by_kind = {}
     for e in prof.key_averages():
         if e.device_type == torch.autograd.DeviceType.CPU and \
                 e.key.startswith("aten::") and e.self_device_time_total:
-            kind = resnet_kind(e.key)
+            kind = kind_of(e.key)
             by_kind[kind] = by_kind.get(kind, 0.0) + \
                 e.self_device_time_total / 1e3
     unattributed = busy_ms - sum(by_kind.values())
@@ -2687,18 +2877,734 @@ def gluon_phase(torch, np):
     log("gluon phase: %.1f s" % (time.perf_counter() - t0))
 
 
-def f32_backward_of(checkout: str) -> int:
-    """``--f32-backward-of CHECKOUT``: f32_backward_timing on the
-    package of another checkout (the parent commit's, say), so that its
-    f32 backward kernels are timed by this script's code on this card.
-    Prints the card and the readings as one JSON line."""
+# ------------------------------------------------------------ phase 10
+
+def plain_rnn(torch, mode, x, weights, h0, c0, bidir):
+    """An independent per-step recurrence with the fused op's semantics,
+    f32: ``weights`` holds (W_x, W_h, b_x, b_h) per layer and direction;
+    gate orders LSTM i, f, g, o and GRU r, z, n with n = tanh(x_n + r *
+    (W_hn h + b_hn)); the reverse direction runs from the last step.
+    Returns (output, h_N, c_N or None)."""
+    dirs = 2 if bidir else 1
+    layers = len(weights) // dirs
+    T = x.shape[0]
+    inp, hs, cs = x, [], []
+    for layer in range(layers):
+        outs = []
+        for d in range(dirs):
+            k = layer * dirs + d
+            wx, wh, bx, bh = weights[k]
+            h, c = h0[k], (c0[k] if mode == "lstm" else None)
+            gxs = inp @ wx.t() + bx          # every step's input term
+            ys = [None] * T
+            for t in (range(T) if d == 0 else reversed(range(T))):
+                gx = gxs[t]
+                gh = h @ wh.t() + bh
+                if mode == "lstm":
+                    i, f, g, o = (gx + gh).chunk(4, dim=1)
+                    c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+                    h = torch.sigmoid(o) * torch.tanh(c)
+                elif mode == "gru":
+                    xr, xz, xn = gx.chunk(3, dim=1)
+                    hr, hz, hn = gh.chunk(3, dim=1)
+                    r = torch.sigmoid(xr + hr)
+                    z = torch.sigmoid(xz + hz)
+                    h = (1 - z) * torch.tanh(xn + r * hn) + z * h
+                else:
+                    pre = gx + gh
+                    h = torch.tanh(pre) if mode == "rnn_tanh" \
+                        else torch.relu(pre)
+                ys[t] = h
+            outs.append(torch.stack(ys))
+            hs.append(h)
+            cs.append(c)
+        inp = torch.cat(outs, dim=2)
+    return (inp, torch.stack(hs),
+            torch.stack(cs) if mode == "lstm" else None)
+
+
+def packed_weights(params, mode, layers, width, hidden, bidir):
+    """The packed vector sliced in its documented order: every layer's
+    and direction's W_x (G*H, in) and W_h (G*H, H), then every b_x, b_h
+    (G*H): a list of (W_x, W_h, b_x, b_h) per layer and direction."""
+    G = {"lstm": 4, "gru": 3, "rnn_tanh": 1, "rnn_relu": 1}[mode] * hidden
+    dirs = 2 if bidir else 1
+    off, mats = 0, []
+    for layer in range(layers):
+        cols = width if layer == 0 else hidden * dirs
+        for _ in range(dirs):
+            wx = params[off:off + G * cols].view(G, cols)
+            off += G * cols
+            wh = params[off:off + G * hidden].view(G, hidden)
+            off += G * hidden
+            mats.append((wx, wh))
+    out = []
+    for wx, wh in mats:
+        out.append((wx, wh, params[off:off + G], params[off + G:off + 2 * G]))
+        off += 2 * G
+    check(off == params.numel(), "packed vector of %d values, layout needs "
+          "%d" % (params.numel(), off))
+    return out
+
+
+def rnn_err(got, want):
+    """max |got - want| over max(1, max |want|)."""
+    return ((got.double() - want.double()).abs().max() /
+            max(1.0, want.double().abs().max().item())).item()
+
+
+def rel_err(got, want):
+    """max |got - want| over max |want|: for values far below 1 (logits,
+    states), where :func:`rnn_err`'s floor of 1 would hide a wrong
+    model."""
+    return ((got.double() - want.double()).abs().max() /
+            want.double().abs().max().clamp_min(1e-30)).item()
+
+
+def ran_under(prof):
+    """Whether one of RNN_DEVICE_OPS appears among the profiled ops."""
+    return any(e.key in RNN_DEVICE_OPS for e in prof.key_averages())
+
+
+def fused_op_check(torch):
+    """The fused RNN op (``ops/rnn_op.py``: cuDNN's RNN, f32; cuDNN's
+    TF32 switch is on, torch's default, so the op's own guard must keep
+    its forward and backward in f32) against :func:`plain_rnn` at the
+    path's shapes: T 35, N 32, 2 layers,
+    input = hidden = 1500 (LSTM, GRU, rnn_tanh) and 200 (LSTM, GRU), one
+    and two directions: the output, h_N, c_N and the gradients of the
+    data, the packed vector and the initial states, each within RNN_RTOL
+    of the plain version's largest value. The op must run under
+    one of RNN_DEVICE_OPS. Then, logged only, one LSTM case with the
+    guard around the forward alone (autograd's backward outside it, as
+    the op ran before the guard covered its backward): what TF32 in
+    cuDNN's backward gives at this shape. Then, under amp bf16, whether
+    cuDNN takes the op in bf16 (logged: it decides the word LM's bf16
+    run)."""
+    from torch.profiler import ProfilerActivity, profile
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.ops.rnn_op import rnn, rnn_param_size
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    T, N, L = WORD_BPTT, WORD_BATCH, WORD_LAYERS
+    t0 = time.perf_counter()
+    worst = 0.0
+    n_cases = 0
+    unguarded_case = None       # the first one-direction LSTM case
+    for hidden, modes in RNN_CASES:
+        for mode in modes:
+            for bidir in (False, True):
+                t_case = time.perf_counter()
+                dirs = 2 if bidir else 1
+                size = rnn_param_size(L, hidden, hidden, mode, bidir)
+                scale = 1.0 / math.sqrt(hidden)
+                x = torch.rand((T, N, hidden), generator=gen, device=dev) \
+                    * 2 - 1
+                params = (torch.rand((size,), generator=gen, device=dev)
+                          * 2 - 1) * scale
+                h0 = torch.randn((L * dirs, N, hidden), generator=gen,
+                                 device=dev) * 0.5
+                c0 = torch.randn((L * dirs, N, hidden), generator=gen,
+                                 device=dev) * 0.5
+                ins = [x, params, h0] + ([c0] if mode == "lstm" else [])
+                leaves = [t.clone().requires_grad_(True) for t in ins]
+                with profile(activities=[ProfilerActivity.CPU]) as prof:
+                    outs = rnn.fn(*leaves, state_size=hidden, num_layers=L,
+                                  mode=mode, bidirectional=bidir,
+                                  state_outputs=True, _is_train=True)
+                check(ran_under(prof), "RNN %s %d bidir=%s did not run "
+                      "under %s" % (mode, hidden, bidir, RNN_DEVICE_OPS))
+                heads = [torch.randn(o.shape, generator=gen, device=dev)
+                         for o in outs]
+                grads = torch.autograd.grad(outs, leaves, heads)
+                pleaves = [t.clone().requires_grad_(True) for t in ins]
+                weights = packed_weights(pleaves[1], mode, L, hidden,
+                                         hidden, bidir)
+                pout, ph, pc = plain_rnn(
+                    torch, mode, pleaves[0], weights, pleaves[2],
+                    pleaves[3] if mode == "lstm" else None, bidir)
+                pouts = [pout, ph] + ([pc] if mode == "lstm" else [])
+                pgrads = torch.autograd.grad(pouts, pleaves, heads)
+                errs = {}
+                for name, g, w in zip(("output", "h_N", "c_N"), outs, pouts):
+                    errs[name] = rnn_err(g.detach(), w.detach())
+                for name, g, w in zip(("d data", "d parameters", "d h0",
+                                       "d c0"), grads, pgrads):
+                    errs[name] = rnn_err(g, w)
+                bad = {k: v for k, v in errs.items() if v > RNN_RTOL}
+                log("rnn op %s H %d %s: %s (%.2f s)" % (
+                    mode, hidden, "bidirectional" if bidir else
+                    "one direction", " ".join("%s %.2e" % kv
+                                              for kv in errs.items()),
+                    time.perf_counter() - t_case))
+                check(not bad, "the fused RNN op (%s, H %d, bidirectional "
+                      "%s) disagrees with the plain recurrence: %s (limit "
+                      "%g of max(1, max|ref|))" % (mode, hidden, bidir, bad,
+                                                   RNN_RTOL))
+                worst = max(worst, max(errs.values()))
+                n_cases += 1
+                if (mode, bidir) == ("lstm", False) and \
+                        unguarded_case is None:
+                    unguarded_case = (ins, heads, pouts, pgrads)
+                del leaves, pleaves, outs, grads, pouts, pgrads, weights
+    unguarded_backward(torch, *unguarded_case)
+    del unguarded_case
+    # bf16: does cuDNN take it? (amp casts data, parameters and states)
+    H = WORD_WIDTH
+    size = rnn_param_size(L, H, H, "lstm")
+    x = torch.rand((T, N, H), generator=gen, device=dev) * 2 - 1
+    params = (torch.rand((size,), generator=gen, device=dev) * 2 - 1) / \
+        math.sqrt(H)
+    zeros = torch.zeros((L, N, H), device=dev)
+    mt.amp.init("bfloat16")
+    try:
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            out = rnn.fn(x, params, zeros, zeros, state_size=H,
+                         num_layers=L, mode="lstm")
+            torch.cuda.synchronize()
+    finally:
+        mt.amp.off()
+    bf16_cudnn = ran_under(prof) and out.dtype == torch.bfloat16
+    want, _, _ = plain_rnn(torch, "lstm", x, packed_weights(
+        params, "lstm", L, H, H, False), zeros, zeros, False)
+    log("rnn op: %d cases within %g (worst %.2e) in %.1f s; amp bf16 LSTM "
+        "H %d: output %s, under %s: %s, %.3g from the f32 plain recurrence"
+        % (n_cases, RNN_RTOL, worst, time.perf_counter() - t0, H, out.dtype,
+           RNN_DEVICE_OPS, ran_under(prof),
+           rnn_err(out.float(), want)))
+    del x, params, zeros, out, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return bf16_cudnn
+
+
+def unguarded_backward(torch, ins, heads, pouts, pgrads):
+    """The 2-layer LSTM case of :func:`fused_op_check` with the precision
+    guard around the forward only, autograd's backward (cuDNN's) run
+    outside it with the global TF32 switch as it stands: its errors
+    against the plain recurrence, logged."""
+    from mxnet_tpu_torch import amp
+    from mxnet_tpu_torch.ops import rnn_op
+    x, params, h0, c0 = [t.clone().requires_grad_(True) for t in ins]
+    T, N, H = x.shape
+    L = h0.shape[0]
+    weights, biases = rnn_op.rnn_unpack_params(params, L, H, H, "lstm")
+    inp, hs, cs = x, [], []
+    with amp.conv_precision(torch.float32):
+        for k in range(L):
+            inp, h, c = rnn_op._fused("lstm", inp, h0[k:k + 1], c0[k:k + 1],
+                                      [*weights[k], *biases[k]], False, True)
+            hs.append(h)
+            cs.append(c)
+    outs = [inp, torch.cat(hs), torch.cat(cs)]
+    grads = torch.autograd.grad(outs, [x, params, h0, c0], heads)
+    errs = {"output": rnn_err(outs[0].detach(), pouts[0].detach()),
+            "d data": rnn_err(grads[0], pgrads[0]),
+            "d parameters": rnn_err(grads[1], pgrads[1])}
+    log("rnn op lstm H %d without the guard around its backward (cuDNN's "
+        "TF32 switch %s): %s (the check's limit %g; logged only)"
+        % (H, torch.backends.cudnn.allow_tf32,
+           " ".join("%s %.2e" % kv for kv in errs.items()), RNN_RTOL))
+
+
+def rnn_kind(op: str) -> str:
+    """The class of an operator's device time in the recurrent steps, by
+    the innermost aten op that launched the kernels."""
+    low = op.lower()
+    if "_cudnn_rnn_backward" in low:
+        return "RNN backward"
+    if "_cudnn_rnn" in low or any(m in low for m in (
+            "::lstm", "::gru", "::rnn_tanh", "::rnn_relu")):
+        return "RNN forward"
+    if "_foreach" in low:
+        return "optimizer"
+    if any(w in low for w in ("::mm", "addmm", "matmul", "linear", "bmm")):
+        return "GEMM (cuBLAS)"
+    if "embedding" in low:
+        return "embedding"
+    return "elementwise"
+
+
+def word_lm(mt, gluon):
+    """The upstream example's model: embedding, dropout, a 2-layer LSTM
+    with dropout between its layers, dropout, and a decoder that holds
+    the embedding's weight (``params=encoder.params``)."""
+
+    class RNNModel(gluon.Block):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            with self.name_scope():
+                self.drop = gluon.nn.Dropout(WORD_DROPOUT)
+                self.encoder = gluon.nn.Embedding(
+                    WORD_VOCAB, WORD_WIDTH,
+                    weight_initializer=mt.init.Uniform(0.1).set_rng(
+                        mt.random.derive_numpy_rng("word_lm_encoder")))
+                self.rnn = gluon.rnn.LSTM(WORD_WIDTH, WORD_LAYERS,
+                                          dropout=WORD_DROPOUT,
+                                          input_size=WORD_WIDTH)
+                self.decoder = gluon.nn.Dense(WORD_VOCAB,
+                                              in_units=WORD_WIDTH,
+                                              params=self.encoder.params)
+
+        def forward(self, inputs, hidden):
+            emb = self.drop(self.encoder(inputs))
+            output, hidden = self.rnn(emb, hidden)
+            output = self.drop(output)
+            return self.decoder(output.reshape((-1, WORD_WIDTH))), hidden
+
+    return RNNModel(prefix="wordlm_")
+
+
+def plain_word_lm(torch, model, x):
+    """An independent f32 forward of the word LM's weights with dropout
+    off and zero initial states: the embedding rows, :func:`plain_rnn`
+    per layer, the tied decoder. Returns the logits and the final h and
+    c of every layer."""
+    p = {n[len("wordlm_"):]: q.data().data.detach().float()
+         for n, q in model.collect_params().items()}
+    weight = p["embedding0_weight"]
+    emb = weight[x.long()]
+    layers = [tuple(p["lstm0_l%d_%s" % (k, part)] for part in (
+        "i2h_weight", "h2h_weight", "i2h_bias", "h2h_bias"))
+        for k in range(WORD_LAYERS)]
+    zeros = torch.zeros((WORD_LAYERS, x.shape[1], WORD_WIDTH),
+                        device=x.device)
+    out, h, c = plain_rnn(torch, "lstm", emb, layers, zeros, zeros, False)
+    logits = out.reshape(-1, WORD_WIDTH) @ weight.t() + \
+        p["embedding0_bias"]
+    return logits, h, c
+
+
+def train_word_lm(torch, np, counters, warm, timed, what):
+    """The word LM as the repo's twin (``examples/word_language_model.py``)
+    trains it: truncated BPTT over consecutive segments of one token
+    stream, ``detach`` of the carried states, ``autograd.record()``,
+    ``backward()``, ``clip_global_norm(grads, clip x bptt x batch)`` and
+    ``Trainer.step(bptt x batch)``. Step 1 runs with dropout off (its
+    loss is held to :func:`plain_word_lm`), the others in training mode:
+    ``warm`` steps, ``timed`` between CUDA events, one under
+    torch.profiler. After them the first segment's dropout-off loss
+    from zero states must be lower than step 1's."""
+    from torch.profiler import ProfilerActivity, profile
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import autograd, gluon
+    dev = torch.device(DEVICE)
+    B, T = WORD_BATCH, WORD_BPTT
+    n_steps = 1 + warm + timed + 1
+    tokens = np.random.RandomState(0).randint(
+        0, WORD_VOCAB, (T * n_steps + 1, B)).astype(np.float32)
+    stream = mt.nd.array(tokens, ctx=dev)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mt.random.seed(SEED)
+    model = word_lm(mt, gluon)
+    model.initialize(mt.init.Xavier().set_rng(
+        mt.random.derive_numpy_rng("word_lm")), ctx=mt.gpu(0))
+    params = model.collect_params()
+    trainer = gluon.Trainer(params, "sgd", {"learning_rate": WORD_LR,
+                                            "momentum": 0, "wd": 0})
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    check(model.decoder.weight is model.encoder.weight,
+          "%s: the decoder does not hold the embedding's weight" % what)
+    n_values = sum(q.data().size for q in params.values())
+    seg = [(stream[i * T:(i + 1) * T], stream[i * T + 1:(i + 1) * T + 1])
+           for i in range(n_steps)]
+    with torch.no_grad():
+        ref = plain_word_lm(torch, model, seg[0][0].data)
+        want = torch.nn.functional.cross_entropy(
+            ref[0], seg[0][1].data.reshape(-1).long()).item()
+    state = {"hidden": model.rnn.begin_state(batch_size=B, ctx=dev)}
+
+    def f32_ce(out, y):
+        # the cross-entropy of the model's logits taken in f32: under amp
+        # the loss itself is bf16 (as in the reference), 2^-4 apart at 9
+        return torch.nn.functional.cross_entropy(
+            out.data.detach().float(), y.data.reshape(-1).long()).item()
+
+    def step(i, train=True):
+        x, y = seg[i]
+        hidden = [h.detach() for h in state["hidden"]]
+        with autograd.record(train_mode=train):
+            out, state["hidden"] = model(x, hidden)
+            loss = loss_fn(out, y.reshape((-1,)))
+        loss.backward()
+        grads = [q.grad() for q in params.values() if q.grad_req != "null"]
+        gluon.utils.clip_global_norm(grads, WORD_CLIP * T * B)
+        trainer.step(T * B)
+        state["out"] = out
+        return loss.data.detach().float().mean()
+
+    for fn in counters.values():
+        fn.launches = {"f32": 0, "bf16": 0}
+    t0 = time.perf_counter()
+    losses = [step(0, train=False)]
+    out = state.pop("out")
+    first = f32_ce(out, seg[0][1])
+    step1 = {name: rel_err(got.data.detach().float(), want_t)
+             for name, got, want_t in zip(("logits", "h_N", "c_N"),
+                                          [out, *state["hidden"]], ref)}
+    del out, ref
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    for i in range(warm):
+        losses.append(step(1 + i))
+    torch.cuda.synchronize()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(timed + 1)]
+    events[0].record()
+    for i, ev in enumerate(events[1:]):
+        losses.append(step(1 + warm + i))
+        ev.record()
+    torch.cuda.synchronize()
+    per_step = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    launches = {n: dict(fn.launches) for n, fn in counters.items()}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        losses.append(step(n_steps - 1))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    _, busy_ms = resnet_breakdown(torch, prof, wall, what, rnn_kind)
+    with autograd.predict_mode():
+        out, _ = model(seg[0][0], model.rnn.begin_state(batch_size=B,
+                                                        ctx=dev))
+    after = f32_ce(out, seg[0][1])
+    losses = [float(v) for v in torch.stack(losses).cpu()]
+    del model, trainer, params, seg, stream, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    # per token: each LSTM layer 2 x 4H(I + H), the decoder 2 x H x V;
+    # forward and backward 3x
+    flops = 3 * B * T * (WORD_LAYERS * 2 * 4 * WORD_WIDTH * 2 * WORD_WIDTH
+                         + 2 * WORD_WIDTH * WORD_VOCAB)
+    return {"losses": losses, "want": want, "first": first, "after": after,
+            "step1": step1, "per_step": per_step, "setup_s": setup_s, "first_s": first_s,
+            "launches": launches, "peak_gb": peak_gb, "busy_ms": busy_ms,
+            "wall_ms": wall * 1e3, "flops": flops,
+            "n_values": n_values, "timed": timed}
+
+
+def check_word_lm(what, run, ce_tol, rtol, peak_flops, peak_name):
+    losses, per = run["losses"], sorted(run["per_step"])
+    step_ms = per[len(per) // 2]
+    tok_s = WORD_BATCH * WORD_BPTT / (step_ms / 1e3)
+    log("%s: word LM (tied %dx%d, %d LSTM layers, dropout %g), batch %d x "
+        "bptt %d, %d parameter values: setup %.3f s, first step %.3f s; "
+        "step %.3f ms (median of %d steps between CUDA events; min %.3f "
+        "max %.3f) = %.0f tok/s; MFU %.4f of %.0f TFLOP/s %s (%.1f GFLOP "
+        "a step counted from the shapes); peak memory %.3f GB; device busy "
+        "%.3f of %.3f ms profiled (idle share %.3f)"
+        % (what, WORD_VOCAB, WORD_WIDTH, WORD_LAYERS, WORD_DROPOUT,
+           WORD_BATCH, WORD_BPTT, run["n_values"], run["setup_s"],
+           run["first_s"], step_ms, run["timed"], per[0], per[-1], tok_s,
+           tok_s / (WORD_BATCH * WORD_BPTT) * run["flops"] / peak_flops,
+           peak_flops / 1e12, peak_name, run["flops"] / 1e9, run["peak_gb"],
+           run["busy_ms"], run["wall_ms"],
+           1 - run["busy_ms"] / max(run["wall_ms"], 1e-9)))
+    log("%s: loss per step %s" % (what, " ".join("%.6f" % v
+                                                 for v in losses)))
+    first = run["first"]
+    log("%s: step-1 cross-entropy (dropout off, the logits' in f32) %.6f, "
+        "plain f32 forward %.6f (|diff| %.3g, tolerance %g); the first "
+        "segment after the steps %.6f; flash-attention launches %s"
+        % (what, first, run["want"], abs(first - run["want"]), ce_tol,
+           run["after"], run["launches"]))
+    check(all(math.isfinite(v) for v in losses), "%s: non-finite loss %s"
+          % (what, losses))
+    log("%s: step-1 logits and final states (dropout off) against the "
+        "plain f32 forward: %s of max|ref| (limit %g)"
+        % (what, " ".join("%s %.2e" % kv for kv in run["step1"].items()),
+           rtol))
+    check(abs(first - run["want"]) <= ce_tol, "%s: step-1 loss %g vs "
+          "plain forward %g" % (what, first, run["want"]))
+    bad = {k: v for k, v in run["step1"].items() if not v <= rtol}
+    check(not bad, "%s: the step-1 forward disagrees with the plain f32 "
+          "forward: %s (limit %g of max|ref|)" % (what, bad, rtol))
+    check(run["after"] < first, "%s: the loss did not fall: %g after the "
+          "steps, %g at step 1" % (what, run["after"], first))
+    for name, n in run["launches"].items():
+        check(n == {"f32": 0, "bf16": 0}, "%s: flash-attention kernel %s "
+              "launched %s times in a recurrent step" % (what, name, n))
+
+
+def bucket_sentences(np):
+    """Sentences over BUCKET_VOCAB words (ids 1.., 0 is padding) at
+    lengths that fill every bucket with BUCKET_BATCHES batches: for each
+    bucket, lengths from just above the one below up to its own."""
+    rng = np.random.RandomState(SEED)
+    out, lo = [], 1
+    for b in BUCKETS:
+        for _ in range(BUCKET_BATCHES * BUCKET_BATCH):
+            n = int(rng.randint(lo, b + 1))
+            out.append([int(t) for t in rng.randint(1, BUCKET_VOCAB, n)])
+        lo = b + 1
+    return out
+
+
+def bucket_sym_gen(mt, fused=False, head=True):
+    """The upstream lstm_bucketing.py graph per bucket length: embedding,
+    a stack of LSTMCells unrolled (or one FusedRNNCell with the same
+    parameters), the decoder, SoftmaxOutput ignoring padding (with
+    ``head`` off, the graph ends at the decoder's logits)."""
+    if fused:
+        cell = mt.rnn.FusedRNNCell(BUCKET_WIDTH, num_layers=BUCKET_LAYERS,
+                                   mode="lstm", prefix="lstm_")
+    else:
+        cell = mt.rnn.SequentialRNNCell()
+        for i in range(BUCKET_LAYERS):
+            cell.add(mt.rnn.LSTMCell(num_hidden=BUCKET_WIDTH,
+                                     prefix="lstm_l%d_" % i))
+
+    def sym_gen(seq_len):
+        data = mt.sym.Variable("data")
+        label = mt.sym.Variable("softmax_label")
+        embed = mt.sym.Embedding(data, input_dim=BUCKET_VOCAB,
+                                 output_dim=BUCKET_WIDTH, name="embed")
+        cell.reset()
+        outputs, _ = cell.unroll(seq_len, inputs=embed, merge_outputs=True)
+        pred = mt.sym.Reshape(outputs, shape=(-1, BUCKET_WIDTH))
+        pred = mt.sym.FullyConnected(pred, num_hidden=BUCKET_VOCAB,
+                                     name="pred")
+        if not head:
+            return pred, ("data",), ()
+        lab = mt.sym.Reshape(label, shape=(-1,))
+        pred = mt.sym.SoftmaxOutput(pred, lab, use_ignore=True,
+                                    ignore_label=0, normalization="valid",
+                                    name="softmax")
+        return pred, ("data",), ("softmax_label",)
+
+    return cell, sym_gen
+
+
+def bucket_phase(torch, np, counters):
+    """The bucketing LM: ``BucketingModule.fit`` for one epoch over a
+    seeded ``BucketSentenceIter`` (BUCKET_BATCHES batches in each of the
+    six buckets, the unrolled LSTMCell stack), then per bucket
+    BUCKET_TIMED steps between CUDA events and the host's time per step,
+    one profiled step at the largest bucket, and the same weights
+    through FusedRNNCell (``unpack_weights`` / ``pack_weights``),
+    forward only, against the unrolled graph. Every bucket's module must
+    hold the default bucket's parameter tensors (by identity and
+    ``data_ptr``); the perplexity over the epoch's batches after the
+    epoch must be finite and below what they gave before it (the first
+    batch's too)."""
+    from torch.profiler import ProfilerActivity, profile
+    import mxnet_tpu_torch as mt
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    ctx = mt.gpu(0)
+    it = mt.rnn.BucketSentenceIter(bucket_sentences(np), BUCKET_BATCH,
+                                   buckets=list(BUCKETS), invalid_label=0,
+                                   seed=SEED)
+    stack, sym_gen = bucket_sym_gen(mt)
+    mod = mt.mod.BucketingModule(sym_gen,
+                                 default_bucket_key=it.default_bucket_key,
+                                 context=ctx)
+    mt.random.seed(SEED)
+    init = mt.init.Xavier(factor_type="in", magnitude=2.34).set_rng(
+        mt.random.derive_numpy_rng("lstm_bucketing"))
+    batches = list(it)
+    it.reset()
+
+    def perplexity(mod, some):
+        metric = mt.metric.Perplexity(ignore_label=0)
+        for b in some:
+            mod.forward(b, is_train=False)
+            mod.update_metric(metric, b.label)
+        return metric.get()[1]
+
+    mod.bind(data_shapes=it.provide_data, label_shapes=it.provide_label)
+    mod.init_params(init)
+    first_before = perplexity(mod, batches[:1])
+    before = perplexity(mod, batches)
+    for fn in counters.values():
+        fn.launches = {"f32": 0, "bf16": 0}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mod.fit(it, eval_metric=mt.metric.Perplexity(ignore_label=0),
+            optimizer="sgd", optimizer_params={
+                "learning_rate": BUCKET_LR, "momentum": 0.0,
+                "wd": BUCKET_WD},
+            num_epoch=1)
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    after = perplexity(mod, batches)
+    first_after = perplexity(mod, batches[:1])
+    launches = {n: dict(fn.launches) for n, fn in counters.items()}
+    default = mod._buckets[it.default_bucket_key]
+    names = default._param_names
+    shared = {k: all(m._exec.arg_dict[n] is default._exec.arg_dict[n] and
+                     m._exec.arg_dict[n].data.data_ptr() ==
+                     default._exec.arg_dict[n].data.data_ptr()
+                     for n in names)
+              for k, m in mod._buckets.items()}
+    n_ops = {k: sum(n["op"] != "null" for n in json.loads(
+        m.symbol.tojson())["nodes"]) for k, m in mod._buckets.items()}
+    log("bucket: lstm_bucketing LM (%d LSTMCell layers of %d, embedding "
+        "%d, vocab %d), batch %d, buckets %s: one fit epoch of %d batches "
+        "in %.3f s (binds included); perplexity over the epoch's batches "
+        "%.3f before, %.3f after; the first batch %.3f before, %.3f after; "
+        "parameters shared by identity and data_ptr in buckets %s"
+        % (BUCKET_LAYERS, BUCKET_WIDTH, BUCKET_WIDTH, BUCKET_VOCAB,
+           BUCKET_BATCH, list(BUCKETS), len(batches), epoch_s, before,
+           after, first_before, first_after, shared))
+    check(sorted(mod._buckets) == sorted(BUCKETS), "bucket: modules for "
+          "%s, the epoch has %s" % (sorted(mod._buckets), list(BUCKETS)))
+    check(all(shared.values()), "bucket: a bucket's module does not hold "
+          "the default bucket's parameter tensors: %s" % shared)
+    check(all(m._updater is default._updater
+              for m in mod._buckets.values()),
+          "bucket: the buckets do not share one optimizer state")
+    check(math.isfinite(after) and after < before and
+          first_after < first_before,
+          "bucket: perplexity %g (first batch %g) after the epoch, %g (%g) "
+          "before it" % (after, first_after, before, first_before))
+    for name, n in launches.items():
+        check(n == {"f32": 0, "bf16": 0}, "bucket: flash-attention kernel "
+              "%s launched %s times" % (name, n))
+    # per bucket: device ms a step between CUDA events, host µs to issue
+    # it (the unrolled graph runs op by op from Python)
+    by_key = {b.bucket_key: b for b in batches}
+    # per token: each LSTM layer 2 x 4H(in + H), the decoder 2 x H x V;
+    # forward and backward 3x (padding tokens counted)
+    flops_token = 3 * (BUCKET_LAYERS * 2 * 4 * BUCKET_WIDTH * 2 *
+                       BUCKET_WIDTH + 2 * BUCKET_WIDTH * BUCKET_VOCAB)
+    for key in BUCKETS:      # every bucket ran in the epoch: warm
+        t = timing(torch, lambda: mod._fit_step(by_key[key]),
+                   iters=BUCKET_TIMED, windows=1, warm=0)
+        tok_s = BUCKET_BATCH * key / (t["ms"] / 1e3)
+        log("bucket %d: %.3f ms a step (%d steps between CUDA events) = "
+            "%.0f tok/s, MFU %.5f of 67 TFLOP/s f32 (%.2f GFLOP a step); "
+            "host %.1f ms to issue one (%.0f%% of it; %d graph nodes)"
+            % (key, t["ms"], BUCKET_TIMED, tok_s,
+               tok_s * flops_token / PEAK_FP32_FLOPS,
+               BUCKET_BATCH * key * flops_token / 1e9, t["host_us"] / 1e3,
+               100 * t["host_us"] / 1e3 / t["ms"], n_ops[key]))
+    big = by_key[max(BUCKETS)]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        mod._fit_step(big)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    resnet_breakdown(torch, prof, wall, "bucket %d" % max(BUCKETS),
+                     rnn_kind)
+    # the same weights through FusedRNNCell, forward only, to the
+    # decoder's logits (the softmax's 1e-4 probabilities would hide a
+    # wrong cell)
+    args, _ = mod.get_params()
+    args = {k: v for k, v in args.items() if "begin_state" not in k}
+    _, logits_gen = bucket_sym_gen(mt, head=False)
+    fused, fused_gen = bucket_sym_gen(mt, fused=True, head=False)
+    packed = fused.pack_weights(stack.unpack_weights(args))
+    outs = {}
+    for name, gen, values in (("unrolled", logits_gen, args),
+                              ("fused", fused_gen, packed)):
+        sym, data_names, label_names = gen(big.bucket_key)
+        m = mt.mod.Module(sym, data_names, label_names, context=ctx)
+        m.bind(data_shapes=big.provide_data, for_training=False)
+        m.init_params(mt.init.Zero())
+        m.set_params(values, {}, allow_missing=True)
+        m.forward(big, is_train=False)
+        outs[name] = m.get_outputs()[0].data
+        torch.cuda.synchronize()
+        t = timing(torch, lambda: m.forward(big, is_train=False),
+                   iters=BUCKET_TIMED, windows=1, warm=0)
+        log("bucket %d %s forward: %.3f ms (host %.1f ms)"
+            % (big.bucket_key, name, t["ms"], t["host_us"] / 1e3))
+    err = rel_err(outs["fused"], outs["unrolled"])
+    log("bucket %d: FusedRNNCell forward against the unrolled LSTMCells, "
+        "the same weights (zero begin states): logits within %.2e of "
+        "max|ref| %.4g (limit %g)" % (big.bucket_key, err,
+                                     outs["unrolled"].abs().max().item(),
+                                     RNN_RTOL))
+    check(err <= RNN_RTOL, "bucket: the fused cell's forward differs from "
+          "the unrolled one by %g" % err)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del mod, outs, args, packed, batches, by_key, big
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("bucket phase: %.1f s; peak memory %.3f GB"
+        % (time.perf_counter() - t_phase, peak_gb))
+
+
+def rnn_phase(torch, np):
+    """The recurrent family on the card: the fused op against its plain
+    recurrence, the word LM through Gluon (f32; amp bf16 too when cuDNN
+    takes the op in bf16) and the bucketing LM through BucketingModule,
+    with cuDNN's TF32 switch as torch leaves it (on)."""
+    t0 = time.perf_counter()
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "cuBLAS TF32 is on: the plain recurrences need f32 products")
+    # cuDNN's TF32 switch at torch's default (on), as a user has it: the
+    # op's own guard must keep the f32 recurrence f32
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        rnn_checks(torch, np)
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    log("rnn phase: %.1f s" % (time.perf_counter() - t0))
+
+
+def rnn_checks(torch, np):
+    """The checks and runs of :func:`rnn_phase`."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    bf16_cudnn = fused_op_check(torch)
+    counters = {"flash_attention_fwd": fa.flash_attention_fwd,
+                "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
+                "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv}
+    run = train_word_lm(torch, np, counters, WORD_WARM, WORD_TIMED,
+                        "word lm f32")
+    check_word_lm("word lm f32", run, WORD_CE_TOL, RNN_RTOL,
+                  PEAK_FP32_FLOPS, "f32")
+    log("word lm: amp bf16 %s" % ("not run: cuDNN did not take the op in "
+                                  "bf16" if not bf16_cudnn else "runs"))
+    if bf16_cudnn:
+        mt.amp.init("bfloat16")
+        try:
+            run = train_word_lm(torch, np, counters, 1, 5, "word lm bf16")
+        finally:
+            mt.amp.off()
+        check_word_lm("word lm bf16", run, WORD_BF16_CE_TOL,
+                      WORD_BF16_RTOL, PEAK_BF16_FLOPS, "bf16")
+    bucket_phase(torch, np, counters)
+
+
+PAIRS_OF = ("f32-backward", "rtc")
+
+
+def pairs_of(checkout: str, what: str) -> int:
+    """``--pairs-of CHECKOUT WHAT``: one timing of another checkout's
+    package (the parent commit's, say), built here and run by this
+    script's code on this card, for a before/after pair in one call.
+    ``f32-backward`` times the f32 dQ and dK/dV kernels
+    (:func:`f32_backward_timing`); ``rtc`` pairs ``relu`` and
+    ``scale_add``, and :data:`B6F_STREAM_SOURCE`'s versions of them,
+    with torch's calls (:func:`rtc_pairs`). Prints the readings as one
+    JSON line."""
+    if what not in PAIRS_OF:
+        print("chip_smoke: --pairs-of CHECKOUT WHAT, WHAT one of %s"
+              % (PAIRS_OF,), file=sys.stderr)
+        return 2
     sys.path.insert(0, str(Path(checkout).resolve()))
     import torch
     import mxnet_tpu_torch
     log("package %s" % mxnet_tpu_torch.__file__)
     try:
         card_phase(torch)
-        readings = f32_backward_timing(torch)
+        if what == "f32-backward":
+            readings = f32_backward_timing(torch)
+        else:
+            from mxnet_tpu_torch import rtc_examples as ex
+            rows = TRAIN_BATCH * MAX_SEQ
+            readings = rtc_pairs(torch, {
+                "relu": ex.relu((rows, D_FF)),
+                "scale_add": ex.scale_add((rows, D_MODEL)),
+                **b6f_stream_kernels(torch)})
     except SmokeFailure as exc:
         print("chip_smoke: FAILED: %s" % exc, file=sys.stderr)
         return 1
@@ -2707,8 +3613,8 @@ def f32_backward_of(checkout: str) -> int:
 
 
 def main() -> int:
-    if len(sys.argv) == 3 and sys.argv[1] == "--f32-backward-of":
-        return f32_backward_of(sys.argv[2])
+    if len(sys.argv) == 4 and sys.argv[1] == "--pairs-of":
+        return pairs_of(sys.argv[2], sys.argv[3])
     if not (ROOT / "mxnet_tpu_torch" / "csrc").is_dir():
         print("chip_smoke: run from a checkout of the repository "
               "(mxnet_tpu_torch/ not found beside this script)",
@@ -2728,6 +3634,7 @@ def main() -> int:
         rtc_phase(torch, np, kernels)
         resnet_phase(torch, np)
         gluon_phase(torch, np)
+        rnn_phase(torch, np)
         torch.cuda.synchronize()
     except SmokeFailure as exc:
         print("chip_smoke: FAILED: %s" % exc, file=sys.stderr)

@@ -34,23 +34,29 @@ Ported so far:
   ``torch.autograd``) over ``nd`` and Gluon (:mod:`.gluon`) —
   Parameter, Block / HybridBlock, the ``nn`` layers, losses, Trainer,
   ``data`` and the vision model zoo, whose parameters load in both
-  packages.
+  packages;
+* the recurrent family: the fused ``RNN`` op (:mod:`.ops.rnn_op`, on
+  cuDNN's RNN), the ``Sequence*`` ops, the symbolic cells and
+  ``BucketSentenceIter`` (:mod:`.rnn`), ``BucketingModule``
+  (:mod:`.module.bucketing_module`), Gluon's recurrent cells and layers
+  (:mod:`.gluon.rnn`), the ``Perplexity`` metric and the callbacks
+  (:mod:`.callback`).
 """
 from __future__ import annotations
 
-from . import amp, autograd, contrib
+from . import amp, autograd, callback, contrib
 from . import initializer as init
 from . import io, metric, model
 from . import module as mod
 from . import ndarray as nd
-from . import gluon, operator, optimizer, random, rtc
+from . import gluon, operator, optimizer, random, rnn, rtc
 from . import symbol as sym
 from .base import MXNetError
 from .context import cpu, current_device, device_scope, gpu
 
 __all__ = ["MXNetError", "cpu", "gpu", "device_scope", "current_device",
-           "amp", "autograd", "contrib", "gluon", "init", "io", "metric",
-           "mod", "model", "nd", "operator",
-           "optimizer", "random", "rtc", "sym"]
+           "amp", "autograd", "callback", "contrib", "gluon", "init", "io",
+           "metric", "mod", "model", "nd", "operator",
+           "optimizer", "random", "rnn", "rtc", "sym"]
 
 __version__ = "0.1.0"

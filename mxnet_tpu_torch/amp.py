@@ -21,7 +21,8 @@ asks only when cuBLAS may not reduce in bf16:
 is set to False by :func:`init`. A float32 convolution is taken in full
 float32, as the reference asks (``preferred_element_type=float32``):
 cuDNN may use TF32 for it by default, so the convolution runs inside
-:func:`conv_precision`, which turns that off for its float32 operands.
+:func:`conv_precision`, which turns that off for its float32 operands;
+so does the fused RNN op, which runs on cuDNN's RNN.
 """
 from __future__ import annotations
 
@@ -103,9 +104,10 @@ def mxu_operands(a: torch.Tensor, b: torch.Tensor):
 
 @contextmanager
 def conv_precision(dtype: torch.dtype):
-    """Within the block, cuDNN convolves ``dtype`` operands with float32
-    accumulation: for float32 operands TF32 is turned off (it is on by
-    default for cuDNN), and the previous setting is restored after."""
+    """Within the block, cuDNN convolves ``dtype`` operands (and runs
+    the fused RNN op on them) with float32 accumulation: for float32
+    operands TF32 is turned off (it is on by default for cuDNN), and
+    the previous setting is restored after."""
     if dtype != torch.float32:
         yield
         return

@@ -3,8 +3,9 @@
 The port's own copy of the reference's ``initializer.py`` (jax-free
 there too, but importing it would run the reference package's
 ``__init__``, which imports jax): ``InitDesc``, the name-pattern
-dispatch of ``Initializer``, and ``Uniform``, ``Normal``, ``Xavier``,
-``Zero``, ``One`` and ``Constant``; :func:`create` also takes the
+dispatch of ``Initializer``, and ``Uniform``, ``Normal``,
+``Orthogonal``, ``Xavier``, ``LSTMBias``, ``FusedRNN``, ``Zero``,
+``One`` and ``Constant``; :func:`create` also takes the
 names Gluon's layers use, ``"zeros"`` and ``"ones"``. Draws come from
 numpy, so the same initializer with the same ``set_rng`` generator
 gives the same weights in both packages; they are staged on the host
@@ -21,8 +22,9 @@ from . import ndarray as nd
 from .context import cpu
 from .ndarray import NDArray
 
-__all__ = ["InitDesc", "Initializer", "Uniform", "Normal", "Xavier", "One",
-           "Zero", "Constant", "register", "create"]
+__all__ = ["InitDesc", "Initializer", "Uniform", "Normal", "Orthogonal",
+           "Xavier", "LSTMBias", "FusedRNN", "One", "Zero", "Constant",
+           "register", "create"]
 
 _INITIALIZER_REGISTRY: Dict[str, type] = {}
 
@@ -245,3 +247,95 @@ class Xavier(Initializer):
                               ctx=cpu())
         else:
             raise ValueError("Unknown random type")
+
+
+@register
+class Orthogonal(Initializer):
+    """An orthogonal matrix from the SVD of a uniform (or gaussian)
+    draw, times ``scale``."""
+
+    def __init__(self, scale=1.414, rand_type="uniform"):
+        super().__init__(scale=scale, rand_type=rand_type)
+        self.scale = scale
+        self.rand_type = rand_type
+
+    def _init_weight(self, name, arr):
+        nout = arr.shape[0]
+        nin = int(np.prod(arr.shape[1:]))
+        if self.rand_type == "uniform":
+            tmp = self.rng.uniform(-1.0, 1.0, (nout, nin))
+        else:
+            tmp = self.rng.normal(0.0, 1.0, (nout, nin))
+        u, _, v = np.linalg.svd(tmp, full_matrices=False)
+        res = u if u.shape == tmp.shape else v
+        arr[:] = nd.array(self.scale * res.reshape(arr.shape).astype(
+            np.float32), ctx=cpu())
+
+
+@register
+class LSTMBias(Initializer):
+    """An LSTM's bias: zero, except ``forget_bias`` on the forget gate
+    (the second quarter, gate order i, f, c, o)."""
+
+    def __init__(self, forget_bias=1.0):
+        super().__init__(forget_bias=forget_bias)
+        self.forget_bias = forget_bias
+
+    def _init_weight(self, name, arr):
+        b = np.zeros(arr.shape, dtype=np.float32)
+        num_hidden = int(b.shape[0] / 4)
+        b[num_hidden:2 * num_hidden] = self.forget_bias
+        arr[:] = nd.array(b, ctx=cpu())
+
+    _init_bias = _init_weight
+
+
+@register
+class FusedRNN(Initializer):
+    """The fused RNN op's packed parameter vector: each weight block
+    (W_x, W_h per layer and direction, in the packed order) drawn by
+    ``init`` (default ``Xavier()``), the biases zero except, for an
+    LSTM, ``forget_bias / 2`` on the forget gate of both b_x and b_h."""
+
+    def __init__(self, init, num_hidden, num_layers, mode,
+                 bidirectional=False, forget_bias=1.0):
+        super().__init__(init=init.dumps() if hasattr(init, "dumps")
+                         else None, num_hidden=num_hidden,
+                         num_layers=num_layers, mode=mode,
+                         bidirectional=bidirectional,
+                         forget_bias=forget_bias)
+        self._init = init if init is not None else Xavier()
+        self._num_hidden = num_hidden
+        self._num_layers = num_layers
+        self._mode = mode
+        self._bidirectional = bidirectional
+        self._forget_bias = forget_bias
+
+    def _init_weight(self, desc, arr):
+        from .ops.rnn_op import _GATES
+        gates = _GATES[self._mode]
+        dirs = 2 if self._bidirectional else 1
+        H = self._num_hidden
+        total = arr.size
+        # the layer-0 input size, solved from the total
+        rest = (self._num_layers - 1) * dirs * gates * H * \
+            (dirs * H + H + 2)
+        input_size = (total - rest) // (dirs * gates * H) - H - 2
+        out = np.zeros((total,), dtype=np.float32)
+        p = 0
+        for layer in range(self._num_layers):
+            in_sz = input_size if layer == 0 else H * dirs
+            for _ in range(dirs):
+                for ni in (in_sz, H):
+                    size = gates * H * ni
+                    block = nd.zeros((gates * H, ni), ctx=cpu())
+                    self._init(InitDesc(desc + "_weight", {}), block)
+                    out[p:p + size] = block.asnumpy().ravel()
+                    p += size
+        for layer in range(self._num_layers):
+            for _ in range(dirs):
+                for _ in range(2):  # b_x, b_h
+                    if self._mode == "lstm":
+                        out[p + H:p + 2 * H] = self._forget_bias / 2.0
+                    p += gates * H
+        arr[:] = nd.array(out, ctx=cpu())

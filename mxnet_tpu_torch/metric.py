@@ -1,5 +1,5 @@
-"""Evaluation metrics: ``EvalMetric``, ``create``, ``Accuracy`` and
-``CrossEntropy``.
+"""Evaluation metrics: ``EvalMetric``, ``create``, ``Accuracy``,
+``CrossEntropy`` and ``Perplexity``.
 
 The port's counterpart of the reference's ``metric.py`` for the metrics
 ``fit`` uses by default. Like the reference's device-resident path, a
@@ -12,12 +12,15 @@ from __future__ import annotations
 
 from typing import Dict
 
+import math
+
 import numpy as np
 import torch
 
 from .ndarray import NDArray
 
-__all__ = ["EvalMetric", "Accuracy", "CrossEntropy", "create", "register"]
+__all__ = ["EvalMetric", "Accuracy", "CrossEntropy", "Perplexity", "create",
+           "register"]
 
 _METRIC_REGISTRY: Dict[str, type] = {}
 
@@ -143,3 +146,54 @@ class CrossEntropy(EvalMetric):
                              % (label.shape[0], pred.shape[0]))
         prob = pred.gather(1, label[:, None])[:, 0].to(torch.float64)
         return (-torch.log(prob + self.eps)).sum(), label.shape[0]
+
+
+@register
+class Perplexity(EvalMetric):
+    """exp of the mean of -log(max(p[label], 1e-10)) over every label
+    other than ``ignore_label``; the predictions' last axis is the
+    class axis. The count of labels taken is summed on the device too,
+    so :meth:`get` is the one host read."""
+
+    def __init__(self, ignore_label=None, axis=-1, name="perplexity",
+                 output_names=None, label_names=None):
+        super().__init__(name, output_names, label_names)
+        self.ignore_label = ignore_label
+        self.axis = axis
+
+    def reset(self):
+        super().reset()
+        self._num = None
+
+    def update(self, labels, preds):
+        check_label_shapes(labels, preds)
+        for label, pred in zip(labels, preds):
+            pred = _as_tensor(pred).detach()
+            label = _as_tensor(label).detach().to(pred.device)
+            if label.numel() * pred.shape[-1] != pred.numel():
+                raise ValueError("shape mismatch: %s vs. %s"
+                                 % (tuple(label.shape), tuple(pred.shape)))
+            label = label.reshape(-1).to(torch.int64)
+            # a negative label indexes from the end, as numpy's would
+            probs = pred.reshape(-1, pred.shape[-1]).gather(
+                1, label.remainder(pred.shape[-1])[:, None])[:, 0].to(
+                    torch.float64)
+            num = torch.full((), label.numel(), dtype=torch.float64,
+                             device=pred.device)
+            if self.ignore_label is not None:
+                ignore = label == int(self.ignore_label)
+                probs = torch.where(ignore, torch.ones_like(probs), probs)
+                num = num - ignore.sum()
+            loss = -torch.log(torch.clamp(probs, min=1e-10)).sum()
+            self._sum = loss if self._sum is None else self._sum + loss
+            self._num = num if self._num is None else self._num + num
+
+    def get(self):
+        if self._sum is not None:
+            both = torch.stack([self._sum, self._num]).cpu()   # one read
+            self.sum_metric += float(both[0])
+            self.num_inst += int(both[1])
+            self._sum = self._num = None
+        if self.num_inst == 0:
+            return (self.name, float("nan"))
+        return (self.name, math.exp(self.sum_metric / self.num_inst))

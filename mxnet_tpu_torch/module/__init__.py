@@ -1,7 +1,8 @@
-"""``mod`` — Module and its training loop."""
+"""``mod`` — Module, BucketingModule and their training loop."""
 from __future__ import annotations
 
 from .base_module import BaseModule
+from .bucketing_module import BucketingModule
 from .module import Module
 
-__all__ = ["BaseModule", "Module"]
+__all__ = ["BaseModule", "BucketingModule", "Module"]

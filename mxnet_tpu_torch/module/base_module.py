@@ -173,7 +173,8 @@ class BaseModule(object):
 
     # abstract primitives
     def bind(self, data_shapes, label_shapes=None, for_training=True,
-             force_rebind=False, grad_req="write"):
+             inputs_need_grad=False, force_rebind=False, shared_module=None,
+             grad_req="write"):
         raise NotImplementedError()
 
     def init_params(self, initializer=None, arg_params=None, aux_params=None,
@@ -199,6 +200,10 @@ class BaseModule(object):
 
     def update_metric(self, eval_metric, labels):
         raise NotImplementedError()
+
+    def prepare(self, data_batch):
+        """Ready the module for ``data_batch`` (``BucketingModule``
+        switches to its bucket)."""
 
     def _fit_step(self, data_batch):
         self.forward_backward(data_batch)

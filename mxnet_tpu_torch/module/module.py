@@ -97,6 +97,8 @@ class Module(BaseModule):
         self._data_shapes = None
         self._label_shapes = None
         self._grad_req = None
+        self._param_index: Dict[str, int] = {}
+        self.inputs_need_grad = False
 
     # ------------------------------------------------------------ names
     @property
@@ -189,16 +191,38 @@ class Module(BaseModule):
 
     # ------------------------------------------------------------ bind
     def bind(self, data_shapes, label_shapes=None, for_training=True,
-             force_rebind=False, grad_req="write"):
+             inputs_need_grad=False, force_rebind=False, shared_module=None,
+             grad_req="write"):
         """Infer every shape from the input shapes and allocate the
-        arguments and gradient buffers on the module's device."""
+        arguments and gradient buffers on the module's device.
+
+        ``inputs_need_grad`` gives the data inputs gradient buffers
+        (``get_input_grads``). With ``shared_module`` (a bound module
+        with initialized parameters on the same device, as
+        ``BucketingModule`` binds each bucket against its default one),
+        this module holds that module's parameter, gradient and aux
+        arrays themselves, not copies: an update through either is seen
+        by both. A parameter it lacks or holds at another shape
+        raises."""
         if force_rebind:
             self._exec = None
             self.binded = False
         if self.binded:
             self.logger.warning("Already bound, ignoring bind()")
             return
+        shared_exec = None
+        if shared_module is not None:
+            if not (shared_module.binded and
+                    shared_module.params_initialized):
+                raise MXNetError("shared_module must be bound and have its "
+                                 "parameters initialized")
+            if shared_module._device != self._device:
+                raise MXNetError("shared_module is on %s, this module on %s: "
+                                 "arrays are shared on one device only"
+                                 % (shared_module._device, self._device))
+            shared_exec = shared_module._exec
         self.for_training = for_training
+        self.inputs_need_grad = inputs_need_grad
         self._data_shapes = [x if isinstance(x, DataDesc) else DataDesc(*x)
                              for x in data_shapes]
         self._label_shapes = [x if isinstance(x, DataDesc) else DataDesc(*x)
@@ -209,8 +233,10 @@ class Module(BaseModule):
                             if d.name in arg_names})
         req = {}
         for n in arg_names:
-            if n in self._data_names or n in self._label_names or \
-                    n in self._state_names or n in self._fixed_param_names:
+            if n in self._data_names:
+                req[n] = "write" if inputs_need_grad else "null"
+            elif n in self._label_names or n in self._state_names or \
+                    n in self._fixed_param_names:
                 req[n] = "null"
             else:
                 req[n] = grad_req if for_training else "null"
@@ -220,9 +246,17 @@ class Module(BaseModule):
         params = (self._arg_params, self._aux_params) \
             if self.params_initialized else None
         self._exec = self._symbol.simple_bind(
-            self._device, grad_req=req, type_dict=type_dict, **shape_hints)
+            self._device, grad_req=req, type_dict=type_dict,
+            shared_arg_names=self._param_names, shared_exec=shared_exec,
+            **shape_hints)
         self.binded = True
-        if params is not None:
+        if shared_exec is not None:
+            self._arg_params = {n: self._exec.arg_dict[n]
+                                for n in self._param_names}
+            self._aux_params = {n: self._exec.aux_dict[n]
+                                for n in self._aux_names}
+            self.params_initialized = True
+        elif params is not None:
             self.init_params(arg_params=params[0], aux_params=params[1],
                              force_init=True)
 
@@ -264,6 +298,21 @@ class Module(BaseModule):
         optimizer.set_wd_mult({})
         self._optimizer = optimizer
         self._updater = opt.get_updater(optimizer)
+        self._param_index = {n: i for i, n in enumerate(self._param_names)}
+        self.optimizer_initialized = True
+
+    def borrow_optimizer(self, shared_module):
+        """Take ``shared_module``'s optimizer and updater, its state
+        included, keyed by parameter name (``BucketingModule``)."""
+        assert shared_module.optimizer_initialized
+        missing = [n for n in self._param_names
+                   if n not in shared_module._param_index]
+        if missing:
+            raise MXNetError("borrow_optimizer: the shared module does not "
+                             "train %s" % missing)
+        self._optimizer = shared_module._optimizer
+        self._updater = shared_module._updater
+        self._param_index = shared_module._param_index
         self.optimizer_initialized = True
 
     # ------------------------------------------------------------ compute
@@ -295,7 +344,7 @@ class Module(BaseModule):
 
     def _apply_update(self, names, grads) -> None:
         """One fused optimizer update of the parameters ``names``."""
-        idx = {n: i for i, n in enumerate(self._param_names)}
+        idx = self._param_index
         self._updater.update_multi([idx[n] for n in names],
                                    [self._exec.arg_dict[n] for n in names],
                                    grads)
@@ -315,11 +364,26 @@ class Module(BaseModule):
             and self.optimizer_initialized
         self._load_batch(data_batch)
         self._exec.forward(is_train=True)
-        self._apply_update(*self._exec.gradients())
+        names, grads = self._exec.gradients()
+        if self.inputs_need_grad:
+            with torch.no_grad():
+                for n, g in zip(names, grads):
+                    if n in self._data_names:
+                        self._exec.grad_dict[n].data.copy_(g)
+        params = [(n, g) for n, g in zip(names, grads)
+                  if n not in self._data_names]
+        self._apply_update([n for n, _ in params], [g for _, g in params])
 
     def get_outputs(self, merge_multi_context=True) -> List[NDArray]:
         assert self.binded and self.params_initialized
         return self._exec.outputs
+
+    def get_input_grads(self, merge_multi_context=True) -> List[NDArray]:
+        """The gradients of the data inputs (bound with
+        ``inputs_need_grad``)."""
+        assert self.binded and self.params_initialized \
+            and self.inputs_need_grad
+        return [self._exec.grad_dict[n] for n in self._data_names]
 
     def update_metric(self, eval_metric, labels):
         labels = dict(zip(self._label_names or

@@ -13,10 +13,11 @@ from __future__ import annotations
 import sys as _sys
 
 from ..ops.registry import OP_REGISTRY
-from .ndarray import NDArray, array, imperative_invoke, load, ones, save, zeros
+from .ndarray import (NDArray, array, concatenate, imperative_invoke, load,
+                      ones, save, zeros)
 
-__all__ = ["NDArray", "array", "zeros", "ones", "imperative_invoke", "save",
-           "load"]
+__all__ = ["NDArray", "array", "concatenate", "zeros", "ones",
+           "imperative_invoke", "save", "load"]
 
 
 def _make_wrapper(op):

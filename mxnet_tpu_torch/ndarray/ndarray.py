@@ -427,7 +427,8 @@ def _op_method(name):
 for _name in ("sum", "mean", "max", "min", "prod", "argmax", "argmin",
               "clip", "abs", "sign", "round", "floor", "ceil", "sqrt",
               "square", "exp", "log", "sigmoid", "tanh", "relu", "softmax",
-              "log_softmax", "transpose", "flatten", "pick", "slice_axis",
+              "log_softmax", "transpose", "swapaxes", "flatten",
+              "expand_dims", "squeeze", "split", "pick", "slice_axis",
               "norm"):
     setattr(NDArray, _name, _op_method(_name))
 
@@ -476,6 +477,12 @@ def imperative_invoke(op, *args, out=None, ctx: DeviceLike = None, **attrs):
             dst._commit(src._data.to(dst._data.dtype))
         results = dsts
     return results[0] if single else tuple(results)
+
+
+def concatenate(arrays, axis: int = 0, always_copy: bool = True) -> NDArray:
+    """Join ``arrays`` along ``axis`` (``Concat``)."""
+    from ..ops import get_op
+    return imperative_invoke(get_op("Concat"), *arrays, dim=axis)
 
 
 def array(source_array, ctx: DeviceLike = None, dtype=None) -> NDArray:

@@ -6,9 +6,9 @@ Importing this package registers every op (``registry.OP_REGISTRY``).
 from __future__ import annotations
 
 from . import (elemwise, flash_attention, indexing, init_op, matrix, nn,
-               optimizer_op, reduce)
+               optimizer_op, reduce, rnn_op, sequence)
 from .registry import OP_REGISTRY, OpDef, get_op, register
 
 __all__ = ["OP_REGISTRY", "OpDef", "get_op", "register",
            "elemwise", "flash_attention", "indexing", "init_op", "matrix",
-           "nn", "optimizer_op", "reduce"]
+           "nn", "optimizer_op", "reduce", "rnn_op", "sequence"]

@@ -1,9 +1,11 @@
 """Shape and matrix ops of the training path.
 
 The port's counterpart of the reference's ``ops/matrix.py`` for
-``batch_dot``, ``transpose``, ``Reshape`` (with MXNet's special codes),
-``Flatten``, ``slice_axis``, ``Concat``, ``stack``, ``zeros_like``,
-``ones_like`` and ``Pad``.
+``batch_dot``, ``transpose``, ``expand_dims``, ``Reshape`` (with
+MXNet's special codes), ``Flatten``, ``slice_axis``, ``SwapAxis``,
+``Concat``, ``stack``, ``SliceChannel`` (``split``, one output per
+chunk), ``where``, ``squeeze``, ``zeros_like``, ``ones_like`` and
+``Pad``.
 """
 from __future__ import annotations
 
@@ -34,6 +36,12 @@ def transpose(data, axes=None):
     if axes is None or tuple(axes) == ():
         axes = tuple(reversed(range(data.dim())))
     return data.permute(*axes)
+
+
+@register("expand_dims")
+def expand_dims(data, axis=0):
+    """Insert an axis of length 1 at ``axis``."""
+    return data.unsqueeze(axis)
 
 
 def reshape_shape(in_shape, shape, reverse=False):
@@ -120,6 +128,12 @@ def slice_axis(data, axis=0, begin=0, end=None):
     return data[tuple(ix)]
 
 
+@register("SwapAxis", aliases=("swapaxes",))
+def swapaxes(data, dim1=0, dim2=0):
+    """Swap two axes."""
+    return data.transpose(dim1, dim2)
+
+
 @register("Concat", num_inputs=None, aliases=("concat",))
 def concat(*data, dim=1, num_args=None):
     """Concatenate along ``dim``."""
@@ -130,6 +144,40 @@ def concat(*data, dim=1, num_args=None):
 def stack(*data, axis=0, num_args=None):
     """Stack along a new axis ``axis``."""
     return torch.stack(data, dim=axis)
+
+
+@register("SliceChannel", num_inputs=1, aliases=("split",),
+          num_outputs=lambda attrs: int(attrs.get("num_outputs", 1)))
+def slice_channel(data, num_outputs=1, axis=1, squeeze_axis=False):
+    """Split into ``num_outputs`` equal chunks along ``axis``, one output
+    each; ``squeeze_axis`` drops that axis from every chunk."""
+    num_outputs = int(num_outputs)
+    if data.shape[axis] % num_outputs:
+        raise ValueError("SliceChannel: axis %d of length %d does not "
+                         "split into %d equal parts"
+                         % (axis, data.shape[axis], num_outputs))
+    parts = torch.chunk(data, num_outputs, dim=axis)
+    if squeeze_axis:
+        parts = tuple(p.squeeze(axis) for p in parts)
+    return tuple(parts)
+
+
+@register("where", num_inputs=3)
+def where(condition, x, y):
+    """``x`` where ``condition`` is non-zero, else ``y``; a 1-d condition
+    selects whole rows of ``x``."""
+    if condition.dim() == 1 and x.dim() > 1:
+        condition = condition.reshape((-1,) + (1,) * (x.dim() - 1))
+    return torch.where(condition != 0, x, y)
+
+
+@register("squeeze")
+def squeeze(data, axis=None):
+    """Drop the axes of length 1 (all of them, or those of ``axis``)."""
+    if axis is None:
+        return data.squeeze()
+    axes = (axis,) if isinstance(axis, int) else tuple(axis)
+    return data.squeeze(tuple(a % data.dim() for a in axes))
 
 
 @register("zeros_like")

@@ -13,14 +13,21 @@ behind a ``CustomOp`` so that a user kernel trains.
 
 Every kernel moves each byte once and does a few operations per element,
 so device memory bounds it (3.35 TB/s on an H100 SXM). The design is
-the simple one that reaches for that: grid-stride loops with 16-byte
-``float4`` loads and stores where the pointers are aligned, and scalar
-ones otherwise. The two row kernels take one block per row: a 32000-wide
-row (128 KB in float32) does not fit a block's shared memory at useful
-occupancy, so ``softmax_rows`` keeps a running (max, sum) per thread in
-registers over one read of the row, merges them by warp shuffles and
-then across warps, and reads the row a second time to write
-exp(x − max) / sum (the second read mostly hits the 50 MB L2).
+the simple one that reaches for that: 16-byte ``float4`` loads and
+stores where the pointers are aligned, and scalar ones otherwise.
+``scale_add`` and ``relu`` take one ``float4`` per thread and as many
+128-thread blocks as that needs, with no grid-stride loop, as torch's
+own elementwise kernels do. In paired readings on one card
+(``chip_smoke.py --pairs-of CHECKOUT rtc``) this lost less to
+``torch.relu`` / ``torch.add`` than a grid-stride loop over a fixed grid
+did, and less than a loop over the resident blocks with four streaming
+(``__ldcs`` / ``__stcs``) ``float4`` loads in flight per thread.
+``split`` keeps a grid-stride loop. The two row kernels take one block
+per row: a 32000-wide row (128 KB in float32) does not fit a block's
+shared memory at useful occupancy, so ``softmax_rows`` keeps a running
+(max, sum) per thread in registers over one read of the row, merges them
+by warp shuffles and then across warps, and reads the row a second time
+to write exp(x − max) / sum (the second read mostly hits the 50 MB L2).
 
 The plain versions are what CPU inputs run (``UserKernel(plain=)``) and
 what ``chip_smoke.py`` holds each kernel against on the card; they are
@@ -46,52 +53,59 @@ __all__ = ["SCALE_ADD_SOURCE", "RELU_SOURCE", "SPLIT_SOURCE",
 
 _BLOCK = 256
 _MAX_BLOCKS = 132 * 16      # H100 SXM: 132 SMs, grid-stride beyond this
+_FLOAT4_BLOCK = 128
 
 SCALE_ADD_SOURCE = r"""
-// o = 2x + y over n floats (tests/test_rtc.py scale_add).
-extern "C" __global__ void scale_add(const float* __restrict__ x,
-                                     const float* __restrict__ y,
-                                     float* __restrict__ o, long long n) {
-  const long long start = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  long long done = 0;
+// o = 2x + y over n floats (tests/test_rtc.py scale_add). One float4
+// per thread and a grid of ceil(n / 4 / 128) blocks, no grid-stride
+// loop: the block scheduler keeps every SM's loads in flight.
+__device__ __forceinline__ float4 scale_add4(float4 a, float4 b) {
+  return make_float4(2.0f * a.x + b.x, 2.0f * a.y + b.y,
+                     2.0f * a.z + b.z, 2.0f * a.w + b.w);
+}
+
+extern "C" __global__ void __launch_bounds__(128)
+scale_add(const float* __restrict__ x, const float* __restrict__ y,
+          float* __restrict__ o, long long n) {
+  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if ((((unsigned long long)x | (unsigned long long)y |
         (unsigned long long)o) & 15) == 0) {
-    const float4* x4 = reinterpret_cast<const float4*>(x);
-    const float4* y4 = reinterpret_cast<const float4*>(y);
-    float4* o4 = reinterpret_cast<float4*>(o);
     const long long n4 = n >> 2;
-    for (long long i = start; i < n4; i += stride) {
-      const float4 a = x4[i], b = y4[i];
-      o4[i] = make_float4(2.0f * a.x + b.x, 2.0f * a.y + b.y,
-                          2.0f * a.z + b.z, 2.0f * a.w + b.w);
-    }
-    done = n4 << 2;
+    if (i < n4)
+      reinterpret_cast<float4*>(o)[i] =
+          scale_add4(reinterpret_cast<const float4*>(x)[i],
+                     reinterpret_cast<const float4*>(y)[i]);
+    const long long t = (n4 << 2) + i;      // the last n % 4 floats
+    if (i < (n & 3)) o[t] = 2.0f * x[t] + y[t];
+  } else {
+    for (long long k = 4 * i; k < n && k < 4 * i + 4; ++k)
+      o[k] = 2.0f * x[k] + y[k];
   }
-  for (long long i = done + start; i < n; i += stride) o[i] = 2.0f * x[i] + y[i];
 }
 """
 
 RELU_SOURCE = r"""
-// max(x, 0) over n floats, NaN kept (tests/test_rtc.py relu_k).
+// max(x, 0) over n floats, NaN kept (tests/test_rtc.py relu_k). One
+// float4 per thread, a grid of ceil(n / 4 / 128) blocks.
 __device__ __forceinline__ float relu1(float v) { return v < 0.0f ? 0.0f : v; }
+__device__ __forceinline__ float4 relu4(float4 a) {
+  return make_float4(relu1(a.x), relu1(a.y), relu1(a.z), relu1(a.w));
+}
 
-extern "C" __global__ void relu(const float* __restrict__ x,
-                                float* __restrict__ o, long long n) {
-  const long long start = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  long long done = 0;
+extern "C" __global__ void __launch_bounds__(128)
+relu(const float* __restrict__ x, float* __restrict__ o, long long n) {
+  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if ((((unsigned long long)x | (unsigned long long)o) & 15) == 0) {
-    const float4* x4 = reinterpret_cast<const float4*>(x);
-    float4* o4 = reinterpret_cast<float4*>(o);
     const long long n4 = n >> 2;
-    for (long long i = start; i < n4; i += stride) {
-      const float4 a = x4[i];
-      o4[i] = make_float4(relu1(a.x), relu1(a.y), relu1(a.z), relu1(a.w));
-    }
-    done = n4 << 2;
+    if (i < n4)
+      reinterpret_cast<float4*>(o)[i] =
+          relu4(reinterpret_cast<const float4*>(x)[i]);
+    const long long t = (n4 << 2) + i;      // the last n % 4 floats
+    if (i < (n & 3)) o[t] = relu1(x[t]);
+  } else {
+    for (long long k = 4 * i; k < n && k < 4 * i + 4; ++k)
+      o[k] = relu1(x[k]);
   }
-  for (long long i = done + start; i < n; i += stride) o[i] = relu1(x[i]);
 }
 """
 
@@ -281,6 +295,11 @@ def _elementwise_grid(n: int) -> tuple:
     return (max(1, min(math.ceil(n / (4 * _BLOCK)), _MAX_BLOCKS)),)
 
 
+def _float4_grid(n: int) -> tuple:
+    """One float4 per thread of a ``_FLOAT4_BLOCK``-thread block."""
+    return (max(1, math.ceil(math.ceil(n / 4) / _FLOAT4_BLOCK)),)
+
+
 def scale_add(shape) -> UserKernel:
     """o = 2x + y for float32 x, y of ``shape``."""
     shape = tuple(shape)
@@ -288,8 +307,9 @@ def scale_add(shape) -> UserKernel:
     return UserKernel(
         SCALE_ADD_SOURCE, "scale_add",
         "const float* x, const float* y, float* o, long long n",
-        (shape, torch.float32), grid=_elementwise_grid(n), block=(_BLOCK,),
-        plain=scale_add_plain, scalars=_expect([shape, shape], (n,)))
+        (shape, torch.float32), grid=_float4_grid(n),
+        block=(_FLOAT4_BLOCK,), plain=scale_add_plain,
+        scalars=_expect([shape, shape], (n,)))
 
 
 def relu(shape) -> UserKernel:
@@ -298,8 +318,9 @@ def relu(shape) -> UserKernel:
     n = math.prod(shape)
     return UserKernel(
         RELU_SOURCE, "relu", "const float* x, float* o, long long n",
-        (shape, torch.float32), grid=_elementwise_grid(n), block=(_BLOCK,),
-        plain=relu_plain, scalars=_expect([shape], (n,)))
+        (shape, torch.float32), grid=_float4_grid(n),
+        block=(_FLOAT4_BLOCK,), plain=relu_plain,
+        scalars=_expect([shape], (n,)))
 
 
 def split(shape) -> UserKernel:

@@ -1,5 +1,5 @@
-"""``sym`` — the port's Symbol namespace: ``Variable``, ``load_json``
-and one function per registered op (``sym.FullyConnected``,
+"""``sym`` — the port's Symbol namespace: ``Variable``, ``Group``,
+``load_json`` and one function per registered op (``sym.FullyConnected``,
 ``sym.reshape``, ``sym.FlashAttention``, ...). Ops registered after
 import (``rtc.UserKernel.register``, ``operator``'s ``Custom``) resolve
 on first use through the module's ``__getattr__`` (PEP 562), as in the
@@ -7,10 +7,11 @@ reference."""
 from __future__ import annotations
 
 from ..ops import OP_REGISTRY
-from .symbol import NameManager, Symbol, Variable, load, load_json
+from .symbol import Group, NameManager, Symbol, Variable, load, load_json
 from .symbol import _install_op_functions, make_symbol_function
 
-__all__ = ["Symbol", "Variable", "load", "load_json", "NameManager"]
+__all__ = ["Symbol", "Variable", "Group", "load", "load_json",
+           "NameManager"]
 __all__ += _install_op_functions(globals())
 
 # the later reference's alias: sym.contrib.<name> for the _contrib_<name>

@@ -39,10 +39,12 @@ import torch
 
 from ..base import MXNetError, atomic_write
 from ..context import resolve_device
+from ..ndarray.ndarray import to_torch_dtype
 from ..ops import OP_REGISTRY, OpDef, get_op
 from ..ops.nn import _tup
 
-__all__ = ["Symbol", "Variable", "load", "load_json", "NameManager"]
+__all__ = ["Symbol", "Variable", "Group", "load", "load_json",
+           "NameManager"]
 
 
 # ------------------------------------------------------------------ naming
@@ -243,13 +245,15 @@ class Symbol:
         for n, s in zip(arg_names, args):
             if s is not None:
                 known[n] = tuple(s)
+        batch_size = kwargs.pop("__batch_size__", None)
         known.update({k: tuple(v) for k, v in kwargs.items()
                       if v is not None})
+        if batch_size is None:
+            batch_size = _batch_hint(known)
         for node in _topo_order(self._entries):
             if node.is_variable and "__shape__" in node.str_attrs and \
                     node.name not in known:
-                known[node.name] = tuple(
-                    ast.literal_eval(node.str_attrs["__shape__"]))
+                known[node.name] = _pinned_shape(node, batch_size)
         node_shapes, derived = _propagate_shapes(self, known)
         resolved = dict(known)
         resolved.update(derived)
@@ -317,27 +321,98 @@ class Symbol:
         from ..executor import Executor
         return Executor(self, ctx, args, args_grad, grad_req, aux_states)
 
-    def simple_bind(self, ctx, grad_req="write", type_dict=None, **kwargs):
+    def simple_bind(self, ctx, grad_req="write", type_dict=None,
+                    shared_arg_names=None, shared_exec=None, **kwargs):
         """Infer shapes, allocate arguments and aux states (zeros) and
-        gradient buffers on ``ctx`` (None: ``cuda:0``) and bind."""
+        gradient buffers on ``ctx`` (None: ``cuda:0``) and bind.
+
+        With ``shared_exec``, the arguments named in ``shared_arg_names``
+        (and their gradient buffers) and every aux state are not
+        allocated: the executor holds ``shared_exec``'s arrays
+        themselves, so a write through one executor is seen by the
+        other. A shared name that ``shared_exec`` lacks, or holds at
+        another shape, device or dtype, raises."""
         from ..executor import Executor
         from ..ndarray import zeros
         ctx = resolve_device(ctx)
         arg_shapes, _, aux_shapes = self.infer_shape(**kwargs)
-        aux = {n: zeros(s, ctx=ctx)
-               for n, s in zip(self.list_auxiliary_states(), aux_shapes)}
         arg_names = self.list_arguments()
         type_dict = type_dict or {}
-        args = {n: zeros(s, ctx=ctx, dtype=type_dict.get(n, "float32"))
-                for n, s in zip(arg_names, arg_shapes)}
-        args_grad = None
-        if grad_req != "null":
-            reqs = grad_req if isinstance(grad_req, dict) else \
-                {n: grad_req for n in arg_names}
-            args_grad = {n: zeros(s, ctx=ctx)
-                         for n, s in zip(arg_names, arg_shapes)
-                         if reqs.get(n, "null") != "null"}
-        return Executor(self, ctx, args, args_grad, grad_req, aux)
+        reqs = grad_req if isinstance(grad_req, dict) else \
+            {n: grad_req for n in arg_names}
+        shared = set(shared_arg_names or ()) if shared_exec is not None \
+            else set()
+
+        def take(pool, name, shape, dtype, what):
+            arr = pool.get(name)
+            if arr is None:
+                raise MXNetError("simple_bind: the shared executor has no "
+                                 "%s %r to share" % (what, name))
+            want = (tuple(shape), ctx, to_torch_dtype(dtype))
+            have = (arr.shape, arr.context, arr.data.dtype)
+            if have != want:
+                raise MXNetError(
+                    "simple_bind: cannot share %s %r: the shared executor "
+                    "holds it as %s, this graph needs %s (shape, device, "
+                    "dtype)" % (what, name, have, want))
+            return arr
+
+        args, args_grad = {}, {}
+        for n, shape in zip(arg_names, arg_shapes):
+            dtype = type_dict.get(n, "float32")
+            if n in shared:
+                args[n] = take(shared_exec.arg_dict, n, shape, dtype,
+                               "argument")
+            else:
+                args[n] = zeros(shape, ctx=ctx, dtype=dtype)
+            if grad_req != "null" and reqs.get(n, "null") != "null":
+                args_grad[n] = take(shared_exec.grad_dict, n, shape,
+                                    "float32", "gradient") \
+                    if n in shared else zeros(shape, ctx=ctx)
+        aux = {n: take(shared_exec.aux_dict, n, shape, "float32",
+                       "auxiliary state") if shared_exec is not None
+               else zeros(shape, ctx=ctx)
+               for n, shape in zip(self.list_auxiliary_states(),
+                                   aux_shapes)}
+        return Executor(self, ctx, args,
+                        args_grad if grad_req != "null" else None,
+                        grad_req, aux)
+
+
+def _batch_hint(known: Dict[str, Tuple[int, ...]]) -> Optional[int]:
+    """The batch size the given input shapes imply: the leading dim of
+    ``data`` if given, else of the first given input that is not a
+    parameter (pass ``__batch_size__`` for time-major data)."""
+    data_like = [(n, s) for n, s in known.items()
+                 if s and not str(n).endswith(
+                     ("weight", "bias", "gamma", "beta", "moving_mean",
+                      "moving_var"))]
+    for n, s in data_like:
+        if n == "data":
+            return s[0]
+    return data_like[0][1][0] if data_like else None
+
+
+def _pinned_shape(node: "_Node", batch_size) -> Tuple[int, ...]:
+    """A variable's ``__shape__``, its 0 (batch wildcard) dims resolved
+    from ``batch_size``: the one its ``__layout__`` marks N, else every
+    0 (a recurrent cell's begin states are (0, H), layout NC)."""
+    shape = list(ast.literal_eval(node.str_attrs["__shape__"]))
+    if any(d == 0 for d in shape) and batch_size:
+        n_axis = node.str_attrs.get("__layout__", "").find("N")
+        if 0 <= n_axis < len(shape) and shape[n_axis] == 0:
+            shape[n_axis] = int(batch_size)
+        else:
+            shape = [int(batch_size) if d == 0 else d for d in shape]
+    return tuple(shape)
+
+
+def Group(symbols: Sequence[Symbol]) -> Symbol:
+    """One Symbol whose outputs are those of ``symbols``, in order."""
+    entries = []
+    for s in symbols:
+        entries.extend(s._entries)
+    return Symbol(entries)
 
 
 # ------------------------------------------------------------------ factory
@@ -580,6 +655,16 @@ def _propagate_shapes(sym: Symbol, known: Dict[str, Tuple[int, ...]]):
                 setvar(1, (int(a["input_dim"]), int(a["output_dim"])))
             elif opname == "SoftmaxOutput":
                 setvar(1, (ds[0],))
+            elif opname == "RNN":
+                # data (T, N, input): the packed vector and the states
+                from ..ops.rnn_op import rnn_param_size
+                H, L = int(a["state_size"]), int(a.get("num_layers", 1))
+                mode = a.get("mode", "lstm")
+                bidir = bool(a.get("bidirectional"))
+                setvar(1, (rnn_param_size(L, ds[2], H, mode, bidir),))
+                setvar(2, (L * (2 if bidir else 1), ds[1], H))
+                if mode == "lstm":
+                    setvar(3, (L * (2 if bidir else 1), ds[1], H))
             elif opname == "Custom":
                 # the user's Prop owns the shape rules; its infer_shape may
                 # reject partly unknown shapes, which only skips the

@@ -54,6 +54,13 @@ def test_importing_the_port_loads_no_jax():
         "import mxnet_tpu_torch.gluon.trainer, mxnet_tpu_torch.gluon.utils\n"
         "import mxnet_tpu_torch.gluon.data, mxnet_tpu_torch.ops.reduce\n"
         "from mxnet_tpu_torch.gluon.model_zoo import vision\n"
+        "import mxnet_tpu_torch.rnn, mxnet_tpu_torch.rnn.io\n"
+        "import mxnet_tpu_torch.rnn.rnn_cell, mxnet_tpu_torch.callback\n"
+        "import mxnet_tpu_torch.gluon.rnn, mxnet_tpu_torch.gluon.rnn.rnn_layer\n"
+        "import mxnet_tpu_torch.ops.rnn_op, mxnet_tpu_torch.ops.sequence\n"
+        "from mxnet_tpu_torch.module import BucketingModule\n"
+        "assert mxnet_tpu_torch.rnn.BucketSentenceIter\n"
+        "assert mxnet_tpu_torch.gluon.rnn.LSTM and mxnet_tpu_torch.callback\n"
         "import mxnet_tpu_torch._cuda_driver as driver\n"
         "assert driver._lib is None   # libcuda loads at first use only\n"
         "bad = sorted(m for m in sys.modules\n"

@@ -651,21 +651,42 @@ def test_f32_backward_bounds_at_the_training_shape():
 
 
 def test_f32_backward_of_another_checkout_needs_a_card():
-    """``chip_smoke.py --f32-backward-of CHECKOUT`` imports the package of
-    that checkout and, without a card, ends with exit code 1 and no
-    readings."""
+    """``chip_smoke.py --pairs-of CHECKOUT f32-backward`` imports the
+    package of that checkout and, without a card, ends with exit code 1
+    and no readings."""
     import subprocess
     import sys
     from pathlib import Path
     root = Path(chip_smoke.__file__).resolve().parent
     r = subprocess.run([sys.executable, str(root / "chip_smoke.py"),
-                        "--f32-backward-of", str(root)],
+                        "--pairs-of", str(root), "f32-backward"],
                        capture_output=True, text=True, timeout=300,
                        env={"PATH": "/usr/bin:/bin", "CUDA_VISIBLE_DEVICES": ""})
     assert r.returncode == 1
     assert "package %s" % (root / "mxnet_tpu_torch" / "__init__.py") in r.stdout
     assert "is_available() is False" in r.stderr
     assert "dq" not in r.stdout
+
+
+@pytest.mark.parametrize("what,rc", [("rtc", 1), ("attention", 2)])
+def test_pairs_of_another_checkout(what, rc):
+    """``--pairs-of CHECKOUT rtc`` imports that checkout's package and,
+    without a card, ends with exit code 1 and no readings; a part that
+    the option does not know ends with exit code 2 before any import."""
+    import subprocess
+    import sys
+    from pathlib import Path
+    root = Path(chip_smoke.__file__).resolve().parent
+    r = subprocess.run([sys.executable, str(root / "chip_smoke.py"),
+                        "--pairs-of", str(root), what],
+                       capture_output=True, text=True, timeout=300,
+                       env={"PATH": "/usr/bin:/bin", "CUDA_VISIBLE_DEVICES": ""})
+    assert r.returncode == rc
+    assert ("package %s" % (root / "mxnet_tpu_torch" / "__init__.py")
+            in r.stdout) == (rc == 1)
+    assert ("is_available() is False" if rc == 1 else "WHAT one of") \
+        in r.stderr
+    assert "relu" not in r.stdout
 
 
 @pytest.fixture
