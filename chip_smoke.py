@@ -8,8 +8,9 @@ Run from the root of a checkout, on a machine with one H100:
 ``python3 chip_smoke.py --pairs-of CHECKOUT WHAT`` times only a part of
 another checkout's package with this script's code, for a before/after
 pair on one card: ``f32-backward`` its float32 dQ and dK/dV kernels (as
-phase 5 times this one's), ``rtc`` its ``relu`` and ``scale_add`` user
-kernels against torch's calls (as phase 7 pairs this one's).
+phase 5 times this one's), ``rtc`` its ``relu``, ``scale_add`` and
+``split`` user kernels against torch's calls (as phase 7 pairs this
+one's).
 
 Phases, each fatal on failure (exit code 1, no result line):
 
@@ -128,7 +129,34 @@ Phases, each fatal on failure (exit code 1, no result line):
    statistics are held to ``plain_resnet_v1`` (the ResNet phase's
    limits), the parameter count to resnet50_v1's, the loss must fall,
    no attention kernel may launch, and in f32 one eager step and one
-   hybridized step from the initial parameters must agree.
+   hybridized step from the initial parameters must agree;
+10. rnn: the fused RNN op against a plain per-step recurrence, the
+    upstream Gluon word LM (tied 10,000 x 1500, 2 LSTM layers) in f32
+    and amp bf16, and the upstream bucketing LM through
+    ``BucketingModule`` over six buckets;
+11. optimizers and checkpoints: (a) every optimizer of
+    ``tests/test_fused_trainer.py`` under its four variants, the grouped
+    (foreach) update against the per-parameter one over 3 steps on the
+    LM's parameter shapes (2048², 2048 x 8192, 32000 x 2048 and a bias),
+    each case fatal; (b) the LM of phase 6 in amp bf16 through
+    ``Module.fit`` with Adam (lr 1e-4, wd 1e-4, clip 1.0),
+    ``FactorScheduler(4, 0.5)``, ``CompositeEvalMetric([CrossEntropy(),
+    Perplexity(None)])`` and an async ``CheckpointConfig``: 1 + 2 + 10
+    steps + 1 profiled, beside phase 6's SGD step (step ms, tok/s, MFU,
+    peak memory, the optimizer's device time), the step-1 loss held to
+    the plain forward, each attention kernel once per layer per step,
+    the epoch's checkpoint landed; (c) resume at the full width and 2 of
+    the 12 layers: an uninterrupted fit of 2 epochs x 2 batches with a
+    checkpoint each epoch, the first epoch's checkpoint restored bit for
+    bit (parameters, Adam states, count, rate), and a fresh
+    ``fit(resume_from=...)`` ending on the uninterrupted run's weights
+    (bit for bit, or no further than a second uninterrupted run, naming
+    the op that is not deterministic), with the checkpoint's bytes and
+    its write, blocking and verified-read seconds; (d) the upstream
+    Gluon DCGAN (nz 100, ngf 64, ndf 64, 64x64x3, batch 64, two Adam
+    Trainers) for 5 steps with finite losses, then ``save_states`` /
+    ``load_states`` into fresh Trainers continuing bit for bit for 2
+    steps.
 
 The second-to-last line is the kernel table as one JSON object; the
 last is ``{"ok": true, "device": {...}}``. Without a GPU, or run from a
@@ -299,6 +327,32 @@ RNN_RTOL = 1e-4
 RNN_CASES = ((1500, ("lstm", "gru", "rnn_tanh")), (200, ("lstm", "gru")))
 # the aten ops cuDNN's RNN runs under; the op must reach one on the card
 RNN_DEVICE_OPS = ("aten::_cudnn_rnn",)
+# phase 11, optimizers and checkpoints. (a) every optimizer of
+# tests/test_fused_trainer.py under its four variants: the grouped
+# (foreach) update against the per-parameter one over 3 steps, each
+# weight and state within OPT_RTOL * max(1, max|ref|) (the same f32
+# formulas in another order; 1e-5 is that of the CPU parity tests)
+OPT_CASES = (("sgd", {}), ("sgd", {"momentum": 0.9}),
+             ("nag", {"momentum": 0.9}), ("adam", {}), ("adagrad", {}),
+             ("rmsprop", {}), ("rmsprop", {"centered": True}),
+             ("adadelta", {}), ("ftrl", {}), ("adamax", {}), ("nadam", {}),
+             ("dcasgd", {"momentum": 0.9}), ("test", {}))
+OPT_VARIANTS = ({}, {"clip_gradient": 0.05}, {"clip_gradient": -1.0},
+                {"wd": 0.01})
+OPT_STEPS = 3
+OPT_RTOL = 1e-5
+# (b) the LM through Module.fit with Adam: lr 1e-4, wd 1e-4, clip 1.0,
+# FactorScheduler(step=4, factor=0.5), 1 + 2 + 10 steps + 1 profiled
+ADAM_PARAMS = {"learning_rate": 1e-4, "wd": 1e-4, "clip_gradient": 1.0}
+ADAM_SCHED = (4, 0.5)
+ADAM_WARM, ADAM_TIMED = 2, 10
+# (c) resume at the full width and 2 of the 12 layers: 2 epochs of 2
+# batches, a checkpoint each epoch
+RESUME_LAYERS, RESUME_EPOCHS, RESUME_BATCHES = 2, 2, 2
+# (d) the upstream Gluon DCGAN (example/gluon/dcgan.py) at its widths
+DCGAN_NZ, DCGAN_NGF, DCGAN_NDF, DCGAN_SIZE, DCGAN_BATCH = 100, 64, 64, 64, 64
+DCGAN_LR, DCGAN_BETA1 = 2e-4, 0.5
+DCGAN_STEPS, DCGAN_CONTINUE = 5, 2
 
 
 class SmokeFailure(Exception):
@@ -1625,7 +1679,8 @@ def train_lm(torch, np, counters, warm, timed):
             "bind_s": bind_s, "first_s": first_s, "timed": timed,
             "launches": launches,
             "peak_gb": peak_gb, "busy_ms": busy_ms,
-            "att_ms": by_kind.get("attention kernels", 0.0)}
+            "att_ms": by_kind.get("attention kernels", 0.0),
+            "by_kind": by_kind}
 
 
 def check_training(what, run, dtype, peak_flops, peak_name):
@@ -1670,7 +1725,9 @@ def check_training(what, run, dtype, peak_flops, peak_name):
 
 
 def train_phase(torch, np, kernels):
-    """Training in amp bf16: the bf16 forward, dQ and dK/dV kernels."""
+    """Training in amp bf16: the bf16 forward, dQ and dK/dV kernels.
+    Returns the run's readings (phase 11 sets its Adam step beside
+    them)."""
     import mxnet_tpu_torch as mt
     from mxnet_tpu_torch.ops import flash_attention as fa
     counters = {"flash_attention_fwd_bf16": fa.flash_attention_fwd,
@@ -1685,6 +1742,7 @@ def train_phase(torch, np, kernels):
     check_training("train", run, "bf16", PEAK_BF16_FLOPS, "bf16")
     for name, n in run["launches"].items():
         kernels[name]["launches"] = n["bf16"]
+    return run
 
 
 def train_f32_phase(torch, np, kernels):
@@ -1872,9 +1930,10 @@ scale_add_stream(const float* __restrict__ x, const float* __restrict__ y,
 
 
 def rtc_pairs(torch, kerns):
-    """Each kernel of ``kerns`` (``relu`` at 8192 x 8192 or ``scale_add``
-    at 8192 x 2048, by its name up to a comma) against ``torch.relu`` /
-    ``torch.add`` in RTC_PAIRS rounds, each a window of 20 launches of
+    """Each kernel of ``kerns`` (``relu`` at 8192 x 8192, ``scale_add``
+    or ``split`` at 8192 x 2048, by its name up to a comma) against
+    ``torch.relu`` / ``torch.add`` / ``torch.mul`` + ``torch.add`` in
+    RTC_PAIRS rounds, each a window of 20 launches of
     every kernel of the op and then one of the library call, between
     CUDA events: the medians, each round's difference and its range.
     A kernel loses to the library call beyond the spread when every
@@ -1888,7 +1947,9 @@ def rtc_pairs(torch, kerns):
     a = torch.randn((rows, D_MODEL), generator=gen, device=dev)
     ops = {"relu": ((act,), lambda: torch.relu(act), "torch.relu"),
            "scale_add": ((h, a), lambda: torch.add(a, h, alpha=2),
-                         "torch.add(y, x, alpha=2)")}
+                         "torch.add(y, x, alpha=2)"),
+           "split": ((h,), lambda: (torch.mul(h, 2), torch.add(h, 1)),
+                     "torch.mul + torch.add")}
     out = {}
     for op, (ins, lib, lib_desc) in ops.items():
         arms = {name: kern for name, kern in kerns.items()
@@ -2096,7 +2157,7 @@ def rtc_phase(torch, np, kernels):
         kerns["softmax_rows"], kerns["softmax_ce_grad"]))
     table = rtc_check_and_time(torch, kerns)
     for name, pair in rtc_pairs(torch, {k: kerns[k] for k in (
-            "relu", "scale_add")}).items():
+            "relu", "scale_add", "split")}).items():
         table[name].update(pair_ms=pair["ms"],
                            pair_library_ms=pair["library_ms"],
                            pair_diff_ms=[pair["diff_lo"], pair["diff_hi"]])
@@ -3574,6 +3635,589 @@ def rnn_checks(torch, np):
     bucket_phase(torch, np, counters)
 
 
+# ------------------------------------------------ phase 11: optimizers
+
+def opt_shapes():
+    """(a)'s parameter shapes: the LM's d_model², d_model x d_ff, its
+    embedding and a bias."""
+    return ((D_MODEL, D_MODEL), (D_MODEL, D_FF), (VOCAB, D_MODEL),
+            (D_MODEL,))
+
+
+def optimizer_check(torch):
+    """(a) Every optimizer of ``tests/test_fused_trainer.py`` under its
+    four variants, on the card: the grouped ``update_multi`` (foreach)
+    against the per-parameter ``update`` over OPT_STEPS steps from the
+    same weights and gradients, every weight and state leaf within
+    OPT_RTOL * max(1, max|ref|). Each case is fatal."""
+    import mxnet_tpu_torch as mt
+    t0 = time.perf_counter()
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    shapes = opt_shapes()
+    names = {i: "p%d_%s" % (i, "bias" if len(s) == 1 else "weight")
+             for i, s in enumerate(shapes)}
+    w0 = [torch.randn(s, generator=gen, device=dev) for s in shapes]
+    grads = [[torch.randn(s, generator=gen, device=dev) for s in shapes]
+             for _ in range(OPT_STEPS)]
+
+    def leaves(state):
+        if state is None:
+            return []
+        if isinstance(state, tuple):
+            return [x for s in state for x in leaves(s)]
+        return [state.data]
+
+    worst = {}
+    for name, kw in OPT_CASES:
+        for variant in OPT_VARIANTS:
+            args = dict(kw, learning_rate=0.1, rescale_grad=0.5,
+                        param_idx2name=names, **variant)
+            updaters = []
+            for _ in range(2):
+                o = mt.optimizer.create(name, **args)
+                o.set_wd_mult({})
+                updaters.append(mt.optimizer.get_updater(o))
+            per = [mt.nd.NDArray(w.clone()) for w in w0]
+            grouped = [mt.nd.NDArray(w.clone()) for w in w0]
+            for gs in grads:
+                for i, g in enumerate(gs):
+                    updaters[0](i, mt.nd.NDArray(g), per[i])
+                updaters[1].update_multi(list(range(len(gs))), grouped, gs)
+            torch.cuda.synchronize()
+            case = "%s %s %s" % (name, kw or "", variant or "plain")
+            err = 0.0
+            for i in range(len(shapes)):
+                pairs = [(per[i].data, grouped[i].data)] + list(zip(
+                    leaves(updaters[0].states[i]),
+                    leaves(updaters[1].states[i])))
+                for a, b in pairs:
+                    top = max(1.0, a.abs().max().item())
+                    err = max(err, (a - b).abs().max().item() / top)
+            check(err <= OPT_RTOL, "optimizer %s: grouped update %.3g of "
+                  "max(1, max|ref|) from the per-parameter one (limit %g)"
+                  % (case, err, OPT_RTOL))
+            worst[case] = err
+            del per, grouped, updaters
+    del w0, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("optimizers: %d cases (%d optimizers x %d variants) on %s, %d "
+        "steps each: grouped (foreach) = per-parameter within %g of "
+        "max(1, max|ref|); worst %.3g (%s); %.1f s"
+        % (len(worst), len(OPT_CASES), len(OPT_VARIANTS),
+           " + ".join("x".join(map(str, s)) for s in shapes), OPT_STEPS,
+           OPT_RTOL, max(worst.values()), max(worst, key=worst.get),
+           time.perf_counter() - t0))
+
+
+class RepeatIter(object):
+    """One batch ``n`` times an epoch, as a DataIter for ``fit``."""
+
+    def __init__(self, batch, n, data_shape, label_shape):
+        self.batch, self.n, self.i = batch, n, 0
+        self.provide_data = [("data", data_shape)]
+        self.provide_label = [("softmax_label", label_shape)]
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        if self.i >= self.n:
+            raise StopIteration
+        self.i += 1
+        return self.batch
+
+    next = __next__
+
+    def reset(self):
+        self.i = 0
+
+
+def check_disk(path, need: int, what: str) -> None:
+    import shutil
+    free = shutil.disk_usage(path).free
+    log("%s: %.2f GB free beside %s, %.2f GB needed"
+        % (what, free / 1e9, path, need / 1e9))
+    check(free >= need, "%s needs %d bytes of disk, %d free under %s"
+          % (what, need, free, path))
+
+
+def ckpt_counters():
+    from mxnet_tpu_torch import profiler as mprof
+    return {k: mprof.get_counter(k) for k in (
+        "ckpt_block_us", "ckpt_write_us", "ckpt_bytes", "ckpt_saved")}
+
+
+def ckpt_delta(before):
+    after = ckpt_counters()
+    return {k: after[k] - before[k] for k in after}
+
+
+def adam_fit_args(mt):
+    """fit's optimizer, schedule and metric of phase 11."""
+    return dict(
+        optimizer="adam",
+        optimizer_params=dict(ADAM_PARAMS,
+                              lr_scheduler=mt.lr_scheduler.FactorScheduler(
+                                  *ADAM_SCHED)),
+        eval_metric=mt.metric.CompositeEvalMetric(
+            [mt.metric.CrossEntropy(), mt.metric.Perplexity(None)]))
+
+
+def adam_lm(torch, np, counters):
+    """(b) The LM at bench.py's configuration (amp bf16 set by the
+    caller) through ``Module.fit`` with Adam, the FactorScheduler, the
+    composite metric and an async ``CheckpointConfig``, on one fixed
+    batch: 1 + ADAM_WARM + ADAM_TIMED steps and one under
+    torch.profiler, read from the batch-end callback; then the epoch's
+    checkpoint. Returns train_lm's readings."""
+    import shutil
+    from torch.profiler import ProfilerActivity, profile
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.models import transformer
+    B, T = TRAIN_BATCH, MAX_SEQ
+    steps = 1 + ADAM_WARM + ADAM_TIMED + 1
+    n_params = transformer.param_count(VOCAB, LAYERS, D_MODEL, HEADS, D_FF, T)
+    ckpt_dir = ROOT / "build" / "phase11_lm_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    ckpt_dir.mkdir(parents=True)
+    check_disk(ckpt_dir, int(1.1 * 3 * 4 * n_params), "LM Adam checkpoint")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sym = transformer.get_symbol(VOCAB, LAYERS, D_MODEL, HEADS, D_FF, T,
+                                 attention="flash")
+    mod = mt.mod.Module(sym, context=mt.gpu(0))
+    mod.bind(data_shapes=[("data", (B, T))],
+             label_shapes=[("softmax_label", (B, T))])
+    mod.init_params(mt.init.Xavier().set_rng(np.random.default_rng(SEED)))
+    torch.cuda.synchronize()
+    bind_s = time.perf_counter() - t0
+    rng = np.random.RandomState(0)
+    x = rng.randint(0, VOCAB, (B, T)).astype(np.float32)
+    y = rng.randint(0, VOCAB, (B, T)).astype(np.float32)
+    dev = torch.device(DEVICE)
+    db = mt.io.DataBatch(data=[mt.nd.array(x, ctx=dev)],
+                         label=[mt.nd.array(y, ctx=dev)])
+    y_flat = torch.from_numpy(y).to(dev).long().view(-1, 1)
+    with torch.no_grad():
+        params = {n: a.data for n, a in mod.get_params()[0].items()}
+        want = plain_train_loss(torch, params, torch.from_numpy(x).to(dev),
+                                torch.from_numpy(y).to(dev)).item()
+        del params
+    torch.cuda.empty_cache()
+    losses = []
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    st = {}
+
+    def on_batch(param):
+        out = mod.get_outputs()[0].data
+        losses.append(-(out.gather(1, y_flat) + 1e-12).log().mean())
+        done = param.nbatch + 1
+        if done == 1:
+            torch.cuda.synchronize()
+            st["first_s"] = time.perf_counter() - st["t0"]
+        if done == 1 + ADAM_WARM:
+            start.record()
+        if done == steps - 1:
+            end.record()
+            torch.cuda.synchronize()
+            prof.start()
+            st["t_prof"] = time.perf_counter()
+        if done == steps:
+            torch.cuda.synchronize()
+            st["wall"] = time.perf_counter() - st["t_prof"]
+            prof.stop()
+
+    fit_args = adam_fit_args(mt)
+    # the main path: counters zeroed just before, read just after
+    for fn in counters.values():
+        fn.launches = {"f32": 0, "bf16": 0}
+    c0 = ckpt_counters()
+    st["t0"] = time.perf_counter()
+    mod.fit(RepeatIter(db, steps, (B, T), (B, T)), num_epoch=1,
+            batch_end_callback=on_batch,
+            checkpoint=mt.checkpoint.CheckpointConfig(
+                str(ckpt_dir), period_epochs=1, async_save=True,
+                keep_last=0), **fit_args)
+    fit_s = time.perf_counter() - st["t0"]
+    launches = {n: dict(fn.launches) for n, fn in counters.items()}
+    ck = ckpt_delta(c0)
+    step_ms = start.elapsed_time(end) / ADAM_TIMED
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    rows, busy_ms = device_breakdown(torch, prof, st["wall"], "adam step")
+    by_kind = {}
+    for e in rows:
+        kind = kernel_kind(e.key)
+        by_kind[kind] = by_kind.get(kind, 0.0) + \
+            e.self_device_time_total / 1e3
+    log("adam step device time by kind: " + ", ".join(
+        "%s %.3f ms" % kv for kv in sorted(by_kind.items(),
+                                           key=lambda kv: -kv[1])))
+    names, values = fit_args["eval_metric"].get()
+    log("adam fit: %d steps in %.3f s, metrics %s" % (
+        steps, fit_s, dict(zip(names, values))))
+    check(all(math.isfinite(v) for v in values), "non-finite metric %s"
+          % values)
+    check(abs(math.log(values[1]) - values[0]) <= 1e-3, "perplexity %g is "
+          "not exp of the cross-entropy %g" % (values[1], values[0]))
+    ckpts = mt.checkpoint.list_checkpoints(str(ckpt_dir))
+    check([s for s, _ in ckpts] == [steps] and
+          mt.checkpoint.probe_valid(ckpts[0][1]),
+          "the epoch's checkpoint did not land: %s" % ckpts)
+    log("adam fit checkpoint (%d layers, weights + mean + var): %d bytes; "
+        "fit blocked %.3f s on it, the writer took %.3f s"
+        % (LAYERS, ck["ckpt_bytes"], ck["ckpt_block_us"] / 1e6,
+           ck["ckpt_write_us"] / 1e6))
+    check(ck["ckpt_saved"] == 1, "checkpoints written: %d" % ck["ckpt_saved"])
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    losses = [float(v) for v in torch.stack(losses).cpu()]
+    del mod, db
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"losses": losses, "want": want, "step_ms": step_ms,
+            "bind_s": bind_s, "first_s": st["first_s"], "timed": ADAM_TIMED,
+            "launches": launches, "peak_gb": peak_gb, "busy_ms": busy_ms,
+            "att_ms": by_kind.get("attention kernels", 0.0),
+            "opt_ms": by_kind.get("optimizer (foreach)", 0.0),
+            "by_kind": by_kind, "ckpt": ck}
+
+
+def param_dist(a, b) -> float:
+    return max((a[n] - b[n]).abs().max().item() for n in a)
+
+
+def resume_check(torch, np):
+    """(c) Resume at the full width and RESUME_LAYERS of the 12 layers
+    (amp bf16 set by the caller): an uninterrupted fit of RESUME_EPOCHS
+    epochs of RESUME_BATCHES batches with an async checkpoint each
+    epoch; the first epoch's checkpoint restored into a fresh module
+    must hold the saved parameters, Adam states, count and rate bit for
+    bit, and a fresh ``fit(resume_from=...)`` must end on the
+    uninterrupted run's weights (bit for bit, or, where an op on the
+    path is not deterministic, no further than a second uninterrupted
+    run)."""
+    import shutil
+    import warnings
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.models import transformer
+    t_phase = time.perf_counter()
+    B, T = TRAIN_BATCH, MAX_SEQ
+    n_params = transformer.param_count(VOCAB, RESUME_LAYERS, D_MODEL, HEADS,
+                                       D_FF, T)
+    full = transformer.param_count(VOCAB, LAYERS, D_MODEL, HEADS, D_FF, T)
+    log("resume: full width, %d of %d layers (cut from the depth only): "
+        "%.1fM parameters, an Adam checkpoint %.2f GB (weights, mean, var; "
+        "the full depth would be %.2f GB a save)"
+        % (RESUME_LAYERS, LAYERS, n_params / 1e6, 12 * n_params / 1e9,
+           12 * full / 1e9))
+    base = ROOT / "build" / "phase11_resume"
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    check_disk(base, int(1.1 * 12 * n_params * RESUME_EPOCHS), "resume")
+    rng = np.random.RandomState(1)
+    x = rng.randint(0, VOCAB, (RESUME_BATCHES * B, T)).astype(np.float32)
+    y = rng.randint(0, VOCAB, (RESUME_BATCHES * B, T)).astype(np.float32)
+    sym = transformer.get_symbol(VOCAB, RESUME_LAYERS, D_MODEL, HEADS, D_FF,
+                                 T, attention="flash")
+    probe = mt.mod.Module(sym, context=mt.gpu(0))
+    probe.bind(data_shapes=[("data", (B, T))],
+               label_shapes=[("softmax_label", (B, T))])
+    probe.init_params(mt.init.Xavier().set_rng(
+        np.random.default_rng(SEED + 1)))
+    init = {n: mt.nd.NDArray(a.data.clone())
+            for n, a in probe.get_params()[0].items()}
+    del probe
+    saved = {}
+
+    def run(ckpt=None, resume=None, keep=None):
+        mt.random.seed(SEED)
+        mod = mt.mod.Module(sym, context=mt.gpu(0))
+        cbs = []
+        if keep is not None:
+            def remember(param):
+                o = mod._optimizer
+                keep.setdefault("lr", {})[o.num_update] = \
+                    o.lr_scheduler(o.num_update)
+                if param.epoch == 0 and param.nbatch == RESUME_BATCHES - 1:
+                    keep["params"] = {n: a.data.clone() for n, a in
+                                      mod.get_params()[0].items()}
+                    keep["states"] = {n: tuple(s.data.clone() for s in st)
+                                      for n, st in
+                                      mod._named_states().items()}
+                    keep["num_update"] = o.num_update
+            cbs.append(remember)
+        mod.fit(mt.io.NDArrayIter(x, y, batch_size=B),
+                num_epoch=RESUME_EPOCHS, batch_end_callback=cbs,
+                arg_params=None if resume else init, checkpoint=ckpt,
+                resume_from=resume, **adam_fit_args(mt))
+        return mod, {n: a.data.clone() for n, a in
+                     mod.get_params()[0].items()}
+
+    c0 = ckpt_counters()
+    t0 = time.perf_counter()
+    mod_a, final_a = run(ckpt=mt.checkpoint.CheckpointConfig(
+        str(base), period_epochs=1, async_save=True, keep_last=0),
+        keep=saved)
+    fit_s = time.perf_counter() - t0
+    ck = ckpt_delta(c0)
+    ckpts = mt.checkpoint.list_checkpoints(str(base))
+    check([s for s, _ in ckpts] ==
+          [RESUME_BATCHES * (e + 1) for e in range(RESUME_EPOCHS)],
+          "resume: checkpoints %s" % ckpts)
+    del mod_a
+    gc.collect()
+    torch.cuda.empty_cache()
+    # resume from the first epoch's checkpoint: the later ones go
+    for _, path in ckpts[1:]:
+        shutil.rmtree(path)
+    first = ckpts[0][1]
+    nbytes = sum(f.stat().st_size for f in Path(first).iterdir())
+    t0 = time.perf_counter()
+    ckpt = mt.checkpoint.restore_latest(str(base))
+    read_s = time.perf_counter() - t0
+    log("resume checkpoint: %d bytes (%d saves); fit blocked %.3f s a save, "
+        "the writer took %.3f s a save (fit %.3f s in all); the verified "
+        "read (crc32 of every array) %.3f s"
+        % (nbytes, ck["ckpt_saved"], ck["ckpt_block_us"] / 1e6 /
+           ck["ckpt_saved"], ck["ckpt_write_us"] / 1e6 / ck["ckpt_saved"],
+           fit_s, read_s))
+    # the restored state against the saved one, bit for bit
+    mod_r = mt.mod.Module(sym, context=mt.gpu(0))
+    mod_r.bind(data_shapes=[("data", (B, T))],
+               label_shapes=[("softmax_label", (B, T))])
+    mod_r.init_params(arg_params=ckpt.arg_params_nd())
+    fit_args = adam_fit_args(mt)
+    mod_r.init_optimizer(optimizer=fit_args["optimizer"],
+                         optimizer_params=fit_args["optimizer_params"])
+    mod_r._checkpoint_restore(ckpt)
+    o = mod_r._optimizer
+    bad = [n for n, a in mod_r.get_params()[0].items()
+           if not torch.equal(a.data, saved["params"][n])]
+    bad += [n for n, st in mod_r._named_states().items()
+            for a, b in zip(st, saved["states"][n])
+            if not torch.equal(a.data, b)]
+    next_lr = o.lr_scheduler(o.num_update + 1)
+    check(not bad, "resume: restored arrays differ from the saved: %s"
+          % bad[:5])
+    check(o.num_update == saved["num_update"] == RESUME_BATCHES,
+          "resume: num_update %d, saved %d" % (o.num_update,
+                                               saved["num_update"]))
+    check(next_lr == saved["lr"][o.num_update + 1], "resume: rate %r, the "
+          "uninterrupted run's %r" % (next_lr, saved["lr"][o.num_update + 1]))
+    log("resume: %d parameters and %d Adam states restored bit for bit, "
+        "num_update %d, next rate %g as the uninterrupted run's"
+        % (len(saved["params"]), 2 * len(saved["states"]), o.num_update,
+           next_lr))
+    del mod_r, ckpt, saved
+    gc.collect()
+    torch.cuda.empty_cache()
+    mod_c, final_c = run(resume=str(base))
+    check(mod_c._optimizer.num_update == RESUME_BATCHES * RESUME_EPOCHS,
+          "resumed run ended at count %d" % mod_c._optimizer.num_update)
+    del mod_c
+    d_resume = param_dist(final_c, final_a)
+    if d_resume == 0.0:
+        log("resume: the resumed run's final weights equal the "
+            "uninterrupted run's bit for bit")
+    else:
+        _, final_d = run()
+        d_second = param_dist(final_d, final_a)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                run()
+            finally:
+                torch.use_deterministic_algorithms(False)
+        ops = sorted({str(w.message).split("\n")[0][:160] for w in caught
+                      if "deterministic" in str(w.message)})
+        log("resume: final weights %.3g (max |diff|) from the uninterrupted "
+            "run's; a second uninterrupted run %.3g; not deterministic on "
+            "this path: %s" % (d_resume, d_second, ops or "none named"))
+        check(d_second > 0 and d_resume <= d_second, "resume: the resumed "
+              "run is %.3g from the uninterrupted one, a second "
+              "uninterrupted run %.3g" % (d_resume, d_second))
+    shutil.rmtree(base, ignore_errors=True)
+    del final_a, final_c, init
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("resume phase: %.1f s" % (time.perf_counter() - t_phase))
+
+
+def dcgan_nets(mt):
+    """The upstream Gluon DCGAN's generator and discriminator
+    (example/gluon/dcgan.py) at DCGAN_NGF / DCGAN_NDF."""
+    nn = mt.gluon.nn
+    ngf, ndf = DCGAN_NGF, DCGAN_NDF
+    g = nn.HybridSequential(prefix="smoke_g_")
+    with g.name_scope():
+        for i, (ch, k, s, p) in enumerate([(ngf * 8, 4, 1, 0),
+                                           (ngf * 4, 4, 2, 1),
+                                           (ngf * 2, 4, 2, 1),
+                                           (ngf, 4, 2, 1)]):
+            g.add(nn.Conv2DTranspose(ch, k, s, p, use_bias=False))
+            g.add(nn.BatchNorm())
+            g.add(nn.Activation("relu"))
+        g.add(nn.Conv2DTranspose(3, 4, 2, 1, use_bias=False))
+        g.add(nn.Activation("tanh"))
+    d = nn.HybridSequential(prefix="smoke_d_")
+    with d.name_scope():
+        d.add(nn.Conv2D(ndf, 4, 2, 1, use_bias=False))
+        d.add(nn.LeakyReLU(0.2))
+        for ch in (ndf * 2, ndf * 4, ndf * 8):
+            d.add(nn.Conv2D(ch, 4, 2, 1, use_bias=False))
+            d.add(nn.BatchNorm())
+            d.add(nn.LeakyReLU(0.2))
+        d.add(nn.Conv2D(1, 4, 1, 0, use_bias=False))
+    return g, d
+
+
+def dcgan_check(torch, np):
+    """(d) The upstream Gluon DCGAN at its widths (nz 100, ngf 64, ndf
+    64, 64x64x3, batch 64) on seeded uniform images in [-1, 1] (the
+    dataset is not in the repository), two ``Trainer("adam", lr 2e-4,
+    beta1 0.5)``: DCGAN_STEPS alternating D/G steps with finite losses,
+    the ms a step; then both Trainers' ``save_states``, DCGAN_CONTINUE
+    more steps, and the same steps again from the saved parameters with
+    fresh Trainers that ``load_states`` (``begin_num_update`` at the
+    saved count: the file holds no counts): equal bit for bit (cuDNN's
+    deterministic algorithms for these steps)."""
+    import shutil
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import autograd, gluon
+    t_phase = time.perf_counter()
+    dev = torch.device(DEVICE)
+    B, nz, S = DCGAN_BATCH, DCGAN_NZ, DCGAN_SIZE
+    rng = np.random.RandomState(SEED + 5)
+    images = mt.nd.array(rng.uniform(-1, 1, (B, 3, S, S)).astype(np.float32),
+                         ctx=dev)
+    steps = DCGAN_STEPS + DCGAN_CONTINUE
+    noise = [mt.nd.array(rng.normal(0, 1, (B, nz, 1, 1)).astype(np.float32),
+                         ctx=dev) for _ in range(steps)]
+    real = mt.nd.array(np.ones((B,), np.float32), ctx=dev)
+    fake_label = mt.nd.array(np.zeros((B,), np.float32), ctx=dev)
+    net_g, net_d = dcgan_nets(mt)
+    init = mt.init.Normal(0.02).set_rng(np.random.default_rng(SEED + 6))
+    net_g.initialize(init, ctx=mt.gpu(0))
+    net_d.initialize(init, ctx=mt.gpu(0))
+    opt = {"learning_rate": DCGAN_LR, "beta1": DCGAN_BETA1}
+    trainers = [gluon.Trainer(net_d.collect_params(), "adam", dict(opt)),
+                gluon.Trainer(net_g.collect_params(), "adam", dict(opt))]
+    loss_fn = gluon.loss.SigmoidBinaryCrossEntropyLoss()
+
+    def step(k, tr_d, tr_g):
+        with autograd.record():
+            out = net_d(images).reshape((-1, 1))
+            err_real = loss_fn(out, real)
+            fake = net_g(noise[k])
+            out = net_d(fake.detach()).reshape((-1, 1))
+            err_d = err_real + loss_fn(out, fake_label)
+        err_d.backward()
+        tr_d.step(B)
+        with autograd.record():
+            fake = net_g(noise[k])
+            out = net_d(fake).reshape((-1, 1))
+            err_g = loss_fn(out, real)
+        err_g.backward()
+        tr_g.step(B)
+        return err_d.data.detach().mean(), err_g.data.detach().mean()
+
+    events = [torch.cuda.Event(enable_timing=True)
+              for _ in range(DCGAN_STEPS + 1)]
+    losses = []
+    events[0].record()
+    for k in range(DCGAN_STEPS):
+        losses.append(step(k, *trainers))
+        events[k + 1].record()
+    torch.cuda.synchronize()
+    per_step = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    losses = [(float(d), float(g)) for d, g in losses]
+    log("dcgan (nz %d, ngf %d, ndf %d, %dx%dx3, batch %d, Adam lr %g beta1 "
+        "%g): ms a step (D then G) %s (the first holds deferred init); "
+        "losses D/G %s" % (nz, DCGAN_NGF, DCGAN_NDF, S, S, B, DCGAN_LR,
+                           DCGAN_BETA1, " ".join("%.3f" % t for t in per_step),
+                           " ".join("%.4f/%.4f" % dg for dg in losses)))
+    check(all(math.isfinite(v) for dg in losses for v in dg),
+          "dcgan: non-finite loss %s" % losses)
+    params = list(net_d.collect_params().values()) + \
+        list(net_g.collect_params().values())
+    base = ROOT / "build" / "phase11_dcgan"
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    files = [str(base / "d.states"), str(base / "g.states")]
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        snap = [p.data().data.clone() for p in params]
+        for tr, f in zip(trainers, files):
+            tr.save_states(f)
+        for k in range(DCGAN_STEPS, steps):
+            step(k, *trainers)
+        want = [p.data().data.clone() for p in params]
+        for p, v in zip(params, snap):
+            p.set_data(mt.nd.NDArray(v.clone()))
+        fresh = [gluon.Trainer(net.collect_params(), "adam", dict(
+            opt, begin_num_update=DCGAN_STEPS)) for net in (net_d, net_g)]
+        for tr, f in zip(fresh, files):
+            tr.load_states(f)
+        for k in range(DCGAN_STEPS, steps):
+            step(k, *fresh)
+        bad = [p.name for p, w in zip(params, want)
+               if not torch.equal(p.data().data, w)]
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    nbytes = sum(Path(f).stat().st_size for f in files)
+    check(not bad, "dcgan: %d arrays differ after load_states: %s"
+          % (len(bad), bad[:5]))
+    log("dcgan: save_states of both Trainers (%d bytes), then %d steps: "
+        "fresh Trainers after load_states end on the same %d arrays bit "
+        "for bit; %.1f s" % (nbytes, DCGAN_CONTINUE, len(params),
+                             time.perf_counter() - t_phase))
+    shutil.rmtree(base, ignore_errors=True)
+    del net_g, net_d, trainers, params, snap, want
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def optim_phase(torch, np, sgd):
+    """Phase 11: (a) every optimizer on the card, (b) the LM with Adam
+    through fit beside phase 6's SGD step ``sgd``, (c) resume, (d) the
+    Gluon DCGAN."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.models import transformer
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    t0 = time.perf_counter()
+    optimizer_check(torch)
+    counters = {"flash_attention_fwd_bf16": fa.flash_attention_fwd,
+                "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
+                "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv}
+    mt.amp.init("bfloat16")
+    try:
+        run = adam_lm(torch, np, counters)
+        check_training("adam", run, "bf16", PEAK_BF16_FLOPS, "bf16")
+        n_params = transformer.param_count(VOCAB, LAYERS, D_MODEL, HEADS,
+                                           D_FF, MAX_SEQ)
+        n_embed = VOCAB * D_MODEL + MAX_SEQ * D_MODEL
+        flops = (6 * (n_params - n_embed) + 12 * LAYERS * D_MODEL * MAX_SEQ) \
+            * TRAIN_BATCH * MAX_SEQ
+        for what, r in (("sgd (phase 6)", sgd), ("adam", run)):
+            tok_s = TRAIN_BATCH * MAX_SEQ / (r["step_ms"] / 1e3)
+            log("%s: step %.3f ms, %.1f tok/s, MFU %.4f of 989 TFLOP/s bf16, "
+                "peak memory %.3f GB, optimizer (foreach) %.3f ms of %.3f ms "
+                "device time in the profiled step"
+                % (what, r["step_ms"], tok_s,
+                   flops / (r["step_ms"] / 1e3) / PEAK_BF16_FLOPS,
+                   r["peak_gb"], r["by_kind"].get("optimizer (foreach)", 0.0),
+                   r["busy_ms"]))
+        resume_check(torch, np)
+    finally:
+        mt.amp.off()
+    dcgan_check(torch, np)
+    log("optimizer phase: %.1f s" % (time.perf_counter() - t0))
+
 PAIRS_OF = ("f32-backward", "rtc")
 
 
@@ -3582,9 +4226,9 @@ def pairs_of(checkout: str, what: str) -> int:
     package (the parent commit's, say), built here and run by this
     script's code on this card, for a before/after pair in one call.
     ``f32-backward`` times the f32 dQ and dK/dV kernels
-    (:func:`f32_backward_timing`); ``rtc`` pairs ``relu`` and
-    ``scale_add``, and :data:`B6F_STREAM_SOURCE`'s versions of them,
-    with torch's calls (:func:`rtc_pairs`). Prints the readings as one
+    (:func:`f32_backward_timing`); ``rtc`` pairs ``relu``,
+    ``scale_add`` and ``split``, and :data:`B6F_STREAM_SOURCE`'s
+    versions of the first two, with torch's calls (:func:`rtc_pairs`). Prints the readings as one
     JSON line."""
     if what not in PAIRS_OF:
         print("chip_smoke: --pairs-of CHECKOUT WHAT, WHAT one of %s"
@@ -3604,6 +4248,7 @@ def pairs_of(checkout: str, what: str) -> int:
             readings = rtc_pairs(torch, {
                 "relu": ex.relu((rows, D_FF)),
                 "scale_add": ex.scale_add((rows, D_MODEL)),
+                "split": ex.split((rows, D_MODEL)),
                 **b6f_stream_kernels(torch)})
     except SmokeFailure as exc:
         print("chip_smoke: FAILED: %s" % exc, file=sys.stderr)
@@ -3629,12 +4274,13 @@ def main() -> int:
         kernels = kernel_phase(torch)
         slice_phase(torch, np, kernels)
         train_kernel_phase(torch, kernels)
-        train_phase(torch, np, kernels)
+        sgd = train_phase(torch, np, kernels)
         train_f32_phase(torch, np, kernels)
         rtc_phase(torch, np, kernels)
         resnet_phase(torch, np)
         gluon_phase(torch, np)
         rnn_phase(torch, np)
+        optim_phase(torch, np, sgd)
         torch.cuda.synchronize()
     except SmokeFailure as exc:
         print("chip_smoke: FAILED: %s" % exc, file=sys.stderr)

@@ -40,13 +40,18 @@ Ported so far:
   ``BucketSentenceIter`` (:mod:`.rnn`), ``BucketingModule``
   (:mod:`.module.bucketing_module`), Gluon's recurrent cells and layers
   (:mod:`.gluon.rnn`), the ``Perplexity`` metric and the callbacks
-  (:mod:`.callback`).
+  (:mod:`.callback`);
+* every optimizer of the reference (:mod:`.optimizer`, the update ops of
+  :mod:`.ops.optimizer_op`), the learning-rate schedules
+  (:mod:`.lr_scheduler`), every metric (:mod:`.metric`), and crash-safe
+  checkpoints with exact resume (:mod:`.checkpoint`,
+  ``Module.fit(checkpoint=, resume_from=)``) in the reference's format.
 """
 from __future__ import annotations
 
-from . import amp, autograd, callback, contrib
+from . import amp, autograd, callback, checkpoint, contrib
 from . import initializer as init
-from . import io, metric, model
+from . import io, lr_scheduler, metric, model
 from . import module as mod
 from . import ndarray as nd
 from . import gluon, operator, optimizer, random, rnn, rtc
@@ -55,8 +60,9 @@ from .base import MXNetError
 from .context import cpu, current_device, device_scope, gpu
 
 __all__ = ["MXNetError", "cpu", "gpu", "device_scope", "current_device",
-           "amp", "autograd", "callback", "contrib", "gluon", "init", "io",
-           "metric", "mod", "model", "nd", "operator",
+           "amp", "autograd", "callback", "checkpoint", "contrib", "gluon",
+           "init", "io", "lr_scheduler", "metric", "mod", "model", "nd",
+           "operator",
            "optimizer", "random", "rnn", "rtc", "sym"]
 
 __version__ = "0.1.0"

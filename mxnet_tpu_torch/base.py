@@ -6,9 +6,6 @@ jax), and the atomic file write its checkpoint files go through.
 """
 from __future__ import annotations
 
-import os
-import tempfile
-
 __all__ = ["MXNetError", "atomic_write"]
 
 
@@ -17,19 +14,8 @@ class MXNetError(RuntimeError):
 
 
 def atomic_write(path: str, data: bytes) -> None:
-    """Write ``data`` to ``path`` through a temporary file in the same
-    directory, flushed to disk and renamed over ``path``: a crash leaves
-    the old file or the new one, never a torn one (as the reference's
-    ``checkpoint.atomic_open`` does)."""
-    path = os.path.abspath(path)
-    fd, tmp = tempfile.mkstemp(dir=os.path.dirname(path),
-                               prefix=os.path.basename(path) + ".tmp")
-    try:
-        with os.fdopen(fd, "wb") as f:
-            f.write(data)
-            f.flush()
-            os.fsync(f.fileno())
-        os.replace(tmp, path)
-    except BaseException:
-        os.unlink(tmp)
-        raise
+    """Write ``data`` to ``path`` through :func:`checkpoint.atomic_open`:
+    a crash leaves the old file or the new one, never a torn one."""
+    from .checkpoint.atomic import atomic_open
+    with atomic_open(path, "wb") as f:
+        f.write(data)

@@ -2,10 +2,11 @@
 ``module_checkpoint``, ``log_train_metric`` and ``ProgressBar``.
 
 The port's own copy of the reference's ``callback.py`` (jax-free there
-too). Checkpoints go through the port's :func:`model.save_checkpoint`,
-whose files load in both packages. ``subsystem_checkpoint`` (the
-reference's ``mx.checkpoint`` manager) comes with ROADMAP A7 and raises
-until then.
+too). ``do_checkpoint`` and ``module_checkpoint`` write through the
+port's :func:`model.save_checkpoint` (and, asked, the optimizer's
+``.states``), whose files load in both packages;
+``subsystem_checkpoint`` drives a :mod:`.checkpoint` manager from an
+epoch callback.
 """
 from __future__ import annotations
 
@@ -13,8 +14,6 @@ import logging
 import math
 import sys
 import time
-
-from .base import MXNetError
 
 __all__ = ["Speedometer", "do_checkpoint", "module_checkpoint",
            "subsystem_checkpoint", "log_train_metric", "ProgressBar",
@@ -32,8 +31,8 @@ class BatchEndParam(object):
 
 
 def module_checkpoint(mod, prefix, period=1, save_optimizer_states=False):
-    """Epoch callback: ``mod.save_checkpoint(prefix, epoch + 1)`` every
-    ``period`` epochs."""
+    """Epoch callback: ``mod.save_checkpoint(prefix, epoch + 1,
+    save_optimizer_states)`` every ``period`` epochs."""
     period = int(max(1, period))
 
     def _callback(iter_no, sym=None, arg=None, aux=None):
@@ -58,10 +57,22 @@ def do_checkpoint(prefix, period=1):
 
 
 def subsystem_checkpoint(module, manager, period=1):
-    """The reference's ``mx.checkpoint`` manager is not ported yet."""
-    raise MXNetError("subsystem_checkpoint needs the checkpoint subsystem, "
-                     "which is not ported yet (ROADMAP.md queue A7); use "
-                     "do_checkpoint or module_checkpoint")
+    """Epoch callback saving everything ``module`` needs to resume
+    through a :class:`.checkpoint.CheckpointManager` (or a
+    ``CheckpointConfig``, or a directory) every ``period`` epochs, for
+    loops built from callbacks rather than ``fit(checkpoint=...)``. Call
+    ``callback.manager.close()`` when training ends."""
+    from . import checkpoint as _ckpt
+    if not isinstance(manager, _ckpt.CheckpointManager):
+        manager = _ckpt.CheckpointManager(manager)
+    period = int(max(1, period))
+
+    def _callback(iter_no, sym=None, arg=None, aux=None):
+        if (iter_no + 1) % period == 0:
+            manager.save_module(module, epoch=iter_no)
+
+    _callback.manager = manager
+    return _callback
 
 
 def log_train_metric(period, auto_reset=False):

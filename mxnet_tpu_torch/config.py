@@ -4,8 +4,9 @@ The port's own copy of the reference package's ``config.py``: the same
 ``register``/``get``/``set``/``reset``/``on_change`` surface, and the
 same names and defaults for the knobs this package reads — the
 ``MXNET_TPU_SERVE_*`` knobs that ``GenerativeServer`` and ``KVCache``
-consult, plus ``MXNET_TPU_LOCKCHECK`` and ``MXNET_TPU_FAULTS`` read by
-the copies of ``lockcheck.py`` and ``faults.py``. Knobs of features the
+consult, ``MXNET_TPU_LOCKCHECK`` and ``MXNET_TPU_FAULTS`` read by
+the copies of ``lockcheck.py`` and ``faults.py``, and the
+``MXNET_TPU_CKPT_*`` knobs of :mod:`.checkpoint`. Knobs of features the
 port does not have yet (the batch ``InferenceServer``, int8 KV) arrive
 with those features.
 """
@@ -43,6 +44,12 @@ def on_change(name: str, fn: Callable[[Any], None]) -> None:
 def _notify(name: str) -> None:
     for fn in _listeners.get(name, ()):
         fn(get(name))
+
+
+def _parse_bool(v) -> bool:
+    if isinstance(v, bool):
+        return v
+    return str(v).strip().lower() in ("1", "true", "yes", "on")
 
 
 def _parse_lockcheck(v) -> str:
@@ -90,6 +97,22 @@ register("MXNET_TPU_LOCKCHECK", _parse_lockcheck, "off",
          "first observed lock-order inversion. warn = log, abort = "
          "raise MXNetError before the inversion's blocking acquire; "
          "off = plain threading primitives")
+
+register("MXNET_TPU_CKPT_ASYNC", _parse_bool, True,
+         "checkpoint: hand checkpoint serialization (device fetch, "
+         "checksums, npz encode, fsync) to the bounded background writer "
+         "thread so the step loop resumes after snapshot capture; 0 = "
+         "synchronous saves that block the caller for the full write")
+register("MXNET_TPU_CKPT_KEEP", int, 5,
+         "checkpoint: retention — keep the newest N valid checkpoints "
+         "after each save (keep-every-K survivors and the newest valid "
+         "checkpoint are always kept); 0 = keep everything")
+register("MXNET_TPU_CKPT_WRITE_RETRIES", int, 3,
+         "checkpoint: bounded retry of a failed checkpoint write on "
+         "TRANSIENT IO errors (EIO/ENOSPC/EINTR) with exponential "
+         "backoff before the failure is recorded and re-raised at "
+         "close; each retry counts ckpt_write_retry. 0 = fail on the "
+         "first error")
 
 
 def get(name: str):

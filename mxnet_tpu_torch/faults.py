@@ -1,7 +1,7 @@
 """Deterministic fault injection — ``MXNET_TPU_FAULTS=<site>@<nth>[:kind]``.
 
 The port's copy of the reference package's ``faults.py``, for the
-serving path's injection points. Spec grammar (comma-separated list)::
+serving path's and the checkpoint writer's injection points. Spec grammar (comma-separated list)::
 
     MXNET_TPU_FAULTS=serve.decode@1
     MXNET_TPU_FAULTS=serve.evict@2:raise
@@ -21,6 +21,13 @@ serve.decode         GenerativeServer, before      raise
 serve.evict          GenerativeServer, during      raise
                      sequence eviction (pages are
                      still freed — no leak)
+ckpt.arrays_write    checkpoint write, before      eio
+                     any byte lands
+ckpt.after_arrays    checkpoint write, after the   sigkill
+                     arrays file
+ckpt.after_manifest  after the manifest            sigkill
+ckpt.before_rename   before the atomic rename      sigkill
+fit.batch            Module.fit, after each batch  sigterm
 ===================  ============================  =====================
 
 Kinds: ``eio``/``enospc``/``eintr`` raise the matching ``OSError``;
@@ -55,7 +62,10 @@ ENV = "MXNET_TPU_FAULTS"
 
 KINDS = ("eio", "enospc", "eintr", "raise", "sigterm", "sigkill", "slow")
 
-SITES = frozenset(("serve.submit", "serve.decode", "serve.evict"))
+SITES = frozenset(("serve.submit", "serve.decode", "serve.evict",
+                   "ckpt.arrays_write", "ckpt.after_arrays",
+                   "ckpt.after_manifest", "ckpt.before_rename",
+                   "fit.batch"))
 
 _ERRNO = {"eio": errno.EIO, "enospc": errno.ENOSPC, "eintr": errno.EINTR}
 

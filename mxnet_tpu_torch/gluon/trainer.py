@@ -9,19 +9,22 @@ updates every parameter that asks for a gradient in one
 ``Updater.update_multi`` (``torch._foreach_*`` per group of equal lr and
 wd): the port's form of the reference's fused Trainer step.
 
+Any registered optimizer works, by name or as an instance.
+:meth:`Trainer.save_states` writes the reference's ``.states`` pickle
+(``Updater.get_states``: each state by parameter index, no update
+counts) and :meth:`Trainer.load_states` reads either package's, so
+the files cross packages both ways; a fresh Trainer continues Adam's
+bias correction from ``begin_num_update``.
+
 One device: ``kvstore="device"`` or ``"local"`` (or None) means no
 kvstore, as it does for one device in the reference; a distributed
 kvstore raises (ROADMAP.md queue A9).
 """
 from __future__ import annotations
 
-import io
-
-import numpy as np
-import torch
-
 from .. import optimizer as opt
-from ..base import MXNetError, atomic_write
+from ..base import MXNetError
+from ..checkpoint.atomic import atomic_open
 from .parameter import Parameter, ParameterDict
 
 __all__ = ["Trainer"]
@@ -87,22 +90,16 @@ class Trainer(object):
             [self._params[i].grad().data for i in live])
 
     def save_states(self, fname):
-        """Save the optimizer's state (momenta) by parameter index, in an
-        npz archive."""
-        states = {str(i): s.asnumpy()
-                  for i, s in self._updaters.states.items()
-                  if s is not None}
-        buf = io.BytesIO()
-        np.savez(buf, **states)
-        atomic_write(fname, buf.getvalue())
+        """Save the optimizer's states in the reference's ``.states``
+        pickle, atomically."""
+        with atomic_open(fname, "wb") as fout:
+            fout.write(self._updaters.get_states())
 
     def load_states(self, fname):
-        """Load what :meth:`save_states` wrote, onto each parameter's
-        device."""
-        from .. import ndarray as nd
-        with np.load(fname, allow_pickle=False) as zf:
-            for key in zf.files:
-                i = int(key)
-                dev = self._params[i].data().context
-                self._updaters.states[i] = nd.NDArray(
-                    torch.from_numpy(zf[key]).to(dev))
+        """Load a ``.states`` file of either package; each state moves to
+        its parameter's device now."""
+        with open(fname, "rb") as fin:
+            self._updaters.set_states(fin.read())
+        for i, param in enumerate(self._params):
+            if i in self._updaters.states:
+                self._updaters._state(i, param.data())

@@ -4,8 +4,10 @@ The port's own copy of the reference's ``initializer.py`` (jax-free
 there too, but importing it would run the reference package's
 ``__init__``, which imports jax): ``InitDesc``, the name-pattern
 dispatch of ``Initializer``, and ``Uniform``, ``Normal``,
-``Orthogonal``, ``Xavier``, ``LSTMBias``, ``FusedRNN``, ``Zero``,
-``One`` and ``Constant``; :func:`create` also takes the
+``Orthogonal``, ``Xavier``, ``MSRAPrelu``, ``Bilinear``, ``LSTMBias``,
+``FusedRNN``, ``Zero``, ``One`` and ``Constant``, with ``Load`` (from a
+saved parameter dict) and ``Mixed`` (by name pattern), which are called
+with a name and an array as the others are; :func:`create` also takes the
 names Gluon's layers use, ``"zeros"`` and ``"ones"``. Draws come from
 numpy, so the same initializer with the same ``set_rng`` generator
 gives the same weights in both packages; they are staged on the host
@@ -14,6 +16,8 @@ gives the same weights in both packages; they are staged on the host
 from __future__ import annotations
 
 import json
+import logging
+import re
 from typing import Dict
 
 import numpy as np
@@ -22,9 +26,9 @@ from . import ndarray as nd
 from .context import cpu
 from .ndarray import NDArray
 
-__all__ = ["InitDesc", "Initializer", "Uniform", "Normal", "Orthogonal",
-           "Xavier", "LSTMBias", "FusedRNN", "One", "Zero", "Constant",
-           "register", "create"]
+__all__ = ["InitDesc", "Initializer", "Load", "Mixed", "Uniform", "Normal",
+           "Orthogonal", "Xavier", "MSRAPrelu", "Bilinear", "LSTMBias",
+           "FusedRNN", "One", "Zero", "Constant", "register", "create"]
 
 _INITIALIZER_REGISTRY: Dict[str, type] = {}
 
@@ -146,6 +150,60 @@ class Initializer(object):
             % name)
 
 
+@register
+class Load(object):
+    """Initialize from a parameter dict (name -> array, or a file that
+    ``nd.load`` reads; ``arg:`` / ``aux:`` prefixes dropped), and the
+    names it lacks from ``default_init``."""
+
+    def __init__(self, param, default_init=None, verbose=False):
+        if isinstance(param, str):
+            param = nd.load(param, ctx=cpu())
+        self.param = {}
+        for name, arr in param.items():
+            if not isinstance(arr, NDArray):
+                arr = np.asarray(arr)
+                arr = nd.array(arr, ctx=cpu(), dtype=arr.dtype)
+            self.param[name[4:] if name.startswith(("arg:", "aux:"))
+                       else name] = arr
+        self.default_init = default_init
+        self.verbose = verbose
+
+    def __call__(self, name, arr):
+        if name in self.param:
+            if arr.shape != self.param[name].shape:
+                raise ValueError("Parameter %s shape mismatch: %s vs %s"
+                                 % (name, arr.shape, self.param[name].shape))
+            arr[:] = self.param[name]
+            if self.verbose:
+                logging.info("Initialized %s by loading", name)
+        else:
+            if self.default_init is None:
+                raise ValueError("Cannot Initialize %s. Not found in loaded "
+                                 "param and no default initializer" % name)
+            self.default_init(name, arr)
+
+
+@register
+class Mixed(object):
+    """The first initializer whose regex pattern matches the name."""
+
+    def __init__(self, patterns, initializers):
+        if len(patterns) != len(initializers):
+            raise ValueError("patterns and initializers must have same "
+                             "length")
+        self.map = list(zip([re.compile(p) for p in patterns],
+                            initializers))
+
+    def __call__(self, name, arr):
+        for prog, init in self.map:
+            if prog.match(name):
+                init(name, arr)
+                return
+        raise ValueError("Parameter %s did not match any pattern. Consider "
+                         "adding a \".*\" pattern at the end." % name)
+
+
 class _FillInitializer(Initializer):
     """Fill with one value for any name (a per-variable ``init=`` attr
     still wins)."""
@@ -247,6 +305,24 @@ class Xavier(Initializer):
                               ctx=cpu())
         else:
             raise ValueError("Unknown random type")
+
+
+@register
+class MSRAPrelu(Xavier):
+    """He initialization for a PReLU of slope ``slope``: gaussian, with
+    magnitude 2 / (1 + slope²)."""
+
+    def __init__(self, factor_type="avg", slope=0.25):
+        super().__init__("gaussian", factor_type, 2.0 / (1 + slope ** 2))
+        self._kwargs = {"factor_type": factor_type, "slope": slope}
+
+
+@register
+class Bilinear(Initializer):
+    """A bilinear upsampling kernel (a deconvolution's weight)."""
+
+    def _init_weight(self, name, arr):
+        self._init_bilinear(name, arr)
 
 
 @register

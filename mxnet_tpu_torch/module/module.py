@@ -17,7 +17,15 @@ Aux states (BatchNorm's moving statistics) are bound beside the
 arguments, initialised and set with them (``aux_params``), committed by
 every training forward and returned by ``get_params``;
 ``save_checkpoint`` and ``Module.load`` write and read both, in the
-reference's checkpoint files (:mod:`..model`).
+reference's checkpoint files (:mod:`..model`), with the optimizer's
+states in the reference's ``.states`` pickle when asked.
+
+``_fit_step`` updates as the reference's fused step does: the update
+count ``t`` is ``num_update + 1`` for every parameter and the learning
+rate the scheduler's at ``t``; ``update`` (after ``forward`` and
+``backward``) takes each parameter's own count, as the reference's
+``Module.update`` does. ``_checkpoint_snapshot`` / ``_checkpoint_restore``
+carry everything exact resume needs to and from :mod:`..checkpoint`.
 
 The module runs on ``cuda:0`` unless ``context`` says otherwise
 (``context=cpu()`` for the host); without a GPU and without that request
@@ -26,12 +34,16 @@ it raises.
 from __future__ import annotations
 
 import logging
+import pickle
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from ..base import MXNetError
+from ..checkpoint import manager as _ckpt_manager
+from ..checkpoint.atomic import atomic_open
+from ..checkpoint.format import CheckpointCorrupt, CheckpointError
 from ..context import device_scope, resolve_device
 from ..initializer import InitDesc
 from ..io import DataDesc
@@ -98,6 +110,7 @@ class Module(BaseModule):
         self._label_shapes = None
         self._grad_req = None
         self._param_index: Dict[str, int] = {}
+        self._preload_opt_states = None
         self.inputs_need_grad = False
 
     # ------------------------------------------------------------ names
@@ -121,25 +134,26 @@ class Module(BaseModule):
         ``prefix-%04d.params``, as :func:`model.save_checkpoint`
         writes them, here or in the reference). ``kwargs`` go to
         ``Module``; the arrays wait on the host until ``bind`` copies
-        them to the module's device."""
-        if load_optimizer_states:
-            raise MXNetError("load_optimizer_states is not ported yet "
-                             "(ROADMAP.md queue A7)")
+        them to the module's device. With ``load_optimizer_states``,
+        ``init_optimizer`` loads ``prefix-%04d.states``."""
         with device_scope("cpu"):
             sym, args, auxs = _model.load_checkpoint(prefix, epoch)
         mod = Module(symbol=sym, **kwargs)
         mod._arg_params, mod._aux_params = args, auxs
         mod.params_initialized = True
+        if load_optimizer_states:
+            mod._preload_opt_states = "%s-%04d.states" % (prefix, epoch)
         return mod
 
     def save_checkpoint(self, prefix, epoch, save_optimizer_states=False):
         """Write the symbol and the arg and aux params as
-        :func:`model.save_checkpoint` does."""
-        if save_optimizer_states:
-            raise MXNetError("save_optimizer_states is not ported yet "
-                             "(ROADMAP.md queue A7)")
+        :func:`model.save_checkpoint` does, and with
+        ``save_optimizer_states`` the optimizer's states to
+        ``prefix-%04d.states``."""
         _model.save_checkpoint(prefix, epoch, self.symbol,
                                *self.get_params())
+        if save_optimizer_states:
+            self.save_optimizer_states("%s-%04d.states" % (prefix, epoch))
 
     # ------------------------------------------------------------ params
     def get_params(self):
@@ -300,6 +314,9 @@ class Module(BaseModule):
         self._updater = opt.get_updater(optimizer)
         self._param_index = {n: i for i, n in enumerate(self._param_names)}
         self.optimizer_initialized = True
+        if self._preload_opt_states is not None:
+            self.load_optimizer_states(self._preload_opt_states)
+            self._preload_opt_states = None
 
     def borrow_optimizer(self, shared_module):
         """Take ``shared_module``'s optimizer and updater, its state
@@ -342,12 +359,20 @@ class Module(BaseModule):
         return [n for n in self._param_names
                 if self._grad_req.get(n, "null") != "null"]
 
-    def _apply_update(self, names, grads) -> None:
-        """One fused optimizer update of the parameters ``names``."""
+    def _apply_update(self, names, grads, fit_step=False) -> None:
+        """One grouped optimizer update of the parameters ``names``: with
+        ``fit_step`` every parameter takes the step's count and rate,
+        otherwise each its own count."""
         idx = self._param_index
+        kw = {}
+        if fit_step:
+            opt = self._optimizer
+            t = opt.num_update + 1
+            kw = {"t": t, "lr": opt.lr_scheduler(t)
+                  if opt.lr_scheduler is not None else opt.lr}
         self._updater.update_multi([idx[n] for n in names],
                                    [self._exec.arg_dict[n] for n in names],
-                                   grads)
+                                   grads, **kw)
 
     def update(self):
         """Apply the gradients in ``grad_dict`` with one fused update."""
@@ -372,7 +397,8 @@ class Module(BaseModule):
                         self._exec.grad_dict[n].data.copy_(g)
         params = [(n, g) for n, g in zip(names, grads)
                   if n not in self._data_names]
-        self._apply_update([n for n, _ in params], [g for _, g in params])
+        self._apply_update([n for n, _ in params], [g for _, g in params],
+                           fit_step=True)
 
     def get_outputs(self, merge_multi_context=True) -> List[NDArray]:
         assert self.binded and self.params_initialized
@@ -390,3 +416,139 @@ class Module(BaseModule):
                           [d.name for d in self._label_shapes], labels))
         preds = dict(zip(self._output_names, self.get_outputs()))
         eval_metric.update_dict(labels, preds)
+
+    # ------------------------------------------------------------ states
+    def _named_states(self) -> Dict[str, object]:
+        """The optimizer state of every trained parameter by name (made
+        now for a parameter not updated yet), on its device."""
+        idx = self._param_index
+        return {n: self._updater._state(idx[n], self._exec.arg_dict[n])
+                for n in self._trained_names()}
+
+    def save_optimizer_states(self, fname):
+        """The reference's fused ``.states`` pickle: ``{"fused": {name:
+        state as numpy}, "num_update": n}``, written atomically."""
+        assert self.optimizer_initialized
+        states = {n: opt.state_to_numpy(s)
+                  for n, s in self._named_states().items()}
+        with atomic_open(fname, "wb") as fout:
+            pickle.dump({"fused": states,
+                         "num_update": int(self._optimizer.num_update)},
+                        fout)
+
+    def load_optimizer_states(self, fname):
+        """Load a ``.states`` file of either package: the fused form by
+        parameter name (with the update count), or an Updater's pickle
+        by parameter index."""
+        assert self.optimizer_initialized
+        with open(fname, "rb") as fin:
+            blob = fin.read()
+        payload = opt.load_states_pickle(blob)
+        if isinstance(payload, dict) and "fused" in payload:
+            unknown = sorted(set(payload["fused"]) - set(self._param_index))
+            if unknown:
+                raise MXNetError("%s holds states of parameters this module "
+                                 "does not have: %s" % (fname, unknown))
+            for n, s in payload["fused"].items():
+                self._updater.states[self._param_index[n]] = \
+                    opt.state_from_numpy(s)
+            self._optimizer.num_update = int(payload["num_update"])
+        else:
+            self._updater.set_states(blob)
+        self._named_states()
+
+    # ------------------------------------------------------- checkpoints
+    def _checkpoint_snapshot(self):
+        """``(tensors, meta)`` of everything exact resume needs, for
+        :mod:`..checkpoint`: the parameters and aux states, the
+        optimizer's states by parameter name with ``num_update`` (the
+        reference's ``"fused"`` kind, which its fused ``Module``
+        restores; the per-index update counts ride along), the key chain
+        of :mod:`..random` (``rng:global_key``), and torch's own
+        generators (``rng:torch:cpu``, ``rng:torch:cuda:<i>``), which the
+        reference ignores. Every tensor is cloned on its device, so the
+        next step may update the originals in place while the writer
+        copies the clones. The caller is at a step boundary."""
+        assert self.binded and self.params_initialized
+        from .. import random as _random
+        ex = self._exec
+
+        def grab(v):
+            return (v.data if isinstance(v, NDArray) else v).detach().clone()
+
+        tensors = {}
+        for n in self._param_names:
+            tensors["arg:" + n] = grab(ex.arg_dict[n])
+        for n in self._aux_names:
+            tensors["aux:" + n] = grab(ex.aux_dict[n])
+        meta = {"param_names": list(self._param_names),
+                "aux_names": list(self._aux_names), "world_size": 1}
+        step = 0
+        if self.optimizer_initialized:
+            o = self._optimizer
+            step = int(o.num_update)
+            meta["optimizer"] = {
+                "kind": "fused", "num_update": step,
+                "structure": {n: _ckpt_manager.tree_encode(
+                    "opt:%s" % n, s, tensors, grab)
+                    for n, s in self._named_states().items()},
+                "index_update_count": {str(k): int(v) for k, v in
+                                       o._index_update_count.items()}}
+        meta["step"] = step
+        tensors["rng:global_key"] = _ckpt_manager.key_to_array(
+            _random.current_key())
+        tensors["rng:torch:cpu"] = torch.get_rng_state()
+        if torch.cuda.is_initialized():
+            for i in range(torch.cuda.device_count()):
+                tensors["rng:torch:cuda:%d" % i] = torch.cuda.get_rng_state(i)
+        return tensors, meta
+
+    def _checkpoint_restore(self, ckpt):
+        """Put a :class:`..checkpoint.Checkpoint`'s optimizer states,
+        update counts and torch generators into this bound module with
+        its optimizer (``fit`` restores the parameters through
+        ``init_params`` and the key chain itself). Reads the reference's
+        ``"fused"`` (by name) and ``"updater"`` (by index) kinds."""
+        assert self.binded and self.params_initialized \
+            and self.optimizer_initialized
+        tensors = ckpt.tensors
+
+        def leaf(x):
+            return NDArray(x.clone() if isinstance(x, torch.Tensor)
+                           else torch.from_numpy(np.array(x)))
+
+        opt_meta = ckpt.meta.get("optimizer") or {}
+        kind = opt_meta.get("kind")
+        if kind == "fused":
+            structure = opt_meta["structure"]
+            if set(structure) != set(self._trained_names()):
+                raise CheckpointCorrupt(
+                    "%s: optimizer states of %s do not match the module's "
+                    "trained parameters %s" % (ckpt.path, sorted(structure),
+                                               sorted(self._trained_names())))
+            states = {self._param_index[n]: _ckpt_manager.tree_decode(
+                "opt:%s" % n, s, tensors, leaf)
+                for n, s in structure.items()}
+        elif kind == "updater":
+            states = {int(k) if k.lstrip("-").isdigit() else k:
+                      _ckpt_manager.tree_decode("upd:%s" % k, s, tensors, leaf)
+                      for k, s in opt_meta["structure"].items()}
+        elif kind is not None:
+            raise CheckpointError(
+                "%s holds optimizer states of kind %r, which a module on "
+                "one device does not have (ROADMAP.md queue A9)"
+                % (ckpt.path, kind))
+        if kind is not None:
+            self._updater.states = states
+            self._optimizer.num_update = int(opt_meta["num_update"])
+            self._optimizer._index_update_count.update(
+                {int(k): int(v) for k, v in
+                 (opt_meta.get("index_update_count") or {}).items()})
+            self._named_states()
+        if "rng:torch:cpu" in tensors:
+            torch.set_rng_state(torch.as_tensor(tensors["rng:torch:cpu"]))
+        if torch.cuda.is_available():
+            for i in range(torch.cuda.device_count()):
+                state = tensors.get("rng:torch:cuda:%d" % i)
+                if state is not None:
+                    torch.cuda.set_rng_state(torch.as_tensor(state), i)

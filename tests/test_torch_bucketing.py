@@ -298,8 +298,22 @@ def test_perplexity_matches_reference(ignore):
     del rng
 
 
-def test_callbacks_checkpoint_and_subsystem():
-    with pytest.raises(MXNetError, match="A7"):
-        mt.callback.subsystem_checkpoint(None, "x")
+def test_callbacks_checkpoint_and_subsystem(tmp_path):
+    data = mt.sym.Variable("data")
+    net = mt.sym.SoftmaxOutput(mt.sym.FullyConnected(
+        data, num_hidden=3, name="cbfc"), name="softmax")
+    mod = mt.mod.Module(net, context=mt.cpu())
+    mod.bind(data_shapes=[("data", (2, 4))],
+             label_shapes=[("softmax_label", (2,))])
+    mod.init_params(mt.init.Xavier())
+    cb = mt.callback.subsystem_checkpoint(mod, str(tmp_path), period=2)
+    cb(0)
+    cb(1)
+    cb.manager.close()
+    ckpts = mt.checkpoint.list_checkpoints(str(tmp_path))
+    assert len(ckpts) == 1
+    ckpt = mt.checkpoint.restore_latest(str(tmp_path))
+    assert ckpt.epoch == 1 and sorted(ckpt.arg_params()) == \
+        ["cbfc_bias", "cbfc_weight"]
     bar = mt.callback.ProgressBar(total=4)
     bar(mt.callback.BatchEndParam(0, 2, None))

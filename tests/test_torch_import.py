@@ -1,5 +1,6 @@
 """The port stands alone: nothing in ``mxnet_tpu_torch`` or
-``chip_smoke.py`` imports ``jax`` or the reference package.
+``chip_smoke.py`` imports ``jax``, the reference package or
+``ml_dtypes`` (which the machine with the card may not have).
 
 Checked twice: dynamically (a fresh interpreter imports the port's
 modules and must not have loaded either) and statically (an AST scan of
@@ -15,7 +16,7 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "mxnet_tpu")
+FORBIDDEN = ("jax", "jaxlib", "mxnet_tpu", "ml_dtypes")
 
 
 def _port_files():
@@ -59,12 +60,15 @@ def test_importing_the_port_loads_no_jax():
         "import mxnet_tpu_torch.gluon.rnn, mxnet_tpu_torch.gluon.rnn.rnn_layer\n"
         "import mxnet_tpu_torch.ops.rnn_op, mxnet_tpu_torch.ops.sequence\n"
         "from mxnet_tpu_torch.module import BucketingModule\n"
+        "import mxnet_tpu_torch.checkpoint, mxnet_tpu_torch.lr_scheduler\n"
+        "import mxnet_tpu_torch.checkpoint.manager\n"
         "assert mxnet_tpu_torch.rnn.BucketSentenceIter\n"
         "assert mxnet_tpu_torch.gluon.rnn.LSTM and mxnet_tpu_torch.callback\n"
         "import mxnet_tpu_torch._cuda_driver as driver\n"
         "assert driver._lib is None   # libcuda loads at first use only\n"
         "bad = sorted(m for m in sys.modules\n"
-        "             if m.split('.')[0] in ('jax', 'jaxlib', 'mxnet_tpu'))\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'mxnet_tpu',\n"
+        "                                    'ml_dtypes'))\n"
         "assert not bad, bad\n"
         "print('PORT-IMPORT-OK')\n")
     env = dict(os.environ)

@@ -158,8 +158,8 @@ def test_no_context_without_gpu_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("option,value", [
-    ("checkpoint", "/nonexistent/ckpt"), ("resume_from", "ckpt"),
-    ("grad_accum", 2), ("layout", object()), ("tune", "auto")])
+    ("grad_accum", 2), ("layout", object()), ("tune", "auto"),
+    ("monitor", object())])
 def test_fit_options_of_later_slices_raise(option, value):
     pm = mt.mod.Module(port_transformer.get_symbol(**KW), context=mt.cpu())
     x = np.zeros((N, T), np.float32)
