@@ -156,7 +156,31 @@ Phases, each fatal on failure (exit code 1, no result line):
     Gluon DCGAN (nz 100, ngf 64, ndf 64, 64x64x3, batch 64, two Adam
     Trainers) for 5 steps with finite losses, then ``save_states`` /
     ``load_states`` into fresh Trainers continuing bit for bit for 2
-    steps.
+    steps;
+12. the op library and the symbolic zoo nets: (a) every op of the
+    port's ``ops`` package but the samplers and FlashAttention (which
+    phases 3, 5 and 9 hold) on the card against the port's CPU forward
+    and input gradients under a seeded random head, from the same
+    inputs, float32 with TF32 off, each case fatal, plus the
+    out-of-range and tie cases of the indexing ops; ``pick`` and
+    ``Embedding`` with indices outside their axis give the reference's
+    NaN without a device assert; (b) each sampler, 10^6 draws: mean and
+    variance within 6 standard errors of the distribution's, a KS or
+    chi2 test at p >= 1e-6; ``_sample_multinomial`` per row and with
+    ``get_prob``; ``shuffle`` a permutation; (c) the zoo's AlexNet
+    through ``Module.fit`` (1000 classes, batch 128, 3x224x224,
+    ``Xavier(magnitude=2)`` from the seed, SGD lr 0.01, momentum 0.9,
+    wd 1e-4) on one fixed batch: amp bf16 1 + 2 + 12 + 1 steps (the
+    last profiled), then f32 1 + 1 + 5 + 1; the inference forward of the
+    initial weights against a plain f32 forward with LRN from its
+    formula (logits within 1e-3 of max|ref| in f32, cross-entropy within
+    2e-2 nats in bf16), the loss falling, Dropout keeping half, no
+    attention launch; step ms, img/s, MFU, peak memory, device time by
+    kind with LRN's on its own line; (d) ``benchmark_score``'s networks
+    (AlexNet, VGG-16, Inception-BN, Inception-v3, ResNet-50 with the 7x7
+    stem) forward-only at batch 32, f32 and amp bf16, 20 timed forwards
+    after 3; at batch 2 each network's f32 logits on the card within
+    1e-4 of max|cpu| of the port's CPU forward.
 
 The second-to-last line is the kernel table as one JSON object; the
 last is ``{"ok": true, "device": {...}}``. Without a GPU, or run from a
@@ -353,6 +377,41 @@ RESUME_LAYERS, RESUME_EPOCHS, RESUME_BATCHES = 2, 2, 2
 DCGAN_NZ, DCGAN_NGF, DCGAN_NDF, DCGAN_SIZE, DCGAN_BATCH = 100, 64, 64, 64, 64
 DCGAN_LR, DCGAN_BETA1 = 2e-4, 0.5
 DCGAN_STEPS, DCGAN_CONTINUE = 5, 2
+# phase 12, the op library and the symbolic zoo nets. (a) every op on the
+# card against the port's own CPU forward and gradient under a random
+# head, f32 with TF32 off: the same formulas, summed in another order by
+# another library (cuBLAS, cuDNN, cuSOLVER against the CPU's), on inputs
+# of a few elements
+OPS_FWD_RTOL = 1e-5
+OPS_GRAD_RTOL = 1e-4
+# (b) each sampler: 10^6 draws, mean and variance within 6 standard
+# errors of the distribution's own, a KS (continuous) or chi2 (discrete)
+# test against it at p >= 1e-6
+SAMPLER_DRAWS = 1000000
+SAMPLER_SIGMAS = 6.0
+SAMPLER_MIN_P = 1e-6
+# (c) AlexNet (models/alexnet.py) at examples/train_imagenet.py's batch
+# and benchmark_score.py's initializer: 1000 classes, batch 128,
+# 3x224x224, Xavier(magnitude=2), SGD lr 0.01, momentum 0.9, wd 1e-4;
+# 50,844,008 parameters
+ALEX_CLASSES, ALEX_BATCH, ALEX_IMAGE = 1000, 128, 224
+ALEX_LR, ALEX_MOMENTUM, ALEX_WD = 0.01, 0.9, 1e-4
+ALEX_PARAMS = 50844008
+ALEX_WARM, ALEX_TIMED = 2, 12
+ALEX_F32_WARM, ALEX_F32_TIMED = 1, 5
+# the inference forward of the initial weights against a plain f32 one:
+# eight layers of f32 sums in another order (logits, f32), or every
+# product's operands and output rounded to bf16 (cross-entropy, amp)
+ALEX_LOGITS_RTOL = 1e-3
+ALEX_CE_TOL = 2e-2
+# (d) examples/benchmark_score.py's networks, forward-only at batch 32
+# (3 warm, 20 timed forwards), f32 and amp bf16; at batch 2 the card's
+# f32 logits against the port's CPU forward: the same f32 formulas, cuDNN
+# and cuBLAS against the CPU's kernels, over up to 16 layers
+SCORE_NETS = ("alexnet", "vgg-16", "inception-bn", "inception-v3",
+              "resnet-50")
+SCORE_BATCH, SCORE_WARM, SCORE_TIMED = 32, 3, 20
+SCORE_CHECK_BATCH, SCORE_RTOL = 2, 1e-4
 
 
 class SmokeFailure(Exception):
@@ -4218,6 +4277,769 @@ def optim_phase(torch, np, sgd):
     dcgan_check(torch, np)
     log("optimizer phase: %.1f s" % (time.perf_counter() - t0))
 
+# --------------------------------------------- the op library and zoo nets
+
+def op_cases(np):
+    """Phase 12a's cases: every canonical op of the port's ``ops``
+    package but the samplers (12b) and FlashAttention (held to its plain
+    versions at KERNEL_ATOL by phases 3, 5 and 9), at small seeded
+    shapes, plus the out-of-range and tie cases of the indexing ops.
+    Returns ``[(label, op name, [numpy inputs], attrs)]``."""
+    from mxnet_tpu_torch.ops import OP_REGISTRY
+    from mxnet_tpu_torch.ops.rnn_op import rnn_param_size
+    rng = np.random.RandomState(SEED)
+
+    def r(*shape, lo=-1.0, hi=1.0):
+        return rng.uniform(lo, hi, shape).astype(np.float32)
+
+    def pos(*shape):
+        return r(*shape, lo=0.3, hi=2.0)
+
+    def f(*values):
+        return np.array(values, np.float32)
+
+    a = r(3, 3)
+    spd = (a @ a.T + 3 * np.eye(3)).astype(np.float32)
+    low = (np.tril(pos(3, 3)) + np.eye(3)).astype(np.float32)
+    ties = f(3, 1, 3, 2, 1, 3, 0, 0, 5, 0, 5, 0).reshape(2, 6)
+    special = {
+        "Activation": ([r(2, 3)], {"act_type": "tanh"}),
+        "BatchNorm": ([r(2, 3, 4, 4), pos(3), r(3), r(3), pos(3)], {}),
+        "Concat": ([r(2, 3), r(2, 3)], {"dim": 1}),
+        "Convolution": ([r(2, 3, 6, 6), r(4, 3, 3, 3), r(4)],
+                        {"kernel": (3, 3), "num_filter": 4, "pad": (1, 1)}),
+        "Crop": ([r(1, 2, 6, 6), r(1, 2, 4, 4)], {"offset": (1, 1)}),
+        "Deconvolution": ([r(1, 2, 5, 5), r(2, 4, 3, 3), r(4)],
+                          {"kernel": (3, 3), "num_filter": 4,
+                           "stride": (2, 2)}),
+        "Dropout": ([r(2, 3)], {"p": 0.0}),
+        "Embedding": ([f(0, 2, 1, 0).reshape(2, 2), r(4, 3)],
+                      {"input_dim": 4, "output_dim": 3}),
+        "Flatten": ([r(2, 3, 4)], {}),
+        "FullyConnected": ([r(2, 3), r(4, 3), r(4)], {"num_hidden": 4}),
+        "IdentityAttachKLSparseReg": ([pos(2, 3) / 4, pos(3) / 4], {}),
+        "InstanceNorm": ([r(2, 3, 4, 4), pos(3), r(3)], {}),
+        "LayerNorm": ([r(2, 3, 8), pos(8), r(8)], {}),
+        "LRN": ([r(2, 6, 5, 5)], {"nsize": 5}),
+        "LeakyReLU": ([r(2, 3)], {"act_type": "leaky"}),
+        "LinearRegressionOutput": ([r(2, 3), r(2, 3)], {}),
+        "LogisticRegressionOutput": ([r(2, 3), r(2, 3)], {}),
+        "MAERegressionOutput": ([r(2, 3), r(2, 3)], {}),
+        "Pad": ([r(1, 2, 3, 3)], {"mode": "reflect",
+                                  "pad_width": (0, 0, 0, 0, 1, 2, 2, 1)}),
+        "Pooling": ([r(1, 2, 5, 5)], {"kernel": (3, 3), "pool_type": "max",
+                                      "stride": (2, 2)}),
+        "RNN": ([r(3, 2, 4), r(rnn_param_size(1, 4, 4, "lstm")),
+                 r(1, 2, 4), r(1, 2, 4)],
+                {"state_size": 4, "num_layers": 1, "mode": "lstm"}),
+        "Reshape": ([r(2, 6)], {"shape": (3, -1)}),
+        "SVMOutput": ([r(2, 3), f(0, 2)], {}),
+        "SequenceLast": ([r(3, 2, 4)], {}),
+        "SequenceMask": ([r(3, 2, 4)], {}),
+        "SequenceReverse": ([r(3, 2, 4)], {}),
+        "SliceChannel": ([r(2, 4)], {"num_outputs": 2}),
+        "SoftmaxOutput": ([r(2, 3), f(0, 2)], {}),
+        "SwapAxis": ([r(2, 3)], {"dim1": 0, "dim2": 1}),
+        "UpSampling": ([r(1, 2, 3, 3)], {"scale": 2,
+                                         "sample_type": "bilinear"}),
+        "_arange": ([], {"start": 0, "stop": 6}),
+        "_eye": ([], {"N": 3, "k": 1}),
+        "_full": ([], {"shape": (2, 3), "value": 1.5}),
+        "_ones": ([], {"shape": (2, 3)}),
+        "_zeros": ([], {"shape": (2, 3)}),
+        "_power_scalar": ([pos(2, 3)], {"scalar": 2.0}),
+        "_rpower_scalar": ([r(2, 3)], {"scalar": 2.0}),
+        "_mod_scalar": ([r(2, 3, lo=-3, hi=3)], {"scalar": 1.3}),
+        "add_n": ([r(2, 3), r(2, 3), r(2, 3)], {}),
+        "batch_dot": ([r(2, 3, 4), r(2, 4, 3)], {}),
+        "batch_take": ([r(2, 3), f(0, 2)], {}),
+        "broadcast_axis": ([r(1, 3)], {"axis": 0, "size": 2}),
+        "broadcast_to": ([r(1, 3)], {"shape": (2, 0)}),
+        "clip": ([r(2, 3)], {"a_min": -0.5, "a_max": 0.5}),
+        "dot": ([r(2, 3, 4), r(3, 2)], {"transpose_a": True}),
+        "expand_dims": ([r(2, 3)], {"axis": 1}),
+        "gather_nd": ([r(3, 4), f(0, 2, 1, 3).reshape(2, 2)], {}),
+        "khatri_rao": ([r(2, 3), r(4, 3)], {}),
+        "linalg_gemm": ([r(2, 3), r(3, 2), r(2, 2)], {"alpha": 0.5}),
+        "linalg_gemm2": ([r(2, 3), r(2, 2)], {"transpose_a": True}),
+        "linalg_potrf": ([spd], {}),
+        "linalg_potri": ([spd], {}),
+        "linalg_sumlogdiag": ([spd], {}),
+        "linalg_trmm": ([low, r(3, 3)], {"rightside": True}),
+        "linalg_trsm": ([low, r(3, 3)], {"transpose": True}),
+        "one_hot": ([f(0, 2, 1)], {"depth": 3}),
+        "pick": ([r(2, 3), f(0, 2)], {}),
+        "repeat": ([r(2, 3)], {"repeats": 2, "axis": 1}),
+        "reverse": ([r(2, 3)], {"axis": 1}),
+        "slice": ([r(3, 4)], {"begin": (None, 3), "end": (2, 0),
+                              "step": (1, -1)}),
+        "slice_axis": ([r(3, 4)], {"axis": 1, "begin": 1, "end": 3}),
+        "sort": ([ties], {"is_ascend": False}),
+        "argsort": ([ties], {"is_ascend": False}),
+        "topk": ([ties], {"k": 3, "ret_typ": "both"}),
+        "stack": ([r(2, 3), r(2, 3)], {"axis": 1}),
+        "take": ([r(4, 3), f(0, 2)], {}),
+        "tile": ([r(2, 3)], {"reps": (2, 1)}),
+        "where": ([f(1, 0, 1, 0, 1, 0).reshape(2, 3), r(2, 3), r(2, 3)], {}),
+    }
+    domain = {"arccos": (-0.8, 0.8), "arcsin": (-0.8, 0.8),
+              "arctanh": (-0.8, 0.8), "erfinv": (-0.8, 0.8),
+              "arccosh": (1.2, 3.0), "log": (0.3, 3.0), "log10": (0.3, 3.0),
+              "log2": (0.3, 3.0), "log1p": (-0.5, 3.0), "sqrt": (0.3, 3.0),
+              "rsqrt": (0.3, 3.0), "cbrt": (0.3, 3.0), "rcbrt": (0.3, 3.0),
+              "gamma": (0.5, 3.0), "gammaln": (0.5, 3.0),
+              "reciprocal": (0.3, 3.0), "norm": (0.3, 3.0),
+              "_rdiv_scalar": (0.3, 2.0), "elemwise_div": (0.3, 2.0)}
+    canonical = {}
+    for op in OP_REGISTRY.values():
+        if op.__module__.startswith("mxnet_tpu_torch.ops.") and \
+                not op.is_random and op.name != "FlashAttention":
+            canonical[op.name] = op
+    cases = []
+    for name in sorted(canonical):
+        op = canonical[name]
+        if name in special:
+            ins, attrs = special[name]
+        elif name.endswith("_scalar"):
+            ins, attrs = [r(2, 3, lo=domain.get(name, (-1, 1))[0],
+                            hi=domain.get(name, (-1, 1))[1])], \
+                {"scalar": 1.5}
+        elif name.startswith("broadcast_") or name == "elemwise_div":
+            ins, attrs = [pos(2, 3), pos(1, 3)], {}
+        else:
+            lo, hi = domain.get(name, (-1.0, 1.0))
+            ins, attrs = [r(2, 3, lo=lo, hi=hi)
+                          for _ in range(op.num_inputs)], {}
+        cases.append((name, name, ins, attrs))
+    # out of range (the reference's values without a device assert) and
+    # ties
+    cases += [
+        ("pick out of range (C9)", "pick",
+         [np.arange(12, dtype=np.float32).reshape(3, 4), f(0, 5, -1)], {}),
+        ("Embedding out of range (C11)", "Embedding",
+         [f(-1, 5, 1), np.arange(6, dtype=np.float32).reshape(3, 2)],
+         {"input_dim": 3, "output_dim": 2}),
+        ("take wrap", "take", [r(4, 3), f(-7, -1, 5, 11)], {"mode": "wrap"}),
+        ("take clip", "take", [r(4, 3), f(-7, -1, 5, 11)], {"axis": 1}),
+        ("batch_take out of range", "batch_take", [r(3, 4), f(-1, 4, -9)],
+         {}),
+        ("one_hot out of range", "one_hot", [f(-1, 3, 7)], {"depth": 3}),
+        ("gather_nd out of range", "gather_nd",
+         [r(4, 3), f(-5, -1, 5, 2, 0, -1, 7, -4).reshape(2, 4)], {}),
+        ("topk mask", "topk", [ties], {"k": 2, "ret_typ": "mask"}),
+        ("topk ascending", "topk", [ties], {"k": 4, "is_ascend": True,
+                                            "ret_typ": "value"}),
+        ("argsort ascending", "argsort", [ties], {"axis": 0}),
+    ]
+    return cases
+
+
+def op_run(torch, op, inputs, attrs, device, seed):
+    """One case on ``device``: the outputs, and the gradient of every
+    floating input but the aux states under a seeded random head over
+    the visible floating outputs (None where no output is
+    differentiable)."""
+    ts = [torch.from_numpy(a.copy()).to(device) for a in inputs]
+    wrt = [t for t in ts[:len(ts) - op.num_aux] if t.is_floating_point()]
+    for t in wrt:
+        t.requires_grad_(True)
+    kw = dict(attrs)
+    if op.num_inputs == 0:
+        kw["_device"] = torch.device(device)
+    outs = op.fn(*ts, **kw)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    vis = [o for o in outs[:len(outs) - op.num_aux - op.num_hidden_outputs]
+           if o.requires_grad]
+    grads = None
+    if vis and wrt:
+        gen = torch.Generator().manual_seed(seed)
+        heads = [torch.randn(o.shape, generator=gen).to(device, o.dtype)
+                 for o in vis]
+        grads = torch.autograd.grad(vis, wrt, heads, allow_unused=True)
+        grads = [torch.zeros_like(t) if g is None else g
+                 for t, g in zip(wrt, grads)]
+    host = lambda t: t.detach().double().cpu()  # noqa: E731
+    return [host(o) for o in outs], \
+        None if grads is None else [host(g) for g in grads]
+
+
+def op_err(torch, got, want):
+    """The largest difference over max(1, max|want|); inf where NaN does
+    not stand where ``want`` has NaN."""
+    if got.shape != want.shape or not torch.equal(torch.isnan(got),
+                                                  torch.isnan(want)):
+        return math.inf
+    fin = ~torch.isnan(want)
+    if not fin.any():
+        return 0.0
+    scale = max(1.0, float(want[fin].abs().max()))
+    return float((got[fin] - want[fin]).abs().max()) / scale
+
+
+def op_sweep(torch, np, device=None):
+    """12a. Every case of :func:`op_cases` on ``device`` (the card) and
+    on the CPU from the same seeded inputs, float32 with TF32 off:
+    outputs within OPS_FWD_RTOL and gradients within OPS_GRAD_RTOL of
+    max(1, max|cpu|), each case fatal. Returns the readings."""
+    from mxnet_tpu_torch.ops import get_op
+    device = device or DEVICE
+    cases = op_cases(np)
+    worst = {"fwd": (0.0, None), "grad": (0.0, None)}
+    n_grad = 0
+    for i, (label, name, inputs, attrs) in enumerate(cases):
+        op = get_op(name)
+        outs, grads = op_run(torch, op, inputs, attrs, device, SEED + i)
+        c_outs, c_grads = op_run(torch, op, inputs, attrs, "cpu", SEED + i)
+        check(len(outs) == len(c_outs), "op sweep %s: %d outputs on %s, %d "
+              "on the CPU" % (label, len(outs), device, len(c_outs)))
+        for j, (g, w) in enumerate(zip(outs, c_outs)):
+            err = op_err(torch, g, w)
+            if err > worst["fwd"][0]:
+                worst["fwd"] = (err, "%s output %d" % (label, j))
+            check(err <= OPS_FWD_RTOL, "op sweep %s: output %d differs from "
+                  "the CPU's by %.3g of max(1, max|cpu|) (limit %g)"
+                  % (label, j, err, OPS_FWD_RTOL))
+        check((grads is None) == (c_grads is None), "op sweep %s: a "
+              "gradient on one device only" % label)
+        if grads is None:
+            continue
+        n_grad += 1
+        for j, (g, w) in enumerate(zip(grads, c_grads)):
+            err = op_err(torch, g, w)
+            if err > worst["grad"][0]:
+                worst["grad"] = (err, "%s gradient %d" % (label, j))
+            check(err <= OPS_GRAD_RTOL, "op sweep %s: gradient of input %d "
+                  "differs from the CPU's by %.3g of max(1, max|cpu|) "
+                  "(limit %g)" % (label, j, err, OPS_GRAD_RTOL))
+    n_ops = len({name for _, name, _, _ in cases})
+    log("op sweep: %d ops in %d cases on %s against the CPU (%d with "
+        "gradients); worst forward %.3g (%s), worst gradient %.3g (%s); "
+        "limits %g / %g of max(1, max|cpu|)"
+        % (n_ops, len(cases), device, n_grad, worst["fwd"][0],
+           worst["fwd"][1], worst["grad"][0], worst["grad"][1],
+           OPS_FWD_RTOL, OPS_GRAD_RTOL))
+    return {"ops": n_ops, "cases": len(cases), "worst": worst}
+
+
+def out_of_range_check(torch, device=None):
+    """12a. C9 and C11 on the card: the reference's values (``jnp``'s
+    wrap and NaN fill), and the device still works after them (an index
+    outside an axis reaching a gather would be a device-side assert)."""
+    from mxnet_tpu_torch.ops import get_op
+    dev = torch.device(device or DEVICE)
+    nan = float("nan")
+    x = torch.arange(12.0, device=dev).reshape(3, 4)
+    got = get_op("pick").fn(x, torch.tensor([0.0, 5.0, -1.0], device=dev))
+    w = torch.arange(6.0, device=dev).reshape(3, 2)
+    emb = get_op("Embedding").fn(torch.tensor([-1.0, 5.0, 1.0], device=dev),
+                                 w)
+    torch.cuda.synchronize()
+    for what, t, want in (("pick", got, [0.0, nan, 11.0]),
+                          ("Embedding", emb, [[4.0, 5.0], [nan, nan],
+                                              [2.0, 3.0]])):
+        want = torch.tensor(want, dtype=torch.float64)
+        check(op_err(torch, t.double().cpu(), want) == 0.0,
+              "%s out of range on %s: %s, the reference gives %s"
+              % (what, dev, t.cpu().tolist(), want.tolist()))
+    check(float((x + 1).sum()) == 78.0, "the device failed after the "
+          "out-of-range gathers")
+    log("out of range on %s: pick [0, 5, -1] -> %s, Embedding [-1, 5, 1] "
+        "-> %s (the reference's), the device still runs"
+        % (dev, got.cpu().tolist(), emb.cpu().tolist()))
+
+
+def sampler_cases():
+    """12b. ``(op, attrs, scipy distribution, discrete)`` per sampler."""
+    from scipy import stats
+    return (
+        ("_random_uniform", {"low": -1.0, "high": 3.0},
+         stats.uniform(loc=-1.0, scale=4.0), False),
+        ("_random_normal", {"loc": 0.5, "scale": 2.0},
+         stats.norm(loc=0.5, scale=2.0), False),
+        ("_random_gamma", {"alpha": 2.5, "beta": 0.8},
+         stats.gamma(2.5, scale=0.8), False),
+        ("_random_exponential", {"lam": 1.5},
+         stats.expon(scale=1 / 1.5), False),
+        ("_random_poisson", {"lam": 4.0}, stats.poisson(4.0), True),
+        ("_random_negative_binomial", {"k": 3, "p": 0.4},
+         stats.nbinom(3, 0.4), True),
+        # mean mu, variance mu + alpha mu^2: NB(1/alpha, 1/(1 + alpha mu))
+        ("_random_generalized_negative_binomial", {"mu": 2.0, "alpha": 0.5},
+         stats.nbinom(1 / 0.5, 1 / (1 + 0.5 * 2.0)), True),
+    )
+
+
+def chi2_p(np, counts, probs, n):
+    """The χ² goodness-of-fit p-value of ``counts`` against ``probs``
+    (both over the same categories), merging categories expected fewer
+    than 5 times into their neighbour."""
+    from scipy import stats
+    obs, exp = [], []
+    o_acc = e_acc = 0.0
+    for o, p in zip(counts, probs):
+        o_acc += o
+        e_acc += p * n
+        if e_acc >= 5:
+            obs.append(o_acc)
+            exp.append(e_acc)
+            o_acc = e_acc = 0.0
+    if e_acc or o_acc:
+        obs[-1] += o_acc
+        exp[-1] += e_acc
+    obs, exp = np.array(obs), np.array(exp)
+    return float(stats.chisquare(obs, exp * obs.sum() / exp.sum()).pvalue)
+
+
+def sampler_check(torch, np, name, attrs, dist, discrete, n, device=None):
+    """12b. ``n`` draws of one sampler on ``device``: mean and variance
+    within SAMPLER_SIGMAS standard errors of the distribution's own (the
+    variance's from its kurtosis), and a KS test (continuous) or a χ²
+    test (discrete) against it, failing below SAMPLER_MIN_P."""
+    from scipy import stats
+    from mxnet_tpu_torch.ops import get_op
+    x = get_op(name).fn(shape=(n,), _device=torch.device(device or DEVICE),
+                        **attrs)
+    check(x.shape == (n,) and x.dtype == torch.float32,
+          "%s: drew %s %s" % (name, tuple(x.shape), x.dtype))
+    x = x.double().cpu().numpy()
+    mean, var, kurt = (float(v) for v in dist.stats(moments="mvk"))
+    se_mean = math.sqrt(var / n)
+    se_var = var * math.sqrt((kurt + 2) / n)
+    z_mean = (x.mean() - mean) / se_mean
+    z_var = (x.var() - var) / se_var
+    if discrete:
+        k = int(x.max()) + 1
+        counts = np.bincount(x.astype(np.int64), minlength=k)
+        probs = dist.pmf(np.arange(k))
+        probs[-1] += dist.sf(k - 1)
+        p = chi2_p(np, counts, probs, n)
+        test = "chi2"
+    else:
+        p = float(stats.kstest(x, dist.cdf).pvalue)
+        test = "KS"
+    log("sampler %s %s: %d draws, mean %.6f (%+.2f SE), variance %.6f "
+        "(%+.2f SE), %s p %.3g" % (name, attrs, n, x.mean(), z_mean,
+                                   x.var(), z_var, test, p))
+    check(abs(z_mean) <= SAMPLER_SIGMAS and abs(z_var) <= SAMPLER_SIGMAS,
+          "%s: mean %.6g / variance %.6g are %.2f / %.2f standard errors "
+          "from %.6g / %.6g" % (name, x.mean(), x.var(), z_mean, z_var, mean,
+                                var))
+    check(p >= SAMPLER_MIN_P, "%s: %s p-value %.3g below %g"
+          % (name, test, p, SAMPLER_MIN_P))
+    return p
+
+
+def multinomial_check(torch, np, n, device=None):
+    """12b. ``_sample_multinomial``: ``n`` draws from each of two rows of
+    probabilities, a χ² test per row, and ``get_prob``'s log-probability
+    of each draw; ``shuffle``: a permutation of ``arange(n)``."""
+    from mxnet_tpu_torch.ops import get_op
+    dev = torch.device(device or DEVICE)
+    probs = np.array([[0.1, 0.2, 0.3, 0.4], [0.5, 0.05, 0.05, 0.4]],
+                     np.float32)
+    ids, logp = get_op("_sample_multinomial").fn(
+        torch.from_numpy(probs).to(dev), shape=(n,), get_prob=True)
+    check(tuple(ids.shape) == (2, n) and ids.dtype == torch.int32,
+          "multinomial: drew %s %s" % (tuple(ids.shape), ids.dtype))
+    want = torch.log(torch.from_numpy(probs).to(dev).gather(
+        1, ids.long()))
+    check(torch.equal(logp, want), "multinomial: get_prob is not the log "
+          "of the drawn class's probability")
+    ids = ids.cpu().numpy()
+    for row in range(2):
+        counts = np.bincount(ids[row], minlength=4)
+        p = chi2_p(np, counts, probs[row].astype(np.float64), n)
+        log("sampler _sample_multinomial row %d %s: %d draws, shares %s, "
+            "chi2 p %.3g" % (row, probs[row].tolist(), n,
+                             (counts / n).round(5).tolist(), p))
+        check(p >= SAMPLER_MIN_P, "multinomial row %d: chi2 p-value %.3g "
+              "below %g" % (row, p, SAMPLER_MIN_P))
+    x = torch.arange(n, dtype=torch.float32, device=dev)
+    y = get_op("shuffle").fn(x)
+    check(torch.equal(torch.sort(y).values, x) and not torch.equal(y, x),
+          "shuffle did not permute arange(%d)" % n)
+    log("shuffle: arange(%d) permuted (%d elements moved)"
+        % (n, int((y != x).sum())))
+
+
+def sampler_phase(torch, np, n=None, device=None):
+    """12b: every sampler on the card from ``mt.random.seed(SEED)``."""
+    import mxnet_tpu_torch as mt
+    n = n or SAMPLER_DRAWS
+    mt.random.seed(SEED)
+    for name, attrs, dist, discrete in sampler_cases():
+        sampler_check(torch, np, name, attrs, dist, discrete, n, device)
+    multinomial_check(torch, np, n, device)
+
+
+def logits_symbol(mt, sym):
+    """The graph of ``sym`` up to its loss head's input (the logits), as
+    a Symbol: the JSON with that node as the only head."""
+    g = json.loads(sym.tojson())
+    head = g["nodes"][g["heads"][0][0]]
+    g["heads"] = [head["inputs"][0]]
+    return mt.sym.load_json(json.dumps(g))
+
+
+def net_macs(mt, sym, data_shape):
+    """Multiply-accumulates of one forward image: every Convolution's
+    output elements times its window (C/groups x kernel) and every
+    FullyConnected's weight, from the layer shapes ``infer_shape``
+    propagates."""
+    from mxnet_tpu_torch.symbol import symbol as symmod
+    shapes, derived = symmod._propagate_shapes(sym, {"data": data_shape})
+    total = 0
+    for node in symmod._topo_order(sym._entries):
+        if node.is_variable or node.op.name not in ("Convolution",
+                                                    "FullyConnected"):
+            continue
+        w = derived.get(node.inputs[1][0].name)
+        if node.op.name == "FullyConnected":
+            total += math.prod(w)
+        else:
+            out = shapes[(id(node), 0)]
+            total += math.prod(out[1:]) * math.prod(w[1:])
+    return total
+
+
+def plain_alexnet(torch, p, x):
+    """The zoo's AlexNet inference forward in plain float32
+    torch.nn.functional, written from models/alexnet.py and independent
+    of the port's ops: LRN from its formula (the squares summed over the
+    5 channels around each one, zero beyond the edges), no dropout.
+    Returns the logits."""
+    import torch.nn.functional as F
+
+    def conv(h, name, stride=1, pad=0):
+        return torch.relu(F.conv2d(h, p[name + "_weight"], p[name + "_bias"],
+                                   stride=stride, padding=pad))
+
+    def lrn(h, nsize=5, alpha=1e-4, beta=0.75, knorm=2.0):
+        sq = F.pad(h * h, (0, 0, 0, 0, nsize // 2, nsize // 2))
+        c = h.shape[1]
+        s = sum(sq[:, i:i + c] for i in range(nsize))
+        return h / (knorm + alpha * s / nsize) ** beta
+
+    def fc(h, name):
+        return F.linear(h, p[name + "_weight"], p[name + "_bias"])
+
+    h = F.max_pool2d(lrn(conv(x, "conv1", 4)), 3, 2)
+    h = F.max_pool2d(lrn(conv(h, "conv2", 1, 2)), 3, 2)
+    h = conv(conv(conv(h, "conv3", 1, 1), "conv4", 1, 1), "conv5", 1, 1)
+    h = F.max_pool2d(h, 3, 2).flatten(1)
+    h = torch.relu(fc(torch.relu(fc(h, "fc1")), "fc2"))
+    return fc(h, "fc3")
+
+
+def alexnet_kind(op: str) -> str:
+    """The AlexNet step's device time by kind: ResNet's kinds, with LRN's
+    window sum (AlexNet's only average pooling) on its own line."""
+    if "avg_pool2d" in op.lower():
+        return "LRN window sum (avg_pool2d)"
+    return resnet_kind(op)
+
+
+def lrn_ms(torch, dtype):
+    """LRN's forward and backward at AlexNet's two shapes (batch x 96 x
+    55 x 55, batch x 256 x 27 x 27) between CUDA events: its share of a
+    step."""
+    from mxnet_tpu_torch.ops import get_op
+    dev = torch.device(DEVICE)
+    side = (ALEX_IMAGE - 11) // 4 + 1
+    side2 = (side - 3) // 2 + 1
+    xs = [torch.randn((ALEX_BATCH, c, s, s), device=dev, dtype=dtype,
+                      requires_grad=True)
+          for c, s in ((96, side), (256, side2))]
+
+    def run():
+        for x in xs:
+            out = get_op("LRN").fn(x, nsize=5, alpha=1e-4, beta=0.75,
+                                   knorm=2.0)
+            torch.autograd.grad(out, x, torch.ones_like(out))
+    run()
+    return time_ms(torch, run, 5)
+
+
+def train_alexnet(torch, np, counters, warm, timed, what):
+    """12c. The zoo's AlexNet through ``Module.fit`` under whatever amp
+    state the caller set: SGD lr ALEX_LR, momentum, wd,
+    ``Xavier(magnitude=2)`` from the seed, one fixed RandomState(0)
+    batch repeated for 1 + ``warm`` + ``timed`` + 1 steps (the last under
+    torch.profiler), read from the batch-end callback. Before it, the
+    inference forward (``is_train=False``) of the initial weights,
+    through a module bound on the graph up to the logits, against
+    :func:`plain_alexnet`. Returns the readings."""
+    from torch.profiler import ProfilerActivity, profile
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.models import alexnet
+    B, S = ALEX_BATCH, ALEX_IMAGE
+    dev = torch.device(DEVICE)
+    steps = 1 + warm + timed + 1
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sym = alexnet.get_symbol(num_classes=ALEX_CLASSES)
+    mod = mt.mod.Module(sym, context=mt.gpu(0))
+    mod.bind(data_shapes=[("data", (B, 3, S, S))],
+             label_shapes=[("softmax_label", (B,))])
+    mod.init_params(mt.init.Xavier(magnitude=2).set_rng(
+        np.random.default_rng(SEED)))
+    torch.cuda.synchronize()
+    bind_s = time.perf_counter() - t0
+    args = mod.get_params()[0]
+    n_params = sum(a.size for a in args.values())
+    rng = np.random.RandomState(0)
+    x = rng.uniform(-1, 1, (B, 3, S, S)).astype(np.float32)
+    y = rng.randint(0, ALEX_CLASSES, (B,)).astype(np.float32)
+    db = mt.io.DataBatch(data=[mt.nd.array(x, ctx=dev)],
+                         label=[mt.nd.array(y, ctx=dev)])
+    xt, yt = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev).long()
+    # the inference forward of the initial weights, to the logits
+    infer = mt.mod.Module(logits_symbol(mt, sym), label_names=None,
+                          context=mt.gpu(0))
+    infer.bind(data_shapes=[("data", (B, 3, S, S))], for_training=False)
+    infer.init_params(arg_params=args)
+    infer.forward(mt.io.DataBatch(data=[db.data[0]]), is_train=False)
+    logits = infer.get_outputs()[0].data.float()
+    with torch.no_grad():
+        ref = plain_alexnet(torch, {n: a.data for n, a in args.items()}, xt)
+        ref_ce = float(torch.nn.functional.cross_entropy(ref, yt))
+        got_ce = float(torch.nn.functional.cross_entropy(logits, yt))
+        logits_err = float((logits - ref).abs().max() / ref.abs().max())
+    del infer, args
+    torch.cuda.empty_cache()
+    # Dropout's kept share at the path's shape (fc1's activation)
+    from mxnet_tpu_torch.ops import get_op
+    ones = torch.ones((B, 4096), device=dev)
+    kept = float((get_op("Dropout").fn(ones, p=0.5, _is_train=True) != 0)
+                 .float().mean())
+    losses = []
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    st = {}
+
+    def on_batch(param):
+        out = mod.get_outputs()[0].data
+        losses.append(-(out.gather(1, yt.view(-1, 1)) + 1e-12).log().mean())
+        done = param.nbatch + 1
+        if done == 1:
+            torch.cuda.synchronize()
+            st["first_s"] = time.perf_counter() - st["t0"]
+        if done == 1 + warm:
+            start.record()
+        if done == steps - 1:
+            end.record()
+            torch.cuda.synchronize()
+            prof.start()
+            st["t_prof"] = time.perf_counter()
+        if done == steps:
+            torch.cuda.synchronize()
+            st["wall"] = time.perf_counter() - st["t_prof"]
+            prof.stop()
+
+    # the main path: counters zeroed just before, read just after
+    for fn in counters.values():
+        fn.launches = {"f32": 0, "bf16": 0}
+    st["t0"] = time.perf_counter()
+    mod.fit(RepeatIter(db, steps, (B, 3, S, S), (B,)), num_epoch=1,
+            optimizer="sgd", optimizer_params={
+                "learning_rate": ALEX_LR, "momentum": ALEX_MOMENTUM,
+                "wd": ALEX_WD}, batch_end_callback=on_batch)
+    launches = {n: dict(fn.launches) for n, fn in counters.items()}
+    step_ms = start.elapsed_time(end) / timed
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    by_kind, busy_ms = resnet_breakdown(torch, prof, st["wall"], what,
+                                        kind_of=alexnet_kind)
+    losses = [float(v) for v in torch.stack(losses).cpu()]
+    lrn = lrn_ms(torch, torch.bfloat16 if mt.amp.active()
+                 else torch.float32)
+    del mod, db
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"losses": losses, "ref_ce": ref_ce, "got_ce": got_ce,
+            "logits_err": logits_err, "kept": kept, "n_params": n_params,
+            "macs": net_macs(mt, sym, (1, 3, S, S)), "step_ms": step_ms,
+            "bind_s": bind_s, "first_s": st["first_s"], "timed": timed,
+            "launches": launches, "peak_gb": peak_gb, "busy_ms": busy_ms,
+            "wall_ms": st["wall"] * 1e3, "by_kind": by_kind, "lrn_ms": lrn}
+
+
+def check_alexnet(what, run, dtype, peak_flops, peak_name):
+    """Log an AlexNet run and hold it to the path: the inference
+    forward's logits (f32) or cross-entropy (bf16) against the plain
+    forward, finite losses that fall, Dropout's kept share, and no
+    flash-attention launch."""
+    losses = run["losses"]
+    img_s = ALEX_BATCH / (run["step_ms"] / 1e3)
+    flops = 3 * 2 * run["macs"]
+    keep_se = math.sqrt(0.25 / (ALEX_BATCH * 4096))
+    log("%s: AlexNet, batch %d, %dx%d, %d parameters: bind %.3f s, first "
+        "step %.3f s; step %.3f ms (%d steps between CUDA events) = %.1f "
+        "img/s; MFU %.4f of %.0f TFLOP/s %s (%.3f GFLOP per image: 3 x 2 x "
+        "%.4f GMAC); peak memory %.3f GB; device busy %.3f of %.3f ms "
+        "profiled (idle share %.3f); LRN forward + backward (both layers) "
+        "%.3f ms a step"
+        % (what, ALEX_BATCH, ALEX_IMAGE, ALEX_IMAGE, run["n_params"],
+           run["bind_s"], run["first_s"], run["step_ms"], run["timed"],
+           img_s, img_s * flops / peak_flops, peak_flops / 1e12, peak_name,
+           flops / 1e9, run["macs"] / 1e9, run["peak_gb"], run["busy_ms"],
+           run["wall_ms"], 1 - run["busy_ms"] / max(run["wall_ms"], 1e-9),
+           run["lrn_ms"]))
+    log("%s: loss per step %s" % (what, " ".join("%.6f" % v for v in losses)))
+    log("%s: inference forward of the initial weights: logits within %.3g "
+        "of max|ref| of the plain f32 forward (limit %g in f32); "
+        "cross-entropy %.6f against %.6f (|diff| %.3g, limit %g in bf16); "
+        "Dropout kept %.5f (%.2f SE from 0.5); flash-attention launches %s"
+        % (what, run["logits_err"], ALEX_LOGITS_RTOL, run["got_ce"],
+           run["ref_ce"], abs(run["got_ce"] - run["ref_ce"]), ALEX_CE_TOL,
+           run["kept"], (run["kept"] - 0.5) / keep_se, run["launches"]))
+    check(all(math.isfinite(v) for v in losses), "%s: non-finite loss %s"
+          % (what, losses))
+    check(losses[-1] < losses[0], "%s: loss did not fall: %s"
+          % (what, losses))
+    if dtype == "f32":
+        check(run["logits_err"] <= ALEX_LOGITS_RTOL, "%s: logits %.3g of "
+              "max|ref| from the plain forward" % (what, run["logits_err"]))
+    else:
+        check(abs(run["got_ce"] - run["ref_ce"]) <= ALEX_CE_TOL,
+              "%s: inference cross-entropy %g vs plain forward %g"
+              % (what, run["got_ce"], run["ref_ce"]))
+    check(abs(run["kept"] - 0.5) <= SAMPLER_SIGMAS * keep_se,
+          "%s: Dropout kept %.5f, not 0.5 within %g SE"
+          % (what, run["kept"], SAMPLER_SIGMAS))
+    if ALEX_CLASSES == 1000:
+        check(run["n_params"] == ALEX_PARAMS, "%s: %d parameters, AlexNet "
+              "has %d" % (what, run["n_params"], ALEX_PARAMS))
+    for name, n in run["launches"].items():
+        check(n == {"f32": 0, "bf16": 0}, "%s: flash-attention kernel %s "
+              "launched %s times in an AlexNet step" % (what, name, n))
+
+
+def score_symbol(mt, network):
+    """benchmark_score's networks: (symbol, image side)."""
+    from mxnet_tpu_torch.models import alexnet, inception, resnet, vgg
+    if network == "alexnet":
+        return alexnet.get_symbol(num_classes=1000), 224
+    if network.startswith("vgg-"):
+        return vgg.get_symbol(num_classes=1000,
+                              num_layers=int(network[4:])), 224
+    if network == "inception-bn":
+        return inception.get_symbol(num_classes=1000, version="bn"), 224
+    if network == "inception-v3":
+        return inception.get_symbol(num_classes=1000, version="v3"), 299
+    return resnet.get_symbol(num_classes=1000,
+                             num_layers=int(network[7:])), 224
+
+
+def score_net(torch, np, mt, network, batch, ctx, arg_params=None,
+              aux_params=None, timed=0, warm=0):
+    """One benchmark_score run: a forward-only Module on the graph up to
+    the logits, bound at ``batch``, ``Xavier(magnitude=2)`` from the seed
+    (or the given parameters), on a RandomState(0) batch; ``timed``
+    forwards between CUDA events after ``warm``. Returns (logits, img/s
+    or None, arg params, aux params)."""
+    sym, side = score_symbol(mt, network)
+    mod = mt.mod.Module(logits_symbol(mt, sym), label_names=None,
+                        context=ctx)
+    mod.bind(data_shapes=[("data", (batch, 3, side, side))],
+             for_training=False)
+    mod.init_params(mt.init.Xavier(magnitude=2).set_rng(
+        np.random.default_rng(SEED)), arg_params=arg_params,
+        aux_params=aux_params)
+    rng = np.random.RandomState(0)
+    x = rng.uniform(-1, 1, (batch, 3, side, side)).astype(np.float32)
+    db = mt.io.DataBatch(data=[mt.nd.array(x, ctx=ctx)])
+    for _ in range(warm):
+        mod.forward(db, is_train=False)
+    img_s = None
+    if timed:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(timed):
+            mod.forward(db, is_train=False)
+        end.record()
+        torch.cuda.synchronize()
+        img_s = batch * timed / (start.elapsed_time(end) / 1e3)
+    mod.forward(db, is_train=False)
+    out = mod.get_outputs()[0].data.float()
+    args, aux = mod.get_params()
+    return out, img_s, args, aux
+
+
+def score_phase(torch, np):
+    """12d. benchmark_score on the card: each network forward-only at
+    SCORE_BATCH, f32 (TF32 off) and amp bf16, SCORE_TIMED forwards after
+    SCORE_WARM; first, at SCORE_CHECK_BATCH, its f32 forward on the card
+    against the port's own on the CPU from the same parameters."""
+    import mxnet_tpu_torch as mt
+    readings = {}
+    for network in SCORE_NETS:
+        sym, side = score_symbol(mt, network)
+        macs = net_macs(mt, sym, (1, 3, side, side))
+        out, _, args, aux = score_net(torch, np, mt, network,
+                                      SCORE_CHECK_BATCH, mt.gpu(0))
+        host = lambda d: {n: a.asnumpy() for n, a in d.items()}  # noqa
+        cpu, _, _, _ = score_net(torch, np, mt, network, SCORE_CHECK_BATCH,
+                                 mt.cpu(), host(args), host(aux))
+        err = float((out.cpu() - cpu).abs().max() / cpu.abs().max())
+        check(err <= SCORE_RTOL, "score %s: the card's f32 forward is %.3g "
+              "of max|cpu| from the CPU's (limit %g)"
+              % (network, err, SCORE_RTOL))
+        row = {"gmac": macs / 1e9, "cpu_err": err}
+        for dtype in ("f32", "bf16"):
+            if dtype == "bf16":
+                mt.amp.init("bfloat16")
+            try:
+                _, img_s, _, _ = score_net(torch, np, mt, network,
+                                           SCORE_BATCH, mt.gpu(0),
+                                           timed=SCORE_TIMED,
+                                           warm=SCORE_WARM)
+            finally:
+                mt.amp.off()
+            row[dtype] = img_s
+        readings[network] = row
+        log("score %s: %.4f GMAC an image; batch %d, %d forwards after %d: "
+            "f32 %.1f img/s, amp bf16 %.1f img/s; batch %d f32 forward "
+            "within %.3g of max|cpu| of the CPU's (limit %g)"
+            % (network, macs / 1e9, SCORE_BATCH, SCORE_TIMED, SCORE_WARM,
+               row["f32"], row["bf16"], SCORE_CHECK_BATCH, err, SCORE_RTOL))
+        gc.collect()
+        torch.cuda.empty_cache()
+    return readings
+
+
+def zoo_phase(torch, np):
+    """Phase 12: the op library (a: the sweep on the card, out-of-range
+    indices; b: the samplers) and the symbolic zoo nets (c: AlexNet
+    through Module.fit; d: benchmark_score's five networks)."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    check(not torch.backends.cudnn.allow_tf32 and
+          not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 is allowed: the op sweep and the plain forward would not "
+          "be float32")
+    t0 = time.perf_counter()
+    op_sweep(torch, np)
+    out_of_range_check(torch)
+    sampler_phase(torch, np)
+    counters = {"flash_attention_fwd": fa.flash_attention_fwd,
+                "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
+                "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv}
+    mt.amp.init("bfloat16")
+    try:
+        run = train_alexnet(torch, np, counters, ALEX_WARM, ALEX_TIMED,
+                            "alexnet")
+    finally:
+        mt.amp.off()
+    check_alexnet("alexnet", run, "bf16", PEAK_BF16_FLOPS, "bf16")
+    run = train_alexnet(torch, np, counters, ALEX_F32_WARM, ALEX_F32_TIMED,
+                        "alexnet f32")
+    check_alexnet("alexnet f32", run, "f32", PEAK_FP32_FLOPS, "f32")
+    score_phase(torch, np)
+    log("op library and zoo phase: %.1f s" % (time.perf_counter() - t0))
+
+
 PAIRS_OF = ("f32-backward", "rtc")
 
 
@@ -4281,6 +5103,7 @@ def main() -> int:
         gluon_phase(torch, np)
         rnn_phase(torch, np)
         optim_phase(torch, np, sgd)
+        zoo_phase(torch, np)
         torch.cuda.synchronize()
     except SmokeFailure as exc:
         print("chip_smoke: FAILED: %s" % exc, file=sys.stderr)

@@ -24,6 +24,13 @@ tensors whose leaves require grad.
   live leaf of every marked array and writes each buffer per its
   ``grad_req`` (``write``, ``add``, ``null``); ``retain_graph`` keeps the
   graph for another pass. Each backward consumes only its own graph.
+* Every marked array that a recorded op consumed on the way to the
+  heads gets a gradient, as in the reference's tape, also when no
+  differentiable op connects them (``argmax``, a comparison,
+  ``BlockGrad``): zero, written under ``write`` and leaving the buffer
+  as it is under ``add``. torch's graph does not see such a path, so
+  each tensor a recorded op returns carries the ids of the marked
+  arrays it was computed from (``_REACH``, set by :func:`tag`).
 * Recording and training are separate flags: ``record(train_mode=False)``
   records in predict mode, ``pause(train_mode=True)`` trains without
   recording. Ops that take ``_is_train`` (BatchNorm, Dropout,
@@ -51,6 +58,31 @@ _state = threading.local()
 
 # every array marked for a gradient, by id; an entry leaves with its array
 _MARKED: "weakref.WeakValueDictionary" = weakref.WeakValueDictionary()
+
+# the attribute of a recorded op's output tensor that holds the ids of
+# the marked arrays it was computed from
+_REACH = "_mx_reach"
+
+
+def reach_of(arrays) -> frozenset:
+    """The ids of the marked arrays that ``arrays`` (NDArrays) are or
+    were computed from by recorded ops."""
+    ids = set()
+    for a in arrays:
+        if a._leaves is not None:
+            ids.add(id(a))
+        ids.update(getattr(a._data, _REACH, ()))
+    return frozenset(ids)
+
+
+def tag(outputs, reach: frozenset):
+    """Mark each tensor of ``outputs`` (one or a tuple) as computed from
+    the marked arrays ``reach``; returns ``outputs``."""
+    if reach:
+        for t in (outputs if isinstance(outputs, tuple) else (outputs,)):
+            if isinstance(t, torch.Tensor):
+                setattr(t, _REACH, reach | getattr(t, _REACH, frozenset()))
+    return outputs
 
 
 def is_recording() -> bool:
@@ -144,18 +176,14 @@ def mark_variables(variables, gradients, grad_reqs="write") -> None:
 
 
 def _heads(heads, head_grads):
-    """The head tensors and their gradients (ones where none is given)."""
+    """The head arrays, their tensors and their gradients (ones where
+    none is given)."""
     from .ndarray.ndarray import NDArray
     if not isinstance(heads, (list, tuple)):
         heads = [heads]
     if head_grads is not None and not isinstance(head_grads, (list, tuple)):
         head_grads = [head_grads]
     tensors = [h._data for h in heads]
-    if not all(t.requires_grad for t in tensors):
-        raise ValueError(
-            "backward: no marked variables reach the heads — call "
-            "mark_variables/attach_grad and compute inside "
-            "autograd.record()")
     outs = []
     for i, t in enumerate(tensors):
         g = head_grads[i] if head_grads is not None else None
@@ -164,7 +192,12 @@ def _heads(heads, head_grads):
         else:
             g = g._data if isinstance(g, NDArray) else torch.as_tensor(g)
             outs.append(g.to(t.device, t.dtype))
-    return tensors, outs
+    return list(heads), tensors, outs
+
+
+_NO_REACH = ("backward: no marked variables reach the heads — call "
+             "mark_variables/attach_grad and compute inside "
+             "autograd.record()")
 
 
 def _grad(tensors, grad_outputs, leaves, retain_graph, create_graph):
@@ -189,30 +222,39 @@ def _live_leaves(var):
 
 def backward(heads, head_grads=None, retain_graph: bool = False,
              train_mode: bool = True) -> None:
-    """Gradients of ``heads`` with respect to every marked array that
-    they depend on, written into the arrays' buffers per their
-    ``grad_req``. ``head_grads`` default to ones. Raises ``ValueError``
-    when no marked array reaches the heads."""
-    tensors, grad_outputs = _heads(heads, head_grads)
+    """Gradients of ``heads`` with respect to every marked array that a
+    recorded op consumed on the way to them, written into the arrays'
+    buffers per their ``grad_req``; an array that reaches the heads only
+    through ops without a gradient gets zeros. ``head_grads`` default to
+    ones. Raises ``ValueError`` when no marked array reaches the
+    heads."""
+    arrays, tensors, grad_outputs = _heads(heads, head_grads)
+    live = [i for i, t in enumerate(tensors) if t.requires_grad]
     pairs = [(var, t) for var in list(_MARKED.values())
              for t in _live_leaves(var)]
-    grads = _grad(tensors, grad_outputs, [t for _, t in pairs],
-                  retain_graph, False) if pairs else ()
+    grads = _grad([tensors[i] for i in live],
+                  [grad_outputs[i] for i in live], [t for _, t in pairs],
+                  retain_graph, False) if pairs and live else ()
     acc = {}
     for (var, _), g in zip(pairs, grads):
         if g is None:
             continue
         k = id(var)
         acc[k] = (var, g if k not in acc else acc[k][1] + g)
+    for k in reach_of(arrays):
+        var = _MARKED.get(k)
+        if var is not None and k not in acc:
+            acc[k] = (var, None)
     if not acc:
-        raise ValueError(
-            "backward: no marked variables reach the heads — call "
-            "mark_variables/attach_grad and compute inside "
-            "autograd.record()")
-    writes, adds = ([], []), ([], [])
+        raise ValueError(_NO_REACH)
+    writes, adds, zeros = ([], []), ([], []), []
     for var, g in acc.values():
         buf = var._grad
         if var._grad_req == "null" or buf is None:
+            continue
+        if g is None:
+            if var._grad_req == "write":
+                zeros.append(buf._data)
             continue
         dst = adds if var._grad_req == "add" else writes
         dst[0].append(buf._data)
@@ -222,6 +264,8 @@ def backward(heads, head_grads=None, retain_graph: bool = False,
             torch._foreach_copy_(*writes)
         if adds[0]:
             torch._foreach_add_(*adds)
+        if zeros:
+            torch._foreach_zero_(zeros)
 
 
 def grad(heads, variables, head_grads=None, retain_graph=None,
@@ -238,7 +282,9 @@ def grad(heads, variables, head_grads=None, retain_graph=None,
         if id(v) not in _MARKED:
             raise ValueError("grad: a variable is not marked (call "
                              "attach_grad or mark_variables first)")
-    tensors, grad_outputs = _heads(heads, head_grads)
+    _, tensors, grad_outputs = _heads(heads, head_grads)
+    if not all(t.requires_grad for t in tensors):
+        raise ValueError(_NO_REACH)
     spans, leaves = [], []
     for v in variables:
         ls = _live_leaves(v)
@@ -308,5 +354,5 @@ class Function:
             a._in_graph = True
         with torch.enable_grad():
             outs = _FunctionBridge.apply(self, *[a._data for a in inputs])
-        outs = [NDArray(o) for o in outs]
+        outs = [NDArray(o) for o in tag(outs, reach_of(inputs))]
         return outs[0] if len(outs) == 1 else outs

@@ -44,8 +44,9 @@ from ..base import MXNetError, atomic_write
 from ..context import DeviceLike, resolve_device
 from . import legacy_format
 
-__all__ = ["NDArray", "array", "zeros", "ones", "imperative_invoke", "save",
-           "load", "to_torch_dtype", "to_numpy_dtype"]
+__all__ = ["NDArray", "array", "zeros", "ones", "empty", "waitall",
+           "moveaxis", "onehot_encode", "imperative_invoke", "save", "load",
+           "to_torch_dtype", "to_numpy_dtype"]
 
 _NP_TO_TORCH = {
     np.dtype(np.float32): torch.float32,
@@ -87,18 +88,20 @@ def _device(ctx: DeviceLike) -> torch.device:
 def _run(fn, arrays, *args, **kwargs):
     """``fn(*args, **kwargs)`` under autograd's recording flag: while it
     records, with torch's grad mode on, ``arrays`` (the NDArray inputs)
-    marked as taking part in a graph; outside ``record()``, with grad
-    mode off if an input is a marked array or a recorded result, so
-    that no graph grows from them. Other inputs leave torch's mode as
-    it is: a tensor a caller made to require grad keeps differentiating
-    through ``torch.autograd``."""
+    marked as taking part in a graph and the result tagged with the
+    marked arrays it came from (``autograd.tag``); outside ``record()``,
+    with grad mode off if an input is a marked array or a recorded
+    result, so that no graph grows from them. Other inputs leave torch's
+    mode as it is: a tensor a caller made to require grad keeps
+    differentiating through ``torch.autograd``."""
     if autograd.is_recording():
         for a in arrays:
             a._in_graph = True
+        reach = autograd.reach_of(arrays)
         if torch.is_grad_enabled():
-            return fn(*args, **kwargs)
+            return autograd.tag(fn(*args, **kwargs), reach)
         with torch.enable_grad():
-            return fn(*args, **kwargs)
+            return autograd.tag(fn(*args, **kwargs), reach)
     if torch.is_grad_enabled() and any(
             a._leaves is not None or a._data.grad_fn is not None
             for a in arrays):
@@ -380,9 +383,8 @@ class NDArray:
     def _compare(self, other, fn):
         """1 where the comparison holds, else 0, in this array's dtype
         (the reference's ``broadcast_*`` logic ops)."""
-        out = self._binary(other, fn)
-        out._data = out._data.to(self._data.dtype)
-        return out
+        dtype = self._data.dtype
+        return self._binary(other, lambda a, b: fn(a, b).to(dtype))
 
     def __eq__(self, other):
         return self._compare(other, torch.eq)
@@ -428,8 +430,9 @@ for _name in ("sum", "mean", "max", "min", "prod", "argmax", "argmin",
               "clip", "abs", "sign", "round", "floor", "ceil", "sqrt",
               "square", "exp", "log", "sigmoid", "tanh", "relu", "softmax",
               "log_softmax", "transpose", "swapaxes", "flatten",
-              "expand_dims", "squeeze", "split", "pick", "slice_axis",
-              "norm"):
+              "expand_dims", "repeat", "tile", "flip", "sort", "argsort",
+              "topk", "pick", "take", "one_hot", "broadcast_to",
+              "slice_axis", "squeeze", "norm", "split", "slice"):
     setattr(NDArray, _name, _op_method(_name))
 
 
@@ -451,7 +454,12 @@ def imperative_invoke(op, *args, out=None, ctx: DeviceLike = None, **attrs):
         attrs.setdefault("_is_train", autograd.is_training())
     if op.num_inputs == 0 and not arrays:
         attrs["_device"] = resolve_device(ctx)
-    outputs = _run(op.fn, arrays, *tensors, **attrs)
+    if op.is_random:
+        # a sampler is not recorded: its result is a constant to the tape
+        with torch.no_grad():
+            outputs = op.fn(*tensors, **attrs)
+    else:
+        outputs = _run(op.fn, arrays, *tensors, **attrs)
     if op.num_aux:
         k = op.num_aux
         for old, new in zip(args[-k:], outputs[-k:]):
@@ -508,6 +516,33 @@ def ones(shape, ctx: DeviceLike = None, dtype="float32") -> NDArray:
     shape = (shape,) if isinstance(shape, int) else tuple(shape)
     return NDArray(torch.ones(shape, dtype=to_torch_dtype(dtype),
                               device=_device(ctx)))
+
+
+def empty(shape, ctx: DeviceLike = None, dtype="float32") -> NDArray:
+    """A new array of ``shape`` (zeros, as the reference's)."""
+    return zeros(tuple(np.atleast_1d(shape)), ctx=ctx, dtype=dtype)
+
+
+def waitall() -> None:
+    """Block until the work queued on every visible GPU has finished."""
+    if torch.cuda.is_available():
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
+
+
+def moveaxis(tensor: NDArray, source: int, destination: int) -> NDArray:
+    """The array with axis ``source`` moved to ``destination``."""
+    return NDArray(_run(torch.movedim, [tensor], tensor._data, source,
+                        destination))
+
+
+def onehot_encode(indices: NDArray, out: NDArray) -> NDArray:
+    """Write the one-hot rows of ``indices`` (of ``out``'s width) into
+    ``out`` and return it."""
+    from ..ops import get_op
+    res = imperative_invoke(get_op("one_hot"), indices, depth=out.shape[1])
+    out._commit(res._data.to(out._data.dtype))
+    return out
 
 
 def save(fname: str, data, format: str = "npz") -> None:

@@ -5,8 +5,11 @@ same-shape ``elemwise_*`` ops and their broadcasting ``broadcast_*``
 aliases share one broadcasting function, as in the reference, and the
 Symbol operators (``x + h``, ``future * -1e9``) lower to these. The
 unary family (``exp``, ``log``, ``abs``, ``square``, ``sqrt``, ...),
-``clip``, ``Cast`` and ``BlockGrad`` are the ones Gluon's layers and
-losses call.
+``clip``, ``Cast``, ``BlockGrad``, ``identity`` and ``smooth_l1``.
+
+Comparisons (``broadcast_equal``, ``_greater_scalar``, ...) return 1 or
+0 in the left operand's dtype; ``mod`` takes the divisor's sign
+(``torch.remainder``, as ``jnp.mod``), not the dividend's (``fmod``).
 """
 from __future__ import annotations
 
@@ -42,10 +45,48 @@ def elemwise_div(lhs, rhs):
     return lhs / rhs
 
 
-@register("broadcast_greater", num_inputs=2, aliases=("_greater",))
-def broadcast_greater(lhs, rhs):
-    """1 where lhs > rhs, else 0, in lhs's dtype."""
-    return (lhs > rhs).to(lhs.dtype)
+@register("broadcast_power", num_inputs=2, aliases=("_power", "_Power", "pow"))
+def broadcast_power(lhs, rhs):
+    return torch.pow(lhs, rhs)
+
+
+@register("broadcast_minimum", num_inputs=2, aliases=("_minimum", "minimum"))
+def broadcast_minimum(lhs, rhs):
+    return torch.minimum(lhs, rhs)
+
+
+@register("broadcast_hypot", num_inputs=2, aliases=("_hypot",))
+def broadcast_hypot(lhs, rhs):
+    return torch.hypot(lhs, rhs)
+
+
+@register("broadcast_mod", num_inputs=2, aliases=("_mod",))
+def broadcast_mod(lhs, rhs):
+    """The remainder with the divisor's sign."""
+    return torch.remainder(lhs, rhs)
+
+
+def _logic(name, fn):
+    @register("broadcast_" + name, num_inputs=2, aliases=("_" + name,))
+    def _op(lhs, rhs):
+        return fn(lhs, rhs).to(lhs.dtype)
+    _op.__doc__ = "1 where ``lhs %s rhs``, else 0, in lhs's dtype." % name
+    return _op
+
+
+def _logic_scalar(name, fn):
+    @register("_%s_scalar" % name)
+    def _op(data, scalar=0.0):
+        return fn(data, scalar).to(data.dtype)
+    _op.__doc__ = "1 where ``data %s scalar``, else 0, in its dtype." % name
+    return _op
+
+
+for _name, _fn in (("equal", torch.eq), ("not_equal", torch.ne),
+                   ("greater", torch.gt), ("greater_equal", torch.ge),
+                   ("lesser", torch.lt), ("lesser_equal", torch.le)):
+    _logic(_name, _fn)
+    _logic_scalar(_name, _fn)
 
 
 @register("_plus_scalar", aliases=("_PlusScalar",))
@@ -76,6 +117,31 @@ def _div_scalar(data, scalar=1.0):
 @register("_rdiv_scalar", aliases=("_RDivScalar",))
 def _rdiv_scalar(data, scalar=1.0):
     return scalar / data
+
+
+@register("_power_scalar", aliases=("_PowerScalar",))
+def _power_scalar(data, scalar=1.0):
+    return torch.pow(data, scalar)
+
+
+@register("_rpower_scalar", aliases=("_RPowerScalar",))
+def _rpower_scalar(data, scalar=1.0):
+    return torch.pow(scalar, data)
+
+
+@register("_maximum_scalar", aliases=("_MaximumScalar",))
+def _maximum_scalar(data, scalar=0.0):
+    return torch.maximum(data, data.new_tensor(scalar))
+
+
+@register("_minimum_scalar", aliases=("_MinimumScalar",))
+def _minimum_scalar(data, scalar=0.0):
+    return torch.minimum(data, data.new_tensor(scalar))
+
+
+@register("_mod_scalar")
+def _mod_scalar(data, scalar=1.0):
+    return torch.remainder(data, scalar)
 
 
 @register("negative")
@@ -162,3 +228,17 @@ def cast(data, dtype="float32"):
 def block_grad(data):
     """Identity forward, no gradient."""
     return data.detach()
+
+
+@register("identity", aliases=("_copy",))
+def identity(data):
+    """A copy of the input."""
+    return data.clone()
+
+
+@register("smooth_l1")
+def smooth_l1(data, scalar=1.0):
+    """``0.5 (σx)²`` where ``|x| < 1/σ²``, else ``|x| − 0.5/σ²``."""
+    s2 = scalar * scalar
+    return torch.where(data.abs() < 1.0 / s2, 0.5 * s2 * data * data,
+                       data.abs() - 0.5 / s2)

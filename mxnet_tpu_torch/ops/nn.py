@@ -1,10 +1,14 @@
-"""Neural-network layer ops of the training path.
+"""Neural-network layer ops.
 
-The port's counterpart of the reference's ``ops/nn.py`` for
+The port's counterpart of the reference's ``ops/nn.py``:
 ``Activation``, ``LeakyReLU``, ``softmax``, ``log_softmax``,
-``FullyConnected``, ``Convolution``, ``Deconvolution``, ``Pooling``,
-``BatchNorm``, ``LayerNorm``, ``Dropout`` and ``SoftmaxOutput``, with
-the reference's semantics:
+``SoftmaxActivation``, ``FullyConnected``, ``Convolution`` (and its
+legacy name ``Convolution_v1``), ``Deconvolution``, ``Pooling``,
+``BatchNorm``, ``InstanceNorm``, ``LayerNorm``, ``L2Normalization``,
+``LRN``, ``Dropout``, ``UpSampling`` and the loss heads
+(``SoftmaxOutput``, ``{Linear,Logistic,MAE}RegressionOutput``,
+``MakeLoss``, ``SVMOutput``, ``IdentityAttachKLSparseReg``), with the
+reference's semantics:
 
 * ``FullyConnected`` and ``Convolution`` under amp multiply bf16
   operands with f32 accumulation, return bf16 and add ``bias`` cast to
@@ -43,7 +47,17 @@ the reference's semantics:
 * ``SoftmaxOutput``'s backward ignores the incoming gradient and
   returns ``(softmax − onehot(label))·grad_scale``, divided by the
   number of rows under ``normalization="batch"``; under amp the head is
-  computed in float32.
+  computed in float32. The other loss heads ignore it too and return
+  their loss's gradient (``torch.autograd.Function``\\ s, as the
+  reference's ``custom_vjp``\\ s); ``IdentityAttachKLSparseReg`` adds the
+  KL sparsity penalty's gradient to it and commits its moving average
+  of the mean activation as an aux state.
+* ``LRN`` sums the squares over a zero-padded window of ``2·(nsize//2)
+  + 1`` channels and divides by ``nsize``, in float32 (under amp too);
+  the output is in the input's dtype.
+* ``UpSampling``'s bilinear mode is ``jax.image.resize``'s
+  (half-pixel centres, edges clamped), which for an integer scale is
+  torch's ``interpolate(align_corners=False)``.
 """
 from __future__ import annotations
 
@@ -125,6 +139,16 @@ def log_softmax(data, axis=-1, temperature=None):
     return torch.log_softmax(x, dim=axis)
 
 
+@register("SoftmaxActivation")
+def softmax_activation(data, mode="instance"):
+    """Softmax over the flattened trailing axes (``instance``) or over
+    axis 1 (``channel``)."""
+    if mode == "channel":
+        return torch.softmax(data, dim=1)
+    flat = data.reshape(data.shape[0], -1)
+    return torch.softmax(flat, dim=-1).reshape(data.shape)
+
+
 @register("FullyConnected", num_inputs=None, aliases=("fully_connected",))
 def fully_connected(data, weight, bias=None, num_hidden=None, no_bias=False,
                     flatten=True):
@@ -171,7 +195,8 @@ class _Convolution(torch.autograd.Function):
         return dx, dw, None, None, None, None, None, None
 
 
-@register("Convolution", num_inputs=None, aliases=("convolution",))
+@register("Convolution", num_inputs=None,
+          aliases=("convolution", "Convolution_v1"))
 def convolution(data, weight, bias=None, kernel=None, stride=None, dilate=None,
                 pad=None, num_filter=None, num_group=1, no_bias=False,
                 workspace=1024, cudnn_tune=None, cudnn_off=False, layout=None):
@@ -318,6 +343,34 @@ def dropout(data, p=0.5, mode="training", _is_train=False):
     return torch.where(u < keep, data / keep, torch.zeros_like(data))
 
 
+@register("UpSampling", num_inputs=None)
+def upsampling(*data, scale=2, sample_type="nearest", num_filter=0,
+               multi_input_mode="concat", num_args=None, workspace=512):
+    """Each input resized to the first one's size times ``scale``:
+    ``nearest`` repeats pixels, ``bilinear`` interpolates with
+    half-pixel centres; several inputs are concatenated along the
+    channels (or summed, ``multi_input_mode="sum"``)."""
+    scale = int(scale)
+    th, tw = data[0].shape[2] * scale, data[0].shape[3] * scale
+    outs = []
+    for d in data:
+        if sample_type == "nearest":
+            s = th // d.shape[2]
+            o = d.repeat_interleave(s, dim=2).repeat_interleave(s, dim=3)
+        else:
+            o = F.interpolate(d, size=(th, tw), mode="bilinear",
+                              align_corners=False)
+        outs.append(o)
+    if len(outs) == 1:
+        return outs[0]
+    if multi_input_mode == "sum":
+        out = outs[0]
+        for o in outs[1:]:
+            out = out + o
+        return out
+    return torch.cat(outs, dim=1)
+
+
 def _layer_norm_stats(x32, ax, eps):
     mean = x32.mean(dim=ax, keepdim=True)
     msq = (x32 * x32).mean(dim=ax, keepdim=True)
@@ -360,15 +413,73 @@ class _LayerNorm(torch.autograd.Function):
             dbeta.reshape(gamma.shape), None, None
 
 
-@register("LayerNorm", num_inputs=3)
+@register("LayerNorm", num_inputs=3,
+          num_outputs=lambda attrs: 3 if attrs.get("output_mean_var")
+          else 1)
 def layer_norm(data, gamma, beta, axis=-1, eps=1e-5, output_mean_var=False):
     """Layer normalization over ``axis``: f32 statistics, output in the
-    input's dtype."""
-    if output_mean_var:
-        raise MXNetError("LayerNorm(output_mean_var=True) is not ported "
-                         "yet (ROADMAP.md queue A1)")
+    input's dtype. With ``output_mean_var`` also the mean and variance
+    (``axis`` dropped), differentiated through the formula as in the
+    reference."""
     ax = axis % data.dim()
+    if output_mean_var:
+        x32 = data.float()
+        mean, rstd = _layer_norm_stats(x32, ax, eps)
+        shp = _bshape(data, ax)
+        out = (x32 - mean) * rstd * gamma.reshape(shp).float() \
+            + beta.reshape(shp).float()
+        var = (1.0 / rstd) ** 2 - eps
+        return out.to(data.dtype), mean.squeeze(ax), var.squeeze(ax)
     return _LayerNorm.apply(data, gamma, beta, ax, float(eps))
+
+
+@register("InstanceNorm", num_inputs=3)
+def instance_norm(data, gamma, beta, eps=0.001):
+    """Normalization of each (sample, channel) over the spatial axes
+    (biased variance), then ``gamma`` and ``beta`` per channel."""
+    red = tuple(range(2, data.dim()))
+    mean = data.mean(dim=red, keepdim=True)
+    var = ((data - mean) ** 2).mean(dim=red, keepdim=True)
+    shp = (1, -1) + (1,) * (data.dim() - 2)
+    return (data - mean) * torch.rsqrt(var + eps) * gamma.reshape(shp) \
+        + beta.reshape(shp)
+
+
+@register("L2Normalization")
+def l2_normalization(data, eps=1e-10, mode="instance"):
+    """``data / sqrt(Σ data² + eps)`` over every axis but the first
+    (``instance``), over axis 1 (``channel``) or over the spatial axes
+    (``spatial``)."""
+    if mode == "instance":
+        red = tuple(range(1, data.dim()))
+    elif mode == "channel":
+        red = (1,)
+    elif mode == "spatial":
+        red = tuple(range(2, data.dim()))
+    else:
+        raise ValueError(mode)
+    return data / torch.sqrt((data * data).sum(dim=red, keepdim=True) + eps)
+
+
+@register("LRN")
+def lrn(data, alpha=1e-4, beta=0.75, knorm=2.0, nsize=5):
+    """Local response normalization across channels: ``x / (knorm +
+    alpha·Σ/nsize)^beta``, Σ the sum of squares over the ``2·(nsize//2)
+    + 1`` channels around each one (zero beyond the edges), in f32."""
+    x32 = data.float()
+    half = int(nsize) // 2
+    width = 2 * half + 1
+    sq = (x32 * x32).reshape(data.shape[0], 1, data.shape[1], -1)
+    # the window's mean over channels (zero-padded), times its width
+    ssum = F.avg_pool2d(sq, (width, 1), stride=1, padding=(half, 0),
+                        count_include_pad=True) * width
+    t = knorm + alpha * ssum.reshape(x32.shape) / nsize
+    if beta == 0.75:
+        r = torch.rsqrt(t)
+        out = x32 * r * torch.sqrt(r)
+    else:
+        out = x32 / torch.pow(t, beta)
+    return out.to(data.dtype)
 
 
 class _SoftmaxOutput(torch.autograd.Function):
@@ -431,3 +542,151 @@ def softmax_output(data, label, grad_scale=1.0, ignore_label=-1.0,
              "preserve_shape": preserve_shape,
              "normalization": normalization}
     return _SoftmaxOutput.apply(data, label, attrs)
+
+
+# ------------------------------------------------------------ loss heads
+
+class _Regression(torch.autograd.Function):
+    """Identity (``logistic``: the sigmoid) forward; the backward ignores
+    the incoming gradient and returns ``(out − label)`` (``mae``: its
+    sign) times ``grad_scale``, over the number of outputs per row."""
+
+    @staticmethod
+    def forward(ctx, data, label, kind, grad_scale):
+        out = torch.sigmoid(data) if kind == "logistic" else data.clone()
+        ctx.save_for_backward(out, label)
+        ctx.kind, ctx.grad_scale = kind, grad_scale
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        out, label = ctx.saved_tensors
+        n = out.shape[1] if out.dim() > 1 else 1
+        diff = out - label
+        grad = torch.sign(diff) if ctx.kind == "mae" else diff
+        return (grad * ctx.grad_scale / n).to(out.dtype), None, None, None
+
+
+@register("LinearRegressionOutput", num_inputs=2,
+          aliases=("linear_regression_output",))
+def linear_regression_output(data, label, grad_scale=1.0):
+    """Identity forward; squared-error gradient."""
+    return _Regression.apply(data, label, "linear", grad_scale)
+
+
+@register("MAERegressionOutput", num_inputs=2,
+          aliases=("mae_regression_output",))
+def mae_regression_output(data, label, grad_scale=1.0):
+    """Identity forward; absolute-error gradient."""
+    return _Regression.apply(data, label, "mae", grad_scale)
+
+
+@register("LogisticRegressionOutput", num_inputs=2,
+          aliases=("logistic_regression_output",))
+def logistic_regression_output(data, label, grad_scale=1.0):
+    """Sigmoid forward; cross-entropy gradient ``sigmoid − label``."""
+    return _Regression.apply(data, label, "logistic", grad_scale)
+
+
+class _MakeLoss(torch.autograd.Function):
+    """Identity forward; the backward is ``grad_scale`` everywhere (over
+    the batch, or over the entries above ``valid_thresh``)."""
+
+    @staticmethod
+    def forward(ctx, data, attrs):
+        ctx.save_for_backward(data)
+        ctx.attrs = attrs
+        return data.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        (data,) = ctx.saved_tensors
+        a = ctx.attrs
+        grad = torch.full_like(data, a["grad_scale"])
+        if a["normalization"] == "batch":
+            grad = grad / data.shape[0]
+        elif a["normalization"] == "valid":
+            valid = (data.abs() > a["valid_thresh"]).to(data.dtype)
+            grad = grad * valid / torch.clamp(valid.sum(), min=1.0)
+        return grad, None
+
+
+@register("MakeLoss", aliases=("make_loss",))
+def make_loss(data, grad_scale=1.0, valid_thresh=0.0, normalization="null"):
+    """The input is a loss: identity forward, constant backward."""
+    return _MakeLoss.apply(data, {"grad_scale": grad_scale,
+                                  "valid_thresh": valid_thresh,
+                                  "normalization": normalization})
+
+
+class _SVMOutput(torch.autograd.Function):
+    """Identity forward; the hinge loss's gradient (squared, or linear
+    with ``use_linear``) with +1 for the label's class and −1 for the
+    others."""
+
+    @staticmethod
+    def forward(ctx, data, label, attrs):
+        ctx.save_for_backward(data, label)
+        ctx.attrs = attrs
+        return data.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        data, label = ctx.saved_tensors
+        a = ctx.attrs
+        idx = label.to(torch.int64).unsqueeze(-1)
+        hot = idx == torch.arange(data.shape[-1], device=data.device)
+        sgn = hot.to(data.dtype) * 2.0 - 1.0
+        slack = a["margin"] - sgn * data
+        if a["use_linear"]:
+            grad = -sgn * a["regularization_coefficient"]
+        else:
+            grad = -2.0 * slack * sgn * a["regularization_coefficient"]
+        grad = torch.where(slack > 0, grad, torch.zeros_like(grad))
+        return grad.to(data.dtype), None, None
+
+
+@register("SVMOutput", num_inputs=2, aliases=("svm_output",))
+def svm_output(data, label, margin=1.0, regularization_coefficient=1.0,
+               use_linear=False):
+    """Identity forward; the SVM's hinge-loss gradient."""
+    return _SVMOutput.apply(data, label, {
+        "margin": margin,
+        "regularization_coefficient": regularization_coefficient,
+        "use_linear": use_linear})
+
+
+class _KLSparseReg(torch.autograd.Function):
+    """Identity forward; the backward adds ``penalty·(−ρ/ρ̂ + (1−ρ)/(1−ρ̂))``
+    to the incoming gradient, ρ̂ the updated moving average (saved as
+    computed: the caller commits it into the aux state in place)."""
+
+    @staticmethod
+    def forward(ctx, data, new_ma, attrs):
+        ctx.save_for_backward(new_ma)
+        ctx.attrs = attrs
+        return data.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        (new_ma,) = ctx.saved_tensors
+        a = ctx.attrs
+        rho = a["sparseness_target"]
+        flat = g.reshape(g.shape[0], -1)
+        grad = flat + a["penalty"] * (-rho / new_ma + (1 - rho) / (1 - new_ma))
+        return grad.reshape(g.shape).to(g.dtype), None, None
+
+
+@register("IdentityAttachKLSparseReg", num_inputs=2, num_aux=1)
+def identity_attach_kl_sparse_reg(data, moving_avg, sparseness_target=0.1,
+                                  penalty=0.001, momentum=0.9):
+    """Identity forward whose backward attaches a KL sparsity penalty
+    (pair it with sigmoid activations). ``moving_avg`` is an aux state:
+    the op returns ``(out, new_moving_avg)``."""
+    with torch.no_grad():
+        avg = data.reshape(data.shape[0], -1).mean(dim=0)
+        new_ma = momentum * moving_avg + (1 - momentum) * avg
+    out = _KLSparseReg.apply(data, new_ma, {
+        "sparseness_target": sparseness_target, "penalty": penalty,
+        "momentum": momentum})
+    return out, new_ma

@@ -163,7 +163,7 @@ def adamax_update(weight, grad, mean, u, lr=0.002, beta1=0.9, beta2=0.999,
                 clip_gradient=clip_gradient)
 
 
-@register("sgld_update", num_inputs=2)
+@register("sgld_update", num_inputs=2, is_random=True)
 def sgld_update(weight, grad, lr=0.01, wd=0.0, rescale_grad=1.0,
                 clip_gradient=-1.0, _generator=None):
     """Langevin dynamics: weight - lr/2·g + N(0, lr). The noise comes

@@ -1,5 +1,6 @@
-"""Reductions: ``sum``, ``mean``, ``prod``, ``max``, ``min``, ``argmax``,
-``argmin`` and ``norm``.
+"""Reductions: ``sum``, ``mean``, ``prod``, ``nansum``, ``nanprod``,
+``max``, ``min``, ``argmax``, ``argmin``, ``argmax_channel`` and
+``norm``; and the broadcasts ``broadcast_to`` and ``broadcast_axis``.
 
 The port's counterpart of the reference's ``ops/reduce.py``, with its
 ``axis`` / ``keepdims`` / ``exclude`` attributes: no axis (None or
@@ -48,6 +49,9 @@ _make_reduce("sum", lambda x, ax, k: torch.sum(x, dim=ax, keepdim=k),
              aliases=("sum_axis",))
 _make_reduce("mean", lambda x, ax, k: torch.mean(x, dim=ax, keepdim=k))
 _make_reduce("prod", _prod)
+_make_reduce("nansum", lambda x, ax, k: torch.nansum(x, dim=ax, keepdim=k))
+_make_reduce("nanprod", lambda x, ax, k: _prod(
+    torch.where(torch.isnan(x), torch.ones_like(x), x), ax, k))
 _make_reduce("max", lambda x, ax, k: torch.amax(x, dim=ax, keepdim=k),
              aliases=("max_axis",))
 _make_reduce("min", lambda x, ax, k: torch.amin(x, dim=ax, keepdim=k),
@@ -77,6 +81,13 @@ def argmin(data, axis=None, keepdims=False):
     return _arg(torch.argmin, data, axis, keepdims)
 
 
+@register("argmax_channel")
+def argmax_channel(data):
+    """Index of the largest element of each row (the last axis), as
+    float32."""
+    return torch.argmax(data, dim=-1).to(torch.float32)
+
+
 @register("norm")
 def norm(data, ord=2, axis=None, keepdims=False):
     """The L2 norm (``ord=1``: the L1 norm) over ``axis`` (all axes by
@@ -85,3 +96,26 @@ def norm(data, ord=2, axis=None, keepdims=False):
     if ord == 1:
         return torch.sum(data.abs(), dim=ax, keepdim=bool(keepdims))
     return torch.sqrt(torch.sum(data * data, dim=ax, keepdim=bool(keepdims)))
+
+
+@register("broadcast_axis", aliases=("broadcast_axes",))
+def broadcast_axis(data, axis=None, size=None):
+    """Broadcast the axes ``axis`` (of length 1) to the lengths
+    ``size``."""
+    if axis is None:
+        return data
+    axes = (axis,) if isinstance(axis, int) else tuple(axis)
+    sizes = (size,) if isinstance(size, int) else tuple(size)
+    shape = list(data.shape)
+    for a, n in zip(axes, sizes):
+        shape[a % data.dim()] = int(n)
+    return data.expand(tuple(shape))
+
+
+@register("broadcast_to")
+def broadcast_to(data, shape=None):
+    """Broadcast to ``shape``; a 0 there keeps the input's length."""
+    shape = tuple(int(s) for s in shape)
+    if len(shape) == data.dim():
+        shape = tuple(d if s == 0 else s for s, d in zip(shape, data.shape))
+    return data.expand(shape)

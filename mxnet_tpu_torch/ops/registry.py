@@ -26,6 +26,10 @@ commits (the executor after a training forward, ``imperative_invoke``
 into the arrays it was given). ``num_hidden_outputs`` more outputs come
 before that tail (BatchNorm's batch mean and variance); neither kind is
 listed by ``list_outputs`` or bound as a head of the graph.
+
+A sampler (``is_random``: ``_random_uniform``, ``shuffle``, ...) is not
+recorded by ``autograd.record()``: its result is a constant to the tape,
+as in the reference.
 """
 from __future__ import annotations
 
@@ -46,7 +50,8 @@ class OpDef:
                  num_inputs: Optional[int] = 1,
                  num_outputs: Union[int, Callable] = 1,
                  meta_fn: Optional[Callable] = None,
-                 num_aux: int = 0, num_hidden_outputs: int = 0):
+                 num_aux: int = 0, num_hidden_outputs: int = 0,
+                 is_random: bool = False):
         self.name = name
         self.fn = fn
         self.num_inputs = num_inputs
@@ -54,6 +59,7 @@ class OpDef:
         self.meta_fn = meta_fn
         self.num_aux = num_aux
         self.num_hidden_outputs = num_hidden_outputs
+        self.is_random = is_random
         # an op whose inputs depend on its attributes (Custom: the Prop
         # lists them) sets this to a function of the attributes
         self.input_names_fn: Optional[Callable] = None
@@ -128,14 +134,15 @@ def register(name: Optional[str] = None, num_inputs: Optional[int] = 1,
              aliases: Sequence[str] = (),
              num_outputs: Union[int, Callable] = 1,
              meta_fn: Optional[Callable] = None, num_aux: int = 0,
-             num_hidden_outputs: int = 0):
+             num_hidden_outputs: int = 0, is_random: bool = False):
     """Decorator: register a function over tensors as an op."""
 
     def _reg(fn: Callable) -> OpDef:
         opname = name or fn.__name__
         op = OpDef(opname, fn, num_inputs=num_inputs,
                    num_outputs=num_outputs, meta_fn=meta_fn,
-                   num_aux=num_aux, num_hidden_outputs=num_hidden_outputs)
+                   num_aux=num_aux, num_hidden_outputs=num_hidden_outputs,
+                   is_random=is_random)
         for n in (opname,) + tuple(aliases):
             if n in OP_REGISTRY:
                 raise ValueError("Op %s already registered" % n)

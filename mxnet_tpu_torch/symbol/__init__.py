@@ -1,6 +1,7 @@
 """``sym`` — the port's Symbol namespace: ``Variable``, ``Group``,
-``load_json`` and one function per registered op (``sym.FullyConnected``,
-``sym.reshape``, ``sym.FlashAttention``, ...). Ops registered after
+``load_json``, one function per registered op (``sym.FullyConnected``,
+``sym.reshape``, ``sym.FlashAttention``, ...) and ``sym.random`` (the
+samplers, as ``nd.random``). Ops registered after
 import (``rtc.UserKernel.register``, ``operator``'s ``Custom``) resolve
 on first use through the module's ``__getattr__`` (PEP 562), as in the
 reference."""
@@ -13,6 +14,11 @@ from .symbol import _install_op_functions, make_symbol_function
 __all__ = ["Symbol", "Variable", "Group", "load", "load_json",
            "NameManager"]
 __all__ += _install_op_functions(globals())
+
+# the samplers under their later names: sym.random.uniform, ...
+from ..ndarray import _RandomNamespace  # noqa: E402
+
+random = _RandomNamespace(make_symbol_function)
 
 # the later reference's alias: sym.contrib.<name> for the _contrib_<name>
 # ops (their canonical home is contrib.sym)

@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import ast
 import json
+import math
 import threading
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -653,8 +654,18 @@ def _propagate_shapes(sym: Symbol, known: Dict[str, Tuple[int, ...]]):
                 setvar(2, (ds[ax],))
             elif opname == "Embedding":
                 setvar(1, (int(a["input_dim"]), int(a["output_dim"])))
-            elif opname == "SoftmaxOutput":
+            elif opname == "InstanceNorm":
+                setvar(1, (ds[1],))
+                setvar(2, (ds[1],))
+            elif opname == "IdentityAttachKLSparseReg":
+                setvar(1, (math.prod(ds[1:]),))
+            elif opname == "LeakyReLU" and a.get("act_type") == "prelu":
+                setvar(1, (ds[1],))
+            elif opname in ("SoftmaxOutput", "SVMOutput"):
                 setvar(1, (ds[0],))
+            elif opname in ("LinearRegressionOutput", "MAERegressionOutput",
+                            "LogisticRegressionOutput"):
+                setvar(1, ds)
             elif opname == "RNN":
                 # data (T, N, input): the packed vector and the states
                 from ..ops.rnn_op import rnn_param_size

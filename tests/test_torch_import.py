@@ -62,6 +62,11 @@ def test_importing_the_port_loads_no_jax():
         "from mxnet_tpu_torch.module import BucketingModule\n"
         "import mxnet_tpu_torch.checkpoint, mxnet_tpu_torch.lr_scheduler\n"
         "import mxnet_tpu_torch.checkpoint.manager\n"
+        "import mxnet_tpu_torch.ops.random_op, mxnet_tpu_torch.models\n"
+        "from mxnet_tpu_torch.models import alexnet, inception, lenet\n"
+        "from mxnet_tpu_torch.models import mlp, vgg\n"
+        "assert mxnet_tpu_torch.nd.random.uniform\n"
+        "assert mxnet_tpu_torch.sym.random.normal\n"
         "assert mxnet_tpu_torch.rnn.BucketSentenceIter\n"
         "assert mxnet_tpu_torch.gluon.rnn.LSTM and mxnet_tpu_torch.callback\n"
         "import mxnet_tpu_torch._cuda_driver as driver\n"
