@@ -180,7 +180,33 @@ Phases, each fatal on failure (exit code 1, no result line):
     (AlexNet, VGG-16, Inception-BN, Inception-v3, ResNet-50 with the 7x7
     stem) forward-only at batch 32, f32 and amp bf16, 20 timed forwards
     after 3; at batch 2 each network's f32 logits on the card within
-    1e-4 of max|cpu| of the port's CPU forward.
+    1e-4 of max|cpu| of the port's CPU forward;
+13. the structured op families and the detection / recognition
+    examples: (a) the 18 ops of ``ops/{vision,detection,contrib}.py``
+    on the card against the port's CPU forward and gradient (phase 12a's
+    limits; class targets, masks, class ids and batch indices equal;
+    Stochastic Activation Pruning where its draw is forced), and a ROI of
+    a batch index outside the batch giving NaN without a device assert;
+    (b) ``examples/train_ssd.py`` at its defaults through ``Module``
+    (400 seeded 3x64x64 images, batch 32, 30 epochs, SGD 0.1 / 0.9 /
+    1e-4) in f32, the first step's outputs against a plain f32 forward,
+    the detection module through ``Module.predict`` (equal to
+    ``forward`` + ``get_outputs`` batch by batch) to the example's gate
+    (mean IoU of the best detection > 0.4), then one seeded epoch in amp
+    bf16; step ms, img/s, the idle share of a profiled step, detection
+    ms a batch, peak memory; (c) the detection ops at their published
+    sizes, forward and backward against the CPU within 1e-4 of max(1,
+    max|cpu|), timed between CUDA events with their extra peak memory:
+    SSD300's 8732 priors, MultiBoxTarget (batch 32, 21 classes, 42 gt
+    rows) and MultiBoxDetection (nms 0.45, top 400), the Faster R-CNN
+    RPN's Proposal (38x63, 6000 -> 300), Fast R-CNN's ROIPooling (2 x 512
+    x 38 x 63, 256 ROIs, 7x7; extra peak under 4 GB), SAP at (128, 256,
+    56, 56) and (128, 2048, 7, 7) by distribution over 64 draws, CTCLoss
+    at T 400, N 32, C 29; (d) ``examples/train_rcnn.py`` at its defaults
+    (its ``proposal_target`` CustomOp in the graph) to its gate, ROI
+    accuracy > 0.85, with the CustomOp's host share of a step; (e)
+    ``examples/ctc_ocr.py`` at its defaults through Gluon (Adam,
+    ``nd.CTCLoss``) to its gate, sequence accuracy > 0.8.
 
 The second-to-last line is the kernel table as one JSON object; the
 last is ``{"ok": true, "device": {...}}``. Without a GPU, or run from a
@@ -412,6 +438,54 @@ SCORE_NETS = ("alexnet", "vgg-16", "inception-bn", "inception-v3",
               "resnet-50")
 SCORE_BATCH, SCORE_WARM, SCORE_TIMED = 32, 3, 20
 SCORE_CHECK_BATCH, SCORE_RTOL = 2, 1e-4
+
+# phase 13, the structured op families and the detection / recognition
+# examples. (a) the 18 ops of ops/{vision,detection,contrib}.py on the
+# card against the port's CPU forward and gradient, phase 12a's limits
+# (b) examples/train_ssd.py at its defaults: 400 seeded 3x64x64 images,
+# batch 32, 30 epochs, SGD 0.1 / 0.9 / 1e-4, Xavier(magnitude=2), seed
+# 42; two scales of 4 anchors a cell; the example's gate, mean IoU of the
+# best detection > 0.4; the first step's outputs against a plain f32
+# forward: the same f32 formulas, cuDNN against torch's functional
+# convolutions on the card
+SSD_IMAGES, SSD_SIZE, SSD_BATCH, SSD_EPOCHS = 400, 64, 32, 30
+SSD_LR, SSD_MOMENTUM, SSD_WD, SSD_SEED = 0.1, 0.9, 1e-4, 42
+SSD_CLASSES, SSD_ANCHORS = 3, 4
+SSD_SIZES = ((0.25, 0.35), (0.45, 0.6))
+SSD_RATIOS = (1.0, 0.7, 1.4)
+SSD_MIN_IOU = 0.4
+SSD_STEP1_RTOL = 1e-4
+SSD_WARM = 3
+# (c) the detection ops at their published sizes, card against CPU
+# (forward and gradient) within DET_RTOL of max(1, max|cpu|): SSD300
+# (vgg16_reduced at 300, upstream example/ssd symbol_factory.py: maps,
+# sizes, ratios; 8732 anchors) at batch 32, 21 classes, 42 padded gt rows;
+# the Faster R-CNN RPN on VGG-16 conv5 of a 600x1000 image (38x63, 12
+# anchors); Fast R-CNN's ROIPooling (VGG-16 conv5, 128 ROIs an image);
+# SAP at the ResNet-50 phase's widths; CTC at a speech alphabet's
+DET_RTOL = 1e-4
+SSD300_LAYERS = ((38, (0.1, 0.141), (1.0, 2.0, 0.5)),
+                 (19, (0.2, 0.272), (1.0, 2.0, 0.5, 3.0, 1.0 / 3)),
+                 (10, (0.37, 0.447), (1.0, 2.0, 0.5, 3.0, 1.0 / 3)),
+                 (5, (0.54, 0.619), (1.0, 2.0, 0.5, 3.0, 1.0 / 3)),
+                 (3, (0.71, 0.79), (1.0, 2.0, 0.5)),
+                 (1, (0.88, 0.961), (1.0, 2.0, 0.5)))
+SSD300_ANCHORS, SSD300_BATCH, SSD300_CLASSES, SSD300_GT = 8732, 32, 21, 42
+RPN_MAP, RPN_IMAGE, RPN_PRE, RPN_POST = (38, 63), (600, 1000), 6000, 300
+ROI_DATA, ROI_PER_IMAGE, ROI_PEAK_GB = (2, 512, 38, 63), 128, 4.0
+SAP_SHAPES = ((128, 256, 56, 56), (128, 2048, 7, 7))
+SAP_DRAWS, SAP_SIGMAS = 64, 6.0
+CTC_SHAPE = (400, 32, 29, 100)
+# (d) examples/train_rcnn.py at its defaults: 200 seeded images, batch
+# 16, 8 ROIs an image, 25 epochs, SGD 0.05 / 0.9; gate ROI accuracy > 0.85
+RCNN_IMAGES, RCNN_SIZE, RCNN_BATCH, RCNN_R = 200, 64, 16, 8
+RCNN_EPOCHS, RCNN_LR, RCNN_CLASSES, RCNN_MIN_ACC = 25, 0.05, 3, 0.85
+# (e) examples/ctc_ocr.py at its defaults: 100 strips of 2 digits (5
+# classes and the blank), 150 epochs of Adam 5e-3, hidden 64; gate:
+# sequence accuracy > 0.8 on 200 held-out strips
+CTC_EXAMPLES, CTC_EPOCHS, CTC_HIDDEN, CTC_LR = 100, 150, 64, 5e-3
+CTC_DIGITS, CTC_DIGIT_W, CTC_H, CTC_CLASSES = 2, 8, 12, 5
+CTC_MIN_ACC = 0.8
 
 
 class SmokeFailure(Exception):
@@ -4281,9 +4355,10 @@ def optim_phase(torch, np, sgd):
 
 def op_cases(np):
     """Phase 12a's cases: every canonical op of the port's ``ops``
-    package but the samplers (12b) and FlashAttention (held to its plain
-    versions at KERNEL_ATOL by phases 3, 5 and 9), at small seeded
-    shapes, plus the out-of-range and tie cases of the indexing ops.
+    package but the samplers (12b), FlashAttention (held to its plain
+    versions at KERNEL_ATOL by phases 3, 5 and 9) and the structured
+    families (phase 13a), at small seeded shapes, plus the out-of-range
+    and tie cases of the indexing ops.
     Returns ``[(label, op name, [numpy inputs], attrs)]``."""
     from mxnet_tpu_torch.ops import OP_REGISTRY
     from mxnet_tpu_torch.ops.rnn_op import rnn_param_size
@@ -4393,6 +4468,7 @@ def op_cases(np):
     canonical = {}
     for op in OP_REGISTRY.values():
         if op.__module__.startswith("mxnet_tpu_torch.ops.") and \
+                op.__module__.rsplit(".", 1)[-1] not in STRUCTURED and \
                 not op.is_random and op.name != "FlashAttention":
             canonical[op.name] = op
     cases = []
@@ -5040,6 +5116,1046 @@ def zoo_phase(torch, np):
     log("op library and zoo phase: %.1f s" % (time.perf_counter() - t0))
 
 
+# ------------------------- phase 13: structured ops and detection examples
+
+# the structured families of the op library (vision, detection, contrib)
+STRUCTURED = ("vision", "detection", "contrib")
+
+
+def structured_op_cases(np):
+    """13a's cases: the 18 ops of the port's ``ops/{vision,detection,
+    contrib}.py`` (``MoE`` raises: A9) at the shapes of
+    ``tests/test_vision_ops.py`` and ``tests/test_op_sweep.py``, seeded,
+    with ReLU'd (tied) ROI inputs, ``-inf`` ties in Proposal and in the
+    hard-negative ranks, and SAP where the draw is forced (one-hot
+    ``prob`` rows; ``frac`` giving k = 1). Returns ``[(label, op name,
+    [numpy inputs], attrs, {output index: column or None that must be
+    equal})]``."""
+    rng = np.random.RandomState(SEED + 13)
+
+    def r(*shape, lo=-1.0, hi=1.0):
+        return rng.uniform(lo, hi, shape).astype(np.float32)
+
+    def boxes(*lead):
+        c = np.sort(rng.uniform(0, 1, lead + (2, 2)), axis=-2)
+        return np.swapaxes(c, -1, -2).reshape(lead + (4,)).astype(np.float32)
+
+    A = 24
+    anchors = boxes(1, A)
+    label = np.concatenate([rng.randint(0, 3, (2, 3, 1)).astype(np.float32),
+                            boxes(2, 3)], -1)
+    label[1, 2] = -1.0
+    relu = np.maximum(r(2, 3, 8, 8), 0.0)
+    rois = np.array([[0, 0, 0, 7, 7], [1, 2, 2, 6, 6], [0, 4, 4, 4, 4],
+                     [1, 1.5, 0.5, 5.5, 3.5], [0, 2.5, 2.5, 6.5, 7.5]],
+                    np.float32)
+    onehot = np.zeros((3, 8), np.float32)
+    onehot[np.arange(3), [1, 5, 7]] = 1.0
+    rpn = dict(feature_stride=16, scales=(2.0,), ratios=(0.5, 1.0, 2.0),
+               rpn_pre_nms_top_n=30, rpn_post_nms_top_n=12, rpn_min_size=12)
+    return [
+        ("MultiBoxPrior", "MultiBoxPrior", [r(1, 3, 4, 5)],
+         {"sizes": (0.5, 0.25), "ratios": (1.0, 2.0, 0.5), "clip": True},
+         {}),
+        ("MultiBoxTarget", "MultiBoxTarget", [anchors, label, r(2, 4, A)],
+         {"negative_mining_ratio": 3.0}, {1: None, 2: None}),
+        ("MultiBoxDetection", "MultiBoxDetection",
+         [r(2, 4, A, lo=0, hi=1), r(2, A * 4, lo=-0.1, hi=0.1), anchors],
+         {"nms_threshold": 0.3, "nms_topk": 10}, {0: 0}),
+        ("Proposal", "Proposal",
+         [r(1, 6, 4, 4, lo=0, hi=1), r(1, 12, 4, 4, lo=-0.1, hi=0.1),
+          np.array([[64, 64, 1.0]], np.float32)],
+         dict(rpn, output_score=True), {0: 0}),
+        ("CTCLoss", "CTCLoss", [r(6, 3, 5), np.array(
+            [[1, 2, 2], [3, 0, 0], [4, 4, 4]], np.float32)], {}, {}),
+        ("ROIPooling", "ROIPooling", [relu, rois],
+         {"pooled_size": (3, 3), "spatial_scale": 1.0}, {}),
+        ("PSROIPooling", "PSROIPooling", [r(1, 8, 6, 6), rois[:3] * 0.7],
+         {"spatial_scale": 1.0, "output_dim": 2, "pooled_size": 2,
+          "group_size": 2}, {}),
+        ("BilinearSampler", "BilinearSampler",
+         [r(2, 3, 5, 6), r(2, 2, 4, 5, lo=-1.1, hi=1.1)], {}, {}),
+        ("GridGenerator", "GridGenerator", [r(2, 6)],
+         {"target_shape": (4, 5)}, {}),
+        ("GridGenerator warp", "GridGenerator", [r(2, 2, 4, 5)],
+         {"transform_type": "warp"}, {}),
+        ("SpatialTransformer", "SpatialTransformer",
+         [r(2, 3, 6, 6), (np.tile([1, 0, 0, 0, 1, 0], (2, 1))
+                          + r(2, 6) * 0.1).astype(np.float32)],
+         {"target_shape": (5, 5)}, {}),
+        ("Correlation", "Correlation", [r(1, 4, 8, 8), r(1, 4, 8, 8)],
+         {"kernel_size": 3, "max_displacement": 2, "stride2": 2,
+          "pad_size": 3}, {}),
+        ("DeformableConvolution", "DeformableConvolution",
+         [r(1, 4, 7, 7), r(1, 36, 5, 5), r(6, 2, 3, 3), r(6)],
+         {"kernel": (3, 3), "num_filter": 6, "num_group": 2,
+          "num_deformable_group": 2}, {}),
+        ("stochastic_activation_pruning (one-hot prob)",
+         "stochastic_activation_pruning", [r(3, 8), onehot],
+         {"frac": 0.5}, {}),
+        ("stochastic_activation_pruning (k = 1)",
+         "stochastic_activation_pruning", [r(3, 8), onehot], {"frac": 0.1},
+         {}),
+        ("quantize", "quantize", [r(2, 3), np.float32([-1.0]),
+                                  np.float32([1.0])], {}, {0: None}),
+        ("dequantize", "dequantize",
+         [(r(2, 3, lo=0, hi=1) * 100).astype(np.uint8), np.float32([0.0]),
+          np.float32([255.0])], {}, {}),
+        ("count_sketch", "count_sketch",
+         [r(2, 8), np.array([0, 1, 2, 3, 0, 1, 5, -1], np.float32),
+          np.sign(r(8)) + (r(8) == 0)], {"out_dim": 4}, {}),
+        ("fft", "fft", [r(2, 8)], {}, {}),
+        ("ifft", "ifft", [r(2, 16)], {}, {}),
+    ]
+
+
+def structured_op_sweep(torch, np, device=None):
+    """13a. Every case of :func:`structured_op_cases` on the card and on
+    the CPU, phase 12a's limits (OPS_FWD_RTOL / OPS_GRAD_RTOL of max(1,
+    max|cpu|)), the listed discrete outputs (columns) equal; then a ROI
+    of a batch index outside the batch gives NaN on the card and the
+    device runs on. Returns the readings."""
+    from mxnet_tpu_torch.ops import get_op
+    device = device or DEVICE
+    cases = structured_op_cases(np)
+    worst = {"fwd": (0.0, None), "grad": (0.0, None)}
+    for i, (label, name, inputs, attrs, exact) in enumerate(cases):
+        op = get_op(name)
+        outs, grads = op_run(torch, op, inputs, attrs, device, SEED + i)
+        c_outs, c_grads = op_run(torch, op, inputs, attrs, "cpu", SEED + i)
+        check(len(outs) == len(c_outs), "13a %s: %d outputs on %s, %d on "
+              "the CPU" % (label, len(outs), device, len(c_outs)))
+        for j, (g, w) in enumerate(zip(outs, c_outs)):
+            err = op_err(torch, g, w)
+            if err > worst["fwd"][0]:
+                worst["fwd"] = (err, "%s output %d" % (label, j))
+            check(err <= OPS_FWD_RTOL, "13a %s: output %d differs from the "
+                  "CPU's by %.3g of max(1, max|cpu|) (limit %g)"
+                  % (label, j, err, OPS_FWD_RTOL))
+            if j in exact:
+                col = exact[j]
+                gd, wd = (g, w) if col is None else (g[..., col], w[..., col])
+                check(torch.equal(gd, wd), "13a %s: discrete output %d "
+                      "differs from the CPU's: %s vs %s"
+                      % (label, j, gd.tolist(), wd.tolist()))
+        check((grads is None) == (c_grads is None), "13a %s: a gradient on "
+              "one device only" % label)
+        for j, (g, w) in enumerate(zip(grads or [], c_grads or [])):
+            err = op_err(torch, g, w)
+            if err > worst["grad"][0]:
+                worst["grad"] = (err, "%s gradient %d" % (label, j))
+            check(err <= OPS_GRAD_RTOL, "13a %s: gradient of input %d "
+                  "differs from the CPU's by %.3g (limit %g)"
+                  % (label, j, err, OPS_GRAD_RTOL))
+    n_ops = len({name for _, name, _, _, _ in cases})
+    log("13a structured ops: %d ops in %d cases on %s against the CPU; "
+        "worst forward %.3g (%s), worst gradient %.3g (%s)"
+        % (n_ops, len(cases), device, worst["fwd"][0], worst["fwd"][1],
+           worst["grad"][0], worst["grad"][1]))
+    dev = torch.device(device)
+    data = torch.arange(32.0, device=dev).reshape(2, 1, 4, 4)
+    rois = torch.tensor([[1, 0, 0, 3, 3], [2, 0, 0, 3, 3],
+                         [-1, 0, 0, 1, 1], [-3, 0, 0, 1, 1]],
+                        dtype=torch.float32, device=dev)
+    got = get_op("ROIPooling").fn(data, rois, pooled_size=(1, 1))
+    got = got.reshape(-1).cpu().tolist()
+    want = [31.0, float("nan"), 21.0, float("nan")]
+    check(op_err(torch, torch.tensor(got, dtype=torch.float64),
+                 torch.tensor(want, dtype=torch.float64)) == 0.0,
+          "13a ROIPooling batch index out of range on %s: %s, the "
+          "reference gives %s" % (dev, got, want))
+    check(float((data + 1).sum()) == 528.0, "the device failed after an "
+          "out-of-range ROI batch index")
+    log("13a ROIPooling batch index [1, 2, -1, -3] on %s -> %s (the "
+        "reference's), the device still runs" % (dev, got))
+    return {"ops": n_ops, "cases": len(cases), "worst": worst}
+
+
+# ------------------------------------------------------- 13b: SSD
+
+def ssd_data(np, n, size, seed):
+    """``examples/train_ssd.py``'s images: one axis-aligned rectangle of
+    one of three colours on noise; label rows [cls, x1, y1, x2, y2] in
+    normalized corners."""
+    rng = np.random.RandomState(seed)
+    x = rng.rand(n, 3, size, size).astype(np.float32) * 0.25
+    labels = np.zeros((n, 1, 5), np.float32)
+    for i in range(n):
+        cls = rng.randint(0, SSD_CLASSES)
+        w = rng.randint(size // 4, size // 2)
+        h = rng.randint(size // 4, size // 2)
+        x0 = rng.randint(0, size - w)
+        y0 = rng.randint(0, size - h)
+        x[i, cls, y0:y0 + h, x0:x0 + w] = 0.9
+        labels[i, 0] = [cls, x0 / size, y0 / size,
+                        (x0 + w) / size, (y0 + h) / size]
+    return x, labels
+
+
+def ssd_symbol(mt, for_training=True):
+    """``examples/train_ssd.py``'s two-scale SSD (``build_ssd``): a
+    three-convolution backbone, per-scale class and box heads and
+    anchors, one MultiBoxTarget in training (SoftmaxOutput over the
+    classes with ignore, MakeLoss of smooth L1 with ``valid``
+    normalization), one MultiBoxDetection at inference."""
+    sym = mt.sym
+    C = SSD_CLASSES
+
+    def head(feat, sizes, name):
+        cls = sym.Convolution(feat, kernel=(3, 3), pad=(1, 1),
+                              num_filter=(C + 1) * SSD_ANCHORS,
+                              name="%s_cls" % name)
+        loc = sym.Convolution(feat, kernel=(3, 3), pad=(1, 1),
+                              num_filter=4 * SSD_ANCHORS,
+                              name="%s_loc" % name)
+        anchors = sym.MultiBoxPrior(feat, sizes=sizes, ratios=SSD_RATIOS,
+                                    clip=True)
+        cls = sym.reshape(sym.transpose(cls, axes=(0, 2, 3, 1)),
+                          shape=(0, -1, C + 1))
+        loc = sym.reshape(sym.transpose(loc, axes=(0, 2, 3, 1)),
+                          shape=(0, -1))
+        return cls, loc, anchors
+
+    body = sym.Variable("data")
+    feats = []
+    for name, nf in (("c1", 16), ("c2", 32), ("c3", 32)):
+        body = sym.Convolution(body, kernel=(3, 3), pad=(1, 1),
+                               num_filter=nf, name=name)
+        body = sym.Activation(body, act_type="relu")
+        body = sym.Pooling(body, kernel=(2, 2), stride=(2, 2),
+                           pool_type="max")
+        feats.append(body)
+    cls1, loc1, a1 = head(feats[1], SSD_SIZES[0], "s1")
+    cls2, loc2, a2 = head(feats[2], SSD_SIZES[1], "s2")
+    cls_pred = sym.transpose(sym.Concat(cls1, cls2, dim=1), axes=(0, 2, 1))
+    loc_pred = sym.Concat(loc1, loc2, dim=1)
+    anchors = sym.Concat(a1, a2, dim=1)
+    if not for_training:
+        cls_prob = sym.SoftmaxActivation(cls_pred, mode="channel")
+        return sym.MultiBoxDetection(cls_prob, loc_pred, anchors,
+                                     nms_threshold=0.5, force_suppress=True,
+                                     nms_topk=50, name="detection")
+    box_t, box_m, cls_t = sym.MultiBoxTarget(
+        anchors, sym.Variable("label"), cls_pred, overlap_threshold=0.5,
+        negative_mining_ratio=3.0, name="target")
+    cls_loss = sym.SoftmaxOutput(cls_pred, cls_t, multi_output=True,
+                                 use_ignore=True, ignore_label=-1,
+                                 normalization="valid", name="cls_prob")
+    loc_loss = sym.MakeLoss(sym.smooth_l1((loc_pred - box_t) * box_m,
+                                          scalar=1.0),
+                            grad_scale=1.0, normalization="valid",
+                            name="loc_loss")
+    return sym.Group([cls_loss, loc_loss])
+
+
+def plain_priors(np, side, sizes, ratios):
+    """MultiBoxPrior's anchors of a ``side`` x ``side`` map from its
+    formula, in numpy: per cell one box per size at ratio 1, one per
+    further ratio at the first size, clipped to [0, 1]."""
+    wh = [(s / 2, s / 2) for s in sizes] + \
+        [(sizes[0] * np.sqrt(r) / 2, sizes[0] / np.sqrt(r) / 2)
+         for r in ratios[1:]]
+    c = (np.arange(side) + 0.5) / side
+    out = [[cx - w, cy - h, cx + w, cy + h]
+           for cy in c for cx in c for w, h in wh]
+    return np.clip(np.array(out, np.float32), 0.0, 1.0)
+
+
+def plain_ssd(torch, np, p, x, label):
+    """An independent f32 forward of the SSD's training graph: the
+    backbone and heads in ``torch.nn.functional``, the anchors from
+    :func:`plain_priors`, the targets from the port's MultiBoxTarget on
+    the CPU (held to the reference's by ``tests/
+    test_torch_ops_detection.py``), then the class softmax and the
+    masked smooth L1. Returns (class probabilities (N, C+1, A), smooth
+    L1 (N, A*4))."""
+    import torch.nn.functional as F
+    from mxnet_tpu_torch.ops import get_op
+    C = SSD_CLASSES
+    h = x
+    feats = []
+    for name in ("c1", "c2", "c3"):
+        h = F.max_pool2d(F.relu(F.conv2d(h, p[name + "_weight"],
+                                         p[name + "_bias"], padding=1)), 2)
+        feats.append(h)
+    cls, loc, anchors = [], [], []
+    for feat, name, sizes in ((feats[1], "s1", SSD_SIZES[0]),
+                              (feats[2], "s2", SSD_SIZES[1])):
+        c = F.conv2d(feat, p[name + "_cls_weight"], p[name + "_cls_bias"],
+                     padding=1)
+        b = F.conv2d(feat, p[name + "_loc_weight"], p[name + "_loc_bias"],
+                     padding=1)
+        cls.append(c.permute(0, 2, 3, 1).reshape(x.shape[0], -1, C + 1))
+        loc.append(b.permute(0, 2, 3, 1).reshape(x.shape[0], -1))
+        anchors.append(plain_priors(np, feat.shape[2], sizes, SSD_RATIOS))
+    cls_pred = torch.cat(cls, 1).permute(0, 2, 1)
+    loc_pred = torch.cat(loc, 1)
+    anchor = torch.from_numpy(np.concatenate(anchors)[None])
+    box_t, box_m, _ = get_op("MultiBoxTarget").fn(
+        anchor, label.cpu(), cls_pred.cpu(), overlap_threshold=0.5,
+        negative_mining_ratio=3.0)
+    diff = (loc_pred - box_t.to(x.device)) * box_m.to(x.device)
+    ad = diff.abs()
+    smooth = torch.where(ad < 1.0, 0.5 * diff * diff, ad - 0.5)
+    return torch.softmax(cls_pred, dim=1), smooth
+
+
+def ssd_kind(op: str) -> str:
+    """The class of an operator's device time in the SSD step."""
+    low = op.lower()
+    if "pool" not in low and any(w in low for w in (
+            "sort", "cumsum", "argmax", "amax", "gather", "scatter",
+            "index")):
+        return "targets (sort, gather, scatter)"
+    return resnet_kind(op)
+
+
+def ssd_module(mt, for_training, batch, ctx):
+    mod = mt.mod.Module(ssd_symbol(mt, for_training), context=ctx,
+                        data_names=("data",),
+                        label_names=("label",) if for_training else ())
+    if for_training:
+        mod.bind(data_shapes=[("data", (batch, 3, SSD_SIZE, SSD_SIZE))],
+                 label_shapes=[("label", (batch, 1, 5))])
+    else:
+        mod.bind(data_shapes=[("data", (batch, 3, SSD_SIZE, SSD_SIZE))],
+                 for_training=False)
+    return mod
+
+
+def train_ssd(torch, np, x, labels, init, epochs, what):
+    """``examples/train_ssd.py``'s loop under whatever amp state the
+    caller set: ``Module.forward_backward`` and ``update`` over a
+    shuffled ``NDArrayIter`` (after ``np.random.seed(SSD_SEED)``), SGD
+    SSD_LR / SSD_MOMENTUM / SSD_WD from ``init``. The first step's
+    outputs are checked by the caller (returned before any update);
+    the steps after the first SSD_WARM are timed between CUDA events
+    and the last step runs under torch.profiler. Returns the readings
+    and the module."""
+    from torch.profiler import ProfilerActivity, profile
+    import mxnet_tpu_torch as mt
+    np.random.seed(SSD_SEED)
+    train = mt.io.NDArrayIter({"data": x}, {"label": labels}, SSD_BATCH,
+                              shuffle=True)
+    mod = ssd_module(mt, True, SSD_BATCH, mt.gpu(0))
+    mod.init_params(arg_params=init)
+    mod.init_optimizer(optimizer="sgd", optimizer_params={
+        "learning_rate": SSD_LR, "momentum": SSD_MOMENTUM, "wd": SSD_WD})
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    run = {"first": None, "steps": 0, "timed": 0, "loc": []}
+    for epoch in range(epochs):
+        train.reset()
+        batches = list(train)
+        for k, batch in enumerate(batches):
+            last = epoch == epochs - 1 and k == len(batches) - 1
+            if run["steps"] == SSD_WARM:
+                start.record()
+            if last:
+                end.record()
+                torch.cuda.synchronize()
+                prof.start()
+                t_prof = time.perf_counter()
+            mod.forward_backward(batch)
+            if run["first"] is None:
+                run["first"] = ([o.data.detach().clone()
+                                 for o in mod.get_outputs()], batch)
+            mod.update()
+            if last:
+                torch.cuda.synchronize()
+                run["wall"] = time.perf_counter() - t_prof
+                prof.stop()
+            elif run["steps"] >= SSD_WARM:
+                run["timed"] += 1
+            run["steps"] += 1
+        run["loc"].append(float(mod.get_outputs()[1].data.float().sum()))
+    run["step_ms"] = start.elapsed_time(end) / max(run["timed"], 1)
+    run["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    run["by_kind"], run["busy_ms"] = resnet_breakdown(
+        torch, prof, run["wall"], what, kind_of=ssd_kind)
+    return run, mod
+
+
+def ssd_detect(torch, np, mod_params, x, labels):
+    """``examples/train_ssd.py``'s ``evaluate`` through
+    ``Module.predict``: the forward-only detection module over the
+    example's whole batches (``predict`` equal to ``forward`` +
+    ``get_outputs`` batch by batch), the mean IoU of each image's best
+    detection with its box, and the class-hit share. Returns the
+    readings."""
+    import mxnet_tpu_torch as mt
+    n = (len(x) // SSD_BATCH) * SSD_BATCH
+    det = ssd_module(mt, False, SSD_BATCH, mt.gpu(0))
+    det.set_params(*mod_params, allow_missing=False)
+    it = mt.io.NDArrayIter(x[:n], batch_size=SSD_BATCH)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = det.predict(it)
+    end.record()
+    torch.cuda.synchronize()
+    det_ms = start.elapsed_time(end) / (n // SSD_BATCH)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    out = out.data
+    check(tuple(out.shape)[0] == n and out.shape[2] == 6,
+          "13b predict returned %s for %d images" % (tuple(out.shape), n))
+    for s in range(0, n, SSD_BATCH):
+        batch = mt.io.DataBatch(data=[mt.nd.array(x[s:s + SSD_BATCH],
+                                                  ctx=mt.cpu())])
+        det.forward(batch, is_train=False)
+        check(torch.equal(det.get_outputs()[0].data, out[s:s + SSD_BATCH]),
+              "13b predict differs from forward + get_outputs at batch %d"
+              % (s // SSD_BATCH))
+    out = out.cpu().numpy()
+    ious, hits = [], 0
+    for i in range(n):
+        gt = labels[i, 0]
+        valid = out[i][out[i, :, 0] >= 0]
+        if not len(valid):
+            ious.append(0.0)
+            continue
+        best = valid[np.argmax(valid[:, 1])]
+        ix0, iy0 = max(best[2], gt[1]), max(best[3], gt[2])
+        ix1, iy1 = min(best[4], gt[3]), min(best[5], gt[4])
+        inter = max(0.0, ix1 - ix0) * max(0.0, iy1 - iy0)
+        a1 = (best[4] - best[2]) * (best[5] - best[3])
+        a2 = (gt[3] - gt[1]) * (gt[4] - gt[2])
+        iou = inter / max(a1 + a2 - inter, 1e-9)
+        ious.append(iou)
+        hits += int(best[0] == gt[0] and iou > 0.4)
+    return {"miou": float(np.mean(ious)), "hit": hits / n, "det_ms": det_ms,
+            "det_peak_gb": peak_gb, "images": n}
+
+
+def ssd_phase(torch, np):
+    """13b. ``examples/train_ssd.py`` at its defaults through ``Module``
+    in f32 (the first step's outputs held to :func:`plain_ssd`), the
+    detection module through ``predict`` to the example's gate, then one
+    seeded epoch in amp bf16 from the same initial weights."""
+    import mxnet_tpu_torch as mt
+    mt.random.seed(SSD_SEED)
+    x, labels = ssd_data(np, SSD_IMAGES, SSD_SIZE, seed=5)
+    probe = ssd_module(mt, True, SSD_BATCH, mt.gpu(0))
+    probe.init_params(mt.init.Xavier(magnitude=2).set_rng(
+        mt.random.derive_numpy_rng("train_ssd")))
+    init = {k: v.asnumpy() for k, v in probe.get_params()[0].items()}
+    del probe
+    run, mod = train_ssd(torch, np, x, labels, init, SSD_EPOCHS, "ssd f32")
+    outs, batch = run["first"]
+    dev = outs[0].device
+    p = {k: torch.from_numpy(v).to(dev) for k, v in init.items()}
+    with torch.no_grad():
+        ref_prob, ref_loc = plain_ssd(torch, np, p, batch.data[0].data.to(dev),
+                                      batch.label[0].data)
+    errs = [float((g.float() - w).abs().max()) / max(1.0, float(w.abs().max()))
+            for g, w in zip(outs, (ref_prob, ref_loc))]
+    log("13b ssd f32: step 1 class probabilities within %.3g and smooth L1 "
+        "within %.3g of the plain f32 forward (limit %g of max(1, max|ref|))"
+        % (errs[0], errs[1], SSD_STEP1_RTOL))
+    check(max(errs) <= SSD_STEP1_RTOL, "13b ssd f32: step 1 outputs off the "
+          "plain forward by %s" % errs)
+    check(all(math.isfinite(v) for v in run["loc"]), "13b ssd f32: a "
+          "loss is not finite: %s" % run["loc"])
+    det = ssd_detect(torch, np, mod.get_params(), x, labels)
+    imgs = SSD_BATCH / (run["step_ms"] / 1e3)
+    log("13b ssd f32: %d epochs x %d steps (batch %d, 3x%dx%d), %.3f ms a "
+        "step = %.1f img/s, peak %.3f GB, idle share of one profiled step "
+        "%.3f; box loss sum per epoch first %.3f last %.3f; detection "
+        "(predict) %.3f ms a batch of %d, peak %.3f GB; mean IoU of the "
+        "best detection %.4f over %d images (gate > %g), class-hit share "
+        "%.4f" % (SSD_EPOCHS, run["steps"] // SSD_EPOCHS, SSD_BATCH,
+                  SSD_SIZE, SSD_SIZE, run["step_ms"], imgs, run["peak_gb"],
+                  1 - run["busy_ms"] / (run["wall"] * 1e3), run["loc"][0],
+                  run["loc"][-1], det["det_ms"], SSD_BATCH,
+                  det["det_peak_gb"], det["miou"], det["images"],
+                  SSD_MIN_IOU, det["hit"]))
+    check(det["miou"] > SSD_MIN_IOU, "13b ssd: mean IoU %.4f, the example's "
+          "gate is > %g" % (det["miou"], SSD_MIN_IOU))
+    del mod
+    mt.amp.init("bfloat16")
+    try:
+        brun, _ = train_ssd(torch, np, x, labels, init, 1, "ssd bf16")
+    finally:
+        mt.amp.off()
+    check(all(math.isfinite(v) for v in brun["loc"]), "13b ssd bf16: a "
+          "loss is not finite")
+    log("13b ssd amp bf16: one epoch, %.3f ms a step = %.1f img/s, peak "
+        "%.3f GB, idle share of one profiled step %.3f"
+        % (brun["step_ms"], SSD_BATCH / (brun["step_ms"] / 1e3),
+           brun["peak_gb"], 1 - brun["busy_ms"] / (brun["wall"] * 1e3)))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"f32": run, "bf16": brun, "det": det}
+
+
+# ---------------------------------------- 13c: the published sizes
+
+def timed_call(torch, fn):
+    """(result, ms between CUDA events, extra peak GB over the memory
+    allocated before the call)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end), \
+        (torch.cuda.max_memory_allocated() - base) / 1e9
+
+
+def published_case(torch, np, label, name, inputs, attrs, exact, device):
+    """One op at a published size: the forward and the gradient of every
+    floating input under a seeded head on the card, timed between CUDA
+    events with its extra peak memory, against the same on the CPU
+    (within DET_RTOL of max(1, max|cpu|); the ``exact`` outputs'
+    columns equal). Returns (card outputs, readings)."""
+    from mxnet_tpu_torch.ops import get_op
+    op = get_op(name)
+    (outs, grads), ms, peak = timed_call(
+        torch, lambda: op_run(torch, op, inputs, attrs, device, SEED))
+    c_outs, c_grads = op_run(torch, op, inputs, attrs, "cpu", SEED)
+    errs = []
+    for j, (g, w) in enumerate(zip(outs, c_outs)):
+        errs.append(op_err(torch, g, w))
+        if j in exact:
+            col = exact[j]
+            gd, wd = (g, w) if col is None else (g[..., col], w[..., col])
+            check(torch.equal(gd, wd), "13c %s: discrete output %d differs "
+                  "from the CPU's in %d places" % (label, j,
+                                                   int((gd != wd).sum())))
+    for g, w in zip(grads or [], c_grads or []):
+        errs.append(op_err(torch, g, w))
+    worst = max(errs) if errs else 0.0
+    log("13c %s: forward%s %.3f ms on the card, extra peak %.3f GB, within "
+        "%.3g of the CPU (limit %g)" % (label, " + backward" if grads
+                                        else "", ms, peak, worst, DET_RTOL))
+    check(worst <= DET_RTOL, "13c %s: off the CPU by %.3g" % (label, worst))
+    return outs, {"ms": ms, "peak_gb": peak, "err": worst}
+
+
+def ssd300_anchors(torch, np, device):
+    """SSD300's 8732 anchors (``vgg16_reduced`` at 300): MultiBoxPrior
+    on each feature map with its sizes and ratios, concatenated."""
+    from mxnet_tpu_torch.ops import get_op
+    parts = []
+    for side, sizes, ratios in SSD300_LAYERS:
+        data = torch.zeros((1, 1, side, side), device=device)
+        parts.append(get_op("MultiBoxPrior").fn(data, sizes=sizes,
+                                                ratios=ratios))
+    return torch.cat(parts, 1)
+
+
+def sap_check(torch, np, shape, device):
+    """SAP at ``shape`` with ``prob = |a| / sum|a|`` per row and frac 1
+    (k = cols), over SAP_DRAWS draws on the card: each column's kept
+    count (over the rows and draws) within SAP_SIGMAS binomial
+    deviations (+1) of the sum of its ``1 - (1 - p)^k``, p the share of
+    the row's f32 CDF the column spans (what an inverse-CDF draw
+    realizes); every kept value ``act / (1 - (1 - p)^k)`` (the f32
+    formula by repeated squaring) within 1e-6 of itself; the gradient is
+    the mask. Where ``1 - p`` rounds to 1 in float32 (p < 2^-25) the
+    reference's rescale is ``1 / 0 = inf`` and so is the port's (ROADMAP
+    C14): such drawn elements are counted, and each row's mean sum over
+    the elements of finite rescale that the CDF can draw lies within
+    SAP_SIGMAS standard errors of their activations' sum (SAP is
+    unbiased). The forward is timed against its
+    bytes bound (act and prob read, the output written)."""
+    from mxnet_tpu_torch.ops import get_op
+    op = get_op("stochastic_activation_pruning")
+    g = torch.Generator(device=device).manual_seed(SEED)
+    act = torch.randn(shape, generator=g, device=device).abs_()
+    rows = shape[0]
+    a2 = act.reshape(rows, -1)
+    prob = (a2 / a2.sum(1, keepdim=True)).reshape(shape)
+    p2 = prob.reshape(rows, -1)
+    cols = k = a2.shape[1]
+    cdf = torch.cumsum(p2, dim=1).double()
+    p_eff = torch.diff(cdf, dim=1, prepend=torch.zeros_like(cdf[:, :1])) \
+        / cdf[:, -1:]
+    q = -torch.expm1(k * torch.log1p(-p_eff.clamp(max=1 - 1e-16)))
+    drawable = p_eff > 0
+    acc, x, e = None, 1.0 - p2, k
+    while e > 0:
+        if e & 1:
+            acc = x if acc is None else acc * x
+        e >>= 1
+        if e > 0:
+            x = x * x
+    weight = 1.0 / (1.0 - acc)
+    finite = torch.isfinite(weight)
+    counted = finite & drawable
+    del acc, x, cdf, p_eff, drawable
+    kept = torch.zeros(cols, dtype=torch.float64, device=device)
+    total = torch.zeros(rows, dtype=torch.float64, device=device)
+    n_inf = 0
+    worst, ms, bwd_ms = 0.0, [], None
+    for d in range(SAP_DRAWS):
+        a = act.clone().requires_grad_(True)
+        (out, ), t, _ = timed_call(torch, lambda: (op.fn(a, prob, frac=1.0),))
+        ms.append(t)
+        o2 = out.detach().reshape(rows, -1)
+        m = o2 != 0
+        kept += m.sum(0, dtype=torch.float64)
+        n_inf += int((m & ~finite).sum())
+        total += torch.where(counted, o2, 0.0).sum(1, dtype=torch.float64)
+        want = a2 * weight
+        sel = m & finite
+        rel = ((o2 - want).abs() / want)[sel]
+        worst = max(worst, float(rel.max()) if rel.numel() else 0.0)
+        check(bool(torch.isinf(o2[m & ~finite]).all()), "13c SAP %s: a "
+              "kept element of infinite rescale is finite" % (shape,))
+        if d == 0:
+            (gr, ), bwd_ms, _ = timed_call(torch, lambda: torch.autograd.grad(
+                out, [a], torch.ones_like(out)))
+            mask = torch.where(m, weight, torch.zeros_like(weight))
+            check(torch.equal(gr.reshape(rows, -1), mask),
+                  "13c SAP %s: the gradient is not the mask" % (shape,))
+        del a, out, o2, m, want, rel, sel
+    mean_q = q.sum(0) * SAP_DRAWS
+    sd_q = (SAP_DRAWS * (q * (1 - q)).sum(0)).sqrt()
+    dev_kept = float(((kept - mean_q).abs() / (sd_q + 1.0)).max())
+    a64 = torch.where(counted, a2.double(), 0.0)
+    se = ((a64 ** 2 * torch.where(counted, (1 - q) / q, 0.0)).sum(1)
+          / SAP_DRAWS).sqrt()
+    dev_mean = float(((total / SAP_DRAWS - a64.sum(1)).abs() / se).max())
+    bound = 3 * act.numel() * 4 / PEAK_BYTES_PER_S * 1e3
+    fwd = sorted(ms)[len(ms) // 2]
+    n_tiny = int((~finite).sum())
+    log("13c SAP %s (k %d): forward %.3f ms, the median of %d draws (bound "
+        "%.3f ms by bytes, %.1f%% of it), backward %.3f ms; kept counts "
+        "within %.2f binomial deviations (+1) of their expectation, kept "
+        "values within %.3g of act / (1 - (1 - p)^k), row means within "
+        "%.2f standard errors of the activations' sums (limit %g); %d of "
+        "%d elements have 1 - p == 1 in float32 (rescale inf, C14), drawn "
+        "%.1f times a draw"
+        % (shape, k, fwd, SAP_DRAWS, bound, 100 * bound / fwd, bwd_ms,
+           dev_kept, worst, dev_mean, SAP_SIGMAS, n_tiny, act.numel(),
+           n_inf / SAP_DRAWS))
+    check(dev_kept <= SAP_SIGMAS, "13c SAP %s: kept counts off by %.2f "
+          "deviations" % (shape, dev_kept))
+    check(worst <= 1e-6, "13c SAP %s: a kept value off its rescale by %.3g"
+          % (shape, worst))
+    check(dev_mean <= SAP_SIGMAS, "13c SAP %s: biased, %.2f standard errors"
+          % (shape, dev_mean))
+    del act, prob, weight, q
+    torch.cuda.empty_cache()
+    return {"ms": fwd, "bwd_ms": bwd_ms, "bound_ms": bound,
+            "inf_per_draw": n_inf / SAP_DRAWS}
+
+
+def published_phase(torch, np):
+    """13c. The detection ops at their published sizes on the card
+    against the CPU: SSD300's priors, MultiBoxTarget and
+    MultiBoxDetection, the Faster R-CNN RPN's Proposal, Fast R-CNN's
+    ROIPooling (extra peak under ROI_PEAK_GB), SAP at the ResNet-50
+    phase's widths and CTCLoss at a speech alphabet's. Returns the
+    readings."""
+    dev = DEVICE
+    rng = np.random.RandomState(SEED + 130)
+    out = {}
+    anchors = ssd300_anchors(torch, np, dev)
+    c_anchors = ssd300_anchors(torch, np, "cpu")
+    A = anchors.shape[1]
+    check(A == SSD300_ANCHORS and torch.equal(anchors.cpu(), c_anchors),
+          "13c SSD300 priors: %d anchors, the card's equal the CPU's: %s"
+          % (A, torch.equal(anchors.cpu(), c_anchors)))
+    log("13c SSD300 MultiBoxPrior: %d anchors over maps %s, equal to the "
+        "CPU's" % (A, [s for s, _, _ in SSD300_LAYERS]))
+    anc = anchors.cpu().numpy()
+    N, C, O = SSD300_BATCH, SSD300_CLASSES, SSD300_GT
+    label = -np.ones((N, O, 5), np.float32)
+    for i in range(N):
+        n_obj = rng.randint(1, O + 1)
+        c = np.sort(rng.uniform(0, 1, (n_obj, 2, 2)), axis=1)
+        label[i, :n_obj, 0] = rng.randint(0, C - 1, n_obj)
+        label[i, :n_obj, 1:] = np.swapaxes(c, 1, 2).reshape(n_obj, 4)
+    cls_pred = rng.standard_normal((N, C, A)).astype(np.float32)
+    _, out["target"] = published_case(
+        torch, np, "SSD300 MultiBoxTarget (batch %d, %d classes, %d gt rows)"
+        % (N, C, O), "MultiBoxTarget", [anc, label, cls_pred],
+        {"negative_mining_ratio": 3.0}, {1: None, 2: None}, dev)
+    logits = rng.standard_normal((N, C, A)).astype(np.float32) * 2
+    prob = np.exp(logits) / np.exp(logits).sum(1, keepdims=True)
+    loc = (rng.standard_normal((N, A * 4)) * 0.1).astype(np.float32)
+    _, out["detection"] = published_case(
+        torch, np, "SSD300 MultiBoxDetection (nms 0.45, top 400)",
+        "MultiBoxDetection", [prob.astype(np.float32), loc, anc],
+        {"nms_threshold": 0.45, "nms_topk": 400, "threshold": 0.01},
+        {0: 0}, dev)
+    H, W = RPN_MAP
+    Aa = 12
+    rpn_cls = rng.uniform(0, 1, (1, 2 * Aa, H, W)).astype(np.float32)
+    rpn_box = (rng.standard_normal((1, 4 * Aa, H, W)) * 0.1).astype(
+        np.float32)
+    info = np.array([[RPN_IMAGE[0], RPN_IMAGE[1], 1.0]], np.float32)
+    _, out["proposal"] = published_case(
+        torch, np, "RPN Proposal (%dx%d map, %d anchors, pre %d, post %d)"
+        % (H, W, Aa, RPN_PRE, RPN_POST), "Proposal", [rpn_cls, rpn_box, info],
+        {"rpn_pre_nms_top_n": RPN_PRE, "rpn_post_nms_top_n": RPN_POST,
+         "threshold": 0.7, "output_score": True}, {0: 0}, dev)
+    n_img, ch, fh, fw = ROI_DATA
+    data = np.maximum(rng.standard_normal(ROI_DATA), 0).astype(np.float32)
+    rois = []
+    for b in range(n_img):
+        for _ in range(ROI_PER_IMAGE):
+            x1, y1 = rng.uniform(0, fw * 16 - 32), rng.uniform(0, fh * 16 - 32)
+            w, h = rng.uniform(16, fw * 16 - x1), rng.uniform(16, fh * 16 - y1)
+            rois.append([b, x1, y1, x1 + w, y1 + h])
+    rois = np.array(rois, np.float32)
+    _, out["roi"] = published_case(
+        torch, np, "Fast R-CNN ROIPooling (%s, %d ROIs, 7x7, 1/16)"
+        % (ROI_DATA, len(rois)), "ROIPooling", [data, rois],
+        {"pooled_size": (7, 7), "spatial_scale": 1.0 / 16}, {}, dev)
+    check(out["roi"]["peak_gb"] < ROI_PEAK_GB, "13c ROIPooling's extra "
+          "peak %.3f GB is not under %g GB" % (out["roi"]["peak_gb"],
+                                               ROI_PEAK_GB))
+    for shape in SAP_SHAPES:
+        out["sap %s" % (shape,)] = sap_check(torch, np, shape, dev)
+    T, Nc, Cc, L = CTC_SHAPE
+    lab = np.zeros((Nc, L), np.float32)
+    for i in range(Nc):
+        n = rng.randint(L // 2, L + 1)
+        lab[i, :n] = rng.randint(1, Cc, n)
+    _, out["ctc"] = published_case(
+        torch, np, "CTCLoss (T %d, N %d, C %d, labels up to %d)" % CTC_SHAPE,
+        "CTCLoss", [rng.standard_normal((T, Nc, Cc)).astype(np.float32),
+                    lab], {}, {}, dev)
+    return out
+
+
+# ---------------------------------------- 13d: Fast R-CNN
+
+def rcnn_data(np, n, seed):
+    """``examples/train_rcnn.py``'s data: one rectangle an image and
+    RCNN_R proposals, half jittered copies of its box, half random."""
+    rng = np.random.RandomState(seed)
+    S, R = RCNN_SIZE, RCNN_R
+    x = rng.rand(n, 3, S, S).astype(np.float32) * 0.25
+    rois = np.zeros((n, R, 4), np.float32)
+    gt = np.zeros((n, 5), np.float32)
+    for i in range(n):
+        cls = rng.randint(0, RCNN_CLASSES)
+        w = rng.randint(S // 4, S // 2)
+        h = rng.randint(S // 4, S // 2)
+        x0 = rng.randint(0, S - w)
+        y0 = rng.randint(0, S - h)
+        x[i, cls, y0:y0 + h, x0:x0 + w] = 0.9
+        gt[i] = [cls + 1, x0, y0, x0 + w, y0 + h]
+        for r in range(R):
+            if r < R // 2:
+                jx, jy = rng.randint(-3, 4), rng.randint(-3, 4)
+                rois[i, r] = [np.clip(x0 + jx, 0, S - 2),
+                              np.clip(y0 + jy, 0, S - 2),
+                              np.clip(x0 + w + jx, 1, S - 1),
+                              np.clip(y0 + h + jy, 1, S - 1)]
+            else:
+                bw, bh = rng.randint(8, 24), rng.randint(8, 24)
+                bx, by = rng.randint(0, S - bw), rng.randint(0, S - bh)
+                rois[i, r] = [bx, by, bx + bw, by + bh]
+    return x, rois, gt
+
+
+def register_proposal_target(mt, np, timer=None):
+    """The example's ``proposal_target`` CustomOp (each ROI's class by
+    IoU > 0.5 with the image's box, on the host), registered as
+    ``proposal_target``; ``timer`` (a dict) accumulates the seconds its
+    forward takes, the host round trip included."""
+
+    class ProposalTarget(mt.operator.CustomOp):
+        def forward(self, is_train, req, in_data, out_data, aux):
+            t0 = time.perf_counter()
+            rois = in_data[0].asnumpy()
+            gt = in_data[1].asnumpy()
+            n, r, _ = rois.shape
+            labels = np.zeros((n, r), np.float32)
+            for i in range(n):
+                g = gt[i, 1:]
+                ix0 = np.maximum(rois[i, :, 0], g[0])
+                iy0 = np.maximum(rois[i, :, 1], g[1])
+                ix1 = np.minimum(rois[i, :, 2], g[2])
+                iy1 = np.minimum(rois[i, :, 3], g[3])
+                inter = np.clip(ix1 - ix0, 0, None) * \
+                    np.clip(iy1 - iy0, 0, None)
+                area_r = (rois[i, :, 2] - rois[i, :, 0]) * \
+                    (rois[i, :, 3] - rois[i, :, 1])
+                area_g = (g[2] - g[0]) * (g[3] - g[1])
+                iou = inter / np.maximum(area_r + area_g - inter, 1e-9)
+                labels[i] = np.where(iou > 0.5, gt[i, 0], 0.0)
+            self.assign(out_data[0], req[0], mt.nd.array(
+                labels, ctx=in_data[0].context))
+            if timer is not None:
+                timer["s"] = timer.get("s", 0.0) + time.perf_counter() - t0
+                timer["calls"] = timer.get("calls", 0) + 1
+
+        def backward(self, req, out_grad, in_data, out_data, in_grad, aux):
+            for k in range(2):
+                self.assign(in_grad[k], req[k], mt.nd.zeros(
+                    in_data[k].shape, ctx=in_data[k].context))
+
+    @mt.operator.register("proposal_target")
+    class ProposalTargetProp(mt.operator.CustomOpProp):
+        def __init__(self):
+            super().__init__(need_top_grad=False)
+
+        def list_arguments(self):
+            return ["rois", "gt"]
+
+        def list_outputs(self):
+            return ["label"]
+
+        def infer_shape(self, in_shape):
+            return in_shape, [in_shape[0][:2]], []
+
+        def create_operator(self, ctx, shapes, dtypes):
+            return ProposalTarget()
+
+    return ProposalTargetProp
+
+
+def rcnn_symbol(mt):
+    """``examples/train_rcnn.py``'s ``build_net``: a two-convolution
+    backbone at stride 4, ROIPooling (4x4, 1/4) of the given proposals,
+    two dense layers, and SoftmaxOutput against the ``proposal_target``
+    CustomOp's labels."""
+    sym = mt.sym
+    body = sym.Variable("data")
+    for name, nf in (("c1", 16), ("c2", 32)):
+        body = sym.Convolution(body, kernel=(3, 3), pad=(1, 1),
+                               num_filter=nf, name=name)
+        body = sym.Activation(body, act_type="relu")
+        body = sym.Pooling(body, kernel=(2, 2), stride=(2, 2),
+                           pool_type="max")
+    rois = sym.Variable("rois")
+    flat = sym.reshape(rois, (-1, 4))
+    bidx = sym.reshape(sym.Variable("roi_batch_idx"), (-1, 1))
+    pooled = sym.ROIPooling(body, sym.Concat(bidx, flat, dim=1),
+                            pooled_size=(4, 4), spatial_scale=0.25,
+                            name="roipool")
+    h = sym.Activation(sym.FullyConnected(sym.Flatten(pooled), num_hidden=64,
+                                          name="fc1"), act_type="relu")
+    cls = sym.FullyConnected(h, num_hidden=RCNN_CLASSES + 1, name="cls")
+    label = sym.reshape(sym.Custom(rois, sym.Variable("gt"),
+                                   op_type="proposal_target"), (-1,))
+    return sym.SoftmaxOutput(cls, label, normalization="valid",
+                             name="softmax")
+
+
+def rcnn_phase(torch, np):
+    """13d. ``examples/train_rcnn.py`` at its defaults on the card:
+    ``Module`` with the CustomOp in the graph, per-epoch permutations,
+    ``forward_backward`` + ``update``; then the example's ROI accuracy
+    on the training set against its gate, the step time and the share of
+    it the CustomOp's host round trip takes."""
+    import mxnet_tpu_torch as mt
+    timer = {}
+    register_proposal_target(mt, np, timer)
+    x, rois, gt = rcnn_data(np, RCNN_IMAGES, seed=9)
+    B, R = RCNN_BATCH, RCNN_R
+    bidx = np.repeat(np.arange(B, dtype=np.float32), R).reshape(B, R, 1)
+    mod = mt.mod.Module(rcnn_symbol(mt), context=mt.gpu(0),
+                        data_names=("data", "rois", "roi_batch_idx"),
+                        label_names=("gt",))
+    mod.bind(data_shapes=[("data", (B, 3, RCNN_SIZE, RCNN_SIZE)),
+                          ("rois", (B, R, 4)), ("roi_batch_idx", (B, R, 1))],
+             label_shapes=[("gt", (B, 5))])
+    mod.init_params(mt.init.Xavier(magnitude=2).set_rng(
+        mt.random.derive_numpy_rng("train_rcnn")))
+    mod.init_optimizer(optimizer="sgd", optimizer_params={
+        "learning_rate": RCNN_LR, "momentum": 0.9})
+    cpu = mt.cpu()
+
+    def batch(idx):
+        return mt.io.DataBatch(
+            data=[mt.nd.array(x[idx], ctx=cpu), mt.nd.array(rois[idx],
+                                                            ctx=cpu),
+                  mt.nd.array(bidx, ctx=cpu)],
+            label=[mt.nd.array(gt[idx], ctx=cpu)])
+
+    n = (len(x) // B) * B
+    steps = 0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for epoch in range(RCNN_EPOCHS):
+        perm = np.random.RandomState(epoch).permutation(n)
+        if epoch == min(1, RCNN_EPOCHS - 1):
+            torch.cuda.synchronize()
+            start.record()
+            timer.clear()
+            t0 = time.perf_counter()
+            steps = 0
+        for s in range(0, n, B):
+            mod.forward_backward(batch(perm[s:s + B]))
+            mod.update()
+            steps += 1
+    end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    step_ms = start.elapsed_time(end) / steps
+    custom_ms = timer.get("s", 0.0) * 1e3 / max(timer.get("calls", 1), 1)
+    correct = total = 0
+    for s in range(0, n, B):
+        idx = np.arange(s, s + B)
+        mod.forward(batch(idx), is_train=False)
+        probs = mod.get_outputs()[0].asnumpy()
+        lab = mt.nd.Custom(mt.nd.array(rois[idx], ctx=cpu),
+                           mt.nd.array(gt[idx], ctx=cpu),
+                           op_type="proposal_target").asnumpy().ravel()
+        correct += int((probs.argmax(1) == lab).sum())
+        total += lab.size
+    acc = correct / total
+    log("13d fast r-cnn: %d epochs x %d steps (batch %d, %d ROIs an image), "
+        "%.3f ms a step (%.3f s wall for %d steps); the proposal_target "
+        "CustomOp's forward %.3f ms a call, host round trip included "
+        "(%.1f%% of the step); ROI accuracy %.4f (gate > %g)"
+        % (RCNN_EPOCHS, n // B, B, R, step_ms, wall, steps, custom_ms,
+           100 * custom_ms / step_ms, acc, RCNN_MIN_ACC))
+    check(acc > RCNN_MIN_ACC, "13d fast r-cnn: ROI accuracy %.4f, the "
+          "example's gate is > %g" % (acc, RCNN_MIN_ACC))
+    return {"step_ms": step_ms, "custom_ms": custom_ms, "acc": acc}
+
+
+# ---------------------------------------- 13e: CTC OCR
+
+def ctc_data(np, n, seed):
+    """``examples/ctc_ocr.py``'s strips: CTC_DIGITS digits of 0..4 each
+    a two-row bar whose height codes its class, with position jitter."""
+    rng = np.random.RandomState(seed)
+    T = CTC_DIGITS * CTC_DIGIT_W + 6
+    ys = rng.randint(0, CTC_CLASSES, (n, CTC_DIGITS))
+    xs = []
+    for y in ys:
+        strip = rng.rand(CTC_H, T).astype(np.float32) * 0.2
+        pos = 1
+        for d in y:
+            pos += rng.randint(0, 3)
+            r0 = 1 + 2 * int(d)
+            strip[r0:r0 + 2, pos:pos + 4] += 0.8
+            pos += CTC_DIGIT_W - 2
+        xs.append(np.clip(strip, 0, 1))
+    return np.stack(xs).astype(np.float32), ys.astype(np.float32)
+
+
+def ctc_net(mt, hidden):
+    """``examples/ctc_ocr.py``'s Gluon ``Net``: a (H, 5) convolution over
+    the strip, a (1, 5) one, and a 1x1 to per-frame class scores
+    (B, T, C + 1)."""
+    nd, nn = mt.nd, mt.gluon.nn
+
+    class Net(mt.gluon.Block):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            with self.name_scope():
+                self.c1 = nn.Conv2D(hidden, kernel_size=(CTC_H, 5),
+                                    padding=(0, 2))
+                self.c2 = nn.Conv2D(hidden, kernel_size=(1, 5),
+                                    padding=(0, 2), activation="relu")
+                self.c3 = nn.Conv2D(CTC_CLASSES + 1, kernel_size=(1, 1))
+
+        def forward(self, x):
+            h = nd.expand_dims(x, axis=1)
+            h = nd.Activation(self.c1(h), act_type="relu")
+            h = nd.squeeze(self.c3(self.c2(h)), axis=2)
+            return nd.transpose(h, axes=(0, 2, 1))
+
+    return Net(prefix="ctc_")
+
+
+def greedy_decode(probs):
+    """Best path: (T, B, C+1) -> collapsed sequences (blank 0; class k
+    is digit k - 1)."""
+    ids = probs.argmax(axis=2)
+    out = []
+    for b in range(ids.shape[1]):
+        seq, prev = [], -1
+        for t in range(ids.shape[0]):
+            k = int(ids[t, b])
+            if k != prev and k != 0:
+                seq.append(k - 1)
+            prev = k
+        out.append(seq)
+    return out
+
+
+def ctc_phase(torch, np):
+    """13e. ``examples/ctc_ocr.py`` at its defaults through Gluon on the
+    card: ``Trainer("adam")``, ``autograd.record()``, ``nd.CTCLoss`` over
+    the unsegmented labels, then greedy decoding of the held-out strips
+    against the example's gate."""
+    import mxnet_tpu_torch as mt
+    mt.random.seed(SEED)
+    dev = mt.gpu(0)
+    X, Y = ctc_data(np, CTC_EXAMPLES, seed=1)
+    Xv, Yv = ctc_data(np, 200, seed=2)
+    net = ctc_net(mt, CTC_HIDDEN)
+    net.initialize(mt.init.Xavier().set_rng(
+        mt.random.derive_numpy_rng("ctc_ocr")), ctx=dev)
+    trainer = mt.gluon.Trainer(net.collect_params(), "adam",
+                               {"learning_rate": CTC_LR})
+    bs = min(CTC_EXAMPLES, 100)
+    losses = []
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    steps = 0
+    for epoch in range(CTC_EPOCHS):
+        if epoch == min(1, CTC_EPOCHS - 1):
+            torch.cuda.synchronize()
+            start.record()
+            steps = 0
+        tot = 0.0
+        for i in range(0, len(X), bs):
+            xb = mt.nd.array(X[i:i + bs], ctx=dev)
+            yb = mt.nd.array(Y[i:i + bs], ctx=dev)
+            with mt.autograd.record():
+                act = mt.nd.transpose(net(xb), axes=(1, 0, 2))
+                loss = mt.nd.mean(mt.nd.CTCLoss(act, yb + 1))
+            loss.backward()
+            trainer.step(1)
+            tot += float(loss.asnumpy().ravel()[0])
+            steps += 1
+        losses.append(tot / (len(X) / bs))
+    end.record()
+    torch.cuda.synchronize()
+    step_ms = start.elapsed_time(end) / steps
+    probs = np.transpose(net(mt.nd.array(Xv, ctx=dev)).asnumpy(), (1, 0, 2))
+    dec = greedy_decode(probs)
+    acc = sum(1 for d, y in zip(dec, Yv) if d == [int(v) for v in y]) / len(Yv)
+    log("13e ctc ocr: %d epochs of %d strips (T %d, %d classes + blank), "
+        "%.3f ms a step (loss read each step); ctc loss first %.4f last "
+        "%.4f; sequence accuracy on 200 held-out strips %.3f (gate > %g)"
+        % (CTC_EPOCHS, len(X), CTC_DIGITS * CTC_DIGIT_W + 6, CTC_CLASSES,
+           step_ms, losses[0], losses[-1], acc, CTC_MIN_ACC))
+    check(all(math.isfinite(v) for v in losses), "13e ctc: a loss is not "
+          "finite")
+    check(acc > CTC_MIN_ACC, "13e ctc: sequence accuracy %.3f, the "
+          "example's gate is > %g" % (acc, CTC_MIN_ACC))
+    return {"step_ms": step_ms, "acc": acc, "losses": losses}
+
+
+def structured_phase(torch, np):
+    """Phase 13: the structured op families on the card (a), the SSD
+    example (b), the detection ops at their published sizes (c), the
+    Fast R-CNN example (d) and the CTC OCR example (e)."""
+    check(not torch.backends.cudnn.allow_tf32 and
+          not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 is allowed: phase 13's checks would not be float32")
+    t0 = time.perf_counter()
+    readings = {"ops": structured_op_sweep(torch, np)}
+    readings["ssd"] = ssd_phase(torch, np)
+    readings["published"] = published_phase(torch, np)
+    readings["rcnn"] = rcnn_phase(torch, np)
+    readings["ctc"] = ctc_phase(torch, np)
+    log("structured ops and detection phase: %.1f s"
+        % (time.perf_counter() - t0))
+    return readings
+
+
 PAIRS_OF = ("f32-backward", "rtc")
 
 
@@ -5104,6 +6220,7 @@ def main() -> int:
         rnn_phase(torch, np)
         optim_phase(torch, np, sgd)
         zoo_phase(torch, np)
+        structured_phase(torch, np)
         torch.cuda.synchronize()
     except SmokeFailure as exc:
         print("chip_smoke: FAILED: %s" % exc, file=sys.stderr)

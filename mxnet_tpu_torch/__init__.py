@@ -45,7 +45,15 @@ Ported so far:
   :mod:`.ops.optimizer_op`), the learning-rate schedules
   (:mod:`.lr_scheduler`), every metric (:mod:`.metric`), and crash-safe
   checkpoints with exact resume (:mod:`.checkpoint`,
-  ``Module.fit(checkpoint=, resume_from=)``) in the reference's format.
+  ``Module.fit(checkpoint=, resume_from=)``) in the reference's format;
+* the op library (:mod:`.ops`) with the structured families: vision
+  (ROI pooling, the samplers, ``Correlation``, deformable convolution),
+  detection (the SSD ``MultiBox*`` ops, ``Proposal``, ``CTCLoss``) and
+  contrib, with the fork's Stochastic Activation Pruning;
+* Module's inference surface: ``predict`` / ``iter_predict``,
+  ``save_params`` / ``load_params``, the shape properties, ``reshape``,
+  ``get_states`` / ``set_states``, the executor monitor (:mod:`.monitor`,
+  ``fit(monitor=)``) and ``SequentialModule``.
 """
 from __future__ import annotations
 
@@ -53,6 +61,7 @@ from . import amp, autograd, callback, checkpoint, contrib
 from . import initializer as init
 from . import io, lr_scheduler, metric, model
 from . import module as mod
+from . import monitor as mon
 from . import ndarray as nd
 from . import gluon, operator, optimizer, random, rnn, rtc
 from . import symbol as sym
@@ -61,7 +70,8 @@ from .context import cpu, current_device, device_scope, gpu
 
 __all__ = ["MXNetError", "cpu", "gpu", "device_scope", "current_device",
            "amp", "autograd", "callback", "checkpoint", "contrib", "gluon",
-           "init", "io", "lr_scheduler", "metric", "mod", "model", "nd",
+           "init", "io", "lr_scheduler", "metric", "mod", "model", "mon",
+           "nd",
            "operator",
            "optimizer", "random", "rnn", "rtc", "sym"]
 

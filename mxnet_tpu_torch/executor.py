@@ -22,7 +22,13 @@ in topological order (PyTorch runs eagerly) and gradients come from
   fused step does); ``backward(out_grads)`` writes those gradients
   into ``grad_dict`` per ``grad_req`` (``write``, ``add`` or
   ``null``), and ``Module``'s fused step hands them to the optimizer
-  directly.
+  directly;
+* the monitor hook (:mod:`..monitor`): ``set_monitor_callback`` is
+  called with every graph output after each forward, and
+  ``monitor_values`` yields every op node's outputs of the last forward
+  (the values that ran, kept only while ``keep_node_outputs`` is set,
+  which ``Monitor.install`` does), named ``<node>_output`` or
+  ``<node>_output<i>`` as the reference names them.
 """
 from __future__ import annotations
 
@@ -42,14 +48,15 @@ def graph_function(symbol):
     aux: {name: tensor}, is_train: bool, device) -> ([outputs],
     {aux name: new value})``, the new values being the trailing outputs
     of each op with aux state. ``device`` is where ops without inputs
-    (``_arange``) create their result."""
+    (``_arange``) create their result; ``tap(node, outputs)``, when
+    given, sees every op node's outputs as they are made."""
     from .symbol.symbol import _topo_order, run_node
 
     nodes = _topo_order(symbol._entries)
     entries = list(symbol._entries)
 
     def fn(args: Dict[str, torch.Tensor], aux: Dict[str, torch.Tensor],
-           is_train: bool, device):
+           is_train: bool, device, tap=None):
         vals = {}
         new_aux = {}
         for node in nodes:
@@ -63,6 +70,8 @@ def graph_function(symbol):
             outs = run_node(node, ins, is_train, device)
             for i, o in enumerate(outs):
                 vals[(id(node), i)] = o
+            if tap is not None:
+                tap(node, outs)
             k = node.op.num_aux
             if k:
                 for (src, _), val in zip(node.inputs[-k:], outs[-k:]):
@@ -126,6 +135,9 @@ class Executor:
         self._fn = graph_function(symbol)
         self._outputs: Optional[List[NDArray]] = None
         self._pending = None     # (outputs, leaves) awaiting backward
+        self._monitor_callback = None
+        self.keep_node_outputs = False
+        self._node_outputs: List = []
 
     def forward(self, is_train: bool = False, **kwargs) -> List[NDArray]:
         """Run the graph; with ``is_train`` and gradients requested,
@@ -137,17 +149,22 @@ class Executor:
             self.arg_dict[k][:] = v
         args = {n: a.data for n, a in self.arg_dict.items()}
         aux = {n: a.data for n, a in self.aux_dict.items()}
+        tap = None
+        if self.keep_node_outputs:
+            self._node_outputs = []
+            tap = lambda node, outs: self._node_outputs.append(  # noqa: E731
+                (node.name, [o.detach() for o in outs]))
         if is_train and self._wrt:
             leaves = {n: args[n].detach().requires_grad_(True)
                       for n in self._wrt}
             args.update(leaves)
             with torch.enable_grad():
-                outs, new_aux = self._fn(args, aux, True, self._device)
+                outs, new_aux = self._fn(args, aux, True, self._device, tap)
             self._pending = (outs, leaves)
         else:
             with torch.no_grad():
                 outs, new_aux = self._fn(args, aux, bool(is_train),
-                                         self._device)
+                                         self._device, tap)
             self._pending = None
         if is_train:
             with torch.no_grad():
@@ -155,6 +172,9 @@ class Executor:
                     if v is not aux[n]:
                         aux[n].copy_(v.detach())
         self._outputs = [NDArray(o.detach()) for o in outs]
+        if self._monitor_callback is not None:
+            for name, arr in zip(self._output_names, self._outputs):
+                self._monitor_callback(name, arr)
         return self._outputs
 
     def gradients(self, out_grads=None):
@@ -199,3 +219,22 @@ class Executor:
         if self._outputs is None:
             raise MXNetError("no forward has been run")
         return self._outputs
+
+    @property
+    def arg_arrays(self) -> List[NDArray]:
+        return [self.arg_dict[n] for n in self._arg_names]
+
+    # ------------------------------------------------------------ monitor
+    def set_monitor_callback(self, callback) -> None:
+        """Call ``callback(name, NDArray)`` for every graph output after
+        each forward."""
+        self._monitor_callback = callback
+
+    def monitor_values(self):
+        """``(name, NDArray)`` for every output of every op node of the
+        last forward, in graph order (empty unless
+        ``keep_node_outputs`` was set before it)."""
+        for name, outs in self._node_outputs:
+            for i, o in enumerate(outs):
+                suffix = "_output" if len(outs) == 1 else "_output%d" % i
+                yield name + suffix, NDArray(o)

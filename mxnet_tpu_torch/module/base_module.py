@@ -11,11 +11,19 @@ and every N batches, and on SIGTERM saves and exits with status 143;
 ``fit(resume_from=dir)`` restores the newest valid checkpoint
 (parameters, optimizer states and counts, the key chain, the metric
 totals) and continues at the next epoch or, for a mid-epoch save, at
-the next batch, skipping the batches the saved run consumed. The
-reference's ``fit`` also takes gradient accumulation, a parallel layout,
-autotuning and a monitor; they are later items of the port (ROADMAP.md,
-queue A) and ``fit`` raises :class:`MXNetError` naming the item when
-one is passed.
+the next batch, skipping the batches the saved run consumed.
+``fit(monitor=)`` installs a :class:`..monitor.Monitor` and, as the
+reference does, runs ``forward_backward`` and ``update`` per batch
+(``tic`` before, ``toc_print`` after) instead of the fused step. The
+reference's ``fit`` also takes gradient accumulation, a parallel layout
+and autotuning; they are later items of the port (ROADMAP.md, queue A)
+and ``fit`` raises :class:`MXNetError` naming the item when one is
+passed.
+
+Inference: ``predict`` / ``iter_predict`` run ``forward(is_train=False)``
+per batch and drop the last batch's padding; ``save_params`` /
+``load_params`` write and read ``arg:`` / ``aux:`` entries with
+``nd.save`` / ``nd.load``, a file either package reads.
 """
 from __future__ import annotations
 
@@ -25,8 +33,10 @@ from collections import namedtuple
 from typing import List
 
 from ..base import MXNetError
+from ..context import device_scope
 from .. import faults as _faults
 from .. import metric as _metric
+from .. import ndarray as nd
 
 __all__ = ["BaseModule", "BatchEndParam"]
 
@@ -38,7 +48,6 @@ _LATER = {
     "grad_accum": "queue A7 (grad_accum)",
     "layout": "queue A9 (parallelism)",
     "tune": "queue A10 (tune)",
-    "monitor": "queue A2 (executor monitor)",
 }
 
 
@@ -71,6 +80,7 @@ class BaseModule(object):
         self.logger = logger
         self.binded = False
         self.for_training = False
+        self.inputs_need_grad = False
         self.params_initialized = False
         self.optimizer_initialized = False
         self._symbol = None
@@ -78,6 +88,42 @@ class BaseModule(object):
     @property
     def symbol(self):
         return self._symbol
+
+    @property
+    def data_shapes(self):
+        raise NotImplementedError()
+
+    @property
+    def label_shapes(self):
+        raise NotImplementedError()
+
+    @property
+    def output_shapes(self):
+        raise NotImplementedError()
+
+    def save_params(self, fname: str):
+        """Write the parameters as ``arg:<name>`` / ``aux:<name>``
+        entries of one ``nd.save`` file."""
+        arg_params, aux_params = self.get_params()
+        save_dict = {("arg:%s" % k): v for k, v in arg_params.items()}
+        save_dict.update({("aux:%s" % k): v for k, v in aux_params.items()})
+        nd.save(fname, save_dict)
+
+    def load_params(self, fname: str):
+        """Set the parameters from a :meth:`save_params` file (of either
+        package)."""
+        with device_scope("cpu"):
+            save_dict = nd.load(fname)
+        arg_params, aux_params = {}, {}
+        for k, value in save_dict.items():
+            arg_type, name = k.split(":", 1)
+            if arg_type == "arg":
+                arg_params[name] = value
+            elif arg_type == "aux":
+                aux_params[name] = value
+            else:
+                raise ValueError("Invalid param file " + fname)
+        self.set_params(arg_params, aux_params)
 
     def set_params(self, arg_params, aux_params=None, allow_missing=False,
                    force_init=True, allow_extra=False):
@@ -107,6 +153,54 @@ class BaseModule(object):
             self.update_metric(eval_metric, eval_batch.label)
         return eval_metric.get_name_value()
 
+    def iter_predict(self, eval_data, num_batch=None, reset=True):
+        """Yield ``(outputs, nbatch, batch)`` per batch of inference, the
+        batch's padding dropped from each output."""
+        assert self.binded and self.params_initialized
+        if reset:
+            eval_data.reset()
+        for nbatch, eval_batch in enumerate(eval_data):
+            if num_batch is not None and nbatch == num_batch:
+                break
+            self.forward(eval_batch, is_train=False)
+            pad = eval_batch.pad or 0
+            outputs = [out[0:out.shape[0] - pad] for out in self.get_outputs()]
+            yield outputs, nbatch, eval_batch
+
+    def predict(self, eval_data, num_batch=None, merge_batches=True,
+                reset=True, always_output_list=False):
+        """Run inference over ``eval_data`` and collect the outputs (the
+        last batch's padding dropped): merged along the batch axis into
+        one array per output (just the array for one output, unless
+        ``always_output_list``), or per batch without
+        ``merge_batches``."""
+        assert self.binded and self.params_initialized
+        if reset:
+            eval_data.reset()
+        output_list = []
+        for nbatch, eval_batch in enumerate(eval_data):
+            if num_batch is not None and nbatch == num_batch:
+                break
+            self.forward(eval_batch, is_train=False)
+            pad = eval_batch.pad or 0
+            outputs = [out[0:out.shape[0] - pad].copy()
+                       for out in self.get_outputs()]
+            output_list.append(outputs)
+        if len(output_list) == 0:
+            return output_list
+        if merge_batches:
+            num_outputs = len(output_list[0])
+            for out in output_list:
+                if len(out) != num_outputs:
+                    raise ValueError("Cannot merge batches: different numbers "
+                                     "of outputs per batch")
+            output_list2 = [nd.concatenate([out[i] for out in output_list])
+                            for i in range(num_outputs)]
+            if num_outputs == 1 and not always_output_list:
+                return output_list2[0]
+            return output_list2
+        return output_list
+
     def fit(self, train_data, eval_data=None, eval_metric="acc",
             epoch_end_callback=None, batch_end_callback=None,
             kvstore="local", optimizer="sgd",
@@ -119,8 +213,7 @@ class BaseModule(object):
         backward and the fused update) and a metric update; checkpoints
         and resume as the module's docstring says."""
         assert num_epoch is not None, "please specify number of epochs"
-        given = {"grad_accum": grad_accum, "layout": layout, "tune": tune,
-                 "monitor": monitor}
+        given = {"grad_accum": grad_accum, "layout": layout, "tune": tune}
         for name, value in given.items():
             if value is not None:
                 raise MXNetError("fit(%s=...) is not ported yet: it comes "
@@ -165,6 +258,8 @@ class BaseModule(object):
         self.bind(data_shapes=train_data.provide_data,
                   label_shapes=train_data.provide_label,
                   for_training=True, force_rebind=force_rebind)
+        if monitor is not None:
+            self.install_monitor(monitor)
         self.init_params(initializer=initializer, arg_params=arg_params,
                          aux_params=aux_params, allow_missing=allow_missing,
                          force_init=force_init)
@@ -231,7 +326,14 @@ class BaseModule(object):
                     if _faults.ARMED:
                         _faults.fire("fit.batch", default_kind="sigterm")
                     data_batch = next_data_batch
-                    self._fit_step(data_batch)
+                    if monitor is not None:
+                        # per-op values: the unfused step, as the
+                        # reference's monitored loop runs it
+                        monitor.tic()
+                        self.forward_backward(data_batch)
+                        self.update()
+                    else:
+                        self._fit_step(data_batch)
                     # the metric before prepare: prepare may switch the
                     # current bucket, whose outputs are not this batch's
                     self.update_metric(eval_metric, data_batch.label)
@@ -240,6 +342,8 @@ class BaseModule(object):
                         self.prepare(next_data_batch)
                     except StopIteration:
                         end_of_batch = True
+                    if monitor is not None:
+                        monitor.toc_print()
                     if batch_end_callback is not None:
                         params = BatchEndParam(epoch=epoch, nbatch=nbatch,
                                                eval_metric=eval_metric,
@@ -325,6 +429,15 @@ class BaseModule(object):
         raise NotImplementedError()
 
     def update_metric(self, eval_metric, labels):
+        raise NotImplementedError()
+
+    def get_outputs(self, merge_multi_context=True):
+        raise NotImplementedError()
+
+    def get_input_grads(self, merge_multi_context=True):
+        raise NotImplementedError()
+
+    def install_monitor(self, mon):
         raise NotImplementedError()
 
     def prepare(self, data_batch):

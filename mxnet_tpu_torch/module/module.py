@@ -27,6 +27,12 @@ rate the scheduler's at ``t``; ``update`` (after ``forward`` and
 ``Module.update`` does. ``_checkpoint_snapshot`` / ``_checkpoint_restore``
 carry everything exact resume needs to and from :mod:`..checkpoint`.
 
+The inference surface follows the reference's: ``data_shapes`` /
+``label_shapes`` / ``output_shapes``, ``reshape`` (a new executor for
+new input shapes holding this one's parameter, gradient and aux arrays
+themselves), ``get_states`` / ``set_states`` over ``state_names``, and
+``install_monitor``.
+
 The module runs on ``cuda:0`` unless ``context`` says otherwise
 (``context=cpu()`` for the host); without a GPU and without that request
 it raises.
@@ -125,6 +131,26 @@ class Module(BaseModule):
     @property
     def output_names(self):
         return self._output_names
+
+    @property
+    def data_shapes(self):
+        assert self.binded
+        return self._data_shapes
+
+    @property
+    def label_shapes(self):
+        assert self.binded
+        return self._label_shapes
+
+    @property
+    def output_shapes(self):
+        """``[(name, shape)]`` of the outputs at the bound input shapes."""
+        assert self.binded
+        arg_names = self._symbol.list_arguments()
+        shapes = {d.name: d.shape for d in self._data_shapes +
+                  self._label_shapes if d.name in arg_names}
+        _, out_shapes, _ = self._symbol.infer_shape(**shapes)
+        return list(zip(self._output_names, [tuple(s) for s in out_shapes]))
 
     # ------------------------------------------------------------ loading
     @staticmethod
@@ -274,6 +300,35 @@ class Module(BaseModule):
             self.init_params(arg_params=params[0], aux_params=params[1],
                              force_init=True)
 
+    def reshape(self, data_shapes, label_shapes=None):
+        """Bind the graph anew at other input shapes: the new executor
+        holds this one's parameter, gradient and aux arrays themselves
+        (they keep their shapes); inputs are allocated at the new
+        ones."""
+        assert self.binded
+        self._data_shapes = [x if isinstance(x, DataDesc) else DataDesc(*x)
+                             for x in data_shapes]
+        if label_shapes is not None:
+            self._label_shapes = [x if isinstance(x, DataDesc)
+                                  else DataDesc(*x) for x in label_shapes]
+        arg_names = self._symbol.list_arguments()
+        shapes = {d.name: d.shape for d in self._data_shapes}
+        shapes.update({d.name: d.shape for d in self._label_shapes
+                       if d.name in arg_names})
+        type_dict = {d.name: d.dtype for d in self._data_shapes +
+                     self._label_shapes}
+        old = self._exec
+        self._exec = self._symbol.simple_bind(
+            self._device, grad_req=self._grad_req, type_dict=type_dict,
+            shared_arg_names=self._param_names, shared_exec=old, **shapes)
+        self._exec.keep_node_outputs = old.keep_node_outputs
+        self._exec.set_monitor_callback(old._monitor_callback)
+
+    def install_monitor(self, mon):
+        """Attach ``mon`` (:class:`..monitor.Monitor`) to the executor."""
+        assert self.binded
+        mon.install(self._exec)
+
     # ------------------------------------------------------------ optimizer
     def init_optimizer(self, kvstore="local", optimizer="sgd",
                        optimizer_params=(("learning_rate", 0.01),),
@@ -410,6 +465,24 @@ class Module(BaseModule):
         assert self.binded and self.params_initialized \
             and self.inputs_need_grad
         return [self._exec.grad_dict[n] for n in self._data_names]
+
+    def get_states(self, merge_multi_context=True) -> List[NDArray]:
+        """The arrays of the state inputs (``state_names``)."""
+        assert self.binded and self.params_initialized
+        return [self._exec.arg_dict[n] for n in self._state_names]
+
+    def set_states(self, states=None, value=None):
+        """Set the state inputs from ``states`` (arrays, in
+        ``state_names`` order), or fill each with ``value``."""
+        assert self.binded and self.params_initialized
+        with torch.no_grad():
+            if states is not None:
+                for name, val in zip(self._state_names, states):
+                    dst = self._exec.arg_dict[name].data
+                    dst.copy_(_as_tensor(val, dst))
+            else:
+                for name in self._state_names:
+                    self._exec.arg_dict[name].data.fill_(value)
 
     def update_metric(self, eval_metric, labels):
         labels = dict(zip(self._label_names or

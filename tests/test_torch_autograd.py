@@ -7,8 +7,12 @@ same numpy-seeded inputs through both packages (the port on the CPU,
 ``device_scope("cpu")``); gradients agree within 1e-6 of their largest
 magnitude (f32: the same formulas, at most a few hundred terms summed
 in another order). The reference's tape-pruning case has no counterpart
-(the port keeps no tape) and its ``stochastic_activation_pruning`` and
-``IdentityAttachKLSparseReg`` cases use ops the port does not have yet.
+(the port keeps no tape) and its ``IdentityAttachKLSparseReg`` case is
+held by ``tests/test_torch_ops_nn_heads.py``. Its
+``stochastic_activation_pruning`` case draws from each package's own
+generator, so it holds the port to the reference's rule (the gradient
+into ``act`` is the forward's mask, into ``prob`` zeros) and, where the
+draw is forced (one-hot ``prob`` rows), to the reference's values.
 
 Dropout cannot draw jax's bits, so it is held by distribution: the kept
 share within a binomial bound, the kept values scaled by 1/(1-p), and
@@ -183,6 +187,34 @@ def test_softmax_output_backward_semantics():
         out.backward()
         return out, x.grad
     _agree(case)
+
+
+def test_stochastic_activation_pruning_backward():
+    """The reference's case (``tests/test_autograd.py``): backward gives
+    ``act`` the forward's mask (out / act) and ``prob`` zeros. Each
+    package draws its own sample, so each is held to that rule, and on
+    one-hot ``prob`` rows (a forced draw) to each other's values."""
+    rng = np.random.RandomState(0)
+    act_np = rng.rand(4, 20).astype("f") + 1
+    for prob_np in (np.full((4, 20), 0.05, dtype="f"),
+                    np.eye(4, 20, 3, dtype="f")):
+        def case(pkg):
+            act, prob = pkg.nd.array(act_np), pkg.nd.array(prob_np)
+            act.attach_grad()
+            prob.attach_grad()
+            with pkg.autograd.record():
+                out = pkg.nd.stochastic_activation_pruning(act, prob,
+                                                           frac=0.5)
+            out.backward()
+            mask = out.asnumpy() / act.asnumpy()
+            np.testing.assert_allclose(act.grad.asnumpy(), mask, rtol=1e-4,
+                                       atol=1e-5)
+            np.testing.assert_allclose(prob.grad.asnumpy(), 0.0, atol=1e-6)
+            return out, act.grad
+        if prob_np[0].max() == 1.0:
+            _agree(case)
+        else:
+            _both(case)
 
 
 def test_attach_grad_detach():
