@@ -206,7 +206,35 @@ Phases, each fatal on failure (exit code 1, no result line):
     (its ``proposal_target`` CustomOp in the graph) to its gate, ROI
     accuracy > 0.85, with the CustomOp's host share of a step; (e)
     ``examples/ctc_ocr.py`` at its defaults through Gluon (Adam,
-    ``nd.CTCLoss``) to its gate, sequence accuracy > 0.8.
+    ``nd.CTCLoss``) to its gate, sequence accuracy > 0.8;
+14. Symbol's surface, the fine-tune, model parallelism and the
+    recurrent / symbolic examples: (a) every fluent method of ``Symbol``
+    (42) on the card against the CPU through ``eval``; ResNet-50 (s2d
+    stem, 224x224) and the LM at full width and one layer's depth:
+    ``infer_shape_partial``, ``infer_type``, ``get_internals``, each net
+    cut at its feature layer (the first child of the head, by
+    ``get_children``), composed over a preprocessing symbol and
+    evaluated on both devices from the same seeded weights, within 1e-4
+    of max(1, max|cpu|); (b) ResNet-50 at the ResNet phase's
+    configuration (amp bf16) fit on two seeded batches,
+    ``save_checkpoint``, ``load_checkpoint``, cut at its flatten output
+    with a new 10-class head whose weight is ``Variable(lr_mult=10)``,
+    and fine-tuned with ``fixed_param_names`` set to every backbone
+    argument: the fixed arguments bit for bit, the head's first update
+    what SGD at lr x lr_mult gives, the loss falling, every moving
+    statistic updated, ms a step; (c) the zoo LM at ``bench.py``'s width
+    (12 layers, d_model 2048, T 1024, batch 8, amp bf16), its body built
+    in ``AttrScope(ctx_group="body")``, cut at the final LayerNorm by
+    ``get_internals``, a new head in ``AttrScope(ctx_group="head")``,
+    bound by ``simple_bind(group2ctx={"body": gpu(0), "head": gpu(0)})``:
+    three forward, backward and SGD steps bit for bit equal to the same
+    symbol bound without ``group2ctx``, each flash-attention kernel (K1
+    bf16, K2, K3) once per layer per grouped step by the counters, and
+    their names in the profile of a grouped step; (d)
+    ``examples/fine_tune.py``, ``model_parallel_lstm.py`` (every group
+    on gpu(0), then ``layer0`` on cpu(0): the two within 1e-5 a step),
+    ``bi_lstm_sort.py``, ``multi_task.py``, ``lstm_crf.py`` and
+    ``tree_lstm.py`` at their defaults to their own gates.
 
 The second-to-last line is the kernel table as one JSON object; the
 last is ``{"ok": true, "device": {...}}``. Without a GPU, or run from a
@@ -486,6 +514,46 @@ RCNN_EPOCHS, RCNN_LR, RCNN_CLASSES, RCNN_MIN_ACC = 25, 0.05, 3, 0.85
 CTC_EXAMPLES, CTC_EPOCHS, CTC_HIDDEN, CTC_LR = 100, 150, 64, 5e-3
 CTC_DIGITS, CTC_DIGIT_W, CTC_H, CTC_CLASSES = 2, 8, 12, 5
 CTC_MIN_ACC = 0.8
+
+# phase 14, Symbol's surface, the fine-tune, the grouped LM and the
+# recurrent / symbolic examples. (a) the surface on the card against the
+# CPU, phase 12d's limit (1e-4 of max(1, max|cpu|), float32, TF32 off):
+# ResNet-50 cut at its feature layer at batch 2, the LM at one layer's
+# depth (full width) cut at its final LayerNorm at batch 1, and every
+# fluent method on a (4, 6) input
+SURFACE_RTOL = 1e-4
+SURFACE_LM_LAYERS, SURFACE_RESNET_BATCH = 1, 2
+# (b) the fine-tune at the ResNet phase's configuration: fit on
+# FT_PRE_BATCHES seeded batches, checkpoint, load, a new 10-class head
+# whose weight has lr_mult 10, FT_STEPS steps of plain SGD (lr FT_LR,
+# the head's 10x that: the 2048 pooled features move the logits by
+# about lr x 2048 a step, so 0.5 diverged) with every backbone argument
+# fixed (the first step by hand, to read the head's gradient), then
+# FT_TIMED timed ones
+FT_PRE_BATCHES, FT_STEPS, FT_TIMED = 2, 6, 5
+FT_CLASSES, FT_LR_MULT, FT_LR = 10, 10.0, 1e-4
+FT_RATE_RTOL = 1e-5
+# (c) the LM at bench.py's width under group2ctx: GROUP_STEPS SGD steps
+# in lock step with the ungrouped bind (bit for bit), then GROUP_TIMED
+# timed steps of each and one profiled grouped step
+GROUP_STEPS, GROUP_TIMED = 3, 5
+# (d) the examples at their defaults (argparse defaults of each file);
+# the model-parallel LSTM's two placements agree within MP_ATOL a step
+FINE_TUNE = {"pretrain_epochs": 6, "tune_epochs": 3, "n_pre": 1000,
+             "n_tune": 150, "min_acc": 0.9}
+MP_LSTM = {"layers": 2, "hidden": 48, "seq": 8, "batch": 16, "vocab": 50,
+           "steps": 25, "lr": 5.0, "momentum": 0.9, "max_ratio": 0.7}
+MP_ATOL = 1e-5
+SORT = {"epochs": 10, "examples": 1500, "batch": 50, "lr": 0.05,
+        "seed": 11, "min_acc": 0.6}
+SORT_VOCAB, SORT_SEQ = 12, 6
+MULTI = {"epochs": 5, "examples": 1200, "batch": 100, "lr": 0.05,
+         "seed": 0, "min_acc": 0.9}
+CRF = {"epochs": 12, "examples": 300, "hidden": 32, "lr": 0.01, "seed": 7,
+       "min_acc": 0.9}
+CRF_VOCAB, CRF_TAGS, CRF_T = 20, 3, 12
+TREE = {"epochs": 8, "trees": 800, "batch": 50, "hidden": 48, "lr": 0.02,
+        "seed": 0, "min_acc": 0.85}
 
 
 class SmokeFailure(Exception):
@@ -6156,6 +6224,1166 @@ def structured_phase(torch, np):
     return readings
 
 
+# ------------------------------------------------------------------ phase 14
+
+def fluent_cases(sym):
+    """Every fluent method of ``Symbol`` on the variable ``x`` (4, 6),
+    with its attributes given positionally where the method takes one;
+    ``y`` (6, 3) and ``idx`` (3,) are further inputs where a method
+    takes a symbol. ``sym`` is a package's symbol namespace."""
+    x = sym.Variable("x")
+    return {
+        "sum": x.sum(1), "mean": x.mean(axis=0), "max": x.max(1, True),
+        "min": x.min(), "prod": x.prod(axis=1), "argmax": x.argmax(1),
+        "argmin": x.argmin(axis=0), "clip": x.clip(0.6, 1.2),
+        "abs": (x - 1).abs(), "sign": (x - 1).sign(),
+        "round": (x * 3).round(), "floor": (x * 3).floor(),
+        "ceil": (x * 3).ceil(), "sqrt": x.sqrt(), "square": x.square(),
+        "exp": x.exp(), "log": x.log(), "sigmoid": x.sigmoid(),
+        "tanh": x.tanh(), "relu": (x - 1).relu(), "softmax": x.softmax(0),
+        "log_softmax": x.log_softmax(axis=1), "transpose": x.transpose(),
+        "swapaxes": x.swapaxes(0, 1), "flatten": x.flatten(),
+        "expand_dims": x.expand_dims(1), "repeat": x.repeat(2, 1),
+        "tile": x.tile((2, 1)), "flip": x.flip(1), "sort": x.sort(1),
+        "argsort": x.argsort(0), "topk": x.topk(1, 2),
+        "take": x.take(sym.Variable("idx")),
+        "one_hot": (x * 3).floor().one_hot(5),
+        "broadcast_to": x.expand_dims(0).broadcast_to((2, 4, 6)),
+        "slice_axis": x.slice_axis(1, 0, 2),
+        "squeeze": x.expand_dims(0).squeeze(),
+        "norm": x.norm(), "split": x.split(2, 1),
+        "slice": x.slice((0, 1), (3, 5)), "reshape": x.reshape((3, 8)),
+        "dot": x.dot(sym.Variable("y")),
+    }
+
+
+def fluent_inputs(np):
+    rng = np.random.RandomState(SEED)
+    return {"x": rng.uniform(0.1, 1.9, (4, 6)).astype(np.float32),
+            "y": rng.uniform(-1, 1, (6, 3)).astype(np.float32),
+            "idx": np.array([3, 0, 2], np.float32)}
+
+
+def eval_symbol(mt, s, inputs, ctx):
+    """``s.eval`` on ``ctx`` with the inputs it lists, as float64 numpy."""
+    kw = {n: mt.nd.array(inputs[n], ctx=ctx) for n in s.list_arguments()}
+    return [o.asnumpy().astype("float64") for o in s.eval(ctx=ctx, **kw)]
+
+
+def surface_close(np, what, got, want):
+    check(len(got) == len(want), "14a %s: %d outputs on the card, %d on the "
+          "CPU" % (what, len(got), len(want)))
+    worst = 0.0
+    for g, w in zip(got, want):
+        check(g.shape == w.shape, "14a %s: shape %s on the card, %s on the "
+              "CPU" % (what, g.shape, w.shape))
+        scale = max(1.0, float(np.abs(w).max(initial=0.0)))
+        err = float(np.abs(g - w).max(initial=0.0)) / scale
+        check(err <= SURFACE_RTOL, "14a %s: card %.3g of max(1, max|cpu|) "
+              "off the CPU (limit %g)" % (what, err, SURFACE_RTOL))
+        worst = max(worst, err)
+    return worst
+
+
+def seeded_args(mt, np, s, shapes, seed):
+    """Seeded values for every argument of ``s`` but the given inputs
+    (Xavier(gaussian, in, 2), the initializer's rules by name) and its
+    aux states, as numpy."""
+    arg_shapes, _, aux_shapes = s.infer_shape(**shapes)
+    init = mt.init.Xavier(rnd_type="gaussian", factor_type="in",
+                          magnitude=2).set_rng(np.random.default_rng(seed))
+    out = []
+    for names, shps in ((s.list_arguments(), arg_shapes),
+                        (s.list_auxiliary_states(), aux_shapes)):
+        vals = {}
+        for n, sh in zip(names, shps):
+            if n not in shapes:
+                arr = mt.nd.zeros(sh, ctx=mt.cpu())
+                init(mt.init.InitDesc(n), arr)
+                vals[n] = arr.asnumpy()
+        out.append(vals)
+    return out
+
+
+def surface_eval(mt, np, s, inputs, args, aux, ctx):
+    kw = {n: mt.nd.array(v, ctx=ctx) for n, v in {**args, **inputs}.items()}
+    aux_nd = {n: mt.nd.array(v, ctx=ctx) for n, v in aux.items()}
+    return [o.asnumpy().astype("float64")
+            for o in s.eval(ctx=ctx, aux_states=aux_nd, **kw)]
+
+
+def feature_cut(s, head):
+    """The input of op node ``head`` in ``s`` (a net cut at its feature
+    layer): the first child of ``get_internals()[head + "_output"]``."""
+    internals = s.get_internals()
+    name = internals[head + "_output"].get_children().list_outputs()[0]
+    return name, internals[name]
+
+
+def surface_phase(torch, np):
+    """14a. The Symbol surface on the card against the CPU: every fluent
+    method; ResNet-50's and the LM's internals, partial shapes and
+    types; each net cut at its feature layer through ``get_internals``,
+    composed with a preprocessing symbol and evaluated on both devices
+    from the same seeded weights."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.models import resnet, transformer
+    card, host = mt.gpu(0), mt.cpu()
+    t0 = time.perf_counter()
+    inputs = fluent_inputs(np)
+    worst = 0.0
+    cases = fluent_cases(mt.sym)
+    for name, s in cases.items():
+        worst = max(worst, surface_close(
+            np, "fluent " + name, eval_symbol(mt, s, inputs, card),
+            eval_symbol(mt, s, inputs, host)))
+    log("14a fluent methods: %d on the card within %.3g of max(1, "
+        "max|cpu|) of the CPU" % (len(cases), worst))
+    readings = {"fluent": len(cases), "fluent_err": worst}
+    S = RESNET_IMAGE
+    nets = {
+        "resnet": (resnet.get_symbol(num_classes=RESNET_CLASSES,
+                                     num_layers=RESNET_LAYERS, stem="s2d",
+                                     image_shape="3,%d,%d" % (S, S)),
+                   "fc1", {"data": (SURFACE_RESNET_BATCH, 3, S, S)},
+                   lambda raw: (raw - 0.5) * 2.0),
+        "lm": (transformer.get_symbol(VOCAB, SURFACE_LM_LAYERS, D_MODEL,
+                                      HEADS, D_FF, MAX_SEQ,
+                                      attention="flash"),
+               "lm_head", {"data": (1, MAX_SEQ)},
+               lambda raw: raw.clip(0, VOCAB - 1)),
+    }
+    for what, (net, head, shapes, prep) in nets.items():
+        check(net.infer_shape_partial() == (None, None, None),
+              "14a %s: infer_shape_partial without the data shape "
+              "inferred something" % what)
+        arg_shapes, _, _ = net.infer_shape_partial(
+            softmax_label=shapes["data"][:1] if what == "resnet"
+            else shapes["data"], **shapes)
+        check(arg_shapes is not None and None not in arg_shapes,
+              "14a %s: infer_shape_partial with the data and label shapes "
+              "left shapes unknown" % what)
+        arg_types, out_types, aux_types = net.infer_type()
+        check(all(t == np.float32 for t in arg_types + out_types +
+                  aux_types), "14a %s: infer_type is not float32" % what)
+        internals = net.get_internals()
+        name, feat = feature_cut(net, head)
+        # composition: the cut net over a preprocessing symbol
+        pre = feat(data=prep(mt.sym.Variable("raw")))
+        args, aux = seeded_args(mt, np, feat, shapes, SEED)
+        rng = np.random.RandomState(SEED + 1)
+        raw = rng.uniform(0, 1, shapes["data"]).astype(np.float32) \
+            if what == "resnet" else \
+            rng.randint(0, VOCAB, shapes["data"]).astype(np.float32)
+        want = surface_eval(mt, np, pre, {"raw": raw}, args, aux, host)
+        got = surface_eval(mt, np, pre, {"raw": raw}, args, aux, card)
+        err = surface_close(np, what + " " + name, got, want)
+        check(pre.list_arguments()[0] == "raw" and
+              "data" not in pre.list_arguments(),
+              "14a %s: composition left %s" % (what, pre.list_arguments()))
+        log("14a %s: %d internals, %d arguments (%d shapes inferred from "
+            "the data's), cut at %s -> %s, composed, evaluated on the card "
+            "within %.3g of the CPU" % (
+                what, len(internals.list_outputs()),
+                len(net.list_arguments()), len(arg_shapes), name,
+                "x".join(map(str, got[0].shape)), err))
+        readings[what] = {"internals": len(internals.list_outputs()),
+                          "cut": name, "err": err}
+    readings["s"] = time.perf_counter() - t0
+    return readings
+
+
+def resnet_batches(np, n, classes, seed):
+    rng = np.random.RandomState(seed)
+    B, S = RESNET_BATCH, RESNET_IMAGE
+    x = rng.uniform(-1, 1, (n * B, 3, S, S)).astype(np.float32)
+    y = rng.randint(0, classes, (n * B,)).astype(np.float32)
+    return x, y
+
+
+def fine_tune_symbol(mt, net, head_classes):
+    """``net`` cut at its feature layer (the input of ``fc1``) with a new
+    ``FullyConnected`` head whose weight has ``lr_mult`` FT_LR_MULT."""
+    name, feat = feature_cut(net, "fc1")
+    w = mt.sym.Variable("head_weight", lr_mult=FT_LR_MULT)
+    out = mt.sym.FullyConnected(feat, weight=w, num_hidden=head_classes,
+                                name="head")
+    return name, mt.sym.SoftmaxOutput(out, name="softmax")
+
+
+def fine_tune_resnet(torch, np):
+    """14b. ResNet-50 (the ResNet phase's configuration, amp bf16) fit on
+    seeded images, checkpointed, loaded back, cut at its feature layer
+    with a new head (``lr_mult`` 10) and fine-tuned with every backbone
+    argument fixed. Gates: the fixed arguments bit for bit, the head's
+    first update what SGD at lr x lr_mult gives, the loss falling, and
+    the moving statistics updated (the reference's rule: a fixed
+    parameter takes no gradient, its BatchNorm still runs in training
+    mode)."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.models import resnet
+    B, S = RESNET_BATCH, RESNET_IMAGE
+    dev = mt.gpu(0)
+    prefix = str(ROOT / "build" / "phase14_ft" / "resnet")
+    Path(prefix).parent.mkdir(parents=True, exist_ok=True)
+    mt.amp.init("bfloat16")
+    try:
+        net = resnet.get_symbol(num_classes=RESNET_CLASSES,
+                                num_layers=RESNET_LAYERS, stem="s2d",
+                                image_shape="3,%d,%d" % (S, S))
+        x, y = resnet_batches(np, FT_PRE_BATCHES, RESNET_CLASSES, SEED)
+        it = mt.io.NDArrayIter(x, y, B, label_name="softmax_label")
+        mod = mt.mod.Module(net, context=dev)
+        t0 = time.perf_counter()
+        mod.fit(it, num_epoch=1, optimizer="sgd", optimizer_params={
+            "learning_rate": RESNET_LR, "momentum": RESNET_MOMENTUM,
+            "wd": RESNET_WD}, initializer=mt.init.Xavier(
+                rnd_type="gaussian", factor_type="in", magnitude=2).set_rng(
+                    np.random.default_rng(SEED)))
+        mod.save_checkpoint(prefix, 1)
+        torch.cuda.synchronize()
+        pre_s = time.perf_counter() - t0
+        del mod, it
+        gc.collect()
+        torch.cuda.empty_cache()
+        loaded, arg_params, aux_params = mt.model.load_checkpoint(prefix, 1)
+        cut, tuned = fine_tune_symbol(mt, loaded, FT_CLASSES)
+        fixed = [n for n in tuned.list_arguments() if n in arg_params]
+        check(sorted(fixed) == sorted(n for n in arg_params
+                                      if not n.startswith("fc1_")),
+              "14b: the cut net's backbone arguments are not the "
+              "checkpoint's")
+        xt, yt = resnet_batches(np, 1, FT_CLASSES, SEED + 1)
+        it = mt.io.NDArrayIter(xt, yt, B, label_name="softmax_label")
+        mod = mt.mod.Module(tuned, context=dev, fixed_param_names=fixed)
+        mod.bind(data_shapes=it.provide_data,
+                 label_shapes=it.provide_label)
+        mod.init_params(mt.init.Xavier().set_rng(
+            np.random.default_rng(SEED + 2)), arg_params=arg_params,
+            aux_params=aux_params, allow_missing=True)
+        mod.init_optimizer(optimizer="sgd", optimizer_params={
+            "learning_rate": FT_LR, "wd": RESNET_WD})
+        opt = mod._optimizer
+        check(opt.lr_mult.get("head_weight") == FT_LR_MULT,
+              "14b: the optimizer reads lr_mult %s for head_weight, the "
+              "Variable asks for %g" % (opt.lr_mult.get("head_weight"),
+                                        FT_LR_MULT))
+        batch = next(iter(it))
+        db = mt.io.DataBatch(data=[batch.data[0].as_in_context(dev)],
+                             label=[batch.label[0].as_in_context(dev)])
+        y_col = batch.label[0].data.to(dev.device).long().view(-1, 1)
+        w0 = mod._exec.arg_dict["head_weight"].data.clone()
+        aux0 = {n: a.data.clone() for n, a in mod._exec.aux_dict.items()}
+
+        def loss():
+            out = mod.get_outputs()[0].data.float()
+            return -(out.gather(1, y_col) + 1e-12).log().mean()
+
+        mod.forward_backward(db)
+        g = mod._exec.grad_dict["head_weight"].data.clone()
+        losses = [loss()]
+        mod.update()
+        dw = mod._exec.arg_dict["head_weight"].data - w0
+        want = -FT_LR * FT_LR_MULT * (g * opt.rescale_grad + RESNET_WD * w0)
+        rate_err = float((dw - want).abs().max() / want.abs().max())
+        # w0 + update is rounded to f32 and dw = w1 - w0 once more: two
+        # roundings of |w| (2^-24 each) beside an update ~1e-3 of |w|
+        rate_tol = FT_RATE_RTOL + 2.0 ** -23 * float(
+            w0.abs().max() / want.abs().max())
+        for _ in range(FT_STEPS - 1):
+            mod._fit_step(db)
+            losses.append(loss())
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(FT_TIMED):
+            mod._fit_step(db)
+        end.record()
+        torch.cuda.synchronize()
+        step_ms = start.elapsed_time(end) / FT_TIMED
+        args_now, aux_now = mod.get_params()
+        moved = [n for n in fixed
+                 if not torch.equal(args_now[n].data.cpu(),
+                                    arg_params[n].data.cpu())]
+        aux_moved = sum(not torch.equal(aux_now[n].data, aux0[n])
+                        for n in aux0)
+        losses = [float(v) for v in torch.stack(losses).cpu()]
+    finally:
+        mt.amp.off()
+        for f in Path(prefix).parent.glob("*"):
+            f.unlink()
+    log("14b fine-tune: ResNet-%d fit %d batches of %d and checkpointed "
+        "in %.1f s; cut at %s, new %d-class head (head_weight lr_mult %g), "
+        "%d fixed arguments; first head update within %.3g of SGD at lr x "
+        "lr_mult (limit %.3g); loss %s; %.3f ms a step (%d timed, amp "
+        "bf16); %d of %d moving statistics "
+        "updated" % (RESNET_LAYERS, FT_PRE_BATCHES, B, pre_s, cut,
+                     FT_CLASSES, FT_LR_MULT, len(fixed), rate_err, rate_tol,
+                     " ".join("%.4f" % v for v in losses), step_ms,
+                     FT_TIMED, aux_moved, len(aux0)))
+    check(not moved, "14b: fixed arguments changed: %s" % moved[:5])
+    check(rate_err <= rate_tol, "14b: the head's first update is %.3g of "
+          "itself off lr x lr_mult (limit %.3g: %g and two f32 roundings of "
+          "the weight)" % (rate_err, rate_tol, FT_RATE_RTOL))
+    check(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
+          "14b: the fine-tune loss did not fall: %s" % losses)
+    check(aux_moved == len(aux0), "14b: %d of %d moving statistics "
+          "updated; the reference updates them all" % (aux_moved, len(aux0)))
+    del mod
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"step_ms": step_ms, "losses": losses, "rate_err": rate_err,
+            "cut": cut, "fixed": len(fixed)}
+
+
+def grouped_lm_symbol(mt, layers):
+    """The zoo LM at the phase's width: the body built inside
+    ``AttrScope(ctx_group="body")``, cut at the final LayerNorm with
+    ``get_internals``, the head (``FullyConnected(VOCAB)`` +
+    ``SoftmaxOutput``) put on it inside ``AttrScope(ctx_group="head")``."""
+    from mxnet_tpu_torch.models import transformer
+    with mt.AttrScope(ctx_group="body"):
+        full = transformer.get_symbol(VOCAB, layers, D_MODEL, HEADS, D_FF,
+                                      MAX_SEQ, attention="flash")
+    cut, feat = feature_cut(full, "lm_head")
+    with mt.AttrScope(ctx_group="head"):
+        logits = mt.sym.FullyConnected(feat, num_hidden=VOCAB,
+                                       flatten=False, name="lm_head")
+        logits = mt.sym.reshape(logits, (-1, VOCAB))
+        label = mt.sym.reshape(mt.sym.Variable("softmax_label"), (-1,))
+        out = mt.sym.SoftmaxOutput(logits, label, name="softmax",
+                                   normalization="batch")
+    return cut, out
+
+
+def device_kernel_names(prof):
+    """The names of the kernels that took device time in a profile."""
+    return {e.key for e in prof.key_averages()
+            if e.self_device_time_total > 0}
+
+
+def grouped_step(ex, lr):
+    """One forward, backward and plain SGD step through an executor;
+    returns the outputs and the gradients (tensors)."""
+    import torch
+    out = ex.forward(is_train=True)[0].data
+    ex.backward()
+    grads = {n: g.data for n, g in ex.grad_dict.items()}
+    with torch.no_grad():
+        for n, g in grads.items():
+            if n not in ("data", "softmax_label"):
+                ex.arg_dict[n].data.sub_(g, alpha=lr)
+    return out, grads
+
+
+def grouped_lm_phase(torch, np, layers=None):
+    """14c. The zoo LM at bench.py's width in amp bf16, bound with
+    ``simple_bind(group2ctx={"body": gpu(0), "head": gpu(0)})`` and
+    without, from the same seeded weights: GROUP_STEPS forward, backward
+    and SGD steps in lock step must be bit for bit equal (outputs,
+    every gradient, the weights after), then each timed and one grouped
+    step profiled, whose trace must name the three flash-attention
+    kernels; the kernel counters, zeroed before the grouped steps, must
+    read one launch of each kernel per layer per step."""
+    from torch.profiler import ProfilerActivity, profile
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    layers = layers or LAYERS
+    B, T = TRAIN_BATCH, MAX_SEQ
+    dev = mt.gpu(0)
+    counters = {"flash_attention_fwd_bf16": fa.flash_attention_fwd,
+                "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
+                "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv}
+    mt.amp.init("bfloat16")
+    try:
+        cut, net = grouped_lm_symbol(mt, layers)
+        groups = {"body": dev, "head": dev}
+        t0 = time.perf_counter()
+        grouped = net.simple_bind(dev, group2ctx=groups, data=(B, T),
+                                  softmax_label=(B, T))
+        bind_s = time.perf_counter() - t0
+        plain = net.simple_bind(dev, data=(B, T), softmax_label=(B, T))
+        init = mt.init.Xavier().set_rng(np.random.default_rng(SEED))
+        rng = np.random.RandomState(0)
+        x = rng.randint(0, VOCAB, (B, T)).astype(np.float32)
+        y = rng.randint(0, VOCAB, (B, T)).astype(np.float32)
+        for n, arr in grouped.arg_dict.items():
+            if n == "data":
+                arr[:] = x
+            elif n == "softmax_label":
+                arr[:] = y
+            else:
+                init(mt.init.InitDesc(n), arr)
+            plain.arg_dict[n][:] = arr
+        attrs = net.attr_dict()
+        n_body = sum(1 for n in grouped.arg_dict
+                     if attrs.get(n, {}).get("ctx_group") == "body")
+        launches = {n: {"f32": 0, "bf16": 0} for n in counters}
+        for step in range(GROUP_STEPS):
+            # the grouped path: counters zeroed just before, read after
+            for fn in counters.values():
+                fn.launches = {"f32": 0, "bf16": 0}
+            out_g, grads_g = grouped_step(grouped, TRAIN_LR)
+            for n, fn in counters.items():
+                for k, v in fn.launches.items():
+                    launches[n][k] += v
+            out_p, grads_p = grouped_step(plain, TRAIN_LR)
+            check(torch.equal(out_g, out_p), "14c step %d: the grouped "
+                  "outputs differ from the ungrouped bind's" % (step + 1))
+            differ = [n for n in grads_p
+                      if not torch.equal(grads_g[n], grads_p[n])]
+            check(not differ, "14c step %d: gradients differ: %s"
+                  % (step + 1, differ[:5]))
+        torch.cuda.synchronize()
+        differ = [n for n in plain.arg_dict
+                  if not torch.equal(grouped.arg_dict[n].data,
+                                     plain.arg_dict[n].data)]
+        check(not differ, "14c: weights after %d steps differ: %s"
+              % (GROUP_STEPS, differ[:5]))
+        for name, n in launches.items():
+            check(n["bf16"] == layers * GROUP_STEPS and n["f32"] == 0,
+                  "14c: %s launched %s times in %d grouped steps of %d "
+                  "layers" % (name, n, GROUP_STEPS, layers))
+        times = {}
+        for what, ex in (("grouped", grouped), ("ungrouped", plain)):
+            grouped_step(ex, TRAIN_LR)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(GROUP_TIMED):
+                grouped_step(ex, TRAIN_LR)
+            end.record()
+            torch.cuda.synchronize()
+            times[what] = start.elapsed_time(end) / GROUP_TIMED
+        del plain
+        gc.collect()
+        torch.cuda.empty_cache()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            grouped_step(grouped, TRAIN_LR)
+            torch.cuda.synchronize()
+        attention = sorted(n for n in device_kernel_names(prof)
+                           if kernel_kind(n) == "attention kernels")
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        mt.amp.off()
+    log("14c grouped LM: %d layers, d_model %d, T %d, batch %d, amp bf16; "
+        "body cut at %s, head in its own group; %d of %d arguments in "
+        "'body'; bind %.1f s; %d steps bit for bit equal to the ungrouped "
+        "bind (outputs, %d gradients, weights); launches %s; step (forward, "
+        "backward, SGD through the executor) %.3f ms grouped, %.3f ms "
+        "ungrouped (%d timed); attention kernels in the profile: %s; peak "
+        "%.1f GB"
+        % (layers, D_MODEL, T, B, cut, n_body, len(grouped.arg_dict),
+           bind_s, GROUP_STEPS, len(grads_p), launches, times["grouped"],
+           times["ungrouped"], GROUP_TIMED, ", ".join(
+               n[:40] for n in attention), peak_gb))
+    for kind in ("fa_fwd", "fa_bwd_dq", "fa_bwd_dkv"):
+        check(any(kind in n for n in attention), "14c: no %s kernel in the "
+              "grouped step's profile (%s)" % (kind, attention))
+    del grouped
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"step_ms": times["grouped"], "ungrouped_ms": times["ungrouped"],
+            "launches": launches, "attention": attention}
+
+
+# ---- examples/fine_tune.py
+
+def ft_shapes(np, n, num_classes, seed):
+    """Class = which quadrant holds a bright blob (num_classes <= 4)."""
+    rng = np.random.RandomState(seed)
+    y = rng.randint(0, num_classes, n)
+    x = rng.rand(n, 1, 28, 28).astype(np.float32) * 0.3
+    for i in range(n):
+        qy, qx = divmod(int(y[i]), 2)
+        x[i, 0, 14 * qy:14 * qy + 12, 14 * qx:14 * qx + 12] += 0.6
+    return x, y.astype(np.float32)
+
+
+def ft_features(mt):
+    """``fine_tune.py``'s ``feature_net``."""
+    sym = mt.sym
+    net = sym.Convolution(sym.Variable("data"), kernel=(5, 5), num_filter=8,
+                          name="c1")
+    net = sym.Activation(net, act_type="relu")
+    net = sym.Pooling(net, kernel=(2, 2), stride=(2, 2), pool_type="max")
+    net = sym.Convolution(net, kernel=(3, 3), num_filter=16, name="c2")
+    net = sym.Activation(net, act_type="relu")
+    net = sym.Flatten(net)
+    net = sym.FullyConnected(net, num_hidden=32, name="feat")
+    return sym.Activation(net, act_type="relu")
+
+
+def ft_head(mt, features, num_classes, head_name):
+    out = mt.sym.FullyConnected(features, num_hidden=num_classes,
+                                name=head_name)
+    return mt.sym.SoftmaxOutput(out, name="softmax")
+
+
+def ft_train(mt, np, sym, x, y, epochs, lr, ctx, init_seed, arg_params=None,
+             batch=50, fixed_param_names=None):
+    """``fine_tune.py``'s ``train``: Module, Xavier (seeded), the
+    checkpoint's backbone over it (``allow_missing``), SGD 0.9."""
+    it = mt.io.NDArrayIter(x, y, batch, shuffle=True,
+                           label_name="softmax_label")
+    mod = mt.mod.Module(sym, context=ctx,
+                        fixed_param_names=fixed_param_names)
+    mod.bind(data_shapes=it.provide_data, label_shapes=it.provide_label)
+    mod.init_params(mt.init.Xavier().set_rng(
+        np.random.default_rng(init_seed)))
+    if arg_params:
+        mod.set_params(arg_params, {}, allow_missing=True)
+    mod.init_optimizer(optimizer="sgd", optimizer_params={
+        "learning_rate": lr, "momentum": 0.9})
+    for _ in range(epochs):
+        it.reset()
+        for b in it:
+            mod.forward_backward(b)
+            mod.update()
+    it.reset()
+    return mod, dict(mod.score(it, "acc"))["accuracy"]
+
+
+def fine_tune_example(torch, np, a=None):
+    """``examples/fine_tune.py`` at its defaults: pretrain on 4 classes,
+    checkpoint, load, a 3-class head over the frozen backbone; gates:
+    the backbone carries the checkpoint's weights, accuracy > 0.9."""
+    import mxnet_tpu_torch as mt
+    a = a or FINE_TUNE
+    mt.random.seed(42)
+    np.random.seed(42)
+    prefix = str(ROOT / "build" / "phase14_fine_tune" / "pre")
+    Path(prefix).parent.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    with mt.gpu(0):
+        ctx = mt.context.current_context()
+        feats = ft_features(mt)
+        xp, yp = ft_shapes(np, a["n_pre"], 4, seed=1)
+        pre, pre_acc = ft_train(mt, np, ft_head(mt, feats, 4, "fc_pre"), xp,
+                                yp, a["pretrain_epochs"], 0.05, ctx, 1)
+        pre.save_checkpoint(prefix, a["pretrain_epochs"])
+        xt, yt = ft_shapes(np, a["n_tune"], 3, seed=2)
+        _, arg_params, _ = mt.model.load_checkpoint(prefix,
+                                                    a["pretrain_epochs"])
+        arg_params = {k: v for k, v in arg_params.items()
+                      if not k.startswith("fc_pre")}
+        tuned, tuned_acc = ft_train(
+            mt, np, ft_head(mt, feats, 3, "fc_new"), xt, yt,
+            a["tune_epochs"], 0.05, ctx, 2, arg_params=arg_params,
+            fixed_param_names=list(arg_params))
+        same = np.array_equal(tuned.get_params()[0]["c1_weight"].asnumpy(),
+                              arg_params["c1_weight"].asnumpy())
+        _, scratch_acc = ft_train(mt, np, ft_head(mt, feats, 3, "fc_new"),
+                                  xt, yt, a["tune_epochs"], 0.05, ctx, 2)
+    for f in Path(prefix).parent.glob("*"):
+        f.unlink()
+    secs = time.perf_counter() - t0
+    log("14d fine_tune: context %s; pretrain accuracy %.3f; fine-tuned %.3f "
+        "(gate > %g), from scratch %.3f; backbone kept the checkpoint's "
+        "weights: %s; %.1f s" % (ctx, pre_acc, tuned_acc, a["min_acc"],
+                                 scratch_acc, same, secs))
+    check(same, "14d fine_tune: the backbone did not transfer from the "
+          "checkpoint")
+    check(tuned_acc > a["min_acc"], "14d fine_tune: accuracy %.3f, the "
+          "example's gate is > %g" % (tuned_acc, a["min_acc"]))
+    return {"acc": tuned_acc, "scratch_acc": scratch_acc, "s": secs}
+
+
+# ---- examples/model_parallel_lstm.py
+
+def mp_lstm_symbol(mt, num_layers, num_hidden, seq_len, vocab):
+    """``model_parallel_lstm.py``'s ``build_symbol``: a stacked LSTM LM,
+    the embedding, each layer and the head in their own ctx group."""
+    sym = mt.sym
+    with mt.AttrScope(ctx_group="embed"):
+        data = sym.Variable("data")
+        weight = sym.Variable("embed_weight")
+        emb = sym.Embedding(data, weight, input_dim=vocab,
+                            output_dim=num_hidden, name="embed")
+    hidden = sym.SwapAxis(emb, dim1=0, dim2=1)
+    for i in range(num_layers):
+        with mt.AttrScope(ctx_group="layer%d" % i):
+            cell = mt.rnn.LSTMCell(num_hidden, prefix="lstm%d_" % i)
+            hidden, _ = cell.unroll(seq_len, inputs=hidden, layout="TNC",
+                                    merge_outputs=True)
+    with mt.AttrScope(ctx_group="head"):
+        flat = sym.Reshape(hidden, shape=(-1, num_hidden))
+        logits = sym.FullyConnected(flat, num_hidden=vocab, name="cls")
+        label = sym.Reshape(sym.SwapAxis(sym.Variable("label"), dim1=0,
+                                         dim2=1), shape=(-1,))
+        return sym.SoftmaxOutput(logits, label, normalization="valid",
+                                 name="softmax")
+
+
+def mp_lstm_data(np, a):
+    """The example's task: the next token is (current + 1) % vocab."""
+    rng = np.random.RandomState(0)
+    x = rng.randint(1, a["vocab"], (a["batch"], a["seq"]))
+    return x.astype(np.float32), ((x + 1) % a["vocab"]).astype(np.float32)
+
+
+def mp_lstm_bind(mt, sym, a, ctx, group2ctx):
+    states = {n: (a["batch"], a["hidden"]) for n in sym.list_arguments()
+              if "begin_state" in n}
+    return sym.simple_bind(ctx=ctx, grad_req="write", group2ctx=group2ctx,
+                           data=(a["batch"], a["seq"]),
+                           label=(a["batch"], a["seq"]), **states)
+
+
+def mp_lstm_train(mt, np, ex, params, a):
+    """The example's loop from ``params`` (numpy): forward, the nll of
+    the outputs, backward, momentum SGD on NDArrays; returns the nlls."""
+    x, y = mp_lstm_data(np, a)
+    for n, arr in ex.arg_dict.items():
+        arr[:] = x if n == "data" else y if n == "label" else params[n]
+    vel, nlls = {}, []
+    flat = y.T.reshape(-1).astype(int)
+    for _ in range(a["steps"]):
+        probs = ex.forward(is_train=True)[0].asnumpy()
+        p = probs.reshape(-1, a["vocab"])[np.arange(flat.size), flat]
+        nlls.append(float(-np.log(np.maximum(p, 1e-12)).mean()))
+        ex.backward()
+        for n, g in ex.grad_dict.items():
+            if n in ("data", "label"):
+                continue
+            v = vel.get(n)
+            v = a["momentum"] * v - a["lr"] * g if v is not None \
+                else -a["lr"] * g
+            vel[n] = v
+            ex.arg_dict[n][:] = ex.arg_dict[n] + v
+    return nlls
+
+
+def mp_lstm_params(mt, np, ex, seed):
+    """Xavier for the weights (the example's ``mx.init.Xavier()``,
+    seeded), zeros for the begin states."""
+    init = mt.init.Xavier().set_rng(np.random.default_rng(seed))
+    out = {}
+    for n, arr in ex.arg_dict.items():
+        if n in ("data", "label"):
+            continue
+        if "begin_state" in n:
+            out[n] = np.zeros(arr.shape, np.float32)
+        else:
+            init(mt.init.InitDesc(n), arr)
+            out[n] = arr.asnumpy()
+    return out
+
+
+def mp_lstm_example(torch, np, a=None):
+    """``examples/model_parallel_lstm.py`` at its defaults, twice from the
+    same weights: every group on gpu(0), then ``layer0`` on cpu(0) (both
+    directions of the boundary copy); each run to the example's gate
+    (the nll falls below 0.7 of its first), the two within MP_ATOL at
+    every step."""
+    import mxnet_tpu_torch as mt
+    a = a or MP_LSTM
+    t0 = time.perf_counter()
+    sym = mp_lstm_symbol(mt, a["layers"], a["hidden"], a["seq"], a["vocab"])
+    groups = ["embed"] + ["layer%d" % i for i in range(a["layers"])] + \
+        ["head"]
+    runs, params = {}, None
+    for what, place in (("gpu", {}), ("layer0 on cpu", {"layer0":
+                                                         mt.cpu(0)})):
+        group2ctx = {g: place.get(g, mt.gpu(0)) for g in groups}
+        ex = mp_lstm_bind(mt, sym, a, mt.gpu(0), group2ctx)
+        if params is None:
+            params = mp_lstm_params(mt, np, ex, 7)
+        where = {n: str(arr.context) for n, arr in ex.arg_dict.items()}
+        runs[what] = mp_lstm_train(mt, np, ex, params, a)
+    secs = time.perf_counter() - t0
+    gap = max(abs(u - v) for u, v in zip(runs["gpu"],
+                                         runs["layer0 on cpu"]))
+    log("14d model_parallel_lstm: %d layers x %d, %d steps; nll %.4f -> "
+        "%.4f on gpu(0), %.4f -> %.4f with layer0 on cpu(0) (lstm0 "
+        "weights on %s, cls on %s); the placements %.3g apart at most "
+        "(limit %g); %.1f s" % (
+            a["layers"], a["hidden"], a["steps"], runs["gpu"][0],
+            runs["gpu"][-1], runs["layer0 on cpu"][0],
+            runs["layer0 on cpu"][-1], where["lstm0_i2h_weight"],
+            where["cls_weight"], gap, MP_ATOL, secs))
+    check(where["lstm0_i2h_weight"] == str(mt.cpu(0)) and
+          where["cls_weight"] == str(mt.gpu(0)), "14d model_parallel_lstm: "
+          "arguments not on their groups' devices: %s" % where)
+    for what, nlls in runs.items():
+        check(nlls[-1] < nlls[0] * a["max_ratio"], "14d model_parallel_lstm "
+              "(%s): nll %.4f -> %.4f, the example's gate is < %g of the "
+              "first" % (what, nlls[0], nlls[-1], a["max_ratio"]))
+    check(gap <= MP_ATOL, "14d model_parallel_lstm: the placements part by "
+          "%.3g (limit %g)" % (gap, MP_ATOL))
+    return {"nll": runs, "gap": gap, "s": secs}
+
+
+# ---- examples/bi_lstm_sort.py
+
+def sort_data(np, n, seed=0):
+    rng = np.random.RandomState(seed)
+    x = rng.randint(0, SORT_VOCAB, (n, SORT_SEQ))
+    return x.astype(np.float32), np.sort(x, axis=1).astype(np.float32)
+
+
+def sort_symbol(mt, num_hidden=48, num_embed=16):
+    """``bi_lstm_sort.py``'s ``get_symbol``."""
+    sym = mt.sym
+    embed = sym.Embedding(sym.Variable("data"), sym.Variable("embed_weight"),
+                          input_dim=SORT_VOCAB, output_dim=num_embed,
+                          name="embed")
+    bi = mt.rnn.BidirectionalCell(mt.rnn.LSTMCell(num_hidden, prefix="fw_"),
+                                  mt.rnn.LSTMCell(num_hidden, prefix="bw_"),
+                                  output_prefix="bi_")
+    inputs = [sym.reshape(sym.slice_axis(embed, axis=1, begin=t, end=t + 1),
+                          (-1, num_embed)) for t in range(SORT_SEQ)]
+    outputs, _ = bi.unroll(SORT_SEQ, inputs=inputs, merge_outputs=True)
+    logits = sym.FullyConnected(outputs, num_hidden=SORT_VOCAB,
+                                flatten=False, name="proj")
+    logits = sym.reshape(logits, (-1, SORT_VOCAB))
+    label = sym.reshape(sym.Variable("softmax_label"), (-1,))
+    return sym.SoftmaxOutput(logits, label, name="softmax",
+                             normalization="batch")
+
+
+def sort_example(torch, np, a=None):
+    """``examples/bi_lstm_sort.py`` at its defaults through ``Module.fit``
+    (Adam, Perplexity); gate: per-position accuracy > 0.6."""
+    import mxnet_tpu_torch as mt
+    a = a or SORT
+    np.random.seed(a["seed"])
+    mt.random.seed(a["seed"])
+    t0 = time.perf_counter()
+    x, y = sort_data(np, a["examples"])
+    n_val = a["examples"] // 6
+    train = mt.io.NDArrayIter(x[n_val:], y[n_val:],
+                              batch_size=a["batch"], shuffle=True)
+    val = mt.io.NDArrayIter(x[:n_val], y[:n_val], batch_size=a["batch"])
+    mod = mt.mod.Module(sort_symbol(mt), context=mt.gpu(0))
+    mod.fit(train, optimizer="adam",
+            optimizer_params={"learning_rate": a["lr"]},
+            initializer=mt.init.Xavier().set_rng(
+                mt.random.derive_numpy_rng("bi_lstm_sort")),
+            num_epoch=a["epochs"],
+            eval_metric=mt.metric.Perplexity(ignore_label=None))
+    correct = total = 0
+    for batch in val:
+        mod.forward(batch, is_train=False)
+        p = mod.get_outputs()[0].asnumpy().reshape(-1, SORT_SEQ, SORT_VOCAB)
+        lbl = batch.label[0].asnumpy()
+        keep = lbl.shape[0] - batch.pad
+        correct += (p.argmax(-1)[:keep] == lbl[:keep]).sum()
+        total += lbl[:keep].size
+    acc = float(correct / total)
+    secs = time.perf_counter() - t0
+    log("14d bi_lstm_sort: %d epochs of %d sequences, per-position "
+        "accuracy %.4f (gate > %g, chance %.3f); %.1f s"
+        % (a["epochs"], len(x) - n_val, acc, a["min_acc"],
+           1.0 / SORT_VOCAB, secs))
+    check(acc > a["min_acc"], "14d bi_lstm_sort: accuracy %.4f, the "
+          "example's gate is > %g" % (acc, a["min_acc"]))
+    return {"acc": acc, "s": secs}
+
+
+# ---- examples/multi_task.py
+
+def multi_data(np, n, seed=0):
+    rng = np.random.RandomState(seed)
+    y1 = rng.randint(0, 10, n)
+    x = rng.rand(n, 1, 16, 16).astype(np.float32) * 0.3
+    for c in range(10):
+        r, co = divmod(c, 4)
+        x[y1 == c, 0, 4 * r:4 * r + 4, 4 * co:4 * co + 4] += 0.55
+    return (np.clip(x, 0, 1), y1.astype(np.float32),
+            (y1 % 2).astype(np.float32))
+
+
+def multi_symbol(mt, heads=("digit", "parity")):
+    """``multi_task.py``'s ``build``: a shared backbone, a SoftmaxOutput
+    a head, grouped."""
+    sym = mt.sym
+    h = sym.Convolution(sym.Variable("data"), num_filter=16, kernel=(3, 3),
+                        pad=(1, 1), name="c1")
+    h = sym.Activation(h, act_type="relu")
+    h = sym.Pooling(h, kernel=(2, 2), stride=(2, 2), pool_type="max")
+    h = sym.Flatten(h)
+    h = sym.FullyConnected(h, num_hidden=64, name="shared")
+    h = sym.Activation(h, act_type="tanh")
+    outs = []
+    for head, k in (("digit", 10), ("parity", 2)):
+        if head in heads:
+            fc = sym.FullyConnected(h, num_hidden=k, name=head + "_fc")
+            outs.append(sym.SoftmaxOutput(fc, sym.Variable(head + "_label"),
+                                          name=head))
+    return sym.Group(outs) if len(outs) > 1 else outs[0]
+
+
+def multi_train(mt, np, heads, X, Y1, Y2, a, epochs, ctx, init_seed):
+    labels = [(h + "_label", Y) for h, Y in (("digit", Y1), ("parity", Y2))
+              if h in heads]
+    mod = mt.mod.Module(multi_symbol(mt, heads), context=ctx,
+                        label_names=[n for n, _ in labels])
+    mod.bind(data_shapes=[("data", (a["batch"], 1, 16, 16))],
+             label_shapes=[(n, (a["batch"],)) for n, _ in labels])
+    mod.init_params(mt.init.Xavier().set_rng(
+        np.random.default_rng(init_seed)))
+    mod.init_optimizer(optimizer="sgd", optimizer_params={
+        "learning_rate": a["lr"], "momentum": 0.9})
+    it = mt.io.NDArrayIter({"data": X}, dict(labels), a["batch"],
+                           shuffle=True)
+    for _ in range(epochs):
+        it.reset()
+        for batch in it:
+            mod.forward_backward(batch)
+            mod.update()
+    return mod
+
+
+def multi_eval(mt, np, mod, heads, Xv, Y1v, Y2v, a):
+    n = (len(Xv) // a["batch"]) * a["batch"]
+    outs = []
+    for batch in mt.io.NDArrayIter({"data": Xv[:n]}, None, a["batch"]):
+        mod.forward(batch, is_train=False)
+        outs.append([o.asnumpy() for o in mod.get_outputs()])
+    stacked = [np.concatenate([b[i] for b in outs])
+               for i in range(len(outs[0]))]
+    truth = [Y for h, Y in (("digit", Y1v), ("parity", Y2v)) if h in heads]
+    return {h: float((s.argmax(1) == Y[:n]).mean())
+            for h, s, Y in zip([h for h in ("digit", "parity")
+                                if h in heads], stacked, truth)}
+
+
+def multi_example(torch, np, a=None):
+    """``examples/multi_task.py`` at its defaults: two heads trained
+    jointly, then each alone on half the epochs; gates: both heads > 0.9
+    and no loss against the split budget."""
+    import mxnet_tpu_torch as mt
+    a = a or MULTI
+    np.random.seed(a["seed"])
+    t0 = time.perf_counter()
+    ctx = mt.gpu(0)
+    X, Y1, Y2 = multi_data(np, a["examples"], seed=1)
+    Xv, Y1v, Y2v = multi_data(np, 400, seed=2)
+    both = ("digit", "parity")
+    mod = multi_train(mt, np, both, X, Y1, Y2, a, a["epochs"], ctx, 0)
+    acc = multi_eval(mt, np, mod, both, Xv, Y1v, Y2v, a)
+    half = max(a["epochs"] // 2, 1)
+    a1 = multi_eval(mt, np, multi_train(mt, np, ("digit",), X, Y1, Y2, a,
+                                        half, ctx, 1),
+                    ("digit",), Xv, Y1v, Y2v, a)["digit"]
+    a2 = multi_eval(mt, np, multi_train(mt, np, ("parity",), X, Y1, Y2, a,
+                                        half, ctx, 2),
+                    ("parity",), Xv, Y1v, Y2v, a)["parity"]
+    secs = time.perf_counter() - t0
+    log("14d multi_task: digit %.4f parity %.4f (gates > %g); single-task "
+        "on %d epochs: digit %.4f parity %.4f; %.1f s"
+        % (acc["digit"], acc["parity"], a["min_acc"], half, a1, a2, secs))
+    check(acc["digit"] > a["min_acc"] and acc["parity"] > a["min_acc"],
+          "14d multi_task: %s, the example's gate is > %g a head"
+          % (acc, a["min_acc"]))
+    check(acc["digit"] + acc["parity"] >= a1 + a2 - 0.02, "14d multi_task: "
+          "no transfer benefit at equal budget (%s vs %.4f, %.4f)"
+          % (acc, a1, a2))
+    return {"acc": acc, "single": (a1, a2), "s": secs}
+
+
+# ---- examples/lstm_crf.py
+
+def crf_data(np, n, seed=0):
+    """``lstm_crf.py``'s ``synth_tagging``: O / B / I tags over tokens."""
+    rng = np.random.RandomState(seed)
+    X = np.zeros((n, CRF_T), np.float32)
+    Y = np.zeros((n, CRF_T), np.int64)
+    for i in range(n):
+        t = 0
+        while t < CRF_T:
+            if rng.rand() < 0.3 and t < CRF_T - 2:
+                L = rng.randint(2, min(4, CRF_T - t))
+                X[i, t] = rng.randint(10, 15)
+                Y[i, t] = 1
+                for k in range(1, L):
+                    X[i, t + k] = rng.randint(15, 20)
+                    Y[i, t + k] = 2
+                t += L
+            else:
+                X[i, t] = rng.randint(0, 10)
+                t += 1
+    return X, Y
+
+
+def crf_tagger(pkg, hidden, prefix=None):
+    """``lstm_crf.py``'s Gluon ``Tagger`` in package ``pkg``: embedding,
+    bidirectional LSTM, per-token projection and the CRF's transition
+    matrix (``params.get`` after the children)."""
+    gluon, nn = pkg.gluon, pkg.gluon.nn
+
+    class Tagger(gluon.Block):
+        def __init__(self, **kw):
+            super(Tagger, self).__init__(**kw)
+            with self.name_scope():
+                self.embed = nn.Embedding(CRF_VOCAB, hidden)
+                self.lstm = gluon.rnn.LSTM(hidden // 2, num_layers=1,
+                                           bidirectional=True, layout="NTC")
+                self.proj = nn.Dense(CRF_TAGS, flatten=False)
+                self.transitions = self.params.get(
+                    "transitions", shape=(CRF_TAGS, CRF_TAGS),
+                    init=pkg.init.Zero())
+
+        def emissions(self, x):
+            return self.proj(self.lstm(self.embed(x)))
+
+    return Tagger(prefix=prefix)
+
+
+def crf_nll(pkg, np, emissions, transitions, tags):
+    """``lstm_crf.py``'s ``crf_log_likelihood``: the gold path's score
+    against the forward algorithm's partition (logsumexp over T)."""
+    nd = pkg.nd
+    gold = prev = None
+    ctx = emissions[0].context
+    for t in range(CRF_T):
+        tag_t = tags[:, t]
+        s = nd.pick(emissions[t], nd.array(tag_t, ctx=ctx), axis=1)
+        if prev is not None:
+            idx = np.stack([prev, tag_t], axis=0)
+            s = s + nd.gather_nd(transitions, nd.array(idx, ctx=ctx))
+        gold = s if gold is None else gold + s
+        prev = tag_t
+    alpha = emissions[0]
+    trans = nd.expand_dims(transitions, 0)
+    for t in range(1, CRF_T):
+        scores = nd.broadcast_add(nd.broadcast_add(
+            nd.expand_dims(alpha, 2), trans), nd.expand_dims(emissions[t], 1))
+        m = nd.max(scores, axis=1, keepdims=True)
+        alpha = nd.squeeze(m, axis=1) + nd.log(
+            nd.sum(nd.exp(nd.broadcast_sub(scores, m)), axis=1))
+    m = nd.max(alpha, axis=1, keepdims=True)
+    log_z = nd.squeeze(m, axis=1) + nd.log(
+        nd.sum(nd.exp(nd.broadcast_sub(alpha, m)), axis=1))
+    return nd.mean(log_z - gold)
+
+
+def crf_viterbi(np, emissions, transitions):
+    """Max-sum decode; emissions: list of CRF_T (B, K) numpy."""
+    B = emissions[0].shape[0]
+    score, back = emissions[0], []
+    for t in range(1, CRF_T):
+        cand = score[:, :, None] + transitions[None] + emissions[t][:, None]
+        back.append(cand.argmax(axis=1))
+        score = cand.max(axis=1)
+    path = [score.argmax(axis=1)]
+    for bp in reversed(back):
+        path.append(bp[np.arange(B), path[-1]])
+    return np.stack(path[::-1], axis=1)
+
+
+def crf_emission_list(pkg, em):
+    return [pkg.nd.squeeze(pkg.nd.slice_axis(em, axis=1, begin=t,
+                                             end=t + 1), axis=1)
+            for t in range(CRF_T)]
+
+
+def crf_example(torch, np, a=None, steps=None):
+    """``examples/lstm_crf.py`` at its defaults through Gluon on the card
+    (``Trainer("adam")``, the CRF loss from ``nd`` ops under
+    ``autograd.record()``, Viterbi on the host); gates: tag accuracy >
+    0.9 and the transitions forbidding O -> I. ``steps`` cuts the run
+    (the gates then do not apply); the losses are returned."""
+    import mxnet_tpu_torch as mt
+    a = a or CRF
+    np.random.seed(a["seed"])
+    mt.random.seed(a["seed"])
+    t0 = time.perf_counter()
+    X, Y = crf_data(np, a["examples"], seed=1)
+    Xv, Yv = crf_data(np, 80, seed=2)
+    losses = []
+    with mt.gpu(0):
+        net = crf_tagger(mt, a["hidden"], prefix="tagger_")
+        net.initialize(mt.init.Xavier().set_rng(
+            mt.random.derive_numpy_rng("lstm_crf")))
+        trainer = mt.gluon.Trainer(net.collect_params(), "adam",
+                                   {"learning_rate": a["lr"]})
+        bs = 50
+        for _ in range(a["epochs"]):
+            for i in range(0, len(X), bs):
+                with mt.autograd.record():
+                    ems = crf_emission_list(mt, net.emissions(
+                        mt.nd.array(X[i:i + bs])))
+                    loss = crf_nll(mt, np, ems, net.transitions.data(),
+                                   Y[i:i + bs])
+                loss.backward()
+                trainer.step(1)
+                losses.append(float(loss.asnumpy()))
+                if steps is not None and len(losses) == steps:
+                    return {"losses": losses}
+        em = net.emissions(mt.nd.array(Xv)).asnumpy()
+        trans = net.transitions.data().asnumpy()
+    pred = crf_viterbi(np, [em[:, t] for t in range(CRF_T)], trans)
+    acc = float((pred == Yv).mean())
+    secs = time.perf_counter() - t0
+    log("14d lstm_crf: %d epochs, %d steps, crf-nll %.4f -> %.4f; tag "
+        "accuracy %.4f (gate > %g), O->I %.2f vs O->B %.2f; %.1f s"
+        % (a["epochs"], len(losses), losses[0], losses[-1], acc,
+           a["min_acc"], trans[0, 2], trans[0, 1], secs))
+    check(acc > a["min_acc"], "14d lstm_crf: tag accuracy %.4f, the "
+          "example's gate is > %g" % (acc, a["min_acc"]))
+    check(trans[0, 2] < trans[0, 1], "14d lstm_crf: the transitions did "
+          "not learn the tag grammar")
+    return {"acc": acc, "losses": losses, "s": secs}
+
+
+# ---- examples/tree_lstm.py
+
+TREE_AND, TREE_OR, TREE_NOT, TREE_LIT0, TREE_LIT1 = range(5)
+
+
+def tree_data(np, rng, depth, n):
+    """``tree_lstm.py``'s ``gen_heap_trees``: full binary expression
+    trees over {AND, OR, NOT, 0, 1} in heap layout, and their values."""
+    size, first_leaf = 2 ** (depth + 1) - 1, 2 ** depth - 1
+    toks = np.zeros((n, size), np.int64)
+    toks[:, first_leaf:] = rng.randint(TREE_LIT0, TREE_LIT1 + 1,
+                                       (n, size - first_leaf))
+    toks[:, :first_leaf] = rng.randint(TREE_AND, TREE_NOT + 1,
+                                       (n, first_leaf))
+    vals = np.zeros((n, size), bool)
+    vals[:, first_leaf:] = toks[:, first_leaf:] == TREE_LIT1
+    for i in range(first_leaf - 1, -1, -1):
+        l, r = vals[:, 2 * i + 1], vals[:, 2 * i + 2]
+        vals[:, i] = np.where(toks[:, i] == TREE_AND, l & r,
+                              np.where(toks[:, i] == TREE_OR, l | r, ~l))
+    return toks, vals[:, 0]
+
+
+def tree_net(pkg, H, prefix=None):
+    """``tree_lstm.py``'s ``ChildSumTreeLSTM`` in package ``pkg``: the
+    cell recurses over the heap's child indices inside
+    ``autograd.record``."""
+    gluon, nn, nd = pkg.gluon, pkg.gluon.nn, pkg.nd
+
+    class ChildSumTreeLSTM(gluon.Block):
+        def __init__(self, **kw):
+            super(ChildSumTreeLSTM, self).__init__(**kw)
+            with self.name_scope():
+                self.embed = nn.Embedding(5, H)
+                self.W_iou = nn.Dense(3 * H, use_bias=True)
+                self.U_iou = nn.Dense(3 * H, use_bias=False)
+                self.W_f = nn.Dense(H, use_bias=True)
+                self.U_f = nn.Dense(H, use_bias=False)
+                self.out = nn.Dense(2)
+
+        def node(self, toks, i, size):
+            x = nd.reshape(self.embed(nd.slice_axis(toks, axis=1, begin=i,
+                                                    end=i + 1)), (0, -1))
+            states = [self.node(toks, k, size)
+                      for k in (2 * i + 1, 2 * i + 2) if k < size]
+            if states:
+                h_sum = states[0][0]
+                for h, _ in states[1:]:
+                    h_sum = h_sum + h
+                iou = self.W_iou(x) + self.U_iou(h_sum)
+            else:
+                iou = self.W_iou(x)
+            i_g = nd.sigmoid(nd.slice_axis(iou, axis=1, begin=0, end=H))
+            o_g = nd.sigmoid(nd.slice_axis(iou, axis=1, begin=H, end=2 * H))
+            u_g = nd.tanh(nd.slice_axis(iou, axis=1, begin=2 * H,
+                                        end=3 * H))
+            c_new = i_g * u_g
+            if states:
+                wfx = self.W_f(x)
+                for h_k, c_k in states:
+                    c_new = c_new + nd.sigmoid(wfx + self.U_f(h_k)) * c_k
+            return o_g * nd.tanh(c_new), c_new
+
+        def forward(self, toks, size):
+            return self.out(self.node(toks, 0, size)[0])
+
+    return ChildSumTreeLSTM(prefix=prefix)
+
+
+def tree_example(torch, np, a=None, steps=None):
+    """``examples/tree_lstm.py`` at its defaults through Gluon on the card:
+    two topology buckets (depths 2 and 3), Adam; gates: accuracy > 0.85
+    and 0.05 above the leaf-majority baseline. ``steps`` cuts the run
+    (the gates then do not apply); the losses are returned."""
+    import mxnet_tpu_torch as mt
+    a = a or TREE
+    np.random.seed(a["seed"])
+    mt.random.seed(a["seed"])
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(1)
+    buckets = {}
+    for depth in (2, 3):
+        X, Y = tree_data(np, rng, depth, a["trees"] // 2)
+        Xv, Yv = tree_data(np, rng, depth, 100)
+        buckets[depth] = (X, Y, Xv, Yv)
+    losses = []
+    with mt.gpu(0):
+        net = tree_net(mt, a["hidden"], prefix="tree_")
+        net.initialize(mt.init.Xavier().set_rng(
+            mt.random.derive_numpy_rng("tree_lstm")))
+        net(mt.nd.array(buckets[2][0][:2].astype(np.float32)), 7)
+        trainer = mt.gluon.Trainer(net.collect_params(), "adam",
+                                   {"learning_rate": a["lr"]})
+        sce = mt.gluon.loss.SoftmaxCrossEntropyLoss()
+        bs = a["batch"]
+        for _ in range(a["epochs"]):
+            for depth, (X, Y, _, _) in buckets.items():
+                size = 2 ** (depth + 1) - 1
+                perm = rng.permutation(len(Y))
+                for s in range(0, len(Y), bs):
+                    idx = perm[s:s + bs]
+                    xb = mt.nd.array(X[idx].astype(np.float32))
+                    yb = mt.nd.array(Y[idx].astype(np.float32))
+                    with mt.autograd.record():
+                        loss = mt.nd.mean(sce(net(xb, size), yb))
+                    loss.backward()
+                    trainer.step(1)
+                    losses.append(float(loss.asnumpy().ravel()[0]))
+                    if steps is not None and len(losses) == steps:
+                        return {"losses": losses}
+        accs, bases = [], []
+        for depth, (_, _, Xv, Yv) in buckets.items():
+            size = 2 ** (depth + 1) - 1
+            pred = net(mt.nd.array(Xv.astype(np.float32)),
+                       size).asnumpy().argmax(axis=1)
+            accs.append(float((pred == Yv).mean()))
+            first_leaf = 2 ** depth - 1
+            guess = (Xv[:, first_leaf:] == TREE_LIT1).mean(axis=1) >= 0.5
+            bases.append(float((guess == Yv).mean()))
+    acc, base = float(np.mean(accs)), float(np.mean(bases))
+    secs = time.perf_counter() - t0
+    log("14d tree_lstm: %d epochs, %d steps, loss %.4f -> %.4f; accuracy "
+        "%.3f (gate > %g; per depth %s), leaf-majority baseline %.3f; "
+        "%.1f s" % (a["epochs"], len(losses), losses[0], losses[-1], acc,
+                    a["min_acc"], ["%.3f" % v for v in accs], base, secs))
+    check(acc > a["min_acc"], "14d tree_lstm: accuracy %.3f, the example's "
+          "gate is > %g" % (acc, a["min_acc"]))
+    check(acc > base + 0.05, "14d tree_lstm: no structural advantage over "
+          "the leaf-majority baseline (%.3f vs %.3f)" % (acc, base))
+    return {"acc": acc, "losses": losses, "s": secs}
+
+
+def symbol_phase(torch, np):
+    """Phase 14: the Symbol surface on the card (a), the ResNet-50
+    fine-tune (b), the LM under group2ctx (c) and the recurrent and
+    symbolic examples (d)."""
+    check(not torch.backends.cudnn.allow_tf32 and
+          not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 is allowed: phase 14's checks would not be float32")
+    t0 = time.perf_counter()
+    readings = {"surface": surface_phase(torch, np),
+                "fine_tune": fine_tune_resnet(torch, np),
+                "grouped": grouped_lm_phase(torch, np)}
+    for name, fn in (("fine_tune_example", fine_tune_example),
+                     ("model_parallel_lstm", mp_lstm_example),
+                     ("bi_lstm_sort", sort_example),
+                     ("multi_task", multi_example),
+                     ("lstm_crf", crf_example),
+                     ("tree_lstm", tree_example)):
+        readings[name] = fn(torch, np)
+    log("symbol surface and examples phase: %.1f s"
+        % (time.perf_counter() - t0))
+    return readings
+
+
 PAIRS_OF = ("f32-backward", "rtc")
 
 
@@ -6221,6 +7449,7 @@ def main() -> int:
         optim_phase(torch, np, sgd)
         zoo_phase(torch, np)
         structured_phase(torch, np)
+        symbol_phase(torch, np)
         torch.cuda.synchronize()
     except SmokeFailure as exc:
         print("chip_smoke: FAILED: %s" % exc, file=sys.stderr)

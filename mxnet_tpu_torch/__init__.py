@@ -8,8 +8,11 @@ never ``jax`` and nothing of ``mxnet_tpu``; the few jax-free modules it
 needs from the reference are copied in.
 
 Entry points run on ``cuda:0`` unless the caller passes
-``device="cpu"`` (``ctx=cpu()``) or enters ``device_scope("cpu")``;
-without a GPU and without that request they raise.
+``device="cpu"`` (``ctx=cpu()``) or enters ``with cpu():`` (or
+``device_scope("cpu")``); without a GPU and without that request they
+raise. ``cpu()``, ``gpu()`` and ``tpu()`` return a :class:`Context`
+(``tpu`` names the accelerator, here the CUDA card), and
+``current_context()`` is the card unless a scope says otherwise.
 
 Ported so far:
 
@@ -53,26 +56,35 @@ Ported so far:
 * Module's inference surface: ``predict`` / ``iter_predict``,
   ``save_params`` / ``load_params``, the shape properties, ``reshape``,
   ``get_states`` / ``set_states``, the executor monitor (:mod:`.monitor`,
-  ``fit(monitor=)``) and ``SequentialModule``.
+  ``fit(monitor=)``) and ``SequentialModule``;
+* Symbol's whole surface (``get_internals``, composition, ``eval``,
+  ``infer_type``, the fluent methods), naming and attribute scopes
+  (:mod:`.name`), :class:`Context`, and model parallelism through
+  ``AttrScope(ctx_group=)`` and ``simple_bind(group2ctx=)``
+  (:mod:`.executor`).
 """
 from __future__ import annotations
 
-from . import amp, autograd, callback, checkpoint, contrib
+from . import amp, autograd, callback, checkpoint, contrib, executor
 from . import initializer as init
-from . import io, lr_scheduler, metric, model
+from . import io, lr_scheduler, metric, model, name
 from . import module as mod
 from . import monitor as mon
 from . import ndarray as nd
 from . import gluon, operator, optimizer, random, rnn, rtc
 from . import symbol as sym
 from .base import MXNetError
-from .context import cpu, current_device, device_scope, gpu
+from .context import (Context, cpu, current_context, current_device,
+                      device_scope, gpu, num_devices, tpu)
+from .initializer import (Constant, Normal, One, Orthogonal, Uniform,
+                          Xavier, Zero)
+from .name import AttrScope, NameManager
 
-__all__ = ["MXNetError", "cpu", "gpu", "device_scope", "current_device",
-           "amp", "autograd", "callback", "checkpoint", "contrib", "gluon",
-           "init", "io", "lr_scheduler", "metric", "mod", "model", "mon",
-           "nd",
-           "operator",
+__all__ = ["MXNetError", "Context", "cpu", "gpu", "tpu", "current_context",
+           "num_devices", "device_scope", "current_device", "NameManager",
+           "AttrScope", "amp", "autograd", "callback", "checkpoint",
+           "contrib", "executor", "gluon", "init", "io", "lr_scheduler",
+           "metric", "mod", "model", "mon", "name", "nd", "operator",
            "optimizer", "random", "rnn", "rtc", "sym"]
 
 __version__ = "0.1.0"

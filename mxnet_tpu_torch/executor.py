@@ -28,7 +28,16 @@ in topological order (PyTorch runs eagerly) and gradients come from
   ``monitor_values`` yields every op node's outputs of the last forward
   (the values that ran, kept only while ``keep_node_outputs`` is set,
   which ``Monitor.install`` does), named ``<node>_output`` or
-  ``<node>_output<i>`` as the reference names them.
+  ``<node>_output<i>`` as the reference names them;
+* model parallelism (``group2ctx``, the reference's
+  ``graph_executor.cc`` PlaceDevice pass): each op node runs on the
+  device its ``ctx_group`` attribute (``AttrScope(ctx_group=)``) maps
+  to, else on the bind's device. Its inputs made on another device are
+  copied over with ``Tensor.to``, which autograd differentiates, so each
+  gradient lands on its argument's device; every argument, gradient
+  buffer and aux state is held on its group's device
+  (:func:`placement`). A group on the CPU runs the CPU versions of its
+  ops, a group on the card its kernels.
 """
 from __future__ import annotations
 
@@ -40,20 +49,55 @@ from .base import MXNetError
 from .context import DeviceLike, resolve_device
 from .ndarray import NDArray
 
-__all__ = ["Executor", "graph_function"]
+__all__ = ["Executor", "graph_function", "placement"]
 
 
-def graph_function(symbol):
+def _group_device(node, group2ctx, default: torch.device) -> torch.device:
+    group = node.str_attrs.get("ctx_group")
+    if not group or group not in group2ctx:
+        return default
+    return resolve_device(group2ctx[group])
+
+
+def placement(symbol, group2ctx, default: torch.device
+              ) -> Dict[str, torch.device]:
+    """The device of every argument and aux state under ``group2ctx``:
+    its own ``ctx_group``'s, else that of the first op (in topological
+    order) of a group that consumes it, else ``default``."""
+    from .symbol.symbol import _topo_order
+
+    names = symbol.list_arguments() + symbol.list_auxiliary_states()
+    if not group2ctx:
+        return {n: default for n in names}
+    group_of: Dict[str, object] = {}
+    for node in _topo_order(symbol._entries):
+        if not node.str_attrs.get("ctx_group"):
+            continue
+        if node.is_variable:
+            group_of.setdefault(node.name, node)
+        else:
+            for src, _ in node.inputs:
+                if src.is_variable:
+                    group_of.setdefault(src.name, node)
+    return {n: _group_device(group_of[n], group2ctx, default)
+            if n in group_of else default for n in names}
+
+
+def graph_function(symbol, group2ctx=None, default=None):
     """A Symbol as a function of tensors: ``fn(args: {name: tensor},
     aux: {name: tensor}, is_train: bool, device) -> ([outputs],
     {aux name: new value})``, the new values being the trailing outputs
     of each op with aux state. ``device`` is where ops without inputs
     (``_arange``) create their result; ``tap(node, outputs)``, when
-    given, sees every op node's outputs as they are made."""
+    given, sees every op node's outputs as they are made. With
+    ``group2ctx``, each op node runs on its group's device (else on
+    ``default``), its inputs copied there."""
     from .symbol.symbol import _topo_order, run_node
 
     nodes = _topo_order(symbol._entries)
     entries = list(symbol._entries)
+    node_device = {id(n): _group_device(n, group2ctx, default)
+                   for n in nodes if not n.is_variable} if group2ctx else {}
 
     def fn(args: Dict[str, torch.Tensor], aux: Dict[str, torch.Tensor],
            is_train: bool, device, tap=None):
@@ -67,7 +111,10 @@ def graph_function(symbol):
                 vals[(id(node), 0)] = src[node.name]
                 continue
             ins = [vals[(id(n), i)] for n, i in node.inputs]
-            outs = run_node(node, ins, is_train, device)
+            dev = node_device.get(id(node), device)
+            if node_device:
+                ins = [x.to(dev) for x in ins]
+            outs = run_node(node, ins, is_train, dev)
             for i, o in enumerate(outs):
                 vals[(id(node), i)] = o
             if tap is not None:
@@ -97,12 +144,16 @@ def _as_dict(values, names, what) -> Dict:
 
 class Executor:
     """A Symbol bound to arrays on one device: ``ctx`` None means
-    ``cuda:0``, and raises without a GPU (``context.resolve_device``)."""
+    ``cuda:0``, and raises without a GPU (``context.resolve_device``).
+    With ``group2ctx`` ({ctx_group: context}), each group's nodes run on
+    their context, and the bound arrays are moved to their group's
+    device (:func:`placement`)."""
 
     def __init__(self, symbol, ctx: DeviceLike, args, args_grad=None,
-                 grad_req="write", aux_states=None):
+                 grad_req="write", aux_states=None, group2ctx=None):
         self._symbol = symbol
         self._device = resolve_device(ctx)
+        self._group2ctx = dict(group2ctx) if group2ctx else None
         self._arg_names = symbol.list_arguments()
         self._aux_names = symbol.list_auxiliary_states()
         self._output_names = symbol.list_outputs()
@@ -132,7 +183,14 @@ class Executor:
         self._wrt = [n for n in self._arg_names
                      if self._grad_req.get(n, "null") != "null"
                      and n in self.grad_dict]
-        self._fn = graph_function(symbol)
+        if self._group2ctx:
+            where = placement(symbol, self._group2ctx, self._device)
+            for pool in (self.arg_dict, self.grad_dict, self.aux_dict):
+                for n, arr in pool.items():
+                    dev = where.get(n, self._device)
+                    if arr.data.device != dev:
+                        arr._data = arr.data.to(dev)
+        self._fn = graph_function(symbol, self._group2ctx, self._device)
         self._outputs: Optional[List[NDArray]] = None
         self._pending = None     # (outputs, leaves) awaiting backward
         self._monitor_callback = None

@@ -353,7 +353,7 @@ class SymbolBlock(HybridBlock):
         aux = {n: self.params[n].data()
                for n in self._symbol.list_auxiliary_states()}
         train = autograd.is_training()
-        dev = next(iter(arrays.values())).context
+        dev = next(iter(arrays.values())).data.device
         outs, new_aux = nd.ndarray._run(
             self._fn, list(arrays.values()) + list(aux.values()),
             {n: a.data for n, a in arrays.items()},

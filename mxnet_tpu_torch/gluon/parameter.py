@@ -27,7 +27,7 @@ from .. import autograd
 from .. import initializer as init_mod
 from .. import ndarray as nd
 from ..base import MXNetError
-from ..context import cpu, current_device, resolve_device
+from ..context import Context, cpu, current_device, resolve_device
 from ..initializer import InitDesc
 from ..ndarray.ndarray import to_torch_dtype
 
@@ -158,7 +158,7 @@ class Parameter(object):
         if ctx is not None:
             dev = _one_device(ctx)
         elif self._data is not None:
-            dev = self._data.context
+            dev = self._data.data.device
         elif self._deferred_init:
             dev = self._deferred_init[1]
         else:
@@ -204,9 +204,9 @@ class Parameter(object):
     def list_grad(self) -> List[nd.NDArray]:
         return [self.grad()]
 
-    def list_ctx(self) -> List[torch.device]:
+    def list_ctx(self) -> List[Context]:
         if self._data is None and self._deferred_init:
-            return [self._deferred_init[1]]
+            return [Context(self._deferred_init[1])]
         self._check_initialized()
         return [self._data.context]
 

@@ -192,18 +192,15 @@ class Module(BaseModule):
                     allow_missing=False, force_init=False, allow_extra=False):
         """Fill every parameter from ``arg_params`` and every aux state
         from ``aux_params`` (by name) or, failing that, from
-        ``initializer``."""
+        ``initializer``. Names the module does not have are ignored, as
+        the reference ignores them (a checkpoint's old head, when a
+        fine-tune cut the net)."""
         assert self.binded, "call bind before initializing the parameters"
         if self.params_initialized and not force_init:
             return
         attrs = self.symbol.attr_dict()
 
-        def fill(names, arrays, given, what):
-            if given is not None and not allow_extra:
-                extra = sorted(set(given) - set(names))
-                if extra:
-                    raise MXNetError("init_params: unknown %s %s"
-                                     % (what, extra))
+        def fill(names, arrays, given):
             for name in names:
                 arr = arrays[name]
                 if given is not None and name in given:
@@ -219,10 +216,8 @@ class Module(BaseModule):
                 elif initializer is not None:
                     initializer(InitDesc(name, attrs.get(name, None)), arr)
 
-        fill(self._param_names, self._exec.arg_dict, arg_params,
-             "parameters")
-        fill(self._aux_names, self._exec.aux_dict, aux_params,
-             "auxiliary states")
+        fill(self._param_names, self._exec.arg_dict, arg_params)
+        fill(self._aux_names, self._exec.aux_dict, aux_params)
         self._arg_params = {n: self._exec.arg_dict[n]
                             for n in self._param_names}
         self._aux_params = {n: self._exec.aux_dict[n]

@@ -41,7 +41,7 @@ import torch
 
 from .. import autograd
 from ..base import MXNetError, atomic_write
-from ..context import DeviceLike, resolve_device
+from ..context import Context, DeviceLike, resolve_device
 from . import legacy_format
 
 __all__ = ["NDArray", "array", "zeros", "ones", "empty", "waitall",
@@ -82,6 +82,8 @@ def to_numpy_dtype(dtype: torch.dtype):
 def _device(ctx: DeviceLike) -> torch.device:
     if ctx is None:
         return resolve_device(None)
+    if isinstance(ctx, Context):
+        return resolve_device(ctx)
     return torch.device(ctx) if not isinstance(ctx, torch.device) else ctx
 
 
@@ -157,8 +159,11 @@ class NDArray:
         return self._data.dim()
 
     @property
-    def context(self) -> torch.device:
-        return self._data.device
+    def context(self) -> Context:
+        """The array's device as a :class:`~..context.Context`
+        (``cpu(0)``, ``gpu(0)``); it equals the tensor's
+        ``torch.device``."""
+        return Context(self._data.device)
 
     ctx = context
 

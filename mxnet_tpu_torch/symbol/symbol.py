@@ -33,57 +33,20 @@ from __future__ import annotations
 import ast
 import json
 import math
-import threading
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from ..base import MXNetError, atomic_write
-from ..context import resolve_device
+from ..context import current_context, resolve_device
+from ..name import NameManager, current_attr_scope, current_name_manager
 from ..ndarray.ndarray import to_torch_dtype
 from ..ops import OP_REGISTRY, OpDef, get_op
 from ..ops.nn import _tup
 
-__all__ = ["Symbol", "Variable", "Group", "load", "load_json",
+__all__ = ["Symbol", "Variable", "var", "Group", "load", "load_json",
            "NameManager"]
-
-
-# ------------------------------------------------------------------ naming
-
-_local = threading.local()
-
-
-class NameManager:
-    """Per-op-type counter naming: ``fullyconnected0``, ``reshape3``, ...
-    (the reference's ``name.NameManager``)."""
-
-    def __init__(self):
-        self._counter: Dict[str, int] = {}
-        self._old: Optional[NameManager] = None
-
-    def get(self, name: Optional[str], hint: str) -> str:
-        if name:
-            return name
-        hint = hint.lower()
-        idx = self._counter.get(hint, 0)
-        self._counter[hint] = idx + 1
-        return "%s%d" % (hint, idx)
-
-    def __enter__(self):
-        self._old = current_name_manager()
-        _local.name_manager = self
-        return self
-
-    def __exit__(self, *exc):
-        _local.name_manager = self._old
-
-
-def current_name_manager() -> NameManager:
-    nm = getattr(_local, "name_manager", None)
-    if nm is None:
-        nm = NameManager()
-        _local.name_manager = nm
-    return nm
 
 
 # ------------------------------------------------------------------ graph
@@ -192,6 +155,42 @@ class Symbol:
                                           else "_output%d" % idx))
         return names
 
+    def get_internals(self) -> "Symbol":
+        """Every variable and every visible output of every op node, in
+        topological order: ``get_internals()["flatten0_output"]`` cuts a
+        net at a feature layer."""
+        entries = []
+        for node in _topo_order(self._entries):
+            if node.is_variable:
+                entries.append((node, 0))
+            else:
+                entries.extend((node, i) for i in range(
+                    _num_visible_outputs(node.op, node.attrs)))
+        return Symbol(entries)
+
+    def get_children(self) -> Optional["Symbol"]:
+        """The inputs of a single-output op node (None for a variable or
+        a group)."""
+        if len(self._entries) != 1 or self._entries[0][0].is_variable:
+            return None
+        return Symbol(list(self._entries[0][0].inputs))
+
+    def attr(self, key: str) -> Optional[str]:
+        """A user attribute of a single-output symbol (None if unset)."""
+        if len(self._entries) == 1:
+            return self._entries[0][0].str_attrs.get(key)
+        return None
+
+    def list_attr(self) -> Dict[str, str]:
+        """The user attributes of a single-output symbol."""
+        if len(self._entries) == 1:
+            return dict(self._entries[0][0].str_attrs)
+        return {}
+
+    def _set_attr(self, **kwargs):
+        for node, _ in self._entries:
+            node.str_attrs.update({k: str(v) for k, v in kwargs.items()})
+
     def attr_dict(self) -> Dict[str, Dict[str, str]]:
         out = {}
         for node in _topo_order(self._entries):
@@ -201,6 +200,42 @@ class Symbol:
             if d:
                 out[node.name] = d
         return out
+
+    # ------------------------------------------------------------ compose
+    def __call__(self, *args, **kwargs) -> "Symbol":
+        """Composition: a copy of the graph with the named variables
+        replaced by single-output symbols, given positionally (in
+        :meth:`list_arguments` order) or by keyword, never both. Op
+        nodes are copied once each, so a node two outputs share stays
+        shared; variables not replaced stay the same nodes."""
+        if args and kwargs:
+            raise TypeError("compose with either positional or keyword args")
+        mapping = dict(zip(self.list_arguments(), args)) if args \
+            else dict(kwargs)
+        replace: Dict[int, Tuple[_Node, int]] = {}
+        for node in _topo_order(self._entries):
+            if node.is_variable and node.name in mapping:
+                sub = mapping[node.name]
+                if len(sub._entries) != 1:
+                    raise ValueError("can only compose with single-output "
+                                     "symbols")
+                replace[id(node)] = sub._entries[0]
+        memo: Dict[int, _Node] = {}
+
+        def entry(node: _Node, idx: int) -> Tuple[_Node, int]:
+            if id(node) in replace:
+                return replace[id(node)]
+            if node.is_variable:
+                return (node, idx)
+            if id(node) not in memo:
+                copy = _Node(node.op, node.name, dict(node.attrs),
+                             [entry(n, i) for n, i in node.inputs],
+                             node.is_aux)
+                copy.str_attrs = dict(node.str_attrs)
+                memo[id(node)] = copy
+            return (memo[id(node)], idx)
+
+        return Symbol([entry(n, i) for n, i in self._entries])
 
     # ------------------------------------------------------------ math
     def _binop(self, other, opname, scalar_op, reverse=False):
@@ -232,20 +267,44 @@ class Symbol:
     def __rtruediv__(self, o):
         return self._binop(o, "elemwise_div", "_rdiv_scalar", reverse=True)
 
+    __div__ = __truediv__
+    __rdiv__ = __rtruediv__
+
+    def __pow__(self, o):
+        return self._binop(o, "broadcast_power", "_power_scalar")
+
     def __neg__(self):
         return _create(get_op("negative"), [self], {}, None)
+
+    def analyze(self, input_shapes=None, input_dtypes=None, **shape_kwargs):
+        """The reference's static graph analyzer (``analysis/``), which
+        the port does not have yet: raises, naming ROADMAP.md queue
+        A10."""
+        raise MXNetError("Symbol.analyze: the graph analyzer (analysis/) "
+                         "is not ported yet (ROADMAP.md queue A10)")
 
     # ------------------------------------------------------------ shapes
     def infer_shape(self, *args, **kwargs):
         """``(arg_shapes, out_shapes, aux_shapes)`` from the given input
         shapes; parameter and aux shapes the graph implies are derived.
         Raises :class:`MXNetError` naming what cannot be inferred."""
+        return self._infer_shape_impl(False, args, kwargs)
+
+    def infer_shape_partial(self, *args, **kwargs):
+        """:meth:`infer_shape` that does not raise where a shape cannot
+        be inferred: it returns ``(None, None, None)``, as the
+        reference does. A node that rejects its input shapes still
+        raises."""
+        return self._infer_shape_impl(True, args, kwargs)
+
+    def _infer_shape_impl(self, partial, args, kwargs):
         arg_names = self.list_arguments()
         aux_names = self.list_auxiliary_states()
         known: Dict[str, Tuple[int, ...]] = {}
         for n, s in zip(arg_names, args):
             if s is not None:
                 known[n] = tuple(s)
+        kwargs = dict(kwargs)
         batch_size = kwargs.pop("__batch_size__", None)
         known.update({k: tuple(v) for k, v in kwargs.items()
                       if v is not None})
@@ -260,6 +319,8 @@ class Symbol:
         resolved.update(derived)
         missing = [n for n in arg_names + aux_names if n not in resolved]
         if missing:
+            if partial:
+                return None, None, None
             raise MXNetError("infer_shape: cannot infer %s (provide its "
                              "shape)" % missing)
         out_shapes = []
@@ -272,6 +333,31 @@ class Symbol:
             out_shapes.append(tuple(s))
         return ([tuple(resolved[n]) for n in arg_names], out_shapes,
                 [tuple(resolved[n]) for n in aux_names])
+
+    def infer_type(self, *args, **kwargs):
+        """``(arg_types, out_types, aux_types)``, as the reference infers
+        them: each argument float32 unless given (positionally or by
+        name) or pinned by its variable's ``dtype=``; every output and
+        aux state float32. An invalid dtype raises naming its
+        variable."""
+        arg_names = self.list_arguments()
+        dtypes = {node.name: node.str_attrs["__dtype__"]
+                  for node in _topo_order(self._entries)
+                  if node.is_variable and "__dtype__" in node.str_attrs}
+        dtypes.update({n: t for n, t in zip(arg_names, args)
+                       if t is not None})
+        dtypes.update({k: v for k, v in kwargs.items() if v is not None})
+        arg_types = []
+        for n in arg_names:
+            try:
+                arg_types.append(_np_dtype(dtypes.get(n, "float32")))
+            except TypeError as exc:
+                raise MXNetError(
+                    "infer_type: variable %r has invalid dtype %r (%s)"
+                    % (n, dtypes.get(n), exc)) from None
+        f32 = np.dtype(np.float32)
+        return (arg_types, [f32] * len(self._entries),
+                [f32] * len(self.list_auxiliary_states()))
 
     # ------------------------------------------------------------ save/load
     def tojson(self) -> str:
@@ -317,15 +403,48 @@ class Symbol:
         atomic_write(fname, self.tojson().encode("utf-8"))
 
     # ------------------------------------------------------------ bind
+    def eval(self, ctx=None, aux_states=None, **kwargs):
+        """The outputs (NDArrays) for the arguments given by name, on
+        ``ctx`` (None: :func:`~..context.current_context`, the card
+        unless a scope says otherwise); every argument and aux state
+        must be given. Runs in training mode while
+        ``autograd.is_training()``, recording nothing."""
+        from .. import autograd
+        from ..executor import graph_function
+        from ..ndarray import NDArray
+        dev = resolve_device(ctx if ctx is not None else current_context())
+        missing = [n for n in self.list_arguments() if n not in kwargs]
+        if missing:
+            raise MXNetError("eval: missing arguments %s" % missing)
+        aux = {}
+        for n in self.list_auxiliary_states():
+            if not aux_states or n not in aux_states:
+                raise MXNetError("eval: missing auxiliary state %s" % n)
+            aux[n] = _tensor_on(aux_states[n], dev)
+        args = {n: _tensor_on(kwargs[n], dev) for n in self.list_arguments()}
+        with torch.no_grad():
+            outs, _ = graph_function(self)(args, aux, autograd.is_training(),
+                                           dev)
+        return [NDArray(o) for o in outs]
+
     def bind(self, ctx, args, args_grad=None, grad_req="write",
-             aux_states=None):
+             aux_states=None, group2ctx=None):
+        """An :class:`~..executor.Executor` over the given arrays on
+        ``ctx`` (None: ``cuda:0``). With ``group2ctx`` ({ctx_group:
+        context}), each node of an ``AttrScope(ctx_group=)`` runs on its
+        group's device and the bound arrays move there."""
         from ..executor import Executor
-        return Executor(self, ctx, args, args_grad, grad_req, aux_states)
+        return Executor(self, ctx, args, args_grad, grad_req, aux_states,
+                        group2ctx=group2ctx)
 
     def simple_bind(self, ctx, grad_req="write", type_dict=None,
-                    shared_arg_names=None, shared_exec=None, **kwargs):
+                    group2ctx=None, shared_arg_names=None, shared_exec=None,
+                    **kwargs):
         """Infer shapes, allocate arguments and aux states (zeros) and
-        gradient buffers on ``ctx`` (None: ``cuda:0``) and bind.
+        gradient buffers on ``ctx`` (None: ``cuda:0``) and bind. With
+        ``group2ctx``, each array is allocated on its group's device
+        (:func:`~..executor.placement`) and the executor runs each node
+        there.
 
         With ``shared_exec``, the arguments named in ``shared_arg_names``
         (and their gradient buffers) and every aux state are not
@@ -333,9 +452,10 @@ class Symbol:
         themselves, so a write through one executor is seen by the
         other. A shared name that ``shared_exec`` lacks, or holds at
         another shape, device or dtype, raises."""
-        from ..executor import Executor
+        from ..executor import Executor, placement
         from ..ndarray import zeros
         ctx = resolve_device(ctx)
+        where = placement(self, group2ctx, ctx)
         arg_shapes, _, aux_shapes = self.infer_shape(**kwargs)
         arg_names = self.list_arguments()
         type_dict = type_dict or {}
@@ -349,7 +469,7 @@ class Symbol:
             if arr is None:
                 raise MXNetError("simple_bind: the shared executor has no "
                                  "%s %r to share" % (what, name))
-            want = (tuple(shape), ctx, to_torch_dtype(dtype))
+            want = (tuple(shape), where[name], to_torch_dtype(dtype))
             have = (arr.shape, arr.context, arr.data.dtype)
             if have != want:
                 raise MXNetError(
@@ -365,19 +485,26 @@ class Symbol:
                 args[n] = take(shared_exec.arg_dict, n, shape, dtype,
                                "argument")
             else:
-                args[n] = zeros(shape, ctx=ctx, dtype=dtype)
+                args[n] = zeros(shape, ctx=where[n], dtype=dtype)
             if grad_req != "null" and reqs.get(n, "null") != "null":
                 args_grad[n] = take(shared_exec.grad_dict, n, shape,
                                     "float32", "gradient") \
-                    if n in shared else zeros(shape, ctx=ctx)
+                    if n in shared else zeros(shape, ctx=where[n])
         aux = {n: take(shared_exec.aux_dict, n, shape, "float32",
                        "auxiliary state") if shared_exec is not None
-               else zeros(shape, ctx=ctx)
+               else zeros(shape, ctx=where[n])
                for n, shape in zip(self.list_auxiliary_states(),
                                    aux_shapes)}
         return Executor(self, ctx, args,
                         args_grad if grad_req != "null" else None,
-                        grad_req, aux)
+                        grad_req, aux, group2ctx=group2ctx)
+
+
+def _tensor_on(value, dev: torch.device) -> torch.Tensor:
+    """An NDArray's or array-like's tensor on ``dev``."""
+    from ..ndarray import NDArray
+    t = value.data if isinstance(value, NDArray) else torch.as_tensor(value)
+    return t.to(dev)
 
 
 def _batch_hint(known: Dict[str, Tuple[int, ...]]) -> Optional[int]:
@@ -418,19 +545,50 @@ def Group(symbols: Sequence[Symbol]) -> Symbol:
 
 # ------------------------------------------------------------------ factory
 
-def Variable(name: str, attr=None, shape=None, dtype=None, init=None,
-             **kwargs) -> Symbol:
+def Variable(name: str, attr=None, shape=None, lr_mult=None, wd_mult=None,
+             dtype=None, init=None, **kwargs) -> Symbol:
+    """A variable node. The current :class:`~..name.AttrScope`'s
+    attributes come first, then ``attr``; ``shape``, ``lr_mult``,
+    ``wd_mult``, ``dtype`` and ``init`` are stored as the reference
+    stores them (``__shape__``, ``__lr_mult__``, ``__wd_mult__``,
+    ``__dtype__`` as a numpy dtype name, ``__init__``), other keywords
+    as they are."""
     node = _Node(None, name)
-    attrs = dict(attr or {})
+    scope = current_attr_scope()
+    attrs = scope.get(attr) if scope else dict(attr or {})
     if shape is not None:
         attrs["__shape__"] = str(tuple(shape))
+    if lr_mult is not None:
+        attrs["__lr_mult__"] = str(lr_mult)
+    if wd_mult is not None:
+        attrs["__wd_mult__"] = str(wd_mult)
     if dtype is not None:
-        attrs["__dtype__"] = str(dtype)
+        attrs["__dtype__"] = _dtype_name(dtype)
     if init is not None:
         attrs["__init__"] = init if isinstance(init, str) else init.dumps()
     attrs.update({k: str(v) for k, v in kwargs.items()})
     node.str_attrs = attrs
     return Symbol([(node, 0)])
+
+
+var = Variable
+
+
+def _dtype_name(dtype) -> str:
+    """``str(np.dtype(dtype))``, and ``bfloat16`` (which numpy lacks)
+    for torch's or by name."""
+    if dtype is torch.bfloat16 or str(dtype) == "bfloat16":
+        return "bfloat16"
+    if isinstance(dtype, torch.dtype):
+        dtype = str(dtype).replace("torch.", "")
+    return str(np.dtype(dtype))
+
+
+def _np_dtype(dtype):
+    """The numpy dtype of a dtype name; bfloat16 stays torch's (as
+    ``ndarray.to_numpy_dtype`` keeps it)."""
+    name = _dtype_name(dtype)
+    return torch.bfloat16 if name == "bfloat16" else np.dtype(name)
 
 
 def _num_visible_outputs(op: OpDef, attrs: Dict[str, Any]) -> int:
@@ -440,9 +598,17 @@ def _num_visible_outputs(op: OpDef, attrs: Dict[str, Any]) -> int:
 
 def _create(op: OpDef, input_syms: List[Symbol], attrs: Dict[str, Any],
             name: Optional[str]) -> Symbol:
-    """An op node with one Symbol entry per visible output (the
-    ``input_syms`` end with its aux states, if it has any)."""
-    name = current_name_manager().get(name, op.name.lower().replace("_", ""))
+    """An op node named by the current name manager (``name``, else a
+    counter name), with one Symbol entry per visible output."""
+    return _op_node(op, input_syms, attrs, current_name_manager().get(
+        name, op.name.lower().replace("_", "")))
+
+
+def _op_node(op: OpDef, input_syms: List[Symbol], attrs: Dict[str, Any],
+             name: str) -> Symbol:
+    """An op node named ``name`` as given (the ``input_syms`` end with
+    its aux states, if it has any); it carries the current
+    :class:`~..name.AttrScope`'s attributes."""
     entries = []
     for s in input_syms:
         if len(s._entries) != 1:
@@ -450,6 +616,9 @@ def _create(op: OpDef, input_syms: List[Symbol], attrs: Dict[str, Any],
                              "(pick one output with sym[i])" % op.name)
         entries.append(s._entries[0])
     node = _Node(op, name, attrs, entries)
+    scope = current_attr_scope()
+    if scope:
+        node.str_attrs = scope.get(None)
     return Symbol([(node, i) for i in range(_num_visible_outputs(op,
                                                                  attrs))])
 
@@ -475,7 +644,7 @@ def make_symbol_function(op: OpDef):
                 isinstance(a, Symbol) for a in args) and \
                 not any(k in kwargs for k in input_names) and \
                 len(args) > len(input_names):
-            return _create(op, list(args), dict(kwargs), name)
+            return _op_node(op, list(args), dict(kwargs), name)
         inputs: Dict[str, Symbol] = {}
         attrs: Dict[str, Any] = {}
         params = op.param_names
@@ -505,7 +674,7 @@ def make_symbol_function(op: OpDef):
                 inputs[n] = Variable("%s_%s" % (name, n))
                 inputs[n]._entries[0][0].is_aux = True
             in_syms.append(inputs[n])
-        return _create(op, in_syms, attrs, name)
+        return _op_node(op, in_syms, attrs, name)
 
     fn.__name__ = op.name
     fn.__doc__ = op.__doc__
