@@ -234,7 +234,27 @@ Phases, each fatal on failure (exit code 1, no result line):
     ``examples/fine_tune.py``, ``model_parallel_lstm.py`` (every group
     on gpu(0), then ``layer0`` on cpu(0): the two within 1e-5 a step),
     ``bi_lstm_sort.py``, ``multi_task.py``, ``lstm_crf.py`` and
-    ``tree_lstm.py`` at their defaults to their own gates.
+    ``tree_lstm.py`` at their defaults to their own gates;
+15. the compile levers (queue A7): (a) ``bench.py``'s
+    ``resnet_remat_accum`` at its own configuration (ResNet-50 v2, s2d
+    stem, batch 256, amp bf16, Xavier(gaussian, in, 2) from the seed,
+    SGD 0.05 / 0.9 / 1e-4, ``MXNET_TPU_REMAT=auto``,
+    ``set_grad_accum(2)``) through ``Module._fit_step``: the policy
+    ``auto`` resolves is the reference's (``LEVERS_RESNET_POLICY``,
+    whole-forward, no plan), ``accum_steps`` 2 a step, the step-1
+    cross-entropy within 2e-2 nats of the plain f32 forward, the loss
+    falling, the weights after 3 steps within ``LEVERS_PARAM_RTOL`` of
+    the run with remat off; step ms, img/s, MFU, and peak memory at batch
+    256 plain, with grad_accum 2 alone and with both, beside the plain
+    batch-128 step; (b) the LM at ``bench.py``'s width (amp bf16, batch
+    8, flash attention): the scan plan holds 12 layers and its step is
+    bit for bit the unrolled graph's; then ``MXNET_TPU_REMAT=auto`` (per
+    block, ``LEVERS_LM_POLICY``) with grad_accum 2 against grad_accum 2
+    alone, 3 + 5 steps each from the same weights: K1 bf16 launched 24
+    times a microbatch (12 + 12 recomputed), K2 and K3 12, the weights
+    after 3 steps within ``LEVERS_PARAM_RTOL``, the measured drop in peak
+    memory within 25% of the calibrated ``est_peak_saving`` at the
+    microbatch's shapes; step ms beside phase 6's.
 
 The second-to-last line is the kernel table as one JSON object; the
 last is ``{"ok": true, "device": {...}}``. Without a GPU, or run from a
@@ -554,6 +574,32 @@ CRF = {"epochs": 12, "examples": 300, "hidden": 32, "lr": 0.01, "seed": 7,
 CRF_VOCAB, CRF_TAGS, CRF_T = 20, 3, 12
 TREE = {"epochs": 8, "trees": 800, "batch": 50, "hidden": 48, "lr": 0.02,
         "seed": 0, "min_acc": 0.85}
+
+
+# phase 15, the compile levers (queue A7): bench.py's resnet_remat_accum
+# run (twice the ResNet batch, MXNET_TPU_REMAT=auto, set_grad_accum(2))
+# and the LM at bench.py's width under the scan plan, per-block remat and
+# grad_accum 2
+LEVERS_ACCUM = 2
+LEVERS_RESNET_BATCH = 2 * RESNET_BATCH
+# the name MXNET_TPU_REMAT=auto resolves to at each configuration, the
+# reference's pick (tests/test_torch_remat.py derives both from the
+# reference's analyzer under amp bf16)
+LEVERS_RESNET_POLICY = "auto:dots_with_no_batch_dims_saveable"
+LEVERS_LM_POLICY = "auto:dots_with_no_batch_dims_saveable"
+LEVERS_STEPS, LEVERS_TIMED = 3, 5
+# the parameters after LEVERS_STEPS steps with remat on against off, each
+# from the same weights on the same batch: within this share of the
+# largest change those steps made to a weight (max |w3 - w0|). A
+# recompute runs the forward's kernels on the forward's inputs; what may
+# part the runs is the order of atomic sums in a weight gradient (cuDNN's
+# f32 wgrad: 8.8e-5 of the gradient between two calls, phase 9), which a
+# bf16 cast of a weight can turn into one bf16 step (2^-8) of a term
+LEVERS_PARAM_RTOL = 1e-2
+# the LM's measured drop in peak memory (remat off - on, grad_accum 2)
+# against the calibrated est_peak_saving at the microbatch's shapes: the
+# reference's round-trip criterion (tests/test_compile_time.py)
+LEVERS_SAVING_RTOL = 0.25
 
 
 class SmokeFailure(Exception):
@@ -7384,6 +7430,385 @@ def symbol_phase(torch, np):
     return readings
 
 
+# ----------------------------------------------- phase 15: compile levers
+
+def peak_memory(torch) -> int:
+    """Bytes the caching allocator held at most since the last reset."""
+    return torch.cuda.max_memory_allocated()
+
+
+def initial_weights(torch, np, sym, shapes, initializer):
+    """``(arg, aux)`` tensors on the card: ``initializer`` over a module
+    bound at ``shapes`` (inference only), its arrays cloned."""
+    import mxnet_tpu_torch as mt
+    mod = mt.mod.Module(sym, context=mt.gpu(0))
+    mod.bind(data_shapes=[("data", shapes[0])],
+             label_shapes=[("softmax_label", shapes[1])],
+             for_training=False)
+    mod.init_params(initializer)
+    args, aux = mod.get_params()
+    init = ({n: a.data.clone() for n, a in args.items()},
+            {n: a.data.clone() for n, a in aux.items()})
+    del mod, args, aux
+    gc.collect()
+    return init
+
+
+def lever_run(torch, np, sym, init, x, y, opt_params, steps, timed,
+              accum=1, remat="off", scan="auto", counters=None,
+              want_params=False, profiled=None):
+    """One ``Module`` on ``sym`` bound under the compile levers
+    (``MXNET_TPU_SCAN_LAYERS`` ``scan``, ``MXNET_TPU_REMAT`` ``remat``,
+    ``set_grad_accum(accum)``, as bench.py sets them: bind,
+    ``init_params``, ``set_grad_accum``, ``init_optimizer``), its
+    weights set to ``init``, SGD ``opt_params``, trained on the batch
+    ``x``, ``y`` through ``_fit_step``: ``steps`` steps, then ``timed``
+    between CUDA events. The kernel wrappers' ``counters`` are zeroed
+    just before the first step and read after the ``steps``-th; peak
+    memory is reset before the first step and read there too. Returns
+    the readings: losses, the port's counter deltas of the bind and of
+    the steps, the ``scan_layers`` gauge, the remat name, step ms and,
+    with ``want_params``, the weights after ``steps`` steps (copies on
+    the host);
+    with ``profiled`` (a name), one more step under torch.profiler: its
+    device busy time and wall time."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import config, profiler
+    gc.collect()
+    torch.cuda.empty_cache()
+    dev = torch.device(DEVICE)
+    config.set("MXNET_TPU_SCAN_LAYERS", scan)
+    config.set("MXNET_TPU_REMAT", remat)
+    profiler.set_gauge("scan_layers", 0)
+    try:
+        t0 = time.perf_counter()
+        with profiler.counter_delta() as bind_delta:
+            mod = mt.mod.Module(sym, context=mt.gpu(0))
+            mod.bind(data_shapes=[("data", x.shape)],
+                     label_shapes=[("softmax_label", y.shape)])
+            mod.init_params(arg_params=init[0], aux_params=init[1])
+            mod.set_grad_accum(accum)
+            mod.init_optimizer(optimizer="sgd",
+                               optimizer_params=opt_params)
+        bind_s = time.perf_counter() - t0
+        bind_counters = bind_delta.all()
+    finally:
+        config.reset("MXNET_TPU_SCAN_LAYERS")
+        config.reset("MXNET_TPU_REMAT")
+    db = mt.io.DataBatch(data=[mt.nd.array(x, ctx=dev)],
+                         label=[mt.nd.array(y, ctx=dev)])
+    y_col = torch.from_numpy(y).to(dev).long().view(-1, 1)
+
+    def step():
+        mod._fit_step(db)
+        out = mod.get_outputs()[0].data
+        return -(out.gather(1, y_col) + 1e-12).log().mean()
+
+    for fn in (counters or {}).values():
+        fn.launches = {"f32": 0, "bf16": 0}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with profiler.counter_delta() as step_delta:
+        losses = [step() for _ in range(steps)]
+        torch.cuda.synchronize()
+        step_counters = step_delta.all()
+    peak = peak_memory(torch)
+    launches = {n: dict(fn.launches) for n, fn in (counters or {}).items()}
+    # on the host: a copy on the card would count in the next run's peak
+    params = {n: a.data.detach().to("cpu", copy=True)
+              for n, a in mod.get_params()[0].items()} \
+        if want_params else None
+    step_ms = None
+    if timed:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(timed):
+            losses.append(step())
+        end.record()
+        torch.cuda.synchronize()
+        step_ms = start.elapsed_time(end) / timed
+    busy_ms = wall_ms = None
+    if profiled:
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            losses.append(step())
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        busy_ms = device_breakdown(torch, prof, wall_ms / 1e3, profiled)[1]
+    losses = [float(v) for v in torch.stack(losses).cpu()]
+    run = {"losses": losses, "step_ms": step_ms, "peak": peak,
+           "busy_ms": busy_ms, "wall_ms": wall_ms,
+           "bind_s": bind_s, "launches": launches, "params": params,
+           "remat_name": mod._remat_name,
+           "scan_layers": profiler.get_gauge("scan_layers"),
+           "bind_counters": bind_counters, "step_counters": step_counters}
+    del mod, db
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run
+
+
+def param_gap(torch, got, want, start):
+    """The largest |got - want| over every weight (host copies), and the
+    largest change ``want`` made from ``start``."""
+    gap = max(float((got[n].float() - want[n].float()).abs().max())
+              for n in want)
+    moved = max(float((want[n].float() - start[n].float().cpu()).abs().max())
+                for n in want)
+    return gap, moved
+
+
+def check_levers(what, run, policy, accum, steps):
+    """The levers engaged: ``policy`` resolved (one ``remat_applied``
+    count at bind) and ``accum`` microbatches a step."""
+    applied = run["bind_counters"].get("remat_applied", 0)
+    accum_steps = run["step_counters"].get("accum_steps", 0)
+    log("%s: remat %s (remat_applied %d at bind), accum_steps %d over %d "
+        "steps, scan_layers %s" % (what, run["remat_name"], applied,
+                                   accum_steps, steps, run["scan_layers"]))
+    check(run["remat_name"] == policy, "%s: MXNET_TPU_REMAT resolved to %r, "
+          "the reference picks %r" % (what, run["remat_name"], policy))
+    check(applied == (policy != "off"), "%s: remat_applied %d at bind"
+          % (what, applied))
+    expected = steps * accum if accum > 1 else 0
+    check(accum_steps == expected, "%s: accum_steps %d over %d steps of "
+          "grad_accum %d" % (what, accum_steps, steps, accum))
+    losses = run["losses"]
+    check(all(math.isfinite(v) for v in losses), "%s: non-finite loss %s"
+          % (what, losses))
+
+
+def levers_resnet(torch, np):
+    """Phase 15a: bench.py's ``resnet_remat_accum`` at its own
+    configuration: ResNet-50 v2, s2d stem, batch 256, amp bf16,
+    Xavier(gaussian, in, 2) from the seed, SGD 0.05 / 0.9 / 1e-4,
+    ``MXNET_TPU_REMAT=auto`` and ``set_grad_accum(2)``, through
+    ``Module._fit_step``; beside it the same batch with grad_accum 2
+    alone and plain, and the plain batch-128 step."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.models import resnet
+    B, S = LEVERS_RESNET_BATCH, RESNET_IMAGE
+    dev = torch.device(DEVICE)
+    t0 = time.perf_counter()
+    sym = resnet.get_symbol(num_classes=RESNET_CLASSES,
+                            num_layers=RESNET_LAYERS, stem="s2d",
+                            image_shape="3,%d,%d" % (S, S))
+    init = initial_weights(torch, np, sym, ((B, 3, S, S), (B,)),
+                           mt.init.Xavier(rnd_type="gaussian",
+                                          factor_type="in", magnitude=2)
+                           .set_rng(np.random.default_rng(SEED)))
+    rng = np.random.RandomState(0)
+    x = rng.uniform(-1, 1, (B, 3, S, S)).astype(np.float32)
+    y = rng.randint(0, RESNET_CLASSES, (B,)).astype(np.float32)
+    # the plain forward of the accumulated step: each microbatch's
+    # BatchNorms normalise with that microbatch's statistics
+    with torch.no_grad():
+        want = sum(plain_resnet(torch, init[0], torch.from_numpy(xm).to(dev),
+                                torch.from_numpy(ym).to(dev))[0].item()
+                   for xm, ym in zip(np.split(x, LEVERS_ACCUM),
+                                     np.split(y, LEVERS_ACCUM))) / LEVERS_ACCUM
+    torch.cuda.empty_cache()
+    opt = {"learning_rate": RESNET_LR, "momentum": RESNET_MOMENTUM,
+           "wd": RESNET_WD}
+    half = RESNET_BATCH
+    mt.amp.init("bfloat16")
+    try:
+        levers = lever_run(torch, np, sym, init, x, y, opt, LEVERS_STEPS,
+                           LEVERS_TIMED, accum=LEVERS_ACCUM, remat="auto",
+                           want_params=True)
+        accum = lever_run(torch, np, sym, init, x, y, opt, LEVERS_STEPS,
+                          LEVERS_TIMED, accum=LEVERS_ACCUM, want_params=True)
+        plain = lever_run(torch, np, sym, init, x, y, opt, 1, 0)
+        small = lever_run(torch, np, sym, init, x[:half], y[:half], opt, 2,
+                          LEVERS_TIMED)
+    finally:
+        mt.amp.off()
+    check_levers("15a resnet_remat_accum", levers, LEVERS_RESNET_POLICY,
+                 LEVERS_ACCUM, LEVERS_STEPS)
+    check_levers("15a grad_accum only", accum, "off", LEVERS_ACCUM,
+                 LEVERS_STEPS)
+    gap, moved = param_gap(torch, levers["params"], accum["params"], init[0])
+    losses = levers["losses"]
+    img_s = B / (levers["step_ms"] / 1e3)
+    img_s_small = half / (small["step_ms"] / 1e3)
+    log("15a resnet_remat_accum: ResNet-%d v2 s2d, batch %d (%d microbatches"
+        " of %d), %dx%d, amp bf16: bind %.3f s; step %.3f ms (%d between "
+        "CUDA events) = %.1f img/s, MFU %.4f of %.0f TFLOP/s bf16 (%.3f GFLOP"
+        " an image by bench.py's accounting); grad_accum %d alone %.3f ms; "
+        "beside them the plain batch-%d step %.3f ms = %.1f img/s, MFU %.4f"
+        % (RESNET_LAYERS, B, LEVERS_ACCUM, B // LEVERS_ACCUM, S, S,
+           levers["bind_s"], levers["step_ms"], LEVERS_TIMED, img_s,
+           img_s * RESNET_FLOPS_PER_IMG / PEAK_BF16_FLOPS,
+           PEAK_BF16_FLOPS / 1e12, RESNET_FLOPS_PER_IMG / 1e9, LEVERS_ACCUM,
+           accum["step_ms"], half, small["step_ms"], img_s_small,
+           img_s_small * RESNET_FLOPS_PER_IMG / PEAK_BF16_FLOPS))
+    log("15a peak memory: batch %d plain %.3f GB, grad_accum %d %.3f GB, "
+        "grad_accum %d + remat %.3f GB; plain batch %d %.3f GB"
+        % (B, plain["peak"] / 1e9, LEVERS_ACCUM, accum["peak"] / 1e9,
+           LEVERS_ACCUM, levers["peak"] / 1e9, half, small["peak"] / 1e9))
+    log("15a loss per step %s; step-1 cross-entropy %.6f, plain f32 forward "
+        "(7x7 stem, per microbatch) %.6f (|diff| %.3g, tolerance %g); "
+        "weights after %d steps"
+        " with remat on and off %.3g apart, %.3g of the largest change %.3g "
+        "(limit %g)" % (" ".join("%.6f" % v for v in losses), losses[0],
+                        want, abs(losses[0] - want), RESNET_CE_TOL,
+                        LEVERS_STEPS, gap, gap / max(moved, 1e-30), moved,
+                        LEVERS_PARAM_RTOL))
+    check(abs(losses[0] - want) <= RESNET_CE_TOL, "15a: step-1 loss %g vs "
+          "plain forward %g" % (losses[0], want))
+    check(losses[-1] < losses[0], "15a: loss did not fall: %s" % losses)
+    check(gap <= LEVERS_PARAM_RTOL * moved, "15a: weights after %d steps "
+          "with remat on and off %.3g apart, more than %g of their largest "
+          "change %.3g" % (LEVERS_STEPS, gap, LEVERS_PARAM_RTOL, moved))
+    return {"step_ms": levers["step_ms"], "img_s": img_s,
+            "accum_step_ms": accum["step_ms"],
+            "peak_gb": {"plain": plain["peak"] / 1e9,
+                        "accum": accum["peak"] / 1e9,
+                        "accum_remat": levers["peak"] / 1e9,
+                        "plain_%d" % half: small["peak"] / 1e9},
+            "small_step_ms": small["step_ms"]}
+
+
+def levers_lm(torch, np, kernels, sgd):
+    """Phase 15b: the LM at bench.py's width (12 x 2048, 16 heads, T
+    1024, V 32000, B 8, flash attention, amp bf16, SGD lr 0.01). With
+    ``MXNET_TPU_SCAN_LAYERS=auto`` the plan holds 12 layers and its step
+    is bit for bit the unrolled one; then ``MXNET_TPU_REMAT=auto`` (per
+    block) with grad_accum 2 against grad_accum 2 alone: the attention
+    kernels' launches, the weights after 3 steps, and the drop in peak
+    memory against the calibrated ``est_peak_saving``."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.analysis import analyze_symbol
+    from mxnet_tpu_torch.models import transformer
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    counters = {"flash_attention_fwd_bf16": fa.flash_attention_fwd,
+                "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
+                "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv}
+    B, T = TRAIN_BATCH, MAX_SEQ
+    sym = transformer.get_symbol(VOCAB, LAYERS, D_MODEL, HEADS, D_FF, T,
+                                 attention="flash")
+    init = initial_weights(torch, np, sym, ((B, T), (B, T)),
+                           mt.init.Xavier().set_rng(
+                               np.random.default_rng(SEED)))
+    rng = np.random.RandomState(0)
+    x = rng.randint(0, VOCAB, (B, T)).astype(np.float32)
+    y = rng.randint(0, VOCAB, (B, T)).astype(np.float32)
+    opt = {"learning_rate": TRAIN_LR}
+    micro = B // LEVERS_ACCUM
+    mt.amp.init("bfloat16")
+    try:
+        unrolled = lever_run(torch, np, sym, init, x, y, opt, 1, 0,
+                             scan="off", want_params=True)
+        planned = lever_run(torch, np, sym, init, x, y, opt, 1, 0,
+                            want_params=True)
+        same = [n for n in planned["params"] if not torch.equal(
+            planned["params"][n], unrolled["params"][n])]
+        unrolled["params"] = planned["params"] = None
+        report = analyze_symbol(
+            sym, input_shapes={"data": (micro, T),
+                               "softmax_label": (micro, T)},
+            calibrate_remat=True, device=torch.device(DEVICE))
+        suggestion = report.extras["remat"]["suggestion"]
+        remat = lever_run(torch, np, sym, init, x, y, opt, LEVERS_STEPS,
+                          LEVERS_TIMED, accum=LEVERS_ACCUM, remat="auto",
+                          counters=counters, want_params=True,
+                          profiled="15b remat + grad_accum step")
+        accum = lever_run(torch, np, sym, init, x, y, opt, LEVERS_STEPS,
+                          LEVERS_TIMED, accum=LEVERS_ACCUM,
+                          counters=counters, want_params=True)
+        # per block with no selective policy (no dispatch mode)
+        nothing = lever_run(torch, np, sym, init, x, y, opt, 1, LEVERS_TIMED,
+                            accum=LEVERS_ACCUM, remat="nothing_saveable",
+                            profiled="15b nothing_saveable step")
+    finally:
+        mt.amp.off()
+    log("15b scan plan: scan_layers %s (unrolled bind: %s); step 1 of the "
+        "plan and of the unrolled graph: loss %.9f / %.9f, %d of %d weights "
+        "differ" % (planned["scan_layers"], unrolled["scan_layers"],
+                    planned["losses"][0], unrolled["losses"][0], len(same),
+                    len(init[0])))
+    check(planned["scan_layers"] == LAYERS and
+          planned["bind_counters"].get("scan_applied") == 1,
+          "15b: scan_layers %s, scan_applied %s (the plan should hold %d "
+          "layers)" % (planned["scan_layers"],
+                       planned["bind_counters"].get("scan_applied"), LAYERS))
+    check(not unrolled["bind_counters"].get("scan_applied"),
+          "15b: MXNET_TPU_SCAN_LAYERS=off bound a plan")
+    check(not same and planned["losses"] == unrolled["losses"],
+          "15b: the plan's step is not the unrolled one bit for bit: %s"
+          % same[:5])
+    check_levers("15b remat + grad_accum", remat, LEVERS_LM_POLICY,
+                 LEVERS_ACCUM, LEVERS_STEPS)
+    check_levers("15b grad_accum only", accum, "off", LEVERS_ACCUM,
+                 LEVERS_STEPS)
+    per_step = LEVERS_STEPS * LEVERS_ACCUM * LAYERS
+    for run, fwd in ((remat, 2 * per_step), (accum, per_step)):
+        want = {"flash_attention_fwd_bf16": fwd,
+                "flash_attention_bwd_dq": per_step,
+                "flash_attention_bwd_dkv": per_step}
+        got = {n: v["bf16"] for n, v in run["launches"].items()}
+        f32 = sum(v["f32"] for v in run["launches"].values())
+        log("15b %s: launches %s over %d steps x %d microbatches x %d "
+            "layers" % ("remat" if run is remat else "no remat", got,
+                        LEVERS_STEPS, LEVERS_ACCUM, LAYERS))
+        check(got == want and not f32, "15b: launches %s, the path implies "
+              "%s (bf16 only)" % (run["launches"], want))
+    for name in counters:
+        kernels[name]["remat_accum_launches"] = \
+            remat["launches"][name]["bf16"]
+    gap, moved = param_gap(torch, remat["params"], accum["params"], init[0])
+    est = suggestion.get("est_peak_saving")
+    drop = accum["peak"] - remat["peak"]
+    log("15b remat + grad_accum %d: policy %s; step %.3f ms, grad_accum "
+        "alone %.3f ms, phase 6's _fit_step (batch %d, no levers) %.3f ms; "
+        "peak memory %.3f GB against %.3f GB: a drop of %.3f GB, the "
+        "calibrated est_peak_saving at the microbatch (%d x %d) %.3f GB "
+        "(%.1f%% off, limit %.0f%%); weights after %d steps %.3g apart, %.3g"
+        " of the largest change %.3g (limit %g); loss per step %s"
+        % (LEVERS_ACCUM, remat["remat_name"], remat["step_ms"],
+           accum["step_ms"], B, sgd["step_ms"], remat["peak"] / 1e9,
+           accum["peak"] / 1e9, drop / 1e9, micro, T,
+           (est or 0) / 1e9, 100 * abs(drop - (est or 0)) / max(est or 1, 1),
+           100 * LEVERS_SAVING_RTOL, LEVERS_STEPS, gap,
+           gap / max(moved, 1e-30), moved, LEVERS_PARAM_RTOL,
+           " ".join("%.6f" % v for v in remat["losses"])))
+    log("15b per block under nothing_saveable (a plain checkpoint, no "
+        "selective policy), grad_accum %d: step %.3f ms, peak %.3f GB; device"
+        " busy in a profiled step: %.3f of %.3f ms (%s), %.3f of %.3f ms "
+        "(nothing_saveable)" % (LEVERS_ACCUM, nothing["step_ms"],
+                                nothing["peak"] / 1e9, remat["busy_ms"],
+                                remat["wall_ms"], LEVERS_LM_POLICY,
+                                nothing["busy_ms"], nothing["wall_ms"]))
+    check(suggestion.get("policy") == LEVERS_LM_POLICY.split(":", 1)[1],
+          "15b: the calibration's suggestion %r" % suggestion.get("policy"))
+    check(est is not None and est > 0, "15b: no calibrated est_peak_saving")
+    check(abs(drop - est) <= LEVERS_SAVING_RTOL * est,
+          "15b: peak memory dropped %d bytes, the calibrated estimate is %d"
+          % (drop, est))
+    check(remat["losses"][-1] < remat["losses"][0],
+          "15b: loss did not fall: %s" % remat["losses"])
+    check(gap <= LEVERS_PARAM_RTOL * moved, "15b: weights after %d steps "
+          "with remat on and off %.3g apart, more than %g of their largest "
+          "change %.3g" % (LEVERS_STEPS, gap, LEVERS_PARAM_RTOL, moved))
+    return {"step_ms": remat["step_ms"], "accum_step_ms": accum["step_ms"],
+            "peak_gb": remat["peak"] / 1e9,
+            "accum_peak_gb": accum["peak"] / 1e9,
+            "nothing_step_ms": nothing["step_ms"],
+            "est_peak_saving_gb": est / 1e9}
+
+
+def levers_phase(torch, np, kernels, sgd):
+    """Phase 15: the compile levers of queue A7 (15a ResNet, 15b LM)."""
+    t0 = time.perf_counter()
+    readings = {"resnet": levers_resnet(torch, np),
+                "lm": levers_lm(torch, np, kernels, sgd)}
+    log("compile levers phase: %.1f s" % (time.perf_counter() - t0))
+    return readings
+
+
 PAIRS_OF = ("f32-backward", "rtc")
 
 
@@ -7450,6 +7875,7 @@ def main() -> int:
         zoo_phase(torch, np)
         structured_phase(torch, np)
         symbol_phase(torch, np)
+        levers_phase(torch, np, kernels, sgd)
         torch.cuda.synchronize()
     except SmokeFailure as exc:
         print("chip_smoke: FAILED: %s" % exc, file=sys.stderr)

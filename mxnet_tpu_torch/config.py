@@ -6,7 +6,10 @@ same names and defaults for the knobs this package reads — the
 ``MXNET_TPU_SERVE_*`` knobs that ``GenerativeServer`` and ``KVCache``
 consult, ``MXNET_TPU_LOCKCHECK`` and ``MXNET_TPU_FAULTS`` read by
 the copies of ``lockcheck.py`` and ``faults.py``, and the
-``MXNET_TPU_CKPT_*`` knobs of :mod:`.checkpoint`. Knobs of features the
+``MXNET_TPU_CKPT_*`` knobs of :mod:`.checkpoint`, and the compile
+levers the executor and ``Module`` read (``MXNET_TPU_SCAN_LAYERS``,
+``MXNET_TPU_REMAT`` with its legacy alias ``MXNET_EXEC_ENABLE_REMAT``,
+``MXNET_TPU_GROUP_UPDATE``). Knobs of features the
 port does not have yet (the batch ``InferenceServer``, int8 KV) arrive
 with those features.
 """
@@ -113,6 +116,56 @@ register("MXNET_TPU_CKPT_WRITE_RETRIES", int, 3,
          "backoff before the failure is recorded and re-raised at "
          "close; each retry counts ckpt_write_retry. 0 = fail on the "
          "first error")
+
+register("MXNET_EXEC_ENABLE_REMAT", _parse_bool, False,
+         "rematerialize the train step's forward (less device memory, "
+         "more FLOPs); an alias of MXNET_TPU_REMAT="
+         "dots_with_no_batch_dims_saveable, which an explicit "
+         "MXNET_TPU_REMAT overrides")
+
+
+def _parse_scan_layers(v) -> str:
+    s = str(v).strip().lower()
+    if s in ("", "0", "off", "false", "no", "none"):
+        return "off"
+    if s in ("auto", "on", "true", "yes", "1"):
+        return "auto"
+    if s.isdigit() and int(s) >= 2:
+        return s
+    raise ValueError(
+        "MXNET_TPU_SCAN_LAYERS must be off|auto|<min-repeat >= 2>, "
+        "got %r" % (v,))
+
+
+register("MXNET_TPU_SCAN_LAYERS", _parse_scan_layers, "auto",
+         "scan-over-layers: find the repeated homogeneous blocks "
+         "(transformer layers) of a bound graph and run them as one "
+         "plan, layer by layer (the unit per-block remat wraps); auto = "
+         "chains of >= 4 verified-isomorphic blocks, an integer "
+         "overrides that minimum, off = no plan")
+register("MXNET_TPU_GROUP_UPDATE", _parse_bool, True,
+         "with a scan plan bound, count each per-layer parameter family "
+         "of uniform lr/wd multipliers as one update group "
+         "(fused_update_grouped, fused_update_groups); the update's "
+         "arithmetic is the same either way")
+
+
+def _parse_remat(v) -> str:
+    s = str(v).strip()
+    low = s.lower()
+    if low in ("", "0", "off", "false", "no", "none"):
+        return "off"
+    if low == "auto":
+        return "auto"
+    return s   # a policy name, validated at use
+
+
+register("MXNET_TPU_REMAT", _parse_remat, "off",
+         "applied rematerialization for the train step: off = save all "
+         "activations, auto = apply the policy the analysis "
+         "remat-opportunity pass suggests for this graph, any other "
+         "value = a policy name applied as-is (nothing_saveable, "
+         "dots_saveable, dots_with_no_batch_dims_saveable, ...)")
 
 
 def get(name: str):

@@ -37,7 +37,17 @@ in topological order (PyTorch runs eagerly) and gradients come from
   gradient lands on its argument's device; every argument, gradient
   buffer and aux state is held on its group's device
   (:func:`placement`). A group on the CPU runs the CPU versions of its
-  ops, a group on the card its kernels.
+  ops, a group on the card its kernels;
+* compile levers, as the reference's bind applies them: with
+  ``MXNET_TPU_SCAN_LAYERS`` (default ``auto``) the executor finds the
+  graph's repeated blocks (:mod:`.symbol.scan`) and runs them as a plan,
+  layer by layer, bit for bit the unrolled graph (no plan under
+  ``group2ctx``; a chain that does not verify falls back silently), and
+  counts ``scan_applied`` and the ``scan_layers`` gauge; with
+  ``MXNET_TPU_REMAT`` (or ``MXNET_EXEC_ENABLE_REMAT``) the training
+  forward runs under the resolved policy (:mod:`.remat`): each layer of
+  the plan wrapped, or, without a plan, the whole forward, counted once
+  in ``remat_applied``.
 """
 from __future__ import annotations
 
@@ -48,6 +58,8 @@ import torch
 from .base import MXNetError
 from .context import DeviceLike, resolve_device
 from .ndarray import NDArray
+from . import profiler as _profiler
+from . import remat as _remat
 
 __all__ = ["Executor", "graph_function", "placement"]
 
@@ -83,47 +95,68 @@ def placement(symbol, group2ctx, default: torch.device
             if n in group_of else default for n in names}
 
 
-def graph_function(symbol, group2ctx=None, default=None):
+def graph_function(symbol, group2ctx=None, default=None, scan_plan=None):
     """A Symbol as a function of tensors: ``fn(args: {name: tensor},
     aux: {name: tensor}, is_train: bool, device) -> ([outputs],
     {aux name: new value})``, the new values being the trailing outputs
     of each op with aux state. ``device`` is where ops without inputs
     (``_arange``) create their result; ``tap(node, outputs)``, when
-    given, sees every op node's outputs as they are made. With
-    ``group2ctx``, each op node runs on its group's device (else on
-    ``default``), its inputs copied there."""
+    given, sees every op node's outputs as they are made (not again
+    when a remat wrap recomputes them). With ``group2ctx``, each op node
+    runs on its group's device (else on ``default``), its inputs copied
+    there. With ``scan_plan`` (not with ``group2ctx``), the plan's pre
+    nodes run, then its layers (:meth:`ScanPlan.execute`), then its post
+    nodes."""
     from .symbol.symbol import _topo_order, run_node
 
     nodes = _topo_order(symbol._entries)
     entries = list(symbol._entries)
     node_device = {id(n): _group_device(n, group2ctx, default)
                    for n in nodes if not n.is_variable} if group2ctx else {}
+    if scan_plan is not None and group2ctx:
+        raise MXNetError("a scan plan cannot combine with group2ctx "
+                         "placement")
 
     def fn(args: Dict[str, torch.Tensor], aux: Dict[str, torch.Tensor],
            is_train: bool, device, tap=None):
         vals = {}
         new_aux = {}
-        for node in nodes:
+
+        def run(node, ins):
+            dev = node_device.get(id(node), device)
+            if node_device:
+                ins = [x.to(dev) for x in ins]
+            _remat.set_current_op(node.op.name)
+            outs = run_node(node, ins, is_train, dev)
+            if tap is not None and not _remat.replaying():
+                tap(node, outs)
+            return outs
+
+        def exec_node(node):
             if node.is_variable:
                 src = aux if node.is_aux else args
                 if node.name not in src:
                     raise MXNetError("unbound variable %r" % node.name)
                 vals[(id(node), 0)] = src[node.name]
-                continue
-            ins = [vals[(id(n), i)] for n, i in node.inputs]
-            dev = node_device.get(id(node), device)
-            if node_device:
-                ins = [x.to(dev) for x in ins]
-            outs = run_node(node, ins, is_train, dev)
+                return
+            outs = run(node, [vals[(id(n), i)] for n, i in node.inputs])
             for i, o in enumerate(outs):
                 vals[(id(node), i)] = o
-            if tap is not None:
-                tap(node, outs)
             k = node.op.num_aux
             if k:
                 for (src, _), val in zip(node.inputs[-k:], outs[-k:]):
                     if src.is_variable:
                         new_aux[src.name] = val
+
+        if scan_plan is not None:
+            for node in scan_plan.pre_nodes:
+                exec_node(node)
+            scan_plan.execute(vals, args, run)
+            for node in scan_plan.post_nodes:
+                exec_node(node)
+        else:
+            for node in nodes:
+                exec_node(node)
         return [vals[(id(n), i)] for n, i in entries], new_aux
 
     return fn
@@ -190,12 +223,60 @@ class Executor:
                     dev = where.get(n, self._device)
                     if arr.data.device != dev:
                         arr._data = arr.data.to(dev)
-        self._fn = graph_function(symbol, self._group2ctx, self._device)
+        self._remat = None       # the whole-forward remat policy
+        self._remat_name = "off"
+        self._scan_plan = self._build_scan_plan()
+        self._fn = graph_function(symbol, self._group2ctx, self._device,
+                                  scan_plan=self._scan_plan)
+        if self._wrt and self._scan_plan is None and _remat.remat_knob_on():
+            # no plan: the whole forward under the policy (the
+            # reference's fused step and fwd_bwd wrap; one count a bind)
+            policy, name = _remat.resolve_policy(
+                symbol, *self._bound_shapes_dtypes())
+            if policy is not None:
+                self._remat, self._remat_name = policy, name
+                _profiler.incr_counter("remat_applied")
         self._outputs: Optional[List[NDArray]] = None
         self._pending = None     # (outputs, leaves) awaiting backward
         self._monitor_callback = None
         self.keep_node_outputs = False
         self._node_outputs: List = []
+
+    def _bound_shapes_dtypes(self):
+        """``(shapes, dtypes)`` of every bound argument and aux state."""
+        pools = list(self.arg_dict.items()) + list(self.aux_dict.items())
+        return ({n: tuple(a.shape) for n, a in pools},
+                {n: a.data.dtype for n, a in pools})
+
+    def _build_scan_plan(self):
+        """The scan plan (``MXNET_TPU_SCAN_LAYERS``, default auto) and
+        its per-block remat: None under ``group2ctx``, with the knob
+        off, or when no chain verifies (the unrolled path, silently)."""
+        from . import config as _config
+        if self._group2ctx:
+            return None
+        mode = _config.get("MXNET_TPU_SCAN_LAYERS")
+        if mode == "off":
+            return None
+        from .symbol.scan import DEFAULT_MIN_REPEAT, build_scan_plan
+        shapes, dtypes = self._bound_shapes_dtypes()
+        plan = build_scan_plan(
+            self._symbol, min_repeat=DEFAULT_MIN_REPEAT if mode == "auto"
+            else int(mode), shapes=shapes, dtypes=dtypes)
+        if plan is None:
+            return None
+        _profiler.incr_counter("scan_applied")
+        _profiler.set_gauge("scan_layers", plan.n_layers)
+        if _remat.remat_knob_on():
+            policy, name = _remat.resolve_policy(self._symbol, shapes,
+                                                 dtypes)
+            if policy is not None:
+                # each layer of the plan under the policy: the "wrap each
+                # repeated block" form the remat suggestion prescribes
+                plan.body_wrapper = policy.wrap
+                self._remat_name = name
+                _profiler.incr_counter("remat_applied")
+        return plan
 
     def forward(self, is_train: bool = False, **kwargs) -> List[NDArray]:
         """Run the graph; with ``is_train`` and gradients requested,
@@ -205,7 +286,15 @@ class Executor:
             if k not in self.arg_dict:
                 raise MXNetError("forward: unknown argument %r" % k)
             self.arg_dict[k][:] = v
+        return self.forward_inputs(is_train)
+
+    def forward_inputs(self, is_train: bool, inputs=None) -> List[NDArray]:
+        """:meth:`forward` with ``inputs`` ({name: tensor}) in place of
+        those bound arguments, which are not written: ``Module``'s
+        gradient accumulation runs each microbatch so."""
         args = {n: a.data for n, a in self.arg_dict.items()}
+        if inputs:
+            args.update(inputs)
         aux = {n: a.data for n, a in self.aux_dict.items()}
         tap = None
         if self.keep_node_outputs:
@@ -216,8 +305,11 @@ class Executor:
             leaves = {n: args[n].detach().requires_grad_(True)
                       for n in self._wrt}
             args.update(leaves)
+            fn = self._fn
+            if self._remat is not None:
+                fn = self._remat.wrap(fn)
             with torch.enable_grad():
-                outs, new_aux = self._fn(args, aux, True, self._device, tap)
+                outs, new_aux = fn(args, aux, True, self._device, tap)
             self._pending = (outs, leaves)
         else:
             with torch.no_grad():
@@ -235,11 +327,14 @@ class Executor:
                 self._monitor_callback(name, arr)
         return self._outputs
 
-    def gradients(self, out_grads=None):
+    def gradients(self, out_grads=None, into=None):
         """Differentiate the last training forward: ``(names, grads)``,
         one gradient tensor per argument that asks for one (zeros where
         the outputs do not depend on it), without touching
-        ``grad_dict``."""
+        ``grad_dict``. With ``into`` (one buffer per such argument, in
+        ``names``' order), each gradient is added into its buffer in
+        place as autograd produces it, and the buffers are returned: a
+        gradient set is never alive beside the sum."""
         if self._pending is None:
             raise MXNetError("backward called without forward(is_train="
                              "True)")
@@ -255,6 +350,12 @@ class Executor:
                       else torch.as_tensor(g)).to(o.device, o.dtype)
                      for g, o in zip(out_grads, outs)]
         names = list(leaves)
+        if into is not None:
+            for n, buf in zip(names, into):
+                leaves[n].grad = buf
+            torch.autograd.backward(outs, heads,
+                                    inputs=[leaves[n] for n in names])
+            return names, list(into)
         grads = torch.autograd.grad(outs, [leaves[n] for n in names],
                                     grad_outputs=heads, allow_unused=True)
         return names, [g if g is not None else torch.zeros_like(leaves[n])

@@ -14,11 +14,12 @@ totals) and continues at the next epoch or, for a mid-epoch save, at
 the next batch, skipping the batches the saved run consumed.
 ``fit(monitor=)`` installs a :class:`..monitor.Monitor` and, as the
 reference does, runs ``forward_backward`` and ``update`` per batch
-(``tic`` before, ``toc_print`` after) instead of the fused step. The
-reference's ``fit`` also takes gradient accumulation, a parallel layout
-and autotuning; they are later items of the port (ROADMAP.md, queue A)
-and ``fit`` raises :class:`MXNetError` naming the item when one is
-passed.
+(``tic`` before, ``toc_print`` after) instead of the fused step, and so
+refuses ``grad_accum`` above 1. ``fit(grad_accum=n)`` routes to the
+module's ``set_grad_accum`` before it binds. The reference's ``fit``
+also takes a parallel layout and autotuning; they are later items of
+the port (ROADMAP.md, queue A) and ``fit`` raises :class:`MXNetError`
+naming the item when one is passed.
 
 Inference: ``predict`` / ``iter_predict`` run ``forward(is_train=False)``
 per batch and drop the last batch's padding; ``save_params`` /
@@ -45,7 +46,6 @@ BatchEndParam = namedtuple("BatchEndParams",
 
 # fit() options of the reference that later items of the port bring
 _LATER = {
-    "grad_accum": "queue A7 (grad_accum)",
     "layout": "queue A9 (parallelism)",
     "tune": "queue A10 (tune)",
 }
@@ -213,7 +213,7 @@ class BaseModule(object):
         backward and the fused update) and a metric update; checkpoints
         and resume as the module's docstring says."""
         assert num_epoch is not None, "please specify number of epochs"
-        given = {"grad_accum": grad_accum, "layout": layout, "tune": tune}
+        given = {"layout": layout, "tune": tune}
         for name, value in given.items():
             if value is not None:
                 raise MXNetError("fit(%s=...) is not ported yet: it comes "
@@ -255,10 +255,23 @@ class BaseModule(object):
                              ", batch %d" % resume.batches_done
                              if resume.mid_epoch else "")
 
+        if grad_accum is not None:
+            setter = getattr(self, "set_grad_accum", None)
+            if setter is not None:
+                # before init_optimizer, which settles the split
+                setter(grad_accum)
+            elif int(grad_accum) > 1:
+                raise MXNetError(
+                    "fit(grad_accum=%s): %s does not support microbatch "
+                    "gradient accumulation" % (grad_accum,
+                                               type(self).__name__))
         self.bind(data_shapes=train_data.provide_data,
                   label_shapes=train_data.provide_label,
                   for_training=True, force_rebind=force_rebind)
         if monitor is not None:
+            check = getattr(self, "_check_accum_needs_fused", None)
+            if check is not None:
+                check()
             self.install_monitor(monitor)
         self.init_params(initializer=initializer, arg_params=arg_params,
                          aux_params=aux_params, allow_missing=allow_missing,

@@ -27,6 +27,17 @@ rate the scheduler's at ``t``; ``update`` (after ``forward`` and
 ``Module.update`` does. ``_checkpoint_snapshot`` / ``_checkpoint_restore``
 carry everything exact resume needs to and from :mod:`..checkpoint`.
 
+Gradient accumulation (``set_grad_accum(n)``, ``fit(grad_accum=n)``):
+``_fit_step`` splits the bound batch into ``n`` equal microbatches, runs
+a forward and ``torch.autograd.grad`` per microbatch (aux states
+advancing microbatch by microbatch, each drawing its own dropout masks),
+sums the gradients into one buffer per parameter, rescales them as the
+loss heads' normalization asks (:func:`_accum_loss_scale`) and makes one
+update; the outputs are concatenated back to the full batch, so metrics
+see every row. Only one microbatch's activations are alive at a time.
+The remat policy (``MXNET_TPU_REMAT``) is the executor's: each
+microbatch's forward runs under it.
+
 The inference surface follows the reference's: ``data_shapes`` /
 ``label_shapes`` / ``output_shapes``, ``reshape`` (a new executor for
 new input shapes holding this one's parameter, gradient and aux arrays
@@ -56,9 +67,45 @@ from ..io import DataDesc
 from ..ndarray import NDArray
 from .. import model as _model
 from .. import optimizer as opt
+from .. import profiler as _profiler
 from .base_module import BaseModule, _check_input_names
 
 __all__ = ["Module"]
+
+
+def _accum_loss_scale(symbol, accum: int) -> float:
+    """Gradient rescale that makes an N-microbatch accumulated step
+    match the unaccumulated full-batch step (the reference's).
+
+    ``normalization='null'`` heads (and plain outputs driven by ones
+    head gradients) produce per-sample gradients: their sum over the N
+    microbatches is the full-batch gradient, scale 1.
+    ``normalization='batch'`` divides by the (micro)batch size, so the
+    sum is N x the full-batch mean: scale 1/N. ``normalization='valid'``
+    divides by a data-dependent count per microbatch, which no uniform
+    rescale reproduces: it raises, as does a mix of batch-mean and
+    per-sample heads."""
+    kinds = set()
+    for node, _ in symbol._entries:
+        if node.is_variable:
+            kinds.add("sample")
+            continue
+        norm = node.attrs.get("normalization")
+        if norm == "valid":
+            raise MXNetError(
+                "grad_accum: %s head %r uses normalization='valid' "
+                "(a per-batch valid count cannot be replayed per "
+                "microbatch) — use 'batch' or 'null'"
+                % (node.op.name, node.name))
+        kinds.add("batch" if norm == "batch" else "sample")
+    if kinds == {"batch"}:
+        return 1.0 / accum
+    if "batch" in kinds:
+        raise MXNetError(
+            "grad_accum: loss heads mix batch-mean and per-sample/sum "
+            "normalization; the accumulated gradient cannot be rescaled "
+            "consistently — align the heads' normalization")
+    return 1.0
 
 
 def _as_tensor(value, like: torch.Tensor) -> torch.Tensor:
@@ -118,6 +165,9 @@ class Module(BaseModule):
         self._param_index: Dict[str, int] = {}
         self._preload_opt_states = None
         self.inputs_need_grad = False
+        self._grad_accum = 1
+        self._accum_scale = 1.0
+        self._remat_name = "off"
 
     # ------------------------------------------------------------ names
     @property
@@ -367,6 +417,68 @@ class Module(BaseModule):
         if self._preload_opt_states is not None:
             self.load_optimizer_states(self._preload_opt_states)
             self._preload_opt_states = None
+        self._build_fused_step()
+
+    def _build_fused_step(self) -> None:
+        """What the reference settles when it builds its fused step: the
+        gradient-accumulation split (N must divide every batch
+        dimension) and its loss rescale, the ``grad_accum`` gauge, the
+        remat policy's name (the executor's), and, with a scan plan and
+        ``MXNET_TPU_GROUP_UPDATE``, the per-layer parameter families
+        that update as one group (``fused_update_grouped``,
+        ``fused_update_groups``): every member trained, one
+        (lr_mult, wd_mult). ``Updater.update_multi`` already runs each
+        group of equal (lr, wd, count) as one ``torch._foreach_*``
+        sequence, equal to the per-parameter update, so the families
+        change no arithmetic."""
+        from .. import config as _config
+        accum = self._grad_accum
+        self._accum_scale = 1.0
+        if accum > 1:
+            for d in (self._data_shapes or []) + (self._label_shapes or []):
+                if d.shape and d.shape[0] % accum:
+                    raise MXNetError(
+                        "grad_accum=%d does not divide the %r batch "
+                        "dimension %d" % (accum, d.name, d.shape[0]))
+            self._accum_scale = _accum_loss_scale(self._symbol, accum)
+            _profiler.set_gauge("grad_accum", accum)
+        self._remat_name = self._exec._remat_name
+        plan = self._exec._scan_plan
+        if plan is None or not _config.get("MXNET_TPU_GROUP_UPDATE"):
+            return
+        trained = set(self._trained_names())
+        o, idx = self._optimizer, self._param_index
+        groups = 0
+        for names in plan.var_lists.values():
+            if len(names) < 2 or any(n not in trained for n in names):
+                continue
+            mults = {(o._resolve_mult(o.lr_mult, idx[n]),
+                      o._resolve_mult(o.wd_mult, idx[n])) for n in names}
+            groups += len(mults) == 1
+        if groups:
+            _profiler.incr_counter("fused_update_grouped")
+            _profiler.set_gauge("fused_update_groups", groups)
+
+    def _check_accum_needs_fused(self) -> None:
+        if self._grad_accum > 1:
+            raise MXNetError(
+                "grad_accum > 1 requires the fused train step; this "
+                "binding falls back to eager update (kvstore/custom "
+                "updater) which cannot microbatch")
+
+    def set_grad_accum(self, n: int) -> None:
+        """Microbatch gradient accumulation: ``_fit_step`` splits every
+        bound batch into ``n`` equal microbatches, so activation memory
+        scales with the microbatch while the optimizer sees the
+        full-batch gradient (``fit(grad_accum=n)`` routes here). ``n=1``
+        restores the plain step."""
+        n = int(n)
+        if n < 1:
+            raise MXNetError("grad_accum must be >= 1, got %d" % n)
+        if n != self._grad_accum:
+            self._grad_accum = n
+            if self.optimizer_initialized:
+                self._build_fused_step()
 
     def borrow_optimizer(self, shared_module):
         """Take ``shared_module``'s optimizer and updater, its state
@@ -434,21 +546,63 @@ class Module(BaseModule):
     def _fit_step(self, data_batch):
         """One training step: forward, backward with ones head
         gradients, and one fused update of every trained parameter
-        straight from the gradients (``grad_dict`` is not written)."""
+        straight from the gradients (``grad_dict`` is not written); with
+        ``set_grad_accum(n)``, n microbatches summed into one update."""
         assert self.binded and self.params_initialized \
             and self.optimizer_initialized
         self._load_batch(data_batch)
-        self._exec.forward(is_train=True)
-        names, grads = self._exec.gradients()
-        if self.inputs_need_grad:
-            with torch.no_grad():
-                for n, g in zip(names, grads):
-                    if n in self._data_names:
-                        self._exec.grad_dict[n].data.copy_(g)
+        if self._grad_accum > 1:
+            names, grads = self._accum_gradients()
+        else:
+            self._exec.forward(is_train=True)
+            names, grads = self._exec.gradients()
+            if self.inputs_need_grad:
+                with torch.no_grad():
+                    for n, g in zip(names, grads):
+                        if n in self._data_names:
+                            self._exec.grad_dict[n].data.copy_(g)
         params = [(n, g) for n, g in zip(names, grads)
                   if n not in self._data_names]
         self._apply_update([n for n, _ in params], [g for _, g in params],
                            fit_step=True)
+
+    def _accum_gradients(self):
+        """The accumulated step's gradients: a forward and a backward
+        per equal microbatch of the bound inputs (aux states committed by
+        each forward in turn), the first microbatch's gradients the
+        buffers the later ones are added into in place, in microbatch
+        order, rescaled once; the executor's outputs are set to the
+        microbatches' concatenated."""
+        ex, n = self._exec, self._grad_accum
+        inputs = {name: ex.arg_dict[name].data
+                  for name in self._data_names + self._label_names}
+        acc, parts = None, []
+        for i in range(n):
+            micro = {name: t.chunk(n)[i] for name, t in inputs.items()}
+            parts.append(ex.forward_inputs(True, micro))
+            if acc is None:
+                names, grads = ex.gradients()
+                # owned buffers: a gradient may come back as a view
+                acc = [g if g._base is None and g.is_contiguous()
+                       else g.clone(memory_format=torch.contiguous_format)
+                       for g in grads]
+                del grads
+            else:
+                # summed in place as each gradient is made
+                names, acc = ex.gradients(into=acc)
+        if self._accum_scale != 1.0:
+            torch._foreach_mul_(acc, self._accum_scale)
+        if self.inputs_need_grad:
+            with torch.no_grad():
+                for name, g in zip(names, acc):
+                    if name in self._data_names:
+                        ex.grad_dict[name].data.copy_(g)
+        ex._outputs = [NDArray(torch.cat([p[k].data for p in parts])
+                               if parts[0][k].data.dim() else
+                               torch.stack([p[k].data for p in parts]))
+                       for k in range(len(parts[0]))]
+        _profiler.incr_counter("accum_steps", n)
+        return names, acc
 
     def get_outputs(self, merge_multi_context=True) -> List[NDArray]:
         assert self.binded and self.params_initialized

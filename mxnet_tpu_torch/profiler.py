@@ -1,7 +1,8 @@
 """Always-on counters, gauges and histograms.
 
 The part of the reference package's ``profiler.py`` that the serving
-path reads: counters (``<name>_compile``, ``<name>_tokens``, ...),
+and training paths read: counters (``<name>_compile``, ``<name>_tokens``,
+``remat_applied``, ``accum_steps``, ...) with ``counter_delta``,
 gauges (queue depth, KV occupancy) and the fixed-bucket histograms
 behind the TTFT/TPOT percentiles. Trace spans, the chrome-trace dump
 and the flight recorder are not ported yet.
@@ -12,7 +13,8 @@ import bisect
 import threading
 from typing import Dict, Optional
 
-__all__ = ["incr_counter", "get_counter", "counters", "set_gauge",
+__all__ = ["incr_counter", "get_counter", "counters", "counter_delta",
+           "set_gauge",
            "get_gauge", "gauges", "Histogram", "histogram"]
 
 _lock = threading.Lock()
@@ -36,6 +38,28 @@ def counters() -> dict:
     """Snapshot of all counters."""
     with _lock:
         return dict(_counters)
+
+
+class counter_delta(object):
+    """Context manager snapshotting the counter table so tests and benches
+    can assert on the increments one region produced (``with
+    counter_delta() as d: ...; d.get("remat_applied")``) without clearing
+    the global registry under concurrent users."""
+
+    def __enter__(self):
+        self._snap = counters()
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def get(self, name: str) -> int:
+        return get_counter(name) - self._snap.get(name, 0)
+
+    def all(self) -> dict:
+        now = counters()
+        return {k: v - self._snap.get(k, 0) for k, v in now.items()
+                if v != self._snap.get(k, 0)}
 
 
 # -------------------------------------------------------------- gauges

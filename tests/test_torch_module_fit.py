@@ -162,6 +162,14 @@ def test_no_context_without_gpu_raises(monkeypatch):
 def test_fit_options_of_later_slices_raise(option, value):
     pm = mt.mod.Module(port_transformer.get_symbol(**KW), context=mt.cpu())
     x = np.zeros((N, T), np.float32)
+    if option == "grad_accum":
+        # ported (A7): fit routes it to set_grad_accum and trains
+        with mt.profiler.counter_delta() as d:
+            pm.fit(mt.io.NDArrayIter(x, x, batch_size=N), num_epoch=1,
+                   eval_metric=mt.metric.Loss(), **{option: value})
+        assert pm.binded and pm._grad_accum == value
+        assert d.get("accum_steps") == value
+        return
     with pytest.raises(MXNetError, match="not ported yet.*ROADMAP"):
         pm.fit(mt.io.NDArrayIter(x, x, batch_size=N), num_epoch=1,
                **{option: value})
