@@ -10,7 +10,7 @@ another checkout's package with this script's code, for a before/after
 pair on one card: ``f32-backward`` its float32 dQ and dK/dV kernels (as
 phase 5 times this one's), ``rtc`` its ``relu``, ``scale_add`` and
 ``split`` user kernels against torch's calls (as phase 7 pairs this
-one's).
+one's), ``fit-loop`` phase 12c's AlexNet runs through its ``fit``.
 
 Phases, each fatal on failure (exit code 1, no result line):
 
@@ -254,7 +254,39 @@ Phases, each fatal on failure (exit code 1, no result line):
     times a microbatch (12 + 12 recomputed), K2 and K3 12, the weights
     after 3 steps within ``LEVERS_PARAM_RTOL``, the measured drop in peak
     memory within 25% of the calibrated ``est_peak_saving`` at the
-    microbatch's shapes; step ms beside phase 6's.
+    microbatch's shapes; step ms beside phase 6's;
+16. the data plane and the async fit loop (queue A6): first the host
+    probe, logged before anything uses it (cv2, PIL, whether the native
+    library builds and loads, the jpeg / png libraries ldconfig knows,
+    the cores), then the route fixed in ``DATA_ENCODER`` /
+    ``DATA_DECODER`` (cv2: the card's host has no libjpeg / libpng),
+    named in the log. (a) 2,560 seeded JPEG records (shorter side 256,
+    longer 256-384, quality 95, the label the content's hue bucket)
+    packed by ``recordio.pack_img`` into an indexed ``.rec`` and read
+    back byte for byte; (b) the pipeline alone: ``ImageRecordIter`` at
+    ``examples/train_imagenet.py``'s settings (3x224x224, batch 128,
+    ``rand_crop``, ``rand_mirror``, the RGB mean) over 20 batches at 4
+    and ``min(nproc, 32)`` threads, its first batch against a numpy
+    oracle of the same records (equal); ``DataLoader`` +
+    ``ImageTransform`` at 0, 2 and 4 workers, forked while a
+    ``PrefetchingIter`` thread copies batches to the card, its first 3
+    batches bit-identical across the counts, and the loader's queue
+    transport timed alone; (c) ResNet-50 (7x7 stem, 1000 classes,
+    Xavier gaussian / in / 2, SGD 0.1 / 0.9 / 1e-4) through
+    ``Module.fit`` from the records (window 2, device prefetch 2), one
+    epoch of 20 steps in amp bf16 and in f32: ms a step between CUDA
+    events after 5 warm, img/s, the idle share of a profiled step, the
+    same net fed a device-resident batch in the same call; the step-1
+    loss within 2e-2 / 1e-3 of a plain f32 forward of the same decoded
+    batch, the loss falling, ``loop_host_sync`` 0, ``loop_prefetch_placed``
+    equal to the steps, the device accuracy equal to a host count over
+    the fetched outputs; windows 2 and 0 bit for bit over 5 steps under
+    ``cudnn.deterministic``; (d) a ``DataLoader`` (2 workers, shuffle,
+    seed, batch 32, 12 batches) through ``fit``, checkpointed at batch 6
+    and resumed with 4 workers: bit for bit the uninterrupted run, the
+    cursor in the manifest; and the run again with
+    ``data.worker@5:sigkill``, replayed bit for bit. A hung loader ends
+    the run through ``faulthandler`` after ``DATA_DEADLINE_S``.
 
 The second-to-last line is the kernel table as one JSON object; the
 last is ``{"ok": true, "device": {...}}``. Without a GPU, or run from a
@@ -262,6 +294,7 @@ directory that holds nothing else of the repository, it exits non-zero.
 """
 from __future__ import annotations
 
+import faulthandler
 import gc
 import json
 import math
@@ -600,6 +633,51 @@ LEVERS_PARAM_RTOL = 1e-2
 # against the calibrated est_peak_saving at the microbatch's shapes: the
 # reference's round-trip criterion (tests/test_compile_time.py)
 LEVERS_SAVING_RTOL = 0.25
+
+# phase 16, the data plane (queue A6): examples/train_imagenet.py's input
+# path (examples/common/data.py: ImageRecordIter, 3x224x224, batch 128,
+# rand_crop, rand_mirror, the RGB mean, --data-nthreads 4) into
+# Module.fit's async loop. The card's host was probed before this phase
+# was written: cv2 4.13.0 and PIL 12.2.0 import, g++ 13.3, 8 cores, and
+# neither jpeglib.h / png.h nor a libjpeg / libpng in ldconfig, so the
+# native library cannot build there. The route is fixed here and named in
+# the log, never chosen at run time:
+DATA_ENCODER = "cv2"   # recordio.pack_img, as the reference's im2rec packs
+DATA_DECODER = "cv2"   # MXNET_USE_NATIVE_IO=0: ImageRecordIter's and
+                       # ImageTransform's Python/cv2 path; the native
+                       # pipeline is held on the CPU (tests/test_torch_image)
+DATA_RECORDS = 2560    # one epoch of 16c: 20 batches of 128
+DATA_SHORT, DATA_LONG = 256, (256, 384)   # im2rec --resize 256's output
+DATA_QUALITY = 95      # pack_img's default
+DATA_NOISE = 12.0      # std of the noise on smooth content, in levels:
+                       # 39-56 KB a record (47 mean) at 256 x 256-384
+DATA_CLASSES = 10      # hue buckets: the label is the content's hue
+DATA_MEAN = (123.68, 116.779, 103.939)    # examples/common/data.py
+DATA_SHAPE = (3, 224, 224)
+DATA_BATCH = 128
+DATA_THREADS = 4       # --data-nthreads' default
+DATA_MAX_THREADS = 32  # 16b's second reading: min(nproc, this) threads
+DATA_PIPE_BATCHES = 20
+DATA_WORKERS = (2, 4)
+DATA_LOADER_BATCHES = 8     # timed per worker count; the first 3 compared
+DATA_LOADER_SAME = 3
+# the Python path's batch against a numpy oracle of the same records:
+# cv2 decodes both and nothing is resized here, so they are equal
+DATA_ORACLE_ATOL = 0.0
+# train_imagenet's fit: ResNet-50 (7x7 stem), 1000 classes, Xavier
+# gaussian / in / 2, SGD 0.1 / 0.9 / 1e-4 (examples/train_imagenet.py,
+# examples/common/fit.py); window 2 and device prefetch 2 (the defaults)
+IMAGENET_LR, IMAGENET_MOM, IMAGENET_WD = 0.1, 0.9, 1e-4
+IMAGENET_WARM = 5      # steps before the timed window of an epoch
+IMAGENET_PROFILED = 15  # the step profiled for the idle share
+DATA_PARITY_STEPS = 5  # window 2 against window 0, bit for bit
+# 16d: a DataLoader through fit, checkpointed at batch 6 of 12, resumed
+# with another worker count (tests/test_data.py:335-351's drill)
+DATA_RESUME_BATCH, DATA_RESUME_BATCHES, DATA_RESUME_AT = 32, 12, 6
+DATA_FAULT = "data.worker@5:sigkill"
+# phase 16 on the card takes 73-100 s: a hung loader or decode thread
+# ends the run (faulthandler, armed by main) instead of the call's limit
+DATA_DEADLINE_S = 600
 
 
 class SmokeFailure(Exception):
@@ -7809,7 +7887,763 @@ def levers_phase(torch, np, kernels, sgd):
     return readings
 
 
-PAIRS_OF = ("f32-backward", "rtc")
+# ------------------------------------------------- the data plane (phase 16)
+
+def host_probe(scratch):
+    """What this host offers the data plane, read and logged before the
+    fixed route runs: cv2 and PIL, whether the native library builds and
+    loads (it needs libjpeg and libpng; built afresh in ``scratch``), the
+    jpeg / png libraries ldconfig knows, and the cores."""
+    import ctypes
+    import os
+    from mxnet_tpu_torch import native
+    from mxnet_tpu_torch.base import MXNetError
+    found = {}
+    for name in ("cv2", "PIL"):
+        try:
+            found[name] = __import__(name).__version__
+        except ImportError:
+            found[name] = None
+    try:
+        ctypes.CDLL(str(native.build(out_dir=scratch)))
+        found["native"] = "builds and loads"
+    except OSError as exc:
+        found["native"] = "builds, does not load: %s" % exc
+    except MXNetError as exc:
+        errs = [ln.strip() for ln in str(exc).splitlines()
+                if "error" in ln.lower()]
+        found["native"] = "does not build: %s" % (errs[0] if errs else
+                                                  str(exc).splitlines()[0])
+    try:
+        ld = subprocess.run(["ldconfig", "-p"], capture_output=True,
+                            text=True, timeout=60).stdout
+        found["ldconfig"] = sorted({ln.split()[0] for ln in ld.splitlines()
+                                    if "=>" in ln and ("jpeg" in ln or
+                                                       "png" in ln)})
+    except OSError as exc:
+        found["ldconfig"] = "not run: %s" % exc
+    found["nproc"] = os.cpu_count()
+    log("16 host probe: %s" % json.dumps(found))
+    log("16 route (fixed in chip_smoke.py, not chosen at run time): records "
+        "encoded by %s through recordio.pack_img (JPEG quality %d), decoded "
+        "by %s (MXNET_USE_NATIVE_IO=%d)"
+        % (DATA_ENCODER, DATA_QUALITY, DATA_DECODER,
+           DATA_DECODER == "native"))
+    for name in {DATA_ENCODER, DATA_DECODER} - {"native"}:
+        check(found.get(name) is not None, "16: the route's %s does not "
+              "import on this host" % name)
+    return found
+
+
+def data_shape():
+    return (3, RESNET_IMAGE, RESNET_IMAGE)
+
+
+def data_image(np, cv2, label, h, w, seed):
+    """One seeded BGR image of class ``label``: smooth low-frequency
+    colour (a 4x5 grid of HSV cells, cubic-upsampled) whose hue lies in
+    the label's bucket, plus mild noise, so the JPEG sizes look like a
+    photo's and the label is a function of the content."""
+    r = np.random.RandomState(seed)
+    width = 180.0 / DATA_CLASSES
+    hue = (label + r.uniform(0.3, 0.7) +
+           r.uniform(-0.2, 0.2, (4, 5))) * width
+    hsv = np.stack([hue, r.uniform(120, 255, (4, 5)),
+                    r.uniform(90, 255, (4, 5))], -1).astype(np.uint8)
+    bgr = cv2.cvtColor(hsv, cv2.COLOR_HSV2BGR)
+    img = cv2.resize(bgr, (w, h), interpolation=cv2.INTER_CUBIC)
+    img = img.astype(np.float32) + r.normal(0.0, DATA_NOISE, img.shape)
+    return np.clip(img + 0.5, 0, 255).astype(np.uint8)
+
+
+def records_phase(np, out):
+    """16a: DATA_RECORDS seeded images (shorter side DATA_SHORT, longer
+    DATA_LONG) packed into an indexed .rec / .idx, then read back byte for
+    byte; and an index of the first DATA_RESUME_BATCHES x
+    DATA_RESUME_BATCH records for 16d."""
+    import hashlib
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+    import cv2
+    from mxnet_tpu_torch import recordio
+    path, idx = str(out / "train.rec"), str(out / "train.idx")
+    rng = np.random.RandomState(SEED)
+    specs = []
+    for i in range(DATA_RECORDS):
+        long_side = int(rng.randint(DATA_LONG[0], DATA_LONG[1] + 1))
+        hw = (long_side, DATA_SHORT) if rng.rand() < 0.5 else \
+            (DATA_SHORT, long_side)
+        specs.append((int(rng.randint(DATA_CLASSES)),) + hw +
+                     (int(rng.randint(2 ** 31)),))
+
+    def pack(i):
+        label, h, w, seed = specs[i]
+        img = data_image(np, cv2, label, h, w, seed)
+        return recordio.pack_img(recordio.IRHeader(0, float(label), i, 0),
+                                 img, quality=DATA_QUALITY, img_fmt=".jpg")
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(min(os.cpu_count() or 1,
+                                DATA_MAX_THREADS)) as pool:
+        packed = list(pool.map(pack, range(DATA_RECORDS)))
+    rec = recordio.MXIndexedRecordIO(idx, path, "w")
+    for i, buf in enumerate(packed):
+        rec.write_idx(i, buf)
+    rec.close()
+    write_s = time.perf_counter() - t0
+    digests = [hashlib.sha256(b).digest() for b in packed]
+    sizes = np.array([len(b) for b in packed])
+    del packed
+    t0 = time.perf_counter()
+    back = recordio.MXIndexedRecordIO(idx, path, "r")
+    check(back.keys == list(range(DATA_RECORDS)), "16a: the index holds %d "
+          "keys, %d were written" % (len(back.keys), DATA_RECORDS))
+    bad = [k for k in back.keys
+           if hashlib.sha256(back.read_idx(k)).digest() != digests[k]]
+    back.close()
+    read_s = time.perf_counter() - t0
+    labels = np.array([s[0] for s in specs])
+    log("16a records: %d JPEG records (quality %d, shorter side %d, longer "
+        "%d-%d) in %.3f s, %.1f MB; a record %.1f KB mean (%.1f-%.1f); "
+        "labels by hue bucket %s; read back byte for byte in %.3f s, %d "
+        "differ" % (DATA_RECORDS, DATA_QUALITY, DATA_SHORT, DATA_LONG[0],
+                    DATA_LONG[1], write_s, sizes.sum() / 1e6,
+                    sizes.mean() / 1e3, sizes.min() / 1e3,
+                    sizes.max() / 1e3,
+                    np.bincount(labels, minlength=DATA_CLASSES).tolist(),
+                    read_s, len(bad)))
+    check(not bad, "16a: records %s do not read back as written" % bad[:5])
+    n_resume = DATA_RESUME_BATCHES * DATA_RESUME_BATCH
+    resume_idx = str(out / "resume.idx")
+    with open(idx) as fin, open(resume_idx, "w") as fout:
+        fout.writelines(fin.readlines()[:n_resume])
+    return {"rec": path, "idx": idx, "resume_idx": resume_idx,
+            "kb": float(sizes.mean() / 1e3)}
+
+
+def record_iter(mt, path, threads, **kw):
+    """ImageRecordIter at examples/common/data.py's training settings."""
+    args = dict(path_imgrec=path, data_shape=data_shape(),
+                batch_size=DATA_BATCH, shuffle=True, rand_crop=True,
+                rand_mirror=True, mean_r=DATA_MEAN[0], mean_g=DATA_MEAN[1],
+                mean_b=DATA_MEAN[2], preprocess_threads=threads, seed=SEED)
+    args.update(kw)
+    return mt.io.ImageRecordIter(**args)
+
+
+def pipeline_rate(mt, path, threads, batches):
+    """The iterator alone: seconds to its first batch, and img/s over
+    ``batches`` from its construction (its prefetch buffer fills ahead
+    of the consumer, so a rate after the first batch would count buffered
+    batches as free)."""
+    t0 = time.perf_counter()
+    it = record_iter(mt, path, threads)
+    check(it._native is None if DATA_DECODER == "cv2" else
+          it._native is not None, "16b: ImageRecordIter is not on the %s "
+          "route" % DATA_DECODER)
+    next(it)
+    t1 = time.perf_counter()
+    for _ in range(batches - 1):
+        next(it)
+    t2 = time.perf_counter()
+    check(it.close(), "16b: ImageRecordIter's threads did not stop")
+    return {"first_s": t1 - t0, "img_s": batches * DATA_BATCH / (t2 - t0)}
+
+
+def oracle_batch(np, path, n):
+    """The first ``n`` images of the iterator's first epoch in plain numpy
+    from the same records: cv2 decode, the crop corner and mirror coin
+    drawn from RandomState(SEED) after the epoch's shuffle (record by
+    record, the reference's order), BGR -> RGB, minus the mean."""
+    import cv2
+    from mxnet_tpu_torch import recordio
+    rec = recordio.MXRecordIO(path, "r")
+    bufs = []
+    while True:
+        buf = rec.read()
+        if buf is None:
+            break
+        bufs.append(buf)
+    rec.close()
+    rng = np.random.RandomState(SEED)
+    order = np.arange(len(bufs))
+    rng.shuffle(order)
+    _, th, tw = data_shape()
+    data, labels = [], []
+    for i in order[:n]:
+        header, payload = recordio.unpack(bufs[i])
+        img = cv2.imdecode(np.frombuffer(payload, np.uint8),
+                           cv2.IMREAD_COLOR)
+        h, w = img.shape[:2]
+        y = rng.randint(0, h - th + 1)
+        x = rng.randint(0, w - tw + 1)
+        img = img[y:y + th, x:x + tw]
+        if rng.rand() < 0.5:
+            img = img[:, ::-1]
+        img = img[:, :, ::-1].astype(np.float32) - \
+            np.asarray(DATA_MEAN, np.float32)
+        data.append(img.transpose(2, 0, 1))
+        labels.append(header.label)
+    return np.stack(data), np.asarray(labels, np.float32)
+
+
+def loader_run(mt, rec, workers, batches):
+    """``data.DataLoader`` + ``ImageTransform`` over the records: img/s
+    over ``batches`` from its construction, and its first
+    DATA_LOADER_SAME batches."""
+    from mxnet_tpu_torch.data import DataLoader, ImageTransform
+    t0 = time.perf_counter()
+    dl = DataLoader(rec["rec"], idx_path=rec["idx"], batch_size=DATA_BATCH,
+                    transform=ImageTransform(data_shape(),
+                                             mean=sum(DATA_MEAN) / 3),
+                    shuffle=True, seed=SEED, num_workers=workers,
+                    part=(0, 1))
+    kept = []
+    for k in range(batches):
+        b = next(dl)
+        if k == 0:
+            t1 = time.perf_counter()
+        if k < DATA_LOADER_SAME:
+            kept.append((b.data[0].copy(), b.label[0].copy()))
+    t2 = time.perf_counter()
+    dl.close()
+    return {"first_s": t1 - t0, "img_s": batches * DATA_BATCH / (t2 - t0),
+            "kept": kept}
+
+
+def _queue_producer(q, shape, n):
+    import numpy as np
+    batch = np.ones(shape, np.float32)
+    for i in range(n):
+        q.put(("data", i, batch, None))
+
+
+def queue_transfer_s(n):
+    """Seconds one decoded batch (DATA_BATCH x data_shape() float32)
+    takes through the DataLoader's transport, a multiprocessing queue fed
+    by a forked process, over ``n`` batches after the first."""
+    import multiprocessing as mp
+    ctx = mp.get_context("fork")
+    q = ctx.Queue(4)
+    proc = ctx.Process(target=_queue_producer, daemon=True,
+                       args=(q, (DATA_BATCH,) + data_shape(), n + 1))
+    proc.start()
+    try:
+        q.get(timeout=300)
+        t0 = time.perf_counter()
+        for _ in range(n):
+            q.get(timeout=300)
+        return (time.perf_counter() - t0) / n
+    finally:
+        proc.join(timeout=10)
+        if proc.is_alive():
+            proc.kill()
+
+
+def pipeline_phase(torch, np, mt, rec):
+    """16b: the input pipeline alone, no training: ImageRecordIter with
+    the example's DATA_THREADS and with min(nproc, 32) threads; its first
+    batch against the numpy oracle; DataLoader + ImageTransform with each
+    of DATA_WORKERS workers, forked while a PrefetchingIter's thread
+    copies batches to the card, its first batches bit-identical across
+    worker counts."""
+    import os
+    rates = {}
+    for threads in sorted({DATA_THREADS,
+                           min(os.cpu_count() or 1, DATA_MAX_THREADS)}):
+        rates[threads] = pipeline_rate(mt, rec["rec"], threads,
+                                       DATA_PIPE_BATCHES)
+        log("16b ImageRecordIter (%s route), %d threads, batch %d, %s: "
+            "first batch after %.3f s, %.1f img/s over %d batches"
+            % (DATA_DECODER, threads, DATA_BATCH, "x".join(
+                map(str, data_shape())), rates[threads]["first_s"],
+               rates[threads]["img_s"], DATA_PIPE_BATCHES))
+    it = record_iter(mt, rec["rec"], DATA_THREADS)
+    first = next(it)
+    it.close()
+    want_x, want_y = oracle_batch(np, rec["rec"], DATA_BATCH)
+    got_x = first.data[0].asnumpy()
+    err = float(np.abs(got_x - want_x).max())
+    log("16b first batch against the numpy oracle (cv2 decode, the seeded "
+        "crop and mirror, the mean): max |diff| %.3g (limit %g), labels %s"
+        % (err, DATA_ORACLE_ATOL, "equal" if np.array_equal(
+            first.label[0].asnumpy(), want_y) else "DIFFER"))
+    check(err <= DATA_ORACLE_ATOL and
+          np.array_equal(first.label[0].asnumpy(), want_y),
+          "16b: the first batch is not the oracle's (max |diff| %g)" % err)
+    dev = torch.device(DEVICE)
+
+    def to_card(batch):
+        batch._mx_placed = {"data": batch.data[0].data.to(
+            dev, non_blocking=True)}
+        return batch
+
+    # the loader forks its workers while this thread copies to the card
+    busy = mt.io.PrefetchingIter(record_iter(mt, rec["rec"], DATA_THREADS),
+                                 device_placer=to_card, device_prefetch=2)
+    next(busy)
+    runs = {}
+    try:
+        for workers in (0,) + tuple(DATA_WORKERS):
+            runs[workers] = loader_run(mt, rec, workers,
+                                       DATA_LOADER_BATCHES)
+            log("16b DataLoader + ImageTransform (%s), %d worker processes "
+                "(0: inline; fork, a PrefetchingIter thread copying to the "
+                "card): "
+                "first batch after %.3f s, %.1f img/s over %d batches"
+                % (DATA_DECODER, workers, runs[workers]["first_s"],
+                   runs[workers]["img_s"], DATA_LOADER_BATCHES))
+    finally:
+        check(busy.close(), "16b: the PrefetchingIter's thread did not stop")
+        busy.iters[0].close()
+    per_batch = queue_transfer_s(DATA_LOADER_SAME)
+    mb = DATA_BATCH * 4 * math.prod(data_shape()) / 1e6
+    log("16b the loader's transport alone: a %.1f MB batch through a "
+        "multiprocessing queue from a forked process in %.3f s (%.1f MB/s),"
+        " at most %.1f img/s whatever the worker count"
+        % (mb, per_batch, mb / per_batch, DATA_BATCH / per_batch))
+    base = runs[DATA_WORKERS[0]]["kept"]
+    for workers in (0,) + tuple(DATA_WORKERS[1:]):
+        same = all(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+                   for a, b in zip(base, runs[workers]["kept"]))
+        log("16b DataLoader's first %d batches, %d workers against %d: %s"
+            % (DATA_LOADER_SAME, workers, DATA_WORKERS[0],
+               "bit-identical" if same else "DIFFER"))
+        check(same, "16b: DataLoader batches differ between %d and %d "
+              "workers" % (DATA_WORKERS[0], workers))
+    return {"iter": rates, "loader": {w: r["img_s"] for w, r in
+                                      runs.items()},
+            "queue_s": per_batch}
+
+
+def imagenet_module(mt):
+    """train_imagenet's ResNet (7x7 stem), unbound: ``fit`` binds it."""
+    from mxnet_tpu_torch.models import resnet
+    sym = resnet.get_symbol(num_classes=RESNET_CLASSES,
+                            num_layers=RESNET_LAYERS, stem="7x7",
+                            image_shape="%d,%d,%d" % data_shape())
+    return mt.mod.Module(sym, context=mt.gpu(0))
+
+
+def imagenet_init(mt, np):
+    """train_imagenet's initializer, Xavier(gaussian, in, 2), drawing
+    from the seed: every run starts from the same weights."""
+    return mt.init.Xavier(rnd_type="gaussian", factor_type="in",
+                          magnitude=2).set_rng(np.random.default_rng(SEED))
+
+
+def imagenet_opt():
+    return {"learning_rate": IMAGENET_LR, "momentum": IMAGENET_MOM,
+            "wd": IMAGENET_WD}
+
+
+LOOP_COUNTERS = ("loop_host_sync", "loop_metric_sync", "loop_prefetch_stall",
+                 "loop_prefetch_placed", "loop_window_wait",
+                 "loop_window_drain", "loop_nonfinite")
+
+
+class ResidentIter:
+    """The same device-resident batch ``n`` times: fit's loop without the
+    data plane."""
+
+    def __init__(self, mt, x, y, n):
+        self.batch = mt.io.DataBatch(data=[x], label=[y], pad=0)
+        self.provide_data = [mt.io.DataDesc("data", tuple(x.shape))]
+        self.provide_label = [mt.io.DataDesc("softmax_label",
+                                             tuple(y.shape))]
+        self.batch_size = x.shape[0]
+        self.n, self.i = n, 0
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        return self.next()
+
+    def next(self):
+        if self.i >= self.n:
+            raise StopIteration
+        self.i += 1
+        return self.batch
+
+    def reset(self):
+        self.i = 0
+
+
+def imagenet_fit(torch, np, mt, make_iter, what, profile_step=None):
+    """One epoch of ``Module.fit`` at train_imagenet's settings (the async
+    window and device prefetch at their defaults) from ``make_iter()``:
+    per batch a CUDA event at its end, and its outputs, label and
+    cross-entropy kept on the device; one step optionally profiled."""
+    from mxnet_tpu_torch import profiler
+    from torch.profiler import ProfilerActivity, profile
+    mod = imagenet_module(mt)
+    it = make_iter()
+    events, ces, outs, prof = [], [], [], {}
+
+    def on_batch(param):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+        out = mod.get_outputs()[0].data
+        lab = mod._exec.arg_dict["softmax_label"].data
+        ces.append(-(out.float().gather(1, lab.long().view(-1, 1)) +
+                     1e-12).log().mean())
+        outs.append((out.detach().clone(), lab.clone()))
+        if profile_step is None:
+            return
+        if param.nbatch == profile_step - 1:
+            torch.cuda.synchronize()
+            prof["p"] = profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA])
+            prof["p"].__enter__()
+            prof["t0"] = time.perf_counter()
+        elif param.nbatch == profile_step:
+            torch.cuda.synchronize()
+            prof["wall"] = time.perf_counter() - prof["t0"]
+            prof["p"].__exit__(None, None, None)
+
+    metric = mt.metric.Accuracy()
+    before = {c: profiler.get_counter(c) for c in LOOP_COUNTERS}
+    t0 = time.perf_counter()
+    mod.fit(it, num_epoch=1, eval_metric=metric, optimizer="sgd",
+            optimizer_params=imagenet_opt(), batch_end_callback=on_batch,
+            initializer=imagenet_init(mt, np))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counters = {c: profiler.get_counter(c) - before[c] for c in
+                LOOP_COUNTERS}
+    if hasattr(it, "close"):
+        it.close()
+    steps = len(events)
+    end = profile_step - 1 if profile_step is not None else steps - 1
+    step_ms = events[IMAGENET_WARM].elapsed_time(events[end]) / \
+        (end - IMAGENET_WARM)
+    busy_ms = None
+    if "p" in prof:
+        _, busy_ms = device_breakdown(torch, prof["p"], prof["wall"], what)
+    hits = sum(int((o.float().cpu().argmax(1) == lab.cpu().long()).sum())
+               for o, lab in outs)
+    losses = [float(v) for v in torch.stack(ces).cpu()]
+    result = {"steps": steps, "step_ms": step_ms, "wall_s": wall,
+              "img_s": DATA_BATCH / (step_ms / 1e3), "counters": counters,
+              "losses": losses, "metric": (metric.sum_metric,
+                                           metric.num_inst),
+              "hits": hits, "busy_ms": busy_ms,
+              "prof_wall_ms": prof.get("wall", 0.0) * 1e3}
+    del mod, outs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result
+
+
+def imagenet_params(torch, np, mt, make_iter):
+    """The parameters after one fit epoch of ``make_iter()`` from the
+    seeded weights, on the host."""
+    mod = imagenet_module(mt)
+    mod.fit(make_iter(), num_epoch=1, optimizer="sgd",
+            optimizer_params=imagenet_opt(), initializer=imagenet_init(mt, np))
+    arg, aux = mod.get_params()
+    out = {k: v.asnumpy() for k, v in list(arg.items()) + list(aux.items())}
+    del mod
+    torch.cuda.empty_cache()
+    return out
+
+
+def plain_first_loss(torch, np, mt, rec):
+    """The step-1 cross-entropy of a plain f32 forward (``plain_resnet``,
+    the 7x7 stem) of the seeded weights on the iterator's first batch."""
+    it = record_iter(mt, rec["rec"], DATA_THREADS)
+    first = next(it)
+    it.close()
+    mod = imagenet_module(mt)
+    mod.bind(data_shapes=[("data", (DATA_BATCH,) + data_shape())],
+             label_shapes=[("softmax_label", (DATA_BATCH,))])
+    mod.init_params(imagenet_init(mt, np))
+    dev = torch.device(DEVICE)
+    args = {n: a.data for n, a in mod.get_params()[0].items()}
+    x = torch.from_numpy(first.data[0].asnumpy()).to(dev)
+    y = torch.from_numpy(first.label[0].asnumpy()).to(dev)
+    with torch.no_grad():
+        ce, _ = plain_resnet(torch, args, x, y)
+    del mod, args
+    torch.cuda.empty_cache()
+    return float(ce), x, y
+
+
+def check_imagenet(what, run, want, ce_tol, resident):
+    """16c's checks of one fit epoch from records, and its readings beside
+    the same net fed device-resident batches."""
+    c = run["counters"]
+    idle = None if run["busy_ms"] is None else \
+        1 - run["busy_ms"] / max(run["prof_wall_ms"], 1e-9)
+    log("16c %s: ResNet-%d (7x7 stem) through Module.fit from "
+        "ImageRecordIter (%s route, %d threads), batch %d, %d steps: %.3f ms "
+        "a step between CUDA events after %d warm (%.1f img/s); fed "
+        "device-resident batches %.3f ms (%.1f img/s); epoch %.3f s; idle "
+        "share of profiled step %d: %s (busy %s of %.3f ms); counters %s"
+        % (what, RESNET_LAYERS, DATA_DECODER, DATA_THREADS, DATA_BATCH,
+           run["steps"], run["step_ms"], IMAGENET_WARM, run["img_s"],
+           resident["step_ms"], resident["img_s"], run["wall_s"],
+           IMAGENET_PROFILED, "%.3f" % idle if idle is not None else "n/a",
+           "%.3f" % run["busy_ms"] if run["busy_ms"] is not None else "n/a",
+           run["prof_wall_ms"], json.dumps(c)))
+    losses = run["losses"]
+    log("16c %s: loss per step %s" % (what, " ".join("%.4f" % v
+                                                     for v in losses)))
+    log("16c %s: step-1 cross-entropy %.6f, plain f32 forward of the same "
+        "decoded batch %.6f (|diff| %.3g, tolerance %g); device accuracy "
+        "%d / %d, host count over the fetched outputs %d"
+        % (what, losses[0], want, abs(losses[0] - want), ce_tol,
+           run["metric"][0], run["metric"][1], run["hits"]))
+    check(all(math.isfinite(v) for v in losses), "16c %s: non-finite loss"
+          % what)
+    check(abs(losses[0] - want) <= ce_tol, "16c %s: step-1 loss %g vs plain "
+          "forward %g" % (what, losses[0], want))
+    tail = losses[-max(1, len(losses) // 4):]
+    check(sum(tail) / len(tail) < losses[0], "16c %s: loss did not fall "
+          "(the last quarter's mean against step 1)" % what)
+    check(run["metric"] == (run["hits"], run["steps"] * DATA_BATCH),
+          "16c %s: device accuracy %s, host count %d of %d" % (
+              what, run["metric"], run["hits"], run["steps"] * DATA_BATCH))
+    check(c["loop_host_sync"] == 0, "16c %s: loop_host_sync %d (a per-batch "
+          "host sync)" % (what, c["loop_host_sync"]))
+    check(c["loop_prefetch_placed"] == run["steps"], "16c %s: %d batches "
+          "placed by the prefetch stage for %d steps"
+          % (what, c["loop_prefetch_placed"], run["steps"]))
+    check(run["steps"] == DATA_RECORDS // DATA_BATCH, "16c %s: %d steps, "
+          "the epoch has %d" % (what, run["steps"],
+                                DATA_RECORDS // DATA_BATCH))
+
+
+def imagenet_phase(torch, np, mt, rec):
+    """16c: train_imagenet's path at full width, in amp bf16 and in f32:
+    one epoch from the records, the same from device-resident batches,
+    then windows 2 and 0 over DATA_PARITY_STEPS steps."""
+    from mxnet_tpu_torch.io import ResizeIter
+    check(not torch.backends.cudnn.allow_tf32 and
+          not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 is allowed: the plain forward would not be float32")
+    want, x, y = plain_first_loss(torch, np, mt, rec)
+    dev_x, dev_y = mt.nd.array(x, ctx=x.device), mt.nd.array(y, ctx=y.device)
+    steps = DATA_RECORDS // DATA_BATCH
+    readings = {}
+    for what, amp_on, tol in (("bf16", True, RESNET_CE_TOL),
+                              ("f32", False, RESNET_F32_CE_TOL)):
+        if amp_on:
+            mt.amp.init("bfloat16")
+        try:
+            run = imagenet_fit(
+                torch, np, mt, lambda: record_iter(mt, rec["rec"],
+                                                   DATA_THREADS),
+                "16c " + what, profile_step=IMAGENET_PROFILED)
+            resident = imagenet_fit(
+                torch, np, mt, lambda: ResidentIter(mt, dev_x, dev_y, steps),
+                "16c %s resident" % what)
+        finally:
+            if amp_on:
+                mt.amp.off()
+        check_imagenet(what, run, want, tol, resident)
+        readings[what] = {"step_ms": run["step_ms"], "img_s": run["img_s"],
+                          "resident_ms": resident["step_ms"],
+                          "idle": None if run["busy_ms"] is None else
+                          1 - run["busy_ms"] / max(run["prof_wall_ms"],
+                                                   1e-9),
+                          "stall": run["counters"]["loop_prefetch_stall"]}
+    del dev_x, dev_y, x, y
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    mt.amp.init("bfloat16")
+    params = {}
+    inner = []
+
+    def parity_iter():
+        inner.append(record_iter(mt, rec["rec"], DATA_THREADS))
+        return ResizeIter(inner[-1], DATA_PARITY_STEPS)
+
+    try:
+        for window in (2, 0):
+            mt.config.set("MXNET_TPU_ASYNC_WINDOW", window)
+            params[window] = imagenet_params(torch, np, mt, parity_iter)
+            inner[-1].close()
+    finally:
+        mt.config.reset("MXNET_TPU_ASYNC_WINDOW")
+        mt.amp.off()
+        torch.backends.cudnn.deterministic, \
+            torch.backends.cudnn.benchmark = flags
+    differ = [k for k in params[2]
+              if not np.array_equal(params[2][k], params[0][k])]
+    log("16c windows 2 and 0 over %d steps (amp bf16, cudnn.deterministic):"
+        " %d of %d arrays differ%s" % (DATA_PARITY_STEPS, len(differ),
+                                       len(params[2]),
+                                       " (%s)" % differ[:3] if differ
+                                       else ", bit for bit"))
+    check(not differ, "16c: window 2 and window 0 end on other weights: %s"
+          % differ[:5])
+    return readings
+
+
+class _Stop(Exception):
+    """Ends a fit from its batch-end callback: the interrupted run."""
+
+
+def loader_fit(torch, np, mt, rec, workers, ckpt=None, resume=None,
+               stop_after=None):
+    """16d's fit: DataLoader + ImageTransform over the resume index, one
+    epoch of DATA_RESUME_BATCHES batches of DATA_RESUME_BATCH, amp bf16,
+    from the seeded weights (or a checkpoint); the parameters after it."""
+    from mxnet_tpu_torch.data import DataLoader, ImageTransform
+    mt.random.seed(SEED)
+    dl = DataLoader(rec["rec"], idx_path=rec["resume_idx"],
+                    batch_size=DATA_RESUME_BATCH,
+                    transform=ImageTransform(data_shape(),
+                                             mean=sum(DATA_MEAN) / 3),
+                    shuffle=True, seed=SEED, num_workers=workers,
+                    part=(0, 1), label_name="softmax_label")
+    mod = imagenet_module(mt)
+    calls = [0]
+
+    def stopper(_param):
+        calls[0] += 1
+        if stop_after is not None and calls[0] >= stop_after:
+            raise _Stop()
+
+    try:
+        mod.fit(dl, num_epoch=1, optimizer="sgd",
+                optimizer_params=imagenet_opt(), checkpoint=ckpt,
+                resume_from=resume, batch_end_callback=stopper,
+                initializer=imagenet_init(mt, np))
+    except _Stop:
+        pass
+    finally:
+        dl.close()
+    arg, aux = mod.get_params()
+    out = {k: v.asnumpy() for k, v in list(arg.items()) + list(aux.items())}
+    del mod
+    torch.cuda.empty_cache()
+    return out, calls[0]
+
+
+def resume_phase(torch, np, mt, rec, out):
+    """16d: the DataLoader through fit, checkpointed at batch
+    DATA_RESUME_AT of DATA_RESUME_BATCHES with 2 workers and resumed with
+    4: bit for bit the uninterrupted run, the manifest carrying the
+    cursor; and the uninterrupted run again with DATA_FAULT killing
+    workers, which the loader respawns over their ranges."""
+    import shutil
+    from mxnet_tpu_torch import faults, profiler
+    from mxnet_tpu_torch.checkpoint import CheckpointConfig, restore_latest
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    mt.amp.init("bfloat16")
+    ckdir = out / "ckpt"
+    try:
+        t0 = time.perf_counter()
+        ref, n_ref = loader_fit(torch, np, mt, rec, 2)
+        ref_s = time.perf_counter() - t0
+        ck = CheckpointConfig(str(ckdir), every_n_batches=DATA_RESUME_AT)
+        loader_fit(torch, np, mt, rec, 2, ckpt=ck,
+                   stop_after=DATA_RESUME_AT + 1)
+        saved = restore_latest(str(ckdir))
+        cursor = saved.data_cursor
+        t0 = time.perf_counter()
+        res, n_res = loader_fit(torch, np, mt, rec, 4, resume=str(ckdir))
+        res_s = time.perf_counter() - t0
+        respawn0 = profiler.get_counter("data_worker_respawn")
+        faults.install(DATA_FAULT)
+        try:
+            hit, _ = loader_fit(torch, np, mt, rec, 2)
+        finally:
+            faults.clear()
+        respawns = profiler.get_counter("data_worker_respawn") - respawn0
+    finally:
+        mt.amp.off()
+        torch.backends.cudnn.deterministic, \
+            torch.backends.cudnn.benchmark = flags
+        shutil.rmtree(ckdir, ignore_errors=True)
+    differ = [k for k in ref if not np.array_equal(ref[k], res[k])]
+    differ_f = [k for k in ref if not np.array_equal(ref[k], hit[k])]
+    log("16d DataLoader resume: ResNet-%d batch %d, %d batches an epoch, "
+        "amp bf16; uninterrupted (2 workers) %d steps in %.3f s; checkpoint "
+        "at batch %d (mid-epoch %s), cursor %s; resumed with 4 workers: %d "
+        "steps in %.3f s, %d of %d arrays differ from the uninterrupted run"
+        % (RESNET_LAYERS, DATA_RESUME_BATCH, DATA_RESUME_BATCHES, n_ref,
+           ref_s, saved.batches_done, saved.mid_epoch, json.dumps(cursor),
+           n_res, res_s, len(differ), len(ref)))
+    log("16d %s: %d worker respawns; %d of %d arrays differ from the "
+        "uninterrupted run" % (DATA_FAULT, respawns, len(differ_f),
+                               len(ref)))
+    check(n_ref == DATA_RESUME_BATCHES, "16d: the epoch ran %d batches, not "
+          "%d" % (n_ref, DATA_RESUME_BATCHES))
+    check(saved.mid_epoch and saved.batches_done == DATA_RESUME_AT,
+          "16d: the checkpoint is at batch %s" % saved.batches_done)
+    check(cursor is not None and cursor.get("batches_done") ==
+          DATA_RESUME_AT and cursor.get("num_workers") == 2 and
+          cursor.get("seed") == SEED and cursor.get("batch_size") ==
+          DATA_RESUME_BATCH, "16d: the manifest's cursor is %s" % cursor)
+    check(n_res == DATA_RESUME_BATCHES - DATA_RESUME_AT, "16d: the resumed "
+          "run trained %d batches, not %d" % (
+              n_res, DATA_RESUME_BATCHES - DATA_RESUME_AT))
+    check(not differ, "16d: the resumed weights differ: %s" % differ[:5])
+    check(respawns > 0, "16d: %s killed no worker" % DATA_FAULT)
+    check(not differ_f, "16d: the run with killed workers differs: %s"
+          % differ_f[:5])
+
+
+def data_phase(torch, np):
+    """Phase 16: the data plane and the async fit loop (16a-16d)."""
+    import shutil
+    import mxnet_tpu_torch as mt
+    t0 = time.perf_counter()
+    out = ROOT / "build" / "phase16"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    host_probe(out / "native")
+    mt.config.set("MXNET_USE_NATIVE_IO", DATA_DECODER == "native")
+    try:
+        rec = records_phase(np, out)
+        pipe = pipeline_phase(torch, np, mt, rec)
+        fit = imagenet_phase(torch, np, mt, rec)
+        resume_phase(torch, np, mt, rec, out)
+    finally:
+        mt.config.reset("MXNET_USE_NATIVE_IO")
+        shutil.rmtree(out, ignore_errors=True)
+    log("16 data plane: %.1f s; %s" % (time.perf_counter() - t0,
+                                       json.dumps({"pipeline": pipe,
+                                                   "fit": fit})))
+    return {"pipeline": pipe, "fit": fit}
+
+
+PAIRS_OF = ("f32-backward", "rtc", "fit-loop")
+
+
+def fit_loop_timing(torch, np):
+    """Phase 12c's AlexNet runs (amp bf16, then f32) through the imported
+    package's own ``Module.fit``: run once under another checkout's
+    package (the parent commit's, say) and once under this one's, a
+    before/after pair of the fit loop in one call. Returns each run's
+    step ms and the idle share of its profiled step."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    counters = {"flash_attention_fwd": fa.flash_attention_fwd,
+                "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
+                "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv}
+    runs = {}
+    mt.amp.init("bfloat16")
+    try:
+        runs["bf16"] = train_alexnet(torch, np, counters, ALEX_WARM,
+                                     ALEX_TIMED, "alexnet")
+    finally:
+        mt.amp.off()
+    runs["f32"] = train_alexnet(torch, np, counters, ALEX_F32_WARM,
+                                ALEX_F32_TIMED, "alexnet f32")
+    return {k: {"step_ms": r["step_ms"],
+                "idle": 1.0 - r["busy_ms"] / r["wall_ms"]}
+            for k, r in runs.items()}
 
 
 def pairs_of(checkout: str, what: str) -> int:
@@ -7819,8 +8653,9 @@ def pairs_of(checkout: str, what: str) -> int:
     ``f32-backward`` times the f32 dQ and dK/dV kernels
     (:func:`f32_backward_timing`); ``rtc`` pairs ``relu``,
     ``scale_add`` and ``split``, and :data:`B6F_STREAM_SOURCE`'s
-    versions of the first two, with torch's calls (:func:`rtc_pairs`). Prints the readings as one
-    JSON line."""
+    versions of the first two, with torch's calls (:func:`rtc_pairs`);
+    ``fit-loop`` times AlexNet through that package's ``fit``
+    (:func:`fit_loop_timing`). Prints the readings as one JSON line."""
     if what not in PAIRS_OF:
         print("chip_smoke: --pairs-of CHECKOUT WHAT, WHAT one of %s"
               % (PAIRS_OF,), file=sys.stderr)
@@ -7833,6 +8668,9 @@ def pairs_of(checkout: str, what: str) -> int:
         card_phase(torch)
         if what == "f32-backward":
             readings = f32_backward_timing(torch)
+        elif what == "fit-loop":
+            import numpy as np
+            readings = fit_loop_timing(torch, np)
         else:
             from mxnet_tpu_torch import rtc_examples as ex
             rows = TRAIN_BATCH * MAX_SEQ
@@ -7876,6 +8714,11 @@ def main() -> int:
         structured_phase(torch, np)
         symbol_phase(torch, np)
         levers_phase(torch, np, kernels, sgd)
+        # a hung loader worker or decode thread ends the run here, with
+        # every thread's stack, rather than at the call's time limit
+        faulthandler.dump_traceback_later(DATA_DEADLINE_S, exit=True)
+        data_phase(torch, np)
+        faulthandler.cancel_dump_traceback_later()
         torch.cuda.synchronize()
     except SmokeFailure as exc:
         print("chip_smoke: FAILED: %s" % exc, file=sys.stderr)

@@ -61,13 +61,23 @@ Ported so far:
   ``infer_type``, the fluent methods), naming and attribute scopes
   (:mod:`.name`), :class:`Context`, and model parallelism through
   ``AttrScope(ctx_group=)`` and ``simple_bind(group2ctx=)``
-  (:mod:`.executor`).
+  (:mod:`.executor`);
+* the data plane: RecordIO (:mod:`.recordio`, :mod:`.filesystem`), the
+  native decode pipeline (:mod:`.native`, built with g++ against
+  libjpeg / libpng), ``ImageRecordIter`` and the other iterators
+  (:mod:`.io`), the augmenters and ``ImageIter`` (:mod:`.image`), the
+  multi-process ``DataLoader`` with its resumable cursor
+  (:mod:`.data`, imported on first use) and Gluon's file datasets;
+  ``fit`` runs the reference's async loop: a window of in-flight steps,
+  batches copied to the card ahead of their step, metrics summed on the
+  card.
 """
 from __future__ import annotations
 
 from . import amp, autograd, callback, checkpoint, contrib, executor
 from . import initializer as init
-from . import io, lr_scheduler, metric, model, name
+from . import filesystem, image, io, lr_scheduler, metric, model, name
+from . import recordio
 from . import module as mod
 from . import monitor as mon
 from . import ndarray as nd
@@ -85,6 +95,16 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "tpu", "current_context",
            "AttrScope", "amp", "autograd", "callback", "checkpoint",
            "contrib", "executor", "gluon", "init", "io", "lr_scheduler",
            "metric", "mod", "model", "mon", "name", "nd", "operator",
-           "optimizer", "random", "rnn", "rtc", "sym"]
+           "optimizer", "random", "rnn", "rtc", "sym", "filesystem",
+           "recordio", "image", "data"]
 
 __version__ = "0.1.0"
+
+
+def __getattr__(name):
+    # data is lazy, as in the reference: a fit fed by any other iterator
+    # never imports the multi-process loader
+    if name == "data":
+        import importlib
+        return importlib.import_module(".data", __name__)
+    raise AttributeError("module %r has no attribute %r" % (__name__, name))

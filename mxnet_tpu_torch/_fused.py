@@ -1,4 +1,5 @@
-"""The per-signature runner cache shared by the serving path.
+"""The per-signature runner cache shared by the serving path, and the
+in-flight window of ``fit``'s async loop.
 
 The port's copy of the reference package's ``_fused.CompileCache``. The
 port compiles nothing per signature (PyTorch runs eagerly), so an entry
@@ -16,9 +17,43 @@ from typing import Any, Dict, List
 from . import lockcheck as _lockcheck
 from . import profiler as _profiler
 
-__all__ = ["CompileCache"]
+__all__ = ["CompileCache", "InflightWindow"]
 
 _MAX_TRANSIENT_RETRIES = 3
+
+
+class InflightWindow:
+    """Bounded in-flight steps for the async fit loop.
+
+    PyTorch queues CUDA work asynchronously: the host can run ahead of
+    the card by any number of steps. The window holds one completion
+    token per queued step (a ``torch.cuda.Event`` recorded after it, see
+    ``Module._step_token``); pushing past ``depth`` waits on the OLDEST
+    event, so at most ``depth`` steps are queued ahead of the card while
+    its queue stays full (waiting on step ``i - K`` is flow control, not
+    a pipeline break: ``K`` steps stay queued behind it). On the CPU a
+    step's token is ``None`` and the window holds nothing; ``depth`` 0
+    holds nothing either, which is the synchronous loop.
+    """
+
+    def __init__(self, depth: int):
+        self.depth = int(depth)
+        self._fifo: List[Any] = []
+
+    def push(self, token) -> None:
+        if token is None or self.depth <= 0:
+            return
+        self._fifo.append(token)
+        if len(self._fifo) > self.depth:
+            _profiler.incr_counter("loop_window_wait")
+            self._fifo.pop(0).synchronize()
+
+    def drain(self) -> None:
+        """Epoch and checkpoint barrier: wait out every queued step."""
+        if self._fifo:
+            _profiler.incr_counter("loop_window_drain")
+            self._fifo[-1].synchronize()
+            self._fifo.clear()
 
 
 class CompileCache:

@@ -207,6 +207,16 @@ class Checkpoint(object):
     def metric_state(self):
         return self.meta.get("metric")
 
+    @property
+    def data_cursor(self) -> Optional[dict]:
+        """The data loader's cursor saved with this checkpoint
+        (``meta["loop"]["data"]``): the position and the stream-identity
+        fields (seed, batch size, record count) a resuming
+        ``data.DataLoader`` checks before it seeks. None for a checkpoint
+        written without a cursor-capable iterator."""
+        cur = self.loop.get("data")
+        return dict(cur) if cur else None
+
     def _named(self, prefix: str, names_key: str) -> Dict[str, Any]:
         names = self.meta.get(names_key)
         if names is None:
@@ -311,14 +321,16 @@ class CheckpointManager(object):
 
     def preempt_save(self, module, epoch: Optional[int] = None,
                      batches_done: Optional[int] = None,
-                     metric=None) -> None:
+                     metric=None, loader_state: Optional[dict] = None
+                     ) -> None:
         """The preemption path: drain the pending saves, write the final
         checkpoint synchronously, stop the writer. An earlier async
         failure (already logged and counted) does not stop it."""
         _profiler.incr_counter("ckpt_sigterm")
         self.wait()
         self.save_module(module, epoch=epoch, batches_done=batches_done,
-                         metric=metric, sync=True)
+                         metric=metric, loader_state=loader_state,
+                         sync=True)
         if self._last_error is not None:
             log.error("preemption save landed, but an earlier async "
                       "checkpoint write had failed: %s", self._last_error)
@@ -327,9 +339,11 @@ class CheckpointManager(object):
     # ------------------------------------------------------------ saving
     def save_module(self, module, epoch: Optional[int] = None,
                     batches_done: Optional[int] = None, metric=None,
+                    loader_state: Optional[dict] = None,
                     sync: Optional[bool] = None) -> int:
-        """Snapshot ``module`` with the loop position and the metric
-        totals, and schedule the write; returns the checkpoint's step."""
+        """Snapshot ``module`` with the loop position, the loader's
+        cursor (``loader_state``) and the metric totals, and schedule the
+        write; returns the checkpoint's step."""
         t0 = time.perf_counter()
         snap = getattr(module, "_checkpoint_snapshot", None)
         if snap is None:
@@ -338,6 +352,8 @@ class CheckpointManager(object):
                 "requires mt.mod.Module" % type(module).__name__)
         tensors, meta = snap()
         meta["loop"] = {"epoch": epoch, "batches_done": batches_done}
+        if loader_state is not None:
+            meta["loop"]["data"] = dict(loader_state)
         if metric is not None:
             state_fn = getattr(metric, "_ckpt_state", None)
             meta["metric"] = state_fn() if state_fn is not None else None

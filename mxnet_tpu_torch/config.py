@@ -9,7 +9,11 @@ the copies of ``lockcheck.py`` and ``faults.py``, and the
 ``MXNET_TPU_CKPT_*`` knobs of :mod:`.checkpoint`, and the compile
 levers the executor and ``Module`` read (``MXNET_TPU_SCAN_LAYERS``,
 ``MXNET_TPU_REMAT`` with its legacy alias ``MXNET_EXEC_ENABLE_REMAT``,
-``MXNET_TPU_GROUP_UPDATE``). Knobs of features the
+``MXNET_TPU_GROUP_UPDATE``), and the data plane's and the async fit
+loop's (``MXNET_USE_NATIVE_IO``, ``MXNET_CPU_WORKER_NTHREADS``,
+``MXNET_PREFETCH_BUFFER``, ``MXNET_TPU_DATA_*``,
+``MXNET_TPU_ASYNC_WINDOW``, ``MXNET_TPU_DEVICE_PREFETCH``,
+``MXNET_TPU_DEVICE_METRICS``). Knobs of features the
 port does not have yet (the batch ``InferenceServer``, int8 KV) arrive
 with those features.
 """
@@ -166,6 +170,74 @@ register("MXNET_TPU_REMAT", _parse_remat, "off",
          "remat-opportunity pass suggests for this graph, any other "
          "value = a policy name applied as-is (nothing_saveable, "
          "dots_saveable, dots_with_no_batch_dims_saveable, ...)")
+
+
+register("MXNET_USE_NATIVE_IO", _parse_bool, True,
+         "use the C++ data path (native/: RecordIO codec, jpeg/png "
+         "decode, threaded augment pipeline), built with g++ against "
+         "libjpeg and libpng at first use; a failed build raises. 0 = the "
+         "pure-Python/cv2 path")
+register("MXNET_CPU_WORKER_NTHREADS", int, 4,
+         "decode/augment worker threads in record iterators")
+register("MXNET_PREFETCH_BUFFER", int, 4,
+         "batches buffered ahead by record iterators")
+register("MXNET_TPU_ASYNC_WINDOW", int, 2,
+         "fit(): max train steps queued on the card ahead of their "
+         "completion (a CUDA event per step; pushing past the window "
+         "waits on the oldest); 0 = the synchronous per-batch loop")
+register("MXNET_TPU_DEVICE_PREFETCH", int, 2,
+         "fit(): batches copied to the card ahead of the step consuming "
+         "them (pinned staging buffers, an H2D copy on its own CUDA "
+         "stream); 0 = copy each batch on the critical path")
+register("MXNET_TPU_DEVICE_METRICS", _parse_bool, True,
+         "EvalMetric.update_device: sum (value, count) on the card after "
+         "the step, the host read deferred to get()/log boundaries; 0 = "
+         "the loop counts a host sync per batch (loop_host_sync)")
+def _parse_nancheck(v) -> str:
+    s = str(v).strip().lower()
+    if s in ("", "0", "off", "false", "no", "none"):
+        return "off"
+    if s in ("warn", "warning", "1", "on", "true", "yes"):
+        return "warn"
+    if s == "abort":
+        return "abort"
+    raise ValueError(
+        "MXNET_TPU_NANCHECK must be off|warn|abort, got %r" % (v,))
+
+
+register("MXNET_TPU_NANCHECK", _parse_nancheck, "off",
+         "non-finite step guard: or an isfinite reduction of every "
+         "output into flags kept on the device after each fused train "
+         "step (no host read; fit reads them at the epoch log boundary "
+         "and counts loop_nonfinite when an output went NaN/Inf). warn = "
+         "log naming the first non-finite output, abort = raise "
+         "MXNetError there; off = nothing is computed")
+register("MXNET_TPU_DATA_WORKERS", int, 2,
+         "data.DataLoader: default worker PROCESSES decoding disjoint "
+         "shard ranges in parallel (overridden by the num_workers "
+         "argument); 0 = decode inline in the consumer thread")
+register("MXNET_TPU_DATA_QUEUE_DEPTH", int, 4,
+         "data.DataLoader: decoded batches buffered per worker process "
+         "(the backpressure bound)")
+register("MXNET_TPU_DATA_MP", _parse_bool, True,
+         "data.DataLoader: multi-process decode kill switch — 0 forces "
+         "the inline path regardless of num_workers (same stream order)")
+
+
+def _parse_timeout(v) -> float:
+    t = float(v)
+    if not t > 0:
+        raise ValueError(
+            "MXNET_TPU_DATA_TIMEOUT must be a positive number of seconds, "
+            "got %r" % (v,))
+    return t
+
+
+register("MXNET_TPU_DATA_TIMEOUT", _parse_timeout, 300.0,
+         "data.DataLoader: seconds the consumer waits for the next batch "
+         "from a worker that is alive but delivers nothing (restarted by "
+         "a respawn); past it the pool is torn down and next() raises "
+         "MXNetError instead of waiting forever")
 
 
 def get(name: str):

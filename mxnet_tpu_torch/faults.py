@@ -1,7 +1,8 @@
 """Deterministic fault injection — ``MXNET_TPU_FAULTS=<site>@<nth>[:kind]``.
 
 The port's copy of the reference package's ``faults.py``, for the
-serving path's and the checkpoint writer's injection points. Spec grammar (comma-separated list)::
+serving path's, the checkpoint writer's and the data plane's injection
+points. Spec grammar (comma-separated list)::
 
     MXNET_TPU_FAULTS=serve.decode@1
     MXNET_TPU_FAULTS=serve.evict@2:raise
@@ -28,6 +29,13 @@ ckpt.after_arrays    checkpoint write, after the   sigkill
 ckpt.after_manifest  after the manifest            sigkill
 ckpt.before_rename   before the atomic rename      sigkill
 fit.batch            Module.fit, after each batch  sigterm
+data.worker          data.DataLoader worker        sigkill
+                     process, at each batch start
+                     (generation 0 only: the
+                     respawned worker replays)
+data.decode          the decode of one loader      raise
+                     batch (poisons that batch,
+                     never the epoch)
 ===================  ============================  =====================
 
 Kinds: ``eio``/``enospc``/``eintr`` raise the matching ``OSError``;
@@ -65,7 +73,7 @@ KINDS = ("eio", "enospc", "eintr", "raise", "sigterm", "sigkill", "slow")
 SITES = frozenset(("serve.submit", "serve.decode", "serve.evict",
                    "ckpt.arrays_write", "ckpt.after_arrays",
                    "ckpt.after_manifest", "ckpt.before_rename",
-                   "fit.batch"))
+                   "fit.batch", "data.worker", "data.decode"))
 
 _ERRNO = {"eio": errno.EIO, "enospc": errno.ENOSPC, "eintr": errno.EINTR}
 

@@ -1,13 +1,15 @@
 """Datasets: the port's copy of the reference's ``gluon/data/dataset.py``
-— Dataset (with ``transform`` / ``transform_first``), SimpleDataset and
-ArrayDataset. ``RecordFileDataset``, over RecordIO files, is not ported
-yet (ROADMAP.md A5, with ``data/vision.py``'s file-backed datasets).
+— Dataset (with ``transform`` / ``transform_first``), SimpleDataset,
+ArrayDataset and RecordFileDataset (an indexed RecordIO file).
 """
 from __future__ import annotations
 
-from ... import ndarray as nd
+import os
 
-__all__ = ["Dataset", "ArrayDataset", "SimpleDataset"]
+from ... import ndarray as nd
+from ... import recordio
+
+__all__ = ["Dataset", "ArrayDataset", "SimpleDataset", "RecordFileDataset"]
 
 
 class Dataset(object):
@@ -87,3 +89,19 @@ class ArrayDataset(Dataset):
 
     def __len__(self):
         return self._length
+
+
+class RecordFileDataset(Dataset):
+    """Dataset over an indexed RecordIO file (reference: dataset.py
+    RecordFileDataset): item ``i`` is the raw record of the ``i``-th key
+    of the ``.idx`` beside it."""
+
+    def __init__(self, filename):
+        idx_file = os.path.splitext(filename)[0] + ".idx"
+        self._record = recordio.MXIndexedRecordIO(idx_file, filename, "r")
+
+    def __getitem__(self, idx):
+        return self._record.read_idx(self._record.keys[idx])
+
+    def __len__(self):
+        return len(self._record.keys)

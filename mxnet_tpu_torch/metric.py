@@ -16,6 +16,14 @@ device every batch. ``F1``, ``PearsonCorrelation`` and ``CustomMetric``
 compute on the host, per batch, in numpy, as the reference's host path
 does.
 
+``fit``'s async loop asks :meth:`EvalMetric.device_capable` first (the
+reference's ``_device_capable`` classes, and ``MXNET_TPU_DEVICE_METRICS``
+on) and calls :meth:`EvalMetric.update_device`; a metric that cannot
+sum on the device returns False and the loop updates it on the host
+and counts ``loop_host_sync``. Each fold of a device sum into the host
+totals after an :meth:`EvalMetric.update_device` counts
+``loop_metric_sync``.
+
 A checkpoint carries a metric's totals (``_ckpt_state`` /
 ``_ckpt_restore``, the reference's format): a composite restores all of
 its children or none.
@@ -28,6 +36,7 @@ from typing import Dict
 import numpy as numpy_mod
 import torch
 
+from . import profiler as _profiler
 from .ndarray import NDArray
 
 __all__ = ["EvalMetric", "CompositeEvalMetric", "Accuracy", "TopKAccuracy",
@@ -124,16 +133,56 @@ class EvalMetric(object):
         """``(sum tensor, count)`` of one batch."""
         raise NotImplementedError
 
+    # -------------------------------------------------- device-resident path
+    _device_capable = False
+
+    def device_capable(self) -> bool:
+        """True when this metric sums on the device (and
+        ``MXNET_TPU_DEVICE_METRICS`` is on): asked by the fit loop before
+        it updates, so a composite falls back as one unit."""
+        if not self._device_capable:
+            return False
+        from . import config as _config
+        return bool(_config.get("MXNET_TPU_DEVICE_METRICS"))
+
+    def update_device(self, labels, preds) -> bool:
+        """Sum this batch on the device, with no host read. False (and
+        nothing touched) when the metric cannot: the caller then runs
+        :meth:`update`."""
+        if not self.device_capable():
+            return False
+        if labels is not None and not isinstance(labels, (list, tuple)):
+            labels = [labels]
+        if not isinstance(preds, (list, tuple)):
+            preds = [preds]
+        self.update(labels, preds)
+        self._device_path = True
+        return True
+
+    def update_dict_device(self, label: Dict, pred: Dict) -> bool:
+        """``update_dict``'s twin for the device path."""
+        if not self.device_capable():
+            return False
+        pred = [pred[n] for n in self.output_names] \
+            if self.output_names is not None else list(pred.values())
+        label = [label[n] for n in self.label_names] \
+            if self.label_names is not None else list(label.values())
+        return self.update_device(label, pred)
+
     def reset(self):
         self.num_inst = 0
         self.sum_metric = 0.0
         self._sum = None
+        self._device_path = False
 
     def _sync(self):
         """Fold the device sum into the host total: the one host read."""
         if self._sum is not None:
+            if self._device_path:
+                _profiler.incr_counter("loop_metric_sync")
             self.sum_metric += float(self._sum)
             self._sum = None
+        self._device_path = False
 
     def get(self):
         self._sync()
@@ -191,6 +240,21 @@ class CompositeEvalMetric(EvalMetric):
         for metric in self.metrics:
             metric.update(labels, preds)
 
+    def device_capable(self) -> bool:
+        """Only when every child is: a mixed set falls back to the host
+        path as one unit, so no child sees a batch twice."""
+        return bool(self.metrics) and \
+            all(m.device_capable() for m in self.metrics)
+
+    def update_device(self, labels, preds) -> bool:
+        if not self.device_capable():
+            return False
+        for metric in self.metrics:
+            if not metric.update_device(labels, preds):
+                _profiler.incr_counter("loop_host_sync")
+                metric.update(labels, preds)
+        return True
+
     def reset(self):
         for metric in getattr(self, "metrics", []):
             metric.reset()
@@ -228,6 +292,8 @@ class Accuracy(EvalMetric):
     """Share of argmax predictions equal to the label; ``axis`` is the
     class axis of the predictions."""
 
+    _device_capable = True
+
     def __init__(self, axis=1, name="accuracy", output_names=None,
                  label_names=None):
         super().__init__(name, output_names, label_names)
@@ -246,6 +312,8 @@ class Accuracy(EvalMetric):
 class TopKAccuracy(EvalMetric):
     """Share of labels among the ``top_k`` highest scores (a stable sort,
     so tied scores rank as the reference's do)."""
+
+    _device_capable = True
 
     def __init__(self, top_k=1, name="top_k_accuracy", output_names=None,
                  label_names=None):
@@ -304,6 +372,8 @@ class Perplexity(EvalMetric):
     class axis. The count of labels taken is summed on the device too,
     so :meth:`get` is the one host read."""
 
+    _device_capable = True
+
     def __init__(self, ignore_label=None, axis=-1, name="perplexity",
                  output_names=None, label_names=None):
         super().__init__(name, output_names, label_names)
@@ -339,10 +409,13 @@ class Perplexity(EvalMetric):
 
     def _sync(self):
         if self._sum is not None:
+            if self._device_path:
+                _profiler.incr_counter("loop_metric_sync")
             both = torch.stack([self._sum, self._num]).cpu()   # one read
             self.sum_metric += float(both[0])
             self.num_inst += int(both[1])
             self._sum = self._num = None
+        self._device_path = False
 
     def get(self):
         self._sync()
@@ -361,6 +434,8 @@ def _column(label, pred):
 class MAE(EvalMetric):
     """Mean absolute error, averaged over batches."""
 
+    _device_capable = True
+
     def __init__(self, name="mae", output_names=None, label_names=None):
         super().__init__(name, output_names, label_names)
 
@@ -372,6 +447,8 @@ class MAE(EvalMetric):
 @register
 class MSE(EvalMetric):
     """Mean squared error, averaged over batches."""
+
+    _device_capable = True
 
     def __init__(self, name="mse", output_names=None, label_names=None):
         super().__init__(name, output_names, label_names)
@@ -385,6 +462,8 @@ class MSE(EvalMetric):
 class RMSE(EvalMetric):
     """Root of each batch's mean squared error, averaged over batches."""
 
+    _device_capable = True
+
     def __init__(self, name="rmse", output_names=None, label_names=None):
         super().__init__(name, output_names, label_names)
 
@@ -397,6 +476,8 @@ class RMSE(EvalMetric):
 @register
 class CrossEntropy(EvalMetric):
     """Mean of -log(p[label] + eps) over the rows of the predictions."""
+
+    _device_capable = True
 
     def __init__(self, eps=1e-12, name="cross-entropy", output_names=None,
                  label_names=None):
@@ -433,6 +514,8 @@ class PearsonCorrelation(EvalMetric):
 @register
 class Loss(EvalMetric):
     """Mean of the outputs, for loss heads; labels are ignored."""
+
+    _device_capable = True
 
     def __init__(self, name="loss", output_names=None, label_names=None):
         super().__init__(name, output_names, label_names)

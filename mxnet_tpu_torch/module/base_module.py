@@ -11,7 +11,25 @@ and every N batches, and on SIGTERM saves and exits with status 143;
 ``fit(resume_from=dir)`` restores the newest valid checkpoint
 (parameters, optimizer states and counts, the key chain, the metric
 totals) and continues at the next epoch or, for a mid-epoch save, at
-the next batch, skipping the batches the saved run consumed.
+the next batch: a loader with a cursor (``data.DataLoader``'s
+``_mx_fast_forward``) seeks there without decoding a skipped batch, and
+the manifest carries its cursor (``_mx_cursor``); any other iterator
+skips the batches the saved run consumed.
+
+The loop is the reference's async one. ``MXNET_TPU_ASYNC_WINDOW`` (2)
+steps stay queued on the card ahead of the host (an
+:class:`.._fused.InflightWindow` of CUDA events); the module's device
+placer copies each batch to the card ahead of its step
+(``MXNET_TPU_DEVICE_PREFETCH`` deep), in a ``PrefetchingIter`` that
+``fit`` wraps around the iterator (and closes at the end) or, for a
+loader with ``_mx_set_device_placer``, in the loader itself; a
+device-capable metric sums on the card and the host reads it once an
+epoch. Counters: ``loop_host_sync`` (a batch whose metric needed the
+host), ``loop_metric_sync`` (folds of a device sum),
+``loop_prefetch_stall`` / ``loop_prefetch_placed`` /
+``loop_prefetch_depth`` (the prefetch stage), ``loop_nonfinite``
+(``MXNET_TPU_NANCHECK``). Window 0, a monitor or a module without the
+hooks runs the synchronous loop.
 ``fit(monitor=)`` installs a :class:`..monitor.Monitor` and, as the
 reference does, runs ``forward_backward`` and ``update`` per batch
 (``tic`` before, ``toc_print`` after) instead of the fused step, and so
@@ -35,9 +53,12 @@ from typing import List
 
 from ..base import MXNetError
 from ..context import device_scope
+from .. import _fused
+from .. import config as _config
 from .. import faults as _faults
 from .. import metric as _metric
 from .. import ndarray as nd
+from .. import profiler as _profiler
 
 __all__ = ["BaseModule", "BatchEndParam"]
 
@@ -288,18 +309,71 @@ class BaseModule(object):
         if not isinstance(eval_metric, _metric.EvalMetric):
             eval_metric = _metric.create(eval_metric)
 
+        # ------------------------------------------------ async loop setup
+        window = int(_config.get("MXNET_TPU_ASYNC_WINDOW"))
+        async_ok = getattr(self, "_async_capable", lambda: False)
+        if monitor is not None or not async_ok():
+            window = 0
+        update_device = getattr(self, "_update_metric_device", None)
+        inflight = _fused.InflightWindow(window)
+        step_token = getattr(self, "_step_token", lambda: None)
+
+        def _loader_hook(it, name):
+            # a data-plane hook on the iterator, looking through one
+            # PrefetchingIter the user applied
+            fn = getattr(it, name, None)
+            if fn is None:
+                inner = getattr(it, "iters", None)
+                if inner:
+                    fn = getattr(inner[0], name, None)
+            return fn
+
         resume_skip_eoe = False
-        if resume is not None and resume.mid_epoch:
-            # skip the batches the saved run consumed (their effect is in
-            # the restored state); the data plane's cursor, which would
-            # seek instead, comes with ROADMAP A6
-            skip_iter = iter(train_data)
-            for _ in range(resume.batches_done):
-                try:
-                    next(skip_iter)
-                except StopIteration:
-                    resume_skip_eoe = True
-                    break
+        if resume is not None:
+            ff = _loader_hook(train_data, "_mx_fast_forward")
+            if ff is not None:
+                # a loader with a cursor seeks to the saved position (no
+                # decode of a skipped batch) after checking the cursor's
+                # stream identity; at an epoch boundary it syncs the
+                # shuffle epoch
+                ff(begin_epoch, resume.batches_done if resume.mid_epoch
+                   else 0, cursor=resume.data_cursor)
+            elif resume.mid_epoch:
+                # skip the batches the saved run consumed (their effect
+                # is in the restored state) before a prefetcher starts
+                skip_iter = iter(train_data)
+                for _ in range(resume.batches_done):
+                    try:
+                        next(skip_iter)
+                    except StopIteration:
+                        resume_skip_eoe = True
+                        break
+
+        wrapped = placer_sink = None
+        inner_train_data = train_data
+        if window > 0:
+            depth = int(_config.get("MXNET_TPU_DEVICE_PREFETCH"))
+            placer = getattr(self, "_device_placer", lambda: None)()
+            if depth > 0 and placer is not None \
+                    and getattr(train_data, "provide_data", None):
+                sink = getattr(train_data, "_mx_set_device_placer", None)
+                if sink is not None:
+                    # the loader is the prefetch stage: it places each
+                    # batch it delivers
+                    sink(placer)
+                    placer_sink = train_data
+                else:
+                    from ..io.io import PrefetchingIter
+                    if not isinstance(train_data, PrefetchingIter):
+                        train_data = wrapped = PrefetchingIter(
+                            train_data, device_placer=placer,
+                            device_prefetch=depth)
+                    # a PrefetchingIter the user made is used as it is
+                    # (no second wrap); its batches are copied in
+                    # _load_batch
+        # the manifest's cursor, from fit's CONSUMED count (the loader's
+        # own runs the prefetch depth ahead)
+        cursor_fn = _loader_hook(inner_train_data, "_mx_cursor")
 
         uninstall_sigterm = None
         if ckpt_mgr is not None and ckpt_mgr.config.save_on_sigterm:
@@ -347,9 +421,17 @@ class BaseModule(object):
                         self.update()
                     else:
                         self._fit_step(data_batch)
+                    if window > 0:
+                        inflight.push(step_token())
                     # the metric before prepare: prepare may switch the
                     # current bucket, whose outputs are not this batch's
-                    self.update_metric(eval_metric, data_batch.label)
+                    if not (window > 0 and update_device is not None and
+                            update_device(eval_metric, data_batch.label)):
+                        if window > 0:
+                            # the async loop had to read this batch's
+                            # metric on the host
+                            _profiler.incr_counter("loop_host_sync")
+                        self.update_metric(eval_metric, data_batch.label)
                     try:
                         next_data_batch = next(data_iter)
                         self.prepare(next_data_batch)
@@ -365,24 +447,44 @@ class BaseModule(object):
                             callback(params)
                     nbatch += 1
                     if ckpt_mgr is not None:
+                        cursor = cursor_fn(epoch=epoch, batches_done=nbatch) \
+                            if cursor_fn else None   # fit's consumed count
                         if every_n and nbatch % every_n == 0:
+                            # a step boundary: wait out the window first
+                            inflight.drain()
                             ckpt_mgr.save_module(self, epoch=epoch,
                                                  batches_done=nbatch,
-                                                 metric=eval_metric)
+                                                 metric=eval_metric,
+                                                 loader_state=cursor)
                         if ckpt_mgr.preempt_requested:
+                            inflight.drain()
                             ckpt_mgr.preempt_save(self, epoch=epoch,
                                                   batches_done=nbatch,
-                                                  metric=eval_metric)
+                                                  metric=eval_metric,
+                                                  loader_state=cursor)
                             self.logger.warning(
                                 "SIGTERM: checkpoint saved at epoch %d "
                                 "batch %d; exiting with status 143", epoch,
                                 nbatch)
                             raise SystemExit(143)
+                # the epoch barrier: the time and what follows see every
+                # step done; then the one host read of the metric
+                inflight.drain()
                 for name, val in eval_metric.get_name_value():
                     self.logger.info("Epoch[%d] Train-%s=%f", epoch, name,
                                      val)
                 self.logger.info("Epoch[%d] Time cost=%.3f", epoch,
                                  time.perf_counter() - tic)
+                if getattr(self, "_nancheck_mode", "off") != "off":
+                    bad = self._nancheck_poll()
+                    if bad is not None:
+                        _profiler.incr_counter("loop_nonfinite")
+                        msg = ("non-finite values in output %r during "
+                               "epoch %d (MXNET_TPU_NANCHECK=%s)"
+                               % (bad, epoch, self._nancheck_mode))
+                        if self._nancheck_mode == "abort":
+                            raise MXNetError(msg)
+                        self.logger.warning(msg)
                 arg_params_, aux_params_ = self.get_params()
                 if epoch_end_callback is not None:
                     for callback in _as_list(epoch_end_callback):
@@ -394,21 +496,45 @@ class BaseModule(object):
                         self.logger.info("Epoch[%d] Validation-%s=%f",
                                          epoch, name, val)
                 if ckpt_mgr is not None:
+                    # the next epoch at batch 0, where a resume from this
+                    # checkpoint starts
+                    cursor = cursor_fn(epoch=epoch + 1, batches_done=0) \
+                        if cursor_fn else None
                     if (epoch + 1) % period == 0:
                         ckpt_mgr.save_module(self, epoch=epoch,
-                                             metric=eval_metric)
+                                             metric=eval_metric,
+                                             loader_state=cursor)
                     if ckpt_mgr.preempt_requested:
                         ckpt_mgr.preempt_save(self, epoch=epoch,
-                                              metric=eval_metric)
+                                              metric=eval_metric,
+                                              loader_state=cursor)
                         self.logger.warning(
                             "SIGTERM: checkpoint saved at the end of epoch "
                             "%d; exiting with status 143", epoch)
                         raise SystemExit(143)
-                train_data.reset()
+                # a prefetcher is not reset after the last epoch: its
+                # worker would place batches of an epoch that never runs;
+                # close() below stops it and the inner iterator is reset
+                if wrapped is None or epoch < num_epoch - 1:
+                    train_data.reset()
             completed = True
         finally:
             if uninstall_sigterm is not None:
                 uninstall_sigterm()
+            if placer_sink is not None:
+                placer_sink._mx_set_device_placer(None)
+            if wrapped is not None:
+                joined = wrapped.close()
+                # leave the iterator as the synchronous loop would:
+                # reset, unless a worker is still inside it or fit is
+                # unwinding an error
+                if joined and completed:
+                    inner_train_data.reset()
+                elif not joined:
+                    self.logger.warning(
+                        "prefetch worker did not exit within the close() "
+                        "deadline; skipping the final reset of the "
+                        "training iterator")
             if ckpt_mgr is not None:
                 # a write failure is raised on a clean run only: raising
                 # while fit unwinds would hide the original error

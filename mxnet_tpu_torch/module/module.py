@@ -52,6 +52,7 @@ from __future__ import annotations
 
 import logging
 import pickle
+import threading
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -108,18 +109,77 @@ def _accum_loss_scale(symbol, accum: int) -> float:
     return 1.0
 
 
-def _as_tensor(value, like: torch.Tensor) -> torch.Tensor:
-    """A tensor on ``like``'s device and dtype from an NDArray, a tensor,
-    a numpy array, or any array with ``asnumpy()``."""
+def _host_tensor(value) -> torch.Tensor:
+    """A tensor view of an NDArray, a tensor, a numpy array or any array
+    with ``asnumpy()``, wherever it lies (no copy for a host array)."""
     if isinstance(value, NDArray):
-        t = value.data
-    elif isinstance(value, torch.Tensor):
-        t = value
-    else:
-        arr = value.asnumpy() if hasattr(value, "asnumpy") \
-            else np.asarray(value)
-        t = torch.from_numpy(np.ascontiguousarray(arr))
-    return t.to(like.device, like.dtype)
+        return value.data
+    if isinstance(value, torch.Tensor):
+        return value
+    arr = value.asnumpy() if hasattr(value, "asnumpy") else np.asarray(value)
+    return torch.from_numpy(np.ascontiguousarray(arr))
+
+
+def _as_tensor(value, like: torch.Tensor) -> torch.Tensor:
+    """A tensor on ``like``'s device and dtype from any of the above."""
+    return _host_tensor(value).to(like.device, like.dtype)
+
+
+class _H2DStager:
+    """The card's device-prefetch stage (``Module._device_placer``): a
+    ring of pinned host buffers per bound input, one H2D copy stream,
+    and per slot the event of the last copy out of it."""
+
+    def __init__(self, device, like, data_names, label_names, slots):
+        self.device = device
+        self.data_names = list(data_names)
+        self.label_names = list(label_names)
+        self.like = like
+        self.stream = torch.cuda.Stream(device)
+        self.slots = [{"event": None, "host": {}}
+                      for _ in range(max(2, slots))]
+        self.next = 0
+        self.lock = threading.Lock()
+
+    def __call__(self, data_batch):
+        arrs = list(data_batch.data or []) + list(data_batch.label or [])
+        pairs = [(n, a) for n, a in zip(self.data_names + self.label_names,
+                                        arrs) if n in self.like]
+        with self.lock:
+            slot = self.slots[self.next]
+            self.next = (self.next + 1) % len(self.slots)
+            if slot["event"] is not None:
+                # the previous copy out of these buffers must be done
+                # before the host overwrites them
+                slot["event"].synchronize()
+            placed = {}
+            with torch.no_grad(), torch.cuda.device(self.device), \
+                    torch.cuda.stream(self.stream):
+                for name, arr in pairs:
+                    like = self.like[name]
+                    host = slot["host"].get(name)
+                    if host is None:
+                        host = torch.empty(like.shape, dtype=like.dtype,
+                                           pin_memory=True)
+                        slot["host"][name] = host
+                    src = _host_tensor(arr)
+                    if src.device.type == "cuda":
+                        # already on the card: the step's own copy into
+                        # the bound input casts it
+                        placed[name] = src
+                        continue
+                    host.copy_(src.reshape(like.shape))
+                    dev = torch.empty(like.shape, dtype=like.dtype,
+                                      device=self.device)
+                    dev.copy_(host, non_blocking=True)
+                    placed[name] = dev
+                event = torch.cuda.Event()
+                event.record(self.stream)
+            slot["event"] = event
+        data_batch._mx_placed = placed
+        data_batch._mx_ready = event
+        return data_batch
+
 
 
 class Module(BaseModule):
@@ -168,6 +228,8 @@ class Module(BaseModule):
         self._grad_accum = 1
         self._accum_scale = 1.0
         self._remat_name = "off"
+        self._nancheck_mode = "off"
+        self._nan_flags = None
 
     # ------------------------------------------------------------ names
     @property
@@ -432,6 +494,8 @@ class Module(BaseModule):
         sequence, equal to the per-parameter update, so the families
         change no arithmetic."""
         from .. import config as _config
+        self._nancheck_mode = _config.get("MXNET_TPU_NANCHECK")
+        self._nan_flags = None
         accum = self._grad_accum
         self._accum_scale = 1.0
         if accum > 1:
@@ -497,14 +561,107 @@ class Module(BaseModule):
     # ------------------------------------------------------------ compute
     def _load_batch(self, data_batch):
         """Copy the batch's data and labels into the bound inputs (cast
-        to their dtype, onto the module's device)."""
+        to their dtype, onto the module's device). A batch the
+        device-prefetch stage placed (``_mx_placed``, see
+        :meth:`_device_placer`) is already on the device: the compute
+        stream waits on its copy's event and copies it device to device
+        into the bound input, which the step then reads."""
         ex = self._exec
         pairs = list(zip(self._data_names, data_batch.data or [])) + \
             list(zip(self._label_names, data_batch.label or []))
+        placed = getattr(data_batch, "_mx_placed", None)
+        ready = getattr(data_batch, "_mx_ready", None)
         with torch.no_grad():
+            if ready is not None:
+                stream = torch.cuda.current_stream(self._device)
+                stream.wait_event(ready)
             for name, arr in pairs:
                 dst = ex.arg_dict[name].data
-                dst.copy_(_as_tensor(arr, dst), non_blocking=True)
+                if placed is not None and name in placed:
+                    src = placed[name]
+                    if ready is not None:
+                        # made on the copy stream, read on this one: the
+                        # allocator must not hand its memory out again
+                        # before this stream has read it
+                        src.record_stream(stream)
+                    dst.copy_(src)
+                else:
+                    dst.copy_(_as_tensor(arr, dst), non_blocking=True)
+
+    # ----------------------------------------------------------- async loop
+    def _async_capable(self) -> bool:
+        """True when ``fit`` may run the async loop: bound, with an
+        optimizer, so ``_fit_step`` is the step. (The reference also
+        refuses programs with host callbacks, which deadlock its
+        dispatch; a CustomOp's host code here only makes the host wait
+        for the card.)"""
+        return self._exec is not None and self.optimizer_initialized
+
+    def _step_token(self):
+        """The completion token of the step just queued, for
+        :class:`.._fused.InflightWindow`: a CUDA event recorded on the
+        compute stream after it; None on the CPU, where a step has
+        finished when it returns."""
+        if self._device.type != "cuda":
+            return None
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(self._device))
+        return event
+
+    def _device_placer(self):
+        """The device-prefetch stage's callable, which ``fit`` attaches
+        to a ``PrefetchingIter`` (run in its worker thread) or to a
+        loader with ``_mx_set_device_placer``: it puts the batch's data
+        and labels on the device ahead of the step that reads them, as
+        ``batch._mx_placed`` (name -> tensor of the bound input's dtype)
+        and, on the card, ``batch._mx_ready`` (the copy's event).
+
+        On the card each batch goes through a ring of pinned staging
+        buffers to an H2D copy on a dedicated stream: a host array is
+        cast into the slot's pinned buffer, copied to a new device tensor
+        without blocking the host, and an event recorded after the copy.
+        A slot is written again only after its previous copy's event has
+        completed. On the CPU the placed tensors are host copies."""
+        if self._exec is None:
+            return None
+        ex = self._exec
+        names = [n for n in self._data_names + self._label_names
+                 if n in ex.arg_dict]
+        like = {n: ex.arg_dict[n].data for n in names}
+        device = self._device
+        if device.type != "cuda":
+            def place_host(data_batch):
+                arrs = list(data_batch.data or []) + \
+                    list(data_batch.label or [])
+                pairs = zip(self._data_names + self._label_names, arrs)
+                data_batch._mx_placed = {
+                    n: _as_tensor(a, like[n]).clone()
+                    for n, a in pairs if n in like}
+                return data_batch
+            return place_host
+        from .. import config as _config
+        return _H2DStager(device, like, self._data_names, self._label_names,
+                          slots=int(_config.get("MXNET_TPU_DEVICE_PREFETCH"))
+                          + 1)
+
+    def _update_metric_device(self, eval_metric, labels) -> bool:
+        """The metric update of the async loop: the metric sums on the
+        device from the bound labels (the batch just loaded) and the
+        step's outputs, with no host read. False when the metric cannot
+        (``CustomMetric``, ``F1``, ``PearsonCorrelation``, or
+        ``MXNET_TPU_DEVICE_METRICS=0``): the caller runs
+        :meth:`update_metric` and counts the host sync."""
+        if not eval_metric.device_capable():
+            return False
+        ex = self._exec
+        label_names = self._label_names or \
+            [d.name for d in self._label_shapes]
+        label_dict = {}
+        for name, arr in zip(label_names, labels or []):
+            bound = ex.arg_dict.get(name)
+            label_dict[name] = bound.data if bound is not None else arr
+        preds = dict(zip(self._output_names, self.get_outputs()))
+        return eval_metric.update_dict_device(label_dict, preds)
 
     def forward(self, data_batch, is_train=None):
         assert self.binded and self.params_initialized
@@ -565,6 +722,36 @@ class Module(BaseModule):
                   if n not in self._data_names]
         self._apply_update([n for n, _ in params], [g for _, g in params],
                            fit_step=True)
+        if self._nancheck_mode != "off":
+            self._nancheck_accumulate(self._exec.outputs)
+
+    # ------------------------------------------------- non-finite guard
+    def _nancheck_accumulate(self, outs) -> None:
+        """Per floating output, an "ever went non-finite" flag kept on
+        the device and or-ed with this step's outputs (no host read; the
+        reference's ``MXNET_TPU_NANCHECK`` guard)."""
+        with torch.no_grad():
+            hits = [None if not o.data.is_floating_point() else
+                    ~torch.isfinite(o.data).all() for o in outs]
+            if self._nan_flags is None:
+                self._nan_flags = hits
+            else:
+                self._nan_flags = [
+                    h if f is None else f if h is None else f | h
+                    for f, h in zip(self._nan_flags, hits)]
+
+    def _nancheck_poll(self) -> Optional[str]:
+        """The epoch boundary's one host read of the flags: the name of
+        the first output that went non-finite, or None; the flags start
+        over for the next epoch."""
+        flags, self._nan_flags = self._nan_flags, None
+        if flags is None:
+            return None
+        for i, f in enumerate(flags):
+            if f is not None and bool(f):
+                names = self._output_names or []
+                return names[i] if i < len(names) else "output%d" % i
+        return None
 
     def _accum_gradients(self):
         """The accumulated step's gradients: a forward and a backward

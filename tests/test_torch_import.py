@@ -69,6 +69,10 @@ def test_importing_the_port_loads_no_jax():
         "assert mxnet_tpu_torch.sym.random.normal\n"
         "assert mxnet_tpu_torch.rnn.BucketSentenceIter\n"
         "assert mxnet_tpu_torch.gluon.rnn.LSTM and mxnet_tpu_torch.callback\n"
+        "import mxnet_tpu_torch.data, mxnet_tpu_torch.native\n"
+        "import mxnet_tpu_torch.image, mxnet_tpu_torch.tools.im2rec\n"
+        "import mxnet_tpu_torch.gluon.data.vision, mxnet_tpu_torch.recordio\n"
+        "import mxnet_tpu_torch.filesystem, mxnet_tpu_torch.io.image_record\n"
         "import mxnet_tpu_torch._cuda_driver as driver\n"
         "assert driver._lib is None   # libcuda loads at first use only\n"
         "bad = sorted(m for m in sys.modules\n"

@@ -668,7 +668,8 @@ def test_f32_backward_of_another_checkout_needs_a_card():
     assert "dq" not in r.stdout
 
 
-@pytest.mark.parametrize("what,rc", [("rtc", 1), ("attention", 2)])
+@pytest.mark.parametrize("what,rc", [("rtc", 1), ("fit-loop", 1),
+                                     ("attention", 2)])
 def test_pairs_of_another_checkout(what, rc):
     """``--pairs-of CHECKOUT rtc`` imports that checkout's package and,
     without a card, ends with exit code 1 and no readings; a part that

@@ -103,6 +103,19 @@ def test_zoo_phase_rehearsal_on_cpu(small):
         assert any(ln.startswith("score %s: " % net) for ln in lines)
 
 
+def test_fit_loop_timing_rehearsal_on_cpu(small):
+    """``--pairs-of CHECKOUT fit-loop``'s readings: AlexNet through the
+    package's fit in amp bf16 and f32, a step time and an idle share
+    each."""
+    out = chip_smoke.fit_loop_timing(torch, np)
+    assert set(out) == {"bf16", "f32"}
+    for r in out.values():
+        assert r["step_ms"] > 0 and r["idle"] <= 1.0
+    for what in ("alexnet ", "alexnet f32 "):
+        assert any(ln.startswith(what + "device time by kind")
+                   for ln in small), what
+
+
 def test_every_op_of_the_library_has_a_sweep_case():
     """12a covers each canonical op of the port's ops package but the
     samplers, FlashAttention and the structured families (vision,
