@@ -286,7 +286,35 @@ Phases, each fatal on failure (exit code 1, no result line):
     and resumed with 4 workers: bit for bit the uninterrupted run, the
     cursor in the manifest; and the run again with
     ``data.worker@5:sigkill``, replayed bit for bit. A hung loader ends
-    the run through ``faulthandler`` after ``DATA_DEADLINE_S``.
+    the run through ``faulthandler`` after ``DATA_DEADLINE_S``;
+17. serving (queue A8c), in float32 with TF32 off: (a) ``InferenceServer``
+    over a ``Predictor`` of benchmark_score's ResNet-50 (7x7 stem, 1000
+    classes, seeded Xavier weights) bound at (1, 3, 224, 224), served
+    with ``BucketSpec(32)``: 64 closed-loop client threads, each
+    submitting its seeded image 8 times (512 requests), against one
+    caller running 64 batch-1 ``Predictor.forward`` back to back —
+    req/s both ways, p50 / p95 / p99 latency, mean batch rows,
+    occupancy, runners (equal to the buckets touched, and no new one in
+    a second pass of 128 requests after the grid is warm), peak memory;
+    every served row within 1e-4 of the batch-1 forward of its image,
+    padded rows bit for bit the unpadded bucket's under
+    ``cudnn.deterministic``, ``_eager`` / ``_fallback`` 0; under
+    ``MXNET_TPU_SERVE=0`` 8 eager requests matching the batched rows;
+    ``wrap_model`` of a ``Module`` (``for_training=False``) and of Gluon
+    ``resnet50_v1``, 16 requests each against their own forward. (b)
+    ``Predictor.export`` at batch 32, run by
+    ``mxnet_tpu_torch/tools/predict_exported.py`` in a subprocess from a
+    scratch directory without ``PYTHONPATH``: its output within 1e-4 of
+    ``forward``, the framework never imported there. (c)
+    ``GenerativeServer(int8=True)`` on phase 4's weights and prompts:
+    tok/s, TTFT and TPOT, the cache's bytes beside the allocator's, the
+    audit, ``max_slots_for`` at 16 GB f32 against int8 (int8 at least
+    2x); K1 f32 launched 8 x 12 times in the burst, bf16 never; teacher
+    forced on phase 4's greedy tokens, every decode step's softmax
+    within 5e-2 of an f32 cache's; layer 0's int8 codes and scales of
+    the longest prompt against the plain quantizer on the CPU (codes at
+    most one level apart, the count logged); greedy agreement with phase
+    4 logged.
 
 The second-to-last line is the kernel table as one JSON object; the
 last is ``{"ok": true, "device": {...}}``. Without a GPU, or run from a
@@ -678,6 +706,31 @@ DATA_FAULT = "data.worker@5:sigkill"
 # phase 16 on the card takes 73-100 s: a hung loader or decode thread
 # ends the run (faulthandler, armed by main) instead of the call's limit
 DATA_DEADLINE_S = 600
+
+
+# phase 17: serving (A8c). 17a: benchmark_score's ResNet-50 behind a
+# Predictor, served at BucketSpec(SERVE_MAX_BATCH) (MXNET_TPU_SERVE_MAX_BATCH's
+# default, benchmark_score's batch); traffic as tools/perf/serve_bench.py
+# drives it: closed-loop clients, each resubmitting its own image
+SERVE_LAYERS, SERVE_CLASSES, SERVE_IMAGE = 50, 1000, 224
+SERVE_GLUON = "resnet50_v1"
+SERVE_MAX_BATCH = 32
+SERVE_CLIENTS, SERVE_REPEATS = 64, 8
+SERVE_SECOND = 128         # the second pass, after the grid is warm
+SERVE_KILL = 8             # requests under MXNET_TPU_SERVE=0
+SERVE_ADAPTER = 16         # requests through each wrap_model adapter
+SERVE_ATOL = 1e-4          # of max(1, max|ref|): cuDNN may choose other
+                           # algorithms at other batch sizes
+SERVE_EXPORT_BATCH = 32
+# 17b: the artifact against forward, both float32 in one bucket geometry:
+# above the f32 readings (1e-8 across buckets), below a TF32 run's (1e-5)
+SERVE_EXPORT_ATOL = 1e-6
+SERVE_INT8_SOFTMAX_TOL = 5e-2   # tests/test_serve_decode.py:146-149
+SERVE_BUDGET = 16e9        # max_slots_for's budget, f32 against int8
+SERVE_DEADLINE_S = 600
+# what phase 4 leaves for 17c: its weights (host numpy) and its greedy
+# tokens, so 17c serves the same model and compares with that burst
+PHASE4 = {}
 
 
 class SmokeFailure(Exception):
@@ -1194,6 +1247,7 @@ def slice_phase(torch, np, kernels):
     torch.cuda.reset_peak_memory_stats()
     srv = GenerativeServer(params, n_heads=HEADS, max_sequences=SLOTS,
                            page=PAGE, name="smoke", device=DEVICE)
+    PHASE4["params"] = params       # phase 17c serves them from int8 KV
     del params
     rng = np.random.default_rng(SEED + 1)
     prompts = [rng.integers(0, VOCAB, n) for n in PROMPT_LENS]
@@ -1203,6 +1257,7 @@ def slice_phase(torch, np, kernels):
         outs, wall = burst(srv, prompts)
         counts = dict(flash_attention_fwd.launches)
         launches = {"flash_attention_fwd": counts["f32"]}
+        PHASE4["outs"] = outs
         torch.cuda.synchronize()
         st = srv.stats()
         report("cold", srv, outs, wall)
@@ -8618,6 +8673,615 @@ def data_phase(torch, np):
     return {"pipeline": pipe, "fit": fit}
 
 
+# ------------------------------------------------ phase 17: serving (A8c)
+
+def serve_close(np, got, want):
+    """max |got - want| / max(1, max |want|)."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() /
+                 max(1.0, float(np.abs(want).max())))
+
+
+def serve_model(torch, np, mt):
+    """benchmark_score's ResNet-50 up to its logits and seeded weights
+    (Xavier magnitude 2, as phase 12d draws them): the symbol, and the
+    ``arg:`` / ``aux:`` parameter dict on the host."""
+    from mxnet_tpu_torch.models import resnet
+    sym = logits_symbol(mt, resnet.get_symbol(num_classes=SERVE_CLASSES,
+                                              num_layers=SERVE_LAYERS))
+    mod = mt.mod.Module(sym, label_names=None, context=mt.gpu(0))
+    mod.bind(data_shapes=[("data", (1, 3, SERVE_IMAGE, SERVE_IMAGE))],
+             for_training=False)
+    mod.init_params(mt.init.Xavier(magnitude=2).set_rng(
+        np.random.default_rng(SEED)))
+    arg, aux = mod.get_params()
+    params = {"arg:" + k: v.asnumpy() for k, v in arg.items()}
+    params.update({"aux:" + k: v.asnumpy() for k, v in aux.items()})
+    del mod
+    return sym, params
+
+
+def closed_loop(srv, images, repeats, timeout=600):
+    """One client thread per image: submit it, wait for the row, repeat.
+    Returns every row (client by client) and the wall seconds."""
+    rows = [[None] * repeats for _ in images]
+    errors = []
+
+    def client(i):
+        try:
+            for r in range(repeats):
+                rows[i][r] = srv.submit(images[i]).result(timeout=timeout)
+        except Exception as exc:                           # noqa: BLE001
+            errors.append((i, repr(exc)))
+
+    threads = [threading.Thread(target=client, args=(i,), daemon=True)
+               for i in range(len(images))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout)
+    wall = time.perf_counter() - t0
+    check(not errors and not any(t.is_alive() for t in threads),
+          "17a: clients failed or hung: %s" % errors[:3])
+    return rows, wall
+
+
+def serve_batcher(torch, np, mt, sym, params, images):
+    """17a: InferenceServer over a Predictor at full width, one client
+    thread per image."""
+    from mxnet_tpu_torch import profiler, serve
+    check(mt.config.get("MXNET_TPU_SERVE_MAX_BATCH") == SERVE_MAX_BATCH,
+          "MXNET_TPU_SERVE_MAX_BATCH's default is not %d" % SERVE_MAX_BATCH)
+    shape = images[0].shape
+    pred = mt.Predictor(sym.tojson(), params, {"data": (1,) + shape},
+                        ctx=mt.gpu(0))
+    pred.forward(data=images[0][None])[0].asnumpy()     # warm cuDNN
+    # one caller, one batch-1 forward of each image back to back: the
+    # rate to beat, and each image's reference row
+    t0 = time.perf_counter()
+    ref = [pred.forward(data=x[None])[0].asnumpy()[0] for x in images]
+    seq_s = time.perf_counter() - t0
+    seq_rate = len(images) / seq_s
+    name = "phase17"
+    torch.cuda.reset_peak_memory_stats()
+    spec = serve.BucketSpec(SERVE_MAX_BATCH)
+    srv = serve.InferenceServer(pred, buckets=spec, name=name,
+                                ctx=mt.gpu(0))
+    # the batcher thread's host time in the first pass, by part
+    spent = dict.fromkeys(("batch", "assemble", "model"), 0.0)
+
+    def timed(part, fn):
+        def run(*args):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args)
+            finally:
+                spent[part] += time.perf_counter() - t0
+        return run
+
+    plain = {k: getattr(srv, k) for k in ("_run_batch", "_assemble",
+                                          "_call_model")}
+    srv._run_batch = timed("batch", plain["_run_batch"])
+    srv._assemble = timed("assemble", plain["_assemble"])
+    srv._call_model = timed("model", plain["_call_model"])
+    try:
+        with profiler.counter_delta() as first:
+            rows, wall = closed_loop(srv, images, SERVE_REPEATS)
+            st = srv.stats()
+        used = dict(spent)      # the cached runners keep the wrapper
+        for k, fn in plain.items():
+            setattr(srv, k, fn)
+        touched = sorted({sig[1] for sig in srv.cache._entries})
+        compiles = first.get(name + "_compile")
+        went = (first.get(name + "_eager"), first.get(name + "_fallback"))
+        check(went == (0, 0), "17a: the batched run went eager (%d) or fell "
+              "back (%d)" % went)
+        # warm the rest of the grid, then the second pass adds no runner
+        for b in spec.batch_buckets:
+            if b not in touched:
+                srv.submit(np.stack(images[:b]), batched=True).result(600)
+        warm = len(srv.cache)
+        with profiler.counter_delta() as later:
+            rows2, wall2 = closed_loop(
+                srv, images[:SERVE_SECOND // 2], 2)
+        second = later.get(name + "_compile")
+        second_hits = later.get(name + "_cache_hit")
+    finally:
+        srv.close(timeout=600)
+    peak = torch.cuda.max_memory_allocated()
+    rate = len(images) * SERVE_REPEATS / wall
+    err = max(serve_close(np, rows[i][r], ref[i])
+              for i in range(len(images)) for r in range(SERVE_REPEATS))
+    err2 = max(serve_close(np, rows2[i][r], ref[i])
+               for i in range(len(rows2)) for r in range(2))
+    lat = st["latency"]
+    eager = went[0] + later.get(name + "_eager")
+    fallback = went[1] + later.get(name + "_fallback")
+    log("17a InferenceServer over a Predictor (ResNet-%d, %d classes, "
+        "%dx%d, f32): %d clients x %d = %d requests in %.3f s = %.1f req/s; "
+        "one caller, %d batch-1 forwards: %.3f s = %.1f req/s; ratio %.2f; "
+        "latency p50 %.3f ms p95 %.3f ms p99 %.3f ms (mean %.3f, max %.3f); "
+        "%d batches, mean %.3f rows, occupancy %.4f; buckets touched %s, "
+        "runners %d; peak memory %.3f GB; max row error %.3g of max(1, "
+        "max|ref|) (limit %g)"
+        % (SERVE_LAYERS, SERVE_CLASSES, SERVE_IMAGE, SERVE_IMAGE,
+           len(images), SERVE_REPEATS, len(images) * SERVE_REPEATS,
+           wall, rate, len(images), seq_s, seq_rate, rate / seq_rate,
+           lat["p50_ms"], lat["p95_ms"], lat["p99_ms"], lat["mean_ms"],
+           lat["max_ms"], st["batches"], st["avg_batch_rows"],
+           st["occupancy"], touched, compiles, peak / 1e9, err,
+           SERVE_ATOL))
+    nb = max(1, st["batches"])
+    log("17a the batcher thread in the first pass, ms a batch: assembling "
+        "the padded batch on the host %.3f, the model and its fetch (the "
+        "sync) %.3f, the rest (H2D copy, splitting, futures) %.3f; busy "
+        "%.3f of the pass's %.3f s" % (
+            used["assemble"] * 1e3 / nb, used["model"] * 1e3 / nb,
+            (used["batch"] - used["assemble"] - used["model"]) * 1e3 / nb,
+            used["batch"], wall))
+    log("17a second pass (grid warm, %d runners): %d requests in %.3f s = "
+        "%.1f req/s, %d new runners, %d runner hits; max row error %.3g; "
+        "_eager %d, _fallback %d" % (
+            warm, len(rows2) * 2, wall2, len(rows2) * 2 / wall2, second,
+            second_hits, err2, eager, fallback))
+    check(eager == 0 and fallback == 0, "17a: the batched run went eager "
+          "(%d) or fell back (%d)" % (eager, fallback))
+    check(err <= SERVE_ATOL and err2 <= SERVE_ATOL, "17a: served rows "
+          "%.3g / %.3g of max|ref| from the batch-1 forward" % (err, err2))
+    check(compiles == len(touched), "17a: %d runners for the buckets %s"
+          % (compiles, touched))
+    check(second == 0, "17a: the warm second pass added %d runners"
+          % second)
+    padded_check(torch, np, pred, images)
+    kill_switch_check(np, mt, pred, images, ref)
+    adapter_checks(torch, np, mt, sym, params, images)
+    del pred
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"req_s": rate, "seq_req_s": seq_rate, "ratio": rate / seq_rate,
+            "latency": lat, "avg_batch_rows": st["avg_batch_rows"],
+            "occupancy": st["occupancy"], "runners": compiles,
+            "buckets": touched, "peak_gb": peak / 1e9}
+
+
+def padded_check(torch, np, pred, images):
+    """3 requests served at bucket 4 are the bits of the model on the
+    zero-padded 4-row buffer (cuDNN's deterministic algorithms)."""
+    from mxnet_tpu_torch import serve
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        with serve.InferenceServer(pred, max_batch_size=4,
+                                   max_delay_us=300_000, ctx=pred._ctx,
+                                   name="phase17_pad") as srv:
+            futs = [srv.submit(x) for x in images[:3]]
+            got = [f.result(timeout=600) for f in futs]
+            batches = srv.stats()["batches"]
+        buf = np.zeros((4,) + images[0].shape, np.float32)
+        buf[:3] = np.stack(images[:3])
+        dev = pred._exec.arg_dict["data"].data.device
+        direct = pred._exec.forward_inputs(
+            False, {"data": torch.from_numpy(buf).to(dev)})[0].asnumpy()
+    finally:
+        torch.backends.cudnn.deterministic, \
+            torch.backends.cudnn.benchmark = flags
+    same = [bool(np.array_equal(got[i], direct[i])) for i in range(3)]
+    log("17a padded rows: 3 requests in %d batch of bucket 4, bit for bit "
+        "the padded buffer's rows: %s" % (batches, same))
+    check(batches == 1 and all(same), "17a: padding changed a served row")
+
+
+def kill_switch_check(np, mt, pred, images, ref):
+    """MXNET_TPU_SERVE=0: requests run eagerly in the caller, each
+    counted, with the batched path's rows."""
+    from mxnet_tpu_torch import profiler, serve
+    mt.config.set("MXNET_TPU_SERVE", False)
+    try:
+        with profiler.counter_delta() as d, \
+                serve.InferenceServer(pred, name="phase17_kill",
+                                      ctx=pred._ctx) as srv:
+            got = [srv.submit(images[i]).result(timeout=600)
+                   for i in range(SERVE_KILL)]
+            batches = srv.stats()["batches"]
+    finally:
+        mt.config.reset("MXNET_TPU_SERVE")
+    eager = d.get("phase17_kill_eager")
+    err = max(serve_close(np, got[i], ref[i]) for i in range(SERVE_KILL))
+    log("17a MXNET_TPU_SERVE=0: %d requests, %d eager forwards, %d batches,"
+        " max error against the batch-1 rows %.3g" % (SERVE_KILL, eager,
+                                                     batches, err))
+    check(eager == SERVE_KILL and batches == 0 and err <= SERVE_ATOL,
+          "17a: the kill switch served %d eager, %d batches, error %.3g"
+          % (eager, batches, err))
+
+
+def adapter_checks(torch, np, mt, sym, params, images):
+    """wrap_model of a Module bound for_training=False and of Gluon's
+    zoo net: concurrent requests against each model's own forward."""
+    from mxnet_tpu_torch import gluon, serve
+    shape = images[0].shape
+    mod = mt.mod.Module(sym, label_names=None, context=mt.gpu(0))
+    mod.bind(data_shapes=[("data", (1,) + shape)], for_training=False)
+    mod.set_params({k[4:]: v for k, v in params.items()
+                    if k.startswith("arg:")},
+                   {k[4:]: v for k, v in params.items()
+                    if k.startswith("aux:")})
+    mt.random.seed(SEED)
+    net = gluon.model_zoo.vision.get_model(SERVE_GLUON,
+                                           classes=SERVE_CLASSES)
+    net.initialize(mt.init.Xavier(magnitude=2).set_rng(
+        np.random.default_rng(SEED)), ctx=mt.gpu(0))
+    net.hybridize()
+    dev = torch.device(DEVICE)
+    xs = images[:SERVE_ADAPTER]
+
+    def module_ref(x):
+        mod.forward(mt.io.DataBatch(data=[mt.nd.array(x[None], ctx=dev)]),
+                    is_train=False)
+        return mod.get_outputs()[0].asnumpy()[0]
+
+    def gluon_ref(x):
+        return net(mt.nd.array(x[None], ctx=dev)).asnumpy()[0]
+
+    for what, model, direct in (("Module", mod, module_ref),
+                                ("Gluon " + SERVE_GLUON, net, gluon_ref)):
+        want = [direct(x) for x in xs]
+        with serve.InferenceServer(model, max_batch_size=SERVE_MAX_BATCH,
+                                   name="phase17_" + what.split()[0],
+                                   ctx=mt.gpu(0)) as srv:
+            futs = [srv.submit(x) for x in xs]
+            got = [f.result(timeout=600) for f in futs]
+            st = srv.stats()
+        err = max(serve_close(np, g, w) for g, w in zip(got, want))
+        log("17a wrap_model(%s): %d requests in %d batches, max error "
+            "against its own forward %.3g" % (what, len(xs), st["batches"],
+                                              err))
+        check(err <= SERVE_ATOL, "17a: %s served rows %.3g from its "
+              "forward" % (what, err))
+    del mod, net
+
+
+def serve_export(torch, np, mt, sym, params, images):
+    """17b: Predictor.export at batch 32, run by the standalone loader in
+    a subprocess without the framework on its path."""
+    import os
+    import shutil
+    out = ROOT / "build" / "phase17"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    try:
+        shape = (SERVE_EXPORT_BATCH,) + images[0].shape
+        pred = mt.Predictor(sym.tojson(), params, {"data": shape},
+                            ctx=mt.gpu(0))
+        x = np.stack([images[i % len(images)]
+                      for i in range(SERVE_EXPORT_BATCH)])
+        want = pred.forward(data=x)[0].asnumpy()
+        art = out / "resnet.mxprog"
+        t0 = time.perf_counter()
+        pred.export(str(art))
+        export_s = time.perf_counter() - t0
+        del pred
+        gc.collect()
+        torch.cuda.empty_cache()
+        np.save(out / "x.npy", x)
+        tool = Path(mt.__file__).resolve().parent / "tools" / \
+            "predict_exported.py"
+        code = ("import runpy, sys\n"
+                "sys.argv = %r\n"
+                "try:\n"
+                "    runpy.run_path(%r, run_name='__main__')\n"
+                "except SystemExit as e:\n"
+                "    assert not e.code, e.code\n"
+                "print('framework modules:', sorted(\n"
+                "    m for m in sys.modules\n"
+                "    if m.split('.')[0] in ('mxnet_tpu_torch', 'mxnet_tpu',"
+                " 'jax')))\n"
+                % ([str(tool), str(art), "--input",
+                    "data=%s" % (out / "x.npy"), "--save",
+                    str(out / "y.npz")], str(tool)))
+        env = dict(os.environ)
+        env.pop("PYTHONPATH", None)
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                           text=True, env=env, cwd=str(out), timeout=600)
+        run_s = time.perf_counter() - t0
+        check(r.returncode == 0, "17b: predict_exported.py failed: %s"
+              % r.stderr[-2000:])
+        with np.load(out / "y.npz") as z:
+            got = z["output_0"]
+        err = serve_close(np, got, want)
+        size = art.stat().st_size
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    for line in r.stdout.strip().splitlines():
+        log("17b loader: " + line)
+    log("17b Predictor.export (batch %d): %.1f MB artifact in %.3f s; the "
+        "loader's subprocess %.3f s; output max error %.3g of max(1, "
+        "max|ref|) (limit %g)" % (SERVE_EXPORT_BATCH, size / 1e6, export_s,
+                                  run_s, err, SERVE_EXPORT_ATOL))
+    check("framework modules: []" in r.stdout, "17b: the loader imported "
+          "the framework: %s" % r.stdout[-500:])
+    check("device %s" % torch.device(DEVICE) in r.stdout, "17b: the "
+          "loader did not run on the card: %s" % r.stdout[-500:])
+    check("tf32 matmul off cudnn off" in r.stdout, "17b: the loader did "
+          "not run in float32: %s" % r.stdout[-500:])
+    check(err <= SERVE_EXPORT_ATOL, "17b: the artifact's output is %.3g "
+          "from forward's" % err)
+    return {"mb": size / 1e6, "export_s": export_s, "load_run_s": run_s,
+            "err": err}
+
+
+def serve_int8(torch, np, mt):
+    """17c: GenerativeServer with an int8 KV cache on phase 4's model."""
+    from mxnet_tpu_torch._fused import CompileCache
+    from mxnet_tpu_torch.ops.flash_attention import flash_attention_fwd
+    from mxnet_tpu_torch.serve import GenerativeServer
+    from mxnet_tpu_torch.serve.decode import DecodeEngine, _quantize_pages
+    from mxnet_tpu_torch.serve.kv_cache import KVCache, max_slots_for
+    params = PHASE4.get("params")
+    if params is None:
+        t0 = time.perf_counter()
+        params = seeded_params(np, SEED)
+        log("17c weights drawn again in %.1f s" % (time.perf_counter() - t0))
+    phase4 = PHASE4["outs"]
+    rng = np.random.default_rng(SEED + 1)
+    prompts = [rng.integers(0, VOCAB, n) for n in PROMPT_LENS]
+    srv = GenerativeServer(params, n_heads=HEADS, max_sequences=SLOTS,
+                           page=PAGE, int8=True, name="phase17_gen",
+                           device=DEVICE)
+    try:
+        flash_attention_fwd.launches = {"f32": 0, "bf16": 0}
+        outs, wall = burst(srv, prompts)
+        counts = dict(flash_attention_fwd.launches)
+        torch.cuda.synchronize()
+        st = srv.stats()
+        report("17c int8 cold", srv, outs, wall)
+        # again, every runner warm (phase 4 reads its f32 burst so too)
+        warm, warm_wall = burst(srv, prompts)
+        report("17c int8 warm", srv, warm, warm_wall)
+        warm_st = srv.stats()
+    finally:
+        srv.close(timeout=600)
+    cache, eng = srv.cache, srv.engine
+    scale_bytes = 2 * cache.k_scale.numel() * cache.k_scale.element_size()
+    slots32 = max_slots_for(SERVE_BUDGET, LAYERS, HEADS, D_MODEL // HEADS,
+                            MAX_SEQ, PAGE, int8=False)
+    slots8 = max_slots_for(SERVE_BUDGET, LAYERS, HEADS, D_MODEL // HEADS,
+                           MAX_SEQ, PAGE, int8=True)
+    agree = sum(a == b for o, p in zip(outs, phase4) for a, b in zip(o, p))
+    log("17c int8 KV cache: hbm_bytes %d (scales %d), the allocator's "
+        "blocks %d; audit %s; max_slots_for(%g GB): f32 %d, int8 %d; "
+        "K1 launches %s in the burst; greedy tokens equal to phase 4's f32 "
+        "burst at %d of %d positions" % (
+            st["kv"]["hbm_bytes"], scale_bytes, cache.device_bytes(),
+            json.dumps(srv.hbm_audit), SERVE_BUDGET / 1e9, slots32, slots8,
+            counts, agree, sum(len(o) for o in outs)))
+    check(counts["f32"] == len(prompts) * LAYERS and counts["bf16"] == 0,
+          "17c: flash kernel launches %s for %d prefills x %d layers"
+          % (counts, len(prompts), LAYERS))
+    check(st["kv"]["int8"] and st["kv"]["slots_in_use"] == 0,
+          "17c: the cache is not int8 or leaked slots: %s" % st["kv"])
+    check(all(len(o) == NEW_TOKENS and all(0 <= t < VOCAB for t in o)
+              for o in outs), "17c: a sequence came back short or out of "
+          "the vocabulary")
+    check(slots8 >= 2 * slots32, "17c: int8 admits %d slots against %d"
+          % (slots8, slots32))
+    check(srv.hbm_audit["reserved_bytes"] == cache.device_bytes() >=
+          cache.hbm_bytes(), "17c: the audit's bytes %s" % srv.hbm_audit)
+    # teacher forcing on phase 4's greedy tokens: an f32 cache beside the
+    # server's int8 one, over the same weights
+    cache32 = KVCache(LAYERS, HEADS, D_MODEL // HEADS, SLOTS, MAX_SEQ,
+                      page=PAGE, int8=False, name="phase17_f32",
+                      device=DEVICE)
+    eng32 = DecodeEngine(eng.params, HEADS, cache32,
+                         CompileCache("phase17_f32"))
+    worst, argmax_same, steps = 0.0, 0, 0
+    # prompt i sits in slot slots[e][i] of engine e; rows in prompt order
+    engines = (eng, eng32)
+    slots = ([cache.acquire(len(pr)) for pr in prompts],
+             [cache32.acquire(len(pr)) for pr in prompts])
+    for i, pr in enumerate(prompts):
+        p8, p32 = (torch.softmax(torch.from_numpy(e.prefill(pr, sl[i])), -1)
+                   for e, sl in zip(engines, slots))
+        worst = max(worst, float((p8 - p32).abs().max()))
+    longest = int(np.argmax(PROMPT_LENS))
+    codes_diff = int_codes_check(
+        torch, cache, cache32, slots[0][longest], slots[1][longest],
+        eng.prompt_bucket(len(prompts[longest])), _quantize_pages)
+    # decode's requantize-on-write, write for write: each write the int8
+    # engine makes below is recorded with the card's own new K/V rows,
+    # to be replayed on the host from the state after the prefills
+    state0 = [t.cpu().numpy().copy()
+              for t in (cache.k, cache.k_scale, cache.v, cache.v_scale)]
+    where = {}
+    for li in range(LAYERS):
+        where[cache.k[li].data_ptr()] = (0, li)
+        where[cache.v[li].data_ptr()] = (2, li)
+    writes = []
+    write = eng._write_token_i8
+
+    def recorded(codes, scales, new, p):
+        writes.append(where[codes.data_ptr()] + (
+            new.cpu().numpy().copy(), p.cpu().numpy().copy()))
+        write(codes, scales, new, p)
+
+    eng._write_token_i8 = recorded
+    pos = np.array([len(pr) for pr in prompts], np.int64)
+    for step in range(NEW_TOKENS - 1):
+        logits = []
+        for e, sl in zip(engines, slots):
+            tok = np.zeros(SLOTS, np.int64)
+            p = np.zeros(SLOTS, np.int64)
+            act = np.zeros(SLOTS, bool)
+            for i, slot in enumerate(sl):
+                tok[slot], p[slot], act[slot] = phase4[i][step], \
+                    pos[i] + step, True
+            logits.append(torch.from_numpy(e.decode_step(tok, p, act))[sl])
+        l8, l32 = logits
+        worst = max(worst, float((torch.softmax(l8, -1) -
+                                  torch.softmax(l32, -1)).abs().max()))
+        argmax_same += int((l8.argmax(-1) == l32.argmax(-1)).sum())
+        steps += 1
+    del eng._write_token_i8
+    decode_diff = decode_writes_check(torch, np, eng, state0, writes)
+    # one more step of each engine under the profiler: the device's busy
+    # share of a decode step, int8 against f32
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if torch.device(DEVICE).type == "cuda"
+        else [])
+    idle = {}
+    for what, e, sl in zip(("int8", "f32"), engines, slots):
+        tok = np.zeros(SLOTS, np.int64)
+        p = np.zeros(SLOTS, np.int64)
+        act = np.zeros(SLOTS, bool)
+        for i, slot in enumerate(sl):
+            tok[slot], p[slot], act[slot] = phase4[i][NEW_TOKENS - 1], \
+                pos[i] + NEW_TOKENS - 1, True
+        with profile(activities=acts) as prof:
+            t1 = time.perf_counter()
+            e.decode_step(tok, p, act)
+            step_wall = time.perf_counter() - t1
+        _, busy = device_breakdown(torch, prof, step_wall,
+                                   "17c %s decode step" % what)
+        idle[what] = 1 - busy / (step_wall * 1e3)
+    for c, sl in zip((cache, cache32), slots):
+        for slot in sl:
+            c.release(slot)
+    log("17c teacher-forced on phase 4's tokens: %d prefills and %d decode "
+        "steps x %d slots, worst softmax difference int8 - f32 %.3g (limit "
+        "%g); argmax equal at %d of %d steps; layer 0 codes of the %d-token "
+        "prompt against the plain quantizer on the CPU: %d differ (by one "
+        "level at most)" % (len(prompts), steps, len(prompts), worst,
+                            SERVE_INT8_SOFTMAX_TOL, argmax_same,
+                            steps * len(prompts), len(prompts[longest]),
+                            codes_diff))
+    log("17c decode's %d int8 writes replayed by the plain requantizer on "
+        "the host from the state "
+        "after the prefills: scales equal, %d codes differ (by one level "
+        "at most) in %d layers; _read_bucket at %d positions equal to "
+        "codes x page scales" % (len(writes), decode_diff, LAYERS, MAX_SEQ))
+    check(worst <= SERVE_INT8_SOFTMAX_TOL, "17c: int8 softmax %.3g from the "
+          "f32 cache's" % worst)
+    del eng32, cache32, srv, eng, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"tok_s": sum(len(o) for o in outs) / wall,
+            "warm_tok_s": sum(len(o) for o in warm) / warm_wall,
+            "ttft": warm_st["ttft"], "tpot": warm_st["tpot"],
+            "hbm_bytes": st["kv"]["hbm_bytes"], "slots_f32": slots32,
+            "slots_int8": slots8, "softmax_worst": worst,
+            "codes_diff": codes_diff, "decode_codes_diff": decode_diff,
+            "decode_writes": len(writes), "decode_idle": idle,
+            "phase4_agree": agree}
+
+
+def int_codes_check(torch, cache, cache32, slot, slot32, t_b, quantize):
+    """Layer 0's int8 block and scales of one prefill (``slot`` of the
+    int8 cache, ``slot32`` of the f32 one, bucket ``t_b``) against the
+    port's plain quantizer on the CPU over the f32 cache's K and V of the
+    same prompt: scales equal, codes at most one level apart. Returns how
+    many codes differ."""
+    differ = 0
+    for codes, scales, kv in ((cache.k, cache.k_scale, cache32.k),
+                              (cache.v, cache.v_scale, cache32.v)):
+        q, sc = quantize(kv[0, slot32, :, :t_b].cpu(), PAGE)
+        got = codes[0, slot, :, :t_b].cpu().to(torch.int16)
+        gap = (got - q.to(torch.int16)).abs()
+        check(torch.equal(scales[0, slot, :, :t_b // PAGE].cpu(), sc),
+              "17c: the card's page scales differ from the CPU's")
+        check(int(gap.max()) <= 1, "17c: an int8 code is %d levels from "
+              "the CPU's" % int(gap.max()))
+        differ += int((gap > 0).sum())
+    return differ
+
+
+def requantize_plain(np, codes, scales, new, pos, page):
+    """The int8 cache's decode write in numpy, in place, one slot at a
+    time: the token ``new[s]`` (H, d) goes to position ``pos[s]`` of
+    ``codes`` (slots, H, S, d) int8 with ``scales`` (slots, H, S // page)
+    f32. Entering a page resets its scale and empties it; within a page
+    the scale grows to cover the token and the page is requantized."""
+    f32 = np.float32
+    for s, p in enumerate(pos):
+        pi, off = divmod(int(p), page)
+        rows = slice(pi * page, (pi + 1) * page)
+        needed = np.maximum(np.abs(new[s]).max(-1) / f32(127), f32(1e-8))
+        if off == 0:
+            deq = np.zeros(codes[s, :, rows].shape, f32)
+            scale = needed
+        else:
+            old = scales[s, :, pi]
+            deq = codes[s, :, rows].astype(f32) * old[:, None, None]
+            scale = np.maximum(old, needed)
+        deq[:, off] = new[s]
+        codes[s, :, rows] = np.clip(np.round(deq / scale[:, None, None]),
+                                    -127, 127).astype(np.int8)
+        scales[s, :, pi] = scale
+
+
+def decode_writes_check(torch, np, eng, state0, writes):
+    """17c: decode's int8 path on the card against a plain version on
+    the host. Every write (``state0``'s index, layer, the card's new
+    rows, positions) is replayed by :func:`requantize_plain` from
+    ``state0`` (K codes, K scales, V codes, V scales after the
+    prefills): then every layer's scales equal the card's, and its codes
+    are at most one level apart. ``_read_bucket``'s dequantize over the
+    whole cache then equals codes x page scales computed on the host.
+    Returns how many codes differ."""
+    cache = eng.cache
+    for i, li, new, pos in writes:
+        requantize_plain(np, state0[i][li], state0[i + 1][li], new, pos,
+                         cache.page)
+    differ = 0
+    for i, (codes, scales) in enumerate(((cache.k, cache.k_scale),
+                                         (cache.v, cache.v_scale))):
+        for li in range(LAYERS):
+            gap = np.abs(codes[li].cpu().numpy().astype(np.int16) -
+                         state0[2 * i][li].astype(np.int16))
+            check(np.array_equal(scales[li].cpu().numpy(),
+                                 state0[2 * i + 1][li]),
+                  "17c: layer %d's page scales after decode differ from "
+                  "the plain replay's" % li)
+            check(int(gap.max()) <= 1, "17c: a code decode wrote in layer "
+                  "%d is %d levels from the plain replay's"
+                  % (li, int(gap.max())))
+            differ += int((gap > 0).sum())
+    for li in range(LAYERS):
+        deq = eng._read_bucket(li, cache.max_seq)
+        for got, codes, scales in zip(deq, (cache.k, cache.v),
+                                      (cache.k_scale, cache.v_scale)):
+            want = codes[li].cpu().numpy().astype(np.float32) * np.repeat(
+                scales[li].cpu().numpy(), cache.page, -1)[..., None]
+            check(np.array_equal(got.cpu().numpy(), want), "17c: "
+                  "_read_bucket's dequantize of layer %d differs from "
+                  "codes x page scales" % li)
+    return differ
+
+
+def serve_phase(torch, np):
+    """Phase 17: serving (A8c): a-c, float32 with TF32 off."""
+    import mxnet_tpu_torch as mt
+    check(not torch.backends.cudnn.allow_tf32 and
+          not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 is allowed: the served rows would not be float32")
+    t0 = time.perf_counter()
+    sym, params = serve_model(torch, np, mt)
+    rng = np.random.RandomState(SEED + 17)
+    shape = (3, SERVE_IMAGE, SERVE_IMAGE)
+    images = [rng.uniform(-1, 1, shape).astype(np.float32)
+              for _ in range(SERVE_CLIENTS)]
+    batcher = serve_batcher(torch, np, mt, sym, params, images)
+    export = serve_export(torch, np, mt, sym, params, images)
+    gen = serve_int8(torch, np, mt)
+    log("17 serving: %.1f s; %s" % (time.perf_counter() - t0, json.dumps(
+        {"batcher": batcher, "export": export, "int8": gen})))
+    return {"batcher": batcher, "export": export, "int8": gen}
+
+
 PAIRS_OF = ("f32-backward", "rtc", "fit-loop")
 
 
@@ -8718,6 +9382,10 @@ def main() -> int:
         # every thread's stack, rather than at the call's time limit
         faulthandler.dump_traceback_later(DATA_DEADLINE_S, exit=True)
         data_phase(torch, np)
+        faulthandler.cancel_dump_traceback_later()
+        # a client or batcher thread that hangs ends the run here too
+        faulthandler.dump_traceback_later(SERVE_DEADLINE_S, exit=True)
+        serve_phase(torch, np)
         faulthandler.cancel_dump_traceback_later()
         torch.cuda.synchronize()
     except SmokeFailure as exc:

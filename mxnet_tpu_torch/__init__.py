@@ -16,8 +16,6 @@ raise. ``cpu()``, ``gpu()`` and ``tpu()`` return a :class:`Context`
 
 Ported so far:
 
-* generative serving of the zoo transformer LM (:mod:`.serve`), with
-  prefill attention on the flash-attention forward kernel;
 * training through ``Module.fit`` (:mod:`.module`) over the Symbol
   layer (:mod:`.symbol`, :mod:`.executor`), with amp bf16
   (:mod:`.amp`), the SGD optimizer (:mod:`.optimizer`) and flash
@@ -70,7 +68,14 @@ Ported so far:
   (:mod:`.data`, imported on first use) and Gluon's file datasets;
   ``fit`` runs the reference's async loop: a window of in-flight steps,
   batches copied to the card ahead of their step, metrics summed on the
-  card.
+  card;
+* deployment and serving: the forward-only :class:`Predictor`
+  (:mod:`.predictor`) with its ``torch.export`` artifact, which
+  ``tools/predict_exported.py`` runs without the framework, and
+  :mod:`.serve`: ``InferenceServer`` (dynamic batching over the bucket
+  grid) and ``GenerativeServer`` (continuous-batching decode of the zoo
+  LM over an f32 or int8 KV cache, prefill attention on the
+  flash-attention forward kernel).
 """
 from __future__ import annotations
 
@@ -83,12 +88,14 @@ from . import monitor as mon
 from . import ndarray as nd
 from . import gluon, operator, optimizer, random, rnn, rtc
 from . import symbol as sym
+from . import predictor, serve
 from .base import MXNetError
 from .context import (Context, cpu, current_context, current_device,
                       device_scope, gpu, num_devices, tpu)
 from .initializer import (Constant, Normal, One, Orthogonal, Uniform,
                           Xavier, Zero)
 from .name import AttrScope, NameManager
+from .predictor import Predictor
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "tpu", "current_context",
            "num_devices", "device_scope", "current_device", "NameManager",
@@ -96,7 +103,7 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "tpu", "current_context",
            "contrib", "executor", "gluon", "init", "io", "lr_scheduler",
            "metric", "mod", "model", "mon", "name", "nd", "operator",
            "optimizer", "random", "rnn", "rtc", "sym", "filesystem",
-           "recordio", "image", "data"]
+           "recordio", "image", "data", "predictor", "Predictor", "serve"]
 
 __version__ = "0.1.0"
 

@@ -1,5 +1,5 @@
-"""The per-signature runner cache shared by the serving path, and the
-in-flight window of ``fit``'s async loop.
+"""The per-signature runner cache shared by the serving path, its
+failure classifier, and the in-flight window of ``fit``'s async loop.
 
 The port's copy of the reference package's ``_fused.CompileCache``. The
 port compiles nothing per signature (PyTorch runs eagerly), so an entry
@@ -12,14 +12,61 @@ decode bucket, and that graph becomes the entry.
 """
 from __future__ import annotations
 
+import re
 from typing import Any, Dict, List
+
+import torch
 
 from . import lockcheck as _lockcheck
 from . import profiler as _profiler
 
-__all__ = ["CompileCache", "InflightWindow"]
+__all__ = ["CompileCache", "InflightWindow", "Uncacheable",
+           "structural_failure"]
 
 _MAX_TRANSIENT_RETRIES = 3
+
+
+class Uncacheable(Exception):
+    """The structure cannot use a cached fast path; the caller must fall
+    back to eager execution."""
+
+
+# torch's wording for an operand geometry the model cannot take
+_SHAPE_ERROR = re.compile(
+    r"size of tensor|must match the size|cannot be multiplied|"
+    r"is invalid for input of size|not broadcastable|shape mismatch|"
+    r"shapes? .* (?:cannot|invalid|mismatch)|"
+    r"[Ee]xpected .*(?:size|shape|dimension|channels)")
+
+
+def _chain(exc: BaseException):
+    """``exc`` and every exception it was raised from or during."""
+    seen = set()
+    while exc is not None and id(exc) not in seen:
+        seen.add(id(exc))
+        yield exc
+        exc = exc.__cause__ or exc.__context__
+
+
+def structural_failure(exc: BaseException) -> bool:
+    """Classify a failed first dispatch of one bucket geometry.
+
+    The reference calls a jax tracer error permanent (the function
+    cannot be traced at all) and everything else transient, retried up
+    to ``_MAX_TRANSIENT_RETRIES`` times. PyTorch traces nothing, so the
+    permanent failures here are the ones that no retry of the same
+    geometry can mend: :class:`Uncacheable` anywhere in the exception's
+    chain, or a ``RuntimeError`` in which torch rejects an operand's
+    shape (the model cannot take this padded geometry). Everything else
+    is transient: among them ``torch.cuda.OutOfMemoryError``, which the
+    allocator may satisfy on the next attempt."""
+    for e in _chain(exc):
+        if isinstance(e, Uncacheable):
+            return True
+    if isinstance(exc, torch.cuda.OutOfMemoryError):
+        return False
+    return isinstance(exc, RuntimeError) and \
+        _SHAPE_ERROR.search(str(exc)) is not None
 
 
 class InflightWindow:

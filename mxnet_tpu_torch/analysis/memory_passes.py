@@ -8,17 +8,22 @@ would cost to recompute them. The report (``Report.extras["remat"]``)
 carries the candidates and a policy suggestion, which :mod:`..remat`
 applies; with a verified repeated chain, the suggestion's
 ``est_peak_saving`` is calibrated on one block
-(:func:`_predict_block_savings`). The HBM budget and the program
-liveness walk are queue A10.
+(:func:`_predict_block_savings`). Also the budget check of a long-lived
+reservation (:func:`check_reservation`, the serve KV cache's audit) and
+its byte-size parser (:func:`parse_bytes`), copies of the reference's.
+The bind-time HBM budget pass and the program liveness walk are queue
+A10.
 """
 from __future__ import annotations
 
+import re
 from typing import Any, Dict, List, Tuple
 
 from .findings import Report, Severity
 from .graph_passes import GraphContext, _nelem, _node_flops, graph_pass
 
-__all__ = ["REMAT_CHEAP_FLOPS_PER_BYTE", "REMAT_TOP_N", "saved_bytes"]
+__all__ = ["REMAT_CHEAP_FLOPS_PER_BYTE", "REMAT_TOP_N", "saved_bytes",
+           "parse_bytes", "check_reservation"]
 
 # recompute cost ceiling for a "cheap" activation: recomputing must cost
 # no more than this many FLOPs per byte saved (elementwise/norm/softmax
@@ -35,6 +40,34 @@ REMAT_MIN_BYTES = 4096
 # nothing_saveable form recovers the bytes
 _CONTRACTION_OPS = {"FullyConnected", "dot", "batch_dot", "linalg_gemm2",
                     "Convolution", "Convolution_v1", "Deconvolution"}
+
+
+def parse_bytes(spec) -> int:
+    """``"16G"``/``"16GB"``/``"512MiB"``/``"1.5T"``/plain ints -> bytes
+    (0 = unset). Raises ``ValueError`` naming the accepted grammar on
+    garbage — callers on the bind path degrade to a finding instead of
+    crashing the bind."""
+    if spec is None:
+        return 0
+    s = str(spec).strip()
+    if not s:
+        return 0
+    mult = 1
+    m = re.match(r"^([0-9.eE+-]+)\s*([KMGT])(I?B)?$", s, re.IGNORECASE)
+    if m:
+        mult = {"K": 1 << 10, "M": 1 << 20, "G": 1 << 30,
+                "T": 1 << 40}[m.group(2).upper()]
+        s = m.group(1)
+    try:
+        val = int(float(s) * mult)
+    except ValueError:
+        raise ValueError(
+            "cannot parse byte size %r (expected a number with an "
+            "optional K/M/G/T[B|iB] suffix, e.g. '16G')" % (spec,))
+    if val < 0:
+        # a stray minus must not silently disable budget enforcement
+        raise ValueError("byte size %r is negative" % (spec,))
+    return val
 
 
 # ------------------------------------------------------- remat opportunity
@@ -253,3 +286,46 @@ def _predict_block_savings(ctx: GraphContext, policy_name: str):
         return plan.n_layers * max(0, plain - kept)
     except Exception:                                       # noqa: BLE001
         return None
+
+
+# ------------------------------------------------ reservation budget
+
+
+def check_reservation(name: str, nbytes: int,
+                      detail: str = "") -> Dict[str, Any]:
+    """Audit a long-lived device reservation (the serve KV cache) against
+    ``MXNET_TPU_ANALYZE_HBM_BUDGET`` — the runtime twin of the bind-time
+    ``hbm-budget`` pass for memory claimed OUTSIDE a graph bind.
+
+    Returns ``{"budget_bytes", "reserved_bytes", "fits"}`` (budget 0 =
+    unset, always fits). Over budget: ``MXNET_TPU_ANALYZE=strict`` raises
+    :class:`~mxnet_tpu.base.MXNetError` NAMING the reservation before any
+    device allocation; ``warn`` logs a WARNING with the same message.
+    Callers gate the import of this module on the analyze knob, so the
+    analyzer stays unimported when analysis is off.
+    """
+    import logging
+    from .. import config as _config
+    from ..base import MXNetError
+    raw = _config.get("MXNET_TPU_ANALYZE_HBM_BUDGET")
+    try:
+        budget = parse_bytes(raw)
+    except ValueError as exc:
+        logging.getLogger(__name__).warning(
+            "MXNET_TPU_ANALYZE_HBM_BUDGET=%r is unparseable (%s) — "
+            "reservation %r is NOT being audited", raw, exc, name)
+        return {"budget_bytes": 0, "reserved_bytes": int(nbytes),
+                "fits": True}
+    out = {"budget_bytes": budget, "reserved_bytes": int(nbytes),
+           "fits": budget <= 0 or int(nbytes) <= budget}
+    if out["fits"]:
+        return out
+    msg = ("reservation %r (%s%.3g MB) exceeds MXNET_TPU_ANALYZE_HBM_BUDGET"
+           " %.3g MB — shrink max_sequences / the decode bucket set, or "
+           "enable MXNET_TPU_SERVE_KV_INT8"
+           % (name, (detail + ", ") if detail else "",
+              nbytes / 1e6, budget / 1e6))
+    if _config.get("MXNET_TPU_ANALYZE") == "strict":
+        raise MXNetError("hbm-budget: " + msg)
+    logging.getLogger(__name__).warning("hbm-budget: %s", msg)
+    return out

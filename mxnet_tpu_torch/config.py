@@ -3,8 +3,8 @@
 The port's own copy of the reference package's ``config.py``: the same
 ``register``/``get``/``set``/``reset``/``on_change`` surface, and the
 same names and defaults for the knobs this package reads — the
-``MXNET_TPU_SERVE_*`` knobs that ``GenerativeServer`` and ``KVCache``
-consult, ``MXNET_TPU_LOCKCHECK`` and ``MXNET_TPU_FAULTS`` read by
+``MXNET_TPU_SERVE*`` knobs that ``InferenceServer``,
+``GenerativeServer`` and ``KVCache`` consult, ``MXNET_TPU_LOCKCHECK`` and ``MXNET_TPU_FAULTS`` read by
 the copies of ``lockcheck.py`` and ``faults.py``, and the
 ``MXNET_TPU_CKPT_*`` knobs of :mod:`.checkpoint`, and the compile
 levers the executor and ``Module`` read (``MXNET_TPU_SCAN_LAYERS``,
@@ -13,9 +13,10 @@ levers the executor and ``Module`` read (``MXNET_TPU_SCAN_LAYERS``,
 loop's (``MXNET_USE_NATIVE_IO``, ``MXNET_CPU_WORKER_NTHREADS``,
 ``MXNET_PREFETCH_BUFFER``, ``MXNET_TPU_DATA_*``,
 ``MXNET_TPU_ASYNC_WINDOW``, ``MXNET_TPU_DEVICE_PREFETCH``,
-``MXNET_TPU_DEVICE_METRICS``). Knobs of features the
-port does not have yet (the batch ``InferenceServer``, int8 KV) arrive
-with those features.
+``MXNET_TPU_DEVICE_METRICS``), and the serve KV cache's budget audit
+(``MXNET_TPU_ANALYZE``, ``MXNET_TPU_ANALYZE_HBM_BUDGET``), and
+``MXNET_TPU_OBS_METRICS_PORT``, which the servers validate. Knobs of
+features the port does not have yet arrive with those features.
 """
 from __future__ import annotations
 
@@ -71,6 +72,23 @@ def _parse_lockcheck(v) -> str:
         "MXNET_TPU_LOCKCHECK must be off|warn|abort, got %r" % (v,))
 
 
+register("MXNET_TPU_SERVE", _parse_bool, True,
+         "serve.InferenceServer: coalesce concurrent requests into "
+         "bucket-padded micro-batches served by a finite runner set; "
+         "0 = per-request eager forward in the caller thread (no "
+         "batching, no bucketing — the debugging/bisection fallback)")
+register("MXNET_TPU_SERVE_MAX_BATCH", int, 32,
+         "serve: default micro-batch row bound (requests coalesced per "
+         "dispatch; the largest batch bucket)")
+register("MXNET_TPU_SERVE_MAX_DELAY_US", int, 2000,
+         "serve: default batching window — how long the oldest queued "
+         "request may wait for co-riders before the batch launches")
+register("MXNET_TPU_SERVE_KV_INT8", _parse_bool, False,
+         "serve.GenerativeServer: store the decode KV cache as int8 with "
+         "per-page f32 scales instead of f32 — the cache reservation "
+         "shrinks ~4x (≈2x max resident sequences under a typical "
+         "MXNET_TPU_ANALYZE_HBM_BUDGET once scales and slack are paid), "
+         "at a documented logits tolerance")
 register("MXNET_TPU_SERVE_QUEUE_BOUND", int, 1024,
          "serve: default admission bound; submit_generate() load-sheds "
          "(QueueFull) when this many requests are already queued")
@@ -92,6 +110,31 @@ register("MXNET_TPU_SERVE_KV_PAGE", int, 16,
          "serve.GenerativeServer: KV-cache page size in tokens — slot "
          "capacity is accounted page-at-a-time. Must divide every "
          "decode bucket")
+def _parse_analyze_mode(v) -> str:
+    s = str(v).strip().lower()
+    if s in ("", "0", "off", "false", "no", "none"):
+        return "off"
+    if s in ("warn", "warning", "1", "on", "true", "yes"):
+        return "warn"
+    if s == "strict":
+        return "strict"
+    raise ValueError(
+        "MXNET_TPU_ANALYZE must be off|warn|strict, got %r" % (v,))
+
+
+register("MXNET_TPU_OBS_METRICS_PORT", int, -1,
+         "serve: the HTTP /metrics endpoint a server would start (-1 = "
+         "off). The endpoint comes with ROADMAP A10a: until then any "
+         "other value makes InferenceServer and GenerativeServer raise")
+register("MXNET_TPU_ANALYZE", _parse_analyze_mode, "off",
+         "analysis: off = the analysis package is never imported for "
+         "the serve KV cache's budget audit (zero cost), warn = log "
+         "WARNING+ findings, strict = raise MXNetError on ERROR findings")
+register("MXNET_TPU_ANALYZE_HBM_BUDGET", str, "",
+         "per-device memory budget (bytes, K/M/G/T suffixes: '16G') that "
+         "the serve KV cache's reservation is audited against "
+         "(KVCache.audit); rejected under MXNET_TPU_ANALYZE=strict. "
+         "Empty = no budget")
 register("MXNET_TPU_FAULTS", str, "",
          "deterministic fault injection: comma list of "
          "<site>@<nth>[:kind] specs fired at named injection points "

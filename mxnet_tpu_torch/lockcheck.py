@@ -108,11 +108,12 @@ class _WitnessLock:
     ``_acquire_restore``), so it can back a Condition transparently.
     """
 
-    __slots__ = ("_inner", "_site")
+    __slots__ = ("_inner", "_site", "_allow_sync")
 
-    def __init__(self, inner, site: str):
+    def __init__(self, inner, site: str, allow_sync: bool = False):
         self._inner = inner
         self._site = site
+        self._allow_sync = allow_sync
 
     # ------------------------------------------------------ lock protocol
     def acquire(self, blocking: bool = True, timeout: float = -1):
@@ -205,18 +206,23 @@ class _WitnessLock:
 
 # ------------------------------------------------------------- funnels
 
-def Lock(name: Optional[str] = None):
-    """``threading.Lock()`` through the witness funnel."""
+def Lock(name: Optional[str] = None, allow_sync: bool = False):
+    """``threading.Lock()`` through the witness funnel. ``allow_sync``
+    marks a lock under which a device fetch is the design (serve's
+    ``_model_lock``); it is kept on the witness for the held-lock sync
+    check, which arrives with ``note_sync`` (ROADMAP A10a)."""
     if not _ON:
         return _threading.Lock()
-    return _WitnessLock(_threading.Lock(), name or _caller_site(2))
+    return _WitnessLock(_threading.Lock(), name or _caller_site(2),
+                        allow_sync=allow_sync)
 
 
-def RLock(name: Optional[str] = None):
+def RLock(name: Optional[str] = None, allow_sync: bool = False):
     """``threading.RLock()`` through the witness funnel."""
     if not _ON:
         return _threading.RLock()
-    return _WitnessLock(_threading.RLock(), name or _caller_site(2))
+    return _WitnessLock(_threading.RLock(), name or _caller_site(2),
+                        allow_sync=allow_sync)
 
 
 def Condition(lock=None, name: Optional[str] = None):

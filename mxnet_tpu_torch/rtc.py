@@ -419,6 +419,9 @@ class UserKernel:
         _kernel_op.__doc__ = _kernel_op.fn.__doc__ = \
             "CUDA kernel %r (registered via rtc.UserKernel.register)" \
             % self.name
+        # a kernel launched by cuLaunchKernel: Predictor.export
+        # cannot trace it, and says so naming this
+        _kernel_op.user_kernel = "rtc kernel %r" % self.name
         return _kernel_op
 
     def __repr__(self):

@@ -1,21 +1,34 @@
 """Prefill/decode program split for generative serving.
 
 Counterpart of the reference package's ``serve/decode.py``, serving the
-zoo decoder LM (``models/transformer.py``) from the parameter dict the
-reference's ``Module.get_params()`` returns, under the same names
-(``tok_embed_weight``, ``layer%d_att_qkv_weight``, ...):
+zoo decoder LM (``models/transformer.py``) from the parameters a
+``Module`` holds, under the same names (``tok_embed_weight``,
+``layer%d_att_qkv_weight``, ...):
 
 * **prefill** — one runner per prompt bucket ``T_b``: the full causal
   forward over one padded prompt, attention through the port's flash
   forward kernel (:mod:`..ops.flash_attention`) at every bucket, the
   prompt's whole ``T_b`` K/V block (padding included) written into the
   cache slot in place, and only the last real token's row taken through
-  the final LayerNorm and the LM head.
+  the final LayerNorm and the LM head. ``prefill_chunk`` is accepted and
+  validated as in the reference, which switches to its chunked
+  online-softmax attention past the chunk; here the flash kernel's own
+  block loop is that online softmax at every bucket, so the chunk
+  changes nothing (the same numbers to the parity tests' atol 1e-4).
 * **decode** — one runner per sequence bucket ``S_b`` over the whole
   slot array: embed the freshest token of every slot, write its K/V at
   the slot's own position in place, attend against the cache's
   ``[0:S_b]`` slice with per-slot length masking, and return
   ``(slots, V)`` logits.
+
+int8 KV (:class:`~.kv_cache.KVCache` with ``int8``): prefill quantizes
+each (head, page) of the block with one symmetric scale
+(:func:`_quantize_pages`); decode requantizes on write — entering a page
+resets its scale, growth within a page merges the scale upward and
+requantizes the page — and a read dequantizes with one broadcast
+multiply. Every division by a constant divides by a tensor: CUDA turns a
+division by a Python number into a multiply by its reciprocal, which
+can move an int8 code by one level against the CPU.
 
 The runner set is |prompt buckets| + |decode buckets|, counted by the
 server's :class:`~.._fused.CompileCache`. All arithmetic is float32;
@@ -35,7 +48,7 @@ from ..base import MXNetError
 from ..context import DeviceLike, resolve_device
 from ..ops.flash_attention import flash_attention
 
-__all__ = ["DecodeConfig", "DecodeEngine", "params_from_numpy",
+__all__ = ["DecodeConfig", "DecodeEngine", "extract_params",
            "config_from_params", "sample_token"]
 
 _LN_EPS = 1e-5          # the reference's layer_norm default
@@ -61,15 +74,38 @@ class DecodeConfig:
         self.max_seq = int(max_seq)
 
 
-def params_from_numpy(params: Dict[str, np.ndarray],
-                      device: DeviceLike = None) -> Dict[str, torch.Tensor]:
-    """Carry the reference package's parameters across: ``name ->
-    float32 tensor`` on ``device`` (default ``cuda:0``), under the zoo
-    transformer's names. Takes numpy arrays, or anything
-    ``np.asarray`` reads (the reference's ``asnumpy()`` output)."""
+def extract_params(source, device: DeviceLike = None
+                   ) -> Dict[str, torch.Tensor]:
+    """Normalize the served parameters to ``name -> float32 tensor`` on
+    ``device`` (default ``cuda:0``), each a copy of its own.
+
+    Accepts a bound Module (``get_params()``), an ``(arg, aux)`` tuple,
+    or a plain dict of NDArrays, tensors or numpy arrays (the reference
+    package's ``asnumpy()`` output carries its weights across) — the
+    naming the zoo transformer Symbol binds (``tok_embed_weight``,
+    ``layer%d_att_qkv_weight``, ...)."""
     dev = resolve_device(device)
-    return {name: torch.from_numpy(np.array(arr, dtype=np.float32)).to(dev)
-            for name, arr in params.items()}
+    if hasattr(source, "get_params"):
+        arg, aux = source.get_params()
+        merged = dict(arg)
+        merged.update(aux or {})
+    elif isinstance(source, tuple) and len(source) == 2:
+        merged = dict(source[0])
+        merged.update(source[1] or {})
+    else:
+        merged = dict(source)
+    out = {}
+    for name, arr in merged.items():
+        if isinstance(getattr(arr, "data", None), torch.Tensor):
+            arr = arr.data                  # the port's NDArray
+        if isinstance(arr, torch.Tensor):
+            out[name] = arr.detach().to(dev, torch.float32, copy=True)
+            continue
+        if hasattr(arr, "asnumpy"):
+            arr = arr.asnumpy()
+        out[name] = torch.from_numpy(
+            np.array(np.asarray(arr), dtype=np.float32)).to(dev)
+    return out
 
 
 def config_from_params(params: Dict[str, torch.Tensor],
@@ -128,6 +164,25 @@ def _fc(x: torch.Tensor, params: Dict[str, torch.Tensor],
     return F.linear(x, params[name + "_weight"], params[name + "_bias"])
 
 
+def _true_div(x: torch.Tensor, n: float) -> torch.Tensor:
+    """``x / n`` correctly rounded on every device: a tensor divisor
+    keeps CUDA from multiplying by the reciprocal instead."""
+    return x / torch.full((), float(n), dtype=x.dtype, device=x.device)
+
+
+def _quantize_pages(x: torch.Tensor, page: int):
+    """(H, T, d) f32 -> (int8 (H, T, d), scales (H, T // page)): one
+    symmetric scale per (head, page), ``max(max|x| / 127, 1e-8)``,
+    codes rounded half to even and clipped to +-127 (the reference's
+    quantized-paged-KV layout)."""
+    h, t, d = x.shape
+    pg = x.reshape(h, t // page, page, d)
+    scale = torch.clamp(_true_div(pg.abs().amax(dim=(2, 3)), 127.0),
+                        min=1e-8)
+    q = torch.clamp(torch.round(pg / scale[:, :, None, None]), -127, 127)
+    return q.reshape(h, t, d).to(torch.int8), scale
+
+
 def _ffn(x: torch.Tensor, params: Dict[str, torch.Tensor],
          pfx: str) -> torch.Tensor:
     h = _ln(x, params[pfx + "_ln2_gamma"], params[pfx + "_ln2_beta"])
@@ -146,7 +201,12 @@ class DecodeEngine:
     def __init__(self, params: Dict[str, torch.Tensor], n_heads: int,
                  cache, compile_cache, name: str = "serve",
                  prompt_buckets: Optional[Sequence[int]] = None,
-                 seq_buckets: Optional[Sequence[int]] = None):
+                 seq_buckets: Optional[Sequence[int]] = None,
+                 prefill_chunk: int = 512):
+        if int(prefill_chunk) != prefill_chunk or prefill_chunk < 1:
+            raise ValueError("prefill_chunk must be a positive int, got %r"
+                             % (prefill_chunk,))
+        self.prefill_chunk = int(prefill_chunk)
         self.params = params
         self.cfg = config_from_params(params, n_heads)
         self.cache = cache
@@ -206,8 +266,7 @@ class DecodeEngine:
             q, k, v = (qkv[:, i].transpose(0, 1) for i in range(3))
             # in place: the whole T_b block, padding included (decode
             # masks positions past each sequence's length)
-            self.cache.k[li, slot, :, :t_b] = k
-            self.cache.v[li, slot, :, :t_b] = v
+            self._write_block(li, slot, t_b, k, v)
             ctx = flash_attention(q[None], k[None], v[None],
                                   causal=True)[0]       # (H, T_b, d)
             ctx = ctx.transpose(0, 1).reshape(t_b, cfg.d_model)
@@ -216,6 +275,64 @@ class DecodeEngine:
         row = x[max(true_len - 1, 0)][None]
         row = _ln(row, p["final_ln_gamma"], p["final_ln_beta"])
         return _fc(row, p, "lm_head")[0]
+
+    def _write_block(self, li: int, slot: int, t_b: int, k: torch.Tensor,
+                     v: torch.Tensor) -> None:
+        """A prompt's (H, T_b, d) K/V into ``slot`` of layer ``li``:
+        as is, or quantized page by page with its scales."""
+        c = self.cache
+        if not c.int8:
+            c.k[li, slot, :, :t_b] = k
+            c.v[li, slot, :, :t_b] = v
+            return
+        pb = t_b // c.page
+        for codes, scales, x in ((c.k, c.k_scale, k), (c.v, c.v_scale, v)):
+            q, sc = _quantize_pages(x, c.page)
+            codes[li, slot, :, :t_b] = q
+            scales[li, slot, :, :pb] = sc
+
+    def _write_token_i8(self, codes: torch.Tensor, scales: torch.Tensor,
+                        new: torch.Tensor, pos: torch.Tensor) -> None:
+        """Requantize-on-write of one token per slot into one layer's
+        int8 block ``codes`` (slots, H, S, d) and its ``scales`` (slots,
+        H, pages), in place: entering a page resets its scale (a fresh
+        page must not inherit a stale tenant's range); growth within a
+        page merges the scale upward and requantizes the page, which
+        round-trips exactly while the scale stays."""
+        page = self.cache.page
+        n, h, s, d = codes.shape
+        slots = torch.arange(n, device=codes.device)
+        pi, off = pos // page, pos % page
+        pages = codes.view(n, h, s // page, page, d)
+        old = scales[slots, :, pi]                          # (slots, H)
+        entering = off == 0
+        deq = pages[slots, :, pi].to(torch.float32) * old[..., None, None]
+        deq = torch.where(entering[:, None, None, None],
+                          torch.zeros((), device=deq.device), deq)
+        needed = torch.clamp(_true_div(new.abs().amax(dim=-1), 127.0),
+                             min=1e-8)                      # (slots, H)
+        scale = torch.where(entering[:, None], needed,
+                            torch.maximum(old, needed))
+        deq[slots, :, off] = new
+        q = torch.clamp(torch.round(deq / scale[..., None, None]), -127, 127)
+        pages[slots, :, pi] = q.to(torch.int8)
+        scales[slots, :, pi] = scale
+
+    def _read_bucket(self, li: int, s_b: int):
+        """Cache slice [0:S_b] of layer ``li``, dequantized: a
+        (slots, H, S_b, d) f32 pair."""
+        c = self.cache
+        k, v = c.k[li, :, :, :s_b], c.v[li, :, :, :s_b]
+        if not c.int8:
+            return k, v
+        pb = s_b // c.page
+        n, h = k.shape[0], k.shape[1]
+
+        def deq(q, sc):
+            f = q.to(torch.float32).view(n, h, pb, c.page, -1)
+            return (f * sc[:, :, :pb, None, None]).view(n, h, s_b, -1)
+
+        return deq(k, c.k_scale[li]), deq(v, c.v_scale[li])
 
     def _run_decode(self, s_b: int, tokens: torch.Tensor, pos: torch.Tensor,
                     active: torch.Tensor) -> torch.Tensor:
@@ -234,12 +351,16 @@ class DecodeEngine:
             qkv = _fc(h, p, pfx + "_att_qkv").view(
                 -1, 3, cfg.n_heads, cfg.d_head)
             q, k_new, v_new = qkv.unbind(1)                 # (slots, H, d)
-            k_l, v_l = self.cache.k[li], self.cache.v[li]
+            c = self.cache
             # in place, every slot at its own position (empty slots
             # write into space the next prefill overwrites)
-            k_l[slots, :, pos_c] = k_new
-            v_l[slots, :, pos_c] = v_new
-            kb, vb = k_l[:, :, :s_b], v_l[:, :, :s_b]       # (slots,H,S_b,d)
+            if c.int8:
+                self._write_token_i8(c.k[li], c.k_scale[li], k_new, pos_c)
+                self._write_token_i8(c.v[li], c.v_scale[li], v_new, pos_c)
+            else:
+                c.k[li][slots, :, pos_c] = k_new
+                c.v[li][slots, :, pos_c] = v_new
+            kb, vb = self._read_bucket(li, s_b)             # (slots,H,S_b,d)
             s = torch.matmul(kb, q.unsqueeze(-1)).squeeze(-1) * scale
             s = s.masked_fill(~mask[:, None, :], -1e9)
             att = torch.softmax(s, dim=-1)

@@ -22,7 +22,11 @@ class LatencyStats:
     """Thread-safe latency distribution (seconds) over the shared
     registry histogram ``name``."""
 
-    def __init__(self, name: str = "serve_latency_seconds"):
+    def __init__(self, capacity: int = 4096,
+                 name: str = "serve_latency_seconds"):
+        # ``capacity`` is the reference's signature, kept from its old
+        # sample ring; the fixed bucket grid is what bounds memory
+        self.capacity = int(capacity)
         self.name = name
         self._hist = _profiler.histogram(name)
 

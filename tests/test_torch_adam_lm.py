@@ -41,6 +41,10 @@ from mxnet_tpu.models import transformer as jax_transformer
 import mxnet_tpu_torch as mt
 from mxnet_tpu_torch.models import transformer as port_transformer
 
+# test files run side by side in parallel workers: each keeps torch's
+# intra-op pool small
+torch.set_num_threads(2)
+
 ATOL = 1e-5
 V, L, D, H, T, N, STEPS = 64, 2, 64, 4, 32, 4, 5
 KW = dict(vocab_size=V, num_layers=L, d_model=D, n_heads=H, seq_len=T,

@@ -28,6 +28,11 @@ from mxnet_tpu_torch import config as cfg
 from mxnet_tpu_torch import metric as mmetric
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.checkpoint import CheckpointConfig, restore_latest
+import torch
+
+# test files run side by side in parallel workers: each keeps torch's
+# intra-op pool small
+torch.set_num_threads(2)
 
 BATCH, NSAMP, FEAT, NCLS, EPOCHS = 8, 64, 16, 8, 3
 LOOP = ("loop_window_wait", "loop_window_drain", "loop_prefetch_placed",

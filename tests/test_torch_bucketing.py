@@ -28,6 +28,11 @@ import pytest
 import mxnet_tpu as mx
 import mxnet_tpu_torch as mt
 from mxnet_tpu_torch.base import MXNetError
+import torch
+
+# test files run side by side in parallel workers: each keeps torch's
+# intra-op pool small
+torch.set_num_threads(2)
 
 TOL = 1e-5
 VOCAB, EMBED, HIDDEN, BATCH = 30, 6, 8, 4

@@ -34,6 +34,10 @@ from mxnet_tpu_torch.checkpoint import (CheckpointConfig, CheckpointCorrupt,
                                         read_checkpoint, restore_latest,
                                         write_checkpoint)
 
+# test files run side by side in parallel workers: each keeps torch's
+# intra-op pool small
+torch.set_num_threads(2)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BATCH, NSAMP, FEAT, NCLS = 8, 64, 16, 8
 

@@ -22,6 +22,11 @@ import mxnet_tpu as mx
 from mxnet_tpu.models import resnet as jax_resnet
 import mxnet_tpu_torch as mt
 from mxnet_tpu_torch.models import resnet as port_resnet
+import torch
+
+# test files run side by side in parallel workers: each keeps torch's
+# intra-op pool small
+torch.set_num_threads(2)
 
 ATOL = 5e-5
 N, H = 2, 64

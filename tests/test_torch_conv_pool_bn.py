@@ -27,6 +27,10 @@ import mxnet_tpu_torch as mt
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.ops import get_op
 
+# test files run side by side in parallel workers: each keeps torch's
+# intra-op pool small
+torch.set_num_threads(2)
+
 ATOL = 1e-5
 
 

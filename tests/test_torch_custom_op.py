@@ -25,6 +25,10 @@ from mxnet_tpu_torch import rtc_examples
 from tests.test_custom_op import (Scale2Prop, SoftmaxProp,  # noqa: F401
                                   TracedGeluProp, TracedSoftmaxLossProp)
 
+# test files run side by side in parallel workers: each keeps torch's
+# intra-op pool small
+torch.set_num_threads(2)
+
 RTOL, ATOL = 1e-5, 1e-6
 N, C = 12, 3        # test_traced_custom_loss_module_fit's batch and classes
 

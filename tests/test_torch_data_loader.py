@@ -23,6 +23,11 @@ from mxnet_tpu_torch import faults, profiler, recordio
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.data import (DataLoader, PartitionPlan, RawTransform,
                                   StallTransform, epoch_order)
+import torch
+
+# test files run side by side in parallel workers: each keeps torch's
+# intra-op pool small
+torch.set_num_threads(2)
 
 BATCH, FEAT, NCLS, NREC = 4, 6, 3, 48
 

@@ -32,6 +32,10 @@ import torch
 
 import chip_smoke
 
+# test files run side by side in parallel workers: each keeps torch's
+# intra-op pool small
+torch.set_num_threads(2)
+
 TESTS = Path(__file__).resolve().parent
 DEADLINE_S = 240
 

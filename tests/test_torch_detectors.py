@@ -37,6 +37,10 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
 import train_rcnn  # noqa: E402
 import train_ssd  # noqa: E402
 
+# test files run side by side in parallel workers: each keeps torch's
+# intra-op pool small
+torch.set_num_threads(2)
+
 RTOL = 1e-5
 
 

@@ -38,6 +38,10 @@ import model_parallel_lstm  # noqa: E402
 import multi_task  # noqa: E402
 import tree_lstm  # noqa: E402
 
+# test files run side by side in parallel workers: each keeps torch's
+# intra-op pool small
+torch.set_num_threads(2)
+
 RTOL = 1e-5
 
 

@@ -22,6 +22,10 @@ from mxnet_tpu_torch.ops.flash_attention import (flash_attention,
                                                  flash_attention_fwd,
                                                  flash_attention_reference)
 
+# test files run side by side in parallel workers: each keeps torch's
+# intra-op pool small
+torch.set_num_threads(2)
+
 ATOL = 1e-5
 
 

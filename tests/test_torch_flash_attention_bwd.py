@@ -31,6 +31,10 @@ from mxnet_tpu_torch.ops.flash_attention import (
     flash_attention_backward_reference, flash_attention_bwd_dkv,
     flash_attention_bwd_dq, flash_attention_fwd, flash_attention_reference)
 
+# test files run side by side in parallel workers: each keeps torch's
+# intra-op pool small
+torch.set_num_threads(2)
+
 RTOL, ATOL = 2e-4, 2e-5
 BF16_REL = 0.06
 

@@ -34,6 +34,10 @@ import mxnet_tpu as mx
 import mxnet_tpu_torch as mt
 from mxnet_tpu_torch.base import MXNetError
 
+# test files run side by side in parallel workers: each keeps torch's
+# intra-op pool small
+torch.set_num_threads(2)
+
 PKGS = [mx, mt]
 
 

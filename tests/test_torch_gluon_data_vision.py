@@ -19,6 +19,11 @@ import mxnet_tpu_torch as mt
 from mxnet_tpu import recordio as ref_rio
 from mxnet_tpu.gluon.data import vision as ref_vision
 from mxnet_tpu_torch.gluon.data import vision
+import torch
+
+# test files run side by side in parallel workers: each keeps torch's
+# intra-op pool small
+torch.set_num_threads(2)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -26,6 +26,10 @@ import jax.numpy as jnp
 from mxnet_tpu.ops import get_op as jax_get_op
 from mxnet_tpu_torch.ops import get_op
 
+# test files run side by side in parallel workers: each keeps torch's
+# intra-op pool small
+torch.set_num_threads(2)
+
 ATOL = 1e-5
 
 

@@ -37,6 +37,11 @@ import pytest
 
 import mxnet_tpu as mx
 import mxnet_tpu_torch as mt
+import torch
+
+# test files run side by side in parallel workers: each keeps torch's
+# intra-op pool small
+torch.set_num_threads(2)
 
 N, H, CLASSES = 4, 64, 10
 TOL = 1e-5

@@ -23,6 +23,11 @@ from mxnet_tpu.models import transformer as jax_transformer
 import mxnet_tpu_torch as mt
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.models import transformer as port_transformer
+import torch
+
+# test files run side by side in parallel workers: each keeps torch's
+# intra-op pool small
+torch.set_num_threads(2)
 
 PKGS = {"ref": mx, "port": mt}
 

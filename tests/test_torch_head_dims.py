@@ -23,6 +23,10 @@ from mxnet_tpu_torch.ops.flash_attention import (
     flash_attention, flash_attention_backward_reference,
     flash_attention_reference, padded_head_dim)
 
+# test files run side by side in parallel workers: each keeps torch's
+# intra-op pool small
+torch.set_num_threads(2)
+
 TOL = 1e-5
 DIMS = [8, 24, 48, 80, 96, 160]
 # (S, block_q): a whole tile, and a ragged length whose q is padded

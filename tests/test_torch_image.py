@@ -24,6 +24,11 @@ from mxnet_tpu import image as ref_img
 from mxnet_tpu import recordio as ref_rio
 from mxnet_tpu_torch import image as img
 from mxnet_tpu_torch import recordio as rio
+import torch
+
+# test files run side by side in parallel workers: each keeps torch's
+# intra-op pool small
+torch.set_num_threads(2)
 
 cv2 = pytest.importorskip("cv2")
 

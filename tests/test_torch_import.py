@@ -14,6 +14,11 @@ import sys
 from pathlib import Path
 
 import pytest
+import torch
+
+# test files run side by side in parallel workers: each keeps torch's
+# intra-op pool small
+torch.set_num_threads(2)
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "mxnet_tpu", "ml_dtypes")
@@ -73,6 +78,9 @@ def test_importing_the_port_loads_no_jax():
         "import mxnet_tpu_torch.image, mxnet_tpu_torch.tools.im2rec\n"
         "import mxnet_tpu_torch.gluon.data.vision, mxnet_tpu_torch.recordio\n"
         "import mxnet_tpu_torch.filesystem, mxnet_tpu_torch.io.image_record\n"
+        "import mxnet_tpu_torch.predictor, mxnet_tpu_torch.serve.bucketing\n"
+        "import mxnet_tpu_torch.analysis.memory_passes\n"
+        "from mxnet_tpu_torch.serve import InferenceServer, wrap_model\n"
         "import mxnet_tpu_torch._cuda_driver as driver\n"
         "assert driver._lib is None   # libcuda loads at first use only\n"
         "bad = sorted(m for m in sys.modules\n"

@@ -12,6 +12,11 @@ import pytest
 
 import mxnet_tpu as mx
 import mxnet_tpu_torch as mt
+import torch
+
+# test files run side by side in parallel workers: each keeps torch's
+# intra-op pool small
+torch.set_num_threads(2)
 
 CASES = [
     ("bn0_moving_mean", (8,)),

@@ -20,6 +20,10 @@ import chip_smoke
 from mxnet_tpu_torch.ops import flash_attention as fa
 from test_torch_wgmma_support import _Event, _counting, _plain_dkv, _plain_dq
 
+# test files run side by side in parallel workers: each keeps torch's
+# intra-op pool small
+torch.set_num_threads(2)
+
 
 @pytest.fixture
 def small_levers(monkeypatch):

@@ -14,6 +14,11 @@ import pytest
 
 import mxnet_tpu as mx
 import mxnet_tpu_torch as mt
+import torch
+
+# test files run side by side in parallel workers: each keeps torch's
+# intra-op pool small
+torch.set_num_threads(2)
 
 RTOL = 1e-6
 

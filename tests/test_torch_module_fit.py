@@ -28,6 +28,10 @@ import mxnet_tpu_torch as mt
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.models import transformer as port_transformer
 
+# test files run side by side in parallel workers: each keeps torch's
+# intra-op pool small
+torch.set_num_threads(2)
+
 ATOL = 1e-5
 AMP_CE_TOL = 5e-3
 V, L, D, H, T, N = 64, 2, 32, 2, 64, 4

@@ -15,6 +15,10 @@ import torch
 import mxnet_tpu as mx
 import mxnet_tpu_torch as mt
 
+# test files run side by side in parallel workers: each keeps torch's
+# intra-op pool small
+torch.set_num_threads(2)
+
 PKGS = (mx, mt)
 
 

@@ -27,6 +27,10 @@ import mxnet_tpu_torch as mt
 from mxnet_tpu_torch.base import MXNetError
 from test_torch_ops_parity import check_op, run_both, sweep_case
 
+# test files run side by side in parallel workers: each keeps torch's
+# intra-op pool small
+torch.set_num_threads(2)
+
 SAP = "stochastic_activation_pruning"
 ROWS, COLS, FRAC = 16, 20, 0.5
 DRAWS = 200

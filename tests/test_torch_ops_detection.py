@@ -25,6 +25,10 @@ from mxnet_tpu.ops import detection as ref_det
 from mxnet_tpu_torch.ops import detection as det
 from test_torch_ops_parity import assert_close, check_op as _check_op
 
+# test files run side by side in parallel workers: each keeps torch's
+# intra-op pool small
+torch.set_num_threads(2)
+
 
 def check_op(name, inputs, attrs=None):
     """``check_op`` with the reference's function under ``jax.jit`` (one

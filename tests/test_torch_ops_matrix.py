@@ -23,6 +23,11 @@ import mxnet_tpu as mx
 import mxnet_tpu_torch as mt
 from test_torch_ops_parity import (GRAD_RTOL, assert_close, check_op,
                                    run_both, sweep_case, sweep_names)
+import torch
+
+# test files run side by side in parallel workers: each keeps torch's
+# intra-op pool small
+torch.set_num_threads(2)
 
 NAMES = sweep_names("matrix")
 

@@ -27,6 +27,10 @@ from test_torch_ops_parity import (assert_close, check_op, sweep_case,
                                    sweep_names)
 from mxnet_tpu_torch.ops import get_op
 
+# test files run side by side in parallel workers: each keeps torch's
+# intra-op pool small
+torch.set_num_threads(2)
+
 NAMES = sweep_names("nn")
 
 

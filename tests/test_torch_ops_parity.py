@@ -33,6 +33,10 @@ import test_op_sweep as ref_sweep
 from mxnet_tpu.ops import OP_REGISTRY as REF_REGISTRY
 from mxnet_tpu_torch.ops import OP_REGISTRY
 
+# test files run side by side in parallel workers: each keeps torch's
+# intra-op pool small
+torch.set_num_threads(2)
+
 FWD_RTOL = 1e-5
 GRAD_RTOL = 1e-4
 

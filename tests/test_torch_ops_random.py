@@ -25,6 +25,10 @@ import mxnet_tpu_torch as mt
 from mxnet_tpu.ops import get_op as ref_op
 from mxnet_tpu_torch.ops import get_op
 
+# test files run side by side in parallel workers: each keeps torch's
+# intra-op pool small
+torch.set_num_threads(2)
+
 N = 200000
 CASES = chip_smoke.sampler_cases()
 

@@ -26,6 +26,10 @@ import mxnet_tpu_torch as mt
 from mxnet_tpu_torch.ops import get_op
 from test_torch_ops_parity import check_op as _check_op
 
+# test files run side by side in parallel workers: each keeps torch's
+# intra-op pool small
+torch.set_num_threads(2)
+
 
 def check_op(name, inputs, attrs=None):
     return _check_op(name, inputs, attrs,

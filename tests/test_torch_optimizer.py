@@ -22,6 +22,10 @@ import mxnet_tpu as mx
 import mxnet_tpu_torch as mt
 from mxnet_tpu.ops import get_op as ref_get_op
 
+# test files run side by side in parallel workers: each keeps torch's
+# intra-op pool small
+torch.set_num_threads(2)
+
 RTOL, ATOL = 1e-5, 1e-6
 
 OPTIMIZERS = [

@@ -16,6 +16,11 @@ import mxnet_tpu as mx
 import mxnet_tpu.random as ref_random
 import mxnet_tpu_torch as mt
 from mxnet_tpu_torch import random as port_random
+import torch
+
+# test files run side by side in parallel workers: each keeps torch's
+# intra-op pool small
+torch.set_num_threads(2)
 
 SEEDS = [0, 7, 12345, 2 ** 31 - 1, -3]
 

@@ -24,6 +24,11 @@ from mxnet_tpu_torch import filesystem as fs
 from mxnet_tpu_torch import native
 from mxnet_tpu_torch import recordio as rio
 from mxnet_tpu_torch.base import MXNetError
+import torch
+
+# test files run side by side in parallel workers: each keeps torch's
+# intra-op pool small
+torch.set_num_threads(2)
 
 PKGS = {"ref": ref_rio, "port": rio}
 u8p = ctypes.POINTER(ctypes.c_uint8)

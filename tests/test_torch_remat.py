@@ -36,6 +36,10 @@ from mxnet_tpu_torch import config, remat
 from mxnet_tpu_torch.analysis import analyze_symbol
 from mxnet_tpu_torch.base import MXNetError
 
+# test files run side by side in parallel workers: each keeps torch's
+# intra-op pool small
+torch.set_num_threads(2)
+
 POLICIES = remat.POLICY_NAMES
 
 

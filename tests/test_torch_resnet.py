@@ -51,6 +51,11 @@ import mxnet_tpu as mx
 from mxnet_tpu.models import resnet as jax_resnet
 import mxnet_tpu_torch as mt
 from mxnet_tpu_torch.models import resnet as port_resnet
+import torch
+
+# test files run side by side in parallel workers: each keeps torch's
+# intra-op pool small
+torch.set_num_threads(2)
 
 STEP1_ATOL = 1e-5
 KINK_ATOL = 1e-1

@@ -28,6 +28,11 @@ import pytest
 import mxnet_tpu as mx
 import mxnet_tpu_torch as mt
 from mxnet_tpu_torch.ops.rnn_op import rnn_param_size
+import torch
+
+# test files run side by side in parallel workers: each keeps torch's
+# intra-op pool small
+torch.set_num_threads(2)
 
 TOL = 1e-5
 PKGS = [mx, mt]

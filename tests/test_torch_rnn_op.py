@@ -32,6 +32,10 @@ from mxnet_tpu_torch.ops import matrix as port_matrix
 from mxnet_tpu_torch.ops import rnn_op as port_rnn
 from mxnet_tpu_torch.ops import sequence as port_seq
 
+# test files run side by side in parallel workers: each keeps torch's
+# intra-op pool small
+torch.set_num_threads(2)
+
 TOL = 1e-5
 T, N, I, H = 5, 3, 4, 6
 

@@ -19,6 +19,10 @@ import chip_smoke
 import mxnet_tpu_torch as mt
 from mxnet_tpu_torch.ops import rnn_op
 
+# test files run side by side in parallel workers: each keeps torch's
+# intra-op pool small
+torch.set_num_threads(2)
+
 
 class _Event:
     """A CUDA event stand-in on the host clock."""

@@ -24,6 +24,10 @@ from mxnet_tpu_torch import _build, rtc, rtc_examples
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.models import transformer as port_transformer
 
+# test files run side by side in parallel workers: each keeps torch's
+# intra-op pool small
+torch.set_num_threads(2)
+
 RTOL = 1e-6
 
 

@@ -21,6 +21,11 @@ import mxnet_tpu_torch as mt
 from mxnet_tpu_torch import config
 from mxnet_tpu_torch.models import transformer as port_transformer
 from mxnet_tpu_torch.symbol.scan import build_scan_plan as port_plan
+import torch
+
+# test files run side by side in parallel workers: each keeps torch's
+# intra-op pool small
+torch.set_num_threads(2)
 
 V, T, B = 64, 8, 2
 

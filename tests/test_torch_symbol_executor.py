@@ -30,6 +30,10 @@ from mxnet_tpu_torch.models import transformer as port_transformer
 from mxnet_tpu_torch.ops import get_op
 from mxnet_tpu_torch.ops.matrix import reshape_shape
 
+# test files run side by side in parallel workers: each keeps torch's
+# intra-op pool small
+torch.set_num_threads(2)
+
 ATOL = 1e-5
 SMALL = dict(vocab_size=64, num_layers=2, d_model=32, n_heads=2,
              seq_len=64)

@@ -18,6 +18,11 @@ import pytest
 import mxnet_tpu as mx
 import mxnet_tpu_torch as mt
 import chip_smoke as cs
+import torch
+
+# test files run side by side in parallel workers: each keeps torch's
+# intra-op pool small
+torch.set_num_threads(2)
 
 PKGS = (mx, mt)
 RTOL = 1e-5

@@ -26,6 +26,10 @@ import chip_smoke
 from mxnet_tpu.ops.pallas.flash_attention import _xla_attention
 from mxnet_tpu_torch.ops.flash_attention import flash_attention_reference
 
+# test files run side by side in parallel workers: each keeps torch's
+# intra-op pool small
+torch.set_num_threads(2)
+
 _LOW = 0x1FFF        # the 13 mantissa bits that tf32 drops
 
 

@@ -27,6 +27,11 @@ import pytest
 
 from test_torch_zoo_symbols import (STEP1_ATOL, assert_step1,
                                     assert_three_steps, fit_run)
+import torch
+
+# test files run side by side in parallel workers: each keeps torch's
+# intra-op pool small
+torch.set_num_threads(2)
 
 SIDE = 96
 

@@ -26,6 +26,10 @@ import mxnet_tpu_torch as mt
 from mxnet_tpu_torch.ops import OP_REGISTRY, get_op
 from mxnet_tpu_torch.ops import flash_attention as fa
 
+# test files run side by side in parallel workers: each keeps torch's
+# intra-op pool small
+torch.set_num_threads(2)
+
 
 class _Event:
     """A CUDA event stand-in on the host clock."""

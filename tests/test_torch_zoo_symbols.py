@@ -36,6 +36,11 @@ from mxnet_tpu.models import mlp as ref_mlp
 from mxnet_tpu.models import vgg as ref_vgg
 import mxnet_tpu_torch as mt
 from mxnet_tpu_torch.models import alexnet, inception, lenet, mlp, vgg
+import torch
+
+# test files run side by side in parallel workers: each keeps torch's
+# intra-op pool small
+torch.set_num_threads(2)
 
 STEP1_ATOL = 1e-5
 KINK_ATOL = 1e-1
