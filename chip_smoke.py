@@ -314,7 +314,24 @@ Phases, each fatal on failure (exit code 1, no result line):
     within 5e-2 of an f32 cache's; layer 0's int8 codes and scales of
     the longest prompt against the plain quantizer on the CPU (codes at
     most one level apart, the count logged); greedy agreement with phase
-    4 logged.
+    4 logged;
+18. the one-process KVStore (queue A9a): (a) ``mt.kv.create("local")``
+    on the card: ``init`` of one key and of a list of keys, ``push`` of
+    a list of four values and ``pull`` into two arrays, bit for bit a
+    numpy sum; ``set_optimizer`` (SGD with momentum) and two pushes
+    within 1e-6 of a numpy SGD; the optimizer-state file written and
+    read into a second store, whose next step equals the first's bit for
+    bit; a small MLP through ``Module.fit`` with
+    ``kvstore=mt.kv.create("local")`` and with ``kvstore=None`` from
+    the same weights, bit for bit; the same MLP through ``forward`` /
+    ``backward`` / ``update()`` with a store (push, pull) and without,
+    within 1e-6. (b) the eleven single-card examples of
+    ``mxnet_tpu_torch/examples/`` (``A9A_EXAMPLES``), each through its
+    ``main`` at its own defaults on ``cuda:0`` (RecordIO decoded by
+    ``DATA_DECODER``): each example's own gates are the check, its
+    scores and seconds are logged, and each must have allocated memory
+    on the card beyond what was held before it. A hang ends the run
+    through ``faulthandler`` after ``KV_DEADLINE_S``.
 
 The second-to-last line is the kernel table as one JSON object; the
 last is ``{"ok": true, "device": {...}}``. Without a GPU, or run from a
@@ -9282,6 +9299,213 @@ def serve_phase(torch, np):
     return {"batcher": batcher, "export": export, "int8": gen}
 
 
+# ------------------------------------------- phase 18: the KVStore (A9a)
+
+# 18a: the store's arithmetic on the card; the MLP that fit trains with
+# a store and without (batch, features, hidden, classes, examples)
+KV_SHAPE = (64, 257)
+KV_SGD = dict(learning_rate=0.1, momentum=0.9, rescale_grad=0.25)
+KV_ATOL = 1e-6          # of max(1, max|want|): a fused multiply-add
+KV_MLP = dict(batch=32, feat=64, hidden=128, classes=10, examples=256,
+              epochs=2)
+# 18b: the single-card examples, each at its own defaults (``main([])``);
+# A9A_ARGV may give one other arguments
+A9A_EXAMPLES = ("train_mnist", "train_cifar10", "svm_mnist",
+                "cnn_text_classification", "gluon_mnist", "autoencoder",
+                "adversary_fgsm", "super_resolution", "neural_style",
+                "actor_critic", "dqn")
+A9A_ARGV = {}
+KV_DEADLINE_S = 600
+
+
+def kv_close(np, what, got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    err = float(np.abs(got - want).max()) / max(1.0, float(
+        np.abs(want).max()))
+    check(err <= KV_ATOL, "18a %s: %.3g from numpy (limit %g)"
+          % (what, err, KV_ATOL))
+    return err
+
+
+def kv_sgd(np, w, mom, grads):
+    """numpy's SGD with momentum over ``grads``, one push each (no
+    weight decay): ``(w, mom)``."""
+    for g in grads:
+        mom = KV_SGD["momentum"] * mom - KV_SGD["learning_rate"] * (
+            KV_SGD["rescale_grad"] * g)
+        w = w + mom
+    return w, mom
+
+
+def kvstore_arith(torch, np, mt, out):
+    """18a: init, push of a list, pull, the store's optimizer and its
+    state file on the card, against numpy."""
+    ctx = mt.gpu(0)
+    rng = np.random.RandomState(SEED + 18)
+    w0 = rng.randn(*KV_SHAPE).astype(np.float32)
+    grads = [rng.randn(*KV_SHAPE).astype(np.float32) for _ in range(4)]
+    kv = mt.kv.create("local")
+    check((kv.type, kv.rank, kv.num_workers) == ("local", 0, 1),
+          "18a: the local store reads %s" % ((kv.type, kv.rank,
+                                               kv.num_workers),))
+    kv.init(3, mt.nd.array(w0, ctx=ctx))
+    kv.init(["a", "b"], [mt.nd.array(w0[:1], ctx=ctx),
+                         mt.nd.array(w0[1:4], ctx=ctx)])
+    kv.push(3, [mt.nd.array(g, ctx=ctx) for g in grads])
+    outs = [mt.nd.zeros(KV_SHAPE, ctx=ctx) for _ in range(2)]
+    kv.pull(3, out=outs)
+    acc = grads[0]
+    for g in grads[1:]:
+        acc = acc + g
+    for o in outs:
+        check(o.data.device == torch.device(DEVICE),
+              "18a: a pulled array is on %s" % o.data.device)
+        check(np.array_equal(o.asnumpy(), w0 + acc),
+              "18a: push of four values and pull differ from numpy's sum")
+    ab = [mt.nd.zeros((1, KV_SHAPE[1]), ctx=ctx),
+          mt.nd.zeros((3, KV_SHAPE[1]), ctx=ctx)]
+    kv.pull(["a", "b"], out=ab)
+    check(np.array_equal(ab[0].asnumpy(), w0[:1]) and
+          np.array_equal(ab[1].asnumpy(), w0[1:4]),
+          "18a: a pull of a list of keys differs from their init")
+
+    kv = mt.kv.create("local")
+    kv.init(3, mt.nd.array(w0, ctx=ctx))
+    kv.set_optimizer(mt.optimizer.SGD(**KV_SGD))
+    for g in grads[:2]:
+        kv.push(3, mt.nd.array(g, ctx=ctx))
+    w = mt.nd.zeros(KV_SHAPE, ctx=ctx)
+    kv.pull(3, out=w)
+    want_w, want_mom = kv_sgd(np, w0, np.zeros_like(w0), grads[:2])
+    err = kv_close(np, "the store's SGD", w.asnumpy(), want_w)
+    path = out / "kv.states"
+    kv.save_optimizer_states(str(path))
+    kv2 = mt.kv.create("local")
+    kv2.init(3, w)
+    kv2.set_optimizer(mt.optimizer.SGD(**KV_SGD))
+    kv2.load_optimizer_states(str(path))
+    kv_close(np, "the momentum read back",
+             kv2._updater_obj.states[3].asnumpy(), want_mom)
+    got = []
+    for store in (kv, kv2):
+        store.push(3, mt.nd.array(grads[2], ctx=ctx))
+        store.pull(3, out=w)
+        got.append(w.asnumpy())
+    check(np.array_equal(got[0], got[1]),
+          "18a: the store that read the state file steps unlike its "
+          "writer")
+    return {"sgd_err": err, "states_bytes": path.stat().st_size}
+
+
+def kv_mlp(mt):
+    a = KV_MLP
+    data = mt.sym.Variable("data")
+    h = mt.sym.FullyConnected(data, num_hidden=a["hidden"], name="fc1")
+    h = mt.sym.Activation(h, act_type="relu")
+    h = mt.sym.FullyConnected(h, num_hidden=a["classes"], name="fc2")
+    return mt.sym.SoftmaxOutput(h, name="softmax")
+
+
+def kvstore_module(torch, np, mt):
+    """18a: a Module with a local store against one without: ``fit``
+    bit for bit, ``update()`` within KV_ATOL."""
+    a, ctx = KV_MLP, mt.gpu(0)
+    rng = np.random.RandomState(SEED + 180)
+    x = rng.randn(a["examples"], a["feat"]).astype(np.float32)
+    y = rng.randint(0, a["classes"], a["examples"]).astype(np.float32)
+    params = {"fc1_weight": (a["hidden"], a["feat"]),
+              "fc1_bias": (a["hidden"],),
+              "fc2_weight": (a["classes"], a["hidden"]),
+              "fc2_bias": (a["classes"],)}
+    params = {n: (rng.randn(*s) * 0.1).astype(np.float32)
+              for n, s in params.items()}
+    opt = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}
+    fitted = []
+    for kv in (mt.kv.create("local"), None):
+        mod = mt.mod.Module(kv_mlp(mt), context=ctx)
+        mod.fit(mt.io.NDArrayIter(x, y, a["batch"]), num_epoch=a["epochs"],
+                arg_params={n: mt.nd.array(v, ctx=ctx)
+                            for n, v in params.items()},
+                optimizer="sgd", optimizer_params=opt, kvstore=kv)
+        check((mod._kvstore is kv) and mod._update_on_kvstore == (kv is
+                                                                   not None),
+              "18a: fit(kvstore=%r) left the module with store %r"
+              % (kv, mod._kvstore))
+        fitted.append(mod.get_params()[0])
+    for n in params:
+        check(torch.equal(fitted[0][n].data, fitted[1][n].data),
+              "18a: fit with a local store and without differ at %s" % n)
+    stepped = []
+    for kv in (mt.kv.create("local"), None):
+        mod = mt.mod.Module(kv_mlp(mt), context=ctx)
+        mod.bind(data_shapes=[("data", (a["batch"], a["feat"]))],
+                 label_shapes=[("softmax_label", (a["batch"],))])
+        mod.init_params(arg_params={n: mt.nd.array(v, ctx=ctx)
+                                    for n, v in params.items()})
+        mod.init_optimizer(kvstore=kv, optimizer="sgd",
+                           optimizer_params=opt)
+        for i in range(3):
+            sl = slice(i * a["batch"], (i + 1) * a["batch"])
+            mod.forward_backward(mt.io.DataBatch(
+                [mt.nd.array(x[sl], ctx=ctx)], [mt.nd.array(y[sl], ctx=ctx)]))
+            mod.update()
+        stepped.append(mod.get_params()[0])
+    check(stepped[0]["fc1_weight"].data.device == torch.device(DEVICE),
+          "18a: the update loop's weights are not on the card")
+    err = max(kv_close(np, "update() of %s with a store" % n,
+                       stepped[0][n].asnumpy(), stepped[1][n].asnumpy())
+              for n in params)
+    return {"update_err": err}
+
+
+def a9a_examples(torch, np, mt):
+    """18b: each example's main on the card; its gates are the check."""
+    import importlib
+    from mxnet_tpu_torch.examples import common
+    readings = {}
+    for name in A9A_EXAMPLES:
+        example = importlib.import_module("mxnet_tpu_torch.examples." + name)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        t = time.perf_counter()
+        try:
+            scores = example.main(list(A9A_ARGV.get(name, [])))
+        except common.GateFailure as exc:
+            raise SmokeFailure("18b %s: its gate failed: %s" % (name, exc))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        peak = torch.cuda.max_memory_allocated() - before
+        check(all(math.isfinite(v) for v in scores.values()),
+              "18b %s: a score is not finite: %s" % (name, scores))
+        check(peak > 0, "18b %s: nothing was allocated on the card" % name)
+        log("18b %s: %.2f s, peak %.1f MB over the %.1f MB held before; %s"
+            % (name, secs, peak / 1e6, before / 1e6, json.dumps(scores)))
+        readings[name] = dict(scores, seconds=secs)
+    return readings
+
+
+def kvstore_phase(torch, np):
+    """Phase 18: the one-process KVStore (A9a): a, b."""
+    import shutil
+    import mxnet_tpu_torch as mt
+    t0 = time.perf_counter()
+    out = ROOT / "build" / "phase18"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    mt.config.set("MXNET_USE_NATIVE_IO", DATA_DECODER == "native")
+    try:
+        store = dict(kvstore_arith(torch, np, mt, out),
+                     **kvstore_module(torch, np, mt))
+        log("18a store: %s" % json.dumps(store))
+        examples = a9a_examples(torch, np, mt)
+    finally:
+        mt.config.reset("MXNET_USE_NATIVE_IO")
+        shutil.rmtree(out, ignore_errors=True)
+    log("18 kvstore and examples: %.1f s" % (time.perf_counter() - t0))
+    return {"store": store, "examples": examples}
+
+
 PAIRS_OF = ("f32-backward", "rtc", "fit-loop")
 
 
@@ -9386,6 +9610,10 @@ def main() -> int:
         # a client or batcher thread that hangs ends the run here too
         faulthandler.dump_traceback_later(SERVE_DEADLINE_S, exit=True)
         serve_phase(torch, np)
+        faulthandler.cancel_dump_traceback_later()
+        # an example that hangs ends the run here too
+        faulthandler.dump_traceback_later(KV_DEADLINE_S, exit=True)
+        kvstore_phase(torch, np)
         faulthandler.cancel_dump_traceback_later()
         torch.cuda.synchronize()
     except SmokeFailure as exc:

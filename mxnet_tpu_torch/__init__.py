@@ -75,13 +75,19 @@ Ported so far:
   :mod:`.serve`: ``InferenceServer`` (dynamic batching over the bucket
   grid) and ``GenerativeServer`` (continuous-batching decode of the zoo
   LM over an f32 or int8 KV cache, prefill attention on the
-  flash-attention forward kernel).
+  flash-attention forward kernel);
+* the one-process ``KVStore`` (:mod:`.kvstore`, ``kv.create``), which
+  ``Module`` and ``gluon.Trainer`` take, and the examples
+  (:mod:`.examples`) with the reference's fit harness
+  (``examples/common/fit.py``).
 """
 from __future__ import annotations
 
 from . import amp, autograd, callback, checkpoint, contrib, executor
 from . import initializer as init
-from . import filesystem, image, io, lr_scheduler, metric, model, name
+from . import filesystem, image, io, kvstore, lr_scheduler, metric, model
+from . import name
+from . import kvstore as kv
 from . import recordio
 from . import module as mod
 from . import monitor as mon
@@ -100,7 +106,8 @@ from .predictor import Predictor
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "tpu", "current_context",
            "num_devices", "device_scope", "current_device", "NameManager",
            "AttrScope", "amp", "autograd", "callback", "checkpoint",
-           "contrib", "executor", "gluon", "init", "io", "lr_scheduler",
+           "contrib", "executor", "gluon", "init", "io", "kv", "kvstore",
+           "lr_scheduler",
            "metric", "mod", "model", "mon", "name", "nd", "operator",
            "optimizer", "random", "rnn", "rtc", "sym", "filesystem",
            "recordio", "image", "data", "predictor", "Predictor", "serve"]

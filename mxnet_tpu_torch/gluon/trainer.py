@@ -16,15 +16,21 @@ counts) and :meth:`Trainer.load_states` reads either package's, so
 the files cross packages both ways; a fresh Trainer continues Adam's
 bias correction from ``begin_num_update``.
 
-One device: ``kvstore="device"`` or ``"local"`` (or None) means no
-kvstore, as it does for one device in the reference; a distributed
-kvstore raises (ROADMAP.md queue A9).
+The store is settled at the first :meth:`step` or
+:meth:`load_states`, as in the reference (``model._create_kvstore``): on
+one device a name without ``dist`` (``"device"``, ``"local"``) or None
+means no store; a :class:`..kvstore.KVStore` gets a key per parameter
+and the optimizer (on one device it always updates on the store), and
+then :meth:`step` pushes every live gradient before it pulls any
+updated weight, and the states are the store's. A ``dist`` name raises
+here (ROADMAP.md queue A9).
 """
 from __future__ import annotations
 
+from .. import kvstore as kvs
 from .. import optimizer as opt
-from ..base import MXNetError
 from ..checkpoint.atomic import atomic_open
+from ..model import _create_kvstore
 from .parameter import Parameter, ParameterDict
 
 __all__ = ["Trainer"]
@@ -47,14 +53,14 @@ class Trainer(object):
                 raise ValueError(
                     "First argument must be a list or dict of Parameters, "
                     "got list of %s." % type(param))
-        if kvstore not in ("device", "local", None):
-            raise MXNetError(
-                "kvstore %r: the port trains on one device without a "
-                "kvstore (distributed kvstores are ROADMAP.md queue A9)"
-                % (kvstore,))
+        if isinstance(kvstore, str) and "dist" in kvstore:
+            kvs.create(kvstore)     # raises, naming ROADMAP.md queue A9
         self._params = [p for p in params if p.grad_req != "null"]
         self._scale = 1.0
         self._init_optimizer(optimizer, dict(optimizer_params or {}))
+        self._kvstore_arg = kvstore
+        self._kvstore = None
+        self._kv_initialized = False
 
     def _init_optimizer(self, optimizer, optimizer_params):
         if isinstance(optimizer, opt.Optimizer):
@@ -70,6 +76,18 @@ class Trainer(object):
         self._optimizer.wd_mult = {p.name: p.wd_mult for p in self._params}
         self._updaters = opt.get_updater(self._optimizer)
 
+    def _init_kvstore(self):
+        # on one device a store is one given as an object, and it always
+        # updates on the store
+        kvstore, _ = _create_kvstore(
+            self._kvstore_arg, 1, {p.name: p.data() for p in self._params})
+        if kvstore:
+            for i, param in enumerate(self._params):
+                kvstore.init(i, param.data())
+            kvstore.set_optimizer(self._optimizer)
+        self._kvstore = kvstore
+        self._kv_initialized = True
+
     @property
     def learning_rate(self):
         return self._optimizer.lr
@@ -82,22 +100,39 @@ class Trainer(object):
         gradient, its gradient rescaled by ``1 / batch_size``.
         ``ignore_stale_grad`` is accepted as in the reference, which does
         not track staleness either."""
+        if not self._kv_initialized:
+            self._init_kvstore()
         self._optimizer.rescale_grad = self._scale / batch_size
         live = [i for i, p in enumerate(self._params)
                 if p.grad_req != "null"]
+        if self._kvstore is not None:
+            for i in live:
+                self._kvstore.push(i, self._params[i].grad())
+            for i in live:
+                self._kvstore.pull(i, out=self._params[i].data())
+            return
         self._updaters.update_multi(
             live, [self._params[i].data() for i in live],
             [self._params[i].grad().data for i in live])
 
     def save_states(self, fname):
-        """Save the optimizer's states in the reference's ``.states``
-        pickle, atomically."""
+        """Save the optimizer's states (the store's, when it updates on
+        the store) in the reference's ``.states`` pickle, atomically."""
+        if self._kvstore is not None:
+            self._kvstore.save_optimizer_states(fname)
+            return
         with atomic_open(fname, "wb") as fout:
             fout.write(self._updaters.get_states())
 
     def load_states(self, fname):
-        """Load a ``.states`` file of either package; each state moves to
-        its parameter's device now."""
+        """Load a ``.states`` file of either package (into the store's
+        optimizer when it updates on the store); each state moves to its
+        parameter's device now."""
+        if not self._kv_initialized:
+            self._init_kvstore()
+        if self._kvstore is not None:
+            self._kvstore.load_optimizer_states(fname)
+            return
         with open(fname, "rb") as fin:
             self._updaters.set_states(fin.read())
         for i, param in enumerate(self._params):

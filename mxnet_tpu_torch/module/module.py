@@ -27,6 +27,15 @@ rate the scheduler's at ``t``; ``update`` (after ``forward`` and
 ``Module.update`` does. ``_checkpoint_snapshot`` / ``_checkpoint_restore``
 carry everything exact resume needs to and from :mod:`..checkpoint`.
 
+A store (``init_optimizer(kvstore=mt.kv.create("local"))``) is used as
+the reference uses one on one device: ``init_optimizer`` initializes a
+key per parameter and gives the store the optimizer, and ``update``
+pushes each gradient and pulls the updated weight back; ``fit`` still
+trains through ``_fit_step``, as the reference's fused step does with a
+store that is not ``dist``, so a fit with a local store equals a fit
+without one bit for bit and the store's copies are not touched per
+step.
+
 Gradient accumulation (``set_grad_accum(n)``, ``fit(grad_accum=n)``):
 ``_fit_step`` splits the bound batch into ``n`` equal microbatches, runs
 a forward and ``torch.autograd.grad`` per microbatch (aux states
@@ -218,6 +227,8 @@ class Module(BaseModule):
         self._aux_params: Optional[Dict[str, NDArray]] = None
         self._optimizer = None
         self._updater = None
+        self._kvstore = None
+        self._update_on_kvstore = False
         self._exec = None
         self._data_shapes = None
         self._label_shapes = None
@@ -441,17 +452,17 @@ class Module(BaseModule):
                        optimizer_params=(("learning_rate", 0.01),),
                        force_init=False):
         """Create the optimizer; ``rescale_grad`` defaults to
-        ``1 / batch_size``. ``kvstore`` may be ``"local"``, ``"device"``
-        or None on one device."""
+        ``1 / batch_size``. ``kvstore`` is a name (on one device none
+        without ``dist`` makes a store; a ``dist`` one raises, ROADMAP.md
+        queue A9), None, or a :class:`..kvstore.KVStore`, which gets a
+        key per parameter and the optimizer."""
         assert self.binded and self.params_initialized
         if self.optimizer_initialized and not force_init:
             self.logger.warning("optimizer already initialized, "
                                 "ignoring...")
             return
-        if kvstore not in ("local", "device", None):
-            raise MXNetError("kvstore %r is not ported yet (ROADMAP.md queue "
-                             "A9); on one device use 'local', 'device' or "
-                             "None" % (kvstore,))
+        kvstore, update_on_kvstore = _model._create_kvstore(
+            kvstore, 1, self._arg_params)
         batch_sizes = {d.shape[0] for d in self._data_shapes if d.shape}
         if len(batch_sizes) > 1:
             raise MXNetError("data inputs disagree on batch size: %s"
@@ -475,6 +486,13 @@ class Module(BaseModule):
         self._optimizer = optimizer
         self._updater = opt.get_updater(optimizer)
         self._param_index = {n: i for i, n in enumerate(self._param_names)}
+        self._kvstore = kvstore
+        self._update_on_kvstore = update_on_kvstore
+        if kvstore:
+            for idx, name in enumerate(self._param_names):
+                kvstore.init(idx, self._arg_params[name])
+            if update_on_kvstore:
+                kvstore.set_optimizer(optimizer)
         self.optimizer_initialized = True
         if self._preload_opt_states is not None:
             self.load_optimizer_states(self._preload_opt_states)
@@ -545,8 +563,8 @@ class Module(BaseModule):
                 self._build_fused_step()
 
     def borrow_optimizer(self, shared_module):
-        """Take ``shared_module``'s optimizer and updater, its state
-        included, keyed by parameter name (``BucketingModule``)."""
+        """Take ``shared_module``'s optimizer, updater and store, its
+        state included, keyed by parameter name (``BucketingModule``)."""
         assert shared_module.optimizer_initialized
         missing = [n for n in self._param_names
                    if n not in shared_module._param_index]
@@ -555,6 +573,8 @@ class Module(BaseModule):
                              "train %s" % missing)
         self._optimizer = shared_module._optimizer
         self._updater = shared_module._updater
+        self._kvstore = shared_module._kvstore
+        self._update_on_kvstore = shared_module._update_on_kvstore
         self._param_index = shared_module._param_index
         self.optimizer_initialized = True
 
@@ -694,10 +714,18 @@ class Module(BaseModule):
                                    grads, **kw)
 
     def update(self):
-        """Apply the gradients in ``grad_dict`` with one fused update."""
+        """Apply the gradients in ``grad_dict``: with a store, each is
+        pushed and the updated weight pulled back (on one device a store
+        always updates on the store); else one fused update."""
         assert self.binded and self.params_initialized \
             and self.optimizer_initialized
         names = self._trained_names()
+        if self._kvstore is not None:
+            for n in names:
+                idx = self._param_index[n]
+                self._kvstore.push(idx, self._exec.grad_dict[n])
+                self._kvstore.pull(idx, out=self._exec.arg_dict[n])
+            return
         self._apply_update(names, [self._exec.grad_dict[n] for n in names])
 
     def _fit_step(self, data_batch):
@@ -836,7 +864,9 @@ class Module(BaseModule):
 
     def save_optimizer_states(self, fname):
         """The reference's fused ``.states`` pickle: ``{"fused": {name:
-        state as numpy}, "num_update": n}``, written atomically."""
+        state as numpy}, "num_update": n}``, written atomically. With a
+        store too: the reference's module writes its fused step's states
+        first, and on one device it always has a fused step."""
         assert self.optimizer_initialized
         states = {n: opt.state_to_numpy(s)
                   for n, s in self._named_states().items()}
@@ -848,7 +878,8 @@ class Module(BaseModule):
     def load_optimizer_states(self, fname):
         """Load a ``.states`` file of either package: the fused form by
         parameter name (with the update count), or an Updater's pickle
-        by parameter index."""
+        by parameter index, which goes to the store's optimizer when the
+        module updates on a store, as in the reference."""
         assert self.optimizer_initialized
         with open(fname, "rb") as fin:
             blob = fin.read()
@@ -862,6 +893,9 @@ class Module(BaseModule):
                 self._updater.states[self._param_index[n]] = \
                     opt.state_from_numpy(s)
             self._optimizer.num_update = int(payload["num_update"])
+        elif self._update_on_kvstore and self._kvstore is not None:
+            self._kvstore.load_optimizer_states(fname)
+            return
         else:
             self._updater.set_states(blob)
         self._named_states()
@@ -917,7 +951,10 @@ class Module(BaseModule):
         update counts and torch generators into this bound module with
         its optimizer (``fit`` restores the parameters through
         ``init_params`` and the key chain itself). Reads the reference's
-        ``"fused"`` (by name) and ``"updater"`` (by index) kinds."""
+        ``"fused"`` (by name) and ``"updater"`` (by index) kinds, and its
+        ``"kvstore"`` kind (by index) into the store's optimizer; the
+        store's weights need no replay, since ``init_optimizer`` stored
+        the restored parameters."""
         assert self.binded and self.params_initialized \
             and self.optimizer_initialized
         tensors = ckpt.tensors
@@ -928,6 +965,15 @@ class Module(BaseModule):
 
         opt_meta = ckpt.meta.get("optimizer") or {}
         kind = opt_meta.get("kind")
+        updater = self._updater
+        if kind == "kvstore":
+            updater = getattr(self._kvstore, "_updater_obj", None)
+            if updater is None:
+                raise CheckpointCorrupt(
+                    "%s holds a store's optimizer states but this module "
+                    "has no store with an optimizer (resume with the "
+                    "kvstore= of the save; a distributed store is "
+                    "ROADMAP.md queue A9)" % ckpt.path)
         if kind == "fused":
             structure = opt_meta["structure"]
             if set(structure) != set(self._trained_names()):
@@ -938,7 +984,7 @@ class Module(BaseModule):
             states = {self._param_index[n]: _ckpt_manager.tree_decode(
                 "opt:%s" % n, s, tensors, leaf)
                 for n, s in structure.items()}
-        elif kind == "updater":
+        elif kind in ("updater", "kvstore"):
             states = {int(k) if k.lstrip("-").isdigit() else k:
                       _ckpt_manager.tree_decode("upd:%s" % k, s, tensors, leaf)
                       for k, s in opt_meta["structure"].items()}
@@ -947,13 +993,18 @@ class Module(BaseModule):
                 "%s holds optimizer states of kind %r, which a module on "
                 "one device does not have (ROADMAP.md queue A9)"
                 % (ckpt.path, kind))
+        if kind == "kvstore":
+            updater.states.update(states)
+        elif kind is not None:
+            updater.states = states
         if kind is not None:
-            self._updater.states = states
-            self._optimizer.num_update = int(opt_meta["num_update"])
-            self._optimizer._index_update_count.update(
+            o = updater.optimizer
+            o.num_update = int(opt_meta["num_update"])
+            o._index_update_count.update(
                 {int(k): int(v) for k, v in
                  (opt_meta.get("index_update_count") or {}).items()})
-            self._named_states()
+            if kind != "kvstore":
+                self._named_states()
         if "rng:torch:cpu" in tensors:
             torch.set_rng_state(torch.as_tensor(tensors["rng:torch:cpu"]))
         if torch.cuda.is_available():

@@ -81,6 +81,11 @@ def test_importing_the_port_loads_no_jax():
         "import mxnet_tpu_torch.predictor, mxnet_tpu_torch.serve.bucketing\n"
         "import mxnet_tpu_torch.analysis.memory_passes\n"
         "from mxnet_tpu_torch.serve import InferenceServer, wrap_model\n"
+        "import mxnet_tpu_torch.kvstore, mxnet_tpu_torch.examples.common.fit\n"
+        "from mxnet_tpu_torch.examples import (\n"
+        "    actor_critic, adversary_fgsm, autoencoder,\n"
+        "    cnn_text_classification, dqn, gluon_mnist, neural_style,\n"
+        "    super_resolution, svm_mnist, train_cifar10, train_mnist)\n"
         "import mxnet_tpu_torch._cuda_driver as driver\n"
         "assert driver._lib is None   # libcuda loads at first use only\n"
         "bad = sorted(m for m in sys.modules\n"
