@@ -331,7 +331,38 @@ Phases, each fatal on failure (exit code 1, no result line):
     ``DATA_DECODER``): each example's own gates are the check, its
     scores and seconds are logged, and each must have allocated memory
     on the card beyond what was held before it. A hang ends the run
-    through ``faulthandler`` after ``KV_DEADLINE_S``.
+    through ``faulthandler`` after ``KV_DEADLINE_S``;
+19. observability and config (queue A10a), a-c under
+    ``MXNET_TPU_LOCKCHECK=warn``: (a) ``GenerativeServer`` on phase 4's
+    weights and prompts with ``MXNET_TPU_OBS=1`` and ``metrics_port=0``:
+    an HTTP scrape of ``/metrics`` parsed by ``parse_prometheus``, its
+    token counter and TTFT / TPOT histogram counts equal to
+    ``stats()``, the greedy tokens phase 4's bit for bit, K1 f32 8 x 12
+    launches; (b) ``InferenceServer`` over phase 17a's ResNet-50
+    ``Predictor`` with spans on and ``metrics_port=0``, 64 requests from
+    16 client threads: in the dumped trace each request's one flow runs
+    from ``serve_submit`` on its client's lane through a
+    ``serve_launch`` to a ``serve_resolve`` on the batcher's lane
+    (``request_flows``), the scrape's latency count 64, no host sync
+    under a witnessed lock; (c) ``fit`` of phase 6's LM (amp bf16, batch
+    8 x T 1024) over 2 + 10 batches with obs on, ``mt.obs.report()``
+    after the 2nd and the 12th step: ``flops_per_step`` within 5% of
+    the PaLM count (35.4 TFLOP), ``steps_per_sec`` within 10% of the
+    rate timed independently over the same steps, ``obs_mfu`` equal to
+    ``flops_per_sec`` / 989e12, the trace's ``train``, ``place``,
+    ``metric`` and ``prefetch/*`` lanes crossed by every batch's flow
+    (``batch_flows``); the same fit with obs off from the same weights:
+    parameters bit for bit, no span; the step time both ways logged;
+    (d) every compile record since 19a names its scope, and
+    ``obs_compile_count`` moved once per record; (f) no lock-order
+    inversion and no held-lock sync in a-c, and a deliberate
+    ``asnumpy`` of a card tensor under a plain witnessed lock counts
+    one ``lockcheck_held_sync``; (e) a child process training the MLP
+    of phase 18 on the card with ``MXNET_TPU_OBS_BLACKBOX`` and a 0.5 s
+    heartbeat, killed by SIGKILL after its third heartbeat: ``python -m
+    mxnet_tpu_torch.obs blackbox`` names rank 0 dead and its merged
+    timeline loads as a chrome trace. A hang ends the run through
+    ``faulthandler`` after ``OBS_DEADLINE_S``.
 
 The second-to-last line is the kernel table as one JSON object; the
 last is ``{"ok": true, "device": {...}}``. Without a GPU, or run from a
@@ -9506,6 +9537,586 @@ def kvstore_phase(torch, np):
     return {"store": store, "examples": examples}
 
 
+# ----------------------------------- phase 19: observability (A10a)
+
+# 19b: requests through InferenceServer from concurrent client threads
+OBS_SERVE_CLIENTS, OBS_SERVE_EACH = 16, 4
+# 19c: fit of phase 6's LM, obs on then off: warm steps before the first
+# report(), timed steps before the second
+OBS_WARM, OBS_TIMED = 2, 10
+# the cost model's FLOPs a step against the independent PaLM count: the
+# reference's test_transformer_flops_model_matches_palm_accounting
+OBS_FLOPS_RTOL = 0.05
+# obs's steps/s against the rate timed independently over the same
+# region: the reference's test_obs_mfu_matches_independent_throughput_math
+OBS_RATE_RTOL = 0.10
+# 19e: the flight recorder's heartbeat, and the heartbeats that land
+# before the child is killed
+OBS_BB_FLUSH_S, OBS_BB_BEATS = 0.5, 3
+OBS_BB_WAIT_S = 180
+# a hung client, scrape, batcher or child ends the run here
+OBS_DEADLINE_S = 400
+
+
+def scrape(port: int):
+    """The parsed samples of one HTTP scrape of ``/metrics``."""
+    import urllib.request
+    from mxnet_tpu_torch import obs
+    body = urllib.request.urlopen("http://127.0.0.1:%d/metrics" % port,
+                                  timeout=60).read().decode()
+    return obs.parse_prometheus(body)
+
+
+def load_trace(path):
+    """A dumped chrome trace: (events, {lane name: tid})."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    lanes = {e["args"]["name"]: e["tid"] for e in events
+             if e.get("ph") == "M" and e.get("name") == "thread_name"}
+    return events, lanes
+
+
+def request_flows(events, lanes, batcher_lane):
+    """Each request flow of an InferenceServer trace checked to run from
+    ``serve_submit`` on a client's lane (its one flow start) through a
+    ``serve_launch`` to a ``serve_resolve`` on the batcher's lane.
+    Returns ``{flow id: client lane name}``; raises SmokeFailure."""
+    names = {tid: name for name, tid in lanes.items()}
+    batcher = lanes.get(batcher_lane)
+    check(batcher is not None, "no %s lane in the trace: %s"
+          % (batcher_lane, sorted(lanes)))
+    spans = {}
+    for e in events:
+        if e.get("ph") == "X":
+            spans.setdefault((e["name"], e["tid"]), []).append(e)
+    flows = {}
+    for e in events:
+        if e.get("cat") == "flow":
+            flows.setdefault(e["id"], []).append(e)
+
+    def within(kind, ev):
+        return any(s["ts"] - 1e-3 <= ev["ts"] <= s["ts"] + s["dur"] + 1e-3
+                   for s in spans.get((kind, ev["tid"]), ()))
+
+    submits = {ev["args"]["flow"]: ev
+               for (kind, _), evs in spans.items()
+               if kind == "serve_submit" for ev in evs if "args" in ev}
+    out = {}
+    for fid, sub in submits.items():
+        evs = flows.get(fid, [])
+        starts = [e for e in evs if e["ph"] == "s"]
+        check(len(starts) == 1 and starts[0]["tid"] == sub["tid"],
+              "request flow %d: %d flow starts, not one on its submit's "
+              "lane" % (fid, len(starts)))
+        client = names.get(sub["tid"], "?")
+        check(sub["tid"] != batcher, "request flow %d submitted on the "
+              "batcher's lane" % fid)
+        steps = [e for e in evs if e["ph"] == "t" and e["tid"] == batcher]
+        check(any(within("serve_launch", e) for e in steps),
+              "request flow %d never reaches a serve_launch on %s"
+              % (fid, batcher_lane))
+        check(any(within("serve_resolve", e) for e in steps),
+              "request flow %d never reaches a serve_resolve on %s"
+              % (fid, batcher_lane))
+        out[fid] = client
+    return out
+
+
+def batch_flows(events, lanes, want=("train", "metric", "place")):
+    """Each batch flow of a traced ``fit`` (the flow of each
+    ``fused_step_dispatch``) checked to cross a ``prefetch/*`` lane and
+    the ``want`` lanes. Returns the number of batches."""
+    check(all(w in lanes for w in want) and
+          any(n.startswith("prefetch/") for n in lanes),
+          "fit's trace lacks a lane of %s + prefetch/*: %s"
+          % (list(want), sorted(lanes)))
+    prefetch = {tid for n, tid in lanes.items() if n.startswith("prefetch/")}
+    tids = {}
+    for e in events:
+        if e.get("cat") == "flow":
+            tids.setdefault(e["id"], set()).add(e["tid"])
+    steps = [e for e in events
+             if e.get("ph") == "X" and e["name"] == "fused_step_dispatch"]
+    for e in steps:
+        fid = (e.get("args") or {}).get("flow")
+        check(fid is not None, "a fused_step_dispatch span carries no flow")
+        seen = tids.get(fid, set())
+        check(seen & prefetch and all(lanes[w] in seen for w in want),
+              "batch flow %d crosses lanes %s, not prefetch/* + %s"
+              % (fid, sorted(seen), list(want)))
+    return len(steps)
+
+
+def obs_generative(torch, np, mt, phase4):
+    """19a: GenerativeServer on phase 4's model and prompts with spans on
+    and a /metrics endpoint: the scrape against stats(), the tokens
+    against phase 4's, K1 f32 once per prefill per layer."""
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    from mxnet_tpu_torch.obs.prometheus import sample
+    params = phase4.get("params")
+    if params is None:
+        params = seeded_params(np, SEED)
+    rng = np.random.default_rng(SEED + 1)
+    prompts = [rng.integers(0, VOCAB, n) for n in PROMPT_LENS]
+    name = "phase19_gen"
+    srv = mt.serve.GenerativeServer(params, n_heads=HEADS,
+                                    max_sequences=SLOTS, page=PAGE,
+                                    name=name, device=DEVICE,
+                                    metrics_port=0)
+    try:
+        port = srv.metrics_port
+        check(port is not None and port > 0, "19a: no /metrics endpoint "
+              "(metrics_port %r)" % port)
+        fa.flash_attention_fwd.launches = {"f32": 0, "bf16": 0}
+        outs, wall = burst(srv, prompts)
+        counts = dict(fa.flash_attention_fwd.launches)
+        st = srv.stats()
+        samples = scrape(port)
+    finally:
+        srv.close(timeout=600)
+    check(srv._metrics is None, "19a: the endpoint outlived close()")
+    got = {"tokens": sample(samples, "mxnet_tpu_%s_tokens_total" % name),
+           "ttft": sample(samples, "mxnet_tpu_%s_ttft_seconds_count" % name),
+           "tpot": sample(samples, "mxnet_tpu_%s_tpot_seconds_count" % name)}
+    want = {"tokens": st["tokens"], "ttft": st["ttft"]["window"],
+            "tpot": st["tpot"]["window"]}
+    same = sum(a == b for a, b in zip(outs, phase4["outs"]))
+    log("19a GenerativeServer with /metrics on port %d: %d requests, %d "
+        "tokens in %.3f s; the scrape %s against stats() %s; %d samples; "
+        "K1 launches %s; greedy tokens equal to phase 4's for %d of %d "
+        "prompts" % (port, len(prompts), st["tokens"], wall,
+                     json.dumps(got), json.dumps(want), len(samples),
+                     counts, same, len(prompts)))
+    check(got == want, "19a: the scrape %s disagrees with stats() %s"
+          % (got, want))
+    check(outs == phase4["outs"], "19a: the greedy tokens differ from "
+          "phase 4's (%d of %d prompts equal)" % (same, len(prompts)))
+    check(counts["f32"] == len(prompts) * LAYERS and counts["bf16"] == 0,
+          "19a: K1 launches %s for %d prefills x %d layers"
+          % (counts, len(prompts), LAYERS))
+    return {"tokens": st["tokens"], "wall_s": wall, "scrape": got}
+
+
+def obs_inference(torch, np, mt, out):
+    """19b: InferenceServer over phase 17a's ResNet-50 Predictor with
+    spans on and a /metrics endpoint, under requests from concurrent
+    client threads: every request's flow in the dumped trace, the
+    scrape's latency count, and no held-lock sync under the model
+    lock."""
+    from mxnet_tpu_torch import lockcheck, profiler, serve
+    from mxnet_tpu_torch.obs.prometheus import sample
+    sym, params = serve_model(torch, np, mt)
+    shape = (3, SERVE_IMAGE, SERVE_IMAGE)
+    pred = mt.Predictor(sym.tojson(), params, {"data": (1,) + shape},
+                        ctx=mt.gpu(0))
+    rng = np.random.RandomState(SEED + 19)
+    images = [rng.uniform(-1, 1, shape).astype(np.float32)
+              for _ in range(OBS_SERVE_CLIENTS)]
+    name = "phase19"
+    n = OBS_SERVE_CLIENTS * OBS_SERVE_EACH
+    profiler.set_config(filename=str(out / "serve_trace.json"))
+    profiler.dump()          # a clean buffer: this pass's events alone
+    srv = serve.InferenceServer(pred, buckets=serve.BucketSpec(
+        SERVE_MAX_BATCH), name=name, ctx=mt.gpu(0), metrics_port=0)
+    errors = []
+
+    def client(i):
+        try:
+            for _ in range(OBS_SERVE_EACH):
+                srv.submit(images[i]).result(timeout=600)
+        except Exception as exc:                           # noqa: BLE001
+            errors.append((i, repr(exc)))
+
+    try:
+        check(isinstance(srv._model_lock, lockcheck._WitnessLock) ==
+              (lockcheck.mode() != "off") and
+              getattr(srv._model_lock, "_allow_sync", True),
+              "19b: the model lock is not a witnessed allow_sync lock")
+        with profiler.counter_delta() as d:
+            threads = [threading.Thread(target=client, args=(i,),
+                                        name="client-%d" % i, daemon=True)
+                       for i in range(OBS_SERVE_CLIENTS)]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(600)
+            wall = time.perf_counter() - t0
+            check(not errors and not any(t.is_alive() for t in threads),
+                  "19b: clients failed or hung: %s" % errors[:3])
+            samples = scrape(srv.metrics_port)
+            st = srv.stats()
+        held = d.get("lockcheck_held_sync")
+    finally:
+        srv.close(timeout=600)
+    events, lanes = load_trace(profiler.dump())
+    flows = request_flows(events, lanes, "mxnet_tpu_torch.serve[%s]" % name)
+    count = sample(samples, "mxnet_tpu_%s_latency_seconds_count" % name)
+    clients = sorted(set(flows.values()))
+    log("19b InferenceServer over a Predictor (ResNet-%d) with spans on: %d "
+        "requests from %d client threads in %.3f s, %d batches (mean %.3f "
+        "rows); the scrape's latency count %s; %d request flows from %d "
+        "client lanes through serve_launch to serve_resolve; %d trace "
+        "events; held-lock syncs %d" % (
+            SERVE_LAYERS, n, OBS_SERVE_CLIENTS, wall, st["batches"],
+            st["avg_batch_rows"], count, len(flows), len(clients),
+            len(events), held))
+    check(count == n, "19b: the scrape counts %s latencies for %d requests"
+          % (count, n))
+    check(len(flows) == n and len(clients) == OBS_SERVE_CLIENTS,
+          "19b: %d request flows on %d client lanes for %d requests from %d "
+          "clients" % (len(flows), len(clients), n, OBS_SERVE_CLIENTS))
+    check(held == 0, "19b: %d host syncs under a witnessed lock (the model "
+          "lock allows them)" % held)
+    del pred, srv
+    gc.collect()
+    return {"requests": n, "wall_s": wall, "flows": len(flows),
+            "batches": st["batches"]}
+
+
+def obs_fit_once(torch, np, mt, init, x, y, obs_on):
+    """One fit of the LM over OBS_WARM + OBS_TIMED batches from the
+    weights ``init``; with ``obs_on`` spans record and report() opens
+    the rate window after the warm steps and closes it after the timed
+    ones. The step time is timed independently over the same steps
+    (CUDA events waited on at both ends)."""
+    from mxnet_tpu_torch import config, profiler
+    from mxnet_tpu_torch.models import transformer
+    B, T = TRAIN_BATCH, MAX_SEQ
+    config.set("MXNET_TPU_OBS", 1 if obs_on else 0)
+    sym = transformer.get_symbol(VOCAB, LAYERS, D_MODEL, HEADS, D_FF, T,
+                                 attention="flash")
+    mod = mt.mod.Module(sym, context=mt.gpu(0))
+    marks, reports = {}, []
+
+    def at_batch(p):
+        if p.nbatch not in (OBS_WARM - 1, OBS_WARM + OBS_TIMED - 1):
+            return
+        token = mod._step_token()
+        if token is not None:
+            token.synchronize()
+        if p.nbatch == OBS_WARM - 1:
+            if obs_on:
+                reports.append(mt.obs.report())
+            marks["t0"] = time.perf_counter()
+        else:
+            marks["t1"] = time.perf_counter()
+            if obs_on:
+                reports.append(mt.obs.report())
+
+    it = mt.io.NDArrayIter(x, y, batch_size=B)
+    try:
+        with profiler.counter_delta() as d:
+            mod.fit(it, num_epoch=1, arg_params=init, force_init=True,
+                    eval_metric=mt.metric.CrossEntropy(),
+                    optimizer="sgd",
+                    optimizer_params={"learning_rate": TRAIN_LR},
+                    batch_end_callback=at_batch)
+        spans = d.get("obs_spans")
+    finally:
+        config.reset("MXNET_TPU_OBS")
+    params = {n: a.data.clone() for n, a in mod.get_params()[0].items()}
+    step_ms = (marks["t1"] - marks["t0"]) * 1e3 / OBS_TIMED
+    return mod, params, step_ms, reports, spans
+
+
+def obs_fit(torch, np, mt, out, kernels_counted):
+    """19c: fit of phase 6's LM (amp bf16) with obs on and off from the
+    same weights: MFU against the independent count and rate, the
+    trace's lanes and batch flows, bit-for-bit parameters, no span with
+    obs off."""
+    from mxnet_tpu_torch import profiler
+    from mxnet_tpu_torch.models import transformer
+    from mxnet_tpu_torch.obs import mfu
+    B, T = TRAIN_BATCH, MAX_SEQ
+    n = OBS_WARM + OBS_TIMED
+    rng = np.random.RandomState(SEED + 190)
+    x = rng.randint(0, VOCAB, (n * B, T)).astype(np.float32)
+    y = rng.randint(0, VOCAB, (n * B, T)).astype(np.float32)
+    sym = transformer.get_symbol(VOCAB, LAYERS, D_MODEL, HEADS, D_FF, T,
+                                 attention="flash")
+    m0 = mt.mod.Module(sym, context=mt.gpu(0))
+    m0.bind(data_shapes=[("data", (B, T))],
+            label_shapes=[("softmax_label", (B, T))])
+    m0.init_params(mt.init.Xavier().set_rng(np.random.default_rng(SEED)))
+    init = {k: v.copy() for k, v in m0.get_params()[0].items()}
+    del m0
+    profiler.set_config(filename=str(out / "fit_trace.json"))
+    profiler.dump()
+    mt.amp.init("bfloat16")
+    try:
+        for fn in kernels_counted.values():
+            fn.launches = {"f32": 0, "bf16": 0}
+        mod, on_params, on_ms, reports, on_spans = obs_fit_once(
+            torch, np, mt, init, x, y, obs_on=True)
+        launches = {k: dict(fn.launches)
+                    for k, fn in kernels_counted.items()}
+        events, lanes = load_trace(profiler.dump())
+        _, off_params, off_ms, _, off_spans = obs_fit_once(
+            torch, np, mt, init, x, y, obs_on=False)
+    finally:
+        mt.amp.off()
+    rec = [r for r in reports[-1]["executors"]
+           if r["name"] == mod._obs_label]
+    check(len(reports) == 2 and len(rec) == 1, "19c: report() did not "
+          "list the module: %s" % [r["name"] for r in
+                                   reports[-1]["executors"]])
+    rec = rec[0]
+    n_params = transformer.param_count(VOCAB, LAYERS, D_MODEL, HEADS, D_FF,
+                                       T)
+    n_embed = VOCAB * D_MODEL + T * D_MODEL
+    palm = (6 * (n_params - n_embed) + 12 * LAYERS * D_MODEL * T) * B * T
+    independent = 1e3 / on_ms
+    flops_err = abs(rec["flops_per_step"] / palm - 1.0)
+    rate_err = abs(rec["steps_per_sec"] / independent - 1.0)
+    mfu_want = rec["flops_per_sec"] / PEAK_BF16_FLOPS
+    gauge = reports[-1]["gauges"].get("obs_mfu")
+    n_batches = batch_flows(events, lanes)
+    differ = [k for k in on_params
+              if not torch.equal(on_params[k], off_params[k])]
+    log("19c fit of the LM (amp bf16, batch %d x T %d) with obs on: %d "
+        "steps; report(): %.6g steps/s against %.6g timed independently "
+        "(%.4f apart, limit %g); %.6g FLOP a step by the cost model against "
+        "%.6g by the PaLM count (%.5f apart, limit %g); %.6g FLOP/s, "
+        "obs_mfu %.6g (peak %.4g for %r); lanes %s; %d batch flows cross "
+        "prefetch/* -> place -> train -> metric; %d spans; launches %s"
+        % (B, T, n, rec["steps_per_sec"], independent, rate_err,
+           OBS_RATE_RTOL, rec["flops_per_step"], palm, flops_err,
+           OBS_FLOPS_RTOL, rec["flops_per_sec"], rec["mfu"] or 0.0,
+           rec["peak_flops"] or 0.0, mfu._device_kind(), sorted(lanes),
+           n_batches, on_spans, launches))
+    log("19c step time over the %d timed steps (CUDA events): obs on %.3f "
+        "ms, obs off %.3f ms (%+.2f%%), one call; obs off recorded %d "
+        "spans; parameters after the steps equal bit for bit: %s"
+        % (OBS_TIMED, on_ms, off_ms, 100 * (on_ms / off_ms - 1), off_spans,
+           not differ))
+    check(flops_err <= OBS_FLOPS_RTOL, "19c: the cost model's %.6g FLOP a "
+          "step is %.4f from the PaLM count %.6g" % (
+              rec["flops_per_step"], flops_err, palm))
+    check(rate_err <= OBS_RATE_RTOL, "19c: obs reads %.6g steps/s against "
+          "%.6g timed independently" % (rec["steps_per_sec"], independent))
+    if DEVICE.startswith("cuda"):
+        check(rec["peak_flops"] == PEAK_BF16_FLOPS,
+              "19c: obs resolves the peak %s for %r, not %g" % (
+                  rec["peak_flops"], torch.cuda.get_device_name(0),
+                  PEAK_BF16_FLOPS))
+    if rec["peak_flops"]:
+        check(rec["mfu"] == rec["flops_per_sec"] / rec["peak_flops"] and
+              gauge == rec["mfu"] and
+              abs(rec["mfu"] / mfu_want - 1.0) < 1e-12,
+              "19c: obs_mfu %s (gauge %s) is not flops_per_sec / %g"
+              % (rec["mfu"], gauge, PEAK_BF16_FLOPS))
+    check(n_batches == n, "19c: %d batch flows for %d steps"
+          % (n_batches, n))
+    check(off_spans == 0, "19c: %d spans recorded with obs off" % off_spans)
+    check(on_spans > 0, "19c: no span recorded with obs on")
+    check(not differ, "19c: obs on and off trained other parameters: %s"
+          % differ[:5])
+    for name, c in launches.items():
+        check(c["bf16"] == n * LAYERS and c["f32"] == 0,
+              "19c: kernel %s launched %s times in %d steps x %d layers"
+              % (name, c, n, LAYERS))
+    del mod
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"steps_per_sec": rec["steps_per_sec"],
+            "independent_steps_per_sec": independent,
+            "flops_per_step": rec["flops_per_step"], "palm_flops": palm,
+            "flops_per_sec": rec["flops_per_sec"], "mfu": rec["mfu"],
+            "step_ms_obs_on": on_ms, "step_ms_obs_off": off_ms}
+
+
+def obs_compiles(mt, t_start, count_before):
+    """19d: every compile record since ``t_start`` names its scope, and
+    the counter moved once per record."""
+    from mxnet_tpu_torch import profiler
+    recs = [r for r in mt.obs.compiles.snapshot()
+            if r["t_offset_s"] >= t_start]
+    moved = profiler.get_counter("obs_compile_count") - count_before
+    by = {}
+    for r in recs:
+        key = "%s/%s" % (r["scope"], r["source"])
+        n, ms = by.get(key, (0, 0.0))
+        by[key] = (n + 1, ms + r["bind_ms"])
+    log("19d compile ring: %d records since 19a, obs_compile_count moved "
+        "%d; by scope/source: %s" % (len(recs), moved, ", ".join(
+            "%s %d (%.1f ms)" % (k, n, ms) for k, (n, ms) in sorted(
+                by.items()))))
+    check(recs and len(recs) < mt.obs.compiles.RING_CAPACITY,
+          "19d: %d compile records (ring %d)" % (
+              len(recs), mt.obs.compiles.RING_CAPACITY))
+    check(all(r["scope"] is not None for r in recs),
+          "19d: records without a scope: %s"
+          % [r for r in recs if r["scope"] is None][:3])
+    check(moved == len(recs), "19d: obs_compile_count moved %d for %d "
+          "records" % (moved, len(recs)))
+    return {"records": len(recs), "by_scope": {k: n for k, (n, _)
+                                               in by.items()}}
+
+
+# the child of 19e: the MLP of phase 18 through fit until it is killed
+BLACKBOX_CHILD = """
+import sys
+sys.path.insert(0, %(root)r)
+import numpy as np
+import mxnet_tpu_torch as mt
+ctx = mt.gpu(0) if %(cuda)r else mt.cpu()
+rng = np.random.RandomState(0)
+x = rng.randn(256, 64).astype(np.float32)
+y = rng.randint(0, 10, 256).astype(np.float32)
+data = mt.sym.Variable("data")
+h = mt.sym.Activation(mt.sym.FullyConnected(data, num_hidden=128,
+                                            name="fc1"), act_type="relu")
+net = mt.sym.SoftmaxOutput(mt.sym.FullyConnected(h, num_hidden=10,
+                                                 name="fc2"),
+                           name="softmax")
+mod = mt.mod.Module(net, context=ctx)
+print("CHILD-READY", flush=True)
+mod.fit(mt.io.NDArrayIter(x, y, 32), num_epoch=1000000, optimizer="sgd",
+        optimizer_params={"learning_rate": 0.1})
+"""
+
+
+def obs_blackbox(out):
+    """19e: a fit in a child process with the flight recorder armed,
+    killed by SIGKILL after its third heartbeat; the CLI names rank 0
+    dead and its merged timeline loads as a chrome trace."""
+    import os
+    import signal
+    bbdir = out / "blackbox"
+    bbdir.mkdir()
+    # the checkout that holds this script and the package
+    src = str(Path(__file__).resolve().parent)
+    env = dict(os.environ, MXNET_TPU_OBS_BLACKBOX=str(bbdir),
+               MXNET_TPU_OBS_BLACKBOX_FLUSH_SECS=str(OBS_BB_FLUSH_S),
+               PYTHONPATH=src)
+    env.pop("MXNET_TPU_FAULTS", None)
+    code = BLACKBOX_CHILD % {"root": src, "cuda": DEVICE.startswith("cuda")}
+    path = bbdir / "blackbox-p0.jsonl"
+    child_log = out / "blackbox_child.log"
+    with open(child_log, "w") as logf:
+        proc = subprocess.Popen([sys.executable, "-c", code], env=env,
+                                cwd=str(out), stdout=logf,
+                                stderr=subprocess.STDOUT)
+    beats, header = 0, None
+    try:
+        deadline = time.monotonic() + OBS_BB_WAIT_S
+        while time.monotonic() < deadline and proc.poll() is None:
+            time.sleep(0.05)
+            try:
+                with open(path) as f:
+                    header = json.loads(f.readline())
+            except (OSError, ValueError):
+                continue
+            # the header counts the flushes before its own
+            beats = int(header.get("counters", {}).get(
+                "obs_blackbox_flush", 0)) + 1
+            if beats >= OBS_BB_BEATS and \
+                    header.get("flush_reason") == "periodic":
+                break
+    finally:
+        alive = proc.poll() is None
+        if alive:
+            os.kill(proc.pid, signal.SIGKILL)
+        proc.wait(timeout=60)
+    check(alive and proc.returncode == -signal.SIGKILL,
+          "19e: the child was not alive to kill (exit %s): %s"
+          % (proc.returncode, child_log.read_text()[-2000:]))
+    check(beats >= OBS_BB_BEATS, "19e: %d heartbeats in %d s" % (
+        beats, OBS_BB_WAIT_S))
+    cli = subprocess.run(
+        [sys.executable, "-m", "mxnet_tpu_torch.obs", "blackbox",
+         str(bbdir)], cwd=src, env=env, capture_output=True, text=True,
+        timeout=120)
+    lines = [ln for ln in cli.stdout.splitlines()
+             if ln.startswith("POD-BLACKBOX-VERDICT ")]
+    check(cli.returncode == 0 and len(lines) == 1, "19e: the CLI exited %d:"
+          " %s %s" % (cli.returncode, cli.stdout[-1000:],
+                      cli.stderr[-1000:]))
+    verdict = json.loads(lines[0].split(" ", 1)[1])
+    with open(bbdir / "pod-timeline.json") as f:
+        merged = json.load(f)["traceEvents"]
+    with open(path) as f:
+        ring = [json.loads(ln) for ln in f.read().splitlines()[1:]
+                if ln.strip()]
+    kinds = sorted({e.get("kind") for e in ring})
+    log("19e flight recorder: the child killed after %d heartbeats (every "
+        "%g s); its last window holds %d events of kinds %s; the CLI: "
+        "dead %s, first dead %s, last event %s; merged timeline %d events"
+        % (beats, OBS_BB_FLUSH_S, len(ring), kinds, verdict["dead"],
+           verdict["first_dead"], json.dumps(verdict.get("last_event")),
+           len(merged)))
+    check(verdict["first_dead"] == 0 and verdict["dead"] == [0],
+          "19e: the verdict %s does not name rank 0 dead" % verdict)
+    check(isinstance(merged, list) and merged and all(
+        isinstance(e, dict) and "ph" in e for e in merged),
+          "19e: the merged timeline is not a chrome trace")
+    check("span" in kinds, "19e: no span close in the window: %s" % kinds)
+    return {"beats": beats, "events": len(ring), "merged": len(merged)}
+
+
+def obs_phase(torch, np):
+    """Phase 19: observability (A10a): a-f, 19a-c under
+    MXNET_TPU_LOCKCHECK=warn."""
+    import shutil
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import config, lockcheck, profiler
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    t0 = time.perf_counter()
+    out = ROOT / "build" / "phase19"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    counted = {"flash_attention_fwd_bf16": fa.flash_attention_fwd,
+               "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
+               "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv}
+    snap = config.snapshot_overrides(["MXNET_TPU_LOCKCHECK",
+                                      "MXNET_TPU_OBS"])
+    config.set("MXNET_TPU_LOCKCHECK", "warn")
+    lockcheck.reset_order_graph()
+    readings = {}
+    try:
+        # 19f: the locks 19a-c create are witnessed from here on
+        mt.obs.report()
+        t_start = time.perf_counter() - profiler._t0
+        count0 = profiler.get_counter("obs_compile_count")
+        with profiler.counter_delta() as d:
+            config.set("MXNET_TPU_OBS", 1)
+            readings["19a"] = obs_generative(torch, np, mt, PHASE4)
+            readings["19b"] = obs_inference(torch, np, mt, out)
+            config.reset("MXNET_TPU_OBS")
+            readings["19c"] = obs_fit(torch, np, mt, out, counted)
+        readings["19d"] = obs_compiles(mt, t_start, count0)
+        inversions = d.get("lockcheck_inversion")
+        held = d.get("lockcheck_held_sync")
+        # a deliberate fetch of a card tensor under a plain witnessed lock
+        plain = lockcheck.Lock(name="phase19.plain")
+        allowed = lockcheck.Lock(name="phase19.allow_sync", allow_sync=True)
+        arr = mt.nd.array(np.arange(8, dtype=np.float32), ctx=mt.gpu(0))
+        with profiler.counter_delta() as d2:
+            with allowed:
+                arr.asnumpy()
+            with plain:
+                arr.asnumpy()
+        deliberate = d2.get("lockcheck_held_sync")
+    finally:
+        config.restore_overrides(snap)
+        lockcheck.reset_order_graph()
+    log("19f lockcheck (warn) over 19a-c: %d inversions, %d host syncs "
+        "under a witnessed lock; a deliberate asnumpy under a plain "
+        "witnessed lock (and one under an allow_sync lock): %d"
+        % (inversions, held, deliberate))
+    check(inversions == 0, "19f: %d lock-order inversions" % inversions)
+    check(held == 0, "19f: %d host syncs under witnessed locks in 19a-c"
+          % held)
+    check(deliberate == 1, "19f: the deliberate held sync counted %d"
+          % deliberate)
+    readings["19e"] = obs_blackbox(out)
+    shutil.rmtree(out, ignore_errors=True)
+    log("19 observability: %.1f s; %s" % (time.perf_counter() - t0,
+                                          json.dumps(readings)))
+    return readings
+
+
 PAIRS_OF = ("f32-backward", "rtc", "fit-loop")
 
 
@@ -9614,6 +10225,10 @@ def main() -> int:
         # an example that hangs ends the run here too
         faulthandler.dump_traceback_later(KV_DEADLINE_S, exit=True)
         kvstore_phase(torch, np)
+        faulthandler.cancel_dump_traceback_later()
+        # so does a hung client, scrape, batcher or recorder child
+        faulthandler.dump_traceback_later(OBS_DEADLINE_S, exit=True)
+        obs_phase(torch, np)
         faulthandler.cancel_dump_traceback_later()
         torch.cuda.synchronize()
     except SmokeFailure as exc:

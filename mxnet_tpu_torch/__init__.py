@@ -79,7 +79,12 @@ Ported so far:
 * the one-process ``KVStore`` (:mod:`.kvstore`, ``kv.create``), which
   ``Module`` and ``gluon.Trainer`` take, and the examples
   (:mod:`.examples`) with the reference's fit harness
-  (``examples/common/fit.py``).
+  (``examples/common/fit.py``);
+* observability (:mod:`.profiler`, :mod:`.obs`, imported on first use):
+  spans on named lanes with flows across threads and a chrome-trace
+  dump, the ``/metrics`` endpoint both servers start, compile
+  accounting, the MFU gauge and the flight recorder; the knob layer
+  (:mod:`.config`) and the lock witness (:mod:`.lockcheck`).
 """
 from __future__ import annotations
 
@@ -95,6 +100,7 @@ from . import ndarray as nd
 from . import gluon, operator, optimizer, random, rnn, rtc
 from . import symbol as sym
 from . import predictor, serve
+from . import config, lockcheck, profiler
 from .base import MXNetError
 from .context import (Context, cpu, current_context, current_device,
                       device_scope, gpu, num_devices, tpu)
@@ -110,15 +116,21 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "tpu", "current_context",
            "lr_scheduler",
            "metric", "mod", "model", "mon", "name", "nd", "operator",
            "optimizer", "random", "rnn", "rtc", "sym", "filesystem",
-           "recordio", "image", "data", "predictor", "Predictor", "serve"]
+           "recordio", "image", "data", "predictor", "Predictor", "serve",
+           "config", "lockcheck", "profiler", "obs"]
 
 __version__ = "0.1.0"
 
 
 def __getattr__(name):
     # data is lazy, as in the reference: a fit fed by any other iterator
-    # never imports the multi-process loader
-    if name == "data":
+    # never imports the multi-process loader; obs loads at first use (a
+    # build, a bind, a server's endpoint)
+    if name in ("data", "obs"):
         import importlib
-        return importlib.import_module(".data", __name__)
+        return importlib.import_module("." + name, __name__)
     raise AttributeError("module %r has no attribute %r" % (__name__, name))
+
+
+# knobs that act once at import (MXNET_PROFILER_AUTOSTART)
+config._apply_import_knobs()

@@ -13,6 +13,10 @@ tensor builds its library, or :func:`build` builds several at once.
 way into a cubin under ``build/rtc/``, named by a hash of the source and
 the options, with the compiler's report beside it.
 
+Every ``nvcc`` run (a build, not the load of an up-to-date library)
+lands in the compile ring of :mod:`.obs.compiles` under the building
+thread's open scope.
+
 :func:`ptxas_resources` reads a build log's per-kernel registers and
 spills; :func:`sass_counts` counts instructions of a built library's
 machine code with the toolkit's ``cuobjdump -sass``.
@@ -26,6 +30,7 @@ import re
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence
 
@@ -163,12 +168,21 @@ def sass_counts(source: str,
     return parse_sass_counts(proc.stdout, opcodes)
 
 
+def _record_build(t0: float, source: str) -> None:
+    """A build in the compile ring (:mod:`.obs.compiles`), under the
+    building thread's open scope. Imported here, at the build, so a
+    build that runs before anything imported ``obs`` lands too."""
+    from .obs import compiles
+    compiles.record((time.perf_counter() - t0) * 1e3, source=source)
+
+
 def build(sources: Sequence[str]) -> List[Path]:
     """Compile every source that has no up-to-date library yet, all
     ``nvcc`` processes started together; returns the library paths.
     Raises :class:`MXNetError` with the compiler's output on failure."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     targets = [_target(s) for s in sources]
+    t0 = time.perf_counter()
     procs = []
     for src, out in zip(sources, targets):
         if out.exists():
@@ -187,6 +201,10 @@ def build(sources: Sequence[str]) -> List[Path]:
                           % (src, proc.returncode, log))
             continue
         os.replace(tmp, out)     # atomic: a reader never sees half a file
+    if procs:
+        # one compile record for the build: the wall time of the nvcc
+        # processes run together
+        _record_build(t0, "nvcc")
     if failed:
         raise MXNetError("CUDA kernel build failed: " + "\n".join(failed))
     return targets
@@ -229,9 +247,11 @@ def build_cubin(source_text: str, options: Sequence[str] = ()) -> Path:
     tmp_src.write_text(source_text)
     os.replace(tmp_src, src)
     tmp = out.with_name("%s.%s" % (out.name, tag))
+    t0 = time.perf_counter()
     proc = subprocess.run([nvcc, *CUBIN_FLAGS, *options, "-o", str(tmp),
                            str(src)], stdout=subprocess.PIPE,
                           stderr=subprocess.STDOUT, text=True)
+    _record_build(t0, "nvcc-cubin")
     out.with_suffix(".log").write_text(proc.stdout)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)

@@ -93,13 +93,15 @@ class InflightWindow:
         self._fifo.append(token)
         if len(self._fifo) > self.depth:
             _profiler.incr_counter("loop_window_wait")
-            self._fifo.pop(0).synchronize()
+            with _profiler.span("inflight_retire", "step"):
+                self._fifo.pop(0).synchronize()
 
     def drain(self) -> None:
         """Epoch and checkpoint barrier: wait out every queued step."""
         if self._fifo:
             _profiler.incr_counter("loop_window_drain")
-            self._fifo[-1].synchronize()
+            with _profiler.span("inflight_drain", "step"):
+                self._fifo[-1].synchronize()
             self._fifo.clear()
 
 

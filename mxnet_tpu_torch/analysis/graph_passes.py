@@ -4,9 +4,11 @@ The part of the reference's ``analysis/graph_passes.py`` that
 ``MXNET_TPU_REMAT=auto`` needs: :class:`GraphContext`, the pass
 registry, the node-wise shape pass (``shape-error``), the static FLOP
 rules (:func:`_node_flops`) and :func:`analyze_symbol`. The memory
-pass ``remat-opportunity`` registers from :mod:`.memory_passes`. The
-structural passes (cycle, dup-name, dead-node), the cost model and the
-HBM budget are queue A10.
+pass ``remat-opportunity`` registers from :mod:`.memory_passes`, and
+the ``cost-model`` pass (per-node FLOPs and bytes, the liveness peak;
+``Report.extras["cost"]``), which ``Module.analyze`` and the MFU gauge
+(:mod:`..obs.mfu`) read. The structural passes (cycle, dup-name,
+dead-node) and the HBM budget are queue A10b.
 
 The reference finds each node's output shapes and dtypes with
 ``jax.eval_shape``; the port runs the node's op on ``meta`` tensors of
@@ -45,7 +47,7 @@ class GraphContext:
     pass's calibration runs one block."""
 
     def __init__(self, sym, input_shapes=None, input_dtypes=None,
-                 device=None):
+                 device=None, grad_accum=None, batch_inputs=None):
         from ..symbol.symbol import _topo_order
         self.sym = sym
         self.entries = list(sym._entries)
@@ -54,6 +56,11 @@ class GraphContext:
         self.input_dtypes = {k: _torch_dtype(v) for k, v in
                              (input_dtypes or {}).items()}
         self.device = device
+        # microbatch accumulation factor + the inputs carrying the batch
+        # axis (data/label names): the cost model prices the microbatch
+        # peak, not the full batch
+        self.grad_accum = max(1, int(grad_accum or 1))
+        self.batch_inputs = frozenset(batch_inputs or ())
         self.has_cycle = False
         self.calibrate_remat = None
         self.nodes = _topo_order(self.entries)
@@ -292,12 +299,190 @@ def _node_flops(node, in_avals, out_avals) -> int:
     return out_elems
 
 
+def cost_model(ctx: GraphContext, report: Report) -> None:
+    """Static per-node FLOPs/bytes + liveness memory high-water. Runs only
+    over nodes the shape pass resolved; partial graphs yield partial (but
+    still useful) totals, flagged in the summary.
+
+    With ``ctx.grad_accum = N > 1`` the liveness sweep prices what the
+    accumulating step materializes: one microbatch holds a 1/N slice of
+    every batch-leading activation, plus a gradient buffer per
+    grad-bearing parameter (in the parameter's own dtype) alive across
+    the step. FLOPs and bytes_moved stay full-batch — the step runs all
+    N microbatches. The numbers are the reference's for the same graph,
+    shapes and dtypes."""
+    if ctx.has_cycle:
+        return
+    # every bound variable buffer (params AND data/label inputs): this is
+    # what bind actually allocates and holds live for the whole program
+    bound_bytes = 0
+    for node in ctx.nodes:
+        if node.is_variable and (id(node), 0) in ctx.shapes:
+            s, dt = ctx.shapes[(id(node), 0)]
+            bound_bytes += _nelem(s) * dt.itemsize
+
+    # microbatching: resolve the batch axis from the declared batch
+    # inputs; scaling applies only when every batch input agrees and N
+    # divides it (exactly the fused step's own set_grad_accum contract)
+    accum = ctx.grad_accum
+    batch = None
+    if accum > 1 and ctx.batch_inputs:
+        leads = set()
+        for node in ctx.nodes:
+            if node.is_variable and node.name in ctx.batch_inputs:
+                aval = ctx.shapes.get((id(node), 0))
+                if aval and aval[0]:
+                    leads.add(int(aval[0][0]))
+        if len(leads) == 1:
+            b = leads.pop()
+            if b % accum == 0:
+                batch = b
+
+    # batch-tainted nodes: everything dataflow-reachable from a batch
+    # input. A tainted activation whose element count divides by the
+    # batch carries the batch axis SOMEWHERE — leading ((N,T,D)), folded
+    # into the lead by reshape ((N*T, D)), or moved inward by transpose
+    # ((3, N, H, T, d)) — and shrinks by 1/N inside the scan body.
+    # Weight-only intermediates with coincidentally-divisible sizes must
+    # NOT shrink (scan-invariant), which is what the taint gate is for;
+    # the residue this rule mis-prices is batch REDUCTIONS (tainted,
+    # batch axis summed away, size still divisible by luck) — small by
+    # construction, and an underestimate only of the scaled-down term.
+    tainted = set()
+    if batch is not None:
+        for node in ctx.nodes:
+            if node.is_variable:
+                if node.name in ctx.batch_inputs:
+                    tainted.add(id(node))
+            elif any(id(src) in tainted for src, _ in node.inputs):
+                tainted.add(id(node))
+
+    def _live_bytes(node_id, aval) -> int:
+        shape, dt = aval
+        n = _nelem(shape)
+        full = n * dt.itemsize
+        if batch is not None and node_id in tainted and n \
+                and n % batch == 0:
+            return full // accum
+        return full
+
+    # the gradient buffers: one accumulator per grad-bearing parameter,
+    # live for the whole step, priced at the parameter's own dtype
+    grad_carry_bytes = 0
+    if batch is not None:
+        skip = ctx.batch_inputs | frozenset(ctx.aux_names)
+        for node in ctx.nodes:
+            if node.is_variable and node.name not in skip:
+                aval = ctx.shapes.get((id(node), 0))
+                if aval is not None:
+                    grad_carry_bytes += _nelem(aval[0]) * aval[1].itemsize
+
+    # last topo index consuming each entry; heads live to the end
+    order = {id(n): i for i, n in enumerate(ctx.nodes)}
+    last_use: Dict[Tuple[int, int], int] = {}
+    for node in ctx.nodes:
+        for src, i in node.inputs:
+            last_use[(id(src), i)] = order[id(node)]
+    end = len(ctx.nodes)
+    for n, i in ctx.entries:
+        last_use[(id(n), i)] = end
+
+    total_flops = 0
+    total_bytes = 0
+    live = 0
+    peak = 0
+    skipped = 0
+    per_node = []
+    # live-set snapshot at the high-water (the graph twin of
+    # analyze_program_memory's top_live): what the peak is MADE of —
+    # which is what the tuner's remat/accum decisions need to see
+    live_entries: Dict[Tuple[int, int], Tuple[str, int]] = {}
+    peak_live: List[Tuple[str, int]] = []
+    for idx, node in enumerate(ctx.nodes):
+        if node.is_variable:
+            continue
+        in_avals = []
+        ok = True
+        for src, i in node.inputs:
+            aval = ctx.shapes.get((id(src), i))
+            if aval is None:
+                ok = False
+                break
+            in_avals.append(aval)
+        out_avals = []
+        i = 0
+        while (id(node), i) in ctx.shapes:
+            out_avals.append(ctx.shapes[(id(node), i)])
+            i += 1
+        if not ok or not out_avals:
+            skipped += 1
+            continue
+        flops = _node_flops(node, in_avals, out_avals)
+        in_b = sum(_nelem(s) * dt.itemsize for s, dt in in_avals)
+        out_b = sum(_nelem(s) * dt.itemsize for s, dt in out_avals)
+        total_flops += flops
+        total_bytes += in_b + out_b
+        per_node.append((node.name, node.op.name, flops, in_b + out_b))
+        # liveness: outputs materialize, then inputs whose last use is
+        # this node die (variables/params are counted separately above);
+        # under grad_accum only a microbatch slice of each batch-leading
+        # activation is live inside the scan body
+        for a_i, a in enumerate(out_avals):
+            b = _live_bytes(id(node), a)
+            live += b
+            live_entries[(id(node), a_i)] = (node.name, b)
+        if live > peak:
+            peak = live
+            peak_live = sorted(live_entries.values(),
+                               key=lambda t: -t[1])[:10]
+        # each dying entry frees ONCE even when consumed through several
+        # edges of this node (x*x, concat(x, x))
+        dying = {(id(src), i) for src, i in node.inputs
+                 if not src.is_variable
+                 and last_use.get((id(src), i)) == idx}
+        for key in dying:
+            aval = ctx.shapes.get(key)
+            if aval is not None:
+                live -= _live_bytes(key[0], aval)
+                live_entries.pop(key, None)
+
+    per_node.sort(key=lambda r: -r[2])
+    act_peak = peak + grad_carry_bytes
+    cost = {
+        "flops": total_flops,
+        "bytes_moved": total_bytes,
+        "bound_bytes": bound_bytes,
+        "peak_bytes": bound_bytes + act_peak,
+        "activation_peak_bytes": act_peak,
+        "grad_accum": accum,
+        "grad_carry_bytes": grad_carry_bytes,
+        "nodes_skipped": skipped,
+        "top_nodes": [
+            {"node": n, "op": o, "flops": f, "bytes": b}
+            for n, o, f, b in per_node[:10]],
+        "peak_live": [{"node": n, "bytes": b} for n, b in peak_live],
+    }
+    report.extras["cost"] = cost
+    report.add(
+        "cost-model", Severity.INFO,
+        "%.3g GFLOP, %.3g MB moved, bound buffers %.3g MB, est. peak "
+        "memory %.3g MB%s" % (
+            total_flops / 1e9, total_bytes / 1e6, bound_bytes / 1e6,
+            cost["peak_bytes"] / 1e6,
+            " (%d nodes unresolved)" % skipped if skipped else ""),
+        detail=cost)
+
+
+GRAPH_PASSES.append(("cost-model", cost_model))
+
+
 # -------------------------------------------------------------- entry point
 
 
 def analyze_symbol(sym, input_shapes=None, input_dtypes=None,
                    context: str = "graph", calibrate_remat=None,
-                   device=None) -> Report:
+                   device=None, passes=None, grad_accum=None,
+                   batch_inputs=None) -> Report:
     """Run the graph passes over ``sym``; returns a :class:`Report`.
 
     ``input_shapes``/``input_dtypes`` play the role of bind-time shapes
@@ -306,10 +491,17 @@ def analyze_symbol(sym, input_shapes=None, input_dtypes=None,
     (True) or suppresses (False) the remat pass's block calibration,
     which runs one block on ``device`` (None: the card, as every entry
     point); None (the default) runs it only when a remat knob is on.
+    ``passes`` optionally restricts the run to a subset of pass codes.
+    ``grad_accum=N`` with ``batch_inputs`` (the data/label variable
+    names) makes the cost model price the microbatch peak instead of
+    the full batch — see :func:`cost_model`.
     """
     report = Report(context=context)
-    ctx = GraphContext(sym, input_shapes, input_dtypes, device=device)
+    ctx = GraphContext(sym, input_shapes, input_dtypes, device=device,
+                       grad_accum=grad_accum, batch_inputs=batch_inputs)
     ctx.calibrate_remat = calibrate_remat
-    for _, fn in GRAPH_PASSES:
+    for code, fn in GRAPH_PASSES:
+        if passes is not None and code not in passes:
+            continue
         fn(ctx, report)
     return report

@@ -327,6 +327,12 @@ class CheckpointManager(object):
         checkpoint synchronously, stop the writer. An earlier async
         failure (already logged and counted) does not stop it."""
         _profiler.incr_counter("ckpt_sigterm")
+        bb = _profiler.blackbox()
+        if bb is not None:
+            # observed-flag context (the training thread), never the
+            # signal handler itself
+            bb.record("ckpt", "preempt-save", epoch=epoch,
+                      batches_done=batches_done)
         self.wait()
         self.save_module(module, epoch=epoch, batches_done=batches_done,
                          metric=metric, loader_state=loader_state,
@@ -350,7 +356,10 @@ class CheckpointManager(object):
             raise CheckpointError(
                 "%s does not implement _checkpoint_snapshot; checkpointing "
                 "requires mt.mod.Module" % type(module).__name__)
-        tensors, meta = snap()
+        # the cheap on-thread phase, visible on the caller's (training)
+        # lane next to the step slices
+        with _profiler.span("ckpt_snapshot", "ckpt"):
+            tensors, meta = snap()
         meta["loop"] = {"epoch": epoch, "batches_done": batches_done}
         if loader_state is not None:
             meta["loop"]["data"] = dict(loader_state)
@@ -374,6 +383,10 @@ class CheckpointManager(object):
             self._seq = max(self._seq + 1, step)
             step = self._seq
             meta["step"] = step
+        bb = _profiler.blackbox()
+        if bb is not None:
+            bb.record("ckpt", "save", step=step, epoch=epoch,
+                      batches_done=batches_done)
         self._submit(step, tensors, meta, t0, sync=sync)
         return step
 
@@ -416,6 +429,7 @@ class CheckpointManager(object):
             return self._queue
 
     def _writer_loop(self) -> None:
+        _profiler.register_thread_lane("ckpt-writer")
         q = self._queue
         while True:
             item = q.get()
@@ -430,6 +444,11 @@ class CheckpointManager(object):
                     self._last_error = exc
                 _profiler.incr_counter("ckpt_write_failed")
                 log.error("async checkpoint write failed: %s", exc)
+                bb = _profiler.blackbox()
+                if bb is not None:
+                    bb.record("ckpt", "write-failed",
+                              error=str(exc)[:500])
+                    bb.flush("ckpt-write-failed")
             finally:
                 _profiler.set_gauge("ckpt_queue_depth", q.qsize())
                 q.task_done()
@@ -442,25 +461,27 @@ class CheckpointManager(object):
     def _write_one(self, step, tensors, meta) -> None:
         t0 = time.perf_counter()
         retries = self.config.resolved_write_retries()
-        for attempt in range(retries + 1):
-            try:
-                path = _format.write_checkpoint(
-                    self.config.directory, step, tensors, meta)
-                break
-            except OSError as exc:
-                # write_checkpoint removed its .tmp-*: a retry starts clean
-                if exc.errno not in self._TRANSIENT_ERRNO \
-                        or attempt >= retries:
-                    raise
-                _profiler.incr_counter("ckpt_write_retry")
-                delay = self.config.retry_backoff * (2 ** attempt)
-                log.warning(
-                    "checkpoint write hit transient %s (attempt %d/%d); "
-                    "retrying in %.2fs",
-                    _errno.errorcode.get(exc.errno, exc.errno), attempt + 1,
-                    retries + 1, delay)
-                if delay:
-                    time.sleep(delay)
+        with _profiler.span("ckpt_write", "ckpt"):
+            for attempt in range(retries + 1):
+                try:
+                    path = _format.write_checkpoint(
+                        self.config.directory, step, tensors, meta)
+                    break
+                except OSError as exc:
+                    # write_checkpoint removed its .tmp-*: a retry starts
+                    # clean
+                    if exc.errno not in self._TRANSIENT_ERRNO \
+                            or attempt >= retries:
+                        raise
+                    _profiler.incr_counter("ckpt_write_retry")
+                    delay = self.config.retry_backoff * (2 ** attempt)
+                    log.warning(
+                        "checkpoint write hit transient %s (attempt %d/%d);"
+                        " retrying in %.2fs",
+                        _errno.errorcode.get(exc.errno, exc.errno),
+                        attempt + 1, retries + 1, delay)
+                    if delay:
+                        time.sleep(delay)
         try:
             nbytes = os.path.getsize(os.path.join(path,
                                                   _format.ARRAYS_NAME))
@@ -474,6 +495,10 @@ class CheckpointManager(object):
         _profiler.incr_counter("ckpt_bytes", nbytes)
         _profiler.incr_counter("ckpt_write_us", write_us)
         _profiler.set_gauge("ckpt_last_write_ms", write_us / 1000.0)
+        bb = _profiler.blackbox()
+        if bb is not None:
+            bb.record("ckpt", "committed", step=step,
+                      write_ms=round(write_us / 1000.0, 1), bytes=nbytes)
 
     # --------------------------------------------------------- lifecycle
     def wait(self) -> None:

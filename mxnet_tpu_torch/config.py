@@ -14,16 +14,24 @@ loop's (``MXNET_USE_NATIVE_IO``, ``MXNET_CPU_WORKER_NTHREADS``,
 ``MXNET_PREFETCH_BUFFER``, ``MXNET_TPU_DATA_*``,
 ``MXNET_TPU_ASYNC_WINDOW``, ``MXNET_TPU_DEVICE_PREFETCH``,
 ``MXNET_TPU_DEVICE_METRICS``), and the serve KV cache's budget audit
-(``MXNET_TPU_ANALYZE``, ``MXNET_TPU_ANALYZE_HBM_BUDGET``), and
-``MXNET_TPU_OBS_METRICS_PORT``, which the servers validate. Knobs of
+(``MXNET_TPU_ANALYZE``, ``MXNET_TPU_ANALYZE_HBM_BUDGET``), and the
+observability knobs of :mod:`.profiler` and :mod:`.obs`
+(``MXNET_TPU_OBS``, ``MXNET_TPU_OBS_METRICS_PORT``,
+``MXNET_TPU_OBS_PEAK_FLOPS``, ``MXNET_TPU_OBS_BLACKBOX`` with its
+``_RING`` and ``_FLUSH_SECS``, ``MXNET_PROFILER_AUTOSTART``). Knobs of
 features the port does not have yet arrive with those features.
+
+:func:`describe` lists every knob with its value and where the value
+came from; :func:`snapshot_overrides` / :func:`restore_overrides` scope
+a caller's :func:`set` calls.
 """
 from __future__ import annotations
 
 import os
 from typing import Any, Callable, Dict
 
-__all__ = ["get", "set", "reset", "register", "on_change", "KNOBS"]
+__all__ = ["get", "set", "reset", "register", "on_change", "KNOBS",
+           "describe", "snapshot_overrides", "restore_overrides"]
 
 
 class _Knob:
@@ -122,10 +130,41 @@ def _parse_analyze_mode(v) -> str:
         "MXNET_TPU_ANALYZE must be off|warn|strict, got %r" % (v,))
 
 
+register("MXNET_PROFILER_AUTOSTART", _parse_bool, False,
+         "start mt.profiler at import")
+register("MXNET_TPU_OBS", _parse_bool, False,
+         "mt.obs: record structured spans (per-thread lanes + chrome-trace "
+         "flow events linking one batch across prefetch/train/metric/"
+         "checkpoint/serve threads) into the profiler event buffer even "
+         "while the profiler state is 'stop'; 0 = span() is a shared "
+         "no-op (zero allocations)")
 register("MXNET_TPU_OBS_METRICS_PORT", int, -1,
-         "serve: the HTTP /metrics endpoint a server would start (-1 = "
-         "off). The endpoint comes with ROADMAP A10a: until then any "
-         "other value makes InferenceServer and GenerativeServer raise")
+         "mt.obs: HTTP /metrics exposition (Prometheus text format) "
+         "started by serve.InferenceServer and serve.GenerativeServer: "
+         "-1 = off, 0 = ephemeral port (read it back from "
+         "server.metrics_port), >0 = fixed port")
+register("MXNET_TPU_OBS_PEAK_FLOPS", float, 0.0,
+         "mt.obs: override the per-device peak dense FLOP/s used for the "
+         "obs_mfu gauge (0 = from the card's name: torch.cuda."
+         "get_device_name(); set it on a card the table does not know or "
+         "in tests)")
+register("MXNET_TPU_OBS_BLACKBOX", str, "",
+         "mt.obs flight recorder: directory the bounded in-memory event "
+         "ring (span closes, counter deltas, fault fires, checkpoint "
+         "phases) is flushed to as blackbox-p<rank>.jsonl — periodically "
+         "and at every terminal moment (fault fire, SIGTERM/143, "
+         "NANCHECK abort, crash), so a killed process still leaves its "
+         "last window on disk. Merge with `python -m mxnet_tpu_torch.obs "
+         "blackbox <dir>`. Empty = off (the recorder module is never "
+         "imported)")
+register("MXNET_TPU_OBS_BLACKBOX_RING", int, 512,
+         "mt.obs flight recorder: events kept in the in-memory ring (each "
+         "flush rewrites the file with exactly this window, so the "
+         "on-disk artifact stays bounded at any run length)")
+register("MXNET_TPU_OBS_BLACKBOX_FLUSH_SECS", float, 5.0,
+         "mt.obs flight recorder: heartbeat flush period in seconds — a "
+         "SIGKILL'd process still leaves a window no older than this on "
+         "disk; 0 = event-driven flushes only")
 register("MXNET_TPU_ANALYZE", _parse_analyze_mode, "off",
          "analysis: off = the analysis package is never imported for "
          "the serve KV cache's budget audit (zero cost), warn = log "
@@ -305,3 +344,44 @@ def reset(name: str) -> None:
     """Drop a runtime override, reverting to environment/default."""
     _overrides.pop(name, None)
     _notify(name)
+
+
+_NO_OVERRIDE = object()
+
+
+def snapshot_overrides(names) -> Dict[str, Any]:
+    """Capture the runtime-override state of ``names`` for a later
+    :func:`restore_overrides`. A name with no current override is
+    recorded as such (its restore is :func:`reset`, not a ``set`` of the
+    computed value, so environment changes in between still show
+    through)."""
+    return {str(n): _overrides.get(n, _NO_OVERRIDE) for n in names}
+
+
+def restore_overrides(snapshot: Dict[str, Any]) -> None:
+    """Undo every :func:`set` made since the matching
+    :func:`snapshot_overrides`: re-instate the old override, or drop the
+    knob back to environment/default."""
+    for name, value in snapshot.items():
+        if value is _NO_OVERRIDE:
+            reset(name)
+        else:
+            set(name, value)
+
+
+def describe() -> str:
+    """Human-readable table of every knob, its value and source."""
+    lines = []
+    for name, knob in sorted(KNOBS.items()):
+        src = "override" if name in _overrides else \
+            ("env" if name in os.environ else "default")
+        lines.append("%-36s %-22r (%s)  %s"
+                     % (name, get(name), src, knob.doc))
+    return "\n".join(lines)
+
+
+def _apply_import_knobs() -> None:
+    """Knobs that act once at package import."""
+    if get("MXNET_PROFILER_AUTOSTART"):
+        from . import profiler
+        profiler.set_state("run")

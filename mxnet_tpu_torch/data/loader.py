@@ -19,7 +19,8 @@ and respawned over exactly its undelivered range; batches its corpse
 left in the old queue are salvaged first, so the replay is exact and
 nothing is delivered twice.
 
-Observability (always-on counters/gauges):
+Observability (always-on counters/gauges, trace lane ``data`` with the
+``data_fetch`` / ``data_place`` spans when spans record):
 
 * ``data_batches`` / ``data_records`` — delivered volume
 * ``data_stall`` — the consumer outran the workers in steady state
@@ -391,10 +392,11 @@ class DataLoader(DataIter):
                 self._plan = None
                 self._start_batch = 0
                 raise StopIteration
-            if self._mp:
-                entry = self._pop(k)
-            else:
-                entry = self._decode_inline(k)
+            with _profiler.span("data_fetch", "io", lane="data"):
+                if self._mp:
+                    entry = self._pop(k)
+                else:
+                    entry = self._decode_inline(k)
             self._first_fetch = False
             self._next_batch = k + 1
             kind = entry[0]
@@ -425,7 +427,8 @@ class DataLoader(DataIter):
                 # does not wait for it; the queued steps overlap it)
                 # instead of a separate prefetch thread that would hand
                 # the batch over once more
-                placer(batch)
+                with _profiler.span("data_place", "io", lane="data"):
+                    placer(batch)
                 _profiler.incr_counter("data_device_placed")
             return batch
 

@@ -47,10 +47,17 @@ in topological order (PyTorch runs eagerly) and gradients come from
   ``MXNET_TPU_REMAT`` (or ``MXNET_EXEC_ENABLE_REMAT``) the training
   forward runs under the resolved policy (:mod:`.remat`): each layer of
   the plan wrapped, or, without a plan, the whole forward, counted once
-  in ``remat_applied``.
+  in ``remat_applied``;
+* observability: building the graph function (with its scan plan and
+  remat policy) is the executor's compile, recorded in the compile ring
+  (:mod:`.obs.compiles`, ``trace_ms``) under the scope
+  ``graph:<first output>``; while the profiler runs, a training forward
+  and its gradients log one ``graph_fwd_bwd`` event, waited on so its
+  duration is device time.
 """
 from __future__ import annotations
 
+import time
 from typing import Dict, List, Optional
 
 import torch
@@ -225,22 +232,37 @@ class Executor:
                         arr._data = arr.data.to(dev)
         self._remat = None       # the whole-forward remat policy
         self._remat_name = "off"
+        # compile-accounting label: this executor's build is attributed
+        # to it in mt.obs.report()
+        self._obs_label = "graph:%s" % (
+            self._output_names[0] if self._output_names else "?")
+        from .obs import compiles as _compiles
+        t_build = time.perf_counter()
+        with _compiles.scope(self._obs_label):
+            self._build_graph()
+            _compiles.record(0.0, (time.perf_counter() - t_build) * 1e3,
+                             source="graph")
+        self._outputs: Optional[List[NDArray]] = None
+        self._pending = None     # (outputs, leaves) awaiting backward
+        self._t_fwd = 0.0        # the training forward's start (profiler)
+        self._monitor_callback = None
+        self.keep_node_outputs = False
+        self._node_outputs: List = []
+
+    def _build_graph(self) -> None:
+        """The graph function, its scan plan and the remat policy: the
+        executor's compile."""
         self._scan_plan = self._build_scan_plan()
-        self._fn = graph_function(symbol, self._group2ctx, self._device,
-                                  scan_plan=self._scan_plan)
+        self._fn = graph_function(self._symbol, self._group2ctx,
+                                  self._device, scan_plan=self._scan_plan)
         if self._wrt and self._scan_plan is None and _remat.remat_knob_on():
             # no plan: the whole forward under the policy (the
             # reference's fused step and fwd_bwd wrap; one count a bind)
             policy, name = _remat.resolve_policy(
-                symbol, *self._bound_shapes_dtypes())
+                self._symbol, *self._bound_shapes_dtypes())
             if policy is not None:
                 self._remat, self._remat_name = policy, name
                 _profiler.incr_counter("remat_applied")
-        self._outputs: Optional[List[NDArray]] = None
-        self._pending = None     # (outputs, leaves) awaiting backward
-        self._monitor_callback = None
-        self.keep_node_outputs = False
-        self._node_outputs: List = []
 
     def _bound_shapes_dtypes(self):
         """``(shapes, dtypes)`` of every bound argument and aux state."""
@@ -302,6 +324,8 @@ class Executor:
             tap = lambda node, outs: self._node_outputs.append(  # noqa: E731
                 (node.name, [o.detach() for o in outs]))
         if is_train and self._wrt:
+            if _profiler._tracing:
+                self._t_fwd = time.perf_counter()
             leaves = {n: args[n].detach().requires_grad_(True)
                       for n in self._wrt}
             args.update(leaves)
@@ -355,11 +379,22 @@ class Executor:
                 leaves[n].grad = buf
             torch.autograd.backward(outs, heads,
                                     inputs=[leaves[n] for n in names])
-            return names, list(into)
-        grads = torch.autograd.grad(outs, [leaves[n] for n in names],
-                                    grad_outputs=heads, allow_unused=True)
-        return names, [g if g is not None else torch.zeros_like(leaves[n])
-                       for n, g in zip(names, grads)]
+            grads = list(into)
+        else:
+            grads = torch.autograd.grad(outs, [leaves[n] for n in names],
+                                        grad_outputs=heads,
+                                        allow_unused=True)
+            grads = [g if g is not None else torch.zeros_like(leaves[n])
+                     for n, g in zip(names, grads)]
+        if _profiler._tracing and self._t_fwd:
+            # the forward + backward as one event, waited on so its
+            # duration is device time
+            if self._device.type == "cuda":
+                torch.cuda.current_stream(self._device).synchronize()
+            _profiler.record_event("graph_fwd_bwd", self._t_fwd,
+                                   time.perf_counter(), "graph")
+        self._t_fwd = 0.0
+        return names, grads
 
     def backward(self, out_grads=None) -> None:
         """Differentiate the last training forward; writes

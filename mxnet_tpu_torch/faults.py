@@ -155,6 +155,25 @@ def active_specs() -> List[str]:
         return [repr(s) for s in _specs]
 
 
+def _blackbox_note(site: str, count: int, kind: str) -> None:
+    """Flight-recorder note BEFORE the fault acts: a kill-kind drill's
+    post-mortem must carry its own cause of death, and sigkill leaves no
+    later chance to flush. Runs at a normal call site, never a signal
+    handler; the recorder is not imported while its knob is off.
+    ``slow`` fires every batch, so it records without forcing a flush to
+    disk each time."""
+    try:
+        from . import profiler as _profiler
+        _bb = _profiler.blackbox()
+        if _bb is None:
+            return
+        _bb.record("fault", site, arrival=count, kind=kind)
+        if kind != "slow":
+            _bb.flush("fault:%s@%d:%s" % (site, count, kind))
+    except Exception:                                      # noqa: BLE001
+        pass    # the recorder must never change drill behavior
+
+
 def fire(site: str, default_kind: str = "raise") -> None:
     """Arrival at an injection point: fires the matching spec, if any."""
     with _lock:
@@ -175,6 +194,7 @@ def fire(site: str, default_kind: str = "raise") -> None:
     from . import profiler as _profiler
     _profiler.incr_counter("fault_injected")
     _profiler.incr_counter("fault_injected.%s" % site)
+    _blackbox_note(site, count, kind)
     if kind in _ERRNO:
         raise OSError(_ERRNO[kind], "injected %s fault at %s" % (kind, site),
                       site)

@@ -330,13 +330,25 @@ class PrefetchingIter(DataIter):
         return False
 
     def _worker(self, i):
+        _profiler.register_thread_lane("prefetch/%d" % i)
         while self._started:
+            # the flow id threads this batch's trace slices across lanes
+            # (prefetch -> place -> step -> metric); allocated only while
+            # spans record, and riding on the batch as ``_mx_flow``
+            fid = _profiler.new_flow() if _profiler.spans_enabled() \
+                else None
             with self._iter_locks[i]:
                 # the tag is read under the same lock reset() bumps it
                 # under, so a reset can never interleave with next()
                 epoch = self._epoch
                 try:
-                    batch = self.iters[i].next()
+                    with _profiler.span("prefetch_next", "io", flow=fid):
+                        batch = self.iters[i].next()
+                    if fid is not None:
+                        try:
+                            batch._mx_flow = fid
+                        except AttributeError:
+                            pass       # slotted batch: no flow tag
                     entry = (epoch, "data", batch)
                 except StopIteration:
                     entry = (epoch, "stop", None)
@@ -348,9 +360,13 @@ class PrefetchingIter(DataIter):
             if entry[1] == "data" and self._device_placer is not None \
                     and epoch == self._epoch:
                 # device-prefetch stage: issue the H2D copy here so it
-                # overlaps the consumer's current step
+                # overlaps the consumer's current step (its own trace
+                # lane: a stage, not a thread)
                 try:
-                    entry = (epoch, "data", self._device_placer(entry[2]))
+                    with _profiler.span("device_place", "io", flow=fid,
+                                        lane="place"):
+                        entry = (epoch, "data",
+                                 self._device_placer(entry[2]))
                     _profiler.incr_counter("loop_prefetch_placed")
                 except Exception as exc:               # noqa: BLE001
                     entry = (epoch, "error", exc)

@@ -13,9 +13,14 @@ acquire under ``abort``.
 
 Graph nodes are creation sites (``file:line`` or the ``name=`` given),
 not instances. Non-blocking try-acquires record no edges; reentrant
-re-acquires of a held RLock record none either. The held-lock
-device-sync check of the reference (``note_sync``) is not ported: the
-port has no NDArray sync points yet.
+re-acquires of a held RLock record none either.
+
+Held-lock host sync: the NDArray sync points (``asnumpy`` / ``asscalar``
+/ ``wait_to_read``) call :func:`note_sync`; a sync while any witnessed
+lock is held counts ``lockcheck_held_sync`` once per (lock site, sync)
+pair and warns, or raises under ``abort`` — unless every held lock was
+created with ``allow_sync=True`` (serve's model lock, under which the
+batch's fetch to the host is the design).
 """
 from __future__ import annotations
 
@@ -26,7 +31,8 @@ from typing import Dict, List, Optional, Set, Tuple
 
 from . import config as _config
 
-__all__ = ["Lock", "RLock", "Condition", "mode", "reset_order_graph"]
+__all__ = ["Lock", "RLock", "Condition", "note_sync", "mode",
+           "reset_order_graph"]
 
 _MODE = "off"
 _ON = False
@@ -53,6 +59,7 @@ _graph_lock = _threading.Lock()
 # (site_a, site_b) -> human chain: how site_b was first acquired under a
 _edges: Dict[Tuple[str, str], str] = {}
 _flagged: Set[frozenset] = set()        # site pairs already reported
+_sync_flagged: Set[Tuple[str, str]] = set()   # (lock site, sync) reported
 _tls = _threading.local()
 
 
@@ -68,6 +75,7 @@ def reset_order_graph() -> None:
     with _graph_lock:
         _edges.clear()
         _flagged.clear()
+        _sync_flagged.clear()
 
 
 def _shorten(fn: str) -> str:
@@ -88,15 +96,19 @@ def _caller_site(depth: int) -> str:
     return "%s:%d" % (_shorten(frame.f_code.co_filename), frame.f_lineno)
 
 
+def _abort(message: str) -> None:
+    from .base import MXNetError
+    raise MXNetError(message)
+
+
 def _flag_inversion(pair_msgs: List[str]) -> None:
     from . import profiler as _profiler
-    from .base import MXNetError
     for msg in pair_msgs:
         _profiler.incr_counter("lockcheck_inversion")
         full = ("lockcheck: lock-order inversion (ABBA) observed — %s. "
                 "Two threads taking these paths concurrently deadlock." % msg)
         if _MODE == "abort":
-            raise MXNetError(full)
+            _abort(full)
         logging.getLogger(__name__).warning(full)
 
 
@@ -208,9 +220,8 @@ class _WitnessLock:
 
 def Lock(name: Optional[str] = None, allow_sync: bool = False):
     """``threading.Lock()`` through the witness funnel. ``allow_sync``
-    marks a lock under which a device fetch is the design (serve's
-    ``_model_lock``); it is kept on the witness for the held-lock sync
-    check, which arrives with ``note_sync`` (ROADMAP A10a)."""
+    exempts the lock from held-sync flagging (:func:`note_sync`): a lock
+    under which a device fetch is the design (serve's ``_model_lock``)."""
     if not _ON:
         return _threading.Lock()
     return _WitnessLock(_threading.Lock(), name or _caller_site(2),
@@ -234,3 +245,35 @@ def Condition(lock=None, name: Optional[str] = None):
     if lock is None:
         lock = _WitnessLock(_threading.RLock(), name or _caller_site(2))
     return _threading.Condition(lock)
+
+
+# ---------------------------------------------------------- sync hook
+
+
+def note_sync(what: str = "host-sync") -> None:
+    """Called from the NDArray sync points (behind an ``if
+    lockcheck._ON`` module-bool, so the off path costs one attribute
+    read): flag a device sync made while witnessed locks are held."""
+    if not _ON:
+        return
+    held = [h for h in _held() if not h._allow_sync]
+    if not held:
+        return
+    where = _caller_site(2)
+    sites = ", ".join(h._site for h in held)
+    keys = [(h._site, what) for h in held]
+    with _graph_lock:
+        fresh = [k for k in keys if k not in _sync_flagged]
+        _sync_flagged.update(fresh)
+    if not fresh:
+        return
+    from . import profiler as _profiler
+    _profiler.incr_counter("lockcheck_held_sync", len(fresh))
+    msg = ("lockcheck: host sync %r at %s while holding lock(s) [%s] — "
+           "other threads queue behind the device, and a callback that "
+           "takes the same lock deadlocks. Create the lock with "
+           "allow_sync=True only where the fetch under it is the design."
+           % (what, where, sites))
+    if _MODE == "abort":
+        _abort(msg)
+    logging.getLogger(__name__).warning(msg)

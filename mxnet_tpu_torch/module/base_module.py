@@ -30,6 +30,16 @@ host), ``loop_metric_sync`` (folds of a device sum),
 ``loop_prefetch_depth`` (the prefetch stage), ``loop_nonfinite``
 (``MXNET_TPU_NANCHECK``). Window 0, a monitor or a module without the
 hooks runs the synchronous loop.
+
+Observability (:mod:`..obs`): the training thread's trace lane is
+``train``; each batch carries a flow id (from the prefetch stage, or
+made here while spans record) through the ``prefetch_next`` /
+``device_place`` / ``fused_step_dispatch`` / ``metric_update`` spans, and
+the epoch's one metric read is the ``metric_sync`` span on the
+``metric`` lane. The step span times the dispatch of the step, not its
+device work. With the flight recorder armed (``MXNET_TPU_OBS_BLACKBOX``)
+the loop notes each epoch end, a preemption (flushed before the exit
+with status 143) and a ``MXNET_TPU_NANCHECK`` abort.
 ``fit(monitor=)`` installs a :class:`..monitor.Monitor` and, as the
 reference does, runs ``forward_backward`` and ``update`` per batch
 (``tic`` before, ``toc_print`` after) instead of the fused step, and so
@@ -70,6 +80,16 @@ _LATER = {
     "layout": "queue A9 (parallelism)",
     "tune": "queue A10 (tune)",
 }
+
+
+def _blackbox_preempt(**where) -> None:
+    """The flight recorder's preemption note and flush, made on the
+    training thread when the SIGTERM flag is observed — never in the
+    signal handler."""
+    bb = _profiler.blackbox()
+    if bb is not None:
+        bb.record("preempt", "sigterm", **where)
+        bb.flush("sigterm")
 
 
 def _as_list(obj):
@@ -374,6 +394,9 @@ class BaseModule(object):
         # the manifest's cursor, from fit's CONSUMED count (the loader's
         # own runs the prefetch depth ahead)
         cursor_fn = _loader_hook(inner_train_data, "_mx_cursor")
+        # the training thread's trace lane: step and checkpoint-snapshot
+        # spans land here; metric updates and syncs on their own track
+        _profiler.register_thread_lane("train")
 
         uninstall_sigterm = None
         if ckpt_mgr is not None and ckpt_mgr.config.save_on_sigterm:
@@ -413,25 +436,37 @@ class BaseModule(object):
                     if _faults.ARMED:
                         _faults.fire("fit.batch", default_kind="sigterm")
                     data_batch = next_data_batch
-                    if monitor is not None:
-                        # per-op values: the unfused step, as the
-                        # reference's monitored loop runs it
-                        monitor.tic()
-                        self.forward_backward(data_batch)
-                        self.update()
-                    else:
-                        self._fit_step(data_batch)
+                    # the batch's flow id threads its trace slices across
+                    # lanes (prefetch -> place -> step -> metric); batches
+                    # the prefetch stage produced already carry one
+                    fid = getattr(data_batch, "_mx_flow", None)
+                    if fid is None and _profiler.spans_enabled():
+                        fid = _profiler.new_flow()
+                    with _profiler.span("fused_step_dispatch", "step",
+                                        flow=fid):
+                        if monitor is not None:
+                            # per-op values: the unfused step, as the
+                            # reference's monitored loop runs it
+                            monitor.tic()
+                            self.forward_backward(data_batch)
+                            self.update()
+                        else:
+                            self._fit_step(data_batch)
                     if window > 0:
                         inflight.push(step_token())
                     # the metric before prepare: prepare may switch the
                     # current bucket, whose outputs are not this batch's
-                    if not (window > 0 and update_device is not None and
-                            update_device(eval_metric, data_batch.label)):
-                        if window > 0:
-                            # the async loop had to read this batch's
-                            # metric on the host
-                            _profiler.incr_counter("loop_host_sync")
-                        self.update_metric(eval_metric, data_batch.label)
+                    with _profiler.span("metric_update", "metric",
+                                        flow=fid, lane="metric"):
+                        if not (window > 0 and update_device is not None
+                                and update_device(eval_metric,
+                                                  data_batch.label)):
+                            if window > 0:
+                                # the async loop had to read this
+                                # batch's metric on the host
+                                _profiler.incr_counter("loop_host_sync")
+                            self.update_metric(eval_metric,
+                                               data_batch.label)
                     try:
                         next_data_batch = next(data_iter)
                         self.prepare(next_data_batch)
@@ -466,11 +501,19 @@ class BaseModule(object):
                                 "SIGTERM: checkpoint saved at epoch %d "
                                 "batch %d; exiting with status 143", epoch,
                                 nbatch)
+                            _blackbox_preempt(epoch=epoch, batch=nbatch)
                             raise SystemExit(143)
                 # the epoch barrier: the time and what follows see every
                 # step done; then the one host read of the metric
                 inflight.drain()
-                for name, val in eval_metric.get_name_value():
+                with _profiler.span("metric_sync", "metric", lane="metric"):
+                    name_values = eval_metric.get_name_value()
+                bb = _profiler.blackbox()
+                if bb is not None:
+                    bb.record("epoch", "end", epoch=epoch, batches=nbatch,
+                              metrics={n: round(float(v), 6)
+                                       for n, v in name_values})
+                for name, val in name_values:
                     self.logger.info("Epoch[%d] Train-%s=%f", epoch, name,
                                      val)
                 self.logger.info("Epoch[%d] Time cost=%.3f", epoch,
@@ -483,6 +526,13 @@ class BaseModule(object):
                                "epoch %d (MXNET_TPU_NANCHECK=%s)"
                                % (bad, epoch, self._nancheck_mode))
                         if self._nancheck_mode == "abort":
+                            bb = _profiler.blackbox()
+                            if bb is not None:
+                                # a terminal moment: the window carries
+                                # the diverged output's name
+                                bb.record("nancheck", "abort",
+                                          output=str(bad), epoch=epoch)
+                                bb.flush("nancheck")
                             raise MXNetError(msg)
                         self.logger.warning(msg)
                 arg_params_, aux_params_ = self.get_params()
@@ -511,6 +561,7 @@ class BaseModule(object):
                         self.logger.warning(
                             "SIGTERM: checkpoint saved at the end of epoch "
                             "%d; exiting with status 143", epoch)
+                        _blackbox_preempt(epoch=epoch)
                         raise SystemExit(143)
                 # a prefetcher is not reset after the last epoch: its
                 # worker would place batches of an epoch that never runs;

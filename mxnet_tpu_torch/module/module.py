@@ -62,6 +62,7 @@ from __future__ import annotations
 import logging
 import pickle
 import threading
+import time
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -241,6 +242,17 @@ class Module(BaseModule):
         self._remat_name = "off"
         self._nancheck_mode = "off"
         self._nan_flags = None
+        # obs accounting (mt.obs.mfu): steps and the window's start,
+        # counted inline by _fit_step; rates and MFU are computed lazily
+        # by mt.obs.report(). _last_step_event: the last step's CUDA
+        # event (_step_token)
+        self._obs_steps = 0
+        self._obs_t0 = None
+        self._obs_baseline = None
+        self._obs_flops_per_step = None
+        self._obs_label = "module"
+        self._obs_sig = None
+        self._last_step_event = None
 
     # ------------------------------------------------------------ names
     @property
@@ -442,6 +454,33 @@ class Module(BaseModule):
         self._exec.keep_node_outputs = old.keep_node_outputs
         self._exec.set_monitor_callback(old._monitor_callback)
 
+    # -------------------------------------------------------------- analysis
+    def analyze(self, input_shapes=None, input_dtypes=None,
+                sharding=False, collectives=False):
+        """Run the static analyzer (:mod:`..analysis`) over this
+        module's symbol: the shape pass, the cost model
+        (``Report.extras["cost"]``) and the memory pass. A bound module
+        analyzes with its bound shapes; an unbound one needs
+        ``input_shapes``. ``sharding=True`` (the audit of a mesh-bound
+        module) is ROADMAP A9 and raises."""
+        if sharding or collectives:
+            raise MXNetError("Module.analyze(sharding=True) audits a "
+                             "mesh-bound module: that is ROADMAP.md queue "
+                             "A9 (parallelism)")
+        from ..analysis import analyze_symbol
+        shapes = {k: tuple(v) for k, v in (input_shapes or {}).items()}
+        if not shapes and self.binded:
+            shapes = {n: tuple(a.shape)
+                      for n, a in self._exec.arg_dict.items()}
+            shapes.update({n: tuple(a.shape)
+                           for n, a in self._exec.aux_dict.items()})
+        return analyze_symbol(self._symbol, input_shapes=shapes or None,
+                              input_dtypes=input_dtypes, context="module",
+                              device=self._device,
+                              grad_accum=self._grad_accum,
+                              batch_inputs=list(self._data_names)
+                              + list(self._label_names))
+
     def install_monitor(self, mon):
         """Attach ``mon`` (:class:`..monitor.Monitor`) to the executor."""
         assert self.binded
@@ -525,6 +564,17 @@ class Module(BaseModule):
             self._accum_scale = _accum_loss_scale(self._symbol, accum)
             _profiler.set_gauge("grad_accum", accum)
         self._remat_name = self._exec._remat_name
+        # obs identity for compile attribution + the MFU collector; the
+        # static FLOP estimate is invalidated here because a rebuild
+        # means shapes (reshape) or structure changed
+        from ..obs import mfu as _obs_mfu
+        self._obs_label = "fused_step:%s" % (
+            self._output_names[0] if self._output_names else "?")
+        self._obs_sig = (self._obs_label,
+                         tuple((d.name, tuple(d.shape))
+                               for d in self._data_shapes or ()))
+        self._obs_flops_per_step = None
+        _obs_mfu.register_executor(self)
         plan = self._exec._scan_plan
         if plan is None or not _config.get("MXNET_TPU_GROUP_UPDATE"):
             return
@@ -618,15 +668,12 @@ class Module(BaseModule):
         return self._exec is not None and self.optimizer_initialized
 
     def _step_token(self):
-        """The completion token of the step just queued, for
-        :class:`.._fused.InflightWindow`: a CUDA event recorded on the
+        """The completion token of the last step :meth:`_fit_step`
+        queued, for :class:`.._fused.InflightWindow` and the MFU
+        collector (:mod:`..obs.mfu`): the CUDA event recorded on the
         compute stream after it; None on the CPU, where a step has
-        finished when it returns."""
-        if self._device.type != "cuda":
-            return None
-        event = torch.cuda.Event()
-        event.record(torch.cuda.current_stream(self._device))
-        return event
+        finished when it returns, and before the first step."""
+        return self._last_step_event
 
     def _device_placer(self):
         """The device-prefetch stage's callable, which ``fit`` attaches
@@ -735,23 +782,37 @@ class Module(BaseModule):
         ``set_grad_accum(n)``, n microbatches summed into one update."""
         assert self.binded and self.params_initialized \
             and self.optimizer_initialized
-        self._load_batch(data_batch)
-        if self._grad_accum > 1:
-            names, grads = self._accum_gradients()
-        else:
-            self._exec.forward(is_train=True)
-            names, grads = self._exec.gradients()
-            if self.inputs_need_grad:
-                with torch.no_grad():
-                    for n, g in zip(names, grads):
-                        if n in self._data_names:
-                            self._exec.grad_dict[n].data.copy_(g)
-        params = [(n, g) for n, g in zip(names, grads)
-                  if n not in self._data_names]
-        self._apply_update([n for n, _ in params], [g for _, g in params],
-                           fit_step=True)
+        from ..obs import compiles as _obs_compiles, mfu as _obs_mfu
+        # a build the step triggers (a kernel library at its first
+        # launch) is the fused step's compile
+        with _obs_compiles.scope("fused_step", self._obs_sig):
+            self._load_batch(data_batch)
+            if self._grad_accum > 1:
+                names, grads = self._accum_gradients()
+            else:
+                self._exec.forward(is_train=True)
+                names, grads = self._exec.gradients()
+                if self.inputs_need_grad:
+                    with torch.no_grad():
+                        for n, g in zip(names, grads):
+                            if n in self._data_names:
+                                self._exec.grad_dict[n].data.copy_(g)
+            params = [(n, g) for n, g in zip(names, grads)
+                      if n not in self._data_names]
+            self._apply_update([n for n, _ in params],
+                               [g for _, g in params], fit_step=True)
         if self._nancheck_mode != "off":
             self._nancheck_accumulate(self._exec.outputs)
+        if self._device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(self._device))
+            self._last_step_event = event
+        n = self._obs_steps + 1
+        self._obs_steps = n
+        if n == _obs_mfu.OBS_WARMUP_STEPS:
+            # the rate window opens after the warm-up steps; report()
+            # closes it (and re-opens) at each collect
+            self._obs_t0 = time.perf_counter()
 
     # ------------------------------------------------- non-finite guard
     def _nancheck_accumulate(self, outs) -> None:

@@ -23,6 +23,7 @@ import hashlib
 import os
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 import numpy as np
@@ -89,6 +90,7 @@ def build(src_dir=SRC_DIR, out_dir=OUT_DIR, cxx: str = "g++") -> Path:
     tmp = out.with_name("%s.%d.tmp" % (out.name, os.getpid()))
     cmd += ["-o", str(tmp)] + [str(src_dir / s) for s in SOURCES] \
         + list(LIBS)
+    t0 = time.perf_counter()
     try:
         proc = subprocess.run(cmd, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True,
@@ -96,6 +98,10 @@ def build(src_dir=SRC_DIR, out_dir=OUT_DIR, cxx: str = "g++") -> Path:
     except (OSError, subprocess.TimeoutExpired) as exc:
         raise MXNetError("native data library: %s failed to run: %s"
                          % (cxx, exc)) from exc
+    # the build in the compile ring, under the caller's open scope
+    # (imported here, so a build before anything imported obs lands)
+    from ..obs import compiles
+    compiles.record((time.perf_counter() - t0) * 1e3, source="g++")
     if proc.returncode != 0:
         try:
             tmp.unlink()

@@ -33,6 +33,7 @@ tensor stays on that tensor's device.
 from __future__ import annotations
 
 import io
+import time
 import weakref
 from typing import Union
 
@@ -40,6 +41,8 @@ import numpy as np
 import torch
 
 from .. import autograd
+from .. import lockcheck as _lockcheck
+from .. import profiler as _profiler
 from ..base import MXNetError, atomic_write
 from ..context import Context, DeviceLike, resolve_device
 from . import legacy_format
@@ -195,6 +198,8 @@ class NDArray:
     # ------------------------------------------------------------ transfer
     def asnumpy(self) -> np.ndarray:
         """A numpy copy (never a view of the array's memory)."""
+        if _lockcheck._ON:
+            _lockcheck.note_sync("asnumpy")
         t = self._data.detach()
         if t.dtype == torch.bfloat16:
             t = t.float()
@@ -210,6 +215,8 @@ class NDArray:
 
     def wait_to_read(self) -> None:
         """Block until the work that produces this array has finished."""
+        if _lockcheck._ON:
+            _lockcheck.note_sync("wait_to_read")
         if self._data.is_cuda:
             torch.cuda.current_stream(self._data.device).synchronize()
 
@@ -441,6 +448,18 @@ for _name in ("sum", "mean", "max", "min", "prod", "argmax", "argmin",
     setattr(NDArray, _name, _op_method(_name))
 
 
+def _wait_for(outputs) -> None:
+    """Wait for the card's work behind ``outputs`` (a tensor or a tuple
+    of them): a sync of each CUDA device's current stream."""
+    outs = outputs if isinstance(outputs, (tuple, list)) else (outputs,)
+    seen = set()
+    for o in outs:
+        if isinstance(o, torch.Tensor) and o.is_cuda and \
+                o.device not in seen:
+            seen.add(o.device)
+            torch.cuda.current_stream(o.device).synchronize()
+
+
 def imperative_invoke(op, *args, out=None, ctx: DeviceLike = None, **attrs):
     """Run a registered op eagerly: NDArrays are unwrapped to their
     tensors, the op's function runs on them (recorded under
@@ -459,12 +478,20 @@ def imperative_invoke(op, *args, out=None, ctx: DeviceLike = None, **attrs):
         attrs.setdefault("_is_train", autograd.is_training())
     if op.num_inputs == 0 and not arrays:
         attrs["_device"] = resolve_device(ctx)
+    tracing = _profiler._tracing
+    if tracing:
+        t0 = time.perf_counter()
     if op.is_random:
         # a sampler is not recorded: its result is a constant to the tape
         with torch.no_grad():
             outputs = op.fn(*tensors, **attrs)
     else:
         outputs = _run(op.fn, arrays, *tensors, **attrs)
+    if tracing:
+        # the profiler's op event: wait for the op so the duration is
+        # its device time (the reference's sync-dispatch profiling)
+        _wait_for(outputs)
+        _profiler.record_event(op.name, t0, time.perf_counter(), "op")
     if op.num_aux:
         k = op.num_aux
         for old, new in zip(args[-k:], outputs[-k:]):

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import io
 import json
+import time
 from typing import List
 
 import numpy as np
@@ -213,9 +214,12 @@ class Predictor(object):
         from .checkpoint.atomic import atomic_open
         from .executor import graph_function
 
+        from .obs import compiles as _obs_compiles
         self._check_exportable()
         sym = self._symbol
+        t_trace = time.perf_counter()
         fn = graph_function(sym)
+        trace_ms = (time.perf_counter() - t_trace) * 1e3
         ex = self._exec
         arg_names = list(sym.list_arguments())
         input_names = [n for n in arg_names if n in self._input_shapes]
@@ -239,8 +243,15 @@ class Predictor(object):
                 outs, _ = fn(args, aux, False, device)
                 return tuple(outs)
 
-        with torch.no_grad():
-            program = torch.export.export(_Forward(), examples)
+        # the export is the artifact's compile: graph function as
+        # trace_ms, torch.export's wall time as compile_ms, under the
+        # scope "export"
+        with _obs_compiles.scope("export", path):
+            t_export = time.perf_counter()
+            with torch.no_grad():
+                program = torch.export.export(_Forward(), examples)
+            _obs_compiles.record((time.perf_counter() - t_export) * 1e3,
+                                 trace_ms, source="export")
         # the example inputs are the weights themselves (weights.npz
         # carries them): saved in the program too, they would double it
         program.example_inputs = None

@@ -38,6 +38,7 @@ the reference's serve path computes in full float32.
 from __future__ import annotations
 
 import functools
+import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -377,14 +378,22 @@ class DecodeEngine:
     # ---------------------------------------------------------- dispatch
     def _dispatch(self, kind: str, bucket: int, runner_fn, args: Tuple):
         """Bucket dispatch under the CompileCache counter discipline:
-        the first arrival binds the runner (``<name>_compile``), every
-        later arrival is ``<name>_cache_hit``."""
+        the first arrival binds the runner (``<name>_compile``, and a
+        record in the compile ring), every later arrival is
+        ``<name>_cache_hit``; every arrival runs under the compile scope
+        ``(name, sig)``."""
+        from ..obs import compiles as _obs_compiles
         sig = ("gen_" + kind, bucket)
         runner = self.compile_cache.get(sig)
-        with torch.no_grad():
+        with torch.no_grad(), _obs_compiles.scope(self.name, sig):
             if runner is None:
                 runner = functools.partial(runner_fn, bucket)
+                t0 = time.perf_counter()
                 out = runner(*args)
+                # the runner's first bind: its first call's host time
+                # (library loads, cuBLAS handles), in the compile ring
+                _obs_compiles.record((time.perf_counter() - t0) * 1e3,
+                                     source="runner")
                 self.compile_cache.put(sig, runner)
                 return out
             out = runner(*args)

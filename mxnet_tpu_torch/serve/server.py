@@ -25,14 +25,21 @@ graceful drain), the same handle, errors, counters, gauges and
 ``stats()`` schema, over the port's :class:`~.decode.DecodeEngine` and
 :class:`~.kv_cache.KVCache` (f32 or int8) on a torch device.
 
-Not ported yet: the ``/metrics`` endpoint and the trace flows of a
-request (ROADMAP A10a; ``metrics_port`` other than ``None`` / ``-1``
-raises), and the tensor-parallel cache (A9).
+Observability (:mod:`..obs`): both servers start a Prometheus
+``/metrics`` endpoint from their ``metrics_port`` argument or the
+``MXNET_TPU_OBS_METRICS_PORT`` knob (a port that cannot be bound leaves
+the server up without one, counted as ``<name>_metrics_bind_failed``);
+``InferenceServer`` records each request's trace flow through the
+``serve_submit`` (the client's lane) → ``serve_coalesce`` →
+``serve_launch`` → ``serve_resolve`` spans (the batcher's lane), the
+launch under the compile scope of its bucket, whose first bind lands in
+the compile ring. Not ported yet: the tensor-parallel cache (A9).
 """
 from __future__ import annotations
 
 import collections
 import threading
+import time
 import weakref
 from concurrent.futures import Future
 from typing import Any, Callable, Dict, List, Optional, Tuple
@@ -76,19 +83,32 @@ class DeadlineExceeded(ServeError):
     its prefill, for ``GenerativeServer``)."""
 
 
-def _no_metrics(port: Optional[int]) -> None:
-    """The ``/metrics`` endpoint comes with ROADMAP A10a: ``None`` (the
-    ``MXNET_TPU_OBS_METRICS_PORT`` knob, -1 when unset) and ``-1`` mean
-    no endpoint; any other port raises rather than serve without the
-    endpoint asked for."""
-    if port is None:
-        from .. import config as _config
-        port = _config.get("MXNET_TPU_OBS_METRICS_PORT")
-    if int(port) >= 0:
-        raise MXNetError(
-            "serve: metrics_port=%r asks for the /metrics endpoint, which "
-            "the port does not have yet (ROADMAP A10a); pass None or -1"
-            % (port,))
+def _start_metrics(server, name: str, metrics_port: Optional[int]) -> None:
+    """The opt-in ``/metrics`` endpoint (the argument wins over the
+    ``MXNET_TPU_OBS_METRICS_PORT`` knob; a resolved port < 0 is off).
+    An observability port must never take the serving path down: a port
+    that cannot be bound leaves the server without an endpoint, loudly
+    and counted. A finalizer releases the port when an unclosed server
+    is collected."""
+    from ..obs.http import maybe_start_from_knob
+    try:
+        metrics = maybe_start_from_knob(metrics_port)
+    except OSError as exc:
+        import logging
+        logging.getLogger(__name__).warning(
+            "serve[%s]: /metrics endpoint disabled (%s)", name, exc)
+        _profiler.incr_counter(name + "_metrics_bind_failed")
+        metrics = None
+    server._metrics = metrics
+    server.metrics_port = metrics.port if metrics else None
+    server._metrics_finalizer = weakref.finalize(
+        server, metrics.close) if metrics else None
+
+
+def _stop_metrics(server) -> None:
+    if server._metrics_finalizer is not None:
+        server._metrics_finalizer()  # idempotent: detaches after one call
+        server._metrics = None
 
 
 def wrap_model(model) -> Callable:
@@ -212,10 +232,10 @@ def _serve_loop(server_ref):
 
 class _Request:
     __slots__ = ("data", "rows", "batched", "sample_shape", "bucket_key",
-                 "future", "t_submit", "deadline")
+                 "future", "t_submit", "deadline", "flow")
 
     def __init__(self, data, rows, batched, sample_shape, bucket_key,
-                 deadline):
+                 deadline, flow=None):
         self.data = data
         self.rows = rows
         self.batched = batched
@@ -224,6 +244,7 @@ class _Request:
         self.future: Future = Future()
         self.t_submit = monotonic()
         self.deadline = deadline
+        self.flow = flow    # trace flow id linking submit -> resolve
 
 
 class InferenceServer:
@@ -248,8 +269,9 @@ class InferenceServer:
     name : str
         Prefix for profiler counters/gauges (default ``"serve"``).
     metrics_port : int, optional
-        ``None`` or ``-1``: no ``/metrics`` endpoint; any other value
-        raises until ROADMAP A10a ports the endpoint.
+        Opt-in Prometheus ``/metrics`` endpoint (:mod:`..obs`): ``None``
+        = the ``MXNET_TPU_OBS_METRICS_PORT`` knob, ``-1`` = off, ``0`` =
+        an ephemeral port (read ``.metrics_port``), ``>0`` = that port.
     """
 
     def __init__(self, model, max_batch_size: Optional[int] = None,
@@ -262,8 +284,6 @@ class InferenceServer:
         from .. import config as _config
         if buckets is not None and max_batch_size is not None:
             raise ValueError("pass max_batch_size or buckets, not both")
-        _no_metrics(metrics_port)
-        self.metrics_port = None
         if buckets is None:
             buckets = BucketSpec(max_batch_size if max_batch_size is not None
                                  else _config.get("MXNET_TPU_SERVE_MAX_BATCH"))
@@ -283,7 +303,10 @@ class InferenceServer:
         grid = self.buckets.executable_bound()
         self.cache = CompileCache(
             name, max_entries=max(4 * grid, 128) if grid else 4096)
+        # latency rides the shared histogram registry, so the /metrics
+        # exposition renders it without extra wiring
         self.latency = LatencyStats(name=name + "_latency_seconds")
+        _start_metrics(self, name, metrics_port)
         # serializes ALL model invocations: Predictor/Module adapters
         # share executor state, so a kill-switch eager call in a caller
         # thread must never interleave with the worker's batched call.
@@ -349,18 +372,21 @@ class InferenceServer:
             # thread — no queue, no batching, no bucketing
             return self._eager_future(x, rows, batched)
 
-        req = _Request(x, rows, batched, sample_shape, bucket_key, deadline)
-        with self._cond:
-            if self._closed:
-                raise ServerClosed("submit() after close()")
-            if len(self._queue) >= self.queue_bound:
-                _profiler.incr_counter(self.name + "_shed")
-                raise QueueFull("queue depth %d at admission bound %d"
-                                % (len(self._queue), self.queue_bound))
-            self._queue.append(req)
-            _profiler.set_gauge(self.name + "_queue_depth",
-                                len(self._queue))
-            self._cond.notify_all()
+        fid = _profiler.new_flow() if _profiler.spans_enabled() else None
+        req = _Request(x, rows, batched, sample_shape, bucket_key, deadline,
+                       flow=fid)
+        with _profiler.span("serve_submit", "serve", flow=fid):
+            with self._cond:
+                if self._closed:
+                    raise ServerClosed("submit() after close()")
+                if len(self._queue) >= self.queue_bound:
+                    _profiler.incr_counter(self.name + "_shed")
+                    raise QueueFull("queue depth %d at admission bound %d"
+                                    % (len(self._queue), self.queue_bound))
+                self._queue.append(req)
+                _profiler.set_gauge(self.name + "_queue_depth",
+                                    len(self._queue))
+                self._cond.notify_all()
         return req.future
 
     def __call__(self, data, batched: bool = False,
@@ -389,6 +415,7 @@ class InferenceServer:
         for req in dropped:
             _resolve(req.future, exc=ServerClosed("server closed"))
         self._worker.join(timeout)
+        _stop_metrics(self)
 
     def __enter__(self):
         return self
@@ -444,6 +471,8 @@ class InferenceServer:
                 if not self._queue:
                     return None if self._closed else []
             head = self._queue[0]
+            t_co = time.perf_counter() if _profiler.spans_enabled() \
+                else None
             window_end = head.t_submit + self.max_delay_s
             while not self._closed:
                 now = monotonic()
@@ -493,6 +522,12 @@ class InferenceServer:
             _resolve(req.future, exc=DeadlineExceeded(
                 "deadline passed %.1f ms before batch launch"
                 % ((now - req.deadline) * 1e3)))
+        if batch and t_co is not None:
+            # the batching window on the batcher's lane, linked to the
+            # head request's flow (idle ticks emit nothing)
+            _profiler.record_span("serve_coalesce", t_co,
+                                  time.perf_counter(), "serve",
+                                  flow=batch[0].flow)
         return batch
 
     def _compatible_rows(self, bucket_key) -> int:
@@ -527,6 +562,7 @@ class InferenceServer:
         return buf, r0
 
     def _run_batch(self, batch: List[_Request]):
+        from ..obs import compiles as _obs_compiles
         rows = sum(r.rows for r in batch)
         try:
             bucket_rows = self.buckets.batch_bucket(rows)
@@ -546,7 +582,19 @@ class InferenceServer:
             if fresh:
                 runner = self._call_model
             try:
-                outs = runner(nd_mod.array(buf, ctx=self._ctx))
+                with _profiler.span("serve_launch", "serve",
+                                    flow=batch[0].flow) as sp:
+                    for req in batch[1:]:
+                        sp.mark_flow(req.flow)
+                    with _obs_compiles.scope(self.name, sig):
+                        t0 = time.perf_counter()
+                        outs = runner(nd_mod.array(buf, ctx=self._ctx))
+                        if fresh:
+                            # the bucket's first bind: its first call
+                            # (cuDNN's algorithm choice, library loads)
+                            _obs_compiles.record(
+                                (time.perf_counter() - t0) * 1e3,
+                                source="runner")
             except Exception as exc:                       # noqa: BLE001
                 self.cache.mark_failed(sig,
                                        permanent=structural_failure(exc))
@@ -582,16 +630,20 @@ class InferenceServer:
         done = monotonic()
         r0 = 0
         try:
-            for req in batch:
-                if self._single_output:
-                    res = outs[0][r0:r0 + req.rows] if req.batched \
-                        else outs[0][r0]
-                else:
-                    res = [o[r0:r0 + req.rows] if req.batched else o[r0]
-                           for o in outs]
-                r0 += req.rows
-                self.latency.record(done - req.t_submit)
-                _resolve(req.future, res)
+            with _profiler.span("serve_resolve", "serve",
+                                flow=batch[0].flow) as sp:
+                for req in batch:
+                    if req is not batch[0]:
+                        sp.mark_flow(req.flow)
+                    if self._single_output:
+                        res = outs[0][r0:r0 + req.rows] if req.batched \
+                            else outs[0][r0]
+                    else:
+                        res = [o[r0:r0 + req.rows] if req.batched
+                               else o[r0] for o in outs]
+                    r0 += req.rows
+                    self.latency.record(done - req.t_submit)
+                    _resolve(req.future, res)
         except Exception as exc:                           # noqa: BLE001
             # row-contract violation (output leading axis != input rows):
             # every future must still resolve, and the geometry is
@@ -836,8 +888,8 @@ class GenerativeServer:
         Accepted and validated as in the reference; prefill runs the
         flash kernel at every bucket (see :mod:`.decode`).
     metrics_port : int, optional
-        ``None`` or ``-1``: no ``/metrics`` endpoint; any other value
-        raises until ROADMAP A10a.
+        Opt-in Prometheus ``/metrics`` endpoint, as for
+        :class:`InferenceServer`.
     device : optional
         Where the weights and the cache live: ``cuda:0`` by default
         (raises without a GPU); ``"cpu"`` only when asked for.
@@ -863,8 +915,6 @@ class GenerativeServer:
                              extract_params, sample_token)
         from .kv_cache import KVCache
         self.device = resolve_device(device)
-        _no_metrics(metrics_port)
-        self.metrics_port = None
         self.name = name
         self._sample_token = sample_token
         tparams = extract_params(model, self.device)
@@ -898,6 +948,7 @@ class GenerativeServer:
                                    seq_buckets=seq_buckets,
                                    prefill_chunk=prefill_chunk)
         self.latency = DecodeLatencyStats(name=name)
+        _start_metrics(self, name, metrics_port)
         self._lock = _lockcheck.Lock(name="serve.gen_lock")
         self._cond = _lockcheck.Condition(self._lock)
         self._waiting: collections.deque = collections.deque()
@@ -1155,6 +1206,7 @@ class GenerativeServer:
                 self._waiting.clear()
             for req in leftover:
                 req.handle._finish(ServerClosed("server closed"))
+        _stop_metrics(self)
 
     def __enter__(self):
         return self

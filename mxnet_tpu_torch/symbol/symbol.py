@@ -277,11 +277,12 @@ class Symbol:
         return _create(get_op("negative"), [self], {}, None)
 
     def analyze(self, input_shapes=None, input_dtypes=None, **shape_kwargs):
-        """The reference's static graph analyzer (``analysis/``), which
-        the port does not have yet: raises, naming ROADMAP.md queue
-        A10."""
+        """The reference's static graph analyzer over a Symbol, which
+        the port does not have yet (``Module.analyze`` runs the passes
+        the port has): raises, naming ROADMAP.md queue A10b."""
         raise MXNetError("Symbol.analyze: the graph analyzer (analysis/) "
-                         "is not ported yet (ROADMAP.md queue A10)")
+                         "is not ported yet (ROADMAP.md queue A10b); "
+                         "Module.analyze runs the passes the port has")
 
     # ------------------------------------------------------------ shapes
     def infer_shape(self, *args, **kwargs):

@@ -86,6 +86,10 @@ def test_importing_the_port_loads_no_jax():
         "    actor_critic, adversary_fgsm, autoencoder,\n"
         "    cnn_text_classification, dqn, gluon_mnist, neural_style,\n"
         "    super_resolution, svm_mnist, train_cifar10, train_mnist)\n"
+        "import mxnet_tpu_torch.obs, mxnet_tpu_torch.obs.blackbox\n"
+        "import mxnet_tpu_torch.obs.__main__, mxnet_tpu_torch.obs.mfu\n"
+        "import mxnet_tpu_torch.profiler, mxnet_tpu_torch.lockcheck\n"
+        "assert mxnet_tpu_torch.obs.report() is not None\n"
         "import mxnet_tpu_torch._cuda_driver as driver\n"
         "assert driver._lib is None   # libcuda loads at first use only\n"
         "bad = sorted(m for m in sys.modules\n"

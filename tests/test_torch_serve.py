@@ -2,8 +2,9 @@
 against the reference's (oracle: ``tests/test_serve.py``), and
 ``chip_smoke.py``'s phase 17 (serving) rehearsed on the CPU.
 
-Every case of the oracle but the profiler's gauge reset (which comes
-with the profiler, ROADMAP A10a) runs here on the port on the CPU; where
+Every case of the oracle runs here on the port on the CPU (the
+profiler's gauge reset and the ``/metrics`` endpoint in
+``tests/test_torch_obs.py``); where
 a served value is compared across packages, the same numpy-seeded
 weights and requests go through the reference's server too, and the
 rows agree within 1e-5 of max(1, max|ref|) (the same f32 formulas,
@@ -667,35 +668,6 @@ def test_stats_snapshot_schema():
 
 
 # ------------------------------------------------------ port departures
-
-def test_metrics_port_raises_until_a10a(monkeypatch):
-    """``/metrics`` is ROADMAP A10a: None and -1 serve without it, any
-    other port raises rather than serve without the endpoint asked for
-    (both servers)."""
-    _, net = _mlp_pair()
-    for port in (None, -1):
-        with _server(net, name="tserve_metrics", metrics_port=port) as srv:
-            assert srv.metrics_port is None
-    for port in (0, 9100):
-        with pytest.raises(MXNetError, match="A10a"):
-            _server(net, name="tserve_metrics", metrics_port=port)
-    monkeypatch.setenv("MXNET_TPU_OBS_METRICS_PORT", "0")
-    with pytest.raises(MXNetError, match="A10a"):
-        _server(net, name="tserve_metrics")
-    monkeypatch.delenv("MXNET_TPU_OBS_METRICS_PORT")
-    # the knob goes through the config registry: set/reset apply to it
-    assert mt.config.get("MXNET_TPU_OBS_METRICS_PORT") == -1
-    mt.config.set("MXNET_TPU_OBS_METRICS_PORT", 9100)
-    try:
-        with pytest.raises(MXNetError, match="A10a"):
-            _server(net, name="tserve_metrics")
-    finally:
-        mt.config.reset("MXNET_TPU_OBS_METRICS_PORT")
-    with _server(net, name="tserve_metrics") as srv:
-        assert srv.metrics_port is None
-    with pytest.raises(MXNetError, match="A10a"):
-        serve.GenerativeServer({}, n_heads=2, device="cpu", metrics_port=0)
-
 
 def test_no_device_without_gpu_raises(monkeypatch):
     """The server stages requests to the card by default and never
