@@ -138,14 +138,16 @@ Phases, each fatal on failure (exit code 1, no result line):
     ``tests/test_fused_trainer.py`` under its four variants, the grouped
     (foreach) update against the per-parameter one over 3 steps on the
     LM's parameter shapes (2048², 2048 x 8192, 32000 x 2048 and a bias),
-    each case fatal; (b) the LM of phase 6 in amp bf16 through
+    each case fatal; (b) the LM of phase 6 at its full width and 2 of
+    its 12 layers (``ADAM_LAYERS``: a 2.81 GB checkpoint, where the full
+    depth's 8.85 GB took 24 s to write) in amp bf16 through
     ``Module.fit`` with Adam (lr 1e-4, wd 1e-4, clip 1.0),
     ``FactorScheduler(4, 0.5)``, ``CompositeEvalMetric([CrossEntropy(),
     Perplexity(None)])`` and an async ``CheckpointConfig``: 1 + 2 + 10
     steps + 1 profiled, beside phase 6's SGD step (step ms, tok/s, MFU,
     peak memory, the optimizer's device time), the step-1 loss held to
     the plain forward, each attention kernel once per layer per step,
-    the epoch's checkpoint landed; (c) resume at the full width and 2 of
+    the epoch's checkpoint landed; (c) resume at the full width and 1 of
     the 12 layers: an uninterrupted fit of 2 epochs x 2 batches with a
     checkpoint each epoch, the first epoch's checkpoint restored bit for
     bit (parameters, Adam states, count, rate), and a fresh
@@ -260,22 +262,22 @@ Phases, each fatal on failure (exit code 1, no result line):
     library builds and loads, the jpeg / png libraries ldconfig knows,
     the cores), then the route fixed in ``DATA_ENCODER`` /
     ``DATA_DECODER`` (cv2: the card's host has no libjpeg / libpng),
-    named in the log. (a) 2,560 seeded JPEG records (shorter side 256,
+    named in the log. (a) 1,280 seeded JPEG records (shorter side 256,
     longer 256-384, quality 95, the label the content's hue bucket)
     packed by ``recordio.pack_img`` into an indexed ``.rec`` and read
     back byte for byte; (b) the pipeline alone: ``ImageRecordIter`` at
     ``examples/train_imagenet.py``'s settings (3x224x224, batch 128,
-    ``rand_crop``, ``rand_mirror``, the RGB mean) over 20 batches at 4
+    ``rand_crop``, ``rand_mirror``, the RGB mean) over 10 batches at 4
     and ``min(nproc, 32)`` threads, its first batch against a numpy
     oracle of the same records (equal); ``DataLoader`` +
-    ``ImageTransform`` at 0, 2 and 4 workers, forked while a
+    ``ImageTransform`` at 0, 2 and 4 workers over 4 batches, forked while a
     ``PrefetchingIter`` thread copies batches to the card, its first 3
     batches bit-identical across the counts, and the loader's queue
     transport timed alone; (c) ResNet-50 (7x7 stem, 1000 classes,
     Xavier gaussian / in / 2, SGD 0.1 / 0.9 / 1e-4) through
     ``Module.fit`` from the records (window 2, device prefetch 2), one
-    epoch of 20 steps in amp bf16 and in f32: ms a step between CUDA
-    events after 5 warm, img/s, the idle share of a profiled step, the
+    epoch of 10 steps in amp bf16 and in f32: ms a step between CUDA
+    events after 3 warm, img/s, the idle share of a profiled step, the
     same net fed a device-resident batch in the same call; the step-1
     loss within 2e-2 / 1e-3 of a plain f32 forward of the same decoded
     batch, the loss falling, ``loop_host_sync`` 0, ``loop_prefetch_placed``
@@ -362,7 +364,31 @@ Phases, each fatal on failure (exit code 1, no result line):
     heartbeat, killed by SIGKILL after its third heartbeat: ``python -m
     mxnet_tpu_torch.obs blackbox`` names rank 0 dead and its merged
     timeline loads as a chrome trace. A hang ends the run through
-    ``faulthandler`` after ``OBS_DEADLINE_S``.
+    ``faulthandler`` after ``OBS_DEADLINE_S``;
+20. the rest of ``analysis/`` (queue A10b), on the LM at ``bench.py``'s
+    width (flash, amp bf16) and ResNet-50 at phase 8's configuration
+    (amp bf16): (a) each bound under ``MXNET_TPU_ANALYZE=strict`` with
+    an 80 GB budget, no ERROR finding, the bind's seconds with the
+    analyzer off and on, the ``hbm-budget`` estimate beside
+    ``torch.cuda.max_memory_allocated()`` over one real training step;
+    at a budget of half the estimate the bind raises ``MXNetError``
+    naming the largest offender, ``torch.cuda.memory_allocated()``
+    unchanged; (b) ``roofline.analyze_executable`` over one training
+    step of each: the counted FLOPs within 25% of the cost model's
+    training count (no ``flop-model-drift``), the flash kernels' share
+    equal to their launches x their per-launch FLOPs (``attention_bound``)
+    and their launches to the wrappers' counts, the classification on
+    the H100's row (989 TFLOP/s, 3,350 GB/s); after a short ``fit`` of
+    the LM, ``mt.obs.report()``'s record carries a ``roofline`` block
+    whose ``measured_mfu`` is the report's ``obs_mfu``; (c) the program
+    passes over the LM executor's training graph traced on fake tensors:
+    no ERROR, each flash kernel one node per layer each way; a 64 MiB
+    closure constant fires ``baked-const`` (ERROR) and an ``.item()``
+    ``host-callback``; (d) ``python -m mxnet_tpu_torch.analysis`` ``lint
+    --baseline`` over the port, ``self-check`` and ``audit mlp resnet8
+    transformer``, three processes started together, each exit 0, the
+    audit's roofline lines naming the card. A hang ends the run through
+    ``faulthandler`` after ``ANALYSIS_DEADLINE_S``.
 
 The second-to-last line is the kernel table as one JSON object; the
 last is ``{"ok": true, "device": {...}}``. Without a GPU, or run from a
@@ -374,6 +400,7 @@ import faulthandler
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import threading
@@ -549,13 +576,17 @@ OPT_VARIANTS = ({}, {"clip_gradient": 0.05}, {"clip_gradient": -1.0},
 OPT_STEPS = 3
 OPT_RTOL = 1e-5
 # (b) the LM through Module.fit with Adam: lr 1e-4, wd 1e-4, clip 1.0,
-# FactorScheduler(step=4, factor=0.5), 1 + 2 + 10 steps + 1 profiled
+# FactorScheduler(step=4, factor=0.5), 1 + 2 + 10 steps + 1 profiled, at
+# the full width and 2 of the 12 layers (cut from the depth only: its
+# epoch checkpoint is 2.81 GB, against the full depth's 8.85 GB and 24 s
+# of writing; every check of (b) holds at any depth)
+ADAM_LAYERS = 2
 ADAM_PARAMS = {"learning_rate": 1e-4, "wd": 1e-4, "clip_gradient": 1.0}
 ADAM_SCHED = (4, 0.5)
 ADAM_WARM, ADAM_TIMED = 2, 10
-# (c) resume at the full width and 2 of the 12 layers: 2 epochs of 2
+# (c) resume at the full width and 1 of the 12 layers: 2 epochs of 2
 # batches, a checkpoint each epoch
-RESUME_LAYERS, RESUME_EPOCHS, RESUME_BATCHES = 2, 2, 2
+RESUME_LAYERS, RESUME_EPOCHS, RESUME_BATCHES = 1, 2, 2
 # (d) the upstream Gluon DCGAN (example/gluon/dcgan.py) at its widths
 DCGAN_NZ, DCGAN_NGF, DCGAN_NDF, DCGAN_SIZE, DCGAN_BATCH = 100, 64, 64, 64, 64
 DCGAN_LR, DCGAN_BETA1 = 2e-4, 0.5
@@ -722,7 +753,7 @@ DATA_ENCODER = "cv2"   # recordio.pack_img, as the reference's im2rec packs
 DATA_DECODER = "cv2"   # MXNET_USE_NATIVE_IO=0: ImageRecordIter's and
                        # ImageTransform's Python/cv2 path; the native
                        # pipeline is held on the CPU (tests/test_torch_image)
-DATA_RECORDS = 2560    # one epoch of 16c: 20 batches of 128
+DATA_RECORDS = 1280    # one epoch of 16c: 10 batches of 128
 DATA_SHORT, DATA_LONG = 256, (256, 384)   # im2rec --resize 256's output
 DATA_QUALITY = 95      # pack_img's default
 DATA_NOISE = 12.0      # std of the noise on smooth content, in levels:
@@ -733,9 +764,9 @@ DATA_SHAPE = (3, 224, 224)
 DATA_BATCH = 128
 DATA_THREADS = 4       # --data-nthreads' default
 DATA_MAX_THREADS = 32  # 16b's second reading: min(nproc, this) threads
-DATA_PIPE_BATCHES = 20
+DATA_PIPE_BATCHES = 10
 DATA_WORKERS = (2, 4)
-DATA_LOADER_BATCHES = 8     # timed per worker count; the first 3 compared
+DATA_LOADER_BATCHES = 4     # timed per worker count; the first 3 compared
 DATA_LOADER_SAME = 3
 # the Python path's batch against a numpy oracle of the same records:
 # cv2 decodes both and nothing is resized here, so they are equal
@@ -744,8 +775,8 @@ DATA_ORACLE_ATOL = 0.0
 # gaussian / in / 2, SGD 0.1 / 0.9 / 1e-4 (examples/train_imagenet.py,
 # examples/common/fit.py); window 2 and device prefetch 2 (the defaults)
 IMAGENET_LR, IMAGENET_MOM, IMAGENET_WD = 0.1, 0.9, 1e-4
-IMAGENET_WARM = 5      # steps before the timed window of an epoch
-IMAGENET_PROFILED = 15  # the step profiled for the idle share
+IMAGENET_WARM = 3      # steps before the timed window of an epoch
+IMAGENET_PROFILED = 8   # the step profiled for the idle share
 DATA_PARITY_STEPS = 5  # window 2 against window 0, bit for bit
 # 16d: a DataLoader through fit, checkpointed at batch 6 of 12, resumed
 # with another worker count (tests/test_data.py:335-351's drill)
@@ -1200,8 +1231,13 @@ def kernel_phase(torch):
 
 
 def seeded_params(np, seed: int):
+    """The served LM's weights as numpy arrays: gammas 1, betas and
+    biases 0, every other weight N(0, 0.02) drawn on DEVICE by torch's
+    generator seeded with ``seed`` (a numpy draw of the 737.5M values
+    held the host 14-17 s)."""
+    import torch
     from mxnet_tpu_torch.models.transformer import param_shapes
-    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
     params = {}
     for name, shape in param_shapes(VOCAB, LAYERS, D_MODEL, HEADS, D_FF,
                                     MAX_SEQ).items():
@@ -1210,7 +1246,8 @@ def seeded_params(np, seed: int):
         elif name.endswith(("_beta", "_bias")):
             params[name] = np.zeros(shape, np.float32)
         else:
-            params[name] = rng.standard_normal(shape, np.float32) * 0.02
+            params[name] = (torch.randn(shape, generator=gen, device=DEVICE)
+                            * 0.02).cpu().numpy()
     return params
 
 
@@ -1970,7 +2007,7 @@ def plain_train_loss(torch, p, x, y):
     d = D_MODEL // HEADS
     h = p["tok_embed_weight"][x.long()] + p["pos_embed_weight"][:t]
     bias = torch.triu(torch.full((t, t), -1e9, device=x.device), 1)
-    for i in range(LAYERS):
+    for i in range(sum(k.endswith("_ln1_gamma") for k in p)):
         pf = "layer%d_" % i
         a = F.layer_norm(h, (D_MODEL,), p[pf + "ln1_gamma"],
                          p[pf + "ln1_beta"], 1e-5)
@@ -2011,6 +2048,32 @@ def kernel_kind(name: str) -> str:
     return "other"
 
 
+# the LM's Xavier(SEED) initial weights, drawn once a process and kept on
+# the host: phases 6, 6 f32, 15b and 19c start from them (each drew the
+# same values anew: ~11 s of numpy on the host a time). Keyed by widths.
+LM_XAVIER = {}
+
+
+def lm_xavier(torch, np):
+    """``{name: host tensor}``: exactly what ``Module.init_params``
+    draws with ``Xavier`` seeded by SEED on the LM at this width, drawn
+    once (``initial_weights``) and then handed out again."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.models import transformer
+    key = (VOCAB, LAYERS, D_MODEL, HEADS, D_FF, MAX_SEQ)
+    if key not in LM_XAVIER:
+        sym = transformer.get_symbol(VOCAB, LAYERS, D_MODEL, HEADS, D_FF,
+                                     MAX_SEQ, attention="flash")
+        args, _ = initial_weights(torch, np, sym, ((1, MAX_SEQ),) * 2,
+                                  mt.init.Xavier().set_rng(
+                                      np.random.default_rng(SEED)))
+        LM_XAVIER.clear()
+        LM_XAVIER[key] = {n: t.cpu() for n, t in args.items()}
+        del args
+        torch.cuda.empty_cache()
+    return LM_XAVIER[key]
+
+
 def train_lm(torch, np, counters, warm, timed):
     """Module on the zoo LM at bench.py's training configuration (batch
     8, T 1024, attention="flash", Xavier weights from numpy seed 0, SGD
@@ -2032,7 +2095,7 @@ def train_lm(torch, np, counters, warm, timed):
     mod = mt.mod.Module(sym, context=mt.gpu(0))
     mod.bind(data_shapes=[("data", (B, T))],
              label_shapes=[("softmax_label", (B, T))])
-    mod.init_params(mt.init.Xavier().set_rng(np.random.default_rng(SEED)))
+    mod.init_params(arg_params=lm_xavier(torch, np))
     mod.init_optimizer(optimizer="sgd",
                        optimizer_params={"learning_rate": TRAIN_LR})
     torch.cuda.synchronize()
@@ -2111,19 +2174,21 @@ def train_lm(torch, np, counters, warm, timed):
             "by_kind": by_kind}
 
 
-def check_training(what, run, dtype, peak_flops, peak_name):
+def check_training(what, run, dtype, peak_flops, peak_name, layers=None):
     """Log a training run's readings and hold it to the path: finite
     losses that fall, the step-1 cross-entropy within CE_TOL of the
     plain forward's, and each kernel launched once per layer per step
-    with inputs of ``dtype`` ("f32" or "bf16") only."""
+    with inputs of ``dtype`` ("f32" or "bf16") only. ``layers``: the
+    LM's depth (LAYERS unless the run cut it)."""
     from mxnet_tpu_torch.models import transformer
     B, T = TRAIN_BATCH, MAX_SEQ
+    layers = LAYERS if layers is None else layers
     losses, want, launches = run["losses"], run["want"], run["launches"]
     n_steps = len(losses)
-    n_params = transformer.param_count(VOCAB, LAYERS, D_MODEL, HEADS, D_FF,
+    n_params = transformer.param_count(VOCAB, layers, D_MODEL, HEADS, D_FF,
                                        T)
     n_embed = VOCAB * D_MODEL + T * D_MODEL
-    flops_per_tok = 6 * (n_params - n_embed) + 12 * LAYERS * D_MODEL * T
+    flops_per_tok = 6 * (n_params - n_embed) + 12 * layers * D_MODEL * T
     tok_s = B * T / (run["step_ms"] / 1e3)
     log("%s: bind %.3f s, first step %.3f s; step %.3f ms (%d steps between "
         "CUDA events) = %.1f tok/s; MFU %.4f of %.0f TFLOP/s %s (%.4g TFLOP "
@@ -2138,7 +2203,7 @@ def check_training(what, run, dtype, peak_flops, peak_name):
     log("%s: step-1 cross-entropy %.6f, plain f32 forward %.6f (|diff| %.3g, "
         "tolerance %g); launches %s over %d steps x %d layers"
         % (what, losses[0], want, abs(losses[0] - want), CE_TOL, launches,
-           n_steps, LAYERS))
+           n_steps, layers))
     check(all(math.isfinite(v) for v in losses), "%s: non-finite loss %s"
           % (what, losses))
     check(losses[-1] < losses[0], "%s: loss did not fall: %s"
@@ -2147,9 +2212,9 @@ def check_training(what, run, dtype, peak_flops, peak_name):
           "forward %g" % (what, losses[0], want))
     other = "bf16" if dtype == "f32" else "f32"
     for name, n in launches.items():
-        check(n[dtype] == n_steps * LAYERS and n[other] == 0,
+        check(n[dtype] == n_steps * layers and n[other] == 0,
               "%s: kernel %s launched %s times in %d steps x %d layers (%s "
-              "only expected)" % (what, name, n, n_steps, LAYERS, dtype))
+              "only expected)" % (what, name, n, n_steps, layers, dtype))
 
 
 def train_phase(torch, np, kernels):
@@ -4194,9 +4259,9 @@ def adam_fit_args(mt):
 
 
 def adam_lm(torch, np, counters):
-    """(b) The LM at bench.py's configuration (amp bf16 set by the
-    caller) through ``Module.fit`` with Adam, the FactorScheduler, the
-    composite metric and an async ``CheckpointConfig``, on one fixed
+    """(b) The LM at bench.py's width and ADAM_LAYERS deep (amp bf16 set
+    by the caller) through ``Module.fit`` with Adam, the FactorScheduler,
+    the composite metric and an async ``CheckpointConfig``, on one fixed
     batch: 1 + ADAM_WARM + ADAM_TIMED steps and one under
     torch.profiler, read from the batch-end callback; then the epoch's
     checkpoint. Returns train_lm's readings."""
@@ -4206,14 +4271,15 @@ def adam_lm(torch, np, counters):
     from mxnet_tpu_torch.models import transformer
     B, T = TRAIN_BATCH, MAX_SEQ
     steps = 1 + ADAM_WARM + ADAM_TIMED + 1
-    n_params = transformer.param_count(VOCAB, LAYERS, D_MODEL, HEADS, D_FF, T)
+    n_params = transformer.param_count(VOCAB, ADAM_LAYERS, D_MODEL, HEADS,
+                                       D_FF, T)
     ckpt_dir = ROOT / "build" / "phase11_lm_ckpt"
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     ckpt_dir.mkdir(parents=True)
     check_disk(ckpt_dir, int(1.1 * 3 * 4 * n_params), "LM Adam checkpoint")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    sym = transformer.get_symbol(VOCAB, LAYERS, D_MODEL, HEADS, D_FF, T,
+    sym = transformer.get_symbol(VOCAB, ADAM_LAYERS, D_MODEL, HEADS, D_FF, T,
                                  attention="flash")
     mod = mt.mod.Module(sym, context=mt.gpu(0))
     mod.bind(data_shapes=[("data", (B, T))],
@@ -4297,7 +4363,7 @@ def adam_lm(torch, np, counters):
           "the epoch's checkpoint did not land: %s" % ckpts)
     log("adam fit checkpoint (%d layers, weights + mean + var): %d bytes; "
         "fit blocked %.3f s on it, the writer took %.3f s"
-        % (LAYERS, ck["ckpt_bytes"], ck["ckpt_block_us"] / 1e6,
+        % (ADAM_LAYERS, ck["ckpt_bytes"], ck["ckpt_block_us"] / 1e6,
            ck["ckpt_write_us"] / 1e6))
     check(ck["ckpt_saved"] == 1, "checkpoints written: %d" % ck["ckpt_saved"])
     shutil.rmtree(ckpt_dir, ignore_errors=True)
@@ -4625,18 +4691,21 @@ def optim_phase(torch, np, sgd):
     mt.amp.init("bfloat16")
     try:
         run = adam_lm(torch, np, counters)
-        check_training("adam", run, "bf16", PEAK_BF16_FLOPS, "bf16")
-        n_params = transformer.param_count(VOCAB, LAYERS, D_MODEL, HEADS,
-                                           D_FF, MAX_SEQ)
+        check_training("adam", run, "bf16", PEAK_BF16_FLOPS, "bf16",
+                       layers=ADAM_LAYERS)
         n_embed = VOCAB * D_MODEL + MAX_SEQ * D_MODEL
-        flops = (6 * (n_params - n_embed) + 12 * LAYERS * D_MODEL * MAX_SEQ) \
-            * TRAIN_BATCH * MAX_SEQ
-        for what, r in (("sgd (phase 6)", sgd), ("adam", run)):
+        for what, r, layers in (("sgd (phase 6)", sgd, LAYERS),
+                                ("adam", run, ADAM_LAYERS)):
+            n_params = transformer.param_count(VOCAB, layers, D_MODEL, HEADS,
+                                               D_FF, MAX_SEQ)
+            flops = (6 * (n_params - n_embed)
+                     + 12 * layers * D_MODEL * MAX_SEQ) \
+                * TRAIN_BATCH * MAX_SEQ
             tok_s = TRAIN_BATCH * MAX_SEQ / (r["step_ms"] / 1e3)
-            log("%s: step %.3f ms, %.1f tok/s, MFU %.4f of 989 TFLOP/s bf16, "
-                "peak memory %.3f GB, optimizer (foreach) %.3f ms of %.3f ms "
-                "device time in the profiled step"
-                % (what, r["step_ms"], tok_s,
+            log("%s (%d layers): step %.3f ms, %.1f tok/s, MFU %.4f of 989 "
+                "TFLOP/s bf16, peak memory %.3f GB, optimizer (foreach) %.3f "
+                "ms of %.3f ms device time in the profiled step"
+                % (what, layers, r["step_ms"], tok_s,
                    flops / (r["step_ms"] / 1e3) / PEAK_BF16_FLOPS,
                    r["peak_gb"], r["by_kind"].get("optimizer (foreach)", 0.0),
                    r["busy_ms"]))
@@ -6831,6 +6900,8 @@ def grouped_lm_phase(torch, np, layers=None):
         bind_s = time.perf_counter() - t0
         plain = net.simple_bind(dev, data=(B, T), softmax_label=(B, T))
         init = mt.init.Xavier().set_rng(np.random.default_rng(SEED))
+        # at the full depth, phase 6's Xavier weights by name (drawn once)
+        drawn = lm_xavier(torch, np) if layers == LAYERS else {}
         rng = np.random.RandomState(0)
         x = rng.randint(0, VOCAB, (B, T)).astype(np.float32)
         y = rng.randint(0, VOCAB, (B, T)).astype(np.float32)
@@ -6839,6 +6910,8 @@ def grouped_lm_phase(torch, np, layers=None):
                 arr[:] = x
             elif n == "softmax_label":
                 arr[:] = y
+            elif n in drawn:
+                arr.data.copy_(drawn[n])
             else:
                 init(mt.init.InitDesc(n), arr)
             plain.arg_dict[n][:] = arr
@@ -7871,9 +7944,7 @@ def levers_lm(torch, np, kernels, sgd):
     B, T = TRAIN_BATCH, MAX_SEQ
     sym = transformer.get_symbol(VOCAB, LAYERS, D_MODEL, HEADS, D_FF, T,
                                  attention="flash")
-    init = initial_weights(torch, np, sym, ((B, T), (B, T)),
-                           mt.init.Xavier().set_rng(
-                               np.random.default_rng(SEED)))
+    init = ({n: t.to(DEVICE) for n, t in lm_xavier(torch, np).items()}, {})
     rng = np.random.RandomState(0)
     x = rng.randint(0, VOCAB, (B, T)).astype(np.float32)
     y = rng.randint(0, VOCAB, (B, T)).astype(np.float32)
@@ -9496,6 +9567,10 @@ def a9a_examples(torch, np, mt):
     readings = {}
     for name in A9A_EXAMPLES:
         example = importlib.import_module("mxnet_tpu_torch.examples." + name)
+        # the last example's cyclic garbage freed now, not while this one
+        # runs: freed then, it lowered the allocated bytes under the
+        # baseline the peak is read against (dqn's 0.2 MB read as none)
+        gc.collect()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         before = torch.cuda.memory_allocated()
@@ -9833,14 +9908,8 @@ def obs_fit(torch, np, mt, out, kernels_counted):
     rng = np.random.RandomState(SEED + 190)
     x = rng.randint(0, VOCAB, (n * B, T)).astype(np.float32)
     y = rng.randint(0, VOCAB, (n * B, T)).astype(np.float32)
-    sym = transformer.get_symbol(VOCAB, LAYERS, D_MODEL, HEADS, D_FF, T,
-                                 attention="flash")
-    m0 = mt.mod.Module(sym, context=mt.gpu(0))
-    m0.bind(data_shapes=[("data", (B, T))],
-            label_shapes=[("softmax_label", (B, T))])
-    m0.init_params(mt.init.Xavier().set_rng(np.random.default_rng(SEED)))
-    init = {k: v.copy() for k, v in m0.get_params()[0].items()}
-    del m0
+    init = {k: mt.nd.NDArray(v.to(DEVICE))
+            for k, v in lm_xavier(torch, np).items()}
     profiler.set_config(filename=str(out / "fit_trace.json"))
     profiler.dump()
     mt.amp.init("bfloat16")
@@ -10117,7 +10186,422 @@ def obs_phase(torch, np):
     return readings
 
 
-PAIRS_OF = ("f32-backward", "rtc", "fit-loop")
+# ------------------------------------- phase 20: the rest of analysis/
+
+# phase 20, the analyzer (A10b), on the LM at bench.py's width (flash,
+# amp bf16) and ResNet-50 at phase 8's configuration (amp bf16). (a)
+# each bound under MXNET_TPU_ANALYZE=strict with the card's 80 GB as the
+# budget, one real step beside the hbm-budget estimate, then a budget of
+# half the estimate, which must refuse the bind before it allocates; (b)
+# the counted cost of one training step of each against the cost model
+# (within the roofline's FLOP_MODEL_DRIFT_TOL, the flash kernels counted
+# by their launches), and the report's roofline block after a short fit;
+# (c) the program passes over the LM's traced training graph; (d) the
+# CLI in three processes on the card's host
+ANALYSIS_BUDGET = "80G"
+ANALYSIS_FIT_WARM, ANALYSIS_FIT_TIMED = 2, 3
+ANALYSIS_CONST = (4096, 4096)    # 64 MiB of f32: baked-const's ERROR bound
+ANALYSIS_CLI = (
+    ("lint", "--baseline", "mxnet_tpu_torch/tools/analysis_baseline.json",
+     "mxnet_tpu_torch"),
+    ("self-check",),
+    ("audit", "mlp", "resnet8", "transformer"))
+ANALYSIS_CLI_TIMEOUT_S = 300
+ANALYSIS_DEADLINE_S = 600
+# each flash op of the trace and the counting mode -> attention_bound's
+FLASH_OPS = {"flash_attention_fwd": "fwd", "flash_attention_bwd_dq": "dq",
+             "flash_attention_bwd_dkv": "dkv"}
+
+
+def analysis_lm(mt):
+    """The LM's symbol, its input shapes and one seeded batch on the
+    card (ids as float32, bench.py's)."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch.models import transformer
+    B, T = TRAIN_BATCH, MAX_SEQ
+    sym = transformer.get_symbol(VOCAB, LAYERS, D_MODEL, HEADS, D_FF, T,
+                                 attention="flash")
+    rng = np.random.RandomState(SEED + 200)
+    dev = torch.device(DEVICE)
+    db = mt.io.DataBatch(
+        data=[mt.nd.array(rng.randint(0, VOCAB, (B, T)).astype(np.float32),
+                          ctx=dev)],
+        label=[mt.nd.array(rng.randint(0, VOCAB, (B, T)).astype(np.float32),
+                           ctx=dev)])
+    return sym, {"data": (B, T), "softmax_label": (B, T)}, db
+
+
+def analysis_resnet(mt):
+    """ResNet-50 at phase 8's configuration, its input shapes and one
+    seeded batch on the card."""
+    import torch
+    from mxnet_tpu_torch.models import resnet
+    B, S = RESNET_BATCH, RESNET_IMAGE
+    sym = resnet.get_symbol(num_classes=RESNET_CLASSES,
+                            num_layers=RESNET_LAYERS, stem="s2d",
+                            image_shape="3,%d,%d" % (S, S))
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev).manual_seed(SEED + 201)
+    x = torch.randn(B, 3, S, S, generator=g, device=dev)
+    y = torch.randint(0, RESNET_CLASSES, (B,), generator=g,
+                      device=dev).float()
+    db = mt.io.DataBatch(data=[mt.nd.NDArray(x)], label=[mt.nd.NDArray(y)])
+    return sym, {"data": (B, 3, S, S), "softmax_label": (B,)}, db
+
+
+def analysis_bind(torch, mt, what, sym, shapes, db, lr):
+    """20a for one net (amp set by the caller): the bind's seconds with
+    the analyzer off and under strict, the strict bind's findings (none
+    may be an ERROR), the hbm-budget estimate beside the peak of one real
+    training step, then the refusal at half the estimate with the card's
+    allocated bytes unchanged. Returns the strictly bound module (its
+    parameters constant, its SGD optimizer set) and the readings."""
+    from mxnet_tpu_torch import analysis, config, profiler
+    from mxnet_tpu_torch.base import MXNetError
+
+    def bind():
+        mod = mt.mod.Module(sym, context=mt.gpu(0))
+        mod.bind(data_shapes=[("data", shapes["data"])],
+                 label_shapes=[("softmax_label", shapes["softmax_label"])])
+        return mod
+
+    def settle():
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+    config.set("MXNET_TPU_ANALYZE", "off")
+    for _ in range(2):      # the first bind of a symbol pays one-time costs
+        settle()
+        t0 = time.perf_counter()
+        mod = bind()
+        torch.cuda.synchronize()
+        off_s = time.perf_counter() - t0
+        del mod
+    settle()
+    config.set("MXNET_TPU_ANALYZE", "strict")
+    config.set("MXNET_TPU_ANALYZE_HBM_BUDGET", ANALYSIS_BUDGET)
+    with profiler.counter_delta() as d:
+        t0 = time.perf_counter()
+        mod = bind()
+        torch.cuda.synchronize()
+        on_s = time.perf_counter() - t0
+    fired = {k: v for k, v in d.all().items() if k.startswith("analysis_")}
+    # the report the strict bind enforced, again, for its numbers
+    b_shapes, b_dtypes = mod._exec._bound_shapes_dtypes()
+    rep = analysis.check_bind(sym, b_shapes, b_dtypes, mode="strict")
+    est = int(rep.extras["cost"]["peak_bytes"])
+    fits = rep.extras["hbm_budget"]["fits"]
+    mod.init_params(mt.init.Constant(0.01))
+    mod.init_optimizer(optimizer="sgd",
+                       optimizer_params={"learning_rate": lr})
+    settle()
+    torch.cuda.reset_peak_memory_stats()
+    mod._fit_step(db)
+    torch.cuda.synchronize()
+    step_peak = int(torch.cuda.max_memory_allocated())
+    # half the estimate: the bind is refused before it allocates
+    config.set("MXNET_TPU_ANALYZE_HBM_BUDGET", str(est // 2))
+    half = analysis.analyze_symbol(sym, input_shapes=b_shapes,
+                                   input_dtypes=b_dtypes,
+                                   calibrate_remat=False)
+    offenders = [o["name"] for o in half.extras["hbm_budget"]["offenders"]]
+    settle()
+    before = int(torch.cuda.memory_allocated())
+    refused = None
+    try:
+        bind()
+    except MXNetError as exc:
+        refused = str(exc)
+    after = int(torch.cuda.memory_allocated())
+    config.set("MXNET_TPU_ANALYZE_HBM_BUDGET", ANALYSIS_BUDGET)
+    log("20a %s: bind %.3f s with the analyzer off, %.3f s under strict "
+        "(findings by code %s; %d ERROR); the hbm-budget estimate %.3f GB "
+        "(%s budget: fits %s), the peak of one real training step %.3f GB "
+        "(torch.cuda.max_memory_allocated); at half the estimate (%.3f GB) "
+        "the bind is refused: %s; largest offenders %s; allocated %d bytes "
+        "before, %d after"
+        % (what, off_s, on_s, fired, len(rep.errors), est / 1e9,
+           ANALYSIS_BUDGET, fits, step_peak / 1e9, est / 2e9,
+           refused is not None, offenders[:3], before, after))
+    check(not rep.errors and fits, "20a %s: the strict bind's analysis has "
+          "%d ERROR findings: %s" % (what, len(rep.errors),
+                                     [f.format() for f in rep.errors]))
+    check(refused is not None and "hbm-budget" in refused
+          and offenders and offenders[0] in refused,
+          "20a %s: half the estimate did not refuse the bind naming %s: %s"
+          % (what, offenders[:1], refused))
+    check(before == after, "20a %s: the refused bind left %d bytes "
+          "allocated, %d before" % (what, after, before))
+    return mod, {"bind_off_s": off_s, "bind_strict_s": on_s,
+                 "estimate_bytes": est, "step_peak_bytes": step_peak,
+                 "findings": fired, "refused": refused is not None}
+
+
+def analysis_roofline(torch, mt, what, mod, db, counted):
+    """20b for one net: the counted cost of one training step
+    (``roofline.analyze_executable`` over ``Module._fit_step``) against
+    the cost model's training count, the flash kernels' share held to
+    their launches x their own per-launch FLOPs (attention_bound's
+    formula), and the classification on the card's row."""
+    from mxnet_tpu_torch.analysis import roofline
+    from mxnet_tpu_torch.obs import mfu
+    model = mfu.TRAIN_FLOP_MULTIPLIER * \
+        float(mod.analyze().extras["cost"]["flops"])
+    before = {k: dict(fn.launches) for k, fn in counted.items()}
+    t0 = time.perf_counter()
+    rep = roofline.analyze_executable(mod._fit_step, db, model_flops=model,
+                                      context=what)
+    torch.cuda.synchronize()
+    count_s = time.perf_counter() - t0
+    roof = rep.extras["roofline"]
+    bh, d = TRAIN_BATCH * HEADS, D_MODEL // HEADS
+    share = 0
+    for op, rec in roof["flash"].items():
+        per = attention_bound(FLASH_OPS[op], bh, MAX_SEQ, MAX_SEQ, d, True,
+                              2)[2]
+        launched = counted[op].launches["bf16"] - before[op]["bf16"]
+        check(rec["flops"] == rec["launches"] * per
+              and rec["launches"] == launched,
+              "20b %s: %s counted %d FLOP over %d launches (the wrapper "
+              "counted %d), not %d a launch" % (what, op, rec["flops"],
+                                                rec["launches"], launched,
+                                                per))
+        share += rec["flops"]
+    drift = [f for f in rep if f.code == "flop-model-drift"]
+    log("20b %s: one training step counted in %.2f s: %.6g FLOP over %d "
+        "ops against the cost model's %.6g (ratio %.4f, limit 1 +- %g); "
+        "%.6g bytes; the flash kernels %s = %.6g FLOP (%.2f%%); %s-bound, "
+        "intensity %s FLOP/byte against the balance %s, attainable MFU %s "
+        "(peak %s, HBM %s GB/s)"
+        % (what, count_s, roof["compiled_flops"], roof["ops"], model,
+           roof["model_ratio"], roofline.FLOP_MODEL_DRIFT_TOL,
+           roof["compiled_bytes_accessed"], roof["flash"], share,
+           100 * share / roof["compiled_flops"], roof.get("bound"),
+           roof.get("intensity_flops_per_byte"),
+           roof.get("balance_flops_per_byte"), roof.get("attainable_mfu"),
+           roof.get("peak_flops"), roof.get("hbm_gbps")))
+    check(abs(roof["model_ratio"] - 1.0) <= roofline.FLOP_MODEL_DRIFT_TOL
+          and not drift, "20b %s: counted %.6g FLOP against the model's "
+          "%.6g" % (what, roof["compiled_flops"], model))
+    if DEVICE.startswith("cuda"):
+        check(roof.get("hbm_gbps") == 3350.0
+              and roof.get("peak_flops") == PEAK_BF16_FLOPS,
+              "20b %s: classify read peak %s, HBM %s for %r" % (
+                  what, roof.get("peak_flops"), roof.get("hbm_gbps"),
+                  torch.cuda.get_device_name(0)))
+    return {"counted_flops": roof["compiled_flops"], "model_flops": model,
+            "ratio": roof["model_ratio"], "flash_flops": share,
+            "flash": roof["flash"], "bytes": roof["compiled_bytes_accessed"],
+            "bound": roof.get("bound"),
+            "attainable_mfu": roof.get("attainable_mfu"), "count_s": count_s}
+
+
+def analysis_report(torch, mt, mod, db):
+    """20b: a short fit of the LM module; the second ``mt.obs.report()``
+    carries its roofline block, ``measured_mfu`` the report's MFU."""
+    B, T = TRAIN_BATCH, MAX_SEQ
+    n = ANALYSIS_FIT_WARM + ANALYSIS_FIT_TIMED
+    reports = []
+
+    def at_batch(p):
+        if p.nbatch in (ANALYSIS_FIT_WARM - 1, n - 1):
+            token = mod._step_token()
+            if token is not None:
+                token.synchronize()
+            reports.append(mt.obs.report())
+
+    mod.fit(RepeatIter(db, n, (B, T), (B, T)), num_epoch=1,
+            batch_end_callback=at_batch,
+            eval_metric=mt.metric.CrossEntropy(), optimizer="sgd",
+            optimizer_params={"learning_rate": TRAIN_LR})
+    recs = [r for r in reports[-1]["executors"]
+            if r["name"] == mod._obs_label]
+    check(len(reports) == 2 and len(recs) == 1, "20b: report() did not "
+          "list the module")
+    rec = recs[0]
+    roof = rec.get("roofline") or {}
+    gauge = reports[-1]["gauges"].get("obs_mfu")
+    log("20b report() after a fit of %d steps: mfu %s (obs_mfu %s), "
+        "roofline %s" % (n, rec["mfu"], gauge, json.dumps(roof)))
+    want = ("bound", "attainable_mfu", "measured_mfu", "why")
+    check(all(k in roof for k in want), "20b: the roofline block lacks %s"
+          % [k for k in want if k not in roof])
+    check(roof["measured_mfu"] == round(rec["mfu"], 4) and gauge == rec["mfu"],
+          "20b: measured_mfu %s is not obs_mfu %s" % (roof["measured_mfu"],
+                                                      gauge))
+    return roof
+
+
+def analysis_program(torch, mod):
+    """20c: the program passes over the LM executor's training graph (the
+    forward and its gradients), traced on fake tensors: no ERROR, each
+    flash kernel a node, once per layer in each direction; then a
+    deliberate 64 MiB closure constant and a deliberate ``.item()``,
+    each of which must fire its finding."""
+    from mxnet_tpu_torch.analysis import (analyze_graph, analyze_program,
+                                          analyze_program_memory,
+                                          program_passes)
+    ex = mod._exec
+    dev = torch.device(DEVICE)
+    wrt = list(ex._wrt)
+    args = {n: a.data.detach().requires_grad_(n in wrt)
+            for n, a in ex.arg_dict.items()}
+    aux = {n: a.data for n, a in ex.aux_dict.items()}
+
+    def step(a, x):
+        outs, _ = ex._fn(a, x, True, dev)
+        return torch.autograd.grad(outs, [a[n] for n in wrt],
+                                   [torch.ones_like(o) for o in outs])
+
+    t0 = time.perf_counter()
+    gm, n_args = program_passes.trace(step, args, aux)
+    trace_s = time.perf_counter() - t0
+    rep = analyze_graph(gm, n_args=n_args, context="lm-train")
+    mem = analyze_program_memory(gm).extras["program_memory"]
+    ops = rep.extras["program"]["ops"]
+    flash = {op: ops.get("mxnet_tpu_torch.%s.default" % op, 0)
+             for op in FLASH_OPS}
+    big = torch.ones(ANALYSIS_CONST, device=dev)
+    x = torch.ones(8, ANALYSIS_CONST[0], device=dev)
+    baked = [f for f in analyze_program(lambda v: v @ big, x)
+             if f.code == "baked-const"]
+    synced = [f for f in analyze_program(lambda v: v * v.sum().item(), x)
+              if f.code == "host-callback"]
+    del big, x
+    log("20c program passes over the LM's training graph (traced in %.2f s "
+        "on fake tensors): %d nodes, findings %s; flash kernels as nodes "
+        "%s; activation high-water %.3f GB (+%.3f GB arguments); a 64 MiB "
+        "closure constant: %s; an .item(): %s"
+        % (trace_s, rep.extras["program"]["nodes"],
+           [(f.code, f.severity.name) for f in rep], flash,
+           mem["activation_peak_bytes"] / 1e9, mem["arg_bytes"] / 1e9,
+           [(f.code, f.severity.name, f.detail["nbytes"]) for f in baked],
+           [(f.code, f.detail["primitive"]) for f in synced]))
+    check(not rep.errors, "20c: ERROR findings on the LM's graph: %s"
+          % [f.format() for f in rep.errors])
+    check(all(v == LAYERS for v in flash.values()), "20c: flash kernels as "
+          "nodes %s, %d layers" % (flash, LAYERS))
+    check(len(baked) == 1 and baked[0].severity.name == "ERROR"
+          and baked[0].detail["nbytes"] == 4 * ANALYSIS_CONST[0]
+          * ANALYSIS_CONST[1], "20c: the 64 MiB constant: %s" % baked)
+    check(len(synced) == 1 and synced[0].detail["primitive"]
+          == "aten._local_scalar_dense.default",
+          "20c: the .item(): %s" % synced)
+    return {"trace_s": trace_s, "nodes": rep.extras["program"]["nodes"],
+            "flash_nodes": flash,
+            "activation_peak_bytes": mem["activation_peak_bytes"]}
+
+
+def analysis_cli_start():
+    """20d, started: ``lint --baseline`` over the port, ``self-check``
+    and ``audit mlp resnet8 transformer`` as processes of their own,
+    all at once (they run beside 20a-c: small nets, their own
+    allocators). Returns the start time and the processes."""
+    on_card = DEVICE.startswith("cuda")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    t0 = time.perf_counter()
+    procs = []
+    for cmd in ANALYSIS_CLI:
+        argv = list(cmd)
+        if not on_card and cmd[0] in ("self-check", "audit"):
+            argv.append("--cpu")
+        procs.append((argv, subprocess.Popen(
+            [sys.executable, "-m", "mxnet_tpu_torch.analysis"] + argv,
+            cwd=str(ROOT), env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)))
+    return t0, procs
+
+
+def analysis_cli(torch, started):
+    """20d, finished: each command must exit 0, and each audit's
+    roofline line must name this device and not be unknown."""
+    on_card = DEVICE.startswith("cuda")
+    t0, procs = started
+    out = {}
+    for argv, proc in procs:
+        try:
+            text, _ = proc.communicate(timeout=ANALYSIS_CLI_TIMEOUT_S)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        out[argv[0]] = (proc.returncode, text)
+    wall = time.perf_counter() - t0
+    for name, (rc, text) in out.items():
+        log("20d python -m mxnet_tpu_torch.analysis %s: exit %d\n%s"
+            % (name, rc, "\n".join("    " + ln
+                                    for ln in text.strip().splitlines()
+                                    if not ln.startswith("WARNING"))))
+        check(rc == 0, "20d: %s exited %d" % (name, rc))
+    roof_lines = [ln for ln in out["audit"][1].splitlines()
+                  if ln.strip().startswith("roofline:")]
+    where = torch.cuda.get_device_name(0) if on_card else "the host CPU"
+    check(len(roof_lines) == 3 and all(
+        where in ln and "unknown" not in ln for ln in roof_lines)
+          if on_card else len(roof_lines) == 3,
+          "20d: the audit's roofline lines do not read %s: %s"
+          % (where, roof_lines))
+    log("20d: three commands in %.1f s (started together, beside 20a-c)"
+        % wall)
+    return {"wall_s": wall, "exit": {k: v[0] for k, v in out.items()}}
+
+
+def analysis_phase(torch, np):
+    """Phase 20: the rest of analysis/ (A10b): 20a-20d."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import config
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    t0 = time.perf_counter()
+    counted = {"flash_attention_fwd": fa.flash_attention_fwd,
+               "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
+               "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv}
+    snap = config.snapshot_overrides(["MXNET_TPU_ANALYZE",
+                                      "MXNET_TPU_ANALYZE_HBM_BUDGET"])
+    readings = {}
+    cli = analysis_cli_start()
+    try:
+        mt.amp.init("bfloat16")
+        try:
+            sym, shapes, db = analysis_lm(mt)
+            mod, readings["20a lm"] = analysis_bind(torch, mt, "LM", sym,
+                                                    shapes, db, TRAIN_LR)
+            config.set("MXNET_TPU_ANALYZE", "off")
+            readings["20b lm"] = analysis_roofline(torch, mt, "LM", mod, db,
+                                                   counted)
+            readings["20b report"] = analysis_report(torch, mt, mod, db)
+            readings["20c"] = analysis_program(torch, mod)
+            del mod, db
+            gc.collect()
+            torch.cuda.empty_cache()
+            sym, shapes, db = analysis_resnet(mt)
+            mod, readings["20a resnet"] = analysis_bind(
+                torch, mt, "ResNet-50", sym, shapes, db, RESNET_LR)
+            config.set("MXNET_TPU_ANALYZE", "off")
+            readings["20b resnet"] = analysis_roofline(
+                torch, mt, "ResNet-50", mod, db, counted)
+            check(not readings["20b resnet"]["flash"], "20b ResNet-50: "
+                  "flash kernels counted %s"
+                  % readings["20b resnet"]["flash"])
+            del mod, db
+            gc.collect()
+            torch.cuda.empty_cache()
+        finally:
+            mt.amp.off()
+            config.restore_overrides(snap)
+        readings["20d"] = analysis_cli(torch, cli)
+    finally:
+        for _, proc in cli[1]:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    log("20 analysis: %.1f s; %s" % (time.perf_counter() - t0,
+                                     json.dumps(readings, default=str)))
+    return readings
+
+
+PAIRS_OF = ("f32-backward", "rtc", "fit-loop", "steps")
 
 
 def fit_loop_timing(torch, np):
@@ -10145,6 +10629,69 @@ def fit_loop_timing(torch, np):
             for k, r in runs.items()}
 
 
+def step_digests(torch, np):
+    """Phase 6's LM (3 steps) and phase 8's ResNet-50 (2 steps) in amp
+    bf16 through the imported package's ``Module._fit_step``, from
+    weights drawn on the card from a seed, under
+    ``cudnn.deterministic``: a sha256 of every parameter (and aux state)
+    after the steps. Equal digests from two checkouts' packages mean
+    their kernels and steps computed the same bits."""
+    import hashlib
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.models import resnet, transformer
+    dev = torch.device(DEVICE)
+    torch.backends.cudnn.deterministic = True
+    g = torch.Generator(device=dev).manual_seed(SEED)
+
+    def run(sym, shapes, x, y, lr, steps, extra=None):
+        mod = mt.mod.Module(sym, context=mt.gpu(0))
+        mod.bind(data_shapes=[("data", shapes[0])],
+                 label_shapes=[("softmax_label", shapes[1])])
+        mod.init_params(mt.init.Constant(0.0))
+        for n in mod._param_names:
+            a = mod._exec.arg_dict[n]
+            a.data.copy_(torch.randn(a.shape, generator=g, device=dev)
+                         * 0.02)
+        mod.init_optimizer(optimizer="sgd", optimizer_params=dict(
+            {"learning_rate": lr}, **(extra or {})))
+        db = mt.io.DataBatch(data=[mt.nd.NDArray(x)],
+                             label=[mt.nd.NDArray(y)])
+        for _ in range(steps):
+            mod._fit_step(db)
+        torch.cuda.synchronize()
+        h = hashlib.sha256()
+        args, aux = mod.get_params()
+        params = dict(args, **aux)
+        for n in sorted(params):
+            h.update(params[n].data.float().cpu().numpy().tobytes())
+        del mod
+        gc.collect()
+        torch.cuda.empty_cache()
+        return h.hexdigest()
+
+    B, T, S = TRAIN_BATCH, MAX_SEQ, RESNET_IMAGE
+    mt.amp.init("bfloat16")
+    try:
+        ids = lambda: torch.randint(0, VOCAB, (B, T), generator=g,
+                                    device=dev).float()
+        lm = run(transformer.get_symbol(VOCAB, LAYERS, D_MODEL, HEADS, D_FF,
+                                        T, attention="flash"),
+                 ((B, T), (B, T)), ids(), ids(), TRAIN_LR, 3)
+        x = torch.randn(RESNET_BATCH, 3, S, S, generator=g, device=dev)
+        y = torch.randint(0, RESNET_CLASSES, (RESNET_BATCH,), generator=g,
+                          device=dev).float()
+        rn = run(resnet.get_symbol(num_classes=RESNET_CLASSES,
+                                   num_layers=RESNET_LAYERS, stem="s2d",
+                                   image_shape="3,%d,%d" % (S, S)),
+                 ((RESNET_BATCH, 3, S, S), (RESNET_BATCH,)), x, y,
+                 RESNET_LR, 2, {"momentum": RESNET_MOMENTUM,
+                                "wd": RESNET_WD})
+    finally:
+        mt.amp.off()
+        torch.backends.cudnn.deterministic = False
+    return {"lm": lm, "resnet": rn}
+
+
 def pairs_of(checkout: str, what: str) -> int:
     """``--pairs-of CHECKOUT WHAT``: one timing of another checkout's
     package (the parent commit's, say), built here and run by this
@@ -10154,7 +10701,9 @@ def pairs_of(checkout: str, what: str) -> int:
     ``scale_add`` and ``split``, and :data:`B6F_STREAM_SOURCE`'s
     versions of the first two, with torch's calls (:func:`rtc_pairs`);
     ``fit-loop`` times AlexNet through that package's ``fit``
-    (:func:`fit_loop_timing`). Prints the readings as one JSON line."""
+    (:func:`fit_loop_timing`); ``steps`` digests the parameters after a
+    few LM and ResNet-50 steps (:func:`step_digests`). Prints the
+    readings as one JSON line."""
     if what not in PAIRS_OF:
         print("chip_smoke: --pairs-of CHECKOUT WHAT, WHAT one of %s"
               % (PAIRS_OF,), file=sys.stderr)
@@ -10170,6 +10719,9 @@ def pairs_of(checkout: str, what: str) -> int:
         elif what == "fit-loop":
             import numpy as np
             readings = fit_loop_timing(torch, np)
+        elif what == "steps":
+            import numpy as np
+            readings = step_digests(torch, np)
         else:
             from mxnet_tpu_torch import rtc_examples as ex
             rows = TRAIN_BATCH * MAX_SEQ
@@ -10229,6 +10781,10 @@ def main() -> int:
         # so does a hung client, scrape, batcher or recorder child
         faulthandler.dump_traceback_later(OBS_DEADLINE_S, exit=True)
         obs_phase(torch, np)
+        faulthandler.cancel_dump_traceback_later()
+        # so does a hung trace, fit or CLI process
+        faulthandler.dump_traceback_later(ANALYSIS_DEADLINE_S, exit=True)
+        analysis_phase(torch, np)
         faulthandler.cancel_dump_traceback_later()
         torch.cuda.synchronize()
     except SmokeFailure as exc:

@@ -125,8 +125,9 @@ __version__ = "0.1.0"
 def __getattr__(name):
     # data is lazy, as in the reference: a fit fed by any other iterator
     # never imports the multi-process loader; obs loads at first use (a
-    # build, a bind, a server's endpoint)
-    if name in ("data", "obs"):
+    # build, a bind, a server's endpoint); analysis at the first call
+    # that asks for it (a bind under MXNET_TPU_ANALYZE, Symbol.analyze)
+    if name in ("data", "obs", "analysis"):
         import importlib
         return importlib.import_module("." + name, __name__)
     raise AttributeError("module %r has no attribute %r" % (__name__, name))

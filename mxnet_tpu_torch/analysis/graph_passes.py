@@ -1,14 +1,24 @@
 """Static passes over ``Symbol`` graphs, run before a bind's first step.
 
-The part of the reference's ``analysis/graph_passes.py`` that
-``MXNET_TPU_REMAT=auto`` needs: :class:`GraphContext`, the pass
-registry, the node-wise shape pass (``shape-error``), the static FLOP
-rules (:func:`_node_flops`) and :func:`analyze_symbol`. The memory
-pass ``remat-opportunity`` registers from :mod:`.memory_passes`, and
-the ``cost-model`` pass (per-node FLOPs and bytes, the liveness peak;
-``Report.extras["cost"]``), which ``Module.analyze`` and the MFU gauge
-(:mod:`..obs.mfu`) read. The structural passes (cycle, dup-name,
-dead-node) and the HBM budget are queue A10b.
+The port of the reference's ``analysis/graph_passes.py``, in the
+reference's order:
+
+* ``cycle`` — the graph must be a DAG (a hand-mutated node list can
+  close a loop; the graph function would recurse forever);
+* ``dup-name`` — two distinct nodes sharing a name (duplicate Variables
+  bind ONE buffer to both; duplicate op names collide in
+  ``list_outputs`` and checkpoint JSON);
+* ``dead-node`` / ``unused-input`` — outputs of a multi-output op that
+  nothing consumes, and bindings that name no graph variable;
+* ``shape-error`` — the node-wise shape pass, with op-contextualized
+  errors;
+* ``cost-model`` — per-node FLOPs (:func:`_node_flops`) and bytes and
+  the liveness peak (``Report.extras["cost"]``), which
+  ``Module.analyze``, the MFU gauge (:mod:`..obs.mfu`) and the
+  ``hbm-budget`` pass read.
+
+The memory passes (``remat-opportunity``, ``hbm-budget``) register from
+:mod:`.memory_passes`.
 
 The reference finds each node's output shapes and dtypes with
 ``jax.eval_shape``; the port runs the node's op on ``meta`` tensors of
@@ -113,6 +123,107 @@ def graph_pass(code):
         GRAPH_PASSES.append((code, fn))
         return fn
     return _reg
+
+
+def _find_cycle(entries) -> Optional[List[Any]]:
+    """Iterative 3-color DFS; returns one cycle's node list or None.
+    Must not rely on ``_topo_order`` (which silently tolerates cycles)."""
+    WHITE, GRAY, BLACK = 0, 1, 2
+    color: Dict[int, int] = {}
+    for root, _ in entries:
+        if color.get(id(root), WHITE) != WHITE:
+            continue
+        stack = [(root, iter([n for n, _ in root.inputs]))]
+        color[id(root)] = GRAY
+        path = [root]
+        while stack:
+            node, it = stack[-1]
+            child = next(it, None)
+            if child is None:
+                color[id(node)] = BLACK
+                stack.pop()
+                path.pop()
+                continue
+            c = color.get(id(child), WHITE)
+            if c == GRAY:
+                i = next(i for i, n in enumerate(path) if n is child)
+                return path[i:] + [child]
+            if c == WHITE:
+                color[id(child)] = GRAY
+                stack.append((child, iter([n for n, _ in child.inputs])))
+                path.append(child)
+    return None
+
+
+# ------------------------------------------------------- structural passes
+
+
+@graph_pass("cycle")
+def check_cycles(ctx: GraphContext, report: Report) -> None:
+    cyc = _find_cycle(ctx.entries)
+    if cyc is not None:
+        ctx.has_cycle = True
+        names = " -> ".join(n.name for n in cyc)
+        report.add(
+            "cycle", Severity.ERROR,
+            "graph contains a cycle (%s) — binding would recurse forever "
+            "while the graph runs" % names,
+            node=cyc[0].name, op=getattr(cyc[0].op, "name", "null"))
+
+
+@graph_pass("dup-name")
+def check_duplicate_names(ctx: GraphContext, report: Report) -> None:
+    by_name: Dict[str, List[Any]] = {}
+    for node in ctx.nodes:
+        by_name.setdefault(node.name, []).append(node)
+    for name, nodes in by_name.items():
+        if len(nodes) < 2:
+            continue
+        kinds = ["variable" if n.is_variable else n.op.name for n in nodes]
+        if all(n.is_variable for n in nodes):
+            msg = ("%d distinct Variable nodes named %r — bind maps ONE "
+                   "buffer onto all of them and gradients silently merge"
+                   % (len(nodes), name))
+        else:
+            msg = ("%d distinct nodes named %r (%s) — output names and "
+                   "checkpoint JSON collide" % (len(nodes), name,
+                                                ", ".join(kinds)))
+        report.add("dup-name", Severity.ERROR, msg, node=name,
+                   op=kinds[0])
+
+
+@graph_pass("dead-node")
+def check_dead_nodes(ctx: GraphContext, report: Report) -> None:
+    from ..symbol.symbol import _num_visible_outputs
+    consumed = {(id(src), i) for node in ctx.nodes
+                for src, i in node.inputs}
+    heads = {(id(n), i) for n, i in ctx.entries}
+    for node in ctx.nodes:
+        if node.is_variable:
+            continue
+        try:
+            n_out = _num_visible_outputs(node.op, node.attrs)
+        except Exception:                                   # noqa: BLE001
+            continue
+        if n_out < 2:
+            # single-output nodes are reachable == consumed by construction
+            continue
+        dead = [i for i in range(n_out)
+                if (id(node), i) not in consumed
+                and (id(node), i) not in heads]
+        if dead:
+            report.add(
+                "dead-node", Severity.WARNING,
+                "output(s) %s of %d-output op are never consumed — computed "
+                "then discarded every run (slice less, or drop the op)"
+                % (dead, n_out), node=node.name, op=node.op.name)
+    graph_vars = {n.name for n in ctx.nodes if n.is_variable}
+    for name in ctx.input_shapes:
+        if name != "__batch_size__" and name not in graph_vars:
+            report.add(
+                "unused-input", Severity.WARNING,
+                "provided binding %r names no graph variable (typo, or a "
+                "stale shape dict)" % name, node=name)
 
 
 def _eval_node_meta(node, in_avals):

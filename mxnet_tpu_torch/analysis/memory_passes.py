@@ -1,29 +1,39 @@
-"""Memory passes: the ``remat-opportunity`` pass and its calibration.
+"""Memory passes: activation liveness, remat opportunities, HBM budget.
 
-The part of the reference's ``analysis/memory_passes.py`` that
-``MXNET_TPU_REMAT=auto`` needs. ``remat-opportunity`` (graph pass,
-INFO) ranks long-lived, cheap-to-recompute activations: bytes held from
-the forward until the backward revisits them, against the FLOPs it
-would cost to recompute them. The report (``Report.extras["remat"]``)
-carries the candidates and a policy suggestion, which :mod:`..remat`
-applies; with a verified repeated chain, the suggestion's
-``est_peak_saving`` is calibrated on one block
-(:func:`_predict_block_savings`). Also the budget check of a long-lived
-reservation (:func:`check_reservation`, the serve KV cache's audit) and
-its byte-size parser (:func:`parse_bytes`), copies of the reference's.
-The bind-time HBM budget pass and the program liveness walk are queue
-A10.
+The port of the reference's ``analysis/memory_passes.py``:
+
+* ``remat-opportunity`` (graph pass, INFO) ranks long-lived,
+  cheap-to-recompute activations: bytes held from the forward until the
+  backward revisits them, against the FLOPs it would cost to recompute
+  them. The report (``Report.extras["remat"]``) carries the candidates
+  and a policy suggestion, which :mod:`..remat` applies; with a verified
+  repeated chain, the suggestion's ``est_peak_saving`` is calibrated on
+  one block (:func:`_predict_block_savings`);
+* ``hbm-budget`` (graph pass, ERROR) — an enforceable per-device memory
+  budget (``MXNET_TPU_ANALYZE_HBM_BUDGET``, e.g. ``16G``): when the
+  static peak estimate (bound buffers + activation high-water) exceeds
+  it, the finding names the offending arrays and ``strict`` mode rejects
+  the bind before anything is allocated for it;
+* :func:`analyze_program_memory` (program-level) — liveness over the
+  aten graph a trace captured (:func:`.program_passes.trace`): the
+  activation high-water plus the largest values live at the peak. This
+  is the program twin of the graph cost model's ``peak_bytes``;
+* :func:`check_reservation` — the budget check of a long-lived
+  reservation (the serve KV cache's audit).
+
+The budget knob is parsed with K/M/G/T suffixes (:func:`parse_bytes`).
 """
 from __future__ import annotations
 
+import operator
 import re
 from typing import Any, Dict, List, Tuple
 
 from .findings import Report, Severity
 from .graph_passes import GraphContext, _nelem, _node_flops, graph_pass
 
-__all__ = ["REMAT_CHEAP_FLOPS_PER_BYTE", "REMAT_TOP_N", "saved_bytes",
-           "parse_bytes", "check_reservation"]
+__all__ = ["analyze_program_memory", "parse_bytes", "check_reservation",
+           "saved_bytes", "REMAT_CHEAP_FLOPS_PER_BYTE", "REMAT_TOP_N"]
 
 # recompute cost ceiling for a "cheap" activation: recomputing must cost
 # no more than this many FLOPs per byte saved (elementwise/norm/softmax
@@ -288,6 +298,68 @@ def _predict_block_savings(ctx: GraphContext, policy_name: str):
         return None
 
 
+# ------------------------------------------------------------- HBM budget
+
+
+@graph_pass("hbm-budget")
+def budget_pass(ctx: GraphContext, report: Report) -> None:
+    """Reject binds whose static peak estimate cannot fit the budget.
+
+    Reads ``Report.extras["cost"]`` (the cost-model pass runs first) and
+    the ``MXNET_TPU_ANALYZE_HBM_BUDGET`` knob; the ERROR finding names
+    the offending arrays — the largest bound buffers and the activations
+    live at the high-water point — so the fix (shard it, remat it,
+    shrink the batch) is actionable from the message alone.
+    """
+    from .. import config as _config
+    raw = _config.get("MXNET_TPU_ANALYZE_HBM_BUDGET")
+    try:
+        budget = parse_bytes(raw)
+    except ValueError as exc:
+        # a config typo must not brick every bind in warn mode: degrade
+        # to a finding that names the knob (strict mode still proceeds —
+        # WARNING, not ERROR, because no memory claim was established)
+        report.add(
+            "hbm-budget", Severity.WARNING,
+            "MXNET_TPU_ANALYZE_HBM_BUDGET=%r is unparseable (%s) — the "
+            "memory budget is NOT being enforced" % (raw, exc))
+        return
+    if budget <= 0:
+        return
+    cost = report.extras.get("cost")
+    if not cost:
+        return
+    peak = int(cost.get("peak_bytes") or 0)
+    if peak <= budget:
+        report.extras["hbm_budget"] = {"budget_bytes": budget,
+                                       "peak_bytes": peak, "fits": True}
+        return
+    # name the offenders: biggest bound variables + biggest activations
+    offenders: List[Tuple[str, str, int]] = []
+    for node in ctx.nodes:
+        aval = ctx.shapes.get((id(node), 0)) if node.is_variable else None
+        if aval is not None:
+            offenders.append((node.name, "bound", _nelem(aval[0])
+                              * aval[1].itemsize))
+    for rec in cost.get("top_nodes", ()):
+        offenders.append((rec["node"], "op bytes-moved", int(rec["bytes"])))
+    offenders.sort(key=lambda r: -r[2])
+    offenders = offenders[:6]
+    named = ", ".join("%s (%s, %.3g MB)" % (n, kind, b / 1e6)
+                      for n, kind, b in offenders)
+    report.extras["hbm_budget"] = {
+        "budget_bytes": budget, "peak_bytes": peak, "fits": False,
+        "offenders": [{"name": n, "kind": k, "bytes": b}
+                      for n, k, b in offenders]}
+    report.add(
+        "hbm-budget", Severity.ERROR,
+        "estimated peak memory %.3g MB exceeds MXNET_TPU_ANALYZE_HBM_BUDGET"
+        " %.3g MB — largest contributors: %s (shard/remat them or shrink "
+        "the batch; strict mode rejects this bind before it allocates)"
+        % (peak / 1e6, budget / 1e6, named),
+        detail={"budget_bytes": budget, "peak_bytes": peak})
+
+
 # ------------------------------------------------ reservation budget
 
 
@@ -329,3 +401,124 @@ def check_reservation(name: str, nbytes: int,
         raise MXNetError("hbm-budget: " + msg)
     logging.getLogger(__name__).warning("hbm-budget: %s", msg)
     return out
+
+
+# ------------------------------------------------- program-level liveness
+
+
+def _node_values(node) -> List[int]:
+    """Bytes of each value a graph node makes: one per tensor of its
+    result (a multi-output op's tuple elements each), none for a
+    ``getitem`` (it names an element of its source's result)."""
+    from .program_passes import _tensors, nbytes
+    if node.target is operator.getitem:
+        return []
+    return [nbytes(t) for t in _tensors(node.meta.get("val"))]
+
+
+def _graph_peak(gm) -> Tuple[int, List[Dict[str, Any]]]:
+    """Liveness high-water of one traced graph's *intermediates*
+    (placeholders and constants excluded — those are the caller's and
+    the closure's buffers). Each call node's values come alive when it
+    runs and die after their last use; a value nothing uses dies right
+    after the peak check. A ``getitem`` is not a use: its users use the
+    element it names. Returns (peak_bytes, live-set snapshot at the
+    peak)."""
+    from .program_passes import _tensors, target_name
+    nodes = [n for n in gm.graph.nodes if n.op == "call_function"]
+    order = {n: i for i, n in enumerate(nodes)}
+
+    def sources(user):
+        """(producer, element) pairs a node consumes."""
+        out = set()
+        for a in user.all_input_nodes:
+            if a.op == "call_function" and a.target is operator.getitem:
+                src, idx = a.args[0], a.args[1]
+                if src in order:
+                    out.add((src, int(idx)))
+            elif a in order:
+                for i in range(len(_node_values(a))):
+                    out.add((a, i))
+        return out
+
+    end = len(nodes)
+    last: Dict[Tuple[Any, int], int] = {}
+    for i, n in enumerate(nodes):
+        for key in sources(n):
+            last[key] = i
+    out_node = next(n for n in gm.graph.nodes if n.op == "output")
+    for key in sources(out_node):
+        last[key] = end
+    live = 0
+    peak = 0
+    alive: Dict[Tuple[Any, int], Tuple[int, str]] = {}
+    at_peak: List[Dict[str, Any]] = []
+    for i, n in enumerate(nodes):
+        vals = _node_values(n)
+        for j, b in enumerate(vals):
+            live += b
+            t = _tensors(n.meta.get("val"))[j]
+            alive[(n, j)] = (b, "%s -> %s%s" % (
+                target_name(n), str(t.dtype).replace("torch.", ""),
+                list(t.shape)))
+        if live > peak:
+            peak = live
+            at_peak = [{"bytes": b, "value": v} for b, v in
+                       sorted(alive.values(), key=lambda r: -r[0])[:5]]
+        for key in sources(n):
+            if last.get(key) == i and key in alive:
+                live -= alive.pop(key)[0]
+        for j in range(len(vals)):
+            # values nothing ever consumes die right after the peak
+            # check — leaving them "live" to the end would inflate every
+            # later point
+            if (n, j) not in last and (n, j) in alive:
+                live -= alive.pop((n, j))[0]
+    return peak, at_peak
+
+
+def analyze_program_memory(fn, *args, context: str = "program-memory",
+                           **kwargs) -> Report:
+    """Trace ``fn(*args, **kwargs)`` (:func:`.program_passes.trace`, on
+    fake tensors) and report its activation high-water by liveness over
+    the traced aten graph.
+
+    ``fn`` may be a function of tensors or an already-made
+    ``GraphModule``. ``Report.extras["program_memory"]`` carries
+    ``activation_peak_bytes`` (intermediates only), ``arg_bytes`` (the
+    caller's input buffers), ``const_bytes`` (closure constants),
+    ``peak_bytes`` (their sum — comparable to the graph cost model's),
+    ``n_eqns`` (call nodes) and ``top_live`` — the largest values alive
+    at the peak, named by producing op. Every node's result counts at
+    its full size, a view's too, as the reference counts every jaxpr
+    equation's output.
+    """
+    import torch
+    from .program_passes import _constants, _tensors, nbytes, trace
+
+    report = Report(context=context)
+    gm = fn if isinstance(fn, torch.fx.GraphModule) \
+        else trace(fn, *args, **kwargs)[0]
+    peak, top_live = _graph_peak(gm)
+    arg_bytes = sum(nbytes(t) for n in gm.graph.nodes
+                    if n.op == "placeholder"
+                    for t in _tensors(n.meta.get("val")))
+    const_bytes = sum(nbytes(c) for _, c in _constants(gm))
+    mem = {
+        "activation_peak_bytes": int(peak),
+        "arg_bytes": int(arg_bytes),
+        "const_bytes": int(const_bytes),
+        "peak_bytes": int(peak + arg_bytes + const_bytes),
+        "n_eqns": sum(n.op == "call_function" for n in gm.graph.nodes),
+        "top_live": top_live,
+    }
+    report.extras["program_memory"] = mem
+    report.add(
+        "program-memory", Severity.INFO,
+        "activation high-water %.3g MB over %d nodes (+%.3g MB args); "
+        "largest at peak: %s"
+        % (peak / 1e6, mem["n_eqns"], arg_bytes / 1e6,
+           ", ".join("%s (%.3g MB)" % (r["value"], r["bytes"] / 1e6)
+                     for r in top_live[:3]) or "n/a"),
+        detail=mem)
+    return report

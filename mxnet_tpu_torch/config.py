@@ -13,8 +13,10 @@ levers the executor and ``Module`` read (``MXNET_TPU_SCAN_LAYERS``,
 loop's (``MXNET_USE_NATIVE_IO``, ``MXNET_CPU_WORKER_NTHREADS``,
 ``MXNET_PREFETCH_BUFFER``, ``MXNET_TPU_DATA_*``,
 ``MXNET_TPU_ASYNC_WINDOW``, ``MXNET_TPU_DEVICE_PREFETCH``,
-``MXNET_TPU_DEVICE_METRICS``), and the serve KV cache's budget audit
-(``MXNET_TPU_ANALYZE``, ``MXNET_TPU_ANALYZE_HBM_BUDGET``), and the
+``MXNET_TPU_DEVICE_METRICS``), and the analyzer's (the bind-time
+check, its HBM budget and the roofline's bandwidth:
+``MXNET_TPU_ANALYZE``, ``MXNET_TPU_ANALYZE_HBM_BUDGET``,
+``MXNET_TPU_ANALYZE_HBM_GBPS``), and the
 observability knobs of :mod:`.profiler` and :mod:`.obs`
 (``MXNET_TPU_OBS``, ``MXNET_TPU_OBS_METRICS_PORT``,
 ``MXNET_TPU_OBS_PEAK_FLOPS``, ``MXNET_TPU_OBS_BLACKBOX`` with its
@@ -166,14 +168,23 @@ register("MXNET_TPU_OBS_BLACKBOX_FLUSH_SECS", float, 5.0,
          "SIGKILL'd process still leaves a window no older than this on "
          "disk; 0 = event-driven flushes only")
 register("MXNET_TPU_ANALYZE", _parse_analyze_mode, "off",
-         "analysis: off = the analysis package is never imported for "
-         "the serve KV cache's budget audit (zero cost), warn = log "
-         "WARNING+ findings, strict = raise MXNetError on ERROR findings")
+         "run mxnet_tpu_torch.analysis graph passes at Executor/Module "
+         "bind (and the serve KV cache's budget audit): off = analyzer "
+         "never imported (zero cost), warn = log WARNING+ findings, "
+         "strict = raise MXNetError on ERROR findings before the bind "
+         "allocates")
 register("MXNET_TPU_ANALYZE_HBM_BUDGET", str, "",
-         "per-device memory budget (bytes, K/M/G/T suffixes: '16G') that "
-         "the serve KV cache's reservation is audited against "
-         "(KVCache.audit); rejected under MXNET_TPU_ANALYZE=strict. "
-         "Empty = no budget")
+         "per-device memory budget for the analysis hbm-budget pass "
+         "(bytes, K/M/G/T suffixes: '16G'); when the static peak "
+         "estimate (bound buffers + activation high-water) exceeds it "
+         "the bind gets an ERROR finding naming the offending arrays — "
+         "rejected under MXNET_TPU_ANALYZE=strict; the serve KV cache's "
+         "reservation is audited against it too. Empty = no budget")
+register("MXNET_TPU_ANALYZE_HBM_GBPS", float, 0.0,
+         "HBM bandwidth (GB/s) for the analysis roofline balance point; "
+         "0 = from the card's name (analysis.roofline's table: NVIDIA "
+         "H100 80GB HBM3); set it on a card the table does not know and "
+         "in CPU tests")
 register("MXNET_TPU_FAULTS", str, "",
          "deterministic fault injection: comma list of "
          "<site>@<nth>[:kind] specs fired at named injection points "

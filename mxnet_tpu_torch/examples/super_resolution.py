@@ -120,7 +120,7 @@ def main(argv=None):
                 "validation split; need at least one batch of %d"
                 % (args.num_examples, len(tr_lo), args.batch_size))
     for epoch in range(args.num_epochs):
-        tic = time.time()
+        tic = time.perf_counter()
         tot = 0.0
         for b in range(nb):
             x = mt.nd.array(tr_lo[b * args.batch_size:
@@ -134,7 +134,7 @@ def main(argv=None):
             trainer.step(args.batch_size)
             tot += float(loss.asnumpy())
         print("Epoch[%d] mse=%.5f (%.1fs)"
-              % (epoch, tot / nb, time.time() - tic), flush=True)
+              % (epoch, tot / nb, time.perf_counter() - tic), flush=True)
 
     pred = net(mt.nd.array(va_lo)).asnumpy()
     base = nearest_upscale(va_lo, args.upscale)

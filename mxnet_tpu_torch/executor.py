@@ -48,6 +48,11 @@ in topological order (PyTorch runs eagerly) and gradients come from
   forward runs under the resolved policy (:mod:`.remat`): each layer of
   the plan wrapped, or, without a plan, the whole forward, counted once
   in ``remat_applied``;
+* bind-time analysis (:func:`check_bind`, ``MXNET_TPU_ANALYZE``): the
+  graph passes run over the symbol with the bound shapes and dtypes
+  before the graph function is built (``simple_bind`` runs them before
+  it allocates the arrays); ``strict`` refuses the bind on an ERROR
+  finding;
 * observability: building the graph function (with its scan plan and
   remat policy) is the executor's compile, recorded in the compile ring
   (:mod:`.obs.compiles`, ``trace_ms``) under the scope
@@ -68,7 +73,7 @@ from .ndarray import NDArray
 from . import profiler as _profiler
 from . import remat as _remat
 
-__all__ = ["Executor", "graph_function", "placement"]
+__all__ = ["Executor", "graph_function", "placement", "check_bind"]
 
 
 def _group_device(node, group2ctx, default: torch.device) -> torch.device:
@@ -169,6 +174,21 @@ def graph_function(symbol, group2ctx=None, default=None, scan_plan=None):
     return fn
 
 
+def check_bind(symbol, shapes, dtypes) -> None:
+    """The bind-time static analysis (``MXNET_TPU_ANALYZE``): the graph
+    passes over ``symbol`` with the bind's shapes and dtypes, before
+    anything is built for the bind. Off (the default) costs one config
+    read and never imports the analyzer; ``warn`` logs WARNING+
+    findings; ``strict`` raises ``MXNetError`` on ERROR findings, an
+    over-``MXNET_TPU_ANALYZE_HBM_BUDGET`` bind among them."""
+    from . import config as _config
+    mode = _config.get("MXNET_TPU_ANALYZE")
+    if mode != "off":
+        from .analysis import check_bind as _check_bind
+        _check_bind(symbol, input_shapes=shapes, input_dtypes=dtypes,
+                    mode=mode, context="bind")
+
+
 def _as_dict(values, names, what) -> Dict:
     if values is None:
         return {}
@@ -190,7 +210,8 @@ class Executor:
     device (:func:`placement`)."""
 
     def __init__(self, symbol, ctx: DeviceLike, args, args_grad=None,
-                 grad_req="write", aux_states=None, group2ctx=None):
+                 grad_req="write", aux_states=None, group2ctx=None,
+                 _checked=False):
         self._symbol = symbol
         self._device = resolve_device(ctx)
         self._group2ctx = dict(group2ctx) if group2ctx else None
@@ -223,6 +244,8 @@ class Executor:
         self._wrt = [n for n in self._arg_names
                      if self._grad_req.get(n, "null") != "null"
                      and n in self.grad_dict]
+        if not _checked:      # simple_bind checked before it allocated
+            check_bind(symbol, *self._bound_shapes_dtypes())
         if self._group2ctx:
             where = placement(symbol, self._group2ctx, self._device)
             for pool in (self.arg_dict, self.grad_dict, self.aux_dict):

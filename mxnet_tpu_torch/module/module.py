@@ -138,7 +138,13 @@ def _as_tensor(value, like: torch.Tensor) -> torch.Tensor:
 class _H2DStager:
     """The card's device-prefetch stage (``Module._device_placer``): a
     ring of pinned host buffers per bound input, one H2D copy stream,
-    and per slot the event of the last copy out of it."""
+    and per slot the event of the last copy out of it.
+
+    The lock guards only the ring: a caller claims a free slot under it
+    (a new slot when every slot is in another caller's hands) and gives
+    it back when its copy is queued. The wait for the slot's previous
+    copy and the copies themselves run with no lock held, so no caller
+    waits on the card behind another's lock."""
 
     def __init__(self, device, like, data_names, label_names, slots):
         self.device = device
@@ -146,18 +152,35 @@ class _H2DStager:
         self.label_names = list(label_names)
         self.like = like
         self.stream = torch.cuda.Stream(device)
-        self.slots = [{"event": None, "host": {}}
+        self.slots = [{"event": None, "host": {}, "busy": False}
                       for _ in range(max(2, slots))]
         self.next = 0
         self.lock = threading.Lock()
+
+    def _claim(self):
+        """The next free slot of the ring, marked busy."""
+        with self.lock:
+            n = len(self.slots)
+            for _ in range(n):
+                slot = self.slots[self.next]
+                self.next = (self.next + 1) % n
+                if not slot["busy"]:
+                    slot["busy"] = True
+                    return slot
+            slot = {"event": None, "host": {}, "busy": True}
+            self.slots.append(slot)
+            return slot
+
+    def _release(self, slot) -> None:
+        with self.lock:
+            slot["busy"] = False
 
     def __call__(self, data_batch):
         arrs = list(data_batch.data or []) + list(data_batch.label or [])
         pairs = [(n, a) for n, a in zip(self.data_names + self.label_names,
                                         arrs) if n in self.like]
-        with self.lock:
-            slot = self.slots[self.next]
-            self.next = (self.next + 1) % len(self.slots)
+        slot = self._claim()
+        try:
             if slot["event"] is not None:
                 # the previous copy out of these buffers must be done
                 # before the host overwrites them
@@ -186,6 +209,8 @@ class _H2DStager:
                 event = torch.cuda.Event()
                 event.record(self.stream)
             slot["event"] = event
+        finally:
+            self._release(slot)
         data_batch._mx_placed = placed
         data_batch._mx_ready = event
         return data_batch

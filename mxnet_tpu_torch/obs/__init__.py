@@ -27,8 +27,8 @@ package:
 
 ``report()`` is the one-call snapshot of all of it. The flight
 recorder (:mod:`.blackbox`) loads only when its knob is on; the
-reference's roofline block of ``report()`` arrives with ROADMAP A10b and
-its pod block (and ``straggler``) with A9.
+reference's pod block of ``report()`` (and ``straggler``) arrives with
+ROADMAP A9.
 """
 from __future__ import annotations
 
@@ -69,9 +69,22 @@ def __getattr__(name):
 
 def report() -> Dict[str, Any]:
     """One observability snapshot: per-module utilization (this call is
-    the rate boundary — see :mod:`.mfu`), the compile ring, and the
-    ``obs_*`` counters/gauges/histogram summaries."""
+    the rate boundary — see :mod:`.mfu`), roofline reconciliation
+    (*why* is MFU what it is — compute- vs memory-bound, attainable vs
+    measured; attached when the analysis package is already loaded,
+    which the MFU collector's lazy import guarantees whenever there is a
+    FLOP count to explain), the compile ring, and the ``obs_*``
+    counters/gauges/histogram summaries."""
     executors = mfu.collect()
+    import sys
+    if __name__.rsplit(".", 1)[0] + ".analysis" in sys.modules:
+        from ..analysis import roofline as _roofline
+        for rec in executors:
+            cost = rec.get("cost") or {}
+            if cost.get("flops") and cost.get("bytes_moved"):
+                rec["roofline"] = _roofline.explain(
+                    cost["flops"], cost["bytes_moved"],
+                    measured_mfu=rec.get("mfu"))
     hist = {}
     for name, h in _profiler.histograms().items():
         if not name.startswith("obs_"):

@@ -129,7 +129,7 @@ def _install_locked() -> bool:
     # the ONE wall-clock read: anchors the monotonic timeline so the
     # cross-host merger can align ranks (clock_offset_s in the header
     # re-bases it onto the control-plane host's clock)
-    _wall_base = time.time()
+    _wall_base = time.time()     # mx-lint: allow(wall-clock)
     _perf_base = time.perf_counter()
     # anchor for merging this process's chrome trace (profiler ts 0)
     _trace0_wall = _wall_base + (_profiler._t0 - _perf_base)

@@ -33,6 +33,7 @@ from typing import Any, Dict, List, Sequence, Tuple
 
 import torch
 
+from .base import MXNetError
 from .context import device_scope
 from .ndarray.ndarray import NDArray, to_numpy_dtype, to_torch_dtype
 
@@ -194,11 +195,41 @@ class _TracedCustom(torch.autograd.Function):
             for g, x in zip(gs, xs))
 
 
+@torch.library.custom_op("mxnet_tpu_torch::host_custom", mutates_args=())
+def _host_custom(xs: List[torch.Tensor], op_type: str,
+                 like: List[torch.Tensor]) -> List[torch.Tensor]:
+    """A host :class:`CustomOp` call as one opaque node of a trace
+    (``analysis.program_passes``): outputs shaped as ``like``. Only a
+    fake-tensor trace calls it; its fake implementation runs there."""
+    raise MXNetError("host_custom(%r) stands in for a Custom op in a "
+                     "trace only" % op_type)
+
+
+@_host_custom.register_fake
+def _(xs, op_type, like):
+    return [torch.empty_like(t) for t in like]
+
+
+def _traced(xs) -> bool:
+    """Whether ``xs`` are fake tensors: a tracer is capturing the op,
+    which runs no Python on the host."""
+    from torch._subclasses.fake_tensor import is_fake
+    return any(is_fake(x) for x in xs)
+
+
 class _HostCustom(torch.autograd.Function):
-    """A :class:`CustomOp`'s ``forward``/``backward`` over NDArrays."""
+    """A :class:`CustomOp`'s ``forward``/``backward`` over NDArrays; in a
+    fake-tensor trace, one opaque ``host_custom`` node each."""
 
     @staticmethod
     def forward(ctx, op_inst, prop, is_train, specs, *xs):
+        if _traced(xs):
+            outs = tuple(_host_custom(
+                list(xs), type(prop).__name__,
+                [xs[0].new_empty(s, dtype=t) for s, t in specs]))
+            ctx.save_for_backward(*xs, *outs)
+            ctx.op_inst, ctx.prop, ctx.n_in = op_inst, prop, len(xs)
+            return outs
         dev = xs[0].device
         out_data = [NDArray(torch.zeros(s, dtype=t, device=dev))
                     for s, t in specs]
@@ -215,6 +246,13 @@ class _HostCustom(torch.autograd.Function):
     def backward(ctx, *cts):
         saved = ctx.saved_tensors
         xs, outs = saved[:ctx.n_in], saved[ctx.n_in:]
+        if _traced(xs):
+            gs = _host_custom(list(cts) + list(xs) + list(outs),
+                              type(ctx.prop).__name__ + ".backward",
+                              [torch.empty_like(x) for x in xs])
+            return (None, None, None, None) + tuple(
+                g if x.is_floating_point() else None
+                for g, x in zip(gs, xs))
         in_grad = [NDArray(torch.zeros_like(x)) for x in xs]
         with device_scope(xs[0].device):
             ctx.op_inst.backward(

@@ -539,14 +539,19 @@ class InferenceServer:
         """Run the model and fetch each output to the host ONCE, under
         the model lock: per-request splitting is then zero-copy views,
         and the fetch is the device sync, so recorded latency is real."""
-        with self._model_lock:
-            with torch.no_grad():
+        # the lock-held host sync is the design here: all model
+        # invocations serialize on _model_lock (shared executor state),
+        # and fetching inside it is what makes recorded latency real
+        with torch.no_grad():
+            with self._model_lock:  # mx-lint: allow(lock-host-sync)
                 outs = self._model(x)
-            outs = list(outs) if isinstance(outs, (list, tuple)) else [outs]
-            if self._single_output is None:
-                # one output -> callers get the bare array, not a 1-list
-                self._single_output = len(outs) == 1
-            return [_to_host(o) for o in outs]
+                outs = list(outs) if isinstance(outs, (list, tuple)) \
+                    else [outs]
+                if self._single_output is None:
+                    # one output -> callers get the bare array, not a
+                    # 1-list
+                    self._single_output = len(outs) == 1
+                return [_to_host(o) for o in outs]
 
     def _assemble(self, batch: List[_Request], bucket_rows: int):
         padded_sample = batch[0].bucket_key[0]

@@ -277,12 +277,20 @@ class Symbol:
         return _create(get_op("negative"), [self], {}, None)
 
     def analyze(self, input_shapes=None, input_dtypes=None, **shape_kwargs):
-        """The reference's static graph analyzer over a Symbol, which
-        the port does not have yet (``Module.analyze`` runs the passes
-        the port has): raises, naming ROADMAP.md queue A10b."""
-        raise MXNetError("Symbol.analyze: the graph analyzer (analysis/) "
-                         "is not ported yet (ROADMAP.md queue A10b); "
-                         "Module.analyze runs the passes the port has")
+        """Run the static graph analyzer (:mod:`..analysis`) over this
+        symbol: cycle / duplicate-name / dead-node / shape-conflict
+        detection plus the FLOP/bytes/memory cost model and the memory
+        passes. Shapes may be passed as a dict or as kwargs
+        (``net.analyze(data=(32, 784))``). Returns an ``analysis.Report``.
+        Imported lazily — symbols that never call this never load the
+        analyzer."""
+        from ..analysis import analyze_symbol
+        shapes = {k: tuple(v) for k, v in (input_shapes or {}).items()}
+        shapes.update({k: tuple(v) for k, v in shape_kwargs.items()
+                       if v is not None})
+        return analyze_symbol(self, input_shapes=shapes or None,
+                              input_dtypes=input_dtypes,
+                              context=self.name or "symbol")
 
     # ------------------------------------------------------------ shapes
     def infer_shape(self, *args, **kwargs):
@@ -453,13 +461,20 @@ class Symbol:
         themselves, so a write through one executor is seen by the
         other. A shared name that ``shared_exec`` lacks, or holds at
         another shape, device or dtype, raises."""
-        from ..executor import Executor, placement
+        from ..executor import Executor, check_bind, placement
         from ..ndarray import zeros
         ctx = resolve_device(ctx)
         where = placement(self, group2ctx, ctx)
         arg_shapes, _, aux_shapes = self.infer_shape(**kwargs)
         arg_names = self.list_arguments()
         type_dict = type_dict or {}
+        # the bind-time analysis runs before any array is allocated: a
+        # strict refusal leaves the device's memory as it was
+        aux_names = self.list_auxiliary_states()
+        check_bind(self, dict(zip(arg_names + aux_names,
+                                  list(arg_shapes) + list(aux_shapes))),
+                   {n: to_torch_dtype(type_dict.get(n, "float32"))
+                    for n in arg_names + aux_names})
         reqs = grad_req if isinstance(grad_req, dict) else \
             {n: grad_req for n in arg_names}
         shared = set(shared_arg_names or ()) if shared_exec is not None \
@@ -498,7 +513,7 @@ class Symbol:
                                    aux_shapes)}
         return Executor(self, ctx, args,
                         args_grad if grad_req != "null" else None,
-                        grad_req, aux, group2ctx=group2ctx)
+                        grad_req, aux, group2ctx=group2ctx, _checked=True)
 
 
 def _tensor_on(value, dev: torch.device) -> torch.Tensor:

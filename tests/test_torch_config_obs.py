@@ -41,8 +41,6 @@ NOT_YET = {
     "MXNET_TPU_FAILOVER_PORT": "A9",
     "MXNET_TPU_ANALYZE_ICI_GBPS": "A9",
     "MXNET_TPU_OBS_STRAGGLER_RATIO": "A9",
-    # A10b: the rest of analysis (the roofline's bandwidth)
-    "MXNET_TPU_ANALYZE_HBM_GBPS": "A10b",
     # A10d: tune, elastic, fleet
     "MXNET_TPU_TUNE": "A10d",
     "MXNET_TPU_TUNE_PROBE_SECS": "A10d",

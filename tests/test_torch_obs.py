@@ -1083,8 +1083,10 @@ def test_module_analyze_surface():
     rep = unbound.analyze(input_shapes={"data": (4, 6),
                                         "softmax_label": (4,)})
     assert rep.extras["cost"]["flops"] > 0
-    with pytest.raises(MXNetError, match="A10"):
-        _mlp().analyze()
+    # Symbol.analyze (A10b): without shapes the analysis is partial
+    rep = _mlp().analyze()
+    assert any(f.code == "shape-error" and f.severity.name == "INFO"
+               for f in rep.findings)
 
 
 def test_peak_flops_table_and_override():
@@ -1122,9 +1124,12 @@ def test_report_schema():
     h = rep["histograms"]["obs_bind_ms"]
     assert set(h) == {"count", "sum", "max", "p50", "p99"}
     rec = [e for e in rep["executors"] if e["name"] == mod._obs_label][0]
+    # the roofline block (A10b): the MFU collector's cost model loaded
+    # the analyzer; no roofline row for the host CPU, so None here
     assert set(rec) == {"name", "steps", "flops_per_step", "steps_per_sec",
-                        "flops_per_sec", "mfu", "peak_flops", "cost", "mesh"}
-    assert rec["mesh"] is None
+                        "flops_per_sec", "mfu", "peak_flops", "cost", "mesh",
+                        "roofline"}
+    assert rec["mesh"] is None and rec["roofline"] is None
 
 
 # ------------------------------------ phase 19 rehearsed on the CPU
