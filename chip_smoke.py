@@ -388,7 +388,46 @@ Phases, each fatal on failure (exit code 1, no result line):
     --baseline`` over the port, ``self-check`` and ``audit mlp resnet8
     transformer``, three processes started together, each exit 0, the
     audit's roofline lines naming the card. A hang ends the run through
-    ``faulthandler`` after ``ANALYSIS_DEADLINE_S``.
+    ``faulthandler`` after ``ANALYSIS_DEADLINE_S``;
+21. the legacy surface, the tools and the serving fleet (queue A10c and
+    A10d's ``fleet/``), TF32 off: (a) an MLP of upstream MXNet's
+    ``example/numpy-ops`` shape (784-128-64-10, batch 100, 1,000
+    synthetic examples from the seed) with a ``NumpyOp`` softmax head,
+    and the same MLP with an ``NDArrayOp`` scale layer and
+    ``SoftmaxOutput``, each through ``Module.fit`` (3 epochs, SGD 0.1)
+    on the card and on the host from the same numpy weights: each
+    epoch's cross-entropy (a float64 numpy forward of its weights)
+    within ``LEGACY_CE_ATOL`` card to host, the loss falling, the
+    ``NDArrayOp``'s inputs on the card; (b) ``test_utils.check_consistency``
+    over ``[mt.cpu(), mt.gpu(0)]`` for ResNet-50's first bottleneck unit
+    (batch 8, 64 x 56 x 56) and the LM's first block with
+    ``attention="flash"`` at full width (2 x 1024 tokens; K1 f32 on the
+    card against its plain version on the host), and
+    ``check_numeric_gradient`` on the card of a small symbol (passes) and
+    of a custom op with twice its gradient (refused); (c) the LeNet
+    prototxt and a ``.caffemodel`` encoded here through
+    ``tools.caffe_converter``: the forward on the card within
+    ``CAFFE_ATOL`` of the host's and within 1e-4 of numpy; the
+    converter's reference-format ``.params`` through
+    ``tools.convert_params`` into a ``Module`` bound on the card, equal
+    to the predictor's forward; ``tools.parse_log`` over 21a's fit logs;
+    (d) the fleet drill: a ``Gateway`` over three replica processes of
+    phase 4's LM (12 layers at full width, f32, ``init.Uniform(0.05)``
+    from seed 11, 4 slots, page 16) on the card, rank 1 armed with
+    ``FLEET_FAULT`` (SIGKILL after its 6th token frame), against one
+    ``GenerativeServer`` built here from the same spec: two waves of
+    phase 4's eight prompts (32 greedy tokens), each stream equal to the
+    single server's token for token (or a near-tie: top-2 logit gap
+    within ``LOGITS_ATOL`` at
+    the first differing token and every emitted token within
+    ``LOGITS_ATOL`` of its row's maximum, teacher-forced through
+    ``plain_logits``), at least one fail-over and no duplicate frame,
+    rank 1 respawned once with no native build, each replica's K1 f32
+    launches equal to its prefills x layers, ``/metrics`` federating
+    replica labels 0-2, every replica process reaped; the replicas'
+    start times, the respawn time, tok/s and TTFT p50 beside the single
+    server's, and the card's memory peak (``nvidia-smi``). A hang ends
+    the run through ``faulthandler`` after ``FLEET_DEADLINE_S``.
 
 The second-to-last line is the kernel table as one JSON object; the
 last is ``{"ok": true, "device": {...}}``. Without a GPU, or run from a
@@ -1251,10 +1290,11 @@ def seeded_params(np, seed: int):
     return params
 
 
-def plain_logits(torch, params, tokens):
+def plain_logits(torch, params, tokens, layers=None):
     """Last-position logits of the zoo transformer's training graph
     (dense attention with its -1e9 causal bias), written from the
-    Symbol and independent of the served path."""
+    Symbol and independent of the served path; ``layers`` deep (default
+    LAYERS)."""
     import torch.nn.functional as F
     p = params
     t = len(tokens)
@@ -1262,7 +1302,7 @@ def plain_logits(torch, params, tokens):
     x = p["tok_embed_weight"][torch.tensor(tokens, device=DEVICE)] \
         + p["pos_embed_weight"][:t]
     bias = torch.triu(torch.full((t, t), -1e9, device=DEVICE), 1)
-    for i in range(LAYERS):
+    for i in range(LAYERS if layers is None else layers):
         pf = "layer%d_" % i
         h = F.layer_norm(x, (D_MODEL,), p[pf + "ln1_gamma"],
                          p[pf + "ln1_beta"], 1e-5)
@@ -10601,6 +10641,754 @@ def analysis_phase(torch, np):
     return readings
 
 
+# ------------------------- phase 21: the legacy surface, the tools, fleet
+
+# phase 21 (A10c and the serving fleet of A10d). (a) two MLPs of upstream
+# MXNet's example/numpy-ops shape through Module.fit on the card and on
+# the host from the same numpy weights: one with a NumpyOp softmax head,
+# one with an NDArrayOp scale layer; (b) test_utils.check_consistency
+# over the host and the card for a ResNet-50 unit and the LM's attention
+# block (K1 f32 on the card against its plain version on the host), and
+# check_numeric_gradient of a small symbol on the card; (c) the tools:
+# the LeNet prototxt and a .caffemodel encoded here through
+# caffe_converter, the converter's reference-format .params through
+# convert_params into a Module on the card, parse_log over 21a's log;
+# (d) the fleet drill: a Gateway over three GenerativeServer replica
+# processes on the card, rank 1 killed mid-stream, against one server
+LEGACY_MLP = (784, 128, 64, 10)
+LEGACY_BATCH, LEGACY_EXAMPLES, LEGACY_EPOCHS, LEGACY_LR = 100, 1000, 3, 0.1
+LEGACY_SCALE = 0.5       # the NDArrayOp layer's factor
+# each epoch's cross-entropy (a float64 numpy forward of the epoch's
+# weights), card against host: 30 SGD steps of f32 sums in another order
+LEGACY_CE_ATOL = 1e-4
+# check_consistency, card against host (TF32 off): f32 sums in another
+# order over a 2304-term convolution and a 8192-wide MLP
+CONSISTENCY_RTOL, CONSISTENCY_ATOL = 1e-4, 1e-4
+UNIT_SHAPE = (8, 64, 56, 56)    # ResNet-50's stage-1 first unit input
+BLOCK_BATCH = 2                 # the LM block at (2, MAX_SEQ, D_MODEL)
+CAFFE_ATOL = 1e-5               # the LeNet forward, card against host
+# the fleet: phase 4's LM, not cut (each process draws its 737.5M
+# weights with numpy, as the reference's replicas do: ~15 s)
+FLEET_LAYERS, FLEET_SLOTS, FLEET_SEED, FLEET_REPLICAS = 12, 4, 11, 3
+FLEET_FAULT = "1:replica.die@6:hostkill"
+FLEET_BACKOFF = 0.2
+FLEET_STATS_PERIOD = 0.2
+FLEET_SPAWN_WAIT_S = 300
+# a hung replica, gateway or client ends the run through faulthandler
+FLEET_DEADLINE_S = 600
+
+LENET_PROTOTXT = """
+name: "LeNet"
+layer { name: "data" type: "Input" top: "data"
+  input_param { shape { dim: 2 dim: 1 dim: 28 dim: 28 } } }
+layer { name: "conv1" type: "Convolution" bottom: "data" top: "conv1"
+  convolution_param { num_output: 8 kernel_size: 5 stride: 1 } }
+layer { name: "relu1" type: "ReLU" bottom: "conv1" top: "relu1" }
+layer { name: "pool1" type: "Pooling" bottom: "relu1" top: "pool1"
+  pooling_param { pool: MAX kernel_size: 2 stride: 2 } }
+layer { name: "ip1" type: "InnerProduct" bottom: "pool1" top: "ip1"
+  inner_product_param { num_output: 32 } }
+layer { name: "relu2" type: "ReLU" bottom: "ip1" top: "relu2" }
+layer { name: "ip2" type: "InnerProduct" bottom: "relu2" top: "ip2"
+  inner_product_param { num_output: 10 } }
+layer { name: "prob" type: "Softmax" bottom: "ip2" top: "prob" }
+"""
+
+
+def legacy_ops(np, mt, seen):
+    """The two legacy ops: upstream's numpy-ops softmax head (a
+    ``NumpyOp``) and a scale layer (an ``NDArrayOp``) that records the
+    devices its inputs arrive on in ``seen``."""
+    class NumpySoftmax(mt.operator.NumpyOp):
+        def __init__(self):
+            super().__init__(need_top_grad=False)
+
+        def list_arguments(self):
+            return ["data", "label"]
+
+        def infer_shape(self, in_shape):
+            return [in_shape[0], (in_shape[0][0],)], [in_shape[0]]
+
+        def forward(self, in_data, out_data):
+            x, y = in_data[0], out_data[0]
+            y[:] = np.exp(x - x.max(axis=1, keepdims=True))
+            y /= y.sum(axis=1, keepdims=True)
+
+        def backward(self, out_grad, in_data, out_data, in_grad):
+            lab = in_data[1].astype(int)
+            dx = in_grad[0]
+            dx[:] = out_data[0]
+            dx[np.arange(lab.shape[0]), lab] -= 1.0
+
+    class Scale(mt.operator.NDArrayOp):
+        def forward(self, in_data, out_data):
+            seen.update(str(a.data.device) for a in in_data)
+            out_data[0][:] = in_data[0] * LEGACY_SCALE
+
+        def backward(self, out_grad, in_data, out_data, in_grad):
+            in_grad[0][:] = out_grad[0] * LEGACY_SCALE
+
+    return NumpySoftmax(), Scale()
+
+
+def legacy_net(mt, head, scale=None):
+    """The MLP 784-128-64-10: a NumpyOp softmax ``head``, or
+    ``SoftmaxOutput`` with the NDArrayOp ``scale`` after the first
+    ReLU."""
+    h = mt.sym.Variable("data")
+    for i, n in enumerate(LEGACY_MLP[1:], 1):
+        h = mt.sym.FullyConnected(h, num_hidden=n, name="fc%d" % i)
+        if i < len(LEGACY_MLP) - 1:
+            h = mt.sym.Activation(h, act_type="relu", name="relu%d" % i)
+        if i == 1 and scale is not None:
+            h = scale.get_symbol(h, name="scale")
+    if head is not None:
+        return head.get_symbol(h, mt.sym.Variable("softmax_label"),
+                               name="softmax")
+    return mt.sym.SoftmaxOutput(h, name="softmax")
+
+
+def legacy_data(np):
+    """Synthetic data from the seed (labels from a random linear
+    teacher) and He-scaled initial weights."""
+    rng = np.random.RandomState(SEED + 21)
+    x = rng.randn(LEGACY_EXAMPLES, LEGACY_MLP[0]).astype(np.float32)
+    teacher = rng.randn(LEGACY_MLP[0], LEGACY_MLP[-1]).astype(np.float32)
+    y = (x @ teacher).argmax(1).astype(np.float32)
+    w = {}
+    for i, (a, b) in enumerate(zip(LEGACY_MLP[:-1], LEGACY_MLP[1:]), 1):
+        w["fc%d_weight" % i] = (rng.randn(b, a) *
+                                np.sqrt(2.0 / a)).astype(np.float32)
+        w["fc%d_bias" % i] = np.zeros(b, np.float32)
+    return x, y, w
+
+
+def plain_mlp_ce(np, w, x, y, scale):
+    """The MLP's mean cross-entropy in float64 numpy."""
+    h = x.astype(np.float64)
+    n = len(LEGACY_MLP) - 1
+    for i in range(1, n + 1):
+        h = h @ w["fc%d_weight" % i].T.astype(np.float64) + \
+            w["fc%d_bias" % i]
+        if i < n:
+            h = np.maximum(h, 0.0)
+        if i == 1 and scale:
+            h = h * LEGACY_SCALE
+    h = h - h.max(1, keepdims=True)
+    logp = h - np.log(np.exp(h).sum(1, keepdims=True))
+    return float(-logp[np.arange(len(y)), y.astype(int)].mean())
+
+
+def legacy_fit(np, mt, net, ctx, x, y, w, scale, logger):
+    """``Module.fit`` of ``net`` on ``ctx`` from ``w``: the cross-entropy
+    after each epoch and the final weights."""
+    curve = []
+
+    def epoch_ce(epoch, sym, args, aux):
+        curve.append(plain_mlp_ce(np, {k: v.asnumpy()
+                                       for k, v in args.items()},
+                                  x, y, scale))
+
+    with ctx:
+        it = mt.io.NDArrayIter(x, y, batch_size=LEGACY_BATCH,
+                               label_name="softmax_label")
+        mod = mt.mod.Module(net, context=ctx, logger=logger)
+        mod.fit(it, optimizer="sgd",
+                optimizer_params={"learning_rate": LEGACY_LR},
+                arg_params={k: mt.nd.array(v, ctx=ctx)
+                            for k, v in w.items()},
+                num_epoch=LEGACY_EPOCHS, epoch_end_callback=epoch_ce,
+                batch_end_callback=mt.callback.Speedometer(LEGACY_BATCH, 5))
+        args, _ = mod.get_params()
+    return curve, {k: v.asnumpy() for k, v in args.items()}
+
+
+def legacy_phase(torch, np, mt, out):
+    """21a: the NumpyOp and NDArrayOp nets through fit on the card and
+    on the host; each card run's log goes to ``out/fit-<net>.log`` for
+    21c."""
+    import logging
+    x, y, w = legacy_data(np)
+    readings = {}
+    for what in ("numpy-op head", "ndarray-op scale"):
+        seen_host, seen_card = set(), set()
+        scale = what == "ndarray-op scale"
+        host_head, host_scale = legacy_ops(np, mt, seen_host)
+        card_head, card_scale = legacy_ops(np, mt, seen_card)
+        host_net = legacy_net(mt, None if scale else host_head,
+                              host_scale if scale else None)
+        card_net = legacy_net(mt, None if scale else card_head,
+                              card_scale if scale else None)
+        ce0 = plain_mlp_ce(np, w, x, y, scale)
+        host, _ = legacy_fit(np, mt, host_net, mt.cpu(), x, y, w, scale,
+                             logging.getLogger("phase21.host"))
+        # the card's fit logs through the root logger, as Speedometer
+        # does, into the file 21c reads back
+        root = logging.getLogger()
+        level = root.level
+        handler = logging.FileHandler(out / ("fit-%s.log" % what[:5]))
+        root.addHandler(handler)
+        root.setLevel(logging.INFO)
+        t0 = time.perf_counter()
+        try:
+            card, _ = legacy_fit(np, mt, card_net, mt.gpu(0), x, y, w, scale,
+                                 root)
+        finally:
+            root.removeHandler(handler)
+            root.setLevel(level)
+            handler.close()
+        secs = time.perf_counter() - t0
+        gap = max(abs(a - b) for a, b in zip(card, host))
+        log("21a %s: cross-entropy %.6f at start, by epoch on the card %s, "
+            "on the host %s; largest gap %.3g (limit %g); %.2f s on the "
+            "card; scale inputs on %s" % (
+                what, ce0, ["%.6f" % c for c in card],
+                ["%.6f" % c for c in host], gap, LEGACY_CE_ATOL, secs,
+                sorted(seen_card) or "-"))
+        check(len(card) == len(host) == LEGACY_EPOCHS,
+              "21a %s: %d / %d epochs" % (what, len(card), len(host)))
+        check(gap <= LEGACY_CE_ATOL, "21a %s: the card's loss curve %s "
+              "parts from the host's %s by %g" % (what, card, host, gap))
+        check(card[-1] < ce0, "21a %s: the loss did not fall (%g -> %g)"
+              % (what, ce0, card[-1]))
+        if scale:
+            check(seen_card == {str(torch.device(DEVICE))},
+                  "21a: the NDArrayOp's inputs arrived on %s, not %s"
+                  % (sorted(seen_card), DEVICE))
+            check(seen_host == {"cpu"}, "21a: host inputs on %s"
+                  % sorted(seen_host))
+        readings[what] = {"ce0": ce0, "card": card, "gap": gap,
+                          "card_s": secs}
+    return readings
+
+
+def consistency_phase(torch, np, mt):
+    """21b: check_consistency over the host and the card for a ResNet-50
+    unit and the LM's attention block; check_numeric_gradient of a small
+    symbol on the card."""
+    from mxnet_tpu_torch.models import resnet, transformer
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    tu = mt.test_utils
+    rng = np.random.RandomState(SEED + 22)
+    ctxs = [mt.cpu(), mt.gpu(0)]
+    readings = {}
+
+    def draw(s, shapes, aux_shapes, data_shape):
+        loc = {"data": rng.randn(*data_shape).astype(np.float32)}
+        for n, shp in list(shapes.items()) + list(aux_shapes.items()):
+            if n == "data":
+                continue
+            if n.endswith("_gamma"):
+                v = 1.0 + 0.1 * rng.randn(*shp)
+            elif n.endswith("_moving_var"):
+                v = 0.5 + rng.rand(*shp)
+            elif n.endswith(("_beta", "_bias", "_moving_mean")):
+                v = 0.1 * rng.randn(*shp)
+            else:
+                fan_in = int(np.prod(shp[1:]))
+                v = rng.randn(*shp) * np.sqrt(2.0 / fan_in)
+            loc[n] = v.astype(np.float32)
+        return loc
+
+    def run(s, aux_names):
+        def fn(**kw):
+            aux = {n: kw.pop(n) for n in aux_names}
+            return s.eval(aux_states=aux, **kw)[0]
+        return fn
+
+    with mt.name.NameManager():
+        unit = resnet._unit_v2(mt.sym.Variable("data"), 256, (1, 1), False,
+                               "stage1_unit1", True)
+        block = transformer._block(mt.sym.Variable("data"), HEADS, D_MODEL,
+                                   D_FF, MAX_SEQ, "layer0",
+                                   attention="flash")
+    cases = (("ResNet-50 unit", unit, UNIT_SHAPE),
+             ("LM attention block", block,
+              (BLOCK_BATCH, MAX_SEQ, D_MODEL)))
+    for what, s, data_shape in cases:
+        arg_s, _, aux_s = s.infer_shape(data=data_shape)
+        loc = draw(s, dict(zip(s.list_arguments(), arg_s)),
+                   dict(zip(s.list_auxiliary_states(), aux_s)), data_shape)
+        fa.flash_attention_fwd.launches = {"f32": 0, "bf16": 0}
+        t0 = time.perf_counter()
+        outs = tu.check_consistency(run(s, s.list_auxiliary_states()), loc,
+                                    ctx_list=ctxs, rtol=CONSISTENCY_RTOL,
+                                    atol=CONSISTENCY_ATOL)
+        secs = time.perf_counter() - t0
+        counts = dict(fa.flash_attention_fwd.launches)
+        err = float(np.abs(outs[1] - outs[0]).max())
+        log("21b check_consistency %s: output %s, max_abs_err host / card "
+            "%.3g (rtol %g, atol %g); K1 launches %s; %.2f s" % (
+                what, outs[0].shape, err, CONSISTENCY_RTOL,
+                CONSISTENCY_ATOL, counts, secs))
+        if what == "LM attention block":
+            check(counts["f32"] >= 1 and counts["bf16"] == 0,
+                  "21b: K1 f32 did not run for the block: %s" % counts)
+        else:
+            check(counts == {"f32": 0, "bf16": 0}, "21b: the ResNet unit "
+                  "launched attention %s" % counts)
+        readings[what] = {"max_abs_err": err, "k1": counts}
+    x = mt.sym.Variable("x")
+    small = mt.sym.Activation(mt.sym.FullyConnected(x, num_hidden=3,
+                                                    name="fc"),
+                              act_type="tanh", name="act")
+    loc = {"x": rng.randn(2, 4).astype(np.float32),
+           "fc_weight": (rng.randn(3, 4) * 0.5).astype(np.float32),
+           "fc_bias": (rng.randn(3) * 0.1).astype(np.float32)}
+    tu.check_numeric_gradient(small, loc, ctx=mt.gpu(0))
+    # and it must refuse a wrong gradient there
+    wrong = mt.sym.Custom(mt.sym.Variable("x"), op_type="phase21_wrong")
+    try:
+        tu.check_numeric_gradient(wrong, {"x": loc["x"]}, ctx=mt.gpu(0))
+    except AssertionError:
+        refused = True
+    else:
+        refused = False
+    log("21b check_numeric_gradient on %s: FullyConnected + tanh passes; "
+        "a custom op with twice the gradient refused: %s"
+        % (DEVICE, refused))
+    check(refused, "21b: check_numeric_gradient passed a wrong gradient")
+    return readings
+
+
+def register_wrong_square(mt):
+    """``phase21_wrong``: x * x with twice its gradient, for 21b."""
+    @mt.operator.register("phase21_wrong")
+    class Prop(mt.operator.CustomOpProp):
+        def create_operator(self, ctx, shapes, dtypes):
+            class Op(mt.operator.CustomOp):
+                def forward(self, is_train, req, in_data, out_data, aux):
+                    self.assign(out_data[0], req[0], in_data[0] * in_data[0])
+
+                def backward(self, req, out_grad, in_data, out_data,
+                             in_grad, aux):
+                    self.assign(in_grad[0], req[0],
+                                out_grad[0] * in_data[0] * 4.0)
+            return Op()
+    return Prop
+
+
+def pb_varint(n: int) -> bytes:
+    out = b""
+    while True:
+        b7, n = n & 0x7F, n >> 7
+        out += bytes([b7 | (0x80 if n else 0)])
+        if not n:
+            return out
+
+
+def pb_field(fno: int, wt: int, payload) -> bytes:
+    key = pb_varint((fno << 3) | wt)
+    if wt == 0:
+        return key + pb_varint(payload)
+    return key + pb_varint(len(payload)) + payload
+
+
+def caffemodel_bytes(np, blobs) -> bytes:
+    """A NetParameter of new-style layers (field 100: name 1, blobs 7),
+    each BlobProto with its BlobShape (field 7) and packed floats
+    (field 5): ``blobs`` maps a layer name to its arrays."""
+    out = b""
+    for name, arrays in blobs.items():
+        msg = pb_field(1, 2, name.encode())
+        for a in arrays:
+            shape = pb_field(1, 2, b"".join(pb_varint(d) for d in a.shape))
+            blob = pb_field(7, 2, shape) + pb_field(
+                5, 2, np.asarray(a, "<f4").ravel().tobytes())
+            msg += pb_field(7, 2, blob)
+        out += pb_field(100, 2, msg)
+    return out
+
+
+def plain_lenet(np, w, x):
+    """The LeNet deploy net in numpy (conv, ReLU, 2x2 max pool, two
+    inner products, softmax)."""
+    from numpy.lib.stride_tricks import sliding_window_view
+    win = sliding_window_view(x, (5, 5), axis=(2, 3))[:, 0]
+    conv = np.einsum("nhwij,ocij->nohw", win, w["conv1_weight"]) + \
+        w["conv1_bias"][None, :, None, None]
+    relu = np.maximum(conv, 0)
+    n, c = relu.shape[:2]
+    pool = relu.reshape(n, c, 12, 2, 12, 2).max((3, 5))
+    h = np.maximum(pool.reshape(n, -1) @ w["ip1_weight"].T + w["ip1_bias"], 0)
+    logits = h @ w["ip2_weight"].T + w["ip2_bias"]
+    p = np.exp(logits - logits.max(1, keepdims=True))
+    return p / p.sum(1, keepdims=True)
+
+
+def tools_phase(torch, np, mt, out, fit_epochs):
+    """21c: caffe_converter (LeNet, a .caffemodel encoded here) on the
+    card against the host and numpy; convert_params of its
+    reference-format .params into a Module on the card; parse_log of
+    21a's fit log."""
+    import io
+    import contextlib
+    from mxnet_tpu_torch.tools import caffe_converter, convert_params
+    from mxnet_tpu_torch.tools import parse_log
+    rng = np.random.RandomState(SEED + 23)
+    w = {"conv1_weight": rng.randn(8, 1, 5, 5).astype(np.float32) * 0.1,
+         "conv1_bias": rng.randn(8).astype(np.float32) * 0.1,
+         "ip1_weight": rng.randn(32, 8 * 12 * 12).astype(np.float32) * 0.01,
+         "ip1_bias": rng.randn(32).astype(np.float32) * 0.1,
+         "ip2_weight": rng.randn(10, 32).astype(np.float32) * 0.1,
+         "ip2_bias": rng.randn(10).astype(np.float32) * 0.1}
+    proto = out / "lenet.prototxt"
+    proto.write_text(LENET_PROTOTXT)
+    model = out / "lenet.caffemodel"
+    model.write_bytes(caffemodel_bytes(np, {
+        "conv1": [w["conv1_weight"], w["conv1_bias"]],
+        "ip1": [w["ip1_weight"], w["ip1_bias"]],
+        "ip2": [w["ip2_weight"], w["ip2_bias"]]}))
+    prefix = str(out / "lenet")
+    said = io.StringIO()
+    with contextlib.redirect_stdout(said), mt.name.NameManager():
+        rc = caffe_converter.main([str(proto), prefix, "--caffemodel",
+                                   str(model)])
+    check(rc == 0 and "parsed 6 parameter tensors" in said.getvalue(),
+          "21c: caffe_converter said %r" % said.getvalue())
+    x = rng.rand(2, 1, 28, 28).astype(np.float32)
+    shapes = {"data": (2, 1, 28, 28)}
+    files = (prefix + "-symbol.json", prefix + "-0000.params")
+    card = mt.Predictor(*files, shapes, ctx=mt.gpu(0)).forward(data=x)[0]
+    check(card.data.device == torch.device(DEVICE), "21c: the predictor "
+          "ran on %s" % card.data.device)
+    card = card.asnumpy()
+    host = mt.Predictor(*files, shapes, ctx=mt.cpu()).forward(
+        data=x)[0].asnumpy()
+    want = plain_lenet(np, w, x)
+    err_host = float(np.abs(card - host).max())
+    err_np = float(np.abs(card - want).max())
+    log("21c caffe_converter: LeNet prototxt + a .caffemodel of %d bytes; "
+        "the forward on the card against the host %.3g (limit %g), "
+        "against numpy %.3g" % (model.stat().st_size, err_host, CAFFE_ATOL,
+                                err_np))
+    check(err_host <= CAFFE_ATOL, "21c: card and host forwards part by %g"
+          % err_host)
+    check(err_np <= 1e-4, "21c: the forward parts from numpy by %g" % err_np)
+    # the converter's reference-format .params through convert_params
+    npz = str(out / "lenet.npz")
+    with contextlib.redirect_stdout(said):
+        rc = convert_params.main([files[1], npz, "--strip-prefix"])
+    check(rc == 0, "21c: convert_params exited %d" % rc)
+    loaded = mt.nd.load(npz, ctx=mt.gpu(0))
+    mod = mt.mod.Module(mt.sym.load(files[0]), context=mt.gpu(0))
+    mod.bind(data_shapes=[("data", shapes["data"])],
+             label_shapes=[("softmax_label", (2,))], for_training=False)
+    mod.set_params({k: v for k, v in loaded.items()
+                    if k in mod._param_names}, {})
+    mod.forward(mt.io.DataBatch(data=[mt.nd.array(x, ctx=mt.gpu(0))]),
+                is_train=False)
+    got = mod.get_outputs()[0].asnumpy()
+    err_mod = float(np.abs(got - card).max())
+    log("21c convert_params: %d arrays into a Module on %s; its forward "
+        "against the predictor's %.3g" % (len(loaded), DEVICE, err_mod))
+    check(sorted(loaded) == sorted(w), "21c: converted names %s"
+          % sorted(loaded))
+    check(err_mod <= CAFFE_ATOL, "21c: the Module's forward parts by %g"
+          % err_mod)
+    epochs = []
+    for path in sorted(out.glob("fit-*.log")):
+        rows = parse_log.parse(path.read_text().splitlines())
+        log("21c parse_log of 21a's %s: %s" % (path.name, json.dumps(rows)))
+        check(sorted(rows) == list(range(fit_epochs)) and all(
+            {"train-accuracy", "time", "speed"} <= set(r)
+            for r in rows.values()), "21c: parse_log read %s" % rows)
+        epochs.append(len(rows))
+    check(len(epochs) == 2, "21c: %d fit logs" % len(epochs))
+    return {"card_vs_host": err_host, "card_vs_numpy": err_np,
+            "module": err_mod, "epochs": epochs}
+
+
+class FleetWatch:
+    """Polls a gateway's replica states from a thread and stamps each
+    change: ``events`` lists ``(seconds, rank, generation, state)``."""
+
+    def __init__(self, gw, t0):
+        self.gw, self.t0, self.events = gw, t0, []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        last = {}
+        while not self._stop.is_set():
+            for r in self.gw.stats()["replicas"]:
+                key = (r["generation"], r["state"])
+                if last.get(r["rank"]) != key:
+                    last[r["rank"]] = key
+                    self.events.append((time.perf_counter() - self.t0,
+                                        r["rank"]) + key)
+            time.sleep(0.05)
+
+    def first(self, rank, generation, state):
+        for t, r, g, s in self.events:
+            if (r, g, s) == (rank, generation, state):
+                return t
+        return None
+
+    def stop(self):
+        self._stop.set()
+        self._thread.join(10)
+
+
+def gpu_memory_used_mib():
+    """The card's memory in use, all processes, from ``nvidia-smi``."""
+    smi = subprocess.run(["nvidia-smi", "-i", "0",
+                          "--query-gpu=memory.used",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=30)
+    return int(smi.stdout.strip().splitlines()[0])
+
+
+class MemorySampler:
+    """The largest ``gpu_memory_used_mib`` over a window, sampled every
+    half second from a thread."""
+
+    def __init__(self):
+        self.peak = 0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        while not self._stop.is_set():
+            self.peak = max(self.peak, gpu_memory_used_mib())
+            self._stop.wait(0.5)
+
+    def stop(self):
+        self._stop.set()
+        self._thread.join(30)
+        return self.peak
+
+
+def fleet_wave(gw, prompts):
+    gw.latency.reset()
+    t0 = time.perf_counter()
+    handles = [gw.submit_generate(p, max_new_tokens=NEW_TOKENS)
+               for p in prompts]
+    outs = [h.result(timeout=600) for h in handles]
+    return outs, time.perf_counter() - t0
+
+
+def fleet_streams(torch, what, params, prompts, got, want):
+    """Each fleet stream against the single server's. A stream that
+    differs is teacher-forced through a plain forward: the top-2 logit
+    gap at its first differing token must lie within LOGITS_ATOL (a
+    near-tie; above it, the fail-over is at fault), and then every token
+    it emitted must lie within LOGITS_ATOL of its row's maximum. Returns
+    the near-ties found."""
+    ties = []
+    for p, g, w in zip(prompts, got, want):
+        if g == w:
+            continue
+        check(len(g) == len(w) == NEW_TOKENS, "21d %s: stream lengths %d "
+              "and %d" % (what, len(g), len(w)))
+        i = next(j for j in range(NEW_TOKENS) if g[j] != w[j])
+        p = [int(t) for t in p]
+        top = plain_logits(torch, params, p + w[:i], FLEET_LAYERS).topk(2)
+        gap = float(top.values[0] - top.values[1])
+        worst = 0.0
+        for j, tok in enumerate(g):
+            row = plain_logits(torch, params, p + g[:j], FLEET_LAYERS)
+            worst = max(worst, float(row.max() - row[tok]))
+        tie = {"prompt": len(p), "token": i, "fleet": g[i], "single": w[i],
+               "top2_gap": gap, "worst_emitted_gap": worst}
+        log("21d %s: the prompt of %d tokens parts at token %d (%d against "
+            "%d): top-2 logit gap %.3g there, worst emitted token %.3g "
+            "below its row's maximum" % (what, len(p), i, g[i], w[i], gap,
+                                         worst))
+        check(gap <= LOGITS_ATOL, "21d %s: a stream parts from the single "
+              "server's with a top-2 gap of %g > %g: %s"
+              % (what, gap, LOGITS_ATOL, tie))
+        check(worst <= LOGITS_ATOL, "21d %s: an emitted token lies %g below "
+              "its row's maximum: %s" % (what, worst, tie))
+        ties.append(tie)
+    return ties
+
+
+def check_replica_k1(rank, k1, requests):
+    """A replica process launched K1 f32 once per prefill per layer (its
+    requests, redispatches included), and never K1 bf16."""
+    check(k1["f32"] == requests * FLEET_LAYERS and k1["bf16"] == 0,
+          "21d: rank %d launched K1 %s for %d prefills x %d layers"
+          % (rank, k1, requests, FLEET_LAYERS))
+
+
+def fleet_spec():
+    geo = {"vocab_size": VOCAB, "num_layers": FLEET_LAYERS,
+           "d_model": D_MODEL, "n_heads": HEADS, "d_ff": D_FF,
+           "seq_len": MAX_SEQ}
+    spec = {"kind": "transformer", "geo": geo, "seed": FLEET_SEED,
+            "slots": FLEET_SLOTS, "page": PAGE, "name": "fleet_replica"}
+    if DEVICE == "cpu":             # the CPU rehearsal's replicas
+        spec["device"] = "cpu"
+    return spec
+
+
+def fleet_phase(torch, np, mt):
+    """21d: the fleet drill (the port's tools/fleet_smoke.py)."""
+    from mxnet_tpu_torch import config
+    from mxnet_tpu_torch.fleet import Gateway, build_from_spec, wire
+    from mxnet_tpu_torch.obs.prometheus import parse_prometheus
+    rng = np.random.default_rng(SEED + 1)
+    prompts = [[int(t) for t in rng.integers(0, VOCAB, n)]
+               for n in PROMPT_LENS]
+    spec = fleet_spec()
+    snap = config.snapshot_overrides(["MXNET_TPU_FLEET",
+                                      "MXNET_TPU_ELASTIC_BACKOFF"])
+    config.set("MXNET_TPU_FLEET", True)
+    config.set("MXNET_TPU_ELASTIC_BACKOFF", FLEET_BACKOFF)
+    os.environ["MXNET_TPU_FLEET_FAULT_REPLICA"] = FLEET_FAULT
+    memory = MemorySampler()
+    t0 = time.perf_counter()
+    gw = Gateway(spec=spec, replicas=FLEET_REPLICAS, port=None,
+                 stats_period=FLEET_STATS_PERIOD, name="fleet21")
+    watch = FleetWatch(gw, t0)
+    r = {"tf32": gw._replicas[0].spec["tf32"]}
+    try:
+        # the single server, built here while the replicas start
+        truth = build_from_spec(dict(spec, name="fleet_single"))
+        r["single_build_s"] = time.perf_counter() - t0
+        try:
+            want, wall = burst(truth, prompts)
+            st = truth.stats()
+            r["single"] = {"tok_s": sum(map(len, want)) / wall,
+                           "ttft_p50_ms": st["ttft"]["p50_ms"],
+                           "wall_s": wall}
+            params = truth.engine.params
+            live = gw.wait_ready(FLEET_REPLICAS, timeout=FLEET_SPAWN_WAIT_S)
+            check(live == FLEET_REPLICAS, "21d: %d of %d replicas came up "
+                  "in %d s" % (live, FLEET_REPLICAS, FLEET_SPAWN_WAIT_S))
+            got, wall = fleet_wave(gw, prompts)
+            st = gw.stats()
+            r["wave1"] = {"tok_s": sum(map(len, got)) / wall,
+                          "ttft_p50_ms": st["ttft"]["p50_ms"],
+                          "wall_s": wall}
+            r["ties"] = fleet_streams(torch, "wave 1", params, prompts, got,
+                                      want)
+            check(st["failover"] >= 1, "21d: the armed kill never failed "
+                  "over: %s" % {k: v for k, v in st.items()
+                                if k != "replicas"})
+            check(st["dup_dropped"] == 0, "21d: %d duplicate frames"
+                  % st["dup_dropped"])
+            r["failover"] = st["failover"]
+            # the supervisor notices the death on its own clock, then
+            # respawns rank 1 after the backoff
+            deadline = time.monotonic() + FLEET_SPAWN_WAIT_S
+            while time.monotonic() < deadline:
+                st = gw.stats()
+                r1 = st["replicas"][1]
+                if r1["state"] == "live" and r1["generation"] == 2 and \
+                        r1["stats"].get("pid"):
+                    break
+                time.sleep(0.1)
+            check(st["replica_dead"] >= 1 and r1["restarts"] == 1 and
+                  r1["state"] == "live", "21d: rank 1 did not respawn once: "
+                  "replica_dead %d, %s" % (st["replica_dead"], r1))
+            fresh = wire.request_value(tuple(r1["addr"]), "STATS")
+            check(fresh["native_builds"] == 0, "21d: the respawned replica "
+                  "built %d native libraries" % fresh["native_builds"])
+            r["respawn_compiles"] = {"native_builds": fresh["native_builds"],
+                                     "backend_compiles":
+                                         fresh["backend_compiles"]}
+            got2, wall = fleet_wave(gw, prompts)
+            st = gw.stats()
+            r["wave2"] = {"tok_s": sum(map(len, got2)) / wall,
+                          "ttft_p50_ms": st["ttft"]["p50_ms"],
+                          "wall_s": wall}
+            r["ties"] += fleet_streams(torch, "wave 2", params, prompts,
+                                       got2, want)
+            reps = {}
+            for rep in st["replicas"]:
+                check(rep["state"] == "live", "21d: rank %d is %s after "
+                      "wave 2" % (rep["rank"], rep["state"]))
+                s = wire.request_value(tuple(rep["addr"]), "STATS")
+                k1 = s["kernel_launches"]["flash_attention_fwd"]
+                reps[rep["rank"]] = {"requests": s["requests"],
+                                     "tokens": s["tokens"], "k1": k1,
+                                     "generation": rep["generation"]}
+                check(s["tokens"] > 0, "21d: rank %d decoded nothing"
+                      % rep["rank"])
+                check_replica_k1(rep["rank"], k1, s["requests"])
+            r["replicas"] = reps
+            samples = parse_prometheus(gw.metrics_text())
+            labels = {dict(lbls).get("replica") for _n, lbls in samples}
+            check({"0", "1", "2"} <= labels, "21d: /metrics carries the "
+                  "replica labels %s" % sorted(map(str, labels)))
+            r["metrics_samples"] = len(samples)
+        finally:
+            truth.close()
+            del truth
+    finally:
+        procs = [rep.proc for rep in gw._replicas]
+        gw.close(drain=False, timeout=60.0)
+        watch.stop()
+        # read after the watch has stopped: it lags the gateway a poll
+        r["start_s"] = [watch.first(k, 1, "live")
+                        for k in range(FLEET_REPLICAS)]
+        dead, back = watch.first(1, 1, "dead"), watch.first(1, 2, "live")
+        r["respawn_s"] = None if dead is None or back is None \
+            else back - dead
+        os.environ.pop("MXNET_TPU_FLEET_FAULT_REPLICA", None)
+        config.restore_overrides(snap)
+        r["peak_mib"] = memory.stop()
+    alive = [p.pid for p in procs if p is not None and p.poll() is None]
+    check(not alive, "21d: replica processes %s outlived close()" % alive)
+    log("21d fleet of %d replicas (the LM at full width, %d layers, f32, %d "
+        "slots each, TF32 %s): replicas live at %s s, the single server "
+        "built in %.1f s; wave 1 with rank 1 killed after its 6th token "
+        "frame: %.1f tok/s, TTFT p50 %.3f ms (single server: %.1f tok/s, "
+        "TTFT p50 %.3f ms); failovers %d; rank 1 back %.2f s after its "
+        "death, compiles %s; wave 2 %.1f tok/s, TTFT p50 %.3f ms; "
+        "replicas %s; near-ties %d; %d federated samples; card memory "
+        "peak %d MiB" % (
+            FLEET_REPLICAS, FLEET_LAYERS, FLEET_SLOTS, r["tf32"],
+            ["%.1f" % t if t is not None else "?" for t in r["start_s"]],
+            r["single_build_s"], r["wave1"]["tok_s"],
+            r["wave1"]["ttft_p50_ms"], r["single"]["tok_s"],
+            r["single"]["ttft_p50_ms"], r["failover"],
+            r["respawn_s"] if r["respawn_s"] is not None else float("nan"),
+            r["respawn_compiles"], r["wave2"]["tok_s"],
+            r["wave2"]["ttft_p50_ms"], json.dumps(r["replicas"]),
+            len(r["ties"]), r["metrics_samples"], r["peak_mib"]))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return r
+
+
+def legacy_tools_fleet_phase(torch, np):
+    """Phase 21: the legacy surface, test_utils and the tools (A10c) and
+    the serving fleet (A10d's fleet/): 21a-21d."""
+    import shutil
+    import mxnet_tpu_torch as mt
+    t0 = time.perf_counter()
+    out = ROOT / "build" / "phase21"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    register_wrong_square(mt)
+    readings = {}
+    try:
+        t = time.perf_counter()
+        readings["21a"] = legacy_phase(torch, np, mt, out)
+        readings["21b"] = consistency_phase(torch, np, mt)
+        readings["21c"] = tools_phase(torch, np, mt, out, LEGACY_EPOCHS)
+        readings["21abc_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        readings["21d"] = fleet_phase(torch, np, mt)
+        readings["21d_s"] = time.perf_counter() - t
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = tf32
+        shutil.rmtree(out, ignore_errors=True)
+    log("21 legacy, tools and fleet: %.1f s; %s"
+        % (time.perf_counter() - t0, json.dumps(readings, default=str)))
+    return readings
+
+
 PAIRS_OF = ("f32-backward", "rtc", "fit-loop", "steps")
 
 
@@ -10785,6 +11573,10 @@ def main() -> int:
         # so does a hung trace, fit or CLI process
         faulthandler.dump_traceback_later(ANALYSIS_DEADLINE_S, exit=True)
         analysis_phase(torch, np)
+        faulthandler.cancel_dump_traceback_later()
+        # so does a hung replica, gateway or client
+        faulthandler.dump_traceback_later(FLEET_DEADLINE_S, exit=True)
+        legacy_tools_fleet_phase(torch, np)
         faulthandler.cancel_dump_traceback_later()
         torch.cuda.synchronize()
     except SmokeFailure as exc:

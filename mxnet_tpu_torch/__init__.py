@@ -84,7 +84,14 @@ Ported so far:
   spans on named lanes with flows across threads and a chrome-trace
   dump, the ``/metrics`` endpoint both servers start, compile
   accounting, the MFU gauge and the flight recorder; the knob layer
-  (:mod:`.config`) and the lock witness (:mod:`.lockcheck`).
+  (:mod:`.config`) and the lock witness (:mod:`.lockcheck`);
+* the legacy surface and the tools: ``operator.PythonOp`` /
+  ``NumpyOp`` / ``NDArrayOp``, :mod:`.test_utils`, :mod:`.visualization`
+  (``viz``), and ``tools/`` (``caffe_converter``, ``convert_params``,
+  ``parse_log``, ``kill_mxnet``);
+* the serving fleet (:mod:`.fleet`, imported on first use): a gateway
+  over ``GenerativeServer`` replica processes with least-loaded routing,
+  supervision and exact fail-over.
 """
 from __future__ import annotations
 
@@ -101,6 +108,10 @@ from . import gluon, operator, optimizer, random, rnn, rtc
 from . import symbol as sym
 from . import predictor, serve
 from . import config, lockcheck, profiler
+from . import models, test_utils
+from . import optimizer as opt
+from . import visualization
+from . import visualization as viz
 from .base import MXNetError
 from .context import (Context, cpu, current_context, current_device,
                       device_scope, gpu, num_devices, tpu)
@@ -117,7 +128,8 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "tpu", "current_context",
            "metric", "mod", "model", "mon", "name", "nd", "operator",
            "optimizer", "random", "rnn", "rtc", "sym", "filesystem",
            "recordio", "image", "data", "predictor", "Predictor", "serve",
-           "config", "lockcheck", "profiler", "obs"]
+           "config", "lockcheck", "profiler", "obs", "opt", "models",
+           "test_utils", "visualization", "viz", "fleet", "elastic"]
 
 __version__ = "0.1.0"
 
@@ -126,8 +138,10 @@ def __getattr__(name):
     # data is lazy, as in the reference: a fit fed by any other iterator
     # never imports the multi-process loader; obs loads at first use (a
     # build, a bind, a server's endpoint); analysis at the first call
-    # that asks for it (a bind under MXNET_TPU_ANALYZE, Symbol.analyze)
-    if name in ("data", "obs", "analysis"):
+    # that asks for it (a bind under MXNET_TPU_ANALYZE, Symbol.analyze);
+    # fleet and elastic likewise: a plain serve process never loads the
+    # multi-replica gateway
+    if name in ("data", "obs", "analysis", "fleet", "elastic"):
         import importlib
         return importlib.import_module("." + name, __name__)
     raise AttributeError("module %r has no attribute %r" % (__name__, name))

@@ -20,7 +20,11 @@ check, its HBM budget and the roofline's bandwidth:
 observability knobs of :mod:`.profiler` and :mod:`.obs`
 (``MXNET_TPU_OBS``, ``MXNET_TPU_OBS_METRICS_PORT``,
 ``MXNET_TPU_OBS_PEAK_FLOPS``, ``MXNET_TPU_OBS_BLACKBOX`` with its
-``_RING`` and ``_FLUSH_SECS``, ``MXNET_PROFILER_AUTOSTART``). Knobs of
+``_RING`` and ``_FLUSH_SECS``, ``MXNET_PROFILER_AUTOSTART``), and the
+serving fleet's (``MXNET_TPU_FLEET`` and its ``_REPLICAS``,
+``_STATS_PERIOD``, ``_QUEUE_BOUND``, ``_MAX_RESPAWNS`` and
+``_SPAWN_TIMEOUT``, with the respawn backoff
+``MXNET_TPU_ELASTIC_BACKOFF`` / ``_MAX``). Knobs of
 features the port does not have yet arrive with those features.
 
 :func:`describe` lists every knob with its value and where the value
@@ -185,6 +189,40 @@ register("MXNET_TPU_ANALYZE_HBM_GBPS", float, 0.0,
          "0 = from the card's name (analysis.roofline's table: NVIDIA "
          "H100 80GB HBM3); set it on a card the table does not know and "
          "in CPU tests")
+register("MXNET_TPU_FLEET", _parse_bool, False,
+         "fleet.Gateway: opt-in switch for the multi-replica serving "
+         "fleet (mxnet_tpu_torch.fleet). Off = the gateway refuses to "
+         "start and the package is never imported by the serve path — "
+         "spawning replica subprocesses is an explicit deployment "
+         "decision, not a framework default")
+register("MXNET_TPU_FLEET_REPLICAS", int, 2,
+         "fleet: default replica-world size when Gateway(replicas=) / "
+         "python -m mxnet_tpu_torch.fleet serve --replicas is not given")
+register("MXNET_TPU_FLEET_STATS_PERIOD", float, 0.5,
+         "fleet.Gateway: heartbeat cadence in seconds — each tick "
+         "polls every replica's stats() snapshot (queue depth + KV "
+         "occupancy feed least-loaded routing) and doubles as the "
+         "liveness probe (connection REFUSED marks the replica dead; "
+         "a timeout is ambiguous and never kills)")
+register("MXNET_TPU_FLEET_QUEUE_BOUND", int, 256,
+         "fleet.Gateway: admission bound on gateway-resident in-flight "
+         "requests; beyond it submits shed with QueueFull")
+register("MXNET_TPU_FLEET_MAX_RESPAWNS", int, 16,
+         "fleet: per-replica supervisor respawn budget — a replica "
+         "that dies more than this many times is marked failed and "
+         "left down (backoff reuses MXNET_TPU_ELASTIC_BACKOFF/_MAX "
+         "between attempts)")
+register("MXNET_TPU_FLEET_SPAWN_TIMEOUT", float, 240.0,
+         "fleet: seconds a freshly spawned replica may take to answer "
+         "its first PING (model build + bind + kernel load); past it "
+         "the spawn is scored failed and retried under the respawn "
+         "budget")
+register("MXNET_TPU_ELASTIC_BACKOFF", float, 1.0,
+         "supervisors (the fleet's per-replica respawn): base seconds "
+         "of the exponential restart backoff (doubles per consecutive "
+         "restart, plus up to 25 percent jitter)")
+register("MXNET_TPU_ELASTIC_BACKOFF_MAX", float, 60.0,
+         "supervisors: backoff ceiling in seconds")
 register("MXNET_TPU_FAULTS", str, "",
          "deterministic fault injection: comma list of "
          "<site>@<nth>[:kind] specs fired at named injection points "

@@ -36,15 +36,28 @@ data.worker          data.DataLoader worker        sigkill
 data.decode          the decode of one loader      raise
                      batch (poisons that batch,
                      never the epoch)
+replica.die          fleet replica wire, after     sigkill
+                     each emitted token frame
+                     (the gateway re-prefills the
+                     victim's sequences on
+                     survivors; respawned
+                     replicas do not re-fire)
+gateway.route        fleet gateway, at each        raise
+                     routing decision (kills ONE
+                     request legibly, never the
+                     gateway)
 ===================  ============================  =====================
 
 Kinds: ``eio``/``enospc``/``eintr`` raise the matching ``OSError``;
 ``raise`` raises :class:`FaultInjected`; ``sigterm``/``sigkill`` deliver
 the signal to this process; ``slow`` sleeps
-``MXNET_TPU_FAULTS_SLOW_SECS`` (default 0.25) and returns. The
-reference's host-level kinds (``hostkill``, ``wedge``, ``coordsvc``) and
-file-corruption kinds (``bitflip``, ``truncate``) belong to subsystems
-the port does not have yet.
+``MXNET_TPU_FAULTS_SLOW_SECS`` (default 0.25) and returns;
+``hostkill`` SIGKILLs the coordinated supervisor (the parent, only when
+it marked this process ``MXNET_TPU_ELASTIC_COORDINATED``, so a drill
+never kills a shell or pytest) and then this process. The reference's
+other host-level kinds (``wedge``, ``coordsvc``) and file-corruption
+kinds (``bitflip``, ``truncate``) belong to subsystems the port does
+not have yet.
 
 Call sites guard with ``if faults.ARMED:`` so a disarmed process pays
 one attribute read. Every fired fault bumps the ``fault_injected``
@@ -68,12 +81,14 @@ __all__ = ["FaultInjected", "ARMED", "fire", "install", "clear",
 
 ENV = "MXNET_TPU_FAULTS"
 
-KINDS = ("eio", "enospc", "eintr", "raise", "sigterm", "sigkill", "slow")
+KINDS = ("eio", "enospc", "eintr", "raise", "sigterm", "sigkill", "slow",
+         "hostkill")
 
 SITES = frozenset(("serve.submit", "serve.decode", "serve.evict",
                    "ckpt.arrays_write", "ckpt.after_arrays",
                    "ckpt.after_manifest", "ckpt.before_rename",
-                   "fit.batch", "data.worker", "data.decode"))
+                   "fit.batch", "data.worker", "data.decode",
+                   "replica.die", "gateway.route"))
 
 _ERRNO = {"eio": errno.EIO, "enospc": errno.ENOSPC, "eintr": errno.EINTR}
 
@@ -203,6 +218,16 @@ def fire(site: str, default_kind: str = "raise") -> None:
     if kind == "sigterm":
         os.kill(os.getpid(), signal.SIGTERM)
     elif kind == "sigkill":
+        os.kill(os.getpid(), signal.SIGKILL)
+    elif kind == "hostkill":
+        # the whole host dies: the coordinated supervisor first, then
+        # this process. Guarded by the coordinator's env marker so a
+        # drill never SIGKILLs an arbitrary parent (a shell, pytest)
+        if os.environ.get("MXNET_TPU_ELASTIC_COORDINATED"):
+            try:
+                os.kill(os.getppid(), signal.SIGKILL)
+            except OSError:
+                pass
         os.kill(os.getpid(), signal.SIGKILL)
     elif kind == "slow":
         try:

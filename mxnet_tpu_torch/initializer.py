@@ -28,7 +28,8 @@ from .ndarray import NDArray
 
 __all__ = ["InitDesc", "Initializer", "Load", "Mixed", "Uniform", "Normal",
            "Orthogonal", "Xavier", "MSRAPrelu", "Bilinear", "LSTMBias",
-           "FusedRNN", "One", "Zero", "Constant", "register", "create"]
+           "FusedRNN", "One", "Zero", "Constant", "register", "create",
+           "from_json"]
 
 _INITIALIZER_REGISTRY: Dict[str, type] = {}
 
@@ -415,3 +416,10 @@ class FusedRNN(Initializer):
                         out[p + H:p + 2 * H] = self._forget_bias / 2.0
                     p += gates * H
         arr[:] = nd.array(out, ctx=cpu())
+
+
+def from_json(s: str) -> "Initializer":
+    """An initializer from its ``[class name, kwargs]`` JSON (the form
+    ``Variable(init=...)`` serializes)."""
+    klass, kwargs = json.loads(s)
+    return create(klass, **kwargs)

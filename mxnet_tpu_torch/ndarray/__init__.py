@@ -13,14 +13,14 @@ from __future__ import annotations
 
 import sys as _sys
 
-from ..ops.registry import OP_REGISTRY
+from ..ops.registry import OP_REGISTRY, get_op
 from .ndarray import (NDArray, array, concatenate, empty, imperative_invoke,
                       load, moveaxis, onehot_encode, ones, save, waitall,
                       zeros)
 
 __all__ = ["NDArray", "array", "concatenate", "zeros", "ones", "empty",
            "waitall", "moveaxis", "onehot_encode", "imperative_invoke",
-           "save", "load"]
+           "save", "load", "get_op"]
 
 
 def _make_wrapper(op):

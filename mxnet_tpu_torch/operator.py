@@ -24,8 +24,13 @@ Two paths, as in the reference:
   A Prop with ``need_top_grad=False`` (a loss head) must override
   ``backward_traced``, whose incoming gradient it may ignore.
 
-The reference's legacy ``PythonOp`` / ``NumpyOp`` / ``NDArrayOp``
-classes are not ported yet (ROADMAP.md queue A10).
+The legacy frontend of MXNet 0.x, :class:`PythonOp` with its
+:class:`NumpyOp` and :class:`NDArrayOp`, rides the host path: each
+instance registers a Prop of its own, and ``get_symbol(*args)`` splices
+it into a Symbol graph as a ``Custom`` op. A ``NumpyOp`` sees numpy
+arrays (on the card its inputs cross to the host and its results back);
+an ``NDArrayOp`` sees NDArrays on the inputs' device, with no copy to the
+host.
 """
 from __future__ import annotations
 
@@ -37,7 +42,8 @@ from .base import MXNetError
 from .context import device_scope
 from .ndarray.ndarray import NDArray, to_numpy_dtype, to_torch_dtype
 
-__all__ = ["CustomOp", "CustomOpProp", "register", "get_prop_class"]
+__all__ = ["CustomOp", "CustomOpProp", "register", "get_prop_class",
+           "PythonOp", "NumpyOp", "NDArrayOp"]
 
 _PROP_REGISTRY: Dict[str, type] = {}
 
@@ -328,3 +334,120 @@ def _register_custom_op():
 
 
 _register_custom_op()
+
+
+# -------------------------------------------------- legacy frontend classes
+
+
+class PythonOp(object):
+    """Base of the 0.x custom-op style (reference MXNet
+    ``python/mxnet/operator.py`` ``PythonOp``, which predates
+    ``CustomOp`` / ``CustomOpProp``). Subclass :class:`NumpyOp` or
+    :class:`NDArrayOp`; ``get_symbol(*args)`` splices the op into a
+    Symbol graph. Each instance registers a :class:`CustomOpProp` of its
+    own, so the legacy surface runs as ``sym.Custom`` does."""
+
+    _counter = [0]
+
+    def __init__(self, need_top_grad=True):
+        self.need_top_grad_ = need_top_grad
+        self._op_type = None
+
+    # -- the legacy overridables
+    def forward(self, in_data, out_data):
+        raise NotImplementedError
+
+    def backward(self, out_grad, in_data, out_data, in_grad):
+        raise NotImplementedError
+
+    def infer_shape(self, in_shape):
+        """Returns (in_shapes, out_shapes) — the legacy two-tuple."""
+        return in_shape, [in_shape[0]]
+
+    def list_arguments(self):
+        return ["data"]
+
+    def list_outputs(self):
+        return ["output"]
+
+    def need_top_grad(self):
+        return self.need_top_grad_
+
+    # -- the bridge to CustomOp
+    def _numpy_mode(self):
+        raise NotImplementedError("use NumpyOp or NDArrayOp")
+
+    def _ensure_registered(self) -> str:
+        if self._op_type is not None:
+            return self._op_type
+        PythonOp._counter[0] += 1
+        op_type = "_legacy_pyop_%d" % PythonOp._counter[0]
+        legacy = self
+        numpy_mode = self._numpy_mode()
+
+        class _Adapter(CustomOp):
+            def forward(self, is_train, req, in_data, out_data, aux):
+                if not numpy_mode:
+                    legacy.forward(in_data=in_data, out_data=out_data)
+                    return
+                outs = [o.asnumpy() for o in out_data]
+                legacy.forward(in_data=[a.asnumpy() for a in in_data],
+                               out_data=outs)
+                for dst, src in zip(out_data, outs):
+                    self.assign(dst, "write", src)
+
+            def backward(self, req, out_grad, in_data, out_data, in_grad,
+                         aux):
+                if not numpy_mode:
+                    legacy.backward(out_grad=out_grad, in_data=in_data,
+                                    out_data=out_data, in_grad=in_grad)
+                    return
+                igs = [g.asnumpy() for g in in_grad]
+                legacy.backward(out_grad=[g.asnumpy() for g in out_grad],
+                                in_data=[a.asnumpy() for a in in_data],
+                                out_data=[o.asnumpy() for o in out_data],
+                                in_grad=igs)
+                for dst, src in zip(in_grad, igs):
+                    self.assign(dst, "write", src)
+
+        class _Prop(CustomOpProp):
+            def __init__(self, **_):
+                super().__init__(need_top_grad=legacy.need_top_grad())
+
+            def list_arguments(self):
+                return list(legacy.list_arguments())
+
+            def list_outputs(self):
+                return list(legacy.list_outputs())
+
+            def infer_shape(self, in_shape):
+                ishapes, oshapes = legacy.infer_shape(in_shape)
+                return ishapes, oshapes, []
+
+            def create_operator(self, ctx, shapes, dtypes):
+                return _Adapter()
+
+        _PROP_REGISTRY[op_type] = _Prop
+        self._op_type = op_type
+        return op_type
+
+    def get_symbol(self, *args, **kwargs):
+        """Splice this op into a symbolic graph (a ``Custom`` symbol)."""
+        from . import symbol as sym
+        return sym.Custom(*args, op_type=self._ensure_registered(), **kwargs)
+
+
+class NumpyOp(PythonOp):
+    """Legacy numpy custom op: ``forward`` / ``backward`` receive numpy
+    arrays and write ``out_data`` / ``in_grad`` in place."""
+
+    def _numpy_mode(self):
+        return True
+
+
+class NDArrayOp(PythonOp):
+    """Legacy NDArray custom op: the same contract over NDArrays on the
+    inputs' device (assign with ``arr[:] = ...``)."""
+
+    def _numpy_mode(self):
+        return False

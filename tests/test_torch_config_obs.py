@@ -41,7 +41,7 @@ NOT_YET = {
     "MXNET_TPU_FAILOVER_PORT": "A9",
     "MXNET_TPU_ANALYZE_ICI_GBPS": "A9",
     "MXNET_TPU_OBS_STRAGGLER_RATIO": "A9",
-    # A10d: tune, elastic, fleet
+    # A10d: tune and elastic
     "MXNET_TPU_TUNE": "A10d",
     "MXNET_TPU_TUNE_PROBE_SECS": "A10d",
     "MXNET_TPU_TUNE_PROBE_STEPS": "A10d",
@@ -50,14 +50,6 @@ NOT_YET = {
     "MXNET_TPU_ELASTIC_STALL_SECS": "A10d",
     "MXNET_TPU_ELASTIC_DRAIN_GRACE": "A10d",
     "MXNET_TPU_ELASTIC_MAX_RESTARTS": "A10d",
-    "MXNET_TPU_ELASTIC_BACKOFF": "A10d",
-    "MXNET_TPU_ELASTIC_BACKOFF_MAX": "A10d",
-    "MXNET_TPU_FLEET": "A10d",
-    "MXNET_TPU_FLEET_REPLICAS": "A10d",
-    "MXNET_TPU_FLEET_STATS_PERIOD": "A10d",
-    "MXNET_TPU_FLEET_QUEUE_BOUND": "A10d",
-    "MXNET_TPU_FLEET_MAX_RESPAWNS": "A10d",
-    "MXNET_TPU_FLEET_SPAWN_TIMEOUT": "A10d",
     # A4d: the fused trainer step and the AOT executable cache
     "MXNET_TPU_FUSED_TRAINER": "A4d",
     "MXNET_TPU_COMPILE_CACHE": "A4d",

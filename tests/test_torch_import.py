@@ -90,6 +90,12 @@ def test_importing_the_port_loads_no_jax():
         "import mxnet_tpu_torch.obs.__main__, mxnet_tpu_torch.obs.mfu\n"
         "import mxnet_tpu_torch.profiler, mxnet_tpu_torch.lockcheck\n"
         "assert mxnet_tpu_torch.obs.report() is not None\n"
+        "import mxnet_tpu_torch.fleet, mxnet_tpu_torch.fleet.__main__\n"
+        "import mxnet_tpu_torch.elastic, mxnet_tpu_torch.test_utils\n"
+        "import mxnet_tpu_torch.visualization\n"
+        "from mxnet_tpu_torch.tools import (caffe_converter,\n"
+        "    convert_params, kill_mxnet, parse_log)\n"
+        "assert mxnet_tpu_torch.operator.NDArrayOp and mxnet_tpu_torch.viz\n"
         "import mxnet_tpu_torch._cuda_driver as driver\n"
         "assert driver._lib is None   # libcuda loads at first use only\n"
         "bad = sorted(m for m in sys.modules\n"
