@@ -306,8 +306,9 @@ Phases, each fatal on failure (exit code 1, no result line):
     ``resnet50_v1``, 16 requests each against their own forward. (b)
     ``Predictor.export`` at batch 32, run by
     ``mxnet_tpu_torch/tools/predict_exported.py`` in a subprocess from a
-    scratch directory without ``PYTHONPATH``: its output within 1e-4 of
-    ``forward``, the framework never imported there. (c)
+    scratch directory without ``PYTHONPATH``, running beside (c): its
+    output within 1e-4 of ``forward``, the framework never imported
+    there. (c)
     ``GenerativeServer(int8=True)`` on phase 4's weights and prompts:
     tok/s, TTFT and TPOT, the cache's bytes beside the allocator's, the
     audit, ``max_slots_for`` at 16 GB f32 against int8 (int8 at least
@@ -411,8 +412,9 @@ Phases, each fatal on failure (exit code 1, no result line):
     converter's reference-format ``.params`` through
     ``tools.convert_params`` into a ``Module`` bound on the card, equal
     to the predictor's forward; ``tools.parse_log`` over 21a's fit logs;
-    (d) the fleet drill: a ``Gateway`` over three replica processes of
-    phase 4's LM (12 layers at full width, f32, ``init.Uniform(0.05)``
+    (d) the fleet drill (its replicas started before (a), coming up
+    while (a)-(c) run): a ``Gateway`` over three replica processes of
+    phase 4's LM (4 of its 12 layers at full width, f32, ``init.Uniform(0.05)``
     from seed 11, 4 slots, page 16) on the card, rank 1 armed with
     ``FLEET_FAULT`` (SIGKILL after its 6th token frame), against one
     ``GenerativeServer`` built here from the same spec: two waves of
@@ -427,7 +429,39 @@ Phases, each fatal on failure (exit code 1, no result line):
     replica labels 0-2, every replica process reaped; the replicas'
     start times, the respawn time, tok/s and TTFT p50 beside the single
     server's, and the card's memory peak (``nvidia-smi``). A hang ends
-    the run through ``faulthandler`` after ``FLEET_DEADLINE_S``.
+    the run through ``faulthandler`` after ``FLEET_DEADLINE_S``;
+22. the single-host supervisor, the rest of ``faults.py`` and the tuner
+    (A10d), on the LM at full width as ``bench.py`` trains it (amp bf16,
+    batch 8, T 1024) cut to ``ELASTIC_LAYERS`` of its 12 layers, the
+    card freed first. (a) The supervised preemption drill
+    (``tools.elastic_smoke``): the baseline and the drill each under
+    ``python -m mxnet_tpu_torch.elastic``, both started before phase 21
+    and run beside it and the rest of this phase (a CUDA process takes
+    ~10 s to reach its ``fit`` on the card's host), the drill's attempt
+    0 SIGTERMed at
+    batch ``ELASTIC_FAULT_AT`` of ``ELASTIC_STEPS`` (``fit.batch``),
+    restarted once and resumed from its checkpoint: every parameter's
+    sha256 equal to the baseline's, the supervisors never creating a
+    CUDA context, every attempt launching K1 bf16, K2 and K3 once per
+    layer per step, the fault marker holding one fire. (b)
+    ``fit(tune="auto")`` in this process (``tools.tune_smoke``) with a
+    store in a temporary directory, one ranked candidate
+    (``TUNE_MAX_PROBES``) and ``TUNE_PROBE_STEPS`` measured steps a probe
+    under ``TUNE_PROBE_SECS``: the default and one candidate probed on
+    the card, both ok with ``obs_mfu`` > 0 on the H100's peak row, the
+    winner's score >= the default's, ``tune_applied`` 1, the fit trained
+    under the winner's knobs, its cross-entropy finite and falling, the
+    knobs gone after it; and the same program in a child process,
+    started with the search and waiting for the stored record: a store
+    hit (``tune_store_hit`` 1, no probe), the same knobs, no native
+    build. (c) Beside that child, in this process: LayerNorm at
+    d_model 2048 on rows offset by ``LN_OFFSET``, the two-pass variance
+    closer to a float64 reference than the one-pass form, the one-pass
+    form (the knob off) bit for bit the formula it had before the knob;
+    under ``MXNET_ENGINE_TYPE=NaiveEngine`` the stream idle after each
+    of a few imperative ops, whose results equal ``ThreadedEngine``'s
+    bit for bit. A hang ends the run through ``faulthandler`` after
+    ``ELASTIC_DEADLINE_S``.
 
 The second-to-last line is the kernel table as one JSON object; the
 last is ``{"ok": true, "device": {...}}``. Without a GPU, or run from a
@@ -864,6 +898,18 @@ def log(*args) -> None:
     print(*args, flush=True)
 
 
+# each phase's wall seconds in this run, by phase, logged before the end
+PHASE_SECONDS = {}
+
+
+def timed(name, fn, *args):
+    t = time.perf_counter()
+    try:
+        return fn(*args)
+    finally:
+        PHASE_SECONDS[name] = round(time.perf_counter() - t, 1)
+
+
 # ------------------------------------------------------------- phases
 
 def card_phase(torch):
@@ -931,23 +977,36 @@ def wgmma_report(_build):
     count of the instructions each must hold in its SASS (HGMMA and
     UTMALDG for the wgmma kernels, HMMA for the mma.sync ones); fatal if
     one spills or lacks one of them."""
-    tool = _build.cuobjdump()
+    from concurrent.futures import ThreadPoolExecutor
     groups = [(WGMMA_KERNELS, ("HGMMA", "UTMALDG")), (MMA_KERNELS, ("HMMA",))]
+    dumps = None
+    if _build.cuobjdump() is not None:
+        # one cuobjdump per library, all at once: each takes seconds
+        sources = sorted({source for table, _ in groups
+                          for source, _ in table.values()})
+        every = sorted({op for _, opcodes in groups for op in opcodes})
+        with ThreadPoolExecutor(max(1, len(sources))) as pool:
+            # a failing cuobjdump raises here
+            dumps = dict(zip(sources, pool.map(
+                lambda source: _build.sass_counts(source, every), sources)))
     for table, opcodes in groups:
         for record, (source, part) in table.items():
-            tensor_core_report(_build, tool, record, source, part, opcodes)
+            tensor_core_report(_build, dumps and dumps[source], record,
+                               source, part, opcodes)
 
 
-def tensor_core_report(_build, tool, record, source, part, opcodes):
+def tensor_core_report(_build, dump, record, source, part, opcodes):
+    """``dump``: the library's SASS counts by kernel, None where the
+    toolkit has no cuobjdump."""
     res = {n: r for n, r in _build.ptxas_resources(
         _build.build_log(source)).items() if part in n}
     check(res, "no ptxas report for %s in %s" % (part, source))
-    if tool is None:             # the toolkit may lack cuobjdump
+    if dump is None:             # the toolkit may lack cuobjdump
         log("sass %s: not counted (no cuobjdump in the toolkit)" % part)
         sass = None
-    else:                        # a failing cuobjdump raises
-        sass = {n: c for n, c in _build.sass_counts(
-            source, opcodes).items() if part in n}
+    else:
+        sass = {n: {op: c.get(op, 0) for op in opcodes}
+                for n, c in dump.items() if part in n}
     build_log = _build.build_log(source).splitlines()
     for name, r in sorted(res.items()):
         spills = r.get("spill_stores", 0) + r.get("spill_loads", 0)
@@ -9103,9 +9162,11 @@ def adapter_checks(torch, np, mt, sym, params, images):
     del mod, net
 
 
-def serve_export(torch, np, mt, sym, params, images):
-    """17b: Predictor.export at batch 32, run by the standalone loader in
-    a subprocess without the framework on its path."""
+def serve_export_start(torch, np, mt, sym, params, images):
+    """17b, started: Predictor.export at batch 32, and the standalone
+    loader in a subprocess without the framework on its path, left
+    running (17c goes beside it). Returns its state for
+    :func:`serve_export_finish`."""
     import os
     import shutil
     out = ROOT / "build" / "phase17"
@@ -9144,29 +9205,47 @@ def serve_export(torch, np, mt, sym, params, images):
         env = dict(os.environ)
         env.pop("PYTHONPATH", None)
         t0 = time.perf_counter()
-        r = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                           text=True, env=env, cwd=str(out), timeout=600)
-        run_s = time.perf_counter() - t0
-        check(r.returncode == 0, "17b: predict_exported.py failed: %s"
-              % r.stderr[-2000:])
+        proc = subprocess.Popen([sys.executable, "-c", code], env=env,
+                                cwd=str(out), stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+    except BaseException:
+        shutil.rmtree(out, ignore_errors=True)
+        raise
+    return {"proc": proc, "t0": t0, "out": out, "want": want,
+            "export_s": export_s, "size": art.stat().st_size}
+
+
+def serve_export_finish(torch, np, state):
+    """17b, finished: the loader's output against ``forward``'s."""
+    import shutil
+    out, want = state["out"], state["want"]
+    try:
+        stdout, stderr = state["proc"].communicate(timeout=600)
+        run_s = time.perf_counter() - state["t0"]
+        check(state["proc"].returncode == 0, "17b: predict_exported.py "
+              "failed: %s" % stderr[-2000:])
         with np.load(out / "y.npz") as z:
             got = z["output_0"]
         err = serve_close(np, got, want)
-        size = art.stat().st_size
     finally:
+        if state["proc"].poll() is None:
+            state["proc"].kill()
+            state["proc"].wait()
         shutil.rmtree(out, ignore_errors=True)
-    for line in r.stdout.strip().splitlines():
+    size, export_s = state["size"], state["export_s"]
+    for line in stdout.strip().splitlines():
         log("17b loader: " + line)
     log("17b Predictor.export (batch %d): %.1f MB artifact in %.3f s; the "
-        "loader's subprocess %.3f s; output max error %.3g of max(1, "
-        "max|ref|) (limit %g)" % (SERVE_EXPORT_BATCH, size / 1e6, export_s,
-                                  run_s, err, SERVE_EXPORT_ATOL))
-    check("framework modules: []" in r.stdout, "17b: the loader imported "
-          "the framework: %s" % r.stdout[-500:])
-    check("device %s" % torch.device(DEVICE) in r.stdout, "17b: the "
-          "loader did not run on the card: %s" % r.stdout[-500:])
-    check("tf32 matmul off cudnn off" in r.stdout, "17b: the loader did "
-          "not run in float32: %s" % r.stdout[-500:])
+        "loader's subprocess %.3f s (beside 17c); output max error %.3g of "
+        "max(1, max|ref|) (limit %g)" % (SERVE_EXPORT_BATCH, size / 1e6,
+                                         export_s, run_s, err,
+                                         SERVE_EXPORT_ATOL))
+    check("framework modules: []" in stdout, "17b: the loader imported "
+          "the framework: %s" % stdout[-500:])
+    check("device %s" % torch.device(DEVICE) in stdout, "17b: the "
+          "loader did not run on the card: %s" % stdout[-500:])
+    check("tf32 matmul off cudnn off" in stdout, "17b: the loader did "
+          "not run in float32: %s" % stdout[-500:])
     check(err <= SERVE_EXPORT_ATOL, "17b: the artifact's output is %.3g "
           "from forward's" % err)
     return {"mb": size / 1e6, "export_s": export_s, "load_run_s": run_s,
@@ -9434,8 +9513,17 @@ def serve_phase(torch, np):
     images = [rng.uniform(-1, 1, shape).astype(np.float32)
               for _ in range(SERVE_CLIENTS)]
     batcher = serve_batcher(torch, np, mt, sym, params, images)
-    export = serve_export(torch, np, mt, sym, params, images)
-    gen = serve_int8(torch, np, mt)
+    # the export's loader (a process of its own) runs beside 17c
+    state = serve_export_start(torch, np, mt, sym, params, images)
+    try:
+        gen = serve_int8(torch, np, mt)
+    except BaseException:
+        import shutil
+        state["proc"].kill()
+        state["proc"].wait()
+        shutil.rmtree(state["out"], ignore_errors=True)
+        raise
+    export = serve_export_finish(torch, np, state)
     log("17 serving: %.1f s; %s" % (time.perf_counter() - t0, json.dumps(
         {"batcher": batcher, "export": export, "int8": gen})))
     return {"batcher": batcher, "export": export, "int8": gen}
@@ -10667,9 +10755,10 @@ CONSISTENCY_RTOL, CONSISTENCY_ATOL = 1e-4, 1e-4
 UNIT_SHAPE = (8, 64, 56, 56)    # ResNet-50's stage-1 first unit input
 BLOCK_BATCH = 2                 # the LM block at (2, MAX_SEQ, D_MODEL)
 CAFFE_ATOL = 1e-5               # the LeNet forward, card against host
-# the fleet: phase 4's LM, not cut (each process draws its 737.5M
-# weights with numpy, as the reference's replicas do: ~15 s)
-FLEET_LAYERS, FLEET_SLOTS, FLEET_SEED, FLEET_REPLICAS = 12, 4, 11, 3
+# the fleet: phase 4's LM cut to 4 of its 12 layers, to make room for
+# phase 22 (each process draws its weights with numpy, as the
+# reference's replicas do: ~15 s at 12 layers)
+FLEET_LAYERS, FLEET_SLOTS, FLEET_SEED, FLEET_REPLICAS = 4, 4, 11, 3
 FLEET_FAULT = "1:replica.die@6:hostkill"
 FLEET_BACKOFF = 0.2
 FLEET_STATS_PERIOD = 0.2
@@ -11225,11 +11314,11 @@ def fleet_spec():
     return spec
 
 
-def fleet_phase(torch, np, mt):
-    """21d: the fleet drill (the port's tools/fleet_smoke.py)."""
+def fleet_start(np, mt):
+    """21d, started: the gateway spawns its replicas (they come up while
+    21a-c run). Returns what :func:`fleet_phase` goes on with."""
     from mxnet_tpu_torch import config
-    from mxnet_tpu_torch.fleet import Gateway, build_from_spec, wire
-    from mxnet_tpu_torch.obs.prometheus import parse_prometheus
+    from mxnet_tpu_torch.fleet import Gateway
     rng = np.random.default_rng(SEED + 1)
     prompts = [[int(t) for t in rng.integers(0, VOCAB, n)]
                for n in PROMPT_LENS]
@@ -11243,12 +11332,34 @@ def fleet_phase(torch, np, mt):
     t0 = time.perf_counter()
     gw = Gateway(spec=spec, replicas=FLEET_REPLICAS, port=None,
                  stats_period=FLEET_STATS_PERIOD, name="fleet21")
-    watch = FleetWatch(gw, t0)
+    return prompts, spec, snap, memory, t0, gw, FleetWatch(gw, t0)
+
+
+def fleet_abort(started):
+    """Close a started fleet whose drill never ran."""
+    from mxnet_tpu_torch import config
+    _p, _s, snap, memory, _t0, gw, watch = started
+    gw.close(drain=False, timeout=60.0)
+    watch.stop()
+    os.environ.pop("MXNET_TPU_FLEET_FAULT_REPLICA", None)
+    config.restore_overrides(snap)
+    memory.stop()
+
+
+def fleet_phase(torch, np, mt, started=None):
+    """21d: the fleet drill (the port's tools/fleet_smoke.py), on the
+    fleet :func:`fleet_start` started (here when None)."""
+    from mxnet_tpu_torch import config
+    from mxnet_tpu_torch.fleet import build_from_spec, wire
+    from mxnet_tpu_torch.obs.prometheus import parse_prometheus
+    prompts, spec, snap, memory, t0, gw, watch = \
+        started or fleet_start(np, mt)
     r = {"tf32": gw._replicas[0].spec["tf32"]}
     try:
         # the single server, built here while the replicas start
+        t_single = time.perf_counter()
         truth = build_from_spec(dict(spec, name="fleet_single"))
-        r["single_build_s"] = time.perf_counter() - t0
+        r["single_build_s"] = time.perf_counter() - t_single
         try:
             want, wall = burst(truth, prompts)
             st = truth.stats()
@@ -11373,12 +11484,19 @@ def legacy_tools_fleet_phase(torch, np):
     readings = {}
     try:
         t = time.perf_counter()
-        readings["21a"] = legacy_phase(torch, np, mt, out)
-        readings["21b"] = consistency_phase(torch, np, mt)
-        readings["21c"] = tools_phase(torch, np, mt, out, LEGACY_EPOCHS)
+        # 21d's replicas come up (~30 s) while 21a-c run
+        fleet = fleet_start(np, mt)
+        try:
+            readings["21a"] = legacy_phase(torch, np, mt, out)
+            readings["21b"] = consistency_phase(torch, np, mt)
+            readings["21c"] = tools_phase(torch, np, mt, out,
+                                          LEGACY_EPOCHS)
+        except BaseException:
+            fleet_abort(fleet)
+            raise
         readings["21abc_s"] = time.perf_counter() - t
         t = time.perf_counter()
-        readings["21d"] = fleet_phase(torch, np, mt)
+        readings["21d"] = fleet_phase(torch, np, mt, fleet)
         readings["21d_s"] = time.perf_counter() - t
     finally:
         torch.backends.cuda.matmul.allow_tf32, \
@@ -11387,6 +11505,338 @@ def legacy_tools_fleet_phase(torch, np):
     log("21 legacy, tools and fleet: %.1f s; %s"
         % (time.perf_counter() - t0, json.dumps(readings, default=str)))
     return readings
+
+
+# phase 22: the supervisor, faults and the tuner (A10d) on the LM at full
+# width, cut to 2 of its 12 layers so its six CUDA processes fit
+ELASTIC_LAYERS = 2
+ELASTIC_STEPS, ELASTIC_FAULT_AT = 6, 3
+TUNE_STEPS, TUNE_PROBE_STEPS, TUNE_MAX_PROBES = 6, 4, 1
+TUNE_PROBE_SECS = 150.0
+LN_OFFSET = 1e3
+LN_ROWS = 64
+NAIVE_SHAPE = (4096, 4096)
+# a hung supervisor, child or probe ends the run through faulthandler
+ELASTIC_DEADLINE_S = 600
+
+
+def phase22_opts(steps):
+    """The drills' options: the LM at this script's width, cut to
+    ``ELASTIC_LAYERS`` layers, amp bf16, on this script's device."""
+    import argparse
+    return argparse.Namespace(
+        device="cpu" if DEVICE == "cpu" else "cuda", net="transformer",
+        layers=ELASTIC_LAYERS, d_model=D_MODEL, heads=HEADS, d_ff=D_FF,
+        seq=MAX_SEQ, vocab=VOCAB, batch=TRAIN_BATCH, steps=steps,
+        lr=TRAIN_LR, amp="bfloat16", fault_at=ELASTIC_FAULT_AT,
+        probe_steps=TUNE_PROBE_STEPS, max_probes=TUNE_MAX_PROBES,
+        probe_secs=TUNE_PROBE_SECS, tune="auto", wait_store=0.0)
+
+
+def check_attempt_launches(name, rec):
+    """An attempt launched K1 bf16, K2 and K3 once per layer per step it
+    trained."""
+    want = rec["steps"] * ELASTIC_LAYERS
+    check(rec["steps"] > 0 and all(v == want
+                                   for v in rec["launches"].values()),
+          "22a %s attempt %d: launches %s for %d steps x %d layers"
+          % (name, rec["attempt"], rec["launches"], rec["steps"],
+             ELASTIC_LAYERS))
+
+
+def check_probe_launches(score):
+    """A probe on the card launched K1 bf16, K2 and K3."""
+    k = score["kernel_launches"]
+    check(k["flash_attention_fwd"]["bf16"] > 0 and
+          sum(k["flash_attention_bwd_dq"].values()) > 0 and
+          sum(k["flash_attention_bwd_dkv"].values()) > 0,
+          "22b: a probe launched %s" % k)
+
+
+def stream_idle(torch):
+    return torch.cuda.current_stream().query()
+
+
+def tune_checks(torch, cold, warm):
+    """22b: the search, the tuned fit and its restart."""
+    from mxnet_tpu_torch.obs.mfu import peak_flops
+    from mxnet_tpu_torch.tools import tune_smoke
+    from mxnet_tpu_torch.tune.search import _score_key
+    c, w = cold["counters"], warm["counters"]
+    check(c.get("tune_probe") == 1 + TUNE_MAX_PROBES and
+          c.get("tune_applied") == 1 and c.get("tune_store_write") == 1 and
+          not c.get("tune_probe_fail"), "22b: the tuned fit counted %s" % c)
+    st = cold["stored"]
+    check(st is not None and st["source"] == "probe" and
+          st["n_probed"] == 1 + TUNE_MAX_PROBES,
+          "22b: the stored record %s" % (st and {
+              k: st[k] for k in ("source", "n_probed", "n_pruned")}))
+    probes = [a for a in st["audit"] if a["fate"] == "probed"]
+    check(len(probes) == 1 + TUNE_MAX_PROBES and probes[0]["remat"] == "off"
+          and probes[0]["grad_accum"] == 1 and probes[0]["async_window"] == 2,
+          "22b: probed %s" % [{k: v for k, v in a.items() if k != "score"}
+                              for a in probes])
+    peak = None if DEVICE == "cpu" else peak_flops(
+        torch.cuda.get_device_name(0))
+    for a in probes:
+        sc = a["score"]
+        check(sc["ok"] and sc["device"] == str(torch.device(DEVICE))
+              and sc["mfu"] is not None and sc["mfu"] > 0,
+              "22b: probe %s scored %s" % (a, sc))
+        if peak is not None:
+            check(abs(sc["flops_per_sec"] / sc["mfu"] - peak) <= 1e-6 * peak,
+                  "22b: obs_mfu not on the card's peak row %g" % peak)
+        check_probe_launches(sc)
+    check(_score_key(st["score"]) >= _score_key(st["baseline"]),
+          "22b: the winner %s scored below the default %s"
+          % (st["score"], st["baseline"]))
+    losses = cold["losses"]
+    check(len(losses) == TUNE_STEPS and all(map(math.isfinite, losses))
+          and losses[-1] < losses[0], "22b: the tuned fit's losses %s"
+          % losses)
+    # the restart: a store hit, the same knobs, no native build (the
+    # tool's own gate), and no store write
+    bad = tune_smoke.check_warm_restart({"cold": cold, "warm": warm})
+    check(not bad and not w.get("tune_store_write"),
+          "22b: %s; the restart counted %s" % ("; ".join(bad), w))
+    from mxnet_tpu_torch.tune.space import Candidate
+    winner = Candidate.from_dict(st["candidate"])
+    check(cold["applied"] == winner.knobs() and
+          cold["grad_accum"] == winner.grad_accum,
+          "22b: the tuned fit trained under %s / %d, the winner is %s"
+          % (cold["applied"], cold["grad_accum"], winner.to_dict()))
+    return [{"candidate": {k: a[k] for k in ("remat", "grad_accum",
+                                              "scan_layers", "group_update",
+                                              "async_window")},
+             "wall_s": a["score"]["wall_s"],
+             "steps_per_sec": a["score"]["steps_per_sec"],
+             "obs_mfu": a["score"]["mfu"],
+             "launches": a["score"]["kernel_launches"]} for a in probes]
+
+
+def layernorm_check(torch, np, mt):
+    """22c: the two-pass variance against the one-pass form on offset
+    rows, and the knob-off form bit for bit the formula it had."""
+    from mxnet_tpu_torch import config
+    g = torch.Generator(device="cpu").manual_seed(SEED)
+    x64 = torch.randn(LN_ROWS, D_MODEL, generator=g, dtype=torch.float64) \
+        + LN_OFFSET
+    gamma = torch.rand(D_MODEL, generator=g, dtype=torch.float64) + 0.5
+    beta = torch.randn(D_MODEL, generator=g, dtype=torch.float64)
+    mean = x64.mean(-1, keepdim=True)
+    want = (x64 - mean) / torch.sqrt(
+        ((x64 - mean) ** 2).mean(-1, keepdim=True) + 1e-5) * gamma + beta
+    dev = torch.device(DEVICE)
+    x, ga, be = (t.float().to(dev) for t in (x64, gamma, beta))
+    args = [mt.nd.NDArray(t) for t in (x, ga, be)]
+    got = {}
+    snap = config.snapshot_overrides(["MXNET_TPU_LAYERNORM_TWO_PASS"])
+    try:
+        for two in (False, True):
+            config.set("MXNET_TPU_LAYERNORM_TWO_PASS", two)
+            got[two] = mt.nd.LayerNorm(*args, axis=-1).data
+    finally:
+        config.restore_overrides(snap)
+    err = {k: float((v.double().cpu() - want).abs().max())
+           for k, v in got.items()}
+    check(err[True] < err[False], "22c: two-pass LayerNorm %.3g is not "
+          "closer than one-pass %.3g" % (err[True], err[False]))
+    # the parent's one-pass form, at the LM's shape
+    rows = torch.randn(TRAIN_BATCH * 16, D_MODEL, device=dev)
+    m = rows.mean(dim=-1, keepdim=True)
+    var = torch.clamp((rows * rows).mean(dim=-1, keepdim=True) - m * m,
+                      min=0.0)
+    ref = (rows - m) * torch.rsqrt(var + 1e-5) * ga + be
+    out = mt.nd.LayerNorm(*[mt.nd.NDArray(t) for t in (rows, ga, be)],
+                          axis=-1).data
+    check(torch.equal(out, ref), "22c: the knob-off LayerNorm parts from "
+          "the one-pass formula by %g" % float((out - ref).abs().max()))
+    return {"one_pass_err": err[False], "two_pass_err": err[True]}
+
+
+def naive_engine_check(torch, np, mt):
+    """22c: NaiveEngine waits for the stream after each imperative op;
+    the results equal ThreadedEngine's bit for bit."""
+    from mxnet_tpu_torch import config
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    a = mt.nd.NDArray(torch.randn(NAIVE_SHAPE, generator=g, device=dev))
+    b = mt.nd.NDArray(torch.randn(NAIVE_SHAPE, generator=g, device=dev))
+    ops = (("dot", lambda: mt.nd.dot(a, b)),
+           ("exp", lambda: mt.nd.exp(a * 0.01)),
+           ("softmax", lambda: mt.nd.softmax(a, axis=-1)),
+           ("sum", lambda: mt.nd.sum(b, axis=0)))
+    runs, idle = {}, {}
+    snap = config.snapshot_overrides(["MXNET_ENGINE_TYPE"])
+    try:
+        for engine in ("NaiveEngine", "ThreadedEngine"):
+            config.set("MXNET_ENGINE_TYPE", engine)
+            outs, flags = [], []
+            for _name, fn in ops:
+                outs.append(fn())
+                flags.append(bool(stream_idle(torch)))
+            runs[engine], idle[engine] = outs, flags
+            if DEVICE != "cpu":
+                torch.cuda.synchronize()
+    finally:
+        config.restore_overrides(snap)
+    check(all(idle["NaiveEngine"]), "22c: NaiveEngine returned with work "
+          "on the stream: %s" % dict(zip([n for n, _ in ops],
+                                         idle["NaiveEngine"])))
+    for (name, _fn), x, y in zip(ops, runs["NaiveEngine"],
+                                 runs["ThreadedEngine"]):
+        check(torch.equal(x.data, y.data), "22c: %s under NaiveEngine "
+              "parts from ThreadedEngine" % name)
+    return {"naive_idle": idle["NaiveEngine"],
+            "threaded_idle": idle["ThreadedEngine"]}
+
+
+def tuned_fit_here(torch, mt, tune_smoke, store):
+    """22b's ``fit(tune="auto")`` in this process, under the phase's
+    tuner knobs and the drills' arithmetic, each restored after."""
+    from mxnet_tpu_torch import config
+    knobs = {"MXNET_TPU_TUNE_STORE": store,
+             "MXNET_TPU_TUNE_MAX_PROBES": TUNE_MAX_PROBES,
+             "MXNET_TPU_TUNE_PROBE_STEPS": TUNE_PROBE_STEPS,
+             "MXNET_TPU_TUNE_PROBE_SECS": TUNE_PROBE_SECS}
+    snap = config.snapshot_overrides(knobs)
+    switches = (torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.allow_tf32,
+                torch.backends.cudnn.deterministic)
+    try:
+        for k, v in knobs.items():
+            config.set(k, v)
+        return tune_smoke.fit_record(phase22_opts(TUNE_STEPS))
+    finally:
+        mt.amp.off()
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32, \
+            torch.backends.cudnn.deterministic = switches
+        config.restore_overrides(snap)
+
+
+def start_drill():
+    """22a's two supervised runs, started: ``(work directory, runs)``.
+    ``main`` starts them before phase 21, so that their chains of
+    processes (each ~10 s from its start to its ``fit`` on the card's
+    host) run beside phase 21 and 22b."""
+    import tempfile
+    from mxnet_tpu_torch.tools import elastic_smoke
+    (ROOT / "build").mkdir(parents=True, exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="phase22_", dir=ROOT / "build"))
+    opts = phase22_opts(ELASTIC_STEPS)
+    return work, [elastic_smoke.SupervisedRun(opts, str(work / "22a"), name)
+                  for name in ("baseline", "drill")]
+
+
+def elastic_tune_phase(torch, np, drill=None):
+    """Phase 22: the supervisor, the rest of faults and the tuner (A10d)
+    on one card. 22a's two supervised runs (``drill``, from
+    :func:`start_drill`; started here when None) go beside 22b's search
+    and tuned fit in this process and its restart in a child, which
+    comes up while the search runs and waits for the stored record;
+    then 22c in this process."""
+    import shutil
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.tools import elastic_smoke, tune_smoke
+    gc.collect()
+    if DEVICE != "cpu":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    work, runs = drill if drill is not None else start_drill()
+    opts = phase22_opts(ELASTIC_STEPS)
+    r = {}
+    restart = None
+    try:
+        store = str(work / "store")
+        restart = tune_smoke.FitProcess(
+            phase22_opts(TUNE_STEPS), store,
+            wait_store=TUNE_PROBE_SECS * (1 + TUNE_MAX_PROBES) + 300)
+        t = time.perf_counter()
+        cold = tuned_fit_here(torch, mt, tune_smoke, store)
+        r["22b_search_and_fit_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        r["22c"] = layernorm_check(torch, np, mt)
+        r["22c"].update(naive_engine_check(torch, np, mt))
+        warm = restart.result(ELASTIC_DEADLINE_S)
+        r["22b_restart_after_fit_s"] = time.perf_counter() - t
+        res = {name: run.result(ELASTIC_DEADLINE_S)
+               for name, run in zip(("baseline", "drill"), runs)}
+        res["marker"] = res["drill"]["marker"]
+    finally:
+        for proc in runs + [restart]:
+            if proc is not None:
+                proc.kill()
+        shutil.rmtree(work, ignore_errors=True)
+    bad = elastic_smoke.check(res, opts)
+    check(not bad, "22a: %s" % "; ".join(bad))
+    for name in ("baseline", "drill"):
+        for rec in res[name]["attempts"]:
+            check_attempt_launches(name, rec)
+            check(rec["device"] == str(torch.device(DEVICE)),
+                  "22a: %s ran on %s" % (name, rec["device"]))
+    first, last = res["drill"]["attempts"]
+    r["22a"] = {
+        "baseline_s": res["baseline"]["wall_s"],
+        "drill_s": res["drill"]["wall_s"],
+        "restart_s": last["t_first_step"] - first["t_end"],
+        "supervisor_gap_s": last["t_start"] - first["t_end"],
+        "attempt_fit_s": [a["t_end"] - a["t_fit"]
+                          for a in res["drill"]["attempts"]],
+        "process_start_to_fit_s": [a["t_fit"] - a["t_start"]
+                                   for a in res["drill"]["attempts"]],
+        "launches": [a["launches"] for a in res["drill"]["attempts"]],
+        "baseline_launches": res["baseline"]["attempts"][0]["launches"],
+        "supervisors": {k: res[k]["supervisor"]
+                        for k in ("baseline", "drill")},
+        "marker": res["marker"],
+        "parameters": len(last["digests"])}
+    r["22b"] = {"probes": tune_checks(torch, cold, warm),
+                "winner": cold["stored"]["candidate"],
+                "searched_s": cold["stored"]["searched_s"],
+                "fit_s": cold["t_end"] - cold["t_fit"],
+                "restart_process_s": warm["process_wall_s"],
+                "restart_start_to_store_s": warm["t_store_seen"] -
+                warm["t_start"],
+                "restart_store_to_end_s": warm["t_end"] -
+                warm["t_store_seen"],
+                "losses": cold["losses"],
+                "fit_launches": cold["launches"]}
+    # CUDA processes started: 22b's probes (the default and the ranked
+    # ones) and its restart; 22a's three attempts
+    r["cuda_processes"] = (1 + TUNE_MAX_PROBES) + 1 + 3
+    r["phase_s"] = time.perf_counter() - t0
+    log("22a supervised preemption (%d layers, full width, amp bf16, %d "
+        "steps, SIGTERM at batch %d): the drill's %d parameters bit for bit "
+        "the baseline's; supervisors %s; the restart resumed %.2f s after "
+        "attempt 0 ended (its process started %.2f s after); launches per "
+        "attempt %s (baseline %s); marker %s; "
+        "baseline %.1f s, drill %.1f s from their start (beside phase 21 "
+        "and 22b)"
+        % (ELASTIC_LAYERS, ELASTIC_STEPS, ELASTIC_FAULT_AT,
+           r["22a"]["parameters"], json.dumps(r["22a"]["supervisors"]),
+           r["22a"]["restart_s"], r["22a"]["supervisor_gap_s"],
+           r["22a"]["launches"],
+           r["22a"]["baseline_launches"], r["22a"]["marker"],
+           r["22a"]["baseline_s"], r["22a"]["drill_s"]))
+    log("22b fit(tune=\"auto\") in this process: winner %s after %.1f s "
+        "of search, inside a fit of %.1f s; probes %s; losses %s; the "
+        "restart's process (started with the search) waited %.1f s for "
+        "the record, then its fit took %.1f s: a store hit, no probe, no "
+        "native build"
+        % (json.dumps(r["22b"]["winner"]), r["22b"]["searched_s"],
+           r["22b"]["fit_s"], json.dumps(r["22b"]["probes"]),
+           ["%.4f" % v for v in r["22b"]["losses"]],
+           r["22b"]["restart_start_to_store_s"],
+           r["22b"]["restart_store_to_end_s"]))
+    log("22c LayerNorm on rows offset by %g: max error one-pass %.3g, "
+        "two-pass %.3g; NaiveEngine stream idle after each op %s "
+        "(ThreadedEngine %s), results equal"
+        % (LN_OFFSET, r["22c"]["one_pass_err"], r["22c"]["two_pass_err"],
+           r["22c"]["naive_idle"], r["22c"]["threaded_idle"]))
+    log("22 supervisor, faults and tuner: %.1f s, %d CUDA processes; %s"
+        % (r["phase_s"], r["cuda_processes"], json.dumps(r, default=str)))
+    return r
 
 
 PAIRS_OF = ("f32-backward", "rtc", "fit-loop", "steps")
@@ -11537,51 +11987,65 @@ def main() -> int:
     import numpy as np
     import torch
     try:
-        card_phase(torch)
-        build_phase()
-        kernels = kernel_phase(torch)
-        slice_phase(torch, np, kernels)
-        train_kernel_phase(torch, kernels)
-        sgd = train_phase(torch, np, kernels)
-        train_f32_phase(torch, np, kernels)
-        rtc_phase(torch, np, kernels)
-        resnet_phase(torch, np)
-        gluon_phase(torch, np)
-        rnn_phase(torch, np)
-        optim_phase(torch, np, sgd)
-        zoo_phase(torch, np)
-        structured_phase(torch, np)
-        symbol_phase(torch, np)
-        levers_phase(torch, np, kernels, sgd)
+        timed("card", card_phase, torch)
+        timed("build", build_phase)
+        kernels = timed("kernel", kernel_phase, torch)
+        timed("slice", slice_phase, torch, np, kernels)
+        timed("train_kernel", train_kernel_phase, torch, kernels)
+        sgd = timed("train", train_phase, torch, np, kernels)
+        timed("train_f32", train_f32_phase, torch, np, kernels)
+        timed("rtc", rtc_phase, torch, np, kernels)
+        timed("resnet", resnet_phase, torch, np)
+        timed("gluon", gluon_phase, torch, np)
+        timed("rnn", rnn_phase, torch, np)
+        timed("optim", optim_phase, torch, np, sgd)
+        timed("zoo", zoo_phase, torch, np)
+        timed("structured", structured_phase, torch, np)
+        timed("symbol", symbol_phase, torch, np)
+        timed("levers", levers_phase, torch, np, kernels, sgd)
         # a hung loader worker or decode thread ends the run here, with
         # every thread's stack, rather than at the call's time limit
         faulthandler.dump_traceback_later(DATA_DEADLINE_S, exit=True)
-        data_phase(torch, np)
+        timed("data", data_phase, torch, np)
         faulthandler.cancel_dump_traceback_later()
         # a client or batcher thread that hangs ends the run here too
         faulthandler.dump_traceback_later(SERVE_DEADLINE_S, exit=True)
-        serve_phase(torch, np)
+        timed("serve", serve_phase, torch, np)
         faulthandler.cancel_dump_traceback_later()
         # an example that hangs ends the run here too
         faulthandler.dump_traceback_later(KV_DEADLINE_S, exit=True)
-        kvstore_phase(torch, np)
+        timed("kvstore", kvstore_phase, torch, np)
         faulthandler.cancel_dump_traceback_later()
         # so does a hung client, scrape, batcher or recorder child
         faulthandler.dump_traceback_later(OBS_DEADLINE_S, exit=True)
-        obs_phase(torch, np)
+        timed("obs", obs_phase, torch, np)
         faulthandler.cancel_dump_traceback_later()
         # so does a hung trace, fit or CLI process
         faulthandler.dump_traceback_later(ANALYSIS_DEADLINE_S, exit=True)
-        analysis_phase(torch, np)
+        timed("analysis", analysis_phase, torch, np)
         faulthandler.cancel_dump_traceback_later()
-        # so does a hung replica, gateway or client
-        faulthandler.dump_traceback_later(FLEET_DEADLINE_S, exit=True)
-        legacy_tools_fleet_phase(torch, np)
-        faulthandler.cancel_dump_traceback_later()
+        # phase 22's supervised runs go beside phase 21 (see start_drill)
+        drill = start_drill()
+        try:
+            # so does a hung replica, gateway or client
+            faulthandler.dump_traceback_later(FLEET_DEADLINE_S, exit=True)
+            timed("legacy_tools_fleet", legacy_tools_fleet_phase, torch, np)
+            faulthandler.cancel_dump_traceback_later()
+            # so does a hung supervisor, training child or probe
+            faulthandler.dump_traceback_later(ELASTIC_DEADLINE_S, exit=True)
+            timed("elastic_tune", elastic_tune_phase, torch, np, drill)
+            faulthandler.cancel_dump_traceback_later()
+        finally:
+            for run in drill[1]:
+                run.kill()
+            import shutil
+            shutil.rmtree(drill[0], ignore_errors=True)
         torch.cuda.synchronize()
     except SmokeFailure as exc:
-        print("chip_smoke: FAILED: %s" % exc, file=sys.stderr)
+        print("chip_smoke: FAILED: %s (phase seconds: %s)"
+              % (exc, json.dumps(PHASE_SECONDS)), file=sys.stderr)
         return 1
+    log("phase seconds: %s" % json.dumps(PHASE_SECONDS))
     log(json.dumps({"kernels": list(kernels.values())}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -91,7 +91,13 @@ Ported so far:
   ``parse_log``, ``kill_mxnet``);
 * the serving fleet (:mod:`.fleet`, imported on first use): a gateway
   over ``GenerativeServer`` replica processes with least-loaded routing,
-  supervision and exact fail-over.
+  supervision and exact fail-over;
+* the single-host training supervisor (:mod:`.elastic`, ``python -m
+  mxnet_tpu_torch.elastic``): restarts after a preemption or a crash,
+  and the child resumes from its checkpoints; the configuration
+  autotuner (:mod:`.tune`, imported only when ``fit(tune=)`` or
+  ``MXNET_TPU_TUNE`` arms it) with its store keyed by :mod:`.aot`'s
+  fingerprint.
 """
 from __future__ import annotations
 
@@ -129,7 +135,8 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "tpu", "current_context",
            "optimizer", "random", "rnn", "rtc", "sym", "filesystem",
            "recordio", "image", "data", "predictor", "Predictor", "serve",
            "config", "lockcheck", "profiler", "obs", "opt", "models",
-           "test_utils", "visualization", "viz", "fleet", "elastic"]
+           "test_utils", "visualization", "viz", "fleet", "elastic", "tune",
+           "aot"]
 
 __version__ = "0.1.0"
 
@@ -140,8 +147,9 @@ def __getattr__(name):
     # build, a bind, a server's endpoint); analysis at the first call
     # that asks for it (a bind under MXNET_TPU_ANALYZE, Symbol.analyze);
     # fleet and elastic likewise: a plain serve process never loads the
-    # multi-replica gateway
-    if name in ("data", "obs", "analysis", "fleet", "elastic"):
+    # multi-replica gateway; the tuner only when a fit arms it
+    if name in ("data", "obs", "analysis", "fleet", "elastic", "tune",
+                "aot"):
         import importlib
         return importlib.import_module("." + name, __name__)
     raise AttributeError("module %r has no attribute %r" % (__name__, name))

@@ -107,8 +107,9 @@ def reshard_tensors(tensors, mesh, layout=None, manifest=None):
 
 def _maybe_crash(point: str) -> None:
     """A fault-injection point of the write protocol (a ``kill -9``
-    mid-write, by default): ``MXNET_TPU_FAULTS=ckpt.<point>@<n>``."""
-    if _faults.ARMED:
+    mid-write, by default): ``MXNET_TPU_FAULTS=ckpt.<point>@<n>`` or
+    the legacy ``MXNET_TPU_CKPT_TEST_CRASH=<point>@<n>``."""
+    if _faults.armed_or_env():
         _faults.fire("ckpt." + point, default_kind="sigkill")
 
 
@@ -257,7 +258,7 @@ def write_checkpoint(base: str, step: int, tensors: Dict[str, Any],
     try:
         arrays = {name: _host(val) for name, val in tensors.items()}
         arrays_path = os.path.join(tmp, ARRAYS_NAME)
-        if _faults.ARMED:
+        if _faults.armed_or_env():
             # transient IO drill (eio/enospc/eintr), before any byte
             _faults.fire("ckpt.arrays_write", default_kind="eio")
         with open(arrays_path, "wb") as f:
@@ -317,6 +318,13 @@ def list_checkpoints(base: str) -> List[Tuple[int, str]]:
 
 
 def read_manifest(path: str) -> Dict[str, Any]:
+    if _faults.armed_or_env():
+        # bit-rot and truncation drills: the manifest is corrupted on
+        # disk before the read, so detection and fallback meet a real
+        # torn file
+        _faults.fire("ckpt.read_manifest",
+                     path=os.path.join(path, MANIFEST_NAME),
+                     default_kind="bitflip")
     try:
         with open(os.path.join(path, MANIFEST_NAME)) as f:
             manifest = json.load(f)
@@ -379,6 +387,10 @@ def read_checkpoint(path: str, verify: bool = True, mesh=None,
     by_file: Dict[str, Dict[str, Any]] = {}
     for key, rec in manifest["arrays"].items():
         by_file.setdefault(rec.get("file", ARRAYS_NAME), {})[key] = rec
+    if _faults.armed_or_env():
+        _faults.fire("ckpt.read_arrays", path=os.path.join(
+            path, ARRAYS_NAME if ARRAYS_NAME in by_file or not by_file
+            else sorted(by_file)[0]), default_kind="bitflip")
     raw: Dict[str, np.ndarray] = {}
     dtypes: Dict[str, str] = {}
     try:

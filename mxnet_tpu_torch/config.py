@@ -24,7 +24,11 @@ observability knobs of :mod:`.profiler` and :mod:`.obs`
 serving fleet's (``MXNET_TPU_FLEET`` and its ``_REPLICAS``,
 ``_STATS_PERIOD``, ``_QUEUE_BOUND``, ``_MAX_RESPAWNS`` and
 ``_SPAWN_TIMEOUT``, with the respawn backoff
-``MXNET_TPU_ELASTIC_BACKOFF`` / ``_MAX``). Knobs of
+``MXNET_TPU_ELASTIC_BACKOFF`` / ``_MAX``), and the training
+supervisor's restart budget (``MXNET_TPU_ELASTIC_MAX_RESTARTS``), the
+tuner's (``MXNET_TPU_TUNE`` and its ``_PROBE_SECS``, ``_PROBE_STEPS``,
+``_MAX_PROBES`` and ``_STORE``), and two op-level knobs
+(``MXNET_TPU_LAYERNORM_TWO_PASS``, ``MXNET_ENGINE_TYPE``). Knobs of
 features the port does not have yet arrive with those features.
 
 :func:`describe` lists every knob with its value and where the value
@@ -223,6 +227,56 @@ register("MXNET_TPU_ELASTIC_BACKOFF", float, 1.0,
          "restart, plus up to 25 percent jitter)")
 register("MXNET_TPU_ELASTIC_BACKOFF_MAX", float, 60.0,
          "supervisors: backoff ceiling in seconds")
+register("MXNET_TPU_ELASTIC_MAX_RESTARTS", int, 10,
+         "mt.elastic supervisor: restarts allowed before giving up and "
+         "returning the child's exit status (exit 143 and crashes both "
+         "count as preemptions)")
+
+
+def _parse_tune(v) -> str:
+    s = str(v).strip().lower()
+    if s in ("", "0", "off", "false", "no", "none"):
+        return "off"
+    if s in ("auto", "on", "true", "yes", "1"):
+        return "auto"
+    if s == "static":
+        return "static"
+    raise ValueError(
+        "MXNET_TPU_TUNE must be off|auto|static, got %r" % (v,))
+
+
+register("MXNET_TPU_TUNE", _parse_tune, "off",
+         "fit(): self-tuning performance search (mxnet_tpu_torch.tune) — "
+         "auto = load the stored TunedConfig for this program "
+         "fingerprint or run the static-prune + probe search and apply "
+         "the winner's knobs before bind; static = static pruning and "
+         "ranking only, no probe subprocesses (deterministic); off = the "
+         "tune package is never imported (zero cost)")
+register("MXNET_TPU_TUNE_PROBE_SECS", float, 120.0,
+         "tune.search: per-probe subprocess deadline in seconds (a "
+         "timed-out probe is scored failed and the search keeps its "
+         "partial results)")
+register("MXNET_TPU_TUNE_PROBE_STEPS", int, 8,
+         "tune.search: measured steps per probe run (after the 2 "
+         "obs-warmup steps that absorb the first-call costs)")
+register("MXNET_TPU_TUNE_MAX_PROBES", int, 4,
+         "tune.search: empirical probe budget — statically ranked "
+         "candidates probed per search (the default config is always "
+         "probed in addition); 0 = static-only ranking")
+register("MXNET_TPU_TUNE_STORE", str, "",
+         "tune: TunedConfig store directory; empty = the executable "
+         "cache's directory (aot.enabled(), none in the port yet), so "
+         "no persistence")
+register("MXNET_TPU_LAYERNORM_TWO_PASS", _parse_bool, False,
+         "LayerNorm: two-pass E[(x-mean)^2] variance instead of the "
+         "one-pass E[x^2]-E[x]^2 form — restores precision for "
+         "large-offset activations at one extra read of x (read on "
+         "every call)")
+register("MXNET_ENGINE_TYPE", str, "ThreadedEngine",
+         "NaiveEngine = synchronous op dispatch (each imperative op "
+         "returns once the card's stream is idle: failures surface at "
+         "the op that caused them); ThreadedEngine = CUDA's asynchronous "
+         "dispatch")
 register("MXNET_TPU_FAULTS", str, "",
          "deterministic fault injection: comma list of "
          "<site>@<nth>[:kind] specs fired at named injection points "

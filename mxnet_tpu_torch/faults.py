@@ -1,14 +1,18 @@
 """Deterministic fault injection — ``MXNET_TPU_FAULTS=<site>@<nth>[:kind]``.
 
 The port's copy of the reference package's ``faults.py``, for the
-serving path's, the checkpoint writer's and the data plane's injection
-points. Spec grammar (comma-separated list)::
+serving path's, the checkpoint writer's and reader's, the fit loop's and
+the data plane's injection points. Spec grammar (comma-separated
+list)::
 
     MXNET_TPU_FAULTS=serve.decode@1
-    MXNET_TPU_FAULTS=serve.evict@2:raise
+    MXNET_TPU_FAULTS=fit.batch@12:sigterm
+    MXNET_TPU_FAULTS=ckpt.read_manifest@1:bitflip
 
 ``site`` names an injection point, ``nth`` is the 1-based arrival count
-at that site in this process, and ``kind`` picks the failure mode:
+at that site in this process, and ``kind`` picks the failure mode. The
+legacy ``MXNET_TPU_CKPT_TEST_CRASH=<point>@<n>`` hook is parsed as an
+alias for ``ckpt.<point>@<n>:sigkill``.
 
 ===================  ============================  =====================
 site                 where                         default kind
@@ -28,7 +32,11 @@ ckpt.after_arrays    checkpoint write, after the   sigkill
                      arrays file
 ckpt.after_manifest  after the manifest            sigkill
 ckpt.before_rename   before the atomic rename      sigkill
-fit.batch            Module.fit, after each batch  sigterm
+ckpt.read_manifest   reader, before the manifest   bitflip
+                     is opened
+ckpt.read_arrays     reader, before the arrays     bitflip
+                     file is opened
+fit.batch            Module.fit, each batch start  sigterm
 data.worker          data.DataLoader worker        sigkill
                      process, at each batch start
                      (generation 0 only: the
@@ -52,16 +60,25 @@ Kinds: ``eio``/``enospc``/``eintr`` raise the matching ``OSError``;
 ``raise`` raises :class:`FaultInjected`; ``sigterm``/``sigkill`` deliver
 the signal to this process; ``slow`` sleeps
 ``MXNET_TPU_FAULTS_SLOW_SECS`` (default 0.25) and returns;
-``hostkill`` SIGKILLs the coordinated supervisor (the parent, only when
-it marked this process ``MXNET_TPU_ELASTIC_COORDINATED``, so a drill
-never kills a shell or pytest) and then this process. The reference's
-other host-level kinds (``wedge``, ``coordsvc``) and file-corruption
-kinds (``bitflip``, ``truncate``) belong to subsystems the port does
-not have yet.
+``bitflip`` flips one byte in the middle of the site's file and returns
+(the read that follows must detect the corruption); ``truncate`` cuts
+the site's file in half and returns; ``hostkill`` SIGKILLs the
+coordinated supervisor (the parent, only when it marked this process
+``MXNET_TPU_ELASTIC_COORDINATED``, so a drill never kills a shell or
+pytest) and then this process; ``wedge`` stops making progress while
+staying alive (and SIGSTOPs such a parent first). The pod's sites
+(``host.die``, ``leader.die``, ``dist.kv``, ``ckpt.after_record``) and
+the ``coordsvc`` kind belong to the pod runtime, ROADMAP queue A9: a
+spec naming one is refused with an error that says so.
 
-Call sites guard with ``if faults.ARMED:`` so a disarmed process pays
-one attribute read. Every fired fault bumps the ``fault_injected``
-counter (plus ``fault_injected.<site>``) before acting.
+Hot-path sites guard with ``if faults.ARMED:`` so a disarmed process
+pays one attribute read; the checkpoint writer's and reader's sites
+call :func:`armed_or_env`, which also notices the environment variables
+set after import. Every fired fault bumps the ``fault_injected``
+counter (plus ``fault_injected.<site>``) before acting and, when
+``MXNET_TPU_FAULTS_TOUCH=<path>`` names a marker file, first appends
+``<site>@<arrival>:<kind>`` to it, so even a SIGKILL drill leaves a
+trace its parent can read.
 """
 from __future__ import annotations
 
@@ -77,18 +94,28 @@ from . import lockcheck as _lockcheck
 from .base import MXNetError
 
 __all__ = ["FaultInjected", "ARMED", "fire", "install", "clear",
-           "active_specs", "KINDS", "ENV"]
+           "active_specs", "armed_or_env", "KINDS", "ENV", "LEGACY_ENV",
+           "MARKER_ENV"]
 
 ENV = "MXNET_TPU_FAULTS"
+LEGACY_ENV = "MXNET_TPU_CKPT_TEST_CRASH"
+MARKER_ENV = "MXNET_TPU_FAULTS_TOUCH"
 
-KINDS = ("eio", "enospc", "eintr", "raise", "sigterm", "sigkill", "slow",
-         "hostkill")
+KINDS = ("eio", "enospc", "eintr", "raise", "sigterm", "sigkill",
+         "bitflip", "truncate", "hostkill", "wedge", "slow")
 
 SITES = frozenset(("serve.submit", "serve.decode", "serve.evict",
                    "ckpt.arrays_write", "ckpt.after_arrays",
                    "ckpt.after_manifest", "ckpt.before_rename",
+                   "ckpt.read_manifest", "ckpt.read_arrays",
                    "fit.batch", "data.worker", "data.decode",
                    "replica.die", "gateway.route"))
+
+# the reference's pod sites and kind: they fire only inside the pod
+# runtime, which the port does not have yet
+_POD_SITES = frozenset(("host.die", "leader.die", "dist.kv",
+                        "ckpt.after_record"))
+_POD_KINDS = frozenset(("coordsvc",))
 
 _ERRNO = {"eio": errno.EIO, "enospc": errno.ENOSPC, "eintr": errno.EINTR}
 
@@ -113,13 +140,17 @@ class _Spec(object):
 _lock = _lockcheck.Lock(name="faults.lock")
 _specs: List[_Spec] = []
 _hits: Dict[str, int] = {}
+# install() and clear() are final: armed_or_env() must not resurrect the
+# environment's specs they replaced (a one-shot @nth fault re-armed with
+# fresh arrival counts would fire a second time)
+_env_disarmed = False
 
 # hot-path guard: call sites check `if faults.ARMED:` before calling
 # fire() — one attribute read when fault injection is off
 ARMED = False
 
 
-def _parse_one(item: str) -> _Spec:
+def _parse_one(item: str, default_kind: Optional[str] = None) -> _Spec:
     item = item.strip()
     if "@" in item:
         site, _, rest = item.partition("@")
@@ -129,7 +160,13 @@ def _parse_one(item: str) -> _Spec:
         nth_s = ""
     if not site:
         raise ValueError("%s: empty site in %r" % (ENV, item))
-    kind = kind.strip().lower() or None
+    kind = kind.strip().lower() or default_kind
+    if site in _POD_SITES or kind in _POD_KINDS:
+        raise ValueError(
+            "%s: %r names the pod runtime's %s, which the port does not "
+            "have yet (ROADMAP.md queue A9)"
+            % (ENV, item, "site %r" % site if site in _POD_SITES
+               else "kind %r" % kind))
     if kind is not None and kind not in KINDS:
         raise ValueError("%s: unknown fault kind %r in %r (known: %s)"
                          % (ENV, kind, item, ", ".join(KINDS)))
@@ -148,26 +185,62 @@ def _parse_one(item: str) -> _Spec:
     return _Spec(site, nth, kind)
 
 
+def _parse_env() -> List[_Spec]:
+    specs = [_parse_one(item)
+             for item in os.environ.get(ENV, "").split(",") if item.strip()]
+    legacy = os.environ.get(LEGACY_ENV, "").strip()
+    if legacy:
+        # the checkpoint writer's crash hook: <point>@<n> is a SIGKILL at
+        # the n-th arrival of the writer's point
+        specs.append(_parse_one("ckpt." + legacy, default_kind="sigkill"))
+    return specs
+
+
 def install(spec: str) -> None:
     """Arm fault injection in-process: same grammar as the env var.
-    Replaces any installed spec and resets arrival counts
-    (``install("")`` disarms)."""
-    global ARMED
+    Replaces any installed spec and resets arrival counts. The spec
+    installed here is final against the environment: ``install("")``
+    disarms for good, as a config override beats the environment."""
+    global ARMED, _env_disarmed
     parsed = [_parse_one(s) for s in spec.split(",") if s.strip()]
     with _lock:
         _specs[:] = parsed
         _hits.clear()
         ARMED = bool(_specs)
+        _env_disarmed = True
 
 
 def clear() -> None:
-    """Disarm all faults and reset arrival counts."""
+    """Disarm all faults and reset arrival counts. Final: the
+    environment's specs do not re-arm after it."""
     install("")
 
 
 def active_specs() -> List[str]:
     with _lock:
         return [repr(s) for s in _specs]
+
+
+def armed_or_env() -> bool:
+    """The arming check of the cold sites (the checkpoint writer and
+    reader): also notices the environment variables set after import,
+    as the legacy crash hook allowed (set the variable, then save in the
+    same process). Parses the environment at most once per arming;
+    hot-path sites read :data:`ARMED` alone."""
+    global ARMED
+    if ARMED:
+        return True
+    if _env_disarmed:
+        return False
+    if not (os.environ.get(ENV) or os.environ.get(LEGACY_ENV)):
+        return False
+    specs = _parse_env()
+    with _lock:
+        if specs and not _specs and not _env_disarmed:
+            _specs[:] = specs
+            _hits.clear()
+            ARMED = True
+    return ARMED
 
 
 def _blackbox_note(site: str, count: int, kind: str) -> None:
@@ -189,8 +262,42 @@ def _blackbox_note(site: str, count: int, kind: str) -> None:
         pass    # the recorder must never change drill behavior
 
 
-def fire(site: str, default_kind: str = "raise") -> None:
-    """Arrival at an injection point: fires the matching spec, if any."""
+def _corrupt_file(path: str, kind: str) -> None:
+    try:
+        size = os.path.getsize(path)
+    except OSError:
+        return
+    if size == 0:
+        return
+    with open(path, "r+b") as f:
+        if kind == "truncate":
+            f.truncate(max(1, size // 2))
+            return
+        f.seek(size // 2)                   # bitflip
+        b = f.read(1)
+        f.seek(size // 2)
+        f.write(bytes([b[0] ^ 0xFF]) if b else b"\xff")
+
+
+def _touch(site: str, count: int, kind: str) -> None:
+    """The parent-readable trace, written before the fault acts."""
+    marker = os.environ.get(MARKER_ENV)
+    if not marker:
+        return
+    try:
+        with open(marker, "a") as f:
+            f.write("%s@%d:%s\n" % (site, count, kind))
+            f.flush()
+            os.fsync(f.fileno())
+    except OSError:
+        pass
+
+
+def fire(site: str, path: Optional[str] = None,
+         default_kind: str = "raise") -> None:
+    """Arrival at an injection point: fires the matching spec, if any.
+    ``path`` is the file the site is about to read (the ``bitflip`` and
+    ``truncate`` kinds corrupt it)."""
     with _lock:
         if not _specs:
             return
@@ -210,9 +317,10 @@ def fire(site: str, default_kind: str = "raise") -> None:
     _profiler.incr_counter("fault_injected")
     _profiler.incr_counter("fault_injected.%s" % site)
     _blackbox_note(site, count, kind)
+    _touch(site, count, kind)
     if kind in _ERRNO:
         raise OSError(_ERRNO[kind], "injected %s fault at %s" % (kind, site),
-                      site)
+                      path or site)
     if kind == "raise":
         raise FaultInjected("injected fault at %s" % site)
     if kind == "sigterm":
@@ -229,6 +337,22 @@ def fire(site: str, default_kind: str = "raise") -> None:
             except OSError:
                 pass
         os.kill(os.getpid(), signal.SIGKILL)
+    elif kind == "wedge":
+        # alive and making no progress: the failure only a heartbeat
+        # deadline catches. A coordinated supervisor is stopped first,
+        # as a frozen host stops everything on it
+        if os.environ.get("MXNET_TPU_ELASTIC_COORDINATED"):
+            try:
+                os.kill(os.getppid(), signal.SIGSTOP)
+            except OSError:
+                pass
+        while True:
+            time.sleep(3600)
+    elif kind in ("bitflip", "truncate"):
+        if path is None:
+            raise FaultInjected("site %s cannot apply %r (no file)"
+                                % (site, kind))
+        _corrupt_file(path, kind)
     elif kind == "slow":
         try:
             delay = float(os.environ.get("MXNET_TPU_FAULTS_SLOW_SECS",
@@ -240,8 +364,11 @@ def fire(site: str, default_kind: str = "raise") -> None:
 
 # arm from the environment at import (subprocess drills set the env
 # before python starts; in-process tests use install()/clear())
-if os.environ.get(ENV, "").strip():
-    install(os.environ[ENV])
+_env_specs = _parse_env()
+if _env_specs:
+    _specs.extend(_env_specs)
+    ARMED = True
+del _env_specs
 
 # config.set("MXNET_TPU_FAULTS", spec) is a runtime override: route it
 # through install() (an empty value disarms)

@@ -239,7 +239,8 @@ class ReplicaFront(object):
         snap["rank"] = self.rank
         snap["pid"] = os.getpid()
         snap.update(self._compile_counts())
-        snap["kernel_launches"] = _kernel_launches()
+        from ..ops.flash_attention import launch_counts
+        snap["kernel_launches"] = launch_counts()
         return snap
 
     def _compile_counts(self) -> Dict[str, int]:
@@ -249,8 +250,7 @@ class ReplicaFront(object):
         return {
             "backend_compiles": sum(1 for c in ring
                                     if c.get("scope") == name),
-            "native_builds": sum(1 for c in ring
-                                 if c.get("source") in _NATIVE_SOURCES),
+            "native_builds": compiles.native_builds(),
         }
 
     def metrics_text(self) -> str:
@@ -259,18 +259,6 @@ class ReplicaFront(object):
 
     def close(self, *args, **kwargs):
         return self.server.close(*args, **kwargs)
-
-
-# compile-ring sources of a native build (obs.compiles): a kernel
-# library, a user kernel's cubin, the data pipeline's library
-_NATIVE_SOURCES = ("nvcc", "nvcc-cubin", "g++")
-
-
-def _kernel_launches() -> Dict[str, Dict[str, int]]:
-    from ..ops import flash_attention as fa
-    return {name: dict(getattr(fa, name).launches)
-            for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
-                         "flash_attention_bwd_dkv")}
 
 
 def build_from_spec(spec: Dict[str, Any]):

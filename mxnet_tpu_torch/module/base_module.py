@@ -44,10 +44,17 @@ with status 143) and a ``MXNET_TPU_NANCHECK`` abort.
 reference does, runs ``forward_backward`` and ``update`` per batch
 (``tic`` before, ``toc_print`` after) instead of the fused step, and so
 refuses ``grad_accum`` above 1. ``fit(grad_accum=n)`` routes to the
-module's ``set_grad_accum`` before it binds. The reference's ``fit``
-also takes a parallel layout and autotuning; they are later items of
-the port (ROADMAP.md, queue A) and ``fit`` raises :class:`MXNetError`
-naming the item when one is passed.
+module's ``set_grad_accum`` before it binds.
+
+``fit(tune="auto"|"static")`` (or ``MXNET_TPU_TUNE``) searches, or
+loads from the store, the tuned configuration of this program
+(:mod:`..tune`, imported only then) under the
+``MXNET_TPU_ANALYZE_HBM_BUDGET`` budget and applies the winner before
+the bind: its knobs as config overrides scoped to this ``fit``, its
+``grad_accum`` unless the caller passed one; it counts
+``tune_applied``. The reference's ``fit`` also takes a parallel layout,
+a later item of the port (ROADMAP.md, queue A9): ``fit`` raises
+:class:`MXNetError` naming the item when one is passed.
 
 Inference: ``predict`` / ``iter_predict`` run ``forward(is_train=False)``
 per batch and drop the last batch's padding; ``save_params`` /
@@ -78,8 +85,9 @@ BatchEndParam = namedtuple("BatchEndParams",
 # fit() options of the reference that later items of the port bring
 _LATER = {
     "layout": "queue A9 (parallelism)",
-    "tune": "queue A10 (tune)",
 }
+
+_TUNE_OFF = (None, False, 0, "", "off", "0", "no", "false", "none")
 
 
 def _blackbox_preempt(**where) -> None:
@@ -254,7 +262,7 @@ class BaseModule(object):
         backward and the fused update) and a metric update; checkpoints
         and resume as the module's docstring says."""
         assert num_epoch is not None, "please specify number of epochs"
-        given = {"layout": layout, "tune": tune}
+        given = {"layout": layout}
         for name, value in given.items():
             if value is not None:
                 raise MXNetError("fit(%s=...) is not ported yet: it comes "
@@ -295,6 +303,32 @@ class BaseModule(object):
                              resume.path, resume.step, begin_epoch,
                              ", batch %d" % resume.batches_done
                              if resume.mid_epoch else "")
+
+        # fit(tune=...): search (or load) the tuned configuration of this
+        # program and apply it before anything binds; explicit user
+        # arguments win
+        tune_mode = tune if tune is not None \
+            else _config.get("MXNET_TPU_TUNE")
+        if tune_mode in (True, 1, "on", "1", "yes", "true"):
+            tune_mode = "auto"
+        tune_knob_snapshot = None
+        if tune_mode not in _TUNE_OFF:
+            from .. import tune as _tune   # only when armed
+            budget = _config.get("MXNET_TPU_ANALYZE_HBM_BUDGET") or None
+            tuned = _tune.tune_fit(self, train_data, optimizer,
+                                   optimizer_params, mode=str(tune_mode),
+                                   budget=budget)
+            cand = tuned.candidate
+            # fit-scoped: restored in the finally below, so a later fit
+            # with the tuner off never trains under this winner's knobs
+            tune_knob_snapshot = _config.snapshot_overrides(cand.knobs())
+            for knob, val in cand.knobs().items():
+                _config.set(knob, val)
+            if grad_accum is None and cand.grad_accum > 1:
+                grad_accum = cand.grad_accum
+            _profiler.incr_counter("tune_applied")
+            self.logger.info("fit(tune=%s): applying %s config %s",
+                             tune_mode, tuned.source, cand.to_dict())
 
         if grad_accum is not None:
             setter = getattr(self, "set_grad_accum", None)
@@ -572,6 +606,8 @@ class BaseModule(object):
         finally:
             if uninstall_sigterm is not None:
                 uninstall_sigterm()
+            if tune_knob_snapshot is not None:
+                _config.restore_overrides(tune_knob_snapshot)
             if placer_sink is not None:
                 placer_sink._mx_set_device_placer(None)
             if wrapped is not None:

@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from .. import autograd
+from .. import config as _config
 from .. import lockcheck as _lockcheck
 from .. import profiler as _profiler
 from ..base import MXNetError, atomic_write
@@ -82,6 +83,21 @@ def to_numpy_dtype(dtype: torch.dtype):
     return _TORCH_TO_NP.get(dtype, dtype)
 
 
+# MXNET_ENGINE_TYPE=NaiveEngine: synchronous dispatch, each imperative
+# op returns once the card's stream is idle, so a failure surfaces at
+# the op that caused it. Cached for the hot path; config.set / reset
+# refresh it
+_SYNC_DISPATCH = _config.get("MXNET_ENGINE_TYPE") == "NaiveEngine"
+
+
+def _refresh_engine(value):
+    global _SYNC_DISPATCH
+    _SYNC_DISPATCH = value == "NaiveEngine"
+
+
+_config.on_change("MXNET_ENGINE_TYPE", _refresh_engine)
+
+
 def _device(ctx: DeviceLike) -> torch.device:
     if ctx is None:
         return resolve_device(None)
@@ -91,6 +107,15 @@ def _device(ctx: DeviceLike) -> torch.device:
 
 
 def _run(fn, arrays, *args, **kwargs):
+    """:func:`_run_op`, then, under ``NaiveEngine``, a wait for the
+    card's work behind the result."""
+    out = _run_op(fn, arrays, *args, **kwargs)
+    if _SYNC_DISPATCH:
+        _wait_for(out)
+    return out
+
+
+def _run_op(fn, arrays, *args, **kwargs):
     """``fn(*args, **kwargs)`` under autograd's recording flag: while it
     records, with torch's grad mode on, ``arrays`` (the NDArray inputs)
     marked as taking part in a graph and the result tagged with the
@@ -516,6 +541,9 @@ def imperative_invoke(op, *args, out=None, ctx: DeviceLike = None, **attrs):
         for dst, src in zip(dsts, results):
             dst._commit(src._data.to(dst._data.dtype))
         results = dsts
+    if _SYNC_DISPATCH and (out is not None or op.num_aux):
+        # the commits above queued copies of their own
+        _wait_for(tuple(r._data for r in results))
     return results[0] if single else tuple(results)
 
 

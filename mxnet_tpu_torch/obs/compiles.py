@@ -43,9 +43,13 @@ from typing import Any, Dict, List, Optional
 from .. import lockcheck as _lockcheck
 from .. import profiler as _profiler
 
-__all__ = ["scope", "record", "snapshot", "RING_CAPACITY"]
+__all__ = ["scope", "record", "snapshot", "native_builds", "RING_CAPACITY",
+           "NATIVE_SOURCES"]
 
 RING_CAPACITY = 256
+# the ring's sources of a native build: a kernel library, a user
+# kernel's cubin, the data pipeline's library
+NATIVE_SOURCES = ("nvcc", "nvcc-cubin", "g++")
 
 _ring: "collections.deque[Dict[str, Any]]" = \
     collections.deque(maxlen=RING_CAPACITY)
@@ -118,3 +122,9 @@ def snapshot() -> List[Dict[str, Any]]:
     """The compile ring, oldest first (bounded at RING_CAPACITY)."""
     with _ring_lock:
         return list(_ring)
+
+
+def native_builds() -> int:
+    """Native builds this process made (0 when every library loaded
+    from the build directory)."""
+    return sum(1 for c in snapshot() if c.get("source") in NATIVE_SOURCES)

@@ -54,7 +54,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -65,7 +65,7 @@ __all__ = ["flash_attention", "flash_attention_fwd",
            "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
            "flash_attention_reference",
            "flash_attention_backward_reference", "FlashAttentionFunction",
-           "padded_head_dim"]
+           "padded_head_dim", "launch_counts"]
 
 _NEG_INF = -1e30
 _FWD_SOURCE = "flash_attention_fwd.cu"
@@ -77,6 +77,15 @@ _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 def _launch_counts():
     """A kernel wrapper's launch counts, one per input dtype."""
     return {suffix: 0 for suffix in _SUFFIX.values()}
+
+
+def launch_counts() -> Dict[str, Dict[str, int]]:
+    """This process's launches of each kernel wrapper, by input dtype
+    (the wrappers as this module holds them now)."""
+    here = globals()
+    return {name: dict(here[name].launches)
+            for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                         "flash_attention_bwd_dkv")}
 
 
 def _scores(q, k, scale, causal):

@@ -67,6 +67,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import amp
+from .. import config as _config
 from ..base import MXNetError
 from .registry import register
 
@@ -372,9 +373,18 @@ def upsampling(*data, scale=2, sample_type="nearest", num_filter=0,
 
 
 def _layer_norm_stats(x32, ax, eps):
+    """The mean and 1/sqrt(var + eps) over ``ax``. The variance is the
+    one-pass E[x²] - E[x]² unless ``MXNET_TPU_LAYERNORM_TWO_PASS`` asks
+    for E[(x - mean)²], which re-reads x after the mean and keeps its
+    precision when the rows carry a large common offset. The knob is
+    read on every call, as the reference reads it."""
     mean = x32.mean(dim=ax, keepdim=True)
-    msq = (x32 * x32).mean(dim=ax, keepdim=True)
-    var = torch.clamp(msq - mean * mean, min=0.0)
+    if _config.get("MXNET_TPU_LAYERNORM_TWO_PASS"):
+        d = x32 - mean
+        var = (d * d).mean(dim=ax, keepdim=True)
+    else:
+        msq = (x32 * x32).mean(dim=ax, keepdim=True)
+        var = torch.clamp(msq - mean * mean, min=0.0)
     return mean, torch.rsqrt(var + eps)
 
 

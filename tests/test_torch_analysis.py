@@ -650,6 +650,14 @@ def test_lint_torch_vocabulary(case):
         case == "item"
 
 
+def test_the_ports_sources_lint_against_their_baseline():
+    """Phase 20d's ``lint --baseline`` over the port, on the host: a new
+    module must not bring a finding the baseline does not hold."""
+    from mxnet_tpu_torch.analysis.__main__ import baseline_path, main
+    assert main(["lint", "--baseline", baseline_path(),
+                 os.path.join(REPO, "mxnet_tpu_torch")]) == 0
+
+
 def test_lint_torch_sync_in_the_batch_loop():
     src = textwrap.dedent("""
         import torch

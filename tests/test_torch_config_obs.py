@@ -41,22 +41,13 @@ NOT_YET = {
     "MXNET_TPU_FAILOVER_PORT": "A9",
     "MXNET_TPU_ANALYZE_ICI_GBPS": "A9",
     "MXNET_TPU_OBS_STRAGGLER_RATIO": "A9",
-    # A10d: tune and elastic
-    "MXNET_TPU_TUNE": "A10d",
-    "MXNET_TPU_TUNE_PROBE_SECS": "A10d",
-    "MXNET_TPU_TUNE_PROBE_STEPS": "A10d",
-    "MXNET_TPU_TUNE_MAX_PROBES": "A10d",
-    "MXNET_TPU_TUNE_STORE": "A10d",
-    "MXNET_TPU_ELASTIC_STALL_SECS": "A10d",
-    "MXNET_TPU_ELASTIC_DRAIN_GRACE": "A10d",
-    "MXNET_TPU_ELASTIC_MAX_RESTARTS": "A10d",
+    # A9: the pod coordinator's stall watchdog and drain
+    "MXNET_TPU_ELASTIC_STALL_SECS": "A9",
+    "MXNET_TPU_ELASTIC_DRAIN_GRACE": "A9",
     # A4d: the fused trainer step and the AOT executable cache
     "MXNET_TPU_FUSED_TRAINER": "A4d",
     "MXNET_TPU_COMPILE_CACHE": "A4d",
     "MXNET_COMPILATION_CACHE_DIR": "A4d",
-    # A0: the engine type and LayerNorm's two-pass variance
-    "MXNET_ENGINE_TYPE": "A0",
-    "MXNET_TPU_LAYERNORM_TWO_PASS": "A0",
 }
 
 OBS_KNOBS = ("MXNET_TPU_OBS", "MXNET_TPU_OBS_METRICS_PORT",

@@ -92,7 +92,9 @@ def test_importing_the_port_loads_no_jax():
         "assert mxnet_tpu_torch.obs.report() is not None\n"
         "import mxnet_tpu_torch.fleet, mxnet_tpu_torch.fleet.__main__\n"
         "import mxnet_tpu_torch.elastic, mxnet_tpu_torch.test_utils\n"
-        "import mxnet_tpu_torch.visualization\n"
+        "import mxnet_tpu_torch.visualization, mxnet_tpu_torch.aot\n"
+        "import mxnet_tpu_torch.tune, mxnet_tpu_torch.tune.__main__\n"
+        "from mxnet_tpu_torch.tools import elastic_smoke, tune_smoke\n"
         "from mxnet_tpu_torch.tools import (caffe_converter,\n"
         "    convert_params, kill_mxnet, parse_log)\n"
         "assert mxnet_tpu_torch.operator.NDArrayOp and mxnet_tpu_torch.viz\n"

@@ -162,7 +162,7 @@ def test_no_context_without_gpu_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("option,value", [
-    ("grad_accum", 2), ("layout", object()), ("tune", "auto")])
+    ("grad_accum", 2), ("layout", object()), ("tune", "static")])
 def test_fit_options_of_later_slices_raise(option, value):
     pm = mt.mod.Module(port_transformer.get_symbol(**KW), context=mt.cpu())
     x = np.zeros((N, T), np.float32)
@@ -173,6 +173,14 @@ def test_fit_options_of_later_slices_raise(option, value):
                    eval_metric=mt.metric.Loss(), **{option: value})
         assert pm.binded and pm._grad_accum == value
         assert d.get("accum_steps") == value
+        return
+    if option == "tune":
+        # ported (A10d): fit applies the static model's winner and trains
+        with mt.profiler.counter_delta() as d:
+            pm.fit(mt.io.NDArrayIter(x, x, batch_size=N), num_epoch=1,
+                   eval_metric=mt.metric.Loss(), **{option: value})
+        assert pm.binded and d.get("tune_applied") == 1
+        assert not d.get("tune_probe")
         return
     with pytest.raises(MXNetError, match="not ported yet.*ROADMAP"):
         pm.fit(mt.io.NDArrayIter(x, x, batch_size=N), num_epoch=1,
