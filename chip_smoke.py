@@ -462,6 +462,37 @@ Phases, each fatal on failure (exit code 1, no result line):
     of a few imperative ops, whose results equal ``ThreadedEngine``'s
     bit for bit. A hang ends the run through ``faulthandler`` after
     ``ELASTIC_DEADLINE_S``.
+23. the compiled update (A4d-a): ``Trainer.step``, ``Module.update`` and
+    the update of ``Module._fit_step`` as one ``torch.compile``d program
+    (``_fused.FusedUpdater``, inductor on the card). Phases 1-22 run
+    with ``MXNET_TPU_FUSED_TRAINER=0`` (their eager update, as before):
+    a cold inductor build of one large update takes minutes. This
+    phase's two programs are built ahead by a process of their own
+    (``--warm-update``, started after phase 6, beside phases 7-22), whose
+    code lands in the checkout's ``build/inductor``: here they build
+    from that cache. The compiler's facts first: torch's version, and
+    ``triton`` and ``torch._inductor``, which must import (the phase
+    fails, it does not fall back); the warm-up's cold build seconds.
+    (a) The LM at
+    the full width and depth of ``bench.py`` (12 layers, amp bf16, batch
+    8, T 1024, flash attention) through ``Module.fit`` with Adam,
+    ``FUSED_WARM`` + ``FUSED_TIMED`` steps: one ``trainer_step_compile``,
+    a ``trainer_step_cache_hit`` for every later step, no recompile
+    (``loop_recompile``, ``trainer_step_recompile``) and no fallback to
+    the eager update, K1 bf16, K2 and K3 launched once per layer per step
+    (their counts zeroed just before the fit, read just after), finite
+    losses that fall from the plain forward's step-1 cross-entropy; then
+    one update from one set of gradients through the compiled program and
+    through the eager ``Updater.update_multi``: every weight and state
+    within the reference's bound (rtol 1e-4, atol 1e-6); the readings
+    the step's ms, the compile's seconds (the compile ring's
+    ``trainer_step`` record) and the update's ms, compiled against the
+    eager ``_foreach_`` route, each the median of windows between CUDA
+    events. (b) Gluon's ``resnet50_v1`` at phase 9's configuration (SGD,
+    momentum, wd, batch 128, 224x224) through ``Trainer.step``: one step
+    compiled and the same step with ``MXNET_TPU_FUSED_TRAINER=0``, from
+    the same weights, states and gradients, within that bound; a new
+    learning rate between steps compiles nothing. Amp bf16 for both.
 
 The second-to-last line is the kernel table as one JSON object; the
 last is ``{"ok": true, "device": {...}}``. Without a GPU, or run from a
@@ -922,7 +953,13 @@ def card_phase(torch):
     log(smi.stdout.strip())
     log("torch %s cuda %s device %s" % (torch.__version__, torch.version.cuda,
                                         torch.cuda.get_device_name(0)))
-    # full float32 everywhere: the port's path and the plain versions
+    full_f32(torch)
+
+
+def full_f32(torch):
+    """Full float32 everywhere, the port's path and the plain versions:
+    TF32 off for cuBLAS and cuDNN. Inductor keys its on-disk cache by
+    these switches too, so phase 23's warm-up processes set them alike."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -11975,20 +12012,604 @@ def pairs_of(checkout: str, what: str) -> int:
     return 0
 
 
+# phase 23: the compiled update (A4d-a). (a) The LM at bench.py's full
+# width and depth, Adam through fit: FUSED_WARM + FUSED_TIMED steps (the
+# compile is the first step's); Adam's rate, decay and clipping as phase
+# 11's fit takes them (no schedule: one rate for the whole fit)
+FUSED_WARM, FUSED_TIMED = 2, 10
+FUSED_ADAM = {"learning_rate": 1e-4, "wd": 1e-4, "clip_gradient": 1.0}
+# the reference's own bound between its fused and eager updates
+# (tests/test_fused_trainer.py:106): a compiled program rounds in its
+# own order (inductor fuses each parameter's formula into one kernel)
+FUSED_RTOL, FUSED_ATOL = 1e-4, 1e-6
+# the update timed alone, compiled against the eager foreach route:
+# alternating windows of FUSED_UPDATE_CALLS calls each
+FUSED_UPDATE_WINDOWS, FUSED_UPDATE_CALLS = 5, 3
+# the warm-up processes (warm_update), one per program, must end within
+# this
+WARM_TARGETS = ("lm", "resnet")
+WARM_DEADLINE_S = 900
+FUSED_COUNTERS = ("trainer_step_compile", "trainer_step_cache_hit",
+                  "trainer_step_recompile", "loop_recompile",
+                  "trainer_step_fallback", "trainer_step_compile_failed")
+
+
+def compiler_facts(torch):
+    """Phase 23's first reading: torch's version, and whether triton and
+    inductor import on this machine (the compiled update needs both;
+    their absence fails the phase)."""
+    import importlib
+    facts = {"torch": torch.__version__, "cuda": torch.version.cuda}
+    for name, mod in (("triton", "triton"),
+                      ("inductor", "torch._inductor.compile_fx")):
+        try:
+            m = importlib.import_module(mod)
+        except Exception as exc:                           # noqa: BLE001
+            raise SmokeFailure("%s does not import: %r" % (mod, exc))
+        facts[name] = getattr(m, "__version__", torch.__version__)
+    from mxnet_tpu_torch import _fused
+    facts["backend"] = _fused._GPU_BACKEND
+    log("compiler: torch %(torch)s (CUDA %(cuda)s), triton %(triton)s, "
+        "inductor of torch %(inductor)s; the compiled update's backend "
+        "%(backend)s" % facts)
+    return facts
+
+
+def _counter_snapshot():
+    from mxnet_tpu_torch import profiler
+    return {n: profiler.get_counter(n) for n in FUSED_COUNTERS}
+
+
+def _counter_delta(snap):
+    from mxnet_tpu_torch import profiler
+    return {n: profiler.get_counter(n) - v for n, v in snap.items()}
+
+
+def _within(torch, got, want):
+    """The worst ``|got - want| - (atol + rtol |want|)`` (<= 0 holds, as
+    numpy's assert_allclose does) and the worst |got - want|."""
+    got, want = got.double(), want.double()
+    diff = (got - want).abs()
+    return ((diff - (FUSED_ATOL + FUSED_RTOL * want.abs())).max().item(),
+            diff.max().item())
+
+
+def _leaves(state):
+    if state is None:
+        return []
+    if isinstance(state, tuple):
+        return [x for s in state for x in _leaves(s)]
+    return [state]
+
+
+def fused_lm(torch, np, counters):
+    """(a) The LM through ``Module.fit`` with Adam on the compiled update,
+    then one update held against the eager route and both timed."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.models import transformer
+    from mxnet_tpu_torch.obs import compiles
+    B, T = TRAIN_BATCH, MAX_SEQ
+    steps = FUSED_WARM + FUSED_TIMED
+    sym = transformer.get_symbol(VOCAB, LAYERS, D_MODEL, HEADS, D_FF, T,
+                                 attention="flash")
+    mod = mt.mod.Module(sym, context=mt.gpu(0))
+    mod.bind(data_shapes=[("data", (B, T))],
+             label_shapes=[("softmax_label", (B, T))])
+    mod.init_params(arg_params=lm_xavier(torch, np))
+    rng = np.random.RandomState(0)
+    x = rng.randint(0, VOCAB, (B, T)).astype(np.float32)
+    y = rng.randint(0, VOCAB, (B, T)).astype(np.float32)
+    dev = torch.device(DEVICE)
+    db = mt.io.DataBatch(data=[mt.nd.array(x, ctx=dev)],
+                         label=[mt.nd.array(y, ctx=dev)])
+    y_flat = torch.from_numpy(y).to(dev).long().view(-1, 1)
+    with torch.no_grad():
+        params = {n: a.data for n, a in mod.get_params()[0].items()}
+        want = plain_train_loss(torch, params, torch.from_numpy(x).to(dev),
+                                torch.from_numpy(y).to(dev)).item()
+        del params
+    torch.cuda.empty_cache()
+    losses, events = [], []
+
+    def on_batch(param):
+        out = mod.get_outputs()[0].data
+        losses.append(-(out.gather(1, y_flat) + 1e-12).log().mean())
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+
+    n_ring = len(compiles.snapshot())
+    snap = _counter_snapshot()
+    # the main path: counters zeroed just before, read just after
+    for fn in counters.values():
+        fn.launches = {"f32": 0, "bf16": 0}
+    t0 = time.perf_counter()
+    mod.fit(RepeatIter(db, steps, (B, T), (B, T)), num_epoch=1,
+            batch_end_callback=on_batch, optimizer="adam",
+            optimizer_params=dict(FUSED_ADAM),
+            eval_metric=mt.metric.CrossEntropy())
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = {n: dict(fn.launches) for n, fn in counters.items()}
+    delta = _counter_delta(snap)
+    ring = [r for r in compiles.snapshot()[n_ring:]
+            if r["scope"] == "trainer_step"]
+    per_step = [a.elapsed_time(b) for a, b in
+                zip(events[FUSED_WARM:], events[FUSED_WARM + 1:])]
+    step_ms = float(np.median(per_step))
+    losses = [float(v) for v in torch.stack(losses).cpu()]
+    log("23a fit: %d steps in %.3f s; step %.3f ms (median of %d steps "
+        "between CUDA events, %.3f-%.3f); counters %s; compile ring %s; "
+        "launches %s; loss per step %s; step-1 cross-entropy %.6f, plain "
+        "f32 forward %.6f" % (
+            steps, fit_s, step_ms, len(per_step), min(per_step),
+            max(per_step), delta,
+            [(r["source"], r["compile_ms"]) for r in ring], launches,
+            " ".join("%.6f" % v for v in losses), losses[0], want))
+    check(delta["trainer_step_compile"] == 1 and
+          delta["trainer_step_cache_hit"] == steps - 1,
+          "23a: the fit compiled %d update programs and reused them %d "
+          "times (1 and %d expected)" % (
+              delta["trainer_step_compile"],
+              delta["trainer_step_cache_hit"], steps - 1))
+    for name in ("loop_recompile", "trainer_step_recompile",
+                 "trainer_step_fallback", "trainer_step_compile_failed"):
+        check(delta[name] == 0, "23a: %s %d in the fit" % (name,
+                                                           delta[name]))
+    from mxnet_tpu_torch import _fused
+    backend = _fused._GPU_BACKEND if dev.type == "cuda" \
+        else _fused.CPU_BACKEND
+    check(len(ring) == 1 and ring[0]["source"] == backend,
+          "23a: the compile ring holds %s for the update (one %s record "
+          "expected)" % (ring, backend))
+    for name, n in launches.items():
+        check(n["bf16"] == steps * LAYERS and n["f32"] == 0,
+              "23a: kernel %s launched %s times in %d steps x %d layers "
+              "(bf16 only expected)" % (name, n, steps, LAYERS))
+    check(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
+          "23a: losses %s" % losses)
+    check(abs(losses[0] - want) <= CE_TOL, "23a: step-1 loss %g vs plain "
+          "forward %g" % (losses[0], want))
+
+    # one update from one set of gradients, both routes
+    ex, opt = mod._exec, mod._optimizer
+    mod._load_batch(db)
+    ex.forward(is_train=True)
+    names, grads = ex.gradients()
+    pairs = [(n, g) for n, g in zip(names, grads)
+             if n not in mod._data_names]
+    idx = mod._param_index
+    items = [(idx[n], ex.arg_dict[n], g) for n, g in pairs]
+    updater = mod._updater
+    eager = mt.optimizer.get_updater(opt)
+    eager_w = []
+    for i, w, _g in items:
+        eager_w.append(mt.nd.NDArray(w.data.clone()))
+        st = updater.states[i]
+        eager.states[i] = tuple(mt.nd.NDArray(s.data.clone()) for s in st)
+    t = opt.num_update + 1
+    snap = _counter_snapshot()
+    check(mod._fused_updater.try_step(updater, items, lr=opt.lr, t=t),
+          "23a: the compiled update declined the parity step")
+    eager.update_multi([i for i, _w, _g in items], eager_w,
+                       [g for _i, _w, g in items], lr=opt.lr, t=t)
+    torch.cuda.synchronize()
+    check(_counter_delta(snap)["trainer_step_cache_hit"] == 1,
+          "23a: the parity step did not reuse the fit's program")
+    worst, worst_abs, where = -math.inf, 0.0, None
+    for (i, w, _g), ew in zip(items, eager_w):
+        for got, ref in [(w, ew)] + list(zip(_leaves(updater.states[i]),
+                                            _leaves(eager.states[i]))):
+            excess, err = _within(torch, got.data, ref.data)
+            worst_abs = max(worst_abs, err)
+            if excess > worst:
+                worst, where = excess, mod._param_names[i]
+    log("23a parity: one Adam update of %d parameters, compiled against "
+        "the eager foreach route from the same gradients: worst |diff| "
+        "%.3g, worst excess over atol %g + rtol %g |ref| %.3g (%s)"
+        % (len(items), worst_abs, FUSED_ATOL, FUSED_RTOL, worst, where))
+    check(worst <= 0, "23a: compiled update outside rtol %g atol %g of "
+          "the eager one at %s (excess %g)" % (FUSED_RTOL, FUSED_ATOL, where,
+                                               worst))
+    del eager_w, eager
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the update alone, compiled and eager, in alternating windows
+    idxs = [i for i, _w, _g in items]
+    ws = [w for _i, w, _g in items]
+    gs = [g for _i, _w, g in items]
+
+    host = {"compiled": [], "foreach": []}
+
+    def window(fn):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        t = time.perf_counter()
+        for _ in range(FUSED_UPDATE_CALLS):
+            fn()
+        host[fn.__name__].append((time.perf_counter() - t) * 1e3
+                                 / FUSED_UPDATE_CALLS)
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / FUSED_UPDATE_CALLS
+
+    def compiled():
+        check(mod._fused_updater.try_step(updater, items, lr=opt.lr,
+                                          t=opt.num_update + 1),
+              "23a: the compiled update declined a timed call")
+
+    def foreach():
+        updater.update_multi(idxs, ws, gs, lr=opt.lr, t=opt.num_update + 1)
+
+    snap = _counter_snapshot()
+    comp_ms, eager_ms = [], []
+    for _ in range(FUSED_UPDATE_WINDOWS):
+        comp_ms.append(window(compiled))
+        eager_ms.append(window(foreach))
+    d = _counter_delta(snap)
+    check(d["trainer_step_compile"] == 0 and d["loop_recompile"] == 0,
+          "23a: the timed updates compiled: %s" % d)
+    n_values = sum(w.data.numel() for w in ws)
+    bound_ms = 7 * 4 * n_values / PEAK_BYTES_PER_S * 1e3
+    readings = {
+        "fit_s": fit_s, "step_ms": step_ms, "losses": losses, "want": want,
+        "compile_s": ring[0]["compile_ms"] / 1e3, "launches": launches,
+        "update_ms": float(np.median(comp_ms)),
+        "update_foreach_ms": float(np.median(eager_ms)),
+        "update_ms_windows": comp_ms, "update_foreach_ms_windows": eager_ms,
+        "update_host_ms": float(np.median(host["compiled"])),
+        "update_foreach_host_ms": float(np.median(host["foreach"])),
+        "update_bound_ms": bound_ms, "parity_worst_abs": worst_abs,
+        "n_params": len(items), "n_values": n_values}
+    log("23a update: compiled %.3f ms, eager foreach %.3f ms (medians of "
+        "%d windows of %d calls between CUDA events: %s / %s; the host's "
+        "ms a call %.3f / %.3f); %d values, its bound (w, g, m, v read, w, "
+        "m, v written, f32) %.3f ms; compile %.3f s"
+        % (readings["update_ms"], readings["update_foreach_ms"],
+           FUSED_UPDATE_WINDOWS, FUSED_UPDATE_CALLS,
+           " ".join("%.3f" % v for v in comp_ms),
+           " ".join("%.3f" % v for v in eager_ms),
+           readings["update_host_ms"], readings["update_foreach_host_ms"],
+           n_values, bound_ms, readings["compile_s"]))
+    del mod, db, items, ws, gs, grads, pairs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return readings
+
+
+def fused_resnet(torch, np):
+    """(b) Gluon's resnet50_v1 through ``Trainer.step``: the compiled step
+    against the knob-off step from the same weights, states and
+    gradients; then a new learning rate compiles nothing."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import autograd, gluon
+    B, S = RESNET_BATCH, RESNET_IMAGE
+    dev = torch.device(DEVICE)
+    rng = np.random.RandomState(0)
+    x = mt.nd.array(rng.uniform(-1, 1, (B, 3, S, S)).astype(np.float32),
+                    ctx=dev)
+    y = mt.nd.array(rng.randint(0, RESNET_CLASSES, (B,)).astype(np.float32),
+                    ctx=dev)
+    mt.random.seed(SEED)
+    net = gluon.model_zoo.vision.get_model("resnet%d_v1" % RESNET_LAYERS,
+                                           classes=RESNET_CLASSES)
+    net.initialize(mt.init.Xavier(rnd_type="gaussian", factor_type="in",
+                                  magnitude=2).set_rng(
+                                      mt.random.derive_numpy_rng(
+                                          "gluon_resnet50_v1")),
+                   ctx=mt.gpu(0))
+    net.hybridize()
+    net.infer_shape(x)
+    trainer = gluon.Trainer(net.collect_params(), "sgd", {
+        "learning_rate": RESNET_LR, "momentum": RESNET_MOMENTUM,
+        "wd": RESNET_WD})
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    params = [p for p in net.collect_params().values()
+              if p.grad_req != "null"]
+
+    def backward():
+        with autograd.record():
+            loss = loss_fn(net(x), y)
+        loss.backward()
+        return loss.data.detach().mean()
+
+    snap = _counter_snapshot()
+    losses = []
+    for _ in range(2):
+        losses.append(backward())
+        trainer.step(B)
+    losses.append(backward())
+    torch.cuda.synchronize()
+    d = _counter_delta(snap)
+    check(d["trainer_step_compile"] == 1 and
+          d["trainer_step_cache_hit"] == 1 and d["trainer_step_fallback"] == 0,
+          "23b: two steps made %s" % d)
+    states = trainer._updaters.states
+    keep_w = [p.data().data.clone() for p in params]
+    keep_s = {i: [s.data.clone() for s in _leaves(st)]
+              for i, st in states.items()}
+
+    def restore():
+        with torch.no_grad():
+            for p, w in zip(params, keep_w):
+                p.data().data.copy_(w)
+            for i, st in states.items():
+                for s, v in zip(_leaves(st), keep_s[i]):
+                    s.data.copy_(v)
+
+    trainer.step(B)
+    got_w = [p.data().data.clone() for p in params]
+    got_s = {i: [s.data.clone() for s in _leaves(st)]
+             for i, st in states.items()}
+    restore()
+    from mxnet_tpu_torch import config
+    knob = config.snapshot_overrides(["MXNET_TPU_FUSED_TRAINER"])
+    config.set("MXNET_TPU_FUSED_TRAINER", False)
+    try:
+        trainer.step(B)
+    finally:
+        config.restore_overrides(knob)
+    torch.cuda.synchronize()
+    worst, worst_abs, where = -math.inf, 0.0, None
+    for p, g in zip(params, got_w):
+        excess, err = _within(torch, g, p.data().data)
+        worst_abs = max(worst_abs, err)
+        if excess > worst:
+            worst, where = excess, p.name
+    for i, st in states.items():
+        for s, g in zip(_leaves(st), got_s[i]):
+            excess, err = _within(torch, g, s.data)
+            worst_abs = max(worst_abs, err)
+            if excess > worst:
+                worst, where = excess, "state %s" % i
+    d = _counter_delta(snap)
+    log("23b: resnet50_v1 (%d trained parameters), Trainer.step compiled "
+        "against MXNET_TPU_FUSED_TRAINER=0 from the same weights, momenta "
+        "and gradients: worst |diff| %.3g, worst excess over atol %g + "
+        "rtol %g |ref| %.3g (%s); counters %s"
+        % (len(params), worst_abs, FUSED_ATOL, FUSED_RTOL, worst, where, d))
+    check(worst <= 0, "23b: compiled step outside rtol %g atol %g of the "
+          "knob-off step at %s (excess %g)" % (FUSED_RTOL, FUSED_ATOL, where,
+                                               worst))
+    check(d["trainer_step_fallback"] == 1,
+          "23b: the knob-off step was not the counted fallback: %s" % d)
+    snap = _counter_snapshot()
+    for lr in (RESNET_LR * 0.5, RESNET_LR * 0.1):
+        trainer.set_learning_rate(lr)
+        losses.append(backward())
+        trainer.step(B)
+    torch.cuda.synchronize()
+    d = _counter_delta(snap)
+    losses = [float(v) for v in torch.stack(losses).cpu()]
+    log("23b: two steps at new learning rates: counters %s; losses %s"
+        % (d, " ".join("%.6f" % v for v in losses)))
+    check(d["trainer_step_compile"] == 0 and d["loop_recompile"] == 0 and
+          d["trainer_step_cache_hit"] == 2 and
+          d["trainer_step_fallback"] == 0,
+          "23b: a new learning rate recompiled: %s" % d)
+    check(all(math.isfinite(v) for v in losses), "23b: losses %s" % losses)
+    readings = {"worst_abs": worst_abs, "n_params": len(params),
+                "losses": losses}
+    del net, trainer, params, keep_w, keep_s, got_w, got_s, x, y
+    gc.collect()
+    torch.cuda.empty_cache()
+    return readings
+
+
+def compile_cache_counters():
+    """Inductor's FX graph cache and AOT autograd's cache counters of
+    this process, and inductor's cache directory."""
+    from torch._dynamo.utils import counters
+    out = {k: v for part in ("inductor", "aot_autograd")
+           for k, v in counters[part].items()
+           if "cache" in k or "bypass" in k}
+    out["dir"] = os.environ.get("TORCHINDUCTOR_CACHE_DIR")
+    return out
+
+
+def warm_update(torch, np, which=WARM_TARGETS):
+    """Phase 23's compiled updates built ahead, each in a process of its
+    own (``python3 chip_smoke.py --warm-update OUT WHICH``, which
+    ``main`` starts beside the earlier phases): ``lm``, the LM's Adam
+    update through one ``_fit_step`` at batch 1, and ``resnet``,
+    resnet50_v1's SGD ``Trainer.step`` at batch 2, amp bf16 as in phase
+    23. The parameters', gradients' and states' shapes do not depend on
+    the batch, so these are phase 23's programs, and inductor's code for
+    them lands in ``build/inductor``, which every process of the checkout
+    shares. Returns each build's seconds (the compile ring's
+    ``trainer_step`` records)."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch.models import transformer
+    from mxnet_tpu_torch.obs import compiles
+    from mxnet_tpu_torch.tune.probe import device_uniform
+    T, dev = MAX_SEQ, torch.device(DEVICE)
+    mt.config.set("MXNET_TPU_FUSED_TRAINER", True)
+    mt.amp.init("bfloat16")
+    try:
+        if "lm" in which:
+            warm_lm(torch, np, mt, transformer, device_uniform, T, dev)
+        if "resnet" in which:
+            warm_resnet(torch, np, mt, autograd, gluon, dev)
+    finally:
+        mt.amp.off()
+    return [r["compile_ms"] / 1e3 for r in compiles.snapshot()
+            if r["scope"] == "trainer_step"]
+
+
+def warm_lm(torch, np, mt, transformer, device_uniform, T, dev):
+    """One ``_fit_step`` of the LM at batch 1 (:func:`warm_update`)."""
+    sym = transformer.get_symbol(VOCAB, LAYERS, D_MODEL, HEADS, D_FF, T,
+                                 attention="flash")
+    mod = mt.mod.Module(sym, context=mt.gpu(0))
+    mod.bind(data_shapes=[("data", (1, T))],
+             label_shapes=[("softmax_label", (1, T))])
+    mod.init_params(device_uniform(seed=SEED))
+    mod.init_optimizer(optimizer="adam",
+                       optimizer_params=dict(FUSED_ADAM))
+    ids = mt.nd.array(np.zeros((1, T), np.float32), ctx=dev)
+    mod._fit_step(mt.io.DataBatch(data=[ids], label=[ids]))
+    torch.cuda.synchronize()
+    del mod
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def warm_resnet(torch, np, mt, autograd, gluon, dev):
+    """One ``Trainer.step`` of resnet50_v1 at batch 2
+    (:func:`warm_update`)."""
+    mt.random.seed(SEED)
+    net = gluon.model_zoo.vision.get_model(
+        "resnet%d_v1" % RESNET_LAYERS, classes=RESNET_CLASSES)
+    net.initialize(mt.init.Xavier(rnd_type="gaussian", factor_type="in",
+                                  magnitude=2), ctx=mt.gpu(0))
+    net.hybridize()
+    x = mt.nd.array(np.zeros((2, 3, RESNET_IMAGE, RESNET_IMAGE),
+                             np.float32), ctx=dev)
+    y = mt.nd.array(np.zeros((2,), np.float32), ctx=dev)
+    net.infer_shape(x)
+    trainer = gluon.Trainer(net.collect_params(), "sgd", {
+        "learning_rate": RESNET_LR, "momentum": RESNET_MOMENTUM,
+        "wd": RESNET_WD})
+    with autograd.record():
+        loss = gluon.loss.SoftmaxCrossEntropyLoss()(net(x), y)
+    loss.backward()
+    trainer.step(2)
+    torch.cuda.synchronize()
+
+
+def warm_update_main(out: str, which: str) -> int:
+    """``--warm-update OUT WHICH``: :func:`warm_update` of ``WHICH``, its
+    seconds and the compile caches' counters written to OUT as JSON."""
+    sys.path.insert(0, str(ROOT))
+    import numpy as np
+    import torch
+    parent = os.getppid()
+
+    def watch_parent():
+        # a run ended by faulthandler leaves no warm-up behind
+        while os.getppid() == parent:
+            time.sleep(1.0)
+        os._exit(1)
+
+    threading.Thread(target=watch_parent, daemon=True).start()
+    # the host's cores go to the phases first: the warm-up has ~10
+    # minutes of slack before phase 23 needs its programs
+    os.nice(10)
+    full_f32(torch)
+    t0 = time.perf_counter()
+    builds = warm_update(torch, np, (which,))
+    Path(out).write_text(json.dumps({
+        "which": which, "builds_s": builds,
+        "wall_s": time.perf_counter() - t0,
+        "caches": compile_cache_counters()}))
+    return 0
+
+
+def start_warm_update():
+    """The :func:`warm_update` processes, one per target, started:
+    ``[(process, its JSON path, its log path)]``."""
+    (ROOT / "build").mkdir(parents=True, exist_ok=True)
+    runs = []
+    for which in WARM_TARGETS:
+        out = ROOT / "build" / ("phase23_warm_%s.json" % which)
+        log_path = ROOT / "build" / ("phase23_warm_%s.log" % which)
+        out.unlink(missing_ok=True)
+        with open(log_path, "w") as log_file:
+            runs.append((subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()),
+                 "--warm-update", str(out), which], cwd=str(ROOT),
+                stdout=log_file, stderr=subprocess.STDOUT), out, log_path))
+    return runs
+
+
+def join_warm_update(warm):
+    """Wait for the :func:`warm_update` processes; their readings."""
+    readings = []
+    for proc, out, log_path in warm:
+        try:
+            rc = proc.wait(timeout=WARM_DEADLINE_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            raise SmokeFailure("phase 23's warm-up process ran past %d s"
+                               % WARM_DEADLINE_S)
+        check(rc == 0 and out.exists(), "phase 23's warm-up process "
+              "exited %d: %s" % (rc, log_path.read_text()[-3000:]))
+        readings.append(json.loads(out.read_text()))
+    return readings
+
+
+def fused_update_phase(torch, np, warm=None):
+    """Phase 23: the compiled update (A4d-a) on the LM's fit and Gluon's
+    ResNet-50 step; ``warm`` the :func:`start_warm_update` process that
+    built both programs ahead (None: they build here, cold)."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    # card_phase's switches, whatever an earlier phase left: the warm-up
+    # processes built under them, and inductor's cache key holds them
+    full_f32(torch)
+    facts = compiler_facts(torch)
+    if warm is not None:
+        t = time.perf_counter()
+        facts["warm"] = join_warm_update(warm)
+        log("23: waited %.1f s for the warm-up processes: %s" % (
+            time.perf_counter() - t, "; ".join(
+                "%s built cold in %s s (%.1f s of process; caches %s)" % (
+                    r["which"], " ".join("%.3f" % v for v in r["builds_s"]),
+                    r["wall_s"], r["caches"]) for r in facts["warm"])))
+    counters = {"flash_attention_fwd_bf16": fa.flash_attention_fwd,
+                "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
+                "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv}
+    # the compiled update on, whatever the environment says (main turns
+    # it off for the earlier phases)
+    mt.config.set("MXNET_TPU_FUSED_TRAINER", True)
+    mt.amp.init("bfloat16")
+    try:
+        lm = fused_lm(torch, np, counters)
+        log("23a: compile caches %s" % compile_cache_counters())
+        res = fused_resnet(torch, np)
+        log("23b: compile caches %s" % compile_cache_counters())
+    finally:
+        mt.amp.off()
+        mt.config.reset("MXNET_TPU_FUSED_TRAINER")
+    return {"facts": facts, "lm": lm, "resnet": res}
+
+
 def main() -> int:
     if len(sys.argv) == 4 and sys.argv[1] == "--pairs-of":
         return pairs_of(sys.argv[2], sys.argv[3])
+    if len(sys.argv) == 4 and sys.argv[1] == "--warm-update":
+        return warm_update_main(sys.argv[2], sys.argv[3])
     if not (ROOT / "mxnet_tpu_torch" / "csrc").is_dir():
         print("chip_smoke: run from a checkout of the repository "
               "(mxnet_tpu_torch/ not found beside this script)",
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    # phases 1-22 hold the earlier slices' paths on their eager update:
+    # compiled, each Module's and Trainer's update would pay a cold
+    # inductor compile per structure (phase 23 reads the LM's), past the
+    # script's time limit. Phase 23 holds the compiled update at full
+    # width; the environment carries the switch into every child process
+    os.environ["MXNET_TPU_FUSED_TRAINER"] = "0"
+    # inductor's and triton's caches in the checkout, for this process and
+    # phase 23's warm-up processes alike: inductor settles its directory
+    # at its first use, which an earlier phase may make
+    os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR",
+                          str(ROOT / "build" / "inductor"))
+    os.environ.setdefault("TRITON_CACHE_DIR",
+                          str(ROOT / "build" / "inductor" / "triton"))
     import numpy as np
     import torch
+    warm = None
     try:
         timed("card", card_phase, torch)
         timed("build", build_phase)
+        # phase 23's programs compile beside phases 3-22 (see warm_update)
+        warm = start_warm_update()
         kernels = timed("kernel", kernel_phase, torch)
         timed("slice", slice_phase, torch, np, kernels)
         timed("train_kernel", train_kernel_phase, torch, kernels)
@@ -12040,11 +12661,17 @@ def main() -> int:
                 run.kill()
             import shutil
             shutil.rmtree(drill[0], ignore_errors=True)
+        timed("fused_update", fused_update_phase, torch, np, warm)
         torch.cuda.synchronize()
     except SmokeFailure as exc:
         print("chip_smoke: FAILED: %s (phase seconds: %s)"
               % (exc, json.dumps(PHASE_SECONDS)), file=sys.stderr)
         return 1
+    finally:
+        for proc, _out, _log in warm or ():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     log("phase seconds: %s" % json.dumps(PHASE_SECONDS))
     log(json.dumps({"kernels": list(kernels.values())}))
     log(json.dumps({"ok": True, "device": {

@@ -136,7 +136,9 @@ def count_executable(fn, *args, **kwargs) -> Dict[str, Any]:
     flash-attention kernels (``mxnet_tpu_torch::flash_attention_*``)
     run inside one op each, where no formula can see: each launch is
     counted by :func:`flash_flops` from its shapes, and listed under
-    ``flash``."""
+    ``flash``. A compiled program's kernels bypass the dispatcher, so
+    the run takes the eager optimizer update (``MXNET_TPU_FUSED_TRAINER``
+    off for its duration), whose ops the mode counts."""
     import torch
     from torch.utils._python_dispatch import TorchDispatchMode
     from torch.utils._pytree import tree_leaves
@@ -175,8 +177,15 @@ def count_executable(fn, *args, **kwargs) -> Dict[str, Any]:
             counts["flops"] += int(n)
             return out
 
-    with _Counting():
-        fn(*args, **kwargs)
+    from .. import config
+    knob = ["MXNET_TPU_FUSED_TRAINER"]
+    saved = config.snapshot_overrides(knob)
+    config.set(knob[0], False)
+    try:
+        with _Counting():
+            fn(*args, **kwargs)
+    finally:
+        config.restore_overrides(saved)
     return counts
 
 

@@ -13,7 +13,8 @@ levers the executor and ``Module`` read (``MXNET_TPU_SCAN_LAYERS``,
 loop's (``MXNET_USE_NATIVE_IO``, ``MXNET_CPU_WORKER_NTHREADS``,
 ``MXNET_PREFETCH_BUFFER``, ``MXNET_TPU_DATA_*``,
 ``MXNET_TPU_ASYNC_WINDOW``, ``MXNET_TPU_DEVICE_PREFETCH``,
-``MXNET_TPU_DEVICE_METRICS``), and the analyzer's (the bind-time
+``MXNET_TPU_DEVICE_METRICS``), the compiled update's switch
+(``MXNET_TPU_FUSED_TRAINER``), and the analyzer's (the bind-time
 check, its HBM budget and the roofline's bandwidth:
 ``MXNET_TPU_ANALYZE``, ``MXNET_TPU_ANALYZE_HBM_BUDGET``,
 ``MXNET_TPU_ANALYZE_HBM_GBPS``), and the
@@ -90,6 +91,10 @@ def _parse_lockcheck(v) -> str:
         "MXNET_TPU_LOCKCHECK must be off|warn|abort, got %r" % (v,))
 
 
+register("MXNET_TPU_FUSED_TRAINER", _parse_bool, True,
+         "gluon Trainer.step / Module.update / Module's fit step: run "
+         "every parameter's update as one structure-cached compiled "
+         "program (torch.compile); 0 = the eager grouped update")
 register("MXNET_TPU_SERVE", _parse_bool, True,
          "serve.InferenceServer: coalesce concurrent requests into "
          "bucket-padded micro-batches served by a finite runner set; "

@@ -5,9 +5,11 @@ optimizer comes by name through ``optimizer.create`` (or as an
 instance), with each parameter's ``lr_mult`` / ``wd_mult`` by name (all
 of them, biases too: the reference's Trainer sets the multipliers
 itself). :meth:`step` rescales the gradients by ``1 / batch_size`` and
-updates every parameter that asks for a gradient in one
-``Updater.update_multi`` (``torch._foreach_*`` per group of equal lr and
-wd): the port's form of the reference's fused Trainer step.
+updates every parameter that asks for a gradient in one compiled
+program (``_fused.FusedUpdater``, the reference's fused Trainer step,
+under ``MXNET_TPU_FUSED_TRAINER``), or else in one eager
+``Updater.update_multi`` (``torch._foreach_*`` per group of equal lr
+and wd).
 
 Any registered optimizer works, by name or as an instance.
 :meth:`Trainer.save_states` writes the reference's ``.states`` pickle
@@ -29,6 +31,7 @@ from __future__ import annotations
 
 from .. import kvstore as kvs
 from .. import optimizer as opt
+from .._fused import FusedUpdater
 from ..checkpoint.atomic import atomic_open
 from ..model import _create_kvstore
 from .parameter import Parameter, ParameterDict
@@ -75,6 +78,7 @@ class Trainer(object):
         self._optimizer.lr_mult = {p.name: p.lr_mult for p in self._params}
         self._optimizer.wd_mult = {p.name: p.wd_mult for p in self._params}
         self._updaters = opt.get_updater(self._optimizer)
+        self._fused_step = FusedUpdater(self._updaters)
 
     def _init_kvstore(self):
         # on one device a store is one given as an object, and it always
@@ -111,9 +115,12 @@ class Trainer(object):
             for i in live:
                 self._kvstore.pull(i, out=self._params[i].data())
             return
-        self._updaters.update_multi(
-            live, [self._params[i].data() for i in live],
-            [self._params[i].grad().data for i in live])
+        items = [(i, self._params[i].data(), self._params[i].grad())
+                 for i in live]
+        if self._fused_step.try_step(self._updaters, items):
+            return
+        self._updaters.update_multi(live, [w for _i, w, _g in items],
+                                    [g.data for _i, _w, g in items])
 
     def save_states(self, fname):
         """Save the optimizer's states (the store's, when it updates on

@@ -5,9 +5,11 @@ device: ``bind``, ``init_params`` / ``set_params`` / ``get_params``,
 ``init_optimizer``, ``forward`` / ``backward`` / ``update`` /
 ``get_outputs``, and ``_fit_step``, the counterpart of the reference's
 fused train step (``_build_fused_step``): one forward, one backward and
-one ``torch._foreach_*`` update of every parameter per call, with no
-host synchronisation inside, so the host queues the next step while the
-card runs this one.
+one update of every parameter per call, the compiled update of
+:class:`.._fused.FusedUpdater` (``MXNET_TPU_FUSED_TRAINER``; the eager
+``torch._foreach_*`` one where it declines), with no host
+synchronisation inside, so the host queues the next step while the card
+runs this one.
 
 As in the reference, the backward runs with a ones head gradient on
 every output, so a loss head's own backward (``SoftmaxOutput``) drives
@@ -76,6 +78,7 @@ from ..context import device_scope, resolve_device
 from ..initializer import InitDesc
 from ..io import DataDesc
 from ..ndarray import NDArray
+from .. import _fused
 from .. import model as _model
 from .. import optimizer as opt
 from .. import profiler as _profiler
@@ -253,6 +256,7 @@ class Module(BaseModule):
         self._aux_params: Optional[Dict[str, NDArray]] = None
         self._optimizer = None
         self._updater = None
+        self._fused_updater = None
         self._kvstore = None
         self._update_on_kvstore = False
         self._exec = None
@@ -549,6 +553,7 @@ class Module(BaseModule):
         optimizer.set_wd_mult({})
         self._optimizer = optimizer
         self._updater = opt.get_updater(optimizer)
+        self._fused_updater = _fused.FusedUpdater(self._updater)
         self._param_index = {n: i for i, n in enumerate(self._param_names)}
         self._kvstore = kvstore
         self._update_on_kvstore = update_on_kvstore
@@ -648,6 +653,7 @@ class Module(BaseModule):
                              "train %s" % missing)
         self._optimizer = shared_module._optimizer
         self._updater = shared_module._updater
+        self._fused_updater = shared_module._fused_updater
         self._kvstore = shared_module._kvstore
         self._update_on_kvstore = shared_module._update_on_kvstore
         self._param_index = shared_module._param_index
@@ -771,9 +777,10 @@ class Module(BaseModule):
                 if self._grad_req.get(n, "null") != "null"]
 
     def _apply_update(self, names, grads, fit_step=False) -> None:
-        """One grouped optimizer update of the parameters ``names``: with
-        ``fit_step`` every parameter takes the step's count and rate,
-        otherwise each its own count."""
+        """One optimizer update of the parameters ``names``: the compiled
+        update (``_fused.FusedUpdater``), or the eager grouped one where
+        that declines. With ``fit_step`` every parameter takes the
+        step's count and rate, otherwise each its own count."""
         idx = self._param_index
         kw = {}
         if fit_step:
@@ -781,9 +788,12 @@ class Module(BaseModule):
             t = opt.num_update + 1
             kw = {"t": t, "lr": opt.lr_scheduler(t)
                   if opt.lr_scheduler is not None else opt.lr}
-        self._updater.update_multi([idx[n] for n in names],
-                                   [self._exec.arg_dict[n] for n in names],
-                                   grads, **kw)
+        items = [(idx[n], self._exec.arg_dict[n], g)
+                 for n, g in zip(names, grads)]
+        if self._fused_updater.try_step(self._updater, items, **kw):
+            return
+        self._updater.update_multi([i for i, _w, _g in items],
+                                   [w for _i, w, _g in items], grads, **kw)
 
     def update(self):
         """Apply the gradients in ``grad_dict``: with a store, each is

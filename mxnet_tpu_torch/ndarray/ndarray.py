@@ -348,7 +348,10 @@ class NDArray:
     def _operand(self, other):
         if isinstance(other, NDArray):
             return other._data
-        if isinstance(other, torch.Tensor) or np.isscalar(other):
+        # Python numbers first: np.isscalar does not trace under
+        # torch.compile (a custom optimizer's update in the fused step)
+        if isinstance(other, (torch.Tensor, bool, int, float)) or \
+                np.isscalar(other):
             return other
         return torch.as_tensor(np.asarray(other), device=self._data.device)
 

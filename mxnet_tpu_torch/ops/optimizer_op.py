@@ -27,6 +27,16 @@ a fused multiply-add would otherwise part them by a rounding that
 Adam's normalized step can magnify). SGLD has no ``_multi`` form: its
 noise is drawn per tensor (:func:`random.torch_generator`), and the
 reference keeps it off the fused path too.
+
+The ``*_multi`` forms take each hyperparameter (``lr``, ``wd``,
+``rescale_grad``, ``clip_gradient``) either as a Python number, the
+eager grouped update's form, or as a 0-d tensor, the compiled update's
+(``_fused.FusedUpdater``). A Python number becomes a
+constant of a compiled program, which would recompile at every new
+value; a tensor is an input. The helpers below (:func:`_axpy_`, :func:`_axpy`,
+:func:`_addcdiv_`, :func:`_mul`, :func:`_clip_`) run the same torch
+call as before for a number and the same formula over tensor operands
+otherwise, so both routes share one sequence of steps.
 """
 from __future__ import annotations
 
@@ -47,10 +57,54 @@ Tensors = Sequence[torch.Tensor]
 
 
 def _clip_arg(c):
-    """None or a non-positive threshold: no clipping."""
+    """None or a non-positive threshold: no clipping. A tensor threshold
+    is the compiled update's, which passes one only when clipping is on
+    (its presence is part of the program's structure)."""
+    if isinstance(c, torch.Tensor):
+        return c
     if c is None or c <= 0:
         return None
     return c
+
+
+def _mul(xs, a) -> List[torch.Tensor]:
+    """``x · a`` for every x."""
+    return torch._foreach_mul(list(xs), a)
+
+
+def _axpy_(xs, ys, a, skip_zero=False) -> None:
+    """``x += a · y`` in place; a number goes in as ``alpha`` (and, with
+    ``skip_zero``, 0 skips the step), a tensor as a product."""
+    if isinstance(a, torch.Tensor):
+        torch._foreach_add_(xs, _mul(ys, a))
+    elif a or not skip_zero:
+        torch._foreach_add_(xs, ys, alpha=a)
+
+
+def _axpy(xs, ys, a) -> List[torch.Tensor]:
+    """``x + a · y`` for every pair, out of place."""
+    if isinstance(a, torch.Tensor):
+        return torch._foreach_add(list(xs), _mul(ys, a))
+    return torch._foreach_add(list(xs), list(ys), alpha=a)
+
+
+def _addcdiv_(xs, num, den, a) -> None:
+    """``x += a · num / den`` in place."""
+    if isinstance(a, torch.Tensor):
+        torch._foreach_add_(xs, _mul(torch._foreach_div(num, den), a))
+    else:
+        torch._foreach_addcdiv_(xs, num, den, value=a)
+
+
+def _clip_(gs, c) -> None:
+    """``clip(g, -c, c)`` in place."""
+    if isinstance(c, torch.Tensor):
+        lo, hi = [-c] * len(gs), [c] * len(gs)
+        torch._foreach_clamp_min_(gs, lo)
+        torch._foreach_clamp_max_(gs, hi)
+    else:
+        torch._foreach_clamp_min_(gs, -c)
+        torch._foreach_clamp_max_(gs, c)
 
 
 def _grad_prep(weight, grad, rescale_grad, clip_gradient, wd):
@@ -186,10 +240,8 @@ def _grad_prep_multi(weights: Tensors, grads: Tensors, rescale_grad: float,
     gs = torch._foreach_mul(list(grads), rescale_grad)
     c = _clip_arg(clip_gradient)
     if c is not None:
-        torch._foreach_clamp_min_(gs, -c)
-        torch._foreach_clamp_max_(gs, c)
-    if wd:
-        torch._foreach_add_(gs, list(weights), alpha=wd)
+        _clip_(gs, c)
+    _axpy_(gs, list(weights), wd, skip_zero=True)
     return gs
 
 
@@ -208,7 +260,7 @@ def sgd_update_multi(weights: Tensors, grads: Tensors, lr: float,
     if not weights:
         return
     gs = _grad_prep_multi(weights, grads, rescale_grad, clip_gradient, wd)
-    torch._foreach_add_(list(weights), gs, alpha=-lr)
+    _axpy_(list(weights), gs, -lr)
 
 
 @torch.no_grad()
@@ -222,7 +274,7 @@ def sgd_mom_update_multi(weights: Tensors, grads: Tensors, moms: Tensors,
     gs = _grad_prep_multi(weights, grads, rescale_grad, clip_gradient, wd)
     moms = list(moms)
     torch._foreach_mul_(moms, momentum)
-    torch._foreach_add_(moms, gs, alpha=-lr)
+    _axpy_(moms, gs, -lr)
     torch._foreach_add_(list(weights), moms)
 
 
@@ -239,7 +291,7 @@ def nag_mom_update_multi(weights: Tensors, grads: Tensors, moms: Tensors,
     torch._foreach_mul_(moms, momentum)
     torch._foreach_add_(moms, gs)
     torch._foreach_add_(gs, moms, alpha=momentum)
-    torch._foreach_add_(list(weights), gs, alpha=-lr)
+    _axpy_(list(weights), gs, -lr)
 
 
 @torch.no_grad()
@@ -260,7 +312,7 @@ def adam_update_multi(weights: Tensors, grads: Tensors, means: Tensors,
     torch._foreach_addcmul_(variances, gs, gs, value=1 - beta2)
     denom = torch._foreach_sqrt(variances)
     torch._foreach_add_(denom, epsilon)
-    torch._foreach_addcdiv_(list(weights), means, denom, value=-lr)
+    _addcdiv_(list(weights), means, denom, -lr)
 
 
 @torch.no_grad()
@@ -278,7 +330,7 @@ def rmsprop_update_multi(weights: Tensors, grads: Tensors, ns: Tensors,
     torch._foreach_addcmul_(ns, gs, gs, value=1 - gamma1)
     denom = torch._foreach_add(ns, epsilon)
     torch._foreach_sqrt_(denom)
-    torch._foreach_addcdiv_(weights, gs, denom, value=-lr)
+    _addcdiv_(weights, gs, denom, -lr)
     _clip_weights_multi(weights, clip_weights)
 
 
@@ -305,7 +357,7 @@ def rmspropalex_update_multi(weights: Tensors, grads: Tensors, ns: Tensors,
     torch._foreach_add_(denom, epsilon)
     torch._foreach_sqrt_(denom)
     torch._foreach_mul_(deltas, gamma2)
-    torch._foreach_addcdiv_(deltas, gs, denom, value=-lr)
+    _addcdiv_(deltas, gs, denom, -lr)
     torch._foreach_add_(weights, deltas)
     _clip_weights_multi(weights, clip_weights)
 
@@ -324,9 +376,8 @@ def adagrad_update_multi(weights: Tensors, grads: Tensors,
     denom = torch._foreach_add(histories, epsilon)
     torch._foreach_sqrt_(denom)
     step = torch._foreach_div(gs, denom)
-    if wd:
-        torch._foreach_add_(step, weights, alpha=wd)
-    torch._foreach_add_(weights, step, alpha=-lr)
+    _axpy_(step, weights, wd, skip_zero=True)
+    _axpy_(weights, step, -lr)
 
 
 @torch.no_grad()
@@ -351,7 +402,8 @@ def adadelta_update_multi(weights: Tensors, grads: Tensors, acc_gs: Tensors,
     torch._foreach_mul_(delta, gs)
     torch._foreach_mul_(acc_deltas, rho)
     torch._foreach_addcmul_(acc_deltas, delta, delta, value=1 - rho)
-    decay = torch._foreach_mul(weights, wd) if wd else None
+    decay = _mul(weights, wd) \
+        if isinstance(wd, torch.Tensor) or wd else None
     torch._foreach_sub_(weights, delta)
     if decay is not None:
         torch._foreach_sub_(weights, decay)
@@ -405,4 +457,4 @@ def adamax_update_multi(weights: Tensors, grads: Tensors, means: Tensors,
     torch._foreach_add_(means, gs, alpha=1 - beta1)
     torch._foreach_mul_(us, beta2)
     torch._foreach_maximum_(us, torch._foreach_abs(gs))
-    torch._foreach_addcdiv_(list(weights), means, us, value=-lr)
+    _addcdiv_(list(weights), means, us, -lr)

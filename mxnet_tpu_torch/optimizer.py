@@ -31,6 +31,17 @@ Two forms of one step:
   ``SGLD`` (fresh noise per tensor) and optimizers without a grouped
   form take the per-parameter path.
 
+The compiled update (``_fused.FusedUpdater``, the reference's fused
+form) runs :meth:`Optimizer.update_fused` inside one ``torch.compile``d
+program: the built-ins' ``_multi`` sequence over every parameter, its
+hyperparameters 0-d tensors (one vector per step, whose elements
+:meth:`Optimizer._fused_hypers` unpacks), so a new rate, decay, batch
+size or clipping value reuses the program. A subclass with ``update`` and no
+``_multi`` replays its ``update`` on NDArrays inside the program
+(:meth:`Optimizer._fused_one`) unless that ``update`` changes the
+optimizer's own attributes, which a compiled replay would freeze
+(:meth:`Optimizer._check_update_purity`).
+
 ``Updater.get_states`` writes the reference's ``.states`` pickle in its
 untagged form, ``{index: state}`` with numpy leaves (the reference's
 ``set_states`` rewraps every numpy leaf of an untagged blob as an
@@ -62,12 +73,19 @@ __all__ = ["Optimizer", "SGD", "NAG", "SGLD", "DCASGD", "Adam", "AdaGrad",
            "create", "get_updater", "Updater", "register"]
 
 
-def _groups(*keys) -> Dict[tuple, List[int]]:
-    """Positions grouped by their tuple of keys, in first-seen order."""
+def _groups(*keys) -> List[tuple]:
+    """``[(values, positions)]``: positions grouped by their tuple of
+    keys, in first-seen order, each key list holding one value per
+    position. The compiled update's per-parameter hyperparameters are
+    0-d tensors: then each position is a group of its own (the program
+    fuses each parameter's steps into kernels of its own anyway)."""
+    n = len(keys[0])
+    if n and any(isinstance(k[0], torch.Tensor) for k in keys):
+        return [(tuple(k[p] for k in keys), [p]) for p in range(n)]
     out: Dict[tuple, List[int]] = {}
     for pos, key in enumerate(zip(*keys)):
         out.setdefault(key, []).append(pos)
-    return out
+    return list(out.items())
 
 
 def _pick(items, pos, part=None):
@@ -87,8 +105,7 @@ def _clip_multi(gs, c) -> None:
     """``clip(g, -c, c)`` whenever ``c`` is set, as the reference's Nadam
     and DCASGD clip (a negative ``c`` leaves every value ``c``)."""
     if c is not None:
-        torch._foreach_clamp_min_(gs, -c)
-        torch._foreach_clamp_max_(gs, c)
+        ops._clip_(gs, c)
 
 
 class Optimizer(object):
@@ -98,8 +115,20 @@ class Optimizer(object):
 
     # False: no grouped form (SGLD's noise is drawn per tensor), so
     # update_multi runs the per-parameter update instead, as it does for
-    # a subclass that defines update and no _multi
+    # a subclass that defines update and no _multi; and no compiled
+    # update either (a program would replay one draw every step)
     fused_supported = True
+
+    # Instance attributes a compiled update does not bake in: the
+    # per-step hyperparameters (inputs of the program), the per-index
+    # bookkeeping and the symbol-layer metadata. Every other attribute
+    # of ``__dict__`` keys the program (:meth:`_fused_static_key`).
+    _FUSED_DYNAMIC_ATTRS = frozenset({
+        "lr", "wd", "rescale_grad", "clip_gradient", "lr_scheduler",
+        "lr_mult", "wd_mult", "idx2name", "sym", "num_update",
+        "begin_num_update", "_index_update_count", "_fixed_lr",
+        "_fixed_t",
+    })
 
     @staticmethod
     def register(klass):
@@ -147,7 +176,8 @@ class Optimizer(object):
         self._update_count(index)
         with torch.no_grad():
             self._multi([weight.data], [_as(grad, weight)], [_raw(state)],
-                        [lr], [wd], [self._index_update_count[index]])
+                        [lr], [wd], [self._index_update_count[index]],
+                        self.rescale_grad, self.clip_gradient)
 
     # ------------------------------------------------- lr and wd per index
     def set_lr_mult(self, args_lr_mult: Dict[str, float]):
@@ -213,21 +243,9 @@ class Optimizer(object):
         as the per-parameter loop reads it. With ``lr`` and ``t``: every
         parameter takes rate ``lr`` (times its multiplier) and count
         ``t``, and ``num_update`` becomes ``t``."""
-        n = len(indices)
-        if not n:
+        if not len(indices):
             return
-        if lr is None:
-            counts = [self._index_update_count.get(i, self.begin_num_update)
-                      + 1 for i in indices]
-            if self.lr_scheduler is not None:
-                base, num_update = [], self.num_update
-                for c in counts:
-                    base.append(float(self.lr_scheduler(num_update)))
-                    num_update = max(num_update, c)
-            else:
-                base = [float(self.lr)] * n
-        else:
-            counts, base = [int(t)] * n, [float(lr)] * n
+        counts, base = self._step_plan(indices, lr, t)
         grads = [g if isinstance(g, NDArray) else NDArray(g) for g in grads]
         if not self.fused_supported or \
                 type(self)._multi is Optimizer._multi:
@@ -249,8 +267,32 @@ class Optimizer(object):
                for b, i in zip(base, indices)]
         wds = [self._get_wd(i) for i in indices]
         with torch.no_grad():
-            self._multi(ws, gs, [_raw(s) for s in states], lrs, wds, counts)
-        if lr is None:
+            self._multi(ws, gs, [_raw(s) for s in states], lrs, wds, counts,
+                        self.rescale_grad, self.clip_gradient)
+        self._advance(indices, counts, t)
+
+    def _step_plan(self, indices, lr=None, t=None):
+        """``(counts, base rates)`` of one grouped step. Without ``lr``
+        each parameter's count is its own + 1 and the scheduler is read
+        before each count advances, as the per-parameter loop reads it
+        (at a boundary the step's first parameter still sees the old
+        rate); with ``lr`` and ``t`` every parameter takes both."""
+        n = len(indices)
+        if lr is not None:
+            return [int(t)] * n, [float(lr)] * n
+        counts = [self._index_update_count.get(i, self.begin_num_update) + 1
+                  for i in indices]
+        if self.lr_scheduler is None:
+            return counts, [float(self.lr)] * n
+        base, num_update = [], self.num_update
+        for c in counts:
+            base.append(float(self.lr_scheduler(num_update)))
+            num_update = max(num_update, c)
+        return counts, base
+
+    def _advance(self, indices, counts, t=None) -> None:
+        """The bookkeeping after a grouped step of :meth:`_step_plan`."""
+        if t is None:
             for i, c in zip(indices, counts):
                 self._index_update_count[i] = c
             self.num_update = max(self.num_update, max(counts))
@@ -258,11 +300,145 @@ class Optimizer(object):
             self.num_update = int(t)
 
     def _multi(self, weights: List[torch.Tensor], grads: List[torch.Tensor],
-               states: List, lrs: List[float], wds: List[float],
-               counts: List[int]) -> None:
+               states: List, lrs, wds, counts, rescale_grad,
+               clip_gradient) -> None:
         """The grouped step over tensors: ``lrs`` and ``wds`` per
-        parameter, multipliers applied; ``counts`` the update counts."""
+        parameter, multipliers applied; ``counts`` the update counts.
+        Each hyperparameter is a Python number on the eager route and a
+        0-d tensor on the compiled one (per parameter: a list of them),
+        see ``ops/optimizer_op.py``."""
         raise NotImplementedError
+
+    # ------------------------------------------- the compiled update's form
+    def _clip_active(self) -> bool:
+        """Whether clipping fires: None and non-positive thresholds mean
+        none, so only a positive one is an input of the program."""
+        return self.clip_gradient is not None and self.clip_gradient > 0
+
+    def _fused_static_key(self):
+        """Every attribute a compiled update bakes in, as a hashable
+        tuple: the per-step hyperparameters and bookkeeping
+        (``_FUSED_DYNAMIC_ATTRS``) excluded. An attribute whose value
+        does not hash by value (an array, an arbitrary object) raises
+        ``Uncacheable``: two configurations must never share a program.
+        Clipping that fires is the key ``"dyn"`` (its value an input);
+        otherwise the threshold itself (None or non-positive) keys it."""
+        from ._fused import Uncacheable
+
+        def value_key(v, name):
+            if v is None or isinstance(v, (bool, int, float, str, bytes)):
+                return v
+            if isinstance(v, tuple):
+                return tuple(value_key(x, name) for x in v)
+            raise Uncacheable("non-value-hashable optimizer attr %s" % name)
+
+        items = tuple((k, value_key(v, k)) for k, v in sorted(
+            self.__dict__.items()) if k not in self._FUSED_DYNAMIC_ATTRS)
+        clip_key = "dyn" if self._clip_active() else self.clip_gradient
+        return (type(self).__module__ + "." + type(self).__qualname__,
+                clip_key, items)
+
+    # the compiled update's hyperparameter vector, float64: rescale_grad,
+    # wd, the clipping threshold (0 when off), then per parameter the
+    # base rate, lr_mult, wd_mult and update count
+    _HEAD = 3
+
+    def _fused_vector(self, indices, counts, base) -> List[float]:
+        """The hyperparameter vector of one compiled step, on the host
+        (``FusedUpdater`` sends it to the device in one copy)."""
+        return ([float(self.rescale_grad), float(self.wd),
+                 float(self.clip_gradient) if self._clip_active() else 0.0]
+                + [float(b) for b in base]
+                + [float(self._resolve_mult(self.lr_mult, i))
+                   for i in indices]
+                + [float(self._resolve_mult(self.wd_mult, i))
+                   for i in indices]
+                + [float(c) for c in counts])
+
+    def _fused_hypers(self, hv, n: int):
+        """The traced twin of :meth:`_get_lr` / :meth:`_get_wd`: from the
+        vector's elements (0-d tensors, each an input of the program, so
+        that the kernels of two parameters of one shape are one kernel),
+        the per-parameter rates (base × lr_mult), decays (wd × wd_mult)
+        and counts."""
+        h = self._HEAD
+        return ([hv[h + k] * hv[h + n + k] for k in range(n)],
+                [hv[1] * hv[h + 2 * n + k] for k in range(n)],
+                list(hv[h + 3 * n:h + 4 * n]))
+
+    def _fused_common(self, hv, clip_on: bool):
+        """``(rescale_grad, clip_gradient)``: 0-d tensors of the vector;
+        a threshold that does not fire stays the attribute's own value
+        (None or non-positive, part of the signature), which Nadam and
+        DCASGD still clip to, as their eager form does."""
+        return hv[0], (hv[2] if clip_on else self.clip_gradient)
+
+    def update_fused(self, indices, weights, grads, states, hv,
+                     clip_on) -> None:
+        """One whole-model step over tensors, in place: the body of the
+        compiled update. ``states`` are tensor trees; ``hv`` the elements
+        of :meth:`_fused_vector`; ``clip_on`` whether clipping fires
+        (part of the program's structure). The built-ins run their
+        ``_multi`` sequence; any other optimizer replays its ``update``
+        per parameter (:meth:`_fused_one`)."""
+        grads = [g if g.dtype == w.dtype else g.to(w.dtype)
+                 for g, w in zip(grads, weights)]
+        rescale, clip = self._fused_common(hv, clip_on)
+        if type(self)._multi is not Optimizer._multi:
+            lrs, wds, counts = self._fused_hypers(hv, len(indices))
+            self._multi(weights, grads, states, lrs, wds, counts, rescale,
+                        clip)
+            return
+        for pos, idx in enumerate(indices):
+            self._fused_one(pos, idx, weights[pos], grads[pos], states[pos],
+                            hv, len(indices), rescale, clip)
+
+    def _fused_one(self, pos, idx, weight, grad, state, hv, n, rescale,
+                   clip) -> None:
+        """The generic form: this optimizer's :meth:`update` on NDArrays
+        over one parameter's tensors, its rate, count, decay, rescale and
+        threshold set as 0-d NDArrays of the vector (``FusedUpdater``
+        puts the attributes back after the call). A result that
+        ``update`` rebound rather than wrote is copied into the tensor."""
+        h = self._HEAD
+        self._fixed_lr = NDArray(hv[h + pos])
+        self._fixed_t = NDArray(hv[h + 3 * n + pos])
+        self.wd = NDArray(hv[1])
+        self.rescale_grad = NDArray(rescale)
+        if clip is not None:
+            self.clip_gradient = NDArray(clip)
+        w, s = NDArray(weight), _wrap(state)
+        self.update(idx, w, NDArray(grad), s)
+        _write_back(weight, w)
+        _write_back(state, s)
+
+    def _check_update_purity(self, saved) -> None:
+        """Raise ``Uncacheable`` if :meth:`update` rebound or changed an
+        attribute outside ``_FUSED_DYNAMIC_ATTRS``: a compiled replay
+        would train with its value frozen (a warm-up counter on the
+        instance), so such an optimizer keeps the eager path."""
+        from ._fused import Uncacheable
+
+        def same(a, b):
+            if a is b:
+                return True
+            if a is None or isinstance(a, (bool, int, float, str, bytes)):
+                return type(a) is type(b) and a == b
+            return False
+
+        if set(self.__dict__) != set(saved):
+            raise Uncacheable("update() added/removed instance attrs")
+        for k, old in saved.items():
+            if k in self._FUSED_DYNAMIC_ATTRS:
+                continue
+            cur = self.__dict__[k]
+            if isinstance(old, dict):
+                if not isinstance(cur, dict) or set(cur) != set(old) or \
+                        any(not same(old[dk], cur[dk]) for dk in old):
+                    raise Uncacheable(
+                        "update() mutated optimizer attr %s" % k)
+            elif not same(old, cur):
+                raise Uncacheable("update() mutated optimizer attr %s" % k)
 
 
 register = Optimizer.register
@@ -272,6 +448,27 @@ create = Optimizer.create_optimizer
 def _as(grad: NDArray, weight: NDArray) -> torch.Tensor:
     g = grad.data
     return g if g.dtype == weight.data.dtype else g.to(weight.data.dtype)
+
+
+def _wrap(state):
+    """A tensor tree as an NDArray tree."""
+    if state is None:
+        return None
+    if isinstance(state, tuple):
+        return tuple(_wrap(s) for s in state)
+    return NDArray(state)
+
+
+def _write_back(raw, wrapped) -> None:
+    """Copy into each tensor of ``raw`` its NDArray's value where the
+    NDArray was rebound to another tensor."""
+    if raw is None:
+        return
+    if isinstance(raw, tuple):
+        for r, w in zip(raw, wrapped):
+            _write_back(r, w)
+    elif wrapped.data is not raw:
+        raw.copy_(wrapped.data)
 
 
 @register
@@ -294,9 +491,10 @@ class SGD(Optimizer):
             mom = nd.zeros(base.shape, ctx=base.context, dtype=base.dtype)
         return (mom, master) if master is not None else mom
 
-    def _multi(self, weights, grads, states, lrs, wds, counts):
+    def _multi(self, weights, grads, states, lrs, wds, counts,
+               rescale_grad, clip_gradient):
         masters = [isinstance(s, tuple) for s in states]
-        for (lr, wd, mp), pos in _groups(lrs, wds, masters).items():
+        for (lr, wd, mp), pos in _groups(lrs, wds, masters):
             if mp:
                 ws = _pick(states, pos, 1)
                 gs = [g.to(torch.float32) for g in _pick(grads, pos)]
@@ -305,12 +503,12 @@ class SGD(Optimizer):
                 ws, gs, moms = (_pick(weights, pos), _pick(grads, pos),
                                 _pick(states, pos))
             if self.momentum == 0.0:
-                ops.sgd_update_multi(ws, gs, lr, wd, self.rescale_grad,
-                                     self.clip_gradient)
+                ops.sgd_update_multi(ws, gs, lr, wd, rescale_grad,
+                                     clip_gradient)
             else:
                 ops.sgd_mom_update_multi(ws, gs, moms, lr, self.momentum, wd,
-                                         self.rescale_grad,
-                                         self.clip_gradient)
+                                         rescale_grad,
+                                         clip_gradient)
             if mp:
                 torch._foreach_copy_(_pick(weights, pos), ws)
 
@@ -328,17 +526,18 @@ class NAG(Optimizer):
             return None
         return nd.zeros(weight.shape, ctx=weight.context, dtype=weight.dtype)
 
-    def _multi(self, weights, grads, states, lrs, wds, counts):
-        for (lr, wd), pos in _groups(lrs, wds).items():
+    def _multi(self, weights, grads, states, lrs, wds, counts,
+               rescale_grad, clip_gradient):
+        for (lr, wd), pos in _groups(lrs, wds):
             ws, gs = _pick(weights, pos), _pick(grads, pos)
             if self.momentum == 0.0:
-                ops.sgd_update_multi(ws, gs, lr, wd, self.rescale_grad,
-                                     self.clip_gradient)
+                ops.sgd_update_multi(ws, gs, lr, wd, rescale_grad,
+                                     clip_gradient)
             else:
                 ops.nag_mom_update_multi(ws, gs, _pick(states, pos), lr,
                                          self.momentum, wd,
-                                         self.rescale_grad,
-                                         self.clip_gradient)
+                                         rescale_grad,
+                                         clip_gradient)
 
 
 @register
@@ -374,22 +573,23 @@ class DCASGD(Optimizer):
             if self.momentum != 0.0 else None
         return (mom, NDArray(weight.data.clone()))
 
-    def _multi(self, weights, grads, states, lrs, wds, counts):
-        for (lr, wd), pos in _groups(lrs, wds).items():
+    def _multi(self, weights, grads, states, lrs, wds, counts,
+               rescale_grad, clip_gradient):
+        for (lr, wd), pos in _groups(lrs, wds):
             ws, prevs = _pick(weights, pos), _pick(states, pos, 1)
-            gs = torch._foreach_mul(_pick(grads, pos), self.rescale_grad)
-            _clip_multi(gs, self.clip_gradient)
+            gs = torch._foreach_mul(_pick(grads, pos), rescale_grad)
+            _clip_multi(gs, clip_gradient)
             corr = torch._foreach_mul(gs, self.lamda)
             torch._foreach_mul_(corr, gs)
             torch._foreach_mul_(corr, torch._foreach_sub(ws, prevs))
-            comp = torch._foreach_add(gs, ws, alpha=wd)
+            comp = ops._axpy(gs, ws, wd)
             torch._foreach_add_(comp, corr)
             if self.momentum == 0.0:
-                step = torch._foreach_mul(comp, -lr)
+                step = ops._mul(comp, -lr)
             else:
                 step = _pick(states, pos, 0)
                 torch._foreach_mul_(step, self.momentum)
-                torch._foreach_add_(step, comp, alpha=-lr)
+                ops._axpy_(step, comp, -lr)
             torch._foreach_copy_(prevs, ws)
             torch._foreach_add_(ws, step)
 
@@ -411,13 +611,14 @@ class Adam(Optimizer):
     def _corrected(self, lr, t):
         return lr * ((1.0 - self.beta2 ** t) ** 0.5 / (1.0 - self.beta1 ** t))
 
-    def _multi(self, weights, grads, states, lrs, wds, counts):
-        for (lr, wd, t), pos in _groups(lrs, wds, counts).items():
+    def _multi(self, weights, grads, states, lrs, wds, counts,
+               rescale_grad, clip_gradient):
+        for (lr, wd, t), pos in _groups(lrs, wds, counts):
             ops.adam_update_multi(
                 _pick(weights, pos), _pick(grads, pos),
                 _pick(states, pos, 0), _pick(states, pos, 1),
                 self._corrected(lr, t), self.beta1, self.beta2,
-                self.epsilon, wd, self.rescale_grad, self.clip_gradient)
+                self.epsilon, wd, rescale_grad, clip_gradient)
 
 
 @register
@@ -431,12 +632,13 @@ class AdaGrad(Optimizer):
     def create_state(self, index, weight):
         return nd.zeros(weight.shape, ctx=weight.context, dtype=weight.dtype)
 
-    def _multi(self, weights, grads, states, lrs, wds, counts):
-        for (lr, wd), pos in _groups(lrs, wds).items():
+    def _multi(self, weights, grads, states, lrs, wds, counts,
+               rescale_grad, clip_gradient):
+        for (lr, wd), pos in _groups(lrs, wds):
             ops.adagrad_update_multi(
                 _pick(weights, pos), _pick(grads, pos), _pick(states, pos),
-                lr, self.float_stable_eps, wd, self.rescale_grad,
-                self.clip_gradient)
+                lr, self.float_stable_eps, wd, rescale_grad,
+                clip_gradient)
 
 
 @register
@@ -458,20 +660,21 @@ class RMSProp(Optimizer):
                             dtype=weight.dtype)
         return (z(), z(), z()) if self.centered else z()
 
-    def _multi(self, weights, grads, states, lrs, wds, counts):
+    def _multi(self, weights, grads, states, lrs, wds, counts,
+               rescale_grad, clip_gradient):
         cw = self.clip_weights or None
-        for (lr, wd), pos in _groups(lrs, wds).items():
+        for (lr, wd), pos in _groups(lrs, wds):
             ws, gs = _pick(weights, pos), _pick(grads, pos)
             if self.centered:
                 ops.rmspropalex_update_multi(
                     ws, gs, _pick(states, pos, 0), _pick(states, pos, 1),
                     _pick(states, pos, 2), lr, self.gamma1, self.gamma2,
-                    self.epsilon, wd, self.rescale_grad, self.clip_gradient,
+                    self.epsilon, wd, rescale_grad, clip_gradient,
                     cw)
             else:
                 ops.rmsprop_update_multi(
                     ws, gs, _pick(states, pos), lr, self.gamma1,
-                    self.epsilon, wd, self.rescale_grad, self.clip_gradient,
+                    self.epsilon, wd, rescale_grad, clip_gradient,
                     cw)
 
 
@@ -487,12 +690,13 @@ class AdaDelta(Optimizer):
         return (nd.zeros(weight.shape, ctx=weight.context, dtype=weight.dtype),
                 nd.zeros(weight.shape, ctx=weight.context, dtype=weight.dtype))
 
-    def _multi(self, weights, grads, states, lrs, wds, counts):
-        for (wd,), pos in _groups(wds).items():
+    def _multi(self, weights, grads, states, lrs, wds, counts,
+               rescale_grad, clip_gradient):
+        for (wd,), pos in _groups(wds):
             ops.adadelta_update_multi(
                 _pick(weights, pos), _pick(grads, pos),
                 _pick(states, pos, 0), _pick(states, pos, 1), self.rho,
-                self.epsilon, wd, self.rescale_grad, self.clip_gradient)
+                self.epsilon, wd, rescale_grad, clip_gradient)
 
 
 @register
@@ -507,13 +711,14 @@ class Ftrl(Optimizer):
         return (nd.zeros(weight.shape, ctx=weight.context, dtype=weight.dtype),
                 nd.zeros(weight.shape, ctx=weight.context, dtype=weight.dtype))
 
-    def _multi(self, weights, grads, states, lrs, wds, counts):
-        for (lr, wd), pos in _groups(lrs, wds).items():
+    def _multi(self, weights, grads, states, lrs, wds, counts,
+               rescale_grad, clip_gradient):
+        for (lr, wd), pos in _groups(lrs, wds):
             ops.ftrl_update_multi(
                 _pick(weights, pos), _pick(grads, pos),
                 _pick(states, pos, 0), _pick(states, pos, 1), lr,
-                self.lamda1, self.beta, wd, self.rescale_grad,
-                self.clip_gradient)
+                self.lamda1, self.beta, wd, rescale_grad,
+                clip_gradient)
 
 
 @register
@@ -529,13 +734,14 @@ class Adamax(Optimizer):
         return (nd.zeros(weight.shape, ctx=weight.context, dtype=weight.dtype),
                 nd.zeros(weight.shape, ctx=weight.context, dtype=weight.dtype))
 
-    def _multi(self, weights, grads, states, lrs, wds, counts):
-        for (lr, wd, t), pos in _groups(lrs, wds, counts).items():
+    def _multi(self, weights, grads, states, lrs, wds, counts,
+               rescale_grad, clip_gradient):
+        for (lr, wd, t), pos in _groups(lrs, wds, counts):
             ops.adamax_update_multi(
                 _pick(weights, pos), _pick(grads, pos),
                 _pick(states, pos, 0), _pick(states, pos, 1),
                 lr / (1.0 - self.beta1 ** t), self.beta1, self.beta2, wd,
-                self.rescale_grad, self.clip_gradient)
+                rescale_grad, clip_gradient)
 
 
 @register
@@ -561,18 +767,18 @@ class Nadam(Optimizer):
                 self.beta1 * (1.0 - 0.5 * 0.96 ** ((t + 1)
                                                    * self.schedule_decay)))
 
-    def _multi(self, weights, grads, states, lrs, wds, counts):
-        for (lr, wd, t), pos in _groups(lrs, wds, counts).items():
+    def _multi(self, weights, grads, states, lrs, wds, counts,
+               rescale_grad, clip_gradient):
+        for (lr, wd, t), pos in _groups(lrs, wds, counts):
             ws = _pick(weights, pos)
             means, variances = _pick(states, pos, 0), _pick(states, pos, 1)
             scheds = _pick(states, pos, 2)
             mom_t, mom_t1 = self._momenta(t)
-            gs = torch._foreach_mul(_pick(grads, pos), self.rescale_grad)
-            if wd:
-                torch._foreach_add_(gs, ws, alpha=wd)
-            _clip_multi(gs, self.clip_gradient)
-            m_schedule = torch._foreach_mul(scheds, mom_t)
-            m_next = torch._foreach_mul(m_schedule, mom_t1)
+            gs = torch._foreach_mul(_pick(grads, pos), rescale_grad)
+            ops._axpy_(gs, ws, wd, skip_zero=True)
+            _clip_multi(gs, clip_gradient)
+            m_schedule = ops._mul(scheds, mom_t)
+            m_next = ops._mul(m_schedule, mom_t1)
             torch._foreach_mul_(means, self.beta1)
             torch._foreach_add_(means, gs, alpha=1.0 - self.beta1)
             torch._foreach_mul_(variances, self.beta2)
@@ -585,11 +791,11 @@ class Nadam(Optimizer):
             torch._foreach_add_(one_minus, 1.0)
             m_bar = torch._foreach_div(means, one_minus)
             torch._foreach_mul_(m_bar, mom_t1)
-            torch._foreach_add_(m_bar, g_prime, alpha=1.0 - mom_t)
+            ops._axpy_(m_bar, g_prime, 1.0 - mom_t)
             denom = torch._foreach_div(variances, 1.0 - self.beta2 ** t)
             torch._foreach_sqrt_(denom)
             torch._foreach_add_(denom, self.epsilon)
-            torch._foreach_addcdiv_(ws, m_bar, denom, value=-lr)
+            ops._addcdiv_(ws, m_bar, denom, -lr)
             torch._foreach_copy_(scheds, m_schedule)
 
 
@@ -606,9 +812,10 @@ class Test(Optimizer):
             weight.data.add_(_as(grad, weight) * self.rescale_grad)
             state.data.copy_(weight.data)
 
-    def _multi(self, weights, grads, states, lrs, wds, counts):
+    def _multi(self, weights, grads, states, lrs, wds, counts,
+               rescale_grad, clip_gradient):
         torch._foreach_add_(weights, torch._foreach_mul(grads,
-                                                        self.rescale_grad))
+                                                        rescale_grad))
         torch._foreach_copy_(states, weights)
 
 

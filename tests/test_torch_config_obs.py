@@ -44,10 +44,9 @@ NOT_YET = {
     # A9: the pod coordinator's stall watchdog and drain
     "MXNET_TPU_ELASTIC_STALL_SECS": "A9",
     "MXNET_TPU_ELASTIC_DRAIN_GRACE": "A9",
-    # A4d: the fused trainer step and the AOT executable cache
-    "MXNET_TPU_FUSED_TRAINER": "A4d",
-    "MXNET_TPU_COMPILE_CACHE": "A4d",
-    "MXNET_COMPILATION_CACHE_DIR": "A4d",
+    # A4d-c: the AOT executable cache
+    "MXNET_TPU_COMPILE_CACHE": "A4d-c",
+    "MXNET_COMPILATION_CACHE_DIR": "A4d-c",
 }
 
 OBS_KNOBS = ("MXNET_TPU_OBS", "MXNET_TPU_OBS_METRICS_PORT",

@@ -95,6 +95,7 @@ def test_importing_the_port_loads_no_jax():
         "import mxnet_tpu_torch.visualization, mxnet_tpu_torch.aot\n"
         "import mxnet_tpu_torch.tune, mxnet_tpu_torch.tune.__main__\n"
         "from mxnet_tpu_torch.tools import elastic_smoke, tune_smoke\n"
+        "from mxnet_tpu_torch.tools import update_bench\n"
         "from mxnet_tpu_torch.tools import (caffe_converter,\n"
         "    convert_params, kill_mxnet, parse_log)\n"
         "assert mxnet_tpu_torch.operator.NDArrayOp and mxnet_tpu_torch.viz\n"
