@@ -462,33 +462,50 @@ Phases, each fatal on failure (exit code 1, no result line):
     of a few imperative ops, whose results equal ``ThreadedEngine``'s
     bit for bit. A hang ends the run through ``faulthandler`` after
     ``ELASTIC_DEADLINE_S``.
-23. the compiled update (A4d-a): ``Trainer.step``, ``Module.update`` and
-    the update of ``Module._fit_step`` as one ``torch.compile``d program
-    (``_fused.FusedUpdater``, inductor on the card). Phases 1-22 run
-    with ``MXNET_TPU_FUSED_TRAINER=0`` (their eager update, as before):
-    a cold inductor build of one large update takes minutes. This
-    phase's two programs are built ahead by a process of their own
-    (``--warm-update``, started after phase 6, beside phases 7-22), whose
-    code lands in the checkout's ``build/inductor``: here they build
-    from that cache. The compiler's facts first: torch's version, and
-    ``triton`` and ``torch._inductor``, which must import (the phase
-    fails, it does not fall back); the warm-up's cold build seconds.
-    (a) The LM at
-    the full width and depth of ``bench.py`` (12 layers, amp bf16, batch
-    8, T 1024, flash attention) through ``Module.fit`` with Adam,
-    ``FUSED_WARM`` + ``FUSED_TIMED`` steps: one ``trainer_step_compile``,
-    a ``trainer_step_cache_hit`` for every later step, no recompile
-    (``loop_recompile``, ``trainer_step_recompile``) and no fallback to
-    the eager update, K1 bf16, K2 and K3 launched once per layer per step
-    (their counts zeroed just before the fit, read just after), finite
-    losses that fall from the plain forward's step-1 cross-entropy; then
-    one update from one set of gradients through the compiled program and
-    through the eager ``Updater.update_multi``: every weight and state
-    within the reference's bound (rtol 1e-4, atol 1e-6); the readings
-    the step's ms, the compile's seconds (the compile ring's
-    ``trainer_step`` record) and the update's ms, compiled against the
-    eager ``_foreach_`` route, each the median of windows between CUDA
-    events. (b) Gluon's ``resnet50_v1`` at phase 9's configuration (SGD,
+23. the compiled step (A4d-b) and the compiled update (A4d-a):
+    ``Module._fit_step``'s forward and backward as one ``torch.compile``d
+    step program per structure (``_fused.StepProgram``, its backward by
+    AOT autograd, K1 bf16, K2 and K3 custom-op nodes inside it), then
+    ``Trainer.step``, ``Module.update`` and the fit step's update as one
+    compiled program (``_fused.FusedUpdater``), inductor on the card.
+    Phases 1-22 run with ``MXNET_TPU_FUSED_TRAINER=0`` (their eager step
+    and update, as before): a cold inductor build of one large program
+    takes minutes. Two child processes (``--phase23``, started after the
+    build phase, beside phases 3-22): the ``lm`` child runs (a) whole,
+    its fit's first step, where both programs build cold, beside the
+    phases, the rest once this process writes ``go`` after phase 22; the
+    ``resnet`` child builds (b)'s update into the checkout's
+    ``build/inductor``, which (b) then loads, and runs the Convolution
+    check. The compiler's facts first: torch's version, and ``triton``
+    and ``torch._inductor``, which must import (the phase fails, it does
+    not fall back). (a) The LM at the full width and depth of
+    ``bench.py`` (12 layers, amp bf16, batch 8, T 1024, flash attention)
+    through ``Module.fit`` with Adam, ``FUSED_WARM`` + ``FUSED_TIMED``
+    steps: one ``fused_step_compile`` and one ``trainer_step_compile``, a
+    cache hit of each for every later step, no recompile
+    (``loop_recompile``, ``fused_step_recompile``,
+    ``trainer_step_recompile``) and no fallback to an eager route, K1
+    bf16, K2 and K3 launched once per layer per step (their counts zeroed
+    just before the fit, read just after), finite losses that fall from
+    the plain forward's step-1 cross-entropy; then one update from one
+    set of gradients through the compiled program and through the eager
+    ``Updater.update_multi``: every weight and state within the
+    reference's bound (rtol 1e-4, atol 1e-6); the update's ms compiled
+    against the eager ``_foreach_`` route and the whole step's ms
+    compiled against eager, each the median of alternating windows
+    between CUDA events, with the host's ms of every call and a
+    ``torch.profiler`` trace of the first compiled call after an eager
+    window; the builds' seconds (the compile ring's ``fused_step`` and
+    ``trainer_step`` records); step 1's cross-entropy and gradients at the
+    initial weights, compiled and eager, against a plain f32 step: the
+    compiled route's relative L2 distance at most twice the eager
+    route's. The Convolution check: train_imagenet's ResNet-50 through
+    ``Module``'s compiled step at ``CONV_CHECK_BATCH`` (amp bf16): its
+    gradients' distance from the eager f32 step's at most twice the eager
+    bf16 step's, none zero where eager's is not (torch 2.11's capture
+    zeroed every gradient through LayerNorm's autograd Function; before
+    torch 2.13 the compiled step takes only the Functions a card run
+    holds). (b) Gluon's ``resnet50_v1`` at phase 9's configuration (SGD,
     momentum, wd, batch 128, 224x224) through ``Trainer.step``: one step
     compiled and the same step with ``MXNET_TPU_FUSED_TRAINER=0``, from
     the same weights, states and gradients, within that bound; a new
@@ -12025,13 +12042,33 @@ FUSED_RTOL, FUSED_ATOL = 1e-4, 1e-6
 # the update timed alone, compiled against the eager foreach route:
 # alternating windows of FUSED_UPDATE_CALLS calls each
 FUSED_UPDATE_WINDOWS, FUSED_UPDATE_CALLS = 5, 3
-# the warm-up processes (warm_update), one per program, must end within
-# this
-WARM_TARGETS = ("lm", "resnet")
+# the fit step compiled (the forward/backward program before the
+# update) against the eager step (MXNET_TPU_FUSED_TRAINER=0: eager
+# forward, backward and update): alternating windows, each one untimed
+# step after the switch (its host ms logged apart), then FUSED_STEP_CALLS
+# steps between CUDA events
+FUSED_STEP_WINDOWS, FUSED_STEP_CALLS = 3, 3
+# Convolution's autograd Function inside the compiled step's capture on
+# the card: train_imagenet's ResNet-50 (7x7 stem) through Module at this
+# batch, amp bf16, captured against eager (conv_step_check): the same
+# kernels, so the same gradients (0 apart on the card, PR 24)
+CONV_CHECK_BATCH, CONV_CHECK_IMAGE = 16, 224
+CONV_CHECK_RTOL = 1e-6
+# phase 23's child processes (child_main), started after the build
+# phase beside phases 3-22, each to end within WARM_DEADLINE_S of the
+# phase's wait: "lm" runs 23a, its fit's first step (the step program's
+# and the update's cold builds) beside the phases and the rest once this
+# process sends "go" after phase 22; "resnet" builds 23b's update into
+# inductor's cache and runs conv_step_check
+PHASE23_CHILDREN = ("lm", "resnet")
 WARM_DEADLINE_S = 900
+WARM_COMPILE_THREADS = 2
 FUSED_COUNTERS = ("trainer_step_compile", "trainer_step_cache_hit",
                   "trainer_step_recompile", "loop_recompile",
-                  "trainer_step_fallback", "trainer_step_compile_failed")
+                  "trainer_step_fallback", "trainer_step_compile_failed",
+                  "fused_step_compile", "fused_step_cache_hit",
+                  "fused_step_recompile", "fused_step_fallback",
+                  "fused_step_compile_failed")
 
 
 def compiler_facts(torch):
@@ -12048,10 +12085,13 @@ def compiler_facts(torch):
             raise SmokeFailure("%s does not import: %r" % (mod, exc))
         facts[name] = getattr(m, "__version__", torch.__version__)
     from mxnet_tpu_torch import _fused
+    from mxnet_tpu_torch.symbol import scan
     facts["backend"] = _fused._GPU_BACKEND
+    facts["regions"] = scan._regions_work()
     log("compiler: torch %(torch)s (CUDA %(cuda)s), triton %(triton)s, "
-        "inductor of torch %(inductor)s; the compiled update's backend "
-        "%(backend)s" % facts)
+        "inductor of torch %(inductor)s; the compiled programs' backend "
+        "%(backend)s; a scan plan's layers one nested compile region: "
+        "%(regions)s" % facts)
     return facts
 
 
@@ -12082,9 +12122,15 @@ def _leaves(state):
     return [state]
 
 
-def fused_lm(torch, np, counters):
-    """(a) The LM through ``Module.fit`` with Adam on the compiled update,
-    then one update held against the eager route and both timed."""
+def fused_lm(torch, np, counters, gate=None):
+    """(a) The LM through ``Module.fit`` with Adam on the compiled step
+    (the forward/backward program, then the compiled update), then one
+    update held against the eager route and both timed, the whole step
+    compiled and eager timed in alternating windows, and the step's
+    loss and gradients at the initial weights held against a plain f32
+    step (:func:`step_parity`). ``gate()``, when given, runs after the
+    fit's first step (the programs' builds), which the fit's seconds
+    leave out (:func:`lm_child`)."""
     import mxnet_tpu_torch as mt
     from mxnet_tpu_torch.models import transformer
     from mxnet_tpu_torch.obs import compiles
@@ -12111,12 +12157,19 @@ def fused_lm(torch, np, counters):
     torch.cuda.empty_cache()
     losses, events = [], []
 
+    waited = []
+
     def on_batch(param):
         out = mod.get_outputs()[0].data
         losses.append(-(out.gather(1, y_flat) + 1e-12).log().mean())
         ev = torch.cuda.Event(enable_timing=True)
         ev.record()
         events.append(ev)
+        if gate is not None and len(events) == 1:
+            t = time.perf_counter()
+            waited.append(t - t0)
+            gate()
+            waited.append(time.perf_counter() - t)
 
     n_ring = len(compiles.snapshot())
     snap = _counter_snapshot()
@@ -12129,22 +12182,26 @@ def fused_lm(torch, np, counters):
             optimizer_params=dict(FUSED_ADAM),
             eval_metric=mt.metric.CrossEntropy())
     torch.cuda.synchronize()
-    fit_s = time.perf_counter() - t0
+    fit_s = time.perf_counter() - t0 - (waited[1] if waited else 0.0)
     launches = {n: dict(fn.launches) for n, fn in counters.items()}
     delta = _counter_delta(snap)
     ring = [r for r in compiles.snapshot()[n_ring:]
             if r["scope"] == "trainer_step"]
+    step_ring = [r for r in compiles.snapshot()[n_ring:]
+                 if r["scope"] == "fused_step"]
     per_step = [a.elapsed_time(b) for a, b in
                 zip(events[FUSED_WARM:], events[FUSED_WARM + 1:])]
     step_ms = float(np.median(per_step))
     losses = [float(v) for v in torch.stack(losses).cpu()]
-    log("23a fit: %d steps in %.3f s; step %.3f ms (median of %d steps "
-        "between CUDA events, %.3f-%.3f); counters %s; compile ring %s; "
-        "launches %s; loss per step %s; step-1 cross-entropy %.6f, plain "
-        "f32 forward %.6f" % (
-            steps, fit_s, step_ms, len(per_step), min(per_step),
-            max(per_step), delta,
-            [(r["source"], r["compile_ms"]) for r in ring], launches,
+    log("23a fit: %d steps in %.3f s%s; step %.3f ms (median of %d steps "
+        "between CUDA events, %.3f-%.3f); counters %s; compile ring: the "
+        "update %s, the step program %s; launches %s; loss per step %s; "
+        "step-1 cross-entropy %.6f, plain f32 forward %.6f" % (
+            steps, fit_s, " (step 1, both programs' builds, %.3f s, then "
+            "%.3f s waiting for phase 23)" % tuple(waited) if waited else "",
+            step_ms, len(per_step), min(per_step), max(per_step), delta,
+            [(r["source"], r["compile_ms"]) for r in ring],
+            [(r["source"], r["compile_ms"]) for r in step_ring], launches,
             " ".join("%.6f" % v for v in losses), losses[0], want))
     check(delta["trainer_step_compile"] == 1 and
           delta["trainer_step_cache_hit"] == steps - 1,
@@ -12152,8 +12209,15 @@ def fused_lm(torch, np, counters):
           "times (1 and %d expected)" % (
               delta["trainer_step_compile"],
               delta["trainer_step_cache_hit"], steps - 1))
+    check(delta["fused_step_compile"] == 1 and
+          delta["fused_step_cache_hit"] == steps - 1,
+          "23a: the fit built %d step programs and reused them %d times "
+          "(1 and %d expected)" % (delta["fused_step_compile"],
+                                   delta["fused_step_cache_hit"], steps - 1))
     for name in ("loop_recompile", "trainer_step_recompile",
-                 "trainer_step_fallback", "trainer_step_compile_failed"):
+                 "trainer_step_fallback", "trainer_step_compile_failed",
+                 "fused_step_recompile", "fused_step_fallback",
+                 "fused_step_compile_failed"):
         check(delta[name] == 0, "23a: %s %d in the fit" % (name,
                                                            delta[name]))
     from mxnet_tpu_torch import _fused
@@ -12162,6 +12226,9 @@ def fused_lm(torch, np, counters):
     check(len(ring) == 1 and ring[0]["source"] == backend,
           "23a: the compile ring holds %s for the update (one %s record "
           "expected)" % (ring, backend))
+    check(len(step_ring) == 1 and step_ring[0]["source"] == backend,
+          "23a: the compile ring holds %s for the step program (one %s "
+          "record expected)" % (step_ring, backend))
     for name, n in launches.items():
         check(n["bf16"] == steps * LAYERS and n["f32"] == 0,
               "23a: kernel %s launched %s times in %d steps x %d layers "
@@ -12256,6 +12323,9 @@ def fused_lm(torch, np, counters):
     readings = {
         "fit_s": fit_s, "step_ms": step_ms, "losses": losses, "want": want,
         "compile_s": ring[0]["compile_ms"] / 1e3, "launches": launches,
+        "step_compile_s": step_ring[0]["compile_ms"] / 1e3,
+        "step1_s": waited[0] if waited else None,
+        "counters": delta,
         "update_ms": float(np.median(comp_ms)),
         "update_foreach_ms": float(np.median(eager_ms)),
         "update_ms_windows": comp_ms, "update_foreach_ms_windows": eager_ms,
@@ -12273,10 +12343,192 @@ def fused_lm(torch, np, counters):
            " ".join("%.3f" % v for v in eager_ms),
            readings["update_host_ms"], readings["update_foreach_host_ms"],
            n_values, bound_ms, readings["compile_s"]))
-    del mod, db, items, ws, gs, grads, pairs
+    del items, ws, gs, grads, pairs, ex
+    gc.collect()
+    torch.cuda.empty_cache()
+    readings.update(step_windows(torch, np, mod, db))
+    del mod
+    gc.collect()
+    torch.cuda.empty_cache()
+    readings.update(step_parity(torch, np, sym, db, x, y))
+    del db
     gc.collect()
     torch.cuda.empty_cache()
     return readings
+
+
+def step_windows(torch, np, mod, db):
+    """The whole fit step compiled (the step program and the compiled
+    update) against the eager step (``MXNET_TPU_FUSED_TRAINER`` off:
+    the graph function op by op, ``torch.autograd.grad``, the foreach
+    update), ``_fit_step`` on one batch in alternating windows: in each,
+    one untimed step after the switch, then FUSED_STEP_CALLS steps between
+    CUDA events, with the host's ms of every call (the time ``_fit_step``
+    takes to return: the host's work, the card's queue running behind
+    it). Then the first compiled step after an eager window once more
+    under ``torch.profiler``: its host operations by self time, which say
+    what a switch costs that call."""
+    import mxnet_tpu_torch as mt
+    from torch.profiler import ProfilerActivity, profile
+    calls = {"compiled": [], "eager": []}
+    first = {"compiled": [], "eager": []}
+    dev_ms = {"compiled": [], "eager": []}
+
+    def host_ms():
+        t = time.perf_counter()
+        mod._fit_step(db)
+        return (time.perf_counter() - t) * 1e3
+
+    def window(kind):
+        mt.config.set("MXNET_TPU_FUSED_TRAINER", kind == "compiled")
+        torch.cuda.synchronize()
+        first[kind].append(host_ms())
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(FUSED_STEP_CALLS):
+            calls[kind].append(host_ms())
+        end.record()
+        torch.cuda.synchronize()
+        dev_ms[kind].append(start.elapsed_time(end) / FUSED_STEP_CALLS)
+
+    acts = [ProfilerActivity.CPU]
+    if torch.device(DEVICE).type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    snap = _counter_snapshot()
+    try:
+        for _ in range(FUSED_STEP_WINDOWS):
+            window("compiled")
+            window("eager")
+        mt.config.set("MXNET_TPU_FUSED_TRAINER", True)
+        torch.cuda.synchronize()
+        with profile(activities=acts) as prof:
+            traced_ms = host_ms()
+            torch.cuda.synchronize()
+    finally:
+        mt.config.set("MXNET_TPU_FUSED_TRAINER", True)
+    d = _counter_delta(snap)
+    n = FUSED_STEP_WINDOWS * (FUSED_STEP_CALLS + 1) + 1
+    check(d["fused_step_compile"] == 0 and d["loop_recompile"] == 0 and
+          d["fused_step_cache_hit"] == n,
+          "23a: the timed compiled steps built or missed: %s" % d)
+    top = [(e.key, e.count, e.self_cpu_time_total / 1e3) for e in sorted(
+        prof.key_averages(), key=lambda e: e.self_cpu_time_total,
+        reverse=True)[:8]]
+    out = {"step_compiled_ms": float(np.median(dev_ms["compiled"])),
+           "step_eager_ms": float(np.median(dev_ms["eager"])),
+           "step_compiled_ms_windows": dev_ms["compiled"],
+           "step_eager_ms_windows": dev_ms["eager"],
+           "step_host_ms": float(np.median(calls["compiled"])),
+           "step_eager_host_ms": float(np.median(calls["eager"])),
+           "step_host_ms_calls": calls["compiled"],
+           "step_eager_host_ms_calls": calls["eager"],
+           "step_first_host_ms": first["compiled"],
+           "step_eager_first_host_ms": first["eager"],
+           "step_traced_host_ms": traced_ms, "step_traced_top": top}
+    log("23a step: compiled %.3f ms, eager %.3f ms (medians of %d windows "
+        "of %d steps between CUDA events, each after one untimed step: "
+        "%s / %s); the host's ms a call compiled %s, eager %s; the "
+        "untimed first call after each switch compiled %s, eager %s (no "
+        "gain is claimed)" % (
+            out["step_compiled_ms"], out["step_eager_ms"],
+            FUSED_STEP_WINDOWS, FUSED_STEP_CALLS,
+            " ".join("%.3f" % v for v in dev_ms["compiled"]),
+            " ".join("%.3f" % v for v in dev_ms["eager"]),
+            " ".join("%.3f" % v for v in calls["compiled"]),
+            " ".join("%.3f" % v for v in calls["eager"]),
+            " ".join("%.3f" % v for v in first["compiled"]),
+            " ".join("%.3f" % v for v in first["eager"])))
+    log("23a step: the first compiled call after an eager window, traced: "
+        "%.3f ms of host; its host operations by self time: %s" % (
+            traced_ms, "; ".join("%s x%d %.3f ms" % r for r in top)))
+    return out
+
+
+def _rel_l2(torch, got, want):
+    """The relative L2 distance over every gradient: ||got - want|| /
+    ||want||, in float64."""
+    num = sum(float((g.double() - w.double()).pow(2).sum())
+              for g, w in zip(got, want))
+    den = sum(float(w.double().pow(2).sum()) for w in want)
+    return (num / den) ** 0.5
+
+
+def step_parity(torch, np, sym, db, x, y):
+    """Step 1's loss and gradients at the LM's initial weights (the
+    fit's), through the compiled step program and through the eager
+    route (amp bf16 both), each against a plain f32 step (``plain_train_
+    loss`` under autograd, TF32 off): the compiled route's relative L2
+    distance over all gradients at most twice the eager route's. The
+    port's head (``normalization="batch"`` over the flattened tokens)
+    differentiates the mean cross-entropy over every token, as the plain
+    step does. ``sym`` is the fit's symbol object (another symbol from
+    ``transformer.get_symbol`` gets other generated names, and so another
+    program key)."""
+    import mxnet_tpu_torch as mt
+    B, T = TRAIN_BATCH, MAX_SEQ
+    dev = torch.device(DEVICE)
+    pm = mt.mod.Module(sym, context=mt.gpu(0))
+    pm.bind(data_shapes=[("data", (B, T))],
+            label_shapes=[("softmax_label", (B, T))])
+    pm.init_params(arg_params=lm_xavier(torch, np))
+    pm.init_optimizer(optimizer="adam", optimizer_params=dict(FUSED_ADAM))
+    y_flat = torch.from_numpy(y).to(dev).long().view(-1, 1)
+
+    def loss_of():
+        out = pm.get_outputs()[0].data
+        return float(-(out.gather(1, y_flat) + 1e-12).log().mean())
+
+    snap = _counter_snapshot()
+    pm._load_batch(db)
+    names, g_comp = pm._compiled_gradients()
+    check(names is not None, "23a parity: the compiled step declined")
+    loss_comp = loss_of()
+    d = _counter_delta(snap)
+    check(d["fused_step_cache_hit"] == 1 and d["fused_step_compile"] == 0,
+          "23a parity: the step did not reuse the fit's program: %s" % d)
+    keep = [i for i, n in enumerate(names) if n not in pm._data_names]
+    names = [names[i] for i in keep]
+    g_comp = [g_comp[i].float() for i in keep]
+    e_names, g_eager = pm._step_gradients(None)
+    loss_eager = loss_of()
+    pos = {n: i for i, n in enumerate(e_names)}
+    g_eager = [g_eager[pos[n]].float() for n in names]
+    init = lm_xavier(torch, np)
+    params = {n: init[n].to(dev).float().requires_grad_(n in names)
+              for n in init}
+    full_f32(torch)
+    loss = plain_train_loss(torch, params, torch.from_numpy(x).to(dev),
+                            torch.from_numpy(y).to(dev))
+    g_plain = torch.autograd.grad(loss, [params[n] for n in names])
+    loss_plain = float(loss)
+    del params, loss, pm
+    gc.collect()
+    dist_comp = _rel_l2(torch, g_comp, g_plain)
+    dist_eager = _rel_l2(torch, g_eager, g_plain)
+    dist_pair = _rel_l2(torch, g_comp, g_eager)
+    del g_comp, g_eager, g_plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"parity_loss_compiled": loss_comp, "parity_loss_eager": loss_eager,
+           "parity_loss_plain": loss_plain, "parity_grad_compiled": dist_comp,
+           "parity_grad_eager": dist_eager, "parity_grad_pair": dist_pair,
+           "parity_n_grads": len(names)}
+    log("23a parity: step 1 at the initial weights, cross-entropy %.6f "
+        "compiled, %.6f eager, %.6f plain f32; relative L2 over %d "
+        "gradients from the plain f32 step: compiled %.4g, eager %.4g "
+        "(compiled from eager %.4g)" % (
+            loss_comp, loss_eager, loss_plain, len(names), dist_comp,
+            dist_eager, dist_pair))
+    check(abs(loss_comp - loss_plain) <= CE_TOL,
+          "23a parity: compiled step-1 loss %g vs plain %g" % (loss_comp,
+                                                              loss_plain))
+    check(dist_comp <= 2 * dist_eager,
+          "23a parity: the compiled step's gradients are %.4g from the "
+          "plain f32 step's, more than twice the eager step's %.4g"
+          % (dist_comp, dist_eager))
+    return out
 
 
 def fused_resnet(torch, np):
@@ -12409,57 +12661,161 @@ def compile_cache_counters():
     return out
 
 
-def warm_update(torch, np, which=WARM_TARGETS):
-    """Phase 23's compiled updates built ahead, each in a process of its
-    own (``python3 chip_smoke.py --warm-update OUT WHICH``, which
-    ``main`` starts beside the earlier phases): ``lm``, the LM's Adam
-    update through one ``_fit_step`` at batch 1, and ``resnet``,
-    resnet50_v1's SGD ``Trainer.step`` at batch 2, amp bf16 as in phase
-    23. The parameters', gradients' and states' shapes do not depend on
-    the batch, so these are phase 23's programs, and inductor's code for
-    them lands in ``build/inductor``, which every process of the checkout
-    shares. Returns each build's seconds (the compile ring's
-    ``trainer_step`` records)."""
+def conv_step_check(torch, np):
+    """Convolution's autograd Function inside the compiled step's capture
+    on the card: train_imagenet's ResNet-50 (7x7 stem) through
+    ``Module`` at CONV_CHECK_BATCH (amp bf16, cuDNN's deterministic
+    algorithms), step 1's gradients at seeded weights through the step
+    program and through the eager route: every gradient within
+    CONV_CHECK_RTOL of its eager counterpart's largest value, none zero
+    where eager's is not. The program is the capture alone (dynamo and
+    AOT autograd, the ``aot_eager`` backend), where torch 2.11 lost
+    LayerNorm's backward (every gradient through its Function zero; PR 24,
+    ``PERF.md``): without inductor's code generation, which rounds in its
+    own order, the captured graph runs the eager route's kernels, and a
+    ResNet's step-1 gradients part by O(1) under any other rounding (the
+    eager bf16 and f32 steps' relative L2 distance read 1.19 on the card).
+    Before torch 2.13 the compiled step takes only the Functions a card
+    run holds (``module._CARD_CHECKED``): this is Convolution's run, 23a's
+    LM SoftmaxOutput's and FlashAttention's."""
     import mxnet_tpu_torch as mt
-    from mxnet_tpu_torch import autograd, gluon
-    from mxnet_tpu_torch.models import transformer
+    from mxnet_tpu_torch import _fused
+    from mxnet_tpu_torch.models import resnet
     from mxnet_tpu_torch.obs import compiles
-    from mxnet_tpu_torch.tune.probe import device_uniform
-    T, dev = MAX_SEQ, torch.device(DEVICE)
+    B, S = CONV_CHECK_BATCH, CONV_CHECK_IMAGE
+    dev = torch.device(DEVICE)
+    sym = resnet.get_symbol(num_classes=RESNET_CLASSES,
+                            num_layers=RESNET_LAYERS, stem="7x7",
+                            image_shape="3,%d,%d" % (S, S))
+    mod = mt.mod.Module(sym, context=mt.gpu(0))
+    mod.bind(data_shapes=[("data", (B, 3, S, S))],
+             label_shapes=[("softmax_label", (B,))])
+    mod.init_params(imagenet_init(mt, np))
+    mod.init_optimizer(optimizer="sgd", optimizer_params={
+        "learning_rate": RESNET_LR, "momentum": RESNET_MOMENTUM,
+        "wd": RESNET_WD})
+    rng = np.random.RandomState(1)
+    db = mt.io.DataBatch(
+        data=[mt.nd.array(rng.uniform(-1, 1, (B, 3, S, S)).astype(
+            np.float32), ctx=dev)],
+        label=[mt.nd.array(rng.randint(0, RESNET_CLASSES, (B,)).astype(
+            np.float32), ctx=dev)])
+    mod._load_batch(db)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    backend = _fused._GPU_BACKEND
+    _fused._GPU_BACKEND = _fused.CPU_BACKEND
+    snap = _counter_snapshot()
+    try:
+        t = time.perf_counter()
+        # the compile ring's scope _fit_step opens around a step
+        with compiles.scope("fused_step", mod._obs_sig):
+            names, got = mod._compiled_gradients()
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t
+        d = _counter_delta(snap)
+        check(names is not None and d["fused_step_compile"] == 1 and
+              d["fused_step_fallback"] == 0,
+              "23 conv: the ResNet's step did not build its program: %s"
+              % d)
+        keep = [n for n in names if n not in mod._data_names]
+
+        def pick(names, grads):
+            pos = {n: i for i, n in enumerate(names)}
+            return [grads[pos[n]].float().clone() for n in keep]
+
+        g_comp = pick(names, got)
+        g_eager = pick(*mod._step_gradients(None))
+    finally:
+        _fused._GPU_BACKEND = backend
+        torch.backends.cudnn.deterministic = deterministic
+    zeroed = [n for n, c, e in zip(keep, g_comp, g_eager)
+              if float(c.abs().max()) == 0 and float(e.abs().max()) > 0]
+    worst, where = 0.0, None
+    for n, c, e in zip(keep, g_comp, g_eager):
+        err = float((c - e).abs().max()) / max(float(e.abs().max()), 1e-30)
+        if err > worst:
+            worst, where = err, n
+    n_conv = sum(1 for n in keep if "conv" in n)
+    out = {"build_s": build_s, "n_grads": len(keep), "n_conv": n_conv,
+           "worst": worst, "worst_name": where, "zeroed": zeroed}
+    log("23 conv: ResNet-%d (7x7 stem, batch %d, %dx%d, amp bf16) through "
+        "Module's compiled step, captured (%s): built in %.3f s; %d "
+        "gradients (%d of convolutions) against the eager step's: worst "
+        "|diff| / max|eager| %.3g (%s, limit %g); zero where eager is "
+        "not: %s" % (RESNET_LAYERS, B, S, S, _fused.CPU_BACKEND, build_s,
+                     len(keep), n_conv, worst, where, CONV_CHECK_RTOL,
+                     zeroed))
+    check(not zeroed, "23 conv: compiled gradients zero where the eager "
+          "ones are not: %s" % zeroed)
+    check(worst <= CONV_CHECK_RTOL,
+          "23 conv: the captured step's gradient %s is %.3g of its largest "
+          "eager value from the eager one (limit %g)"
+          % (where, worst, CONV_CHECK_RTOL))
+    del mod, g_comp, g_eager, got, db
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _flash_counters():
+    """The flash kernels' wrappers, whose ``launches`` 23a reads."""
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    return {"flash_attention_fwd_bf16": fa.flash_attention_fwd,
+            "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
+            "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv}
+
+
+def lm_child(torch, np):
+    """23a in a process of its own (:func:`child_main`): its fit's first
+    step, whose two programs build cold there, runs beside phases 3-22;
+    the rest waits until the smoke's process writes ``go`` to this
+    process's standard input once phase 22 is done, so that nothing else
+    runs on the card or the host's cores beside 23a's timings."""
+    import mxnet_tpu_torch as mt
+
+    def gate():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        log("23a: step 1 done, waiting for phase 23")
+        if sys.stdin.readline().strip() != "go":
+            raise SmokeFailure("23a: the smoke's process ended before "
+                               "phase 23")
+
     mt.config.set("MXNET_TPU_FUSED_TRAINER", True)
     mt.amp.init("bfloat16")
     try:
-        if "lm" in which:
-            warm_lm(torch, np, mt, transformer, device_uniform, T, dev)
-        if "resnet" in which:
-            warm_resnet(torch, np, mt, autograd, gluon, dev)
+        return fused_lm(torch, np, _flash_counters(), gate=gate)
     finally:
         mt.amp.off()
-    return [r["compile_ms"] / 1e3 for r in compiles.snapshot()
-            if r["scope"] == "trainer_step"]
 
 
-def warm_lm(torch, np, mt, transformer, device_uniform, T, dev):
-    """One ``_fit_step`` of the LM at batch 1 (:func:`warm_update`)."""
-    sym = transformer.get_symbol(VOCAB, LAYERS, D_MODEL, HEADS, D_FF, T,
-                                 attention="flash")
-    mod = mt.mod.Module(sym, context=mt.gpu(0))
-    mod.bind(data_shapes=[("data", (1, T))],
-             label_shapes=[("softmax_label", (1, T))])
-    mod.init_params(device_uniform(seed=SEED))
-    mod.init_optimizer(optimizer="adam",
-                       optimizer_params=dict(FUSED_ADAM))
-    ids = mt.nd.array(np.zeros((1, T), np.float32), ctx=dev)
-    mod._fit_step(mt.io.DataBatch(data=[ids], label=[ids]))
-    torch.cuda.synchronize()
-    del mod
-    gc.collect()
-    torch.cuda.empty_cache()
+def resnet_child(torch, np):
+    """23b's update built ahead (resnet50_v1's SGD ``Trainer.step`` at
+    batch 2: an update's shapes do not depend on the batch, so this is
+    23b's program, and inductor's code for it lands in
+    ``build/inductor``, which every process of the checkout shares), then
+    :func:`conv_step_check`; amp bf16 as in phase 23. Returns the builds'
+    seconds (the compile ring's ``trainer_step`` and ``fused_step``
+    records) and the check's readings."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch.obs import compiles
+    mt.config.set("MXNET_TPU_FUSED_TRAINER", True)
+    mt.amp.init("bfloat16")
+    try:
+        warm_resnet(torch, np, mt, autograd, gluon, torch.device(DEVICE))
+        conv = conv_step_check(torch, np)
+    finally:
+        mt.amp.off()
+    return {"builds_s": [r["compile_ms"] / 1e3 for r in compiles.snapshot()
+                         if r["scope"] in ("trainer_step", "fused_step")],
+            "conv": conv}
 
 
 def warm_resnet(torch, np, mt, autograd, gluon, dev):
     """One ``Trainer.step`` of resnet50_v1 at batch 2
-    (:func:`warm_update`)."""
+    (:func:`resnet_child`)."""
     mt.random.seed(SEED)
     net = gluon.model_zoo.vision.get_model(
         "resnet%d_v1" % RESNET_LAYERS, classes=RESNET_CLASSES)
@@ -12478,111 +12834,146 @@ def warm_resnet(torch, np, mt, autograd, gluon, dev):
     loss.backward()
     trainer.step(2)
     torch.cuda.synchronize()
+    del net, trainer, x, y, loss
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
-def warm_update_main(out: str, which: str) -> int:
-    """``--warm-update OUT WHICH``: :func:`warm_update` of ``WHICH``, its
-    seconds and the compile caches' counters written to OUT as JSON."""
+def child_main(out: str, which: str) -> int:
+    """``--phase23 OUT WHICH``: :func:`lm_child` or :func:`resnet_child`;
+    its readings, its seconds and the compile caches' counters written to
+    OUT as JSON, or the failed check as ``failed``."""
     sys.path.insert(0, str(ROOT))
     import numpy as np
     import torch
     parent = os.getppid()
 
     def watch_parent():
-        # a run ended by faulthandler leaves no warm-up behind
+        # a run ended by faulthandler leaves no child behind
         while os.getppid() == parent:
             time.sleep(1.0)
         os._exit(1)
 
     threading.Thread(target=watch_parent, daemon=True).start()
-    # the host's cores go to the phases first: the warm-up has ~10
-    # minutes of slack before phase 23 needs its programs
+    # the host's cores go to the phases first
     os.nice(10)
+    # the card phase's switches: inductor's cache key holds them, and
+    # phase 23 loads 23b's update under them
     full_f32(torch)
     t0 = time.perf_counter()
-    builds = warm_update(torch, np, (which,))
+    try:
+        result = {"lm": lm_child, "resnet": resnet_child}[which](torch, np)
+    except SmokeFailure as exc:
+        Path(out).write_text(json.dumps({"which": which,
+                                         "failed": str(exc)}))
+        return 1
     Path(out).write_text(json.dumps({
-        "which": which, "builds_s": builds,
+        "which": which, "result": result,
         "wall_s": time.perf_counter() - t0,
-        "caches": compile_cache_counters()}))
+        "caches": compile_cache_counters()}, default=str))
     return 0
 
 
-def start_warm_update():
-    """The :func:`warm_update` processes, one per target, started:
-    ``[(process, its JSON path, its log path)]``."""
+def start_children():
+    """Phase 23's child processes (:func:`child_main`), started:
+    ``{which: (process, its JSON path, its log path)}``; the ``lm``
+    child's standard input a pipe (:func:`lm_child`)."""
     (ROOT / "build").mkdir(parents=True, exist_ok=True)
-    runs = []
-    for which in WARM_TARGETS:
-        out = ROOT / "build" / ("phase23_warm_%s.json" % which)
-        log_path = ROOT / "build" / ("phase23_warm_%s.log" % which)
+    # inductor's compile workers, one per core by default in each
+    # process, took the host from phases 3-22 (which ran ~1.5x slower
+    # beside them): WARM_COMPILE_THREADS each
+    env = dict(os.environ,
+               TORCHINDUCTOR_COMPILE_THREADS=str(WARM_COMPILE_THREADS))
+    runs = {}
+    for which in PHASE23_CHILDREN:
+        out = ROOT / "build" / ("phase23_%s.json" % which)
+        log_path = ROOT / "build" / ("phase23_%s.log" % which)
         out.unlink(missing_ok=True)
         with open(log_path, "w") as log_file:
-            runs.append((subprocess.Popen(
+            runs[which] = (subprocess.Popen(
                 [sys.executable, str(Path(__file__).resolve()),
-                 "--warm-update", str(out), which], cwd=str(ROOT),
-                stdout=log_file, stderr=subprocess.STDOUT), out, log_path))
+                 "--phase23", str(out), which], cwd=str(ROOT), env=env,
+                stdin=subprocess.PIPE if which == "lm" else
+                subprocess.DEVNULL, stdout=log_file,
+                stderr=subprocess.STDOUT), out, log_path)
     return runs
 
 
-def join_warm_update(warm):
-    """Wait for the :func:`warm_update` processes; their readings."""
-    readings = []
-    for proc, out, log_path in warm:
+def join_child(run, go=False):
+    """Wait for one :func:`child_main` process (after writing ``go`` to
+    its standard input when asked) and log its phase-23 lines; its JSON."""
+    proc, out, log_path = run
+    if go:
         try:
-            rc = proc.wait(timeout=WARM_DEADLINE_S)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            proc.wait()
-            raise SmokeFailure("phase 23's warm-up process ran past %d s"
-                               % WARM_DEADLINE_S)
-        check(rc == 0 and out.exists(), "phase 23's warm-up process "
-              "exited %d: %s" % (rc, log_path.read_text()[-3000:]))
-        readings.append(json.loads(out.read_text()))
-    return readings
+            proc.stdin.write(b"go\n")
+            proc.stdin.close()
+        except BrokenPipeError:
+            pass
+    try:
+        rc = proc.wait(timeout=WARM_DEADLINE_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise SmokeFailure("phase 23's %s process ran past %d s"
+                           % (out.stem, WARM_DEADLINE_S))
+    text = log_path.read_text()
+    for line in text.splitlines():
+        if line.startswith("23"):
+            log(line)
+    data = json.loads(out.read_text()) if out.exists() else {}
+    check(rc == 0 and "result" in data, "phase 23's %s process exited %d: "
+          "%s" % (out.stem, rc, data.get("failed") or text[-3000:]))
+    return data
 
 
-def fused_update_phase(torch, np, warm=None):
-    """Phase 23: the compiled update (A4d-a) on the LM's fit and Gluon's
-    ResNet-50 step; ``warm`` the :func:`start_warm_update` process that
-    built both programs ahead (None: they build here, cold)."""
+def fused_update_phase(torch, np, children=None):
+    """Phase 23: the compiled step (A4d-b) and the compiled update
+    (A4d-a). ``children`` the :func:`start_children` processes: 23a and
+    the Convolution check ran there, and 23b's update is in inductor's
+    cache; None: all of it here, cold."""
     import mxnet_tpu_torch as mt
-    from mxnet_tpu_torch.ops import flash_attention as fa
-    # card_phase's switches, whatever an earlier phase left: the warm-up
+    # card_phase's switches, whatever an earlier phase left: the child
     # processes built under them, and inductor's cache key holds them
     full_f32(torch)
     facts = compiler_facts(torch)
-    if warm is not None:
+    if children is not None:
         t = time.perf_counter()
-        facts["warm"] = join_warm_update(warm)
-        log("23: waited %.1f s for the warm-up processes: %s" % (
-            time.perf_counter() - t, "; ".join(
-                "%s built cold in %s s (%.1f s of process; caches %s)" % (
-                    r["which"], " ".join("%.3f" % v for v in r["builds_s"]),
-                    r["wall_s"], r["caches"]) for r in facts["warm"])))
-    counters = {"flash_attention_fwd_bf16": fa.flash_attention_fwd,
-                "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
-                "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv}
-    # the compiled update on, whatever the environment says (main turns
-    # it off for the earlier phases)
+        rn = join_child(children["resnet"])
+        waited = time.perf_counter() - t
+        lm_run = join_child(children["lm"], go=True)
+        facts["children"] = {r["which"]: {
+            "wall_s": r["wall_s"], "caches": r["caches"]}
+            for r in (rn, lm_run)}
+        log("23: waited %.1f s for the resnet child, then %.1f s for 23a's; "
+            "the resnet child built %s s (%.1f s of process; caches %s); "
+            "23a's process %.1f s (caches %s)" % (
+                waited, time.perf_counter() - t - waited,
+                " ".join("%.3f" % v for v in rn["result"]["builds_s"]),
+                rn["wall_s"], rn["caches"], lm_run["wall_s"],
+                lm_run["caches"]))
+        lm, conv = lm_run["result"], rn["result"]["conv"]
+    # the compiled step and update on, whatever the environment says
+    # (main turns them off for the earlier phases)
     mt.config.set("MXNET_TPU_FUSED_TRAINER", True)
     mt.amp.init("bfloat16")
     try:
-        lm = fused_lm(torch, np, counters)
+        if children is None:
+            lm = fused_lm(torch, np, _flash_counters())
+            conv = conv_step_check(torch, np)
         log("23a: compile caches %s" % compile_cache_counters())
         res = fused_resnet(torch, np)
         log("23b: compile caches %s" % compile_cache_counters())
     finally:
         mt.amp.off()
         mt.config.reset("MXNET_TPU_FUSED_TRAINER")
-    return {"facts": facts, "lm": lm, "resnet": res}
+    return {"facts": facts, "lm": lm, "conv": conv, "resnet": res}
 
 
 def main() -> int:
     if len(sys.argv) == 4 and sys.argv[1] == "--pairs-of":
         return pairs_of(sys.argv[2], sys.argv[3])
-    if len(sys.argv) == 4 and sys.argv[1] == "--warm-update":
-        return warm_update_main(sys.argv[2], sys.argv[3])
+    if len(sys.argv) == 4 and sys.argv[1] == "--phase23":
+        return child_main(sys.argv[2], sys.argv[3])
     if not (ROOT / "mxnet_tpu_torch" / "csrc").is_dir():
         print("chip_smoke: run from a checkout of the repository "
               "(mxnet_tpu_torch/ not found beside this script)",
@@ -12604,12 +12995,12 @@ def main() -> int:
                           str(ROOT / "build" / "inductor" / "triton"))
     import numpy as np
     import torch
-    warm = None
+    children = None
     try:
         timed("card", card_phase, torch)
         timed("build", build_phase)
-        # phase 23's programs compile beside phases 3-22 (see warm_update)
-        warm = start_warm_update()
+        # phase 23's programs compile beside phases 3-22 (start_children)
+        children = start_children()
         kernels = timed("kernel", kernel_phase, torch)
         timed("slice", slice_phase, torch, np, kernels)
         timed("train_kernel", train_kernel_phase, torch, kernels)
@@ -12661,14 +13052,14 @@ def main() -> int:
                 run.kill()
             import shutil
             shutil.rmtree(drill[0], ignore_errors=True)
-        timed("fused_update", fused_update_phase, torch, np, warm)
+        timed("fused_update", fused_update_phase, torch, np, children)
         torch.cuda.synchronize()
     except SmokeFailure as exc:
         print("chip_smoke: FAILED: %s (phase seconds: %s)"
               % (exc, json.dumps(PHASE_SECONDS)), file=sys.stderr)
         return 1
     finally:
-        for proc, _out, _log in warm or ():
+        for proc, _out, _log in (children or {}).values():
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()

@@ -34,6 +34,12 @@ Every path that leaves the program to the eager grouped update
 optimizer that opts out (SGLD), unhashable statics, a negative-cached
 signature, a failed build or call.
 
+:class:`StepProgram` is the compiled forward of ``Module._fit_step``
+(whose backward AOT autograd builds in the same capture), one per
+structure signature in the process-wide :data:`STEP_CACHE`
+(``fused_step_compile`` / ``_cache_hit`` / ``_recompile``, and
+``fused_step_fallback_<why>`` for each step that runs eagerly).
+
 The program is inductor's on the card and ``aot_eager``'s on the CPU
 (:data:`CPU_BACKEND`): the same capture, guards and recompiles without
 the code generation, whose C++ builds would add minutes to the CPU test
@@ -60,7 +66,8 @@ from . import profiler as _profiler
 
 __all__ = ["CompileCache", "InflightWindow", "Uncacheable",
            "structural_failure", "op_identity", "fn_token", "static_key",
-           "aval_key", "FusedUpdater", "CPU_BACKEND"]
+           "aval_key", "FusedUpdater", "CPU_BACKEND", "STEP_CACHE",
+           "StepProgram", "step_fallback", "torch_version"]
 
 _MAX_TRANSIENT_RETRIES = 3
 
@@ -374,39 +381,49 @@ def _no_silent_eager():
     return dcfg.patch(fail_on_cache_limit_hit=True)
 
 
-class _Program(object):
-    """One compiled update: ``opt.update_fused`` over one structure.
+def torch_version() -> Tuple[int, int]:
+    """This torch's ``(major, minor)``."""
+    major, minor = (int(v) for v in torch.__version__.split(".")[:2])
+    return major, minor
 
-    Each program gets a code object of its own, because dynamo keeps its
+
+def _compile_program(prefix: str, fn, device: torch.device, count):
+    """``(backend, compiled)``: ``fn`` under a code object of its own
+    named ``<prefix>_<n>``, compiled whole (``fullgraph``, static
+    shapes) by inductor on the card and :data:`CPU_BACKEND` on the CPU,
+    ``count()`` called at each of the backend's builds. Dynamo keeps its
     cache, its guards and its recompile limit per code object: two
-    programs of one function would count as recompiles of each other.
-    ``builds`` counts the backend's compiles (1 after the first call; a
-    dynamo recompile adds one)."""
+    programs of one function would count as recompiles of each other."""
+    backend = _GPU_BACKEND if device.type == "cuda" else CPU_BACKEND
+    if backend == "inductor":
+        _compile_caches()
+    name = "%s_%d" % (prefix, next(_program_ids))
+    code = fn.__code__.replace(co_name=name, co_qualname=name)
+    fn = types.FunctionType(code, fn.__globals__, name, None, fn.__closure__)
+    import torch._dynamo
+    compile_backend = torch._dynamo.lookup_backend(backend)
+
+    def counted(gm, example_inputs):
+        count()
+        return compile_backend(gm, example_inputs)
+
+    return backend, torch.compile(fn, backend=counted, fullgraph=True,
+                                  dynamic=False)
+
+
+class _Program(object):
+    """One compiled update: ``opt.update_fused`` over one structure
+    (:func:`_compile_program`). ``builds`` counts the backend's compiles
+    (1 after the first call; a dynamo recompile adds one)."""
 
     def __init__(self, opt, indices, clip_on: bool, device: torch.device):
         self.builds = 0
-        self.backend = _GPU_BACKEND if device.type == "cuda" \
-            else CPU_BACKEND
-        if self.backend == "inductor":
-            _compile_caches()
-        name = "trainer_step_%d" % next(_program_ids)
 
         def step(weights, grads, states, hv):
             opt.update_fused(indices, weights, grads, states, hv, clip_on)
 
-        code = step.__code__.replace(co_name=name, co_qualname=name)
-        fn = types.FunctionType(code, step.__globals__, name, None,
-                                step.__closure__)
-        import torch._dynamo
-        compile_backend = torch._dynamo.lookup_backend(self.backend)
-        count = self._count
-
-        def counted(gm, example_inputs):
-            count()
-            return compile_backend(gm, example_inputs)
-
-        self._fn = torch.compile(fn, backend=counted, fullgraph=True,
-                                 dynamic=False)
+        self.backend, self._fn = _compile_program("trainer_step", step,
+                                                  device, self._count)
 
     def _count(self):
         self.builds += 1
@@ -414,6 +431,45 @@ class _Program(object):
     def __call__(self, weights, grads, states, hv) -> None:
         with _no_silent_eager(), torch.no_grad():
             self._fn(weights, grads, states, hv)
+
+
+# the compiled training steps' programs, process-wide: two Modules of one
+# structure (symbol, shapes, trained set, levers, amp) share one program
+STEP_CACHE = CompileCache("fused_step")
+
+
+class StepProgram(object):
+    """One compiled training forward: ``body(args, aux) -> (outputs,
+    {aux name: new value})`` captured whole (``fullgraph``), its
+    backward built by AOT autograd in the same capture, so
+    ``torch.autograd.grad`` on its outputs runs the compiled backward.
+    As :class:`_Program`, each program has a code object of its own
+    (:func:`_compile_program`) and counts its backend's builds in
+    ``builds``; a call raises where dynamo would run the frame
+    eagerly."""
+
+    def __init__(self, body, device: torch.device):
+        self.builds = 0
+
+        def step(args, aux):
+            return body(args, aux)
+
+        self.backend, self._fn = _compile_program("fused_step", step,
+                                                  device, self._count)
+
+    def _count(self):
+        self.builds += 1
+
+    def __call__(self, args, aux):
+        with _no_silent_eager():
+            return self._fn(args, aux)
+
+
+def step_fallback(why: str) -> None:
+    """Count one training step the compiled program did not run:
+    ``fused_step_fallback`` and ``fused_step_fallback_<why>``."""
+    _profiler.incr_counter("fused_step_fallback")
+    _profiler.incr_counter("fused_step_fallback_" + why)
 
 
 class FusedUpdater(object):

@@ -107,8 +107,28 @@ def conv_precision(dtype: torch.dtype):
     """Within the block, cuDNN convolves ``dtype`` operands (and runs
     the fused RNN op on them) with float32 accumulation: for float32
     operands TF32 is turned off (it is on by default for cuDNN), and
-    the previous setting is restored after."""
-    if dtype != torch.float32:
+    the previous setting is restored after. Inside a compiled step's
+    capture it sets nothing: the capture would not keep the switch
+    around the convolution, so the step sets it around the whole
+    program instead (:func:`step_precision`)."""
+    if dtype != torch.float32 or torch.compiler.is_compiling():
+        yield
+        return
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+@contextmanager
+def step_precision(device: torch.device):
+    """Around a compiled training step's forward and backward on the
+    card: cuDNN with TF32 off, as :func:`conv_precision` holds each
+    float32 convolution and the fused RNN op of the eager route (bf16
+    operands do not read the switch)."""
+    if device.type != "cuda":
         yield
         return
     prev = torch.backends.cudnn.allow_tf32

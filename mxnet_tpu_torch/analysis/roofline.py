@@ -137,8 +137,10 @@ def count_executable(fn, *args, **kwargs) -> Dict[str, Any]:
     run inside one op each, where no formula can see: each launch is
     counted by :func:`flash_flops` from its shapes, and listed under
     ``flash``. A compiled program's kernels bypass the dispatcher, so
-    the run takes the eager optimizer update (``MXNET_TPU_FUSED_TRAINER``
-    off for its duration), whose ops the mode counts."""
+    the run takes the eager forward, backward and optimizer update
+    (``MXNET_TPU_FUSED_TRAINER`` off for its duration: it governs the
+    compiled fit step and the compiled update), whose ops the mode
+    counts."""
     import torch
     from torch.utils._python_dispatch import TorchDispatchMode
     from torch.utils._pytree import tree_leaves

@@ -94,7 +94,9 @@ def _parse_lockcheck(v) -> str:
 register("MXNET_TPU_FUSED_TRAINER", _parse_bool, True,
          "gluon Trainer.step / Module.update / Module's fit step: run "
          "every parameter's update as one structure-cached compiled "
-         "program (torch.compile); 0 = the eager grouped update")
+         "program (torch.compile), and the fit step's forward and "
+         "backward as another; 0 = the eager forward, backward and "
+         "grouped update")
 register("MXNET_TPU_SERVE", _parse_bool, True,
          "serve.InferenceServer: coalesce concurrent requests into "
          "bucket-padded micro-batches served by a finite runner set; "

@@ -117,7 +117,8 @@ def graph_function(symbol, group2ctx=None, default=None, scan_plan=None):
     when a remat wrap recomputes them). With ``group2ctx``, each op node
     runs on its group's device (else on ``default``), its inputs copied
     there. With ``scan_plan`` (not with ``group2ctx``), the plan's pre
-    nodes run, then its layers (:meth:`ScanPlan.execute`), then its post
+    nodes run, then its layers (:meth:`ScanPlan.execute`, its traced
+    form with ``traced``: a compiled step's capture), then its post
     nodes."""
     from .symbol.symbol import _topo_order, run_node
 
@@ -130,7 +131,7 @@ def graph_function(symbol, group2ctx=None, default=None, scan_plan=None):
                          "placement")
 
     def fn(args: Dict[str, torch.Tensor], aux: Dict[str, torch.Tensor],
-           is_train: bool, device, tap=None):
+           is_train: bool, device, tap=None, traced=False):
         vals = {}
         new_aux = {}
 
@@ -138,7 +139,10 @@ def graph_function(symbol, group2ctx=None, default=None, scan_plan=None):
             dev = node_device.get(id(node), device)
             if node_device:
                 ins = [x.to(dev) for x in ins]
-            _remat.set_current_op(node.op.name)
+            if not traced:
+                # the selective remat policy classifies by it; a capture's
+                # traced policy needs no per-node state
+                _remat.set_current_op(node.op.name)
             outs = run_node(node, ins, is_train, dev)
             if tap is not None and not _remat.replaying():
                 tap(node, outs)
@@ -163,7 +167,7 @@ def graph_function(symbol, group2ctx=None, default=None, scan_plan=None):
         if scan_plan is not None:
             for node in scan_plan.pre_nodes:
                 exec_node(node)
-            scan_plan.execute(vals, args, run)
+            scan_plan.execute(vals, args, run, traced=traced)
             for node in scan_plan.post_nodes:
                 exec_node(node)
         else:
@@ -319,6 +323,7 @@ class Executor:
                 # each layer of the plan under the policy: the "wrap each
                 # repeated block" form the remat suggestion prescribes
                 plan.body_wrapper = policy.wrap
+                plan.remat_policy = policy
                 self._remat_name = name
                 _profiler.incr_counter("remat_applied")
         return plan
@@ -333,10 +338,43 @@ class Executor:
             self.arg_dict[k][:] = v
         return self.forward_inputs(is_train)
 
-    def forward_inputs(self, is_train: bool, inputs=None) -> List[NDArray]:
+    def step_body(self):
+        """The training forward as a compiled step captures it:
+        ``body(args, aux) -> (outputs, {aux name: new value})``, the
+        graph function with the scan plan in its traced form and the
+        remat policy's traced wrap (:meth:`.remat.Policy.wrap_traced`)
+        around the whole forward where there is no plan. The parameters
+        and aux states are arguments, never constants of the capture."""
+        fn, device = self._fn, self._device
+        if self._remat is not None:
+            fn = self._remat.wrap_traced(fn)
+        from .symbol.symbol import _topo_order
+        for node in _topo_order(self._symbol._entries):
+            if not node.is_variable:
+                # settled before the capture: a cached property the
+                # capture computed would change under its guard
+                node.op.takes_is_train
+        if self._scan_plan is not None:
+            from .symbol.symbol import run_node
+
+            def run(node, ins):
+                return run_node(node, ins, True, device)
+
+            self._scan_plan.traced_layer(run)
+
+        def body(args, aux):
+            return fn(args, aux, True, device, None, True)
+
+        return body
+
+    def forward_inputs(self, is_train: bool, inputs=None,
+                       program=None) -> List[NDArray]:
         """:meth:`forward` with ``inputs`` ({name: tensor}) in place of
         those bound arguments, which are not written: ``Module``'s
-        gradient accumulation runs each microbatch so."""
+        gradient accumulation runs each microbatch so. ``program`` (a
+        training forward with gradients requested) is a compiled step
+        (:class:`._fused.StepProgram` over :meth:`step_body`) that runs
+        the graph in place of the graph function."""
         args = {n: a.data for n, a in self.arg_dict.items()}
         if inputs:
             args.update(inputs)
@@ -352,11 +390,14 @@ class Executor:
             leaves = {n: args[n].detach().requires_grad_(True)
                       for n in self._wrt}
             args.update(leaves)
-            fn = self._fn
-            if self._remat is not None:
-                fn = self._remat.wrap(fn)
             with torch.enable_grad():
-                outs, new_aux = fn(args, aux, True, self._device, tap)
+                if program is not None:
+                    outs, new_aux = program(args, aux)
+                else:
+                    fn = self._fn
+                    if self._remat is not None:
+                        fn = self._remat.wrap(fn)
+                    outs, new_aux = fn(args, aux, True, self._device, tap)
             self._pending = (outs, leaves)
         else:
             with torch.no_grad():

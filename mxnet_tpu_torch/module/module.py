@@ -5,11 +5,27 @@ device: ``bind``, ``init_params`` / ``set_params`` / ``get_params``,
 ``init_optimizer``, ``forward`` / ``backward`` / ``update`` /
 ``get_outputs``, and ``_fit_step``, the counterpart of the reference's
 fused train step (``_build_fused_step``): one forward, one backward and
-one update of every parameter per call, the compiled update of
-:class:`.._fused.FusedUpdater` (``MXNET_TPU_FUSED_TRAINER``; the eager
-``torch._foreach_*`` one where it declines), with no host
-synchronisation inside, so the host queues the next step while the card
-runs this one.
+one update of every parameter per call, with no host synchronisation
+inside, so the host queues the next step while the card runs this one.
+
+The step runs as two compiled programs where the reference jits one
+(ROADMAP queue C): the forward as a ``torch.compile(fullgraph=True,
+dynamic=False)`` program per structure signature (:meth:`Module.
+_step_program`; inductor on the card, ``aot_eager`` on the CPU), whose
+backward AOT autograd builds in the same capture and
+``torch.autograd.grad`` runs, then the compiled update of
+:class:`.._fused.FusedUpdater`. The step programs live in the
+process-wide ``_fused.STEP_CACHE``, so Modules of one structure share
+one. ``MXNET_TPU_FUSED_TRAINER=0`` runs both eagerly (the graph
+function op by op, the ``torch._foreach_*`` update). A graph that draws
+random numbers, runs a host op (``Custom``, an rtc kernel), holds
+(before torch 2.13) an autograd Function not checked on the card
+(``_CARD_CHECKED``), is monitored (``install_monitor``) or placed by
+``group2ctx`` runs the eager forward and backward, counted as
+``fused_step_fallback_<why>``;
+so does one whose program fails to build, negative-cached after the
+first failure. ``forward`` / ``backward`` / ``update`` stay eager (the
+update compiled).
 
 As in the reference, the backward runs with a ones head gradient on
 every output, so a loss head's own backward (``SoftmaxOutput``) drives
@@ -79,12 +95,89 @@ from ..initializer import InitDesc
 from ..io import DataDesc
 from ..ndarray import NDArray
 from .. import _fused
+from .. import amp as _amp
 from .. import model as _model
 from .. import optimizer as opt
 from .. import profiler as _profiler
 from .base_module import BaseModule, _check_input_names
 
 __all__ = ["Module"]
+
+# ops that run host code inside the graph (a CustomOp's Python, an rtc
+# kernel launched by cuLaunchKernel): the compiled step declines
+_HOST_OPS = frozenset(("Custom",))
+
+# the graph ops whose training pass applies one of the port's autograd
+# Functions, by op: the Function. torch 2.11's capture of LayerNorm's
+# Function dropped its backward (every gradient through it zero, with
+# aot_eager as with inductor; the cause is not known), so inside a
+# capture LayerNorm runs its formula, and before torch 2.13 the compiled
+# step takes only the Functions that chip_smoke.py's phase 23 holds
+# compiled against eager on the card (_CARD_CHECKED): a graph holding
+# another trains eagerly, counted as fused_step_fallback_unchecked
+_FUNCTION_OPS = {
+    "Convolution": "_Convolution", "Deconvolution": "_Convolution",
+    "LayerNorm": "_LayerNorm", "SoftmaxOutput": "_SoftmaxOutput",
+    "FlashAttention": "FlashAttentionFunction",
+    "LinearRegressionOutput": "_Regression",
+    "MAERegressionOutput": "_Regression",
+    "LogisticRegressionOutput": "_Regression", "MakeLoss": "_MakeLoss",
+    "SVMOutput": "_SVMOutput", "IdentityAttachKLSparseReg": "_KLSparseReg",
+    "RNN": "_GuardedLayer", "CTCLoss": "_LogAddExp",
+}
+# phase 23a holds SoftmaxOutput's and FlashAttention's through the LM's
+# gradients, phase 23 ResNet-50's Module step Convolution's; LayerNorm is
+# its formula inside a capture
+_CARD_CHECKED = frozenset(("Convolution", "LayerNorm", "SoftmaxOutput",
+                           "FlashAttention"))
+
+
+def _step_decline(symbol) -> Optional[str]:
+    """The graph's own reason to train eagerly, or None: ``host`` (a host
+    op), ``rng`` (an op draws from the key chain, which the port's ops do
+    through a fresh generator per call, outside any capture) or, before
+    torch 2.13, ``unchecked`` (an op whose autograd Function no card run
+    holds compiled against eager: :data:`_CARD_CHECKED`)."""
+    from ..symbol.scan import _draws_rng
+    from ..symbol.symbol import _topo_order
+    trusted = _fused.torch_version() >= (2, 13)
+    why = None
+    for node in _topo_order(symbol._entries):
+        if node.is_variable:
+            continue
+        name = node.op.name
+        if name in _HOST_OPS or getattr(node.op, "user_kernel", None):
+            return "host"
+        if _draws_rng(node.op, node.attrs):
+            why = "rng"
+        elif why is None and not trusted and name in _FUNCTION_OPS and \
+                name not in _CARD_CHECKED:
+            why = "unchecked"
+    return why
+
+
+def _compiler_error(exc: BaseException) -> bool:
+    """Whether dynamo or inductor raised ``exc`` or what it came from."""
+    return any(type(e).__module__.startswith(("torch._dynamo",
+                                              "torch._inductor"))
+               for e in _fused._chain(exc))
+
+
+def _recompile_limit(exc: BaseException) -> bool:
+    """Whether ``exc`` is dynamo's refusal to recompile a frame past its
+    limit (``_fused._no_silent_eager``)."""
+    return any(type(e).__name__ == "FailOnRecompileLimitHit"
+               for e in _fused._chain(exc))
+
+
+def _step_op_identities(symbol) -> tuple:
+    """The identities of the graph's ops that are not registry ops."""
+    from ..ops.registry import OP_REGISTRY
+    from ..symbol.symbol import _topo_order
+    return tuple(_fused.op_identity(node.op)
+                 for node in _topo_order(symbol._entries)
+                 if not node.is_variable
+                 and OP_REGISTRY.get(node.op.name) is not node.op)
 
 
 def _accum_loss_scale(symbol, accum: int) -> float:
@@ -282,6 +375,16 @@ class Module(BaseModule):
         self._obs_label = "module"
         self._obs_sig = None
         self._last_step_event = None
+        # the compiled step (_step_program): the symbol's JSON, its ops'
+        # identities (None: it cannot be keyed) and the graph's own reason
+        # to run eagerly, settled at the first step after each
+        # _build_fused_step; the programs this build has used, and a
+        # program of its own where the structure cannot be keyed
+        self._step_json = None
+        self._step_ops = None
+        self._step_decline = None
+        self._step_used = set()
+        self._step_own = None
 
     # ------------------------------------------------------------ names
     @property
@@ -594,6 +697,9 @@ class Module(BaseModule):
             self._accum_scale = _accum_loss_scale(self._symbol, accum)
             _profiler.set_gauge("grad_accum", accum)
         self._remat_name = self._exec._remat_name
+        self._step_json = None
+        self._step_used = set()
+        self._step_own = None
         # obs identity for compile attribution + the MFU collector; the
         # static FLOP estimate is invalidated here because a rebuild
         # means shapes (reshape) or structure changed
@@ -814,24 +920,19 @@ class Module(BaseModule):
         """One training step: forward, backward with ones head
         gradients, and one fused update of every trained parameter
         straight from the gradients (``grad_dict`` is not written); with
-        ``set_grad_accum(n)``, n microbatches summed into one update."""
+        ``set_grad_accum(n)``, n microbatches summed into one update.
+        The forward and backward run as the compiled step program
+        (:meth:`_step_program`) where it runs, else eagerly."""
         assert self.binded and self.params_initialized \
             and self.optimizer_initialized
         from ..obs import compiles as _obs_compiles, mfu as _obs_mfu
-        # a build the step triggers (a kernel library at its first
-        # launch) is the fused step's compile
+        # a build the step triggers (the step program, a kernel library
+        # at its first launch) is the fused step's compile
         with _obs_compiles.scope("fused_step", self._obs_sig):
             self._load_batch(data_batch)
-            if self._grad_accum > 1:
-                names, grads = self._accum_gradients()
-            else:
-                self._exec.forward(is_train=True)
-                names, grads = self._exec.gradients()
-                if self.inputs_need_grad:
-                    with torch.no_grad():
-                        for n, g in zip(names, grads):
-                            if n in self._data_names:
-                                self._exec.grad_dict[n].data.copy_(g)
+            names, grads = self._compiled_gradients()
+            if names is None:
+                names, grads = self._step_gradients(None)
             params = [(n, g) for n, g in zip(names, grads)
                       if n not in self._data_names]
             self._apply_update([n for n, _ in params],
@@ -848,6 +949,169 @@ class Module(BaseModule):
             # the rate window opens after the warm-up steps; report()
             # closes it (and re-opens) at each collect
             self._obs_t0 = time.perf_counter()
+
+    def _step_gradients(self, program):
+        """The step's ``(names, gradients)``: one forward (through
+        ``program`` when given) and its gradients, or the microbatches of
+        ``grad_accum``; the data inputs' gradients land in ``grad_dict``
+        under ``inputs_need_grad``."""
+        if self._grad_accum > 1:
+            return self._accum_gradients(program)
+        if program is None:
+            self._exec.forward(is_train=True)
+        else:
+            self._exec.forward_inputs(True, program=program)
+        names, grads = self._exec.gradients()
+        if self.inputs_need_grad:
+            with torch.no_grad():
+                for n, g in zip(names, grads):
+                    if n in self._data_names:
+                        self._exec.grad_dict[n].data.copy_(g)
+        return names, grads
+
+    # ---------------------------------------------------- compiled step
+    def _step_program(self):
+        """The compiled forward/backward program of this step, or None
+        (counted as ``fused_step_fallback_<why>``) where the step runs
+        eagerly: the knob off (``MXNET_TPU_FUSED_TRAINER``), a graph
+        that draws random numbers, runs a host op or (before torch 2.13)
+        an autograd Function not checked on the card, the monitor's tap,
+        ``group2ctx`` placement, nothing to differentiate, or a
+        negative-cached structure. Returns ``(program, sig, fresh)``;
+        ``sig`` is None for a structure that cannot be keyed, whose
+        program is this module's own."""
+        from .. import config as _config
+        ex = self._exec
+        if not _config.get("MXNET_TPU_FUSED_TRAINER"):
+            return _fused.step_fallback("knob")
+        if self._step_json is None:
+            self._step_json = self._symbol.tojson()
+            self._step_decline = _step_decline(self._symbol)
+            try:
+                self._step_ops = _step_op_identities(self._symbol)
+            except _fused.Uncacheable:
+                self._step_ops = None
+        why = self._step_decline
+        if why is None:
+            why = "monitor" if ex.keep_node_outputs else \
+                "group2ctx" if ex._group2ctx else \
+                "nograd" if not ex._wrt else None
+        if why is not None:
+            return _fused.step_fallback(why)
+        try:
+            sig = self._step_signature()
+        except _fused.Uncacheable:
+            sig = None
+        if sig is None:
+            if self._step_own is None:
+                self._step_own = _fused.StepProgram(ex.step_body(),
+                                                    self._device)
+                return self._step_own, None, True
+            _profiler.incr_counter("fused_step_cache_hit")
+            return self._step_own, None, False
+        cache = _fused.STEP_CACHE
+        if cache.should_skip(sig):
+            return _fused.step_fallback("neg_cache")
+        prog = cache.get(sig)
+        if prog is not None:
+            return prog, sig, False
+        return _fused.StepProgram(ex.step_body(), self._device), sig, True
+
+    def _step_signature(self):
+        """What the step program bakes in (the reference's fused step
+        key less the update's statics, which the update's own program
+        takes): the symbol's JSON, every argument's and aux state's
+        shape, dtype and device as the step feeds them (a microbatch's
+        under ``grad_accum``), the trained, frozen and ``grad_req`` sets,
+        ``grad_accum`` and its scale, the remat policy, the scan plan's
+        depth, the amp policy, the knob an op reads while traced
+        (``MXNET_TPU_LAYERNORM_TWO_PASS``), and the identity of every op
+        that is not a registry op (:func:`.._fused.op_identity`: a
+        per-call Function op is :class:`.._fused.Uncacheable`)."""
+        from .. import config as _config
+        if self._step_ops is None:
+            raise _fused.Uncacheable("an op of the graph has no identity")
+        ex, accum = self._exec, self._grad_accum
+        feed = set(self._data_names + self._label_names)
+
+        def aval(n, a):
+            t = a.data
+            if accum > 1 and n in feed:
+                return ((t.shape[0] // accum,) + tuple(t.shape[1:]),
+                        t.dtype, t.device)
+            return _fused.aval_key(t)
+
+        plan = ex._scan_plan
+        return ("fused_step", self._step_json,
+                tuple((n, aval(n, a)) for n, a in ex.arg_dict.items()),
+                tuple((n, _fused.aval_key(a))
+                      for n, a in ex.aux_dict.items()),
+                tuple(ex._wrt), tuple(self._fixed_param_names),
+                tuple(sorted(self._grad_req.items())),
+                accum, self._accum_scale, self._remat_name,
+                plan.n_layers if plan is not None else 0,
+                _amp.compute_dtype(),
+                bool(_config.get("MXNET_TPU_LAYERNORM_TWO_PASS")),
+                self._step_ops)
+
+    def _compiled_gradients(self):
+        """The step's ``(names, gradients)`` through the compiled
+        program, or ``(None, None)`` where the step runs eagerly. A
+        program that fails to build or run is negative-cached and counted
+        (``fused_step_fallback_failed``); the aux states it advanced are
+        put back first, so the eager step starts from the same state."""
+        got = self._step_program()
+        if got is None:
+            return None, None
+        prog, sig, fresh = got
+        ex = self._exec
+        saved = {n: a.data.clone() for n, a in ex.aux_dict.items()} \
+            if fresh else None
+        before = prog.builds
+        t0 = time.perf_counter()
+        try:
+            with _amp.step_precision(self._device):
+                names, grads = self._step_gradients(prog)
+        except Exception as e:                             # noqa: BLE001
+            # a built program that fails past dynamo's recompile limit
+            # fails before it runs; any other failure of one is the
+            # model's own, and no eager step would mend it
+            if not (fresh or _recompile_limit(e)):
+                raise
+            with torch.no_grad():
+                for n, v in (saved or {}).items():
+                    ex.aux_dict[n].data.copy_(v)
+            ex._pending = None
+            if sig is not None:
+                # a capture or a backend that fails once fails again
+                _fused.STEP_CACHE.mark_failed(
+                    sig, permanent=_fused.structural_failure(e) or
+                    _compiler_error(e))
+            else:
+                self._step_decline = "failed"
+            # once a structure: a negative-cached one declines quietly
+            self.logger.warning("the compiled step failed; this structure "
+                                "trains eagerly: %s", e, exc_info=True)
+            _fused.step_fallback("failed")
+            return None, None
+        if fresh:
+            if sig is not None:
+                _fused.STEP_CACHE.put(sig, prog)
+            else:
+                _profiler.incr_counter("fused_step_compile")
+        elif sig is not None:
+            _fused.STEP_CACHE.note_success(sig)
+        built = prog.builds - before
+        if built:
+            from ..obs import compiles as _obs_compiles
+            _obs_compiles.record((time.perf_counter() - t0) * 1e3,
+                                 source=prog.backend)
+            if before:
+                _profiler.incr_counter("fused_step_recompile", built)
+            if before or self._step_used - {id(prog)}:
+                _profiler.incr_counter("loop_recompile", built)
+        self._step_used.add(id(prog))
+        return names, grads
 
     # ------------------------------------------------- non-finite guard
     def _nancheck_accumulate(self, outs) -> None:
@@ -877,20 +1141,21 @@ class Module(BaseModule):
                 return names[i] if i < len(names) else "output%d" % i
         return None
 
-    def _accum_gradients(self):
+    def _accum_gradients(self, program=None):
         """The accumulated step's gradients: a forward and a backward
         per equal microbatch of the bound inputs (aux states committed by
-        each forward in turn), the first microbatch's gradients the
-        buffers the later ones are added into in place, in microbatch
-        order, rescaled once; the executor's outputs are set to the
-        microbatches' concatenated."""
+        each forward in turn; each forward through ``program`` when
+        given), the first microbatch's gradients the buffers the later
+        ones are added into in place, in microbatch order, rescaled once;
+        the executor's outputs are set to the microbatches'
+        concatenated."""
         ex, n = self._exec, self._grad_accum
         inputs = {name: ex.arg_dict[name].data
                   for name in self._data_names + self._label_names}
         acc, parts = None, []
         for i in range(n):
             micro = {name: t.chunk(n)[i] for name, t in inputs.items()}
-            parts.append(ex.forward_inputs(True, micro))
+            parts.append(ex.forward_inputs(True, micro, program=program))
             if acc is None:
                 names, grads = ex.gradients()
                 # owned buffers: a gradient may come back as a view

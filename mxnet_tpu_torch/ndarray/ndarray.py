@@ -63,6 +63,9 @@ _NP_TO_TORCH = {
     np.dtype(np.bool_): torch.bool,
 }
 _TORCH_TO_NP = {v: k for k, v in _NP_TO_TORCH.items()}
+# by name too: a compiled capture can look a string up where it cannot
+# hash a numpy dtype
+_NAME_TO_TORCH = {k.name: v for k, v in _NP_TO_TORCH.items()}
 
 
 def to_torch_dtype(dtype) -> torch.dtype:
@@ -71,6 +74,8 @@ def to_torch_dtype(dtype) -> torch.dtype:
         return dtype
     if str(dtype) == "bfloat16":
         return torch.bfloat16
+    if isinstance(dtype, str) and dtype in _NAME_TO_TORCH:
+        return _NAME_TO_TORCH[dtype]
     try:
         return _NP_TO_TORCH[np.dtype(dtype)]
     except (KeyError, TypeError):

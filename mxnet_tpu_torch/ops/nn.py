@@ -392,14 +392,21 @@ def _bshape(data, ax):
     return tuple(data.shape[ax] if i == ax else 1 for i in range(data.dim()))
 
 
+def _layer_norm(data, gamma, beta, ax, eps):
+    """``(out, mean, rstd)``: the normalized rows in f32, and the
+    statistics."""
+    x32 = data.float()
+    mean, rstd = _layer_norm_stats(x32, ax, eps)
+    shp = _bshape(data, ax)
+    out = (x32 - mean) * rstd * gamma.reshape(shp).float() \
+        + beta.reshape(shp).float()
+    return out, mean, rstd
+
+
 class _LayerNorm(torch.autograd.Function):
     @staticmethod
     def forward(ctx, data, gamma, beta, ax, eps):
-        x32 = data.float()
-        mean, rstd = _layer_norm_stats(x32, ax, eps)
-        shp = _bshape(data, ax)
-        out = (x32 - mean) * rstd * gamma.reshape(shp).float() \
-            + beta.reshape(shp).float()
+        out, mean, rstd = _layer_norm(data, gamma, beta, ax, eps)
         ctx.save_for_backward(data, gamma, mean, rstd)
         ctx.ax = ax
         ctx.beta_dtype = beta.dtype
@@ -430,16 +437,17 @@ def layer_norm(data, gamma, beta, axis=-1, eps=1e-5, output_mean_var=False):
     """Layer normalization over ``axis``: f32 statistics, output in the
     input's dtype. With ``output_mean_var`` also the mean and variance
     (``axis`` dropped), differentiated through the formula as in the
-    reference."""
+    reference. Inside a compiled step's capture the output is the
+    formula too, whose backward AOT autograd derives: torch 2.11's
+    capture of :class:`_LayerNorm` runs its forward and drops its
+    backward (every gradient through it zero, found on the card)."""
     ax = axis % data.dim()
     if output_mean_var:
-        x32 = data.float()
-        mean, rstd = _layer_norm_stats(x32, ax, eps)
-        shp = _bshape(data, ax)
-        out = (x32 - mean) * rstd * gamma.reshape(shp).float() \
-            + beta.reshape(shp).float()
+        out, mean, rstd = _layer_norm(data, gamma, beta, ax, eps)
         var = (1.0 / rstd) ** 2 - eps
         return out.to(data.dtype), mean.squeeze(ax), var.squeeze(ax)
+    if torch.compiler.is_compiling():
+        return _layer_norm(data, gamma, beta, ax, eps)[0].to(data.dtype)
     return _LayerNorm.apply(data, gamma, beta, ax, float(eps))
 
 

@@ -174,6 +174,50 @@ class Policy(object):
 
         return run
 
+    def wrap_traced(self, fn):
+        """:meth:`wrap`'s form inside a compiled step's capture: a plain
+        non-reentrant checkpoint, or a selective one whose policy
+        classifies each aten op alone (the capture records no graph node
+        per aten op: a contraction inside another op is kept too). The
+        key chain and amp policy need no replay: a graph that draws
+        runs the eager step, and the amp policy is part of the
+        program's key."""
+        if self.saves == "all":
+            return fn
+        kw = {}
+        if self.saves != "none":
+            dots = _traced_dots(self.saves)
+
+            def context_fn():
+                from torch.utils.checkpoint import (
+                    CheckpointPolicy, create_selective_checkpoint_contexts)
+
+                def policy_fn(ctx, func, *args, **kwargs):
+                    return CheckpointPolicy.MUST_SAVE if func in dots \
+                        else CheckpointPolicy.PREFER_RECOMPUTE
+
+                return create_selective_checkpoint_contexts(policy_fn)
+
+            kw["context_fn"] = context_fn
+
+        def run(*args):
+            import torch.utils.checkpoint as ckpt
+            return ckpt.checkpoint(fn, *args, use_reentrant=False, **kw)
+
+        return run
+
+
+def _traced_dots(saves: str):
+    """The aten contractions a traced selective policy keeps: those jax
+    counts as ``dot_general``, without the batched ones for
+    ``dots_no_batch``."""
+    import torch
+    aten = torch.ops.aten
+    out = set(_contractions())
+    if saves == "dots_no_batch":
+        out -= {aten.bmm.default, aten.baddbmm.default}
+    return frozenset(out)
+
 
 def _policy_by_name(name: str) -> Policy:
     if name in _FACTORIES:

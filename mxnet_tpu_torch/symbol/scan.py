@@ -50,6 +50,8 @@ import logging
 import re
 from typing import Any, Dict, List, Optional, Tuple
 
+import torch
+
 __all__ = ["ScanPlan", "build_scan_plan", "DEFAULT_MIN_REPEAT"]
 
 log = logging.getLogger(__name__)
@@ -70,8 +72,35 @@ _RNG_OPS = frozenset(("Dropout", "LeakyReLU", "RNN",
                       "stochastic_activation_pruning"))
 
 
-def _draws_rng(op) -> bool:
-    return bool(getattr(op, "is_random", False)) or op.name in _RNG_OPS
+def _draws_rng(op, attrs=None) -> bool:
+    """Whether ``op`` draws random numbers in a training pass: any of
+    its nodes (``attrs`` None), or the node of ``attrs`` (Dropout with
+    p > 0, rrelu, a recurrent layer with dropout, stochastic activation
+    pruning, a sampler)."""
+    if getattr(op, "is_random", False):
+        return True
+    if op.name not in _RNG_OPS:
+        return False
+    if attrs is None:
+        return True
+    if op.name == "Dropout":
+        return float(attrs.get("p", 0.5)) > 0
+    if op.name == "LeakyReLU":
+        return attrs.get("act_type", "leaky") == "rrelu"
+    if op.name == "RNN":
+        return float(attrs.get("p", 0.0)) > 0
+    return True
+
+
+def _regions_work() -> bool:
+    """Whether this torch's ``nested_compile_region`` captures a layer
+    of the port's graphs. torch 2.11's has one, but its dedupe of two
+    layers' subgraphs raises ``KeyError: 'example_value'`` on the
+    subgraphs of the autograd Functions inside a layer (LayerNorm, flash
+    attention; found on the card); torch 2.13's captures them."""
+    from .. import _fused
+    return hasattr(torch.compiler, "nested_compile_region") and \
+        _fused.torch_version() >= (2, 13)
 
 
 class ScanPlan:
@@ -84,7 +113,7 @@ class ScanPlan:
         "n_layers", "template", "pre_nodes", "post_nodes",
         "stream_in", "out_idx", "var_lists", "scanned_ids",
         "final_out_key", "layer_table",
-        "layer_nodes", "body_wrapper",
+        "layer_nodes", "body_wrapper", "remat_policy", "_region",
     )
 
     def __init__(self):
@@ -109,6 +138,10 @@ class ScanPlan:
         # -> block output``: the applied-remat hook (remat.wrap runs each
         # block under torch.utils.checkpoint)
         self.body_wrapper = None
+        # the remat policy body_wrapper applies, which a compiled step
+        # applies in its traced form (remat.Policy.wrap_traced)
+        self.remat_policy = None
+        self._region = None
 
     # ------------------------------------------------------------ checks
     def check_bindings(self, shapes: Dict[str, tuple],
@@ -126,14 +159,18 @@ class ScanPlan:
         return True
 
     # --------------------------------------------------------- execution
-    def execute(self, vals, args, run_node):
+    def execute(self, vals, args, run_node, traced=False):
         """Run the chain: each layer's own nodes in template order, its
         inputs mapped through the template (the streaming activation,
         the layer's own parameters, values of this layer's segment, or
         the template's shared pre values), the last block's output landed
         under ``final_out_key``. ``vals`` already holds every pre-node
         output; ``args`` is the full name -> tensor argument dict;
-        ``run_node(node, ins)`` runs one node and returns its outputs."""
+        ``run_node(node, ins)`` runs one node and returns its outputs.
+        ``traced`` (a compiled step's capture) runs :meth:`_traced`
+        instead."""
+        if traced:
+            return self._traced(vals, args, run_node)
         template = self.template
         stream_key = (id(self.stream_in[0]), self.stream_in[1])
         out_pos = self._out_pos()
@@ -173,6 +210,82 @@ class ScanPlan:
         for layer in range(self.n_layers):
             carry = body(carry, layer)
         vals[self.final_out_key] = carry
+
+    def _traced(self, vals, args, run_node):
+        """The chain as a compiled step captures it, the counterpart of
+        the reference's one block under ``lax.scan``: one function of
+        tensors (:meth:`traced_layer`) runs the template's nodes, and
+        each layer calls it with the stream, that layer's own parameters
+        and the shared values, so where torch's
+        ``torch.compiler.nested_compile_region`` takes the layer
+        (:func:`_regions_work`) the capture traces and compiles one layer
+        and calls it ``n_layers`` times; elsewhere it traces each call. The same
+        nodes, attributes and inputs as :meth:`execute`'s: its values
+        are the unrolled graph's."""
+        body, tvars, shared_keys = self.traced_layer(run_node)
+        shared = [vals[k] for k in shared_keys]
+        carry = vals[(id(self.stream_in[0]), self.stream_in[1])]
+        for i in range(self.n_layers):
+            carry = body(carry, *[args[self.var_lists[t][i]] for t in tvars],
+                         *shared)
+        vals[self.final_out_key] = carry
+
+    def traced_layer(self, run_node):
+        """``(layer, template vars, shared keys)``: ``layer(carry,
+        *params, *shared)``, under the remat policy's traced wrap where
+        one applies, runs the template's nodes through
+        ``run_node`` on one layer's parameters (in the order of the
+        template's variables) and the shared values (in the order of
+        their keys), made once per plan, outside any capture (making a
+        region is a graph break), and reused by every capture of the
+        plan: the first call's ``run_node`` stays
+        (:meth:`..executor.Executor.step_body` makes it, fixed for the
+        plan's device)."""
+        if self._region is not None:
+            return self._region
+        template = self.template
+        stream_key = (id(self.stream_in[0]), self.stream_in[1])
+        tvars = list(self.var_lists)
+        inside = {id(t) for t in template}
+        shared_keys = []
+        for t in template:
+            for src, ei in t.inputs:
+                k = (id(src), ei)
+                if id(src) not in inside and k != stream_key and \
+                        id(src) not in self.var_lists and \
+                        k not in shared_keys:
+                    shared_keys.append(k)
+        out_key = (id(template[self._out_pos()]), self.out_idx)
+        nv, tvar_pos = len(tvars), {t: i for i, t in enumerate(tvars)}
+        shared_pos = {k: i for i, k in enumerate(shared_keys)}
+
+        def layer(carry, *xs):
+            seg: Dict[Tuple[int, int], Any] = {}
+            for t in template:
+                ins = []
+                for src, ei in t.inputs:
+                    k = (id(src), ei)
+                    if k in seg:
+                        ins.append(seg[k])
+                    elif k == stream_key:
+                        ins.append(carry)
+                    elif id(src) in tvar_pos:
+                        ins.append(xs[tvar_pos[id(src)]])
+                    else:
+                        ins.append(xs[nv + shared_pos[k]])
+                for i, o in enumerate(run_node(t, ins)):
+                    seg[(id(t), i)] = o
+            return seg[out_key]
+
+        body = layer
+        if _regions_work():
+            body = torch.compiler.nested_compile_region(layer)
+        if self.remat_policy is not None:
+            # wrapped here too: a checkpoint's context function made
+            # inside the capture is one dynamo cannot take
+            body = self.remat_policy.wrap_traced(body)
+        self._region = (body, tvars, shared_keys)
+        return self._region
 
     def _out_pos(self) -> int:
         """Template position of the block's output node."""

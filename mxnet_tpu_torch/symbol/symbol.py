@@ -762,7 +762,7 @@ def run_node(node: _Node, ins, is_train: bool, device):
     attrs.pop("name", None)
     if node.op.num_inputs == 0:
         attrs["_device"] = device
-    if "_is_train" in node.op.param_names:
+    if node.op.takes_is_train:
         attrs["_is_train"] = bool(is_train)
     outs = node.op.fn(*ins, **attrs)
     return outs if isinstance(outs, tuple) else (outs,)

@@ -172,6 +172,8 @@ def run_probe_child(spec: Dict[str, Any]) -> Dict[str, Any]:
     score["device"] = str(mod._device)
     from ..ops.flash_attention import launch_counts
     score["kernel_launches"] = launch_counts()
+    # loop_recompile counts the compiled step's builds and the compiled
+    # update's after their first: a candidate that recompiles is refused
     score["ok"] = bool(score.get("steps_per_sec")) \
         and int(score.get("loop_recompile") or 0) == 0
     if not score["ok"] and not score.get("steps_per_sec"):

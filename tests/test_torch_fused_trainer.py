@@ -987,8 +987,14 @@ def small_phase23(monkeypatch):
                         ("CE_TOL", 1e-2), ("RESNET_LAYERS", 18),
                         ("RESNET_IMAGE", 32), ("RESNET_BATCH", 4),
                         ("RESNET_CLASSES", 10), ("FUSED_UPDATE_WINDOWS", 2),
-                        ("FUSED_UPDATE_CALLS", 1)):
+                        ("FUSED_UPDATE_CALLS", 1), ("FUSED_STEP_WINDOWS", 2),
+                        ("FUSED_STEP_CALLS", 1), ("CONV_CHECK_BATCH", 2),
+                        ("CONV_CHECK_IMAGE", 64)):
         monkeypatch.setattr(chip_smoke, name, value)
+    # the step programs are process-wide: each rehearsal starts with none,
+    # as phase 23 on the card does (phases 1-22 run the eager step), and
+    # builds its own over this fixture's stand-ins
+    _fused.STEP_CACHE.clear()
     monkeypatch.setattr(mt, "gpu", lambda i=0: mt.cpu())
     monkeypatch.setattr(torch.cuda, "Event", _Event)
     for fn in ("synchronize", "empty_cache", "reset_peak_memory_stats"):
@@ -1015,23 +1021,101 @@ def test_phase23_rehearsal_on_cpu(small_phase23):
     assert all(n["bf16"] == steps * 2 for n in lm["launches"].values())
     assert lm["losses"][-1] < lm["losses"][0]
     assert lm["compile_s"] > 0 and lm["update_ms"] > 0
+    assert lm["step_compile_s"] > 0 and lm["step_compiled_ms"] > 0
+    assert lm["counters"]["fused_step_compile"] == 1
+    assert lm["parity_grad_compiled"] <= 2 * lm["parity_grad_eager"]
     assert any(ln.startswith("23a parity") for ln in lines)
+    assert any(ln.startswith("23a parity: step 1") for ln in lines)
+    assert any(ln.startswith("23a step: compiled") for ln in lines)
+    assert any(ln.startswith("23a step: the first compiled call")
+               for ln in lines)
+    assert len(lm["step_host_ms_calls"]) == 2 and \
+        len(lm["step_first_host_ms"]) == 2 and lm["step_traced_top"]
+    conv = out["conv"]
+    assert conv["worst"] <= chip_smoke.CONV_CHECK_RTOL
+    assert conv["n_conv"] > 0 and not conv["zeroed"]
+    assert any(ln.startswith("23 conv: ResNet-18") for ln in lines)
     assert any(ln.startswith("23b: two steps at new learning rates")
                for ln in lines)
 
 
 def test_phase23_warm_up_builds_the_phases_programs(small_phase23):
-    """The warm-up process's body builds the two programs phase 23 then
-    builds again: the LM's Adam update and resnet's SGD update."""
+    """The resnet child's body builds 23b's SGD update, which phase 23
+    then builds again from inductor's cache, and runs the Convolution
+    check through one step program; the LM child's body builds 23a's
+    two programs in its fit's first step and waits there for ``go``, or
+    fails when the smoke's process ends first."""
+    import io
     chip_smoke, _lines = small_phase23
-    d = _delta(profiler, ["trainer_step_compile", "trainer_step_fallback"])
+    d = _delta(profiler, ["trainer_step_compile", "trainer_step_fallback",
+                          "fused_step_compile", "fused_step_fallback"])
     try:
-        builds = chip_smoke.warm_update(torch, np, ("lm", "resnet"))
+        res = chip_smoke.resnet_child(torch, np)
     finally:
         cfg.reset("MXNET_TPU_FUSED_TRAINER")
-    assert len(builds) >= 2 and all(b > 0 for b in builds[-2:])
-    assert d("trainer_step_compile") == 2
+    assert len(res["builds_s"]) >= 2 and all(b > 0 for b in res["builds_s"])
+    assert d("trainer_step_compile") == 1
     assert d("trainer_step_fallback") == 0
+    assert d("fused_step_compile") == 1
+    assert d("fused_step_fallback") == 0
+    assert res["conv"]["worst"] <= chip_smoke.CONV_CHECK_RTOL
+
+    at_gate = []
+
+    class _Stdin:
+        def __init__(self, text):
+            self.text = text
+
+        def readline(self):
+            at_gate.append((d("fused_step_compile"),
+                            d("trainer_step_compile")))
+            return self.text
+
+    import sys
+    _fused.STEP_CACHE.clear()
+    d = _delta(profiler, ["trainer_step_compile", "fused_step_compile"])
+    try:
+        sys_stdin, sys.stdin = sys.stdin, _Stdin("go\n")
+        lm = chip_smoke.lm_child(torch, np)
+        _fused.STEP_CACHE.clear()
+        sys.stdin = io.StringIO("")
+        with pytest.raises(chip_smoke.SmokeFailure, match="ended before"):
+            chip_smoke.lm_child(torch, np)
+    finally:
+        sys.stdin = sys_stdin
+        cfg.reset("MXNET_TPU_FUSED_TRAINER")
+    assert at_gate[0] == (1, 1)
+    assert lm["counters"]["fused_step_compile"] == 1
+    assert lm["step1_s"] > 0
+
+
+@pytest.mark.parametrize("fault,match", [
+    (lambda g: torch.zeros_like(g), "compiled gradients zero"),
+    (lambda g: g * 1.001, "the captured step's gradient")])
+def test_phase23_conv_check_catches_wrong_gradients(small_phase23,
+                                                   monkeypatch, fault, match):
+    """A compiled step whose convolutions' gradients come back zero (what
+    torch 2.11's capture made of LayerNorm's Function) or off by 0.1%
+    fails phase 23's Convolution check."""
+    chip_smoke, _lines = small_phase23
+    real = mt.mod.Module._compiled_gradients
+
+    def wrong(self):
+        names, grads = real(self)
+        if names is None:
+            return names, grads
+        return names, [fault(g) if "conv" in n else g
+                       for n, g in zip(names, grads)]
+
+    monkeypatch.setattr(mt.mod.Module, "_compiled_gradients", wrong)
+    cfg.set("MXNET_TPU_FUSED_TRAINER", True)
+    mt.amp.init("bfloat16")
+    try:
+        with pytest.raises(chip_smoke.SmokeFailure, match="23 conv: " + match):
+            chip_smoke.conv_step_check(torch, np)
+    finally:
+        mt.amp.off()
+        cfg.reset("MXNET_TPU_FUSED_TRAINER")
 
 
 def test_phase23_catches_a_silent_eager_update(small_phase23, monkeypatch):

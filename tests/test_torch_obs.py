@@ -877,13 +877,14 @@ def test_bind_populates_compile_telemetry():
     assert r["bind_ms"] >= r["compile_ms"] >= 0 and r["lower_ms"] == 0
     assert mt.obs.histogram("obs_trace_ms").count > 0
     seen = []
-    fwd = mod._exec.forward
+    fwd = mod._exec.forward_inputs
 
     def spy(*a, **kw):
         seen.append(getattr(mt.obs.compiles._tls, "scope", None))
         return fwd(*a, **kw)
 
-    mod._exec.forward = spy
+    # the step's forward, compiled or eager, runs through forward_inputs
+    mod._exec.forward_inputs = spy
     mod._fit_step(_batch())
     assert seen == [("fused_step", mod._obs_sig)]
     assert "fused_step" in repr(mod._obs_sig)
